@@ -1,0 +1,1 @@
+"""cobevt_tpu_torch.models."""

@@ -1,0 +1,438 @@
+"""FAX: fused axial attention camera->BEV transformer (SinBEVT core).
+
+Counterpart of ``cobevt_tpu/models/fax.py`` (reference
+``opv2v/opencood/models/sub_modules/fax_modules.py``), stock path: every
+window attention goes through K1 (``ops/window_attention.py``); the fused
+cross-view stage of the JAX package (its K2, ``COBEVT_FUSED_XATTN``) is not
+ported yet, so both branches of every stage run as separate modules.
+Channels-last throughout; window and grid partitions are reshapes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+from einops import rearrange
+
+from cobevt_tpu_torch.geometry.transforms import generate_grid, get_view_matrix
+from cobevt_tpu_torch.nn.layers import (
+    Bottleneck,
+    batch_norm,
+    bn_nhwc,
+    conv_nhwc,
+    layer_norm,
+    mlp_seq,
+    pixel_unshuffle,
+    torch_conv,
+)
+from cobevt_tpu_torch.ops.window_attention import fused_window_attention_packed
+
+
+# ---------------------------------------------------------------------------
+# static grid helpers (host-side numpy, as in the JAX package)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def bev_world_grid(bev_height: int, bev_width: int, h_meters: float,
+                   w_meters: float, offset: float, scale: int) -> np.ndarray:
+    """Ego-frame (x, y) world coordinates of each BEV cell at one pyramid
+    scale, shape (h, w, 2)."""
+    V_inv = np.linalg.inv(
+        get_view_matrix(bev_height, bev_width, h_meters, w_meters, offset))
+    h, w = bev_height // scale, bev_width // scale
+    grid = generate_grid(h, w)                      # (3, h, w) in [0,1]
+    grid[0] *= bev_width
+    grid[1] *= bev_height
+    world = np.einsum("ij,jhw->ihw", V_inv.astype(np.float64), grid)
+    return np.ascontiguousarray(
+        world[:2].transpose(1, 2, 0).astype(np.float32))  # (h, w, 2)
+
+
+@functools.lru_cache(maxsize=None)
+def image_plane_grid(feat_height: int, feat_width: int, image_height: int,
+                     image_width: int) -> np.ndarray:
+    """Pixel-coordinate grid of the feature map, shape (h, w, 3)."""
+    plane = generate_grid(feat_height, feat_width)  # (3, h, w)
+    plane[0] *= image_width
+    plane[1] *= image_height
+    return np.ascontiguousarray(plane.transpose(1, 2, 0).astype(np.float32))
+
+
+@functools.lru_cache(maxsize=None)
+def rel_pos_indices_2d(window: int) -> np.ndarray:
+    """(w^2, w^2) index table into a (2w-1)^2 relative-position embedding."""
+    pos = np.arange(window)
+    gy, gx = np.meshgrid(pos, pos, indexing="ij")
+    grid = np.stack([gy.ravel(), gx.ravel()], axis=-1)     # (w^2, 2)
+    rel = grid[:, None] - grid[None, :] + window - 1
+    return (rel[..., 0] * (2 * window - 1) + rel[..., 1]).astype(np.int64)
+
+
+def window_partition(x, wh: int, ww: int):
+    """(..., H, W, d) -> (..., H/wh, W/ww, wh, ww, d) local windows."""
+    return rearrange(x, "... (x w1) (y w2) d -> ... x y w1 w2 d",
+                     w1=wh, w2=ww)
+
+
+def window_reverse(x):
+    return rearrange(x, "... x y w1 w2 d -> ... (x w1) (y w2) d")
+
+
+def grid_partition(x, wh: int, ww: int):
+    """(..., H, W, d) -> (..., H/wh, W/ww, wh, ww, d) strided 'grid'
+    windows: element (w1, w2) of cell (x, y) is pixel (w1*X + x, w2*Y + y)."""
+    return rearrange(x, "... (w1 x) (w2 y) d -> ... x y w1 w2 d",
+                     w1=wh, w2=ww)
+
+
+def grid_reverse(x):
+    return rearrange(x, "... x y w1 w2 d -> ... (w1 x) (w2 y) d")
+
+
+def pad_divisible(x, wh: int, ww: int):
+    """Zero-pad the trailing spatial dims of (..., H, W, d) to window
+    multiples."""
+    H, W = x.shape[-3], x.shape[-2]
+    ph = (-H) % wh
+    pw = (-W) % ww
+    if ph == 0 and pw == 0:
+        return x
+    return F.pad(x, (0, 0, 0, pw, 0, ph))
+
+
+def _normalize(t):
+    return t / (torch.linalg.vector_norm(t, dim=-1, keepdim=True) + 1e-7)
+
+
+# ---------------------------------------------------------------------------
+# modules
+# ---------------------------------------------------------------------------
+
+class BEVEmbedding(nn.Module):
+    """Learned BEV prior queries, kept in the torch (dim, H, W) layout."""
+
+    def __init__(self, dim: int, sigma: float, bev_height: int,
+                 bev_width: int, h_meters: float, w_meters: float,
+                 offset: float, upsample_scales: Sequence[int]):
+        super().__init__()
+        self.grid_args = (bev_height, bev_width, h_meters, w_meters, offset)
+        self.upsample_scales = tuple(upsample_scales)
+        h = bev_height // upsample_scales[0]
+        w = bev_width // upsample_scales[0]
+        self.learned_features = nn.Parameter(
+            sigma * torch.randn(dim, h, w))
+
+    def world_grid(self, index: int, device) -> torch.Tensor:
+        return torch.from_numpy(bev_world_grid(
+            *self.grid_args, self.upsample_scales[index])).to(device)
+
+    def forward(self):
+        return self.learned_features.permute(1, 2, 0)     # (H, W, dim)
+
+
+class SelfAttention(nn.Module):
+    """Windowed self-attention with a 2D relative-position bias over the
+    final BEV map (the map is one window of ``window_size``^2 tokens)."""
+
+    def __init__(self, dim: int, dim_head: int = 32, dropout: float = 0.0,
+                 window_size: int = 25):
+        super().__init__()
+        self.heads = dim // dim_head
+        self.dim_head = dim_head
+        self.dropout = dropout
+        self.window_size = window_size
+        n_rel = 2 * window_size - 1
+        self.to_qkv = nn.Linear(dim, 3 * dim, bias=False)
+        self.rel_pos_bias = nn.Embedding(n_rel * n_rel, self.heads)
+        self.to_out = nn.Sequential(nn.Linear(dim, dim, bias=False),
+                                    nn.Dropout(dropout))
+        self.register_buffer(
+            "rel_pos_indices",
+            torch.from_numpy(rel_pos_indices_2d(window_size)),
+            persistent=False)
+
+    def forward(self, x):
+        B, H, W, d = x.shape
+        heads = self.heads
+        T = H * W
+        qkv = self.to_qkv(x.reshape(B, T, d))
+        q, k, v = qkv.chunk(3, dim=-1)
+        q = q * (self.dim_head ** -0.5)
+        # (T, T, heads) gather of the (2w-1)^2 table, emitted in the
+        # packed kernel's flat (T, heads*T) layout
+        bias = self.rel_pos_bias.weight.float()[self.rel_pos_indices]
+        bias_flat = bias.permute(0, 2, 1).reshape(T, heads * T)
+        drop_w = None
+        if self.training and self.dropout > 0:
+            keep = torch.rand((B, T, heads * T), device=x.device) \
+                >= self.dropout
+            drop_w = keep.to(q.dtype) / (1.0 - self.dropout)
+        out = fused_window_attention_packed(
+            q.contiguous(), k.contiguous(), v.contiguous(), n_heads=heads,
+            bias_flat=bias_flat, weight=drop_w)
+        return self.to_out(out.reshape(B, H, W, heads * self.dim_head))
+
+
+class CrossWinAttention(nn.Module):
+    """Windowed cross-attention: each BEV query window attends to the
+    matching (local or grid) window of every camera's features."""
+
+    def __init__(self, dim: int, heads: int, dim_head: int, qkv_bias: bool):
+        super().__init__()
+        inner = heads * dim_head
+        self.heads = heads
+        self.dim_head = dim_head
+        self.to_q = nn.Sequential(layer_norm(dim),
+                                  nn.Linear(dim, inner, bias=qkv_bias))
+        self.to_k = nn.Sequential(layer_norm(dim),
+                                  nn.Linear(dim, inner, bias=qkv_bias))
+        self.to_v = nn.Sequential(layer_norm(dim),
+                                  nn.Linear(dim, inner, bias=qkv_bias))
+        self.proj = nn.Linear(inner, dim)
+
+    def forward(self, q, k, v, skip=None):
+        """q: (b, nq, X, Y, W1, W2, d); k, v: (b, n, X, Y, w1, w2, d).
+        Returns (b, X, Y, W1, W2, d)."""
+        b, nq, X, Y, W1, W2, _ = q.shape
+        q = rearrange(q, "b n x y w1 w2 d -> b (x y) (n w1 w2) d")
+        k = rearrange(k, "b n x y w1 w2 d -> b (x y) (n w1 w2) d")
+        v = rearrange(v, "b n x y w1 w2 d -> b (x y) (n w1 w2) d")
+        q = self.to_q(q) * (self.dim_head ** -0.5)
+        k = self.to_k(k)
+        v = self.to_v(v)
+
+        bq, nwin, Tq, C = q.shape
+        Tk = k.shape[2]
+        out = fused_window_attention_packed(
+            q.reshape(bq * nwin, Tq, C).contiguous(),
+            k.reshape(bq * nwin, Tk, C).contiguous(),
+            v.reshape(bq * nwin, Tk, C).contiguous(), n_heads=self.heads)
+        out = self.proj(out.reshape(bq, nwin, Tq, C))
+        out = rearrange(out, "b (x y) (n w1 w2) d -> b n x y w1 w2 d",
+                        x=X, y=Y, w1=W1, w2=W2)
+        out = out.mean(dim=1)
+        if skip is not None:
+            out = out + skip
+        return out
+
+
+class CrossViewSwapAttention(nn.Module):
+    """One FAX pyramid stage: camera-geometry embeds + local-window
+    cross-attention + grid cross-attention, each followed by an MLP."""
+
+    def __init__(self, feat_height: int, feat_width: int, feat_dim: int,
+                 dim: int, image_height: int, image_width: int,
+                 qkv_bias: bool, heads: int, dim_head: int,
+                 q_win_size: Tuple[int, int], feat_win_size: Tuple[int, int],
+                 bev_embed_flag: bool, no_image_features: bool = False,
+                 skip: bool = True):
+        super().__init__()
+        self.grid_args = (feat_height, feat_width, image_height, image_width)
+        self.dim = dim
+        self.q_win_size = tuple(q_win_size)
+        self.feat_win_size = tuple(feat_win_size)
+        self.bev_embed_flag = bev_embed_flag
+        self.no_image_features = no_image_features
+        self.skip = skip
+
+        self.cam_embed = nn.Linear(4, dim, bias=False)
+        self.img_embed = nn.Linear(4, dim, bias=False)
+        if bev_embed_flag:
+            self.bev_embed = nn.Linear(2, dim)
+        if not no_image_features:
+            self.feature_proj = nn.Sequential(
+                batch_norm(feat_dim), nn.ReLU(),
+                torch_conv(feat_dim, dim, 1, 1, 0, False))
+        self.feature_linear = nn.Sequential(
+            batch_norm(feat_dim), nn.ReLU(),
+            torch_conv(feat_dim, dim, 1, 1, 0, False))
+        self.cross_win_attend_1 = CrossWinAttention(dim, heads, dim_head,
+                                                    qkv_bias)
+        self.cross_win_attend_2 = CrossWinAttention(dim, heads, dim_head,
+                                                    qkv_bias)
+        self.prenorm_1 = layer_norm(dim)
+        self.prenorm_2 = layer_norm(dim)
+        self.mlp_1 = mlp_seq(dim, 2 * dim, dim)
+        self.mlp_2 = mlp_seq(dim, 2 * dim, dim)
+        self.postnorm = layer_norm(dim)
+
+    @staticmethod
+    def _bn_relu_conv(seq, t):
+        b, n, h, w, c = t.shape
+        bn, _, conv = seq
+        flat = F.relu(bn_nhwc(bn, t.reshape(b * n, h, w, c)))
+        flat = conv_nhwc(conv, flat)
+        return flat.reshape(b, n, h, w, -1)
+
+    def forward(self, x, world, feature, I_inv, E_inv):
+        """x: (b, H, W, dim) BEV state; world: (H, W, 2) ego-frame cell
+        coordinates (None without the BEV embedding); feature:
+        (b, n, h, w, feat_dim); I_inv: (b, n, 3, 3); E_inv: (b, n, 4, 4)."""
+        dtype = self.cam_embed.weight.dtype
+        pixel = torch.from_numpy(image_plane_grid(*self.grid_args)).to(
+            x.device)                                          # (h, w, 3)
+
+        # camera-center embedding: last column of E_inv
+        c_embed = self.cam_embed(E_inv[..., -1].to(dtype))     # (b, n, d)
+        # per-pixel ray embedding: unproject pixels, then E_inv
+        cam = torch.einsum("bnij,hwj->bnhwi", I_inv, pixel)
+        cam = torch.cat([cam, torch.ones_like(cam[..., :1])], dim=-1)
+        d_vec = torch.einsum("bnij,bnhwj->bnhwi", E_inv, cam)
+        d_embed = self.img_embed(d_vec.to(dtype))              # (b,n,h,w,d)
+        img_embed = _normalize(d_embed - c_embed[:, :, None, None])
+
+        if self.no_image_features:
+            key = img_embed
+        else:
+            key = img_embed + self._bn_relu_conv(self.feature_proj, feature)
+        val = self._bn_relu_conv(self.feature_linear, feature)
+        key = pad_divisible(key, *self.feat_win_size)
+        val = pad_divisible(val, *self.feat_win_size)
+
+        # --- local-window cross attention ---
+        if self.bev_embed_flag:
+            w_embed = self.bev_embed(world.to(dtype))          # (H, W, d)
+            bev_embed = _normalize(w_embed[None, None]
+                                   - c_embed[:, :, None, None])
+            query = bev_embed + x[:, None]                     # (b,n,H,W,d)
+        else:
+            query = x[:, None]                                 # (b,1,H,W,d)
+        qw = window_partition(query, *self.q_win_size)
+        kw = window_partition(key, *self.feat_win_size)
+        vw = window_partition(val, *self.feat_win_size)
+        skip1 = (window_partition(x, *self.q_win_size)
+                 if self.skip else None)
+        query = window_reverse(self.cross_win_attend_1(qw, kw, vw, skip1))
+        query = query + self.mlp_1(self.prenorm_1(query))
+        x_skip = query
+
+        # --- grid (global) cross attention ---
+        # after the local branch the query has no per-camera content, so
+        # one copy stands for the reference's n identical ones (their mean
+        # is the identity)
+        qg = window_partition(query[:, None], *self.q_win_size)
+        kg = grid_partition(key, *self.feat_win_size)
+        vg = grid_partition(val, *self.feat_win_size)
+        skip2 = (window_partition(x_skip, *self.q_win_size)
+                 if self.skip else None)
+        query = window_reverse(self.cross_win_attend_2(qg, kg, vg, skip2))
+        query = query + self.mlp_2(self.prenorm_2(query))
+        return self.postnorm(query)
+
+
+@dataclasses.dataclass(frozen=True)
+class FAXConfig:
+    """Static configuration for the FAX pyramid (the ``fax:`` block of the
+    reference hypes, e.g. ``opcamera/corpbevt.yaml:65-95``)."""
+
+    dim: Tuple[int, ...] = (128, 128, 128)
+    middle: Tuple[int, ...] = (2, 2, 2)
+    # backbone feature shapes per stage: (h, w, c)
+    backbone_output_shape: Tuple[Tuple[int, int, int], ...] = ()
+    image_height: int = 512
+    image_width: int = 512
+    qkv_bias: bool = True
+    heads: Tuple[int, ...] = (4, 4, 4)
+    dim_head: Tuple[int, ...] = (32, 32, 32)
+    q_win_size: Tuple[Tuple[int, int], ...] = ((16, 16), (16, 16), (32, 32))
+    feat_win_size: Tuple[Tuple[int, int], ...] = ((8, 8), (8, 8), (16, 16))
+    bev_embedding_flag: Tuple[bool, ...] = (True, False, False)
+    no_image_features: bool = False
+    skip: bool = True
+    # bev embedding
+    sigma: float = 1.0
+    bev_height: int = 256
+    bev_width: int = 256
+    h_meters: float = 100.0
+    w_meters: float = 100.0
+    offset: float = 0.0
+    upsample_scales: Tuple[int, ...] = (2, 4, 8)
+    # final windowed self attention
+    self_attn_dim_head: int = 32
+    self_attn_dropout: float = 0.1
+    self_attn_window: int = 32
+    use_self_attn: bool = True
+
+
+class FAXModule(nn.Module):
+    """3-stage FAX pyramid: BEV prior -> per-stage cross-view swap
+    attention + bottleneck convs + pixel-unshuffle downsample -> windowed
+    self-attention."""
+
+    def __init__(self, config: FAXConfig):
+        super().__init__()
+        cfg = config
+        self.config = cfg
+        self.bev_embedding = BEVEmbedding(
+            cfg.dim[0], cfg.sigma, cfg.bev_height, cfg.bev_width,
+            cfg.h_meters, cfg.w_meters, cfg.offset, cfg.upsample_scales)
+        n_stages = len(cfg.backbone_output_shape)
+        self.cross_views = nn.ModuleList()
+        self.layers = nn.ModuleList()
+        self.downsample_layers = nn.ModuleList()
+        for i in range(n_stages):
+            fh, fw, fc = cfg.backbone_output_shape[i]
+            self.cross_views.append(CrossViewSwapAttention(
+                fh, fw, fc, cfg.dim[i], cfg.image_height, cfg.image_width,
+                cfg.qkv_bias, cfg.heads[i], cfg.dim_head[i],
+                cfg.q_win_size[i], cfg.feat_win_size[i],
+                cfg.bev_embedding_flag[i], cfg.no_image_features, cfg.skip))
+            self.layers.append(nn.Sequential(*[
+                Bottleneck(cfg.dim[i], cfg.dim[i] // 4)
+                for _ in range(cfg.middle[i])]))
+            if i < n_stages - 1:
+                dim_in, dim_out = cfg.dim[i], cfg.dim[i + 1]
+                # torch path downsample_layers.<i>.0.<j>; 1 is the
+                # parameterless pixel-unshuffle, 4 the ReLU
+                self.downsample_layers.append(nn.Sequential(nn.Sequential(
+                    torch_conv(dim_in, dim_in // 4, 3, 1, 1, False),
+                    nn.PixelUnshuffle(2),
+                    torch_conv(dim_in, dim_out, 3, 1, 1, False),
+                    batch_norm(dim_out), nn.ReLU(),
+                    torch_conv(dim_out, dim_out, 1, 1, 0, False),
+                    batch_norm(dim_out))))
+        if cfg.use_self_attn:
+            self.self_attn = SelfAttention(
+                cfg.dim[-1], cfg.self_attn_dim_head, cfg.self_attn_dropout,
+                cfg.self_attn_window)
+
+    def _downsample(self, x, i):
+        """conv3x3 -> pixel-unshuffle(2) -> conv3x3 -> BN -> ReLU ->
+        conv1x1 -> BN."""
+        seq = self.downsample_layers[i][0]
+        x = pixel_unshuffle(conv_nhwc(seq[0], x), 2)
+        x = F.relu(bn_nhwc(seq[3], conv_nhwc(seq[2], x)))
+        return bn_nhwc(seq[6], conv_nhwc(seq[5], x))
+
+    def forward(self, features, intrinsic, extrinsic):
+        """features: list of (b, l, n, h, w, c) per pyramid stage;
+        intrinsic: (b, l, n, 3, 3); extrinsic: (b, l, n, 4, 4).
+        Returns (b, l, H, W, dim[-1])."""
+        cfg = self.config
+        b, l, n = features[0].shape[:3]
+        I_inv = torch.linalg.inv(
+            intrinsic.reshape(b * l, n, 3, 3).float())
+        E_inv = extrinsic.reshape(b * l, n, 4, 4).float()
+
+        # the BEV residual stream runs in the compute dtype
+        x = self.bev_embedding()
+        x = x[None].expand(b * l, *x.shape).to(features[0].dtype)
+        for i, feature in enumerate(features):
+            fh, fw, fc = cfg.backbone_output_shape[i]
+            feat = feature.reshape(b * l, n, fh, fw, fc)
+            world = (self.bev_embedding.world_grid(i, x.device)
+                     if cfg.bev_embedding_flag[i] else None)
+            x = self.cross_views[i](x, world, feat, I_inv, E_inv)
+            x = self.layers[i](x)
+            if i < len(features) - 1:
+                x = self._downsample(x, i)
+        if cfg.use_self_attn:
+            x = self.self_attn(x)
+        H, W = x.shape[1:3]
+        return x.reshape(b, l, H, W, -1)

@@ -1,0 +1,223 @@
+"""FuseBEVT: masked window<->grid attention over (agent, H, W) BEV stacks.
+
+Counterpart of ``cobevt_tpu/models/fusion/swap_fusion.py`` (reference
+``swap_fusion_modules.py:233``), stock path: each window attention goes
+through K1 (``ops/window_attention.py``) with the 3D relative-position
+bias and the additive key mask.  The whole-stack fused kernel of the JAX
+package (its K4, ``COBEVT_FUSED_FUSION``) is not ported yet.  The
+canonical mask is (B, L, H, W).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn as nn
+from einops import rearrange
+
+from cobevt_tpu_torch.nn.layers import layer_norm
+from cobevt_tpu_torch.ops.window_attention import fused_window_attention_packed
+
+
+@functools.lru_cache(maxsize=None)
+def _rel_onehot_1d(n: int, table_n: int) -> np.ndarray:
+    """(n, n, 2*table_n - 1) 0/1 factor: [a, b, d] = 1 iff
+    a - b + table_n - 1 == d.  ``n`` may be smaller than ``table_n``
+    (agent-count bucketing); offsets stay those of the full table."""
+    a = np.arange(n)
+    d = np.arange(2 * table_n - 1)
+    return ((a[:, None, None] - a[None, :, None] + table_n - 1)
+            == d[None, None, :]).astype(np.float32)
+
+
+def expand_bias_flat(table, agent_size, window_size, l, w1, w2):
+    """Expand the (table_size, heads) block-Toeplitz table to the flat
+    (T, heads*T) f32 bias the packed kernel takes: row token (l, y, x),
+    column block h holding tokens (l', y', x')."""
+    heads = table.shape[-1]
+    T = l * w1 * w2
+    t4 = table.reshape(2 * agent_size - 1, 2 * window_size - 1,
+                       2 * window_size - 1, heads).float()
+
+    def onehot(n, table_n):
+        return torch.from_numpy(_rel_onehot_1d(n, table_n)).to(table.device)
+
+    tmp = torch.einsum("defh,uvf->dehuv", t4, onehot(w2, window_size))
+    tmp = torch.einsum("dehuv,rse->dhrsuv", tmp, onehot(w1, window_size))
+    bias = torch.einsum("dhrsuv,pqd->pruhqsv", tmp,
+                        onehot(l, agent_size))
+    return bias.reshape(T, heads * T)
+
+
+class FusionAttention(nn.Module):
+    """Attention across (agent, window) tokens with a 3D rel-pos bias."""
+
+    def __init__(self, dim: int, dim_head: int = 32, dropout: float = 0.0,
+                 agent_size: int = 6, window_size: int = 7):
+        super().__init__()
+        self.heads = dim // dim_head
+        self.dim_head = dim_head
+        self.agent_size = agent_size
+        self.window_size = window_size
+        table_size = ((2 * agent_size - 1) * (2 * window_size - 1)
+                      * (2 * window_size - 1))
+        self.to_qkv = nn.Linear(dim, 3 * dim, bias=False)
+        self.relative_position_bias_table = nn.Embedding(table_size,
+                                                         self.heads)
+        self.to_out = nn.Sequential(nn.Linear(dim, dim, bias=False),
+                                    nn.Dropout(dropout))
+
+    def forward(self, x, mask=None):
+        """x: (b, l, X, Y, w1, w2, d); mask: (b, X, Y, w1, w2, l) or None.
+        Returns the same shape as x."""
+        b, l, X, Y, w1, w2, d = x.shape
+        C = self.heads * self.dim_head
+        T = l * w1 * w2
+        G = b * X * Y
+        t = rearrange(x, "b l x y w1 w2 d -> b (x y) (l w1 w2) d")
+        q, k, v = self.to_qkv(t).chunk(3, dim=-1)
+        q = q * (self.dim_head ** -0.5)
+        bias_flat = expand_bias_flat(
+            self.relative_position_bias_table.weight, self.agent_size,
+            self.window_size, l, w1, w2)
+        key_mask = None
+        if mask is not None:
+            key_mask = rearrange(
+                mask, "b x y w1 w2 l -> (b x y) (l w1 w2)")
+        out = fused_window_attention_packed(
+            q.reshape(G, T, C).contiguous(), k.reshape(G, T, C).contiguous(),
+            v.reshape(G, T, C).contiguous(), n_heads=self.heads,
+            bias_flat=bias_flat, mask=key_mask)
+        out = self.to_out(out.reshape(b, X * Y, T, C))
+        return rearrange(out, "b (x y) (l w1 w2) d -> b l x y w1 w2 d",
+                         x=X, y=Y, l=l, w1=w1, w2=w2)
+
+
+class FeedForward(nn.Module):
+    """Linear -> GELU -> Dropout -> Linear -> Dropout (torch names net.0 /
+    net.3)."""
+
+    def __init__(self, dim: int, hidden_dim: int, dropout: float = 0.0):
+        super().__init__()
+        self.net = nn.Sequential(
+            nn.Linear(dim, hidden_dim), nn.GELU(), nn.Dropout(dropout),
+            nn.Linear(hidden_dim, dim), nn.Dropout(dropout))
+
+    def forward(self, x):
+        return self.net(x)
+
+
+class _PreNormAttn(nn.Module):
+    """x + Attn(LN(x))."""
+
+    def __init__(self, dim, dim_head, dropout, agent_size, window_size):
+        super().__init__()
+        self.norm = layer_norm(dim)
+        self.fn = FusionAttention(dim, dim_head, dropout, agent_size,
+                                  window_size)
+
+    def forward(self, x, mask=None):
+        return self.fn(self.norm(x), mask) + x
+
+
+class _PreNormFFD(nn.Module):
+    """x + FFD(LN(x))."""
+
+    def __init__(self, dim, mlp_dim, dropout):
+        super().__init__()
+        self.norm = layer_norm(dim)
+        self.fn = FeedForward(dim, mlp_dim, dropout)
+
+    def forward(self, x):
+        return self.fn(self.norm(x)) + x
+
+
+class SwapFusionBlock(nn.Module):
+    """window attention -> FFD -> grid attention -> FFD.  The masked
+    variant names its sublayers; the unmasked one keeps them in the
+    reference's Sequential ``block`` at indices 1/2/5/6 (the others are
+    parameterless rearranges)."""
+
+    def __init__(self, input_dim: int, mlp_dim: int, dim_head: int,
+                 window_size: int, agent_size: int, dropout: float,
+                 masked: bool = True):
+        super().__init__()
+        self.window_size = window_size
+        self.masked = masked
+        subs = (_PreNormAttn(input_dim, dim_head, dropout, agent_size,
+                             window_size),
+                _PreNormFFD(input_dim, mlp_dim, dropout),
+                _PreNormAttn(input_dim, dim_head, dropout, agent_size,
+                             window_size),
+                _PreNormFFD(input_dim, mlp_dim, dropout))
+        if masked:
+            (self.window_attention, self.window_ffd, self.grid_attention,
+             self.grid_ffd) = subs
+        else:
+            self.block = nn.Sequential(
+                nn.Identity(), subs[0], subs[1], nn.Identity(),
+                nn.Identity(), subs[2], subs[3], nn.Identity())
+
+    def _sublayers(self):
+        if self.masked:
+            return (self.window_attention, self.window_ffd,
+                    self.grid_attention, self.grid_ffd)
+        return tuple(self.block[i] for i in (1, 2, 5, 6))
+
+    def forward(self, x, mask=None):
+        """x: (B, L, H, W, d); mask: (B, L, H, W) or None."""
+        w = self.window_size
+        win_attn, win_ffd, grid_attn, grid_ffd = self._sublayers()
+        xw = rearrange(x, "b l (x w1) (y w2) d -> b l x y w1 w2 d",
+                       w1=w, w2=w)
+        mw = None if mask is None else rearrange(
+            mask, "b l (x w1) (y w2) -> b x y w1 w2 l", w1=w, w2=w)
+        xw = win_ffd(win_attn(xw, mw))
+        x = rearrange(xw, "b l x y w1 w2 d -> b l (x w1) (y w2) d")
+
+        xg = rearrange(x, "b l (w1 x) (w2 y) d -> b l x y w1 w2 d",
+                       w1=w, w2=w)
+        mg = None if mask is None else rearrange(
+            mask, "b l (w1 x) (w2 y) -> b x y w1 w2 l", w1=w, w2=w)
+        xg = grid_ffd(grid_attn(xg, mg))
+        return rearrange(xg, "b l x y w1 w2 d -> b l (w1 x) (w2 y) d")
+
+
+class SwapFusionEncoder(nn.Module):
+    """depth x SwapFusionBlock, then the mean over agents + LN + Linear
+    head.  By default the mean divides by ``max_cav`` rows, padded ones
+    included, as the reference does; ``mean_over_valid`` averages only the
+    live agents of ``agent_mask``."""
+
+    def __init__(self, input_dim: int = 128, mlp_dim: int = 256,
+                 agent_size: int = 5, window_size: int = 8,
+                 dim_head: int = 32, dropout: float = 0.1, depth: int = 3,
+                 mask: bool = True, mean_over_valid: bool = False):
+        super().__init__()
+        self.mask = mask
+        self.mean_over_valid = mean_over_valid
+        self.layers = nn.ModuleList([
+            SwapFusionBlock(input_dim, mlp_dim, dim_head, window_size,
+                            agent_size, dropout, masked=mask)
+            for _ in range(depth)])
+        # torch names mlp_head.2 / mlp_head.3; 0 and 1 are the
+        # parameterless agent reduce and rearrange
+        self.mlp_head = nn.Sequential(nn.Identity(), nn.Identity(),
+                                      layer_norm(input_dim),
+                                      nn.Linear(input_dim, input_dim))
+
+    def forward(self, x, mask=None, agent_mask=None):
+        """x: (B, L, H, W, d); mask: (B, L, H, W); agent_mask: (B, L)
+        (read only with ``mean_over_valid``).  Returns (B, H, W, d)."""
+        if not self.mask:
+            mask = None
+        for layer in self.layers:
+            x = layer(x, mask)
+        if self.mean_over_valid and agent_mask is not None:
+            w = agent_mask[:, :, None, None, None].to(x.dtype)
+            x = (x * w).sum(dim=1) / w.sum(dim=1).clamp(min=1.0)
+        else:
+            x = x.mean(dim=1)
+        return self.mlp_head(x)

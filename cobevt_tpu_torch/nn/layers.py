@@ -1,0 +1,187 @@
+"""Common layers, with the numerics the JAX package pins.
+
+Counterpart of ``cobevt_tpu/nn/layers.py``:
+
+  * BatchNorm: eps 1e-5, momentum 0.1 (flax momentum 0.9)
+  * LayerNorm: eps 1e-5
+  * GELU: exact (erf) form
+
+Activations are NHWC, as in the JAX package.  An NHWC-contiguous
+tensor's ``permute(0, 3, 1, 2)`` is a ``channels_last`` NCHW tensor, so a
+convolution or BatchNorm that stays in PyTorch runs on it without a copy
+(:func:`conv_nhwc`, :func:`bn_nhwc`).  Module attribute names are the
+reference's torch attribute paths, which the flax tree mirrors.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from cobevt_tpu_torch.ops.conv2d import fold_bn, fused_conv3x3
+
+
+def gelu(x):
+    """Exact GELU (torch nn.GELU default)."""
+    return F.gelu(x)
+
+
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def images_from_uint8(x, normalize: bool = True):
+    """uint8 images -> f32 in [0, 1], then ImageNet mean/std when
+    ``normalize``; any other dtype passes through untouched (the
+    host-normalized contract)."""
+    if x.dtype != torch.uint8:
+        return x
+    x = x.float() / 255.0
+    if normalize:
+        mean = torch.tensor(IMAGENET_MEAN, dtype=x.dtype, device=x.device)
+        std = torch.tensor(IMAGENET_STD, dtype=x.dtype, device=x.device)
+        x = (x - mean) / std
+    return x
+
+
+def torch_conv(in_features: int, features: int, kernel_size: int = 3,
+               stride: int = 1, padding: int = 0,
+               use_bias: bool = True) -> nn.Conv2d:
+    """2D conv with torch-style integer padding; apply with
+    :func:`conv_nhwc`."""
+    return nn.Conv2d(in_features, features, kernel_size, stride, padding,
+                     bias=use_bias)
+
+
+def conv_nhwc(conv: nn.Conv2d, x):
+    """Apply an NCHW ``nn.Conv2d`` to an NHWC tensor."""
+    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+def batch_norm(features: int, eps: float = 1e-5,
+               momentum: float = 0.1) -> nn.BatchNorm2d:
+    return nn.BatchNorm2d(features, eps=eps, momentum=momentum)
+
+
+def bn_nhwc(bn: nn.BatchNorm2d, x):
+    return bn(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+def layer_norm(features: int) -> nn.LayerNorm:
+    return nn.LayerNorm(features, eps=1e-5)
+
+
+def fused_conv_enabled(c_in: int, c_out: int) -> bool:
+    """Eval BasicBlocks take K3 when both channel axes are >= 128, the
+    JAX package's gate.  COBEVT_FUSED_CONV=0 turns it off.  The JAX gate's
+    VMEM working-set term is TPU-only and has no counterpart here."""
+    if os.environ.get("COBEVT_FUSED_CONV", "1") == "0":
+        return False
+    return c_in >= 128 and c_out >= 128
+
+
+def _conv_hwio(conv: nn.Conv2d):
+    return conv.weight.permute(2, 3, 1, 0)
+
+
+def _bn_stats(bn: nn.BatchNorm2d):
+    return bn.weight, bn.bias, bn.running_mean, bn.running_var
+
+
+class BasicBlock(nn.Module):
+    """ResNet v1 basic block (two 3x3 convs), torchvision-compatible.
+
+    Eval runs K3 (conv + folded BN + residual + ReLU in one kernel) for
+    stride-1 blocks that pass :func:`fused_conv_enabled`; training and the
+    other blocks run the plain modules.  Both paths share one state_dict."""
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 downsample: bool = False):
+        super().__init__()
+        self.planes = planes
+        self.stride = stride
+        self.conv1 = torch_conv(inplanes, planes, 3, stride, 1, False)
+        self.bn1 = batch_norm(planes)
+        self.conv2 = torch_conv(planes, planes, 3, 1, 1, False)
+        self.bn2 = batch_norm(planes)
+        self.downsample = None
+        if downsample:
+            # torch names: downsample.0 (conv), downsample.1 (bn)
+            self.downsample = nn.Sequential(
+                torch_conv(inplanes, planes, 1, stride, 0, False),
+                batch_norm(planes))
+
+    def _identity(self, x):
+        if self.downsample is None:
+            return x
+        conv, bn = self.downsample
+        return bn_nhwc(bn, conv_nhwc(conv, x))
+
+    def forward(self, x):
+        if not self.training and self.stride == 1 and \
+                fused_conv_enabled(x.shape[-1], self.planes):
+            return self._fused_eval(x)
+        out = F.relu(bn_nhwc(self.bn1, conv_nhwc(self.conv1, x)))
+        out = bn_nhwc(self.bn2, conv_nhwc(self.conv2, out))
+        return F.relu(out + self._identity(x))
+
+    def _fused_eval(self, x):
+        x = x.contiguous()
+        w1, t1 = fold_bn(_conv_hwio(self.conv1), *_bn_stats(self.bn1))
+        out = fused_conv3x3(x, w1, t1, relu=True)
+        identity = self._identity(x).contiguous()
+        w2, t2 = fold_bn(_conv_hwio(self.conv2), *_bn_stats(self.bn2))
+        return fused_conv3x3(out, w2, t2, residual=identity, relu=True)
+
+
+class Bottleneck(nn.Module):
+    """ResNet bottleneck (1x1 -> 3x3 -> 1x1, expansion 4).  With
+    ``planes = features // 4`` and no downsample this is the FAX
+    ``ResNetBottleNeck``."""
+
+    expansion = 4
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 downsample: bool = False):
+        super().__init__()
+        width = planes * self.expansion
+        self.conv1 = torch_conv(inplanes, planes, 1, 1, 0, False)
+        self.bn1 = batch_norm(planes)
+        self.conv2 = torch_conv(planes, planes, 3, stride, 1, False)
+        self.bn2 = batch_norm(planes)
+        self.conv3 = torch_conv(planes, width, 1, 1, 0, False)
+        self.bn3 = batch_norm(width)
+        self.downsample = None
+        if downsample:
+            self.downsample = nn.Sequential(
+                torch_conv(inplanes, width, 1, stride, 0, False),
+                batch_norm(width))
+
+    def forward(self, x):
+        identity = x
+        out = F.relu(bn_nhwc(self.bn1, conv_nhwc(self.conv1, x)))
+        out = F.relu(bn_nhwc(self.bn2, conv_nhwc(self.conv2, out)))
+        out = bn_nhwc(self.bn3, conv_nhwc(self.conv3, out))
+        if self.downsample is not None:
+            conv, bn = self.downsample
+            identity = bn_nhwc(bn, conv_nhwc(conv, x))
+        return F.relu(out + identity)
+
+
+def pixel_unshuffle(x, factor: int = 2):
+    """NHWC pixel-unshuffle with torch channel ordering (output channel
+    ``c*r*r + i*r + j`` for input offset (i, j))."""
+    B, H, W, C = x.shape
+    r = factor
+    x = x.reshape(B, H // r, r, W // r, r, C)
+    x = x.permute(0, 1, 3, 5, 2, 4)          # B, H/r, W/r, C, r, r
+    return x.reshape(B, H // r, W // r, C * r * r)
+
+
+def mlp_seq(dim: int, hidden: int, out: int) -> nn.Sequential:
+    """Linear -> GELU -> Linear (the FAX MLP; torch names ``0`` / ``2``)."""
+    return nn.Sequential(nn.Linear(dim, hidden), nn.GELU(),
+                         nn.Linear(hidden, out))

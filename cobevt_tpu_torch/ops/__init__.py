@@ -1,0 +1,24 @@
+"""Kernels of the port: each wrapper launches a hand-written CUDA kernel
+on CUDA tensors and runs its plain PyTorch version on CPU tensors."""
+
+from cobevt_tpu_torch.ops.conv2d import fold_bn, fused_conv3x3
+from cobevt_tpu_torch.ops.dispatch import forced_impl
+from cobevt_tpu_torch.ops.window_attention import (
+    fused_window_attention_packed,
+)
+
+KERNEL_WRAPPERS = (fused_window_attention_packed, fused_conv3x3)
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNEL_WRAPPERS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+
+
+__all__ = ["KERNEL_WRAPPERS", "fold_bn", "forced_impl", "fused_conv3x3",
+           "fused_window_attention_packed", "launch_counts",
+           "reset_launch_counts"]

@@ -1,0 +1,57 @@
+"""Which implementation a kernel wrapper runs, and what a kernel accepts.
+
+Every kernel of the port has two implementations: the hand-written CUDA
+kernel and its plain PyTorch version.  A wrapper called with ``impl=None``
+takes the plain version for a CPU tensor and the kernel for a CUDA tensor;
+``impl="kernel"`` on a CPU tensor raises.  Nothing falls back silently.
+
+:func:`forced_impl` sets the choice for every wrapper reached inside a
+``with`` block, so a whole model forward can run on the plain versions on
+the card (the reference run of ``chip_smoke.py``).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+
+IMPLS = ("kernel", "torch")
+
+_state = threading.local()
+
+
+@contextlib.contextmanager
+def forced_impl(impl: str):
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    prev = getattr(_state, "impl", None)
+    _state.impl = impl
+    try:
+        yield
+    finally:
+        _state.impl = prev
+
+
+def resolve_impl(impl, tensor) -> str:
+    """The implementation to run for ``tensor``."""
+    if impl is None:
+        impl = getattr(_state, "impl", None)
+    if impl is None:
+        return "kernel" if tensor.is_cuda else "torch"
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if impl == "kernel" and not tensor.is_cuda:
+        raise ValueError("impl='kernel' needs CUDA tensors; got a tensor on "
+                         f"{tensor.device}")
+    return impl
+
+
+def check_operand(name, t, shape, dtype, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``: a kernel reads raw pointers and takes nothing else."""
+    if t.device != device or t.dtype != dtype or \
+            tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+        raise ValueError(
+            f"{name} must be a contiguous {dtype} tensor of shape "
+            f"{tuple(shape)} on {device}; got {t.dtype} {tuple(t.shape)} on "
+            f"{t.device}{'' if t.is_contiguous() else ' (not contiguous)'}")
