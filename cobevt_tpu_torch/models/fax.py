@@ -1,17 +1,20 @@
 """FAX: fused axial attention camera->BEV transformer (SinBEVT core).
 
 Counterpart of ``cobevt_tpu/models/fax.py`` (reference
-``opv2v/opencood/models/sub_modules/fax_modules.py``), stock path: every
-window attention goes through K1 (``ops/window_attention.py``); the fused
-cross-view stage of the JAX package (its K2, ``COBEVT_FUSED_XATTN``) is not
-ported yet, so both branches of every stage run as separate modules.
-Channels-last throughout; window and grid partitions are reshapes.
+``opv2v/opencood/models/sub_modules/fax_modules.py``), with the JAX
+package's dispatch: at eval each cross-view branch (local and grid) runs
+as K2 (``ops/fused_cross_attention.py``) where :func:`fused_xattn_ok`
+holds, and ``COBEVT_FUSED_XATTN=0`` or training runs the stock modules,
+whose window attentions go through K1 (``ops/window_attention.py``).  The
+self-attention always runs K1.  Channels-last throughout; window and grid
+partitions are reshapes.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -30,6 +33,12 @@ from cobevt_tpu_torch.nn.layers import (
     mlp_seq,
     pixel_unshuffle,
     torch_conv,
+)
+from cobevt_tpu_torch.ops.dispatch import PackCache
+from cobevt_tpu_torch.ops.fused_cross_attention import (
+    fused_cross_view_attention,
+    kernel_accepts,
+    pack_params,
 )
 from cobevt_tpu_torch.ops.window_attention import fused_window_attention_packed
 
@@ -222,6 +231,50 @@ class CrossWinAttention(nn.Module):
         return out
 
 
+def fused_xattn_ok(H: int, W: int, q_win, h: int, w: int, k_win, dim: int,
+                   heads: int, dim_head: int, n_cams: int,
+                   hidden: int) -> bool:
+    """Both branches of a stage take K2 when ``COBEVT_FUSED_XATTN`` is not
+    "0" (default "1", as in the JAX package), the query and key windows
+    tile their maps into the same window grid (the JAX gate's tiling
+    conditions, ``cobevt_tpu/models/fax.py:331-335``), and the CUDA kernel
+    takes the widths (``ops/fused_cross_attention.py:kernel_accepts``, in
+    place of the JAX gate's VMEM budgets).  The same on every device."""
+    if os.environ.get("COBEVT_FUSED_XATTN", "1") == "0":
+        return False
+    if H % q_win[0] or W % q_win[1] or h % k_win[0] or w % k_win[1]:
+        return False
+    if (H // q_win[0], W // q_win[1]) != (h // k_win[0], w // k_win[1]):
+        return False
+    return kernel_accepts(dim, heads * dim_head, heads,
+                          n_cams * k_win[0] * k_win[1], hidden)
+
+
+def _ln_pair(ln: nn.LayerNorm):
+    return ln.weight, ln.bias
+
+
+def _cross_params(attend: "CrossWinAttention") -> dict:
+    """K2's parameters, in the JAX layout, from a stock module's weights
+    (the JAX package's ``CrossWinAttentionParams``)."""
+    def lin(seq):
+        ln, dense = seq
+        bias = dense.bias if dense.bias is not None else \
+            dense.weight.new_zeros(dense.weight.shape[0])
+        return _ln_pair(ln), dense.weight.t(), bias
+
+    (ln_q, wq, bq), (ln_k, wk, bk), (ln_v, wv, bv) = (
+        lin(attend.to_q), lin(attend.to_k), lin(attend.to_v))
+    return {"ln_q": ln_q, "ln_k": ln_k, "ln_v": ln_v, "wq": wq, "bq": bq,
+            "wk": wk, "bk": bk, "wv": wv, "bv": bv,
+            "wo": attend.proj.weight.t(), "bo": attend.proj.bias}
+
+
+def _mlp_params(prenorm: nn.LayerNorm, seq: nn.Sequential) -> dict:
+    return {"ln": _ln_pair(prenorm), "w1": seq[0].weight.t(),
+            "b1": seq[0].bias, "w2": seq[2].weight.t(), "b2": seq[2].bias}
+
+
 class CrossViewSwapAttention(nn.Module):
     """One FAX pyramid stage: camera-geometry embeds + local-window
     cross-attention + grid cross-attention, each followed by an MLP."""
@@ -235,6 +288,8 @@ class CrossViewSwapAttention(nn.Module):
         super().__init__()
         self.grid_args = (feat_height, feat_width, image_height, image_width)
         self.dim = dim
+        self.heads = heads
+        self.dim_head = dim_head
         self.q_win_size = tuple(q_win_size)
         self.feat_win_size = tuple(feat_win_size)
         self.bev_embed_flag = bev_embed_flag
@@ -261,6 +316,24 @@ class CrossViewSwapAttention(nn.Module):
         self.mlp_1 = mlp_seq(dim, 2 * dim, dim)
         self.mlp_2 = mlp_seq(dim, 2 * dim, dim)
         self.postnorm = layer_norm(dim)
+        self._packed = PackCache()   # K2's operands, per branch and dtype
+
+    def _fused_params(self, branch: int, dtype):
+        """K2's packed operands of the local (1) or grid (2) branch: the
+        attention, its MLP and, for the grid branch, the postnorm; packed
+        once and reused while the weights are unchanged."""
+        attend = getattr(self, f"cross_win_attend_{branch}")
+        prenorm = getattr(self, f"prenorm_{branch}")
+        mlp = getattr(self, f"mlp_{branch}")
+        post = self.postnorm if branch == 2 else None
+        modules = (attend, prenorm, mlp) + (() if post is None else (post,))
+        return self._packed.get(
+            branch, [t for m in modules for t in m.parameters()],
+            lambda: pack_params(_cross_params(attend),
+                                _mlp_params(prenorm, mlp),
+                                None if post is None else _ln_pair(post),
+                                dtype),
+            dtype)
 
     @staticmethod
     def _bn_relu_conv(seq, t):
@@ -295,27 +368,50 @@ class CrossViewSwapAttention(nn.Module):
         key = pad_divisible(key, *self.feat_win_size)
         val = pad_divisible(val, *self.feat_win_size)
 
+        # eval takes K2 for both branches where the gate holds (the JAX
+        # package's dispatch, cobevt_tpu/models/fax.py:417-504); training
+        # and COBEVT_FUSED_XATTN=0 run the stock modules
+        H, W = x.shape[1:3]
+        n, kh, kw_ = key.shape[1:4]
+        use_fused = not self.training and fused_xattn_ok(
+            H, W, self.q_win_size, kh, kw_, self.feat_win_size, self.dim,
+            self.heads, self.dim_head, n, self.mlp_1[0].out_features)
+        scale = self.dim_head ** -0.5
+
         # --- local-window cross attention ---
-        if self.bev_embed_flag:
-            w_embed = self.bev_embed(world.to(dtype))          # (H, W, d)
-            bev_embed = _normalize(w_embed[None, None]
-                                   - c_embed[:, :, None, None])
-            query = bev_embed + x[:, None]                     # (b,n,H,W,d)
+        w_embed = (self.bev_embed(world.to(dtype)) if self.bev_embed_flag
+                   else None)                                  # (H, W, d)
+        if use_fused:
+            query = fused_cross_view_attention(
+                x, w_embed, c_embed if self.bev_embed_flag else None, key, val,
+                self._fused_params(1, x.dtype), self.q_win_size,
+                self.feat_win_size, self.heads, scale, add_skip=self.skip)
         else:
-            query = x[:, None]                                 # (b,1,H,W,d)
-        qw = window_partition(query, *self.q_win_size)
-        kw = window_partition(key, *self.feat_win_size)
-        vw = window_partition(val, *self.feat_win_size)
-        skip1 = (window_partition(x, *self.q_win_size)
-                 if self.skip else None)
-        query = window_reverse(self.cross_win_attend_1(qw, kw, vw, skip1))
-        query = query + self.mlp_1(self.prenorm_1(query))
+            if self.bev_embed_flag:
+                bev_embed = _normalize(w_embed[None, None]
+                                       - c_embed[:, :, None, None])
+                query = bev_embed + x[:, None]                 # (b,n,H,W,d)
+            else:
+                query = x[:, None]                             # (b,1,H,W,d)
+            qw = window_partition(query, *self.q_win_size)
+            kw = window_partition(key, *self.feat_win_size)
+            vw = window_partition(val, *self.feat_win_size)
+            skip1 = (window_partition(x, *self.q_win_size)
+                     if self.skip else None)
+            query = window_reverse(self.cross_win_attend_1(qw, kw, vw, skip1))
+            query = query + self.mlp_1(self.prenorm_1(query))
         x_skip = query
 
         # --- grid (global) cross attention ---
         # after the local branch the query has no per-camera content, so
         # one copy stands for the reference's n identical ones (their mean
         # is the identity)
+        if use_fused:
+            # keys ride the grid cells by index math inside the kernel
+            return fused_cross_view_attention(
+                query, None, None, key, val, self._fused_params(2, x.dtype),
+                self.q_win_size, self.feat_win_size, self.heads, scale,
+                add_skip=self.skip, grid_keys=True)
         qg = window_partition(query[:, None], *self.q_win_size)
         kg = grid_partition(key, *self.feat_win_size)
         vg = grid_partition(val, *self.feat_win_size)

@@ -1,16 +1,18 @@
 """FuseBEVT: masked window<->grid attention over (agent, H, W) BEV stacks.
 
 Counterpart of ``cobevt_tpu/models/fusion/swap_fusion.py`` (reference
-``swap_fusion_modules.py:233``), stock path: each window attention goes
-through K1 (``ops/window_attention.py``) with the 3D relative-position
-bias and the additive key mask.  The whole-stack fused kernel of the JAX
-package (its K4, ``COBEVT_FUSED_FUSION``) is not ported yet.  The
-canonical mask is (B, L, H, W).
+``swap_fusion_modules.py:233``), with the JAX package's dispatch: at eval
+the whole encoder runs as K4 (``ops/fused_swap_fusion.py``) where its gate
+holds; ``COBEVT_FUSED_FUSION=0`` or training runs the stock modules, each
+window attention through K1 (``ops/window_attention.py``) with the 3D
+relative-position bias and the additive key mask.  The canonical mask is
+(B, L, H, W).
 """
 
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 import torch
@@ -18,6 +20,12 @@ import torch.nn as nn
 from einops import rearrange
 
 from cobevt_tpu_torch.nn.layers import layer_norm
+from cobevt_tpu_torch.ops.dispatch import PackCache
+from cobevt_tpu_torch.ops.fused_swap_fusion import (
+    fused_swap_fusion,
+    kernel_accepts,
+    pack,
+)
 from cobevt_tpu_torch.ops.window_attention import fused_window_attention_packed
 
 
@@ -185,11 +193,33 @@ class SwapFusionBlock(nn.Module):
         return rearrange(xg, "b l x y w1 w2 d -> b l (w1 x) (w2 y) d")
 
 
+def fused_fusion_mode() -> str:
+    """``COBEVT_FUSED_FUSION``, the JAX package's switch: "0" runs the
+    stock modules; "1" (the default) and "force" run K4 at eval wherever
+    its gate holds; "force-stream" asks for K6, the streaming variant,
+    which is not ported."""
+    return os.environ.get("COBEVT_FUSED_FUSION", "1")
+
+
+def _sublayer_params(attn: _PreNormAttn, ffd: _PreNormFFD) -> dict:
+    """One K4 sublayer's parameters, in the JAX layout, from the stock
+    modules' weights (the JAX package's ``_SwapBlockParams``)."""
+    dense1, dense2 = ffd.fn.net[0], ffd.fn.net[3]
+    return {"ln_a": (attn.norm.weight, attn.norm.bias),
+            "wqkv": attn.fn.to_qkv.weight.t(),
+            "wout": attn.fn.to_out[0].weight.t(),
+            "ln_f": (ffd.norm.weight, ffd.norm.bias),
+            "w1": dense1.weight.t(), "b1": dense1.bias,
+            "w2": dense2.weight.t(), "b2": dense2.bias}
+
+
 class SwapFusionEncoder(nn.Module):
     """depth x SwapFusionBlock, then the mean over agents + LN + Linear
     head.  By default the mean divides by ``max_cav`` rows, padded ones
     included, as the reference does; ``mean_over_valid`` averages only the
-    live agents of ``agent_mask``."""
+    live agents of ``agent_mask``.  Eval runs the whole encoder as K4 where
+    :func:`fused_fusion_mode` and the kernel's gate allow; both paths share
+    one state_dict."""
 
     def __init__(self, input_dim: int = 128, mlp_dim: int = 256,
                  agent_size: int = 5, window_size: int = 8,
@@ -198,6 +228,10 @@ class SwapFusionEncoder(nn.Module):
         super().__init__()
         self.mask = mask
         self.mean_over_valid = mean_over_valid
+        self.agent_size = agent_size
+        self.window_size = window_size
+        self.heads = input_dim // dim_head
+        self.mlp_dim = mlp_dim
         self.layers = nn.ModuleList([
             SwapFusionBlock(input_dim, mlp_dim, dim_head, window_size,
                             agent_size, dropout, masked=mask)
@@ -207,12 +241,24 @@ class SwapFusionEncoder(nn.Module):
         self.mlp_head = nn.Sequential(nn.Identity(), nn.Identity(),
                                       layer_norm(input_dim),
                                       nn.Linear(input_dim, input_dim))
+        self._packed = PackCache()   # K4's operands, per agent count, dtype
 
     def forward(self, x, mask=None, agent_mask=None):
         """x: (B, L, H, W, d); mask: (B, L, H, W); agent_mask: (B, L)
         (read only with ``mean_over_valid``).  Returns (B, H, W, d)."""
         if not self.mask:
             mask = None
+        mode = fused_fusion_mode()
+        if not self.training and mode != "0":
+            if mode == "force-stream":
+                raise NotImplementedError(
+                    "COBEVT_FUSED_FUSION=force-stream asks for K6 "
+                    "(fused_swap_fusion_streaming), which the port does not "
+                    "have yet")
+            B, L, H, W, d = x.shape
+            if kernel_accepts(L, H, W, d, self.window_size, self.heads,
+                              self.mlp_dim):
+                return self._fused_eval(x, mask, agent_mask)
         for layer in self.layers:
             x = layer(x, mask)
         if self.mean_over_valid and agent_mask is not None:
@@ -221,3 +267,33 @@ class SwapFusionEncoder(nn.Module):
         else:
             x = x.mean(dim=1)
         return self.mlp_head(x)
+
+    def _fused_eval(self, x, mask, agent_mask):
+        """K4 on this module's weights (``_fused_eval`` of the JAX
+        package, ``models/fusion/swap_fusion.py:432-491``): the bias
+        tables expanded to (depth, 2, T, heads*T), the (B, L, H, W) mask
+        passed as it is and read through the window map in the kernel.
+        The packed operands are built once per agent count and dtype and
+        reused while the weights are unchanged."""
+        L = x.shape[1]
+        packed = self._packed.get("encoder", list(self.parameters()),
+                                  lambda: self._pack(L, x.dtype), L, x.dtype)
+        return fused_swap_fusion(
+            x, mask, agent_mask, None, packed, None, self.window_size,
+            self.heads, mean_over_valid=self.mean_over_valid)
+
+    def _pack(self, L, dtype):
+        w = self.window_size
+        layers, biases = [], []
+        for block in self.layers:
+            win_attn, win_ffd, grid_attn, grid_ffd = block._sublayers()
+            layers.append((_sublayer_params(win_attn, win_ffd),
+                           _sublayer_params(grid_attn, grid_ffd)))
+            biases.append(torch.stack([
+                expand_bias_flat(a.fn.relative_position_bias_table.weight,
+                                 self.agent_size, w, L, w, w)
+                for a in (win_attn, grid_attn)]))
+        ln, dense = self.mlp_head[2], self.mlp_head[3]
+        head = {"ln": (ln.weight, ln.bias), "w": dense.weight.t(),
+                "b": dense.bias}
+        return pack(layers, torch.stack(biases), head, dtype)

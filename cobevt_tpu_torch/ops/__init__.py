@@ -3,11 +3,16 @@ on CUDA tensors and runs its plain PyTorch version on CPU tensors."""
 
 from cobevt_tpu_torch.ops.conv2d import fold_bn, fused_conv3x3
 from cobevt_tpu_torch.ops.dispatch import forced_impl
+from cobevt_tpu_torch.ops.fused_cross_attention import (
+    fused_cross_view_attention,
+)
+from cobevt_tpu_torch.ops.fused_swap_fusion import fused_swap_fusion
 from cobevt_tpu_torch.ops.window_attention import (
     fused_window_attention_packed,
 )
 
-KERNEL_WRAPPERS = (fused_window_attention_packed, fused_conv3x3)
+KERNEL_WRAPPERS = (fused_window_attention_packed, fused_cross_view_attention,
+                   fused_conv3x3, fused_swap_fusion)
 
 
 def reset_launch_counts() -> None:
@@ -20,5 +25,6 @@ def launch_counts() -> dict:
 
 
 __all__ = ["KERNEL_WRAPPERS", "fold_bn", "forced_impl", "fused_conv3x3",
+           "fused_cross_view_attention", "fused_swap_fusion",
            "fused_window_attention_packed", "launch_counts",
            "reset_launch_counts"]

@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels of ``cobevt_tpu_torch/csrc``.
 
-Each ``csrc/<name>.cu`` (with the shared ``csrc/*.cuh`` headers) exposes
+Each ``csrc/<name>.cu`` (with the shared ``csrc/*.cuh`` headers: ``mma.cuh``,
+``rowops.cuh``, ``flash.cuh``) exposes
 plain C functions and compiles with ``nvcc`` for Hopper (``sm_90a``) into
 ``cobevt_tpu_torch/_build/`` the first time a kernel is launched; the
 shared library is then loaded with ``ctypes``.  No PyTorch headers and no
@@ -14,6 +15,7 @@ module of the package and never call :func:`load`.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import dataclasses
 import functools
@@ -86,6 +88,14 @@ def build(name: str) -> Build:
         f.write(log)
     os.replace(tmp, lib)
     return Build(lib, seconds, log)
+
+
+def build_all(names) -> dict:
+    """:func:`build` of every name, one nvcc process each, all started
+    together.  Returns {name: Build}; raises on the first failure."""
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        futures = {name: pool.submit(build, name) for name in names}
+        return {name: f.result() for name, f in futures.items()}
 
 
 @functools.lru_cache(maxsize=None)

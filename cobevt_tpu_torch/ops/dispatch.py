@@ -15,6 +15,8 @@ from __future__ import annotations
 import contextlib
 import threading
 
+import torch
+
 IMPLS = ("kernel", "torch")
 
 _state = threading.local()
@@ -55,3 +57,35 @@ def check_operand(name, t, shape, dtype, device) -> None:
             f"{name} must be a contiguous {dtype} tensor of shape "
             f"{tuple(shape)} on {device}; got {t.dtype} {tuple(t.shape)} on "
             f"{t.device}{'' if t.is_contiguous() else ' (not contiguous)'}")
+
+
+def check_aligned(name, t, bytes_: int = 16) -> None:
+    """Raise unless ``t`` starts on a ``bytes_`` boundary: the row kernels
+    move rows as 16-byte vectors."""
+    if t.data_ptr() % bytes_:
+        raise ValueError(f"{name} must start on a {bytes_}-byte boundary")
+
+
+class PackCache:
+    """A module's kernel operands (weights transposed, cast and stacked),
+    built once and reused while the tensors they come from are unchanged:
+    the key holds each tensor's storage, version counter, dtype and device,
+    so an in-place update (``load_state_dict``), a ``.to()`` or a new
+    compute dtype rebuilds the entry.  Entries are built without autograd:
+    the fused kernels are inference-only."""
+
+    def __init__(self):
+        self._entries = {}
+
+    def get(self, name, tensors, build, *extra):
+        key = (extra, tuple((t.data_ptr(), t._version, t.dtype, t.device)
+                            for t in tensors))
+        hit = self._entries.get(name)
+        if hit is not None and hit[0] == key:
+            return hit[1]
+        # plain tensors even under inference_mode, so a later eval call
+        # with autograd on can still read them
+        with torch.inference_mode(False), torch.no_grad():
+            value = build()
+        self._entries[name] = (key, value)
+        return value

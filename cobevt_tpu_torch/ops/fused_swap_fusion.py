@@ -1,0 +1,323 @@
+"""Fused FuseBEVT encoder (K4): wrapper, plain version, CUDA launches.
+
+Counterpart of ``cobevt_tpu/ops/fused_swap_fusion.py:fused_swap_fusion``:
+the whole SwapFusionEncoder at eval, depth x [window, grid] sublayers (LN ->
+QKV -> attention with the 3-D rel-pos bias and the additive key mask ->
+out-projection -> residual -> LN -> FFN -> residual), then the agent mean
+-> LN -> Linear head.  The CUDA kernel is ``csrc/fused_swap_fusion.cu``:
+three launches per sublayer and one for the head, each counted.
+
+Numerics follow the TPU body (``_kernel`` :117-184): weights, bias and
+mask rows in the compute dtype, f32 LayerNorms and products, q scaled after
+the cast of qkv, the exp rounded to the compute dtype before both the
+numerator and the sum.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from cobevt_tpu_torch.ops import _build
+from cobevt_tpu_torch.ops.dispatch import (
+    check_aligned,
+    check_operand,
+    resolve_impl,
+)
+from cobevt_tpu_torch.ops.fused_cross_attention import (
+    KERNEL_DTYPES,
+    KERNEL_HEAD_DIMS,
+    SMEM_BYTES,
+    ln_f32,
+    row_smem_bytes,
+)
+
+NEG_INF = -1e9
+
+
+def launches_per_call(depth: int) -> int:
+    """Three launches per sublayer (QKV rows, attention, output rows), two
+    sublayers per block, and the head."""
+    return depth * 2 * 3 + 1
+
+
+def kernel_accepts(L: int, H: int, W: int, D: int, window: int, heads: int,
+                   mlp: int) -> bool:
+    """Shapes the CUDA kernel takes: whole windows, head dims 8/16/32,
+    widths that are multiples of 16, a multiple of 8 tokens per window, and
+    row tiles that fit one block's shared memory.  Device-independent."""
+    if window <= 0 or H % window or W % window:
+        return False
+    if heads <= 0 or D % heads or D // heads not in KERNEL_HEAD_DIMS:
+        return False
+    if D % 16 or mlp % 16 or (L * window * window) % 8:
+        return False
+    return max(row_smem_bytes(D, 3 * D), row_smem_bytes(D, D, mlp)) \
+        <= SMEM_BYTES
+
+
+class PackedFusion(NamedTuple):
+    """K4's operands as both versions read them (:func:`pack`)."""
+
+    layers: list      # per block, (window, grid) dicts of packed weights
+    bias: torch.Tensor  # (depth, 2, T, heads*T) in the compute dtype
+    head: dict
+
+
+def pack(layers, bias_stack, head, dtype) -> PackedFusion:
+    """Every weight, the bias and the head in the compute dtype, as the TPU
+    body's stacks (``_pack_layer_params`` :187 and the head rows of
+    ``_fused_eval``); matrices transposed to (out, in), LayerNorm pairs as
+    (2, D).  A caller that runs the encoder many times packs once and
+    passes the result as ``layers``."""
+    def vec(*ts):
+        return torch.stack([t.reshape(-1) for t in ts]).to(dtype).contiguous()
+
+    def mat_t(m):
+        return m.t().to(dtype).contiguous()
+
+    def one(p):
+        return {"ln_a": vec(*p["ln_a"]), "wqkv_t": mat_t(p["wqkv"]),
+                "wout_t": mat_t(p["wout"]), "ln_f": vec(*p["ln_f"]),
+                "w1_t": mat_t(p["w1"]), "b1": p["b1"].to(dtype).contiguous(),
+                "w2_t": mat_t(p["w2"]), "b2": p["b2"].to(dtype).contiguous()}
+
+    return PackedFusion(
+        [(one(wp), one(gp)) for wp, gp in layers],
+        bias_stack.to(dtype).contiguous(),
+        {"ln": vec(*head["ln"]), "w_t": mat_t(head["w"]),
+         "b": head["b"].to(dtype).contiguous()})
+
+
+def _packed(layers, bias_stack, head, dtype) -> PackedFusion:
+    if not isinstance(layers, PackedFusion):
+        return pack(layers, bias_stack, head, dtype)
+    if bias_stack is not None or head is not None:
+        raise ValueError("packed layers already hold the bias and the head")
+    if layers.bias.dtype != dtype:
+        raise ValueError(f"layers were packed in {layers.bias.dtype}, x is "
+                         f"{dtype}")
+    return layers
+
+
+def to_windows(t, w: int, grid: bool):
+    """(B, L, H, W, ...) -> (B, X*Y, L*w*w, ...): window cells, or grid
+    cells (token (l, p, s) of cell (x, y) at row p*X + x, column s*Y + y)."""
+    B, L, H, W = t.shape[:4]
+    rest = t.shape[4:]
+    X, Y = H // w, W // w
+    tail = tuple(range(6, 6 + len(rest)))
+    if grid:
+        t = t.reshape(B, L, w, X, w, Y, *rest).permute(
+            0, 3, 5, 1, 2, 4, *tail)
+    else:
+        t = t.reshape(B, L, X, w, Y, w, *rest).permute(
+            0, 2, 4, 1, 3, 5, *tail)
+    return t.reshape(B, X * Y, L * w * w, *rest)
+
+
+def from_windows(t, L: int, H: int, W: int, w: int, grid: bool):
+    """Inverse of :func:`to_windows` for (B, X*Y, T, D)."""
+    B, D = t.shape[0], t.shape[-1]
+    X, Y = H // w, W // w
+    t = t.reshape(B, X, Y, L, w, w, D)
+    t = t.permute(0, 3, 4, 1, 5, 2, 6) if grid else \
+        t.permute(0, 3, 1, 4, 2, 5, 6)
+    return t.reshape(B, L, H, W, D)
+
+
+def _reference(x, mask, agent_mask, bias, layers, head, window, heads,
+               mean_over_valid):
+    dt = x.dtype
+    B, L, H, W, D = x.shape
+    w = window
+    Dh = D // heads
+
+    def c(t):   # the TPU body's astype(compute_dtype), kept as f32 values
+        return t.to(dt).float()
+
+    def proj(t, w_t, b=None):
+        y = t @ w_t.float().t()
+        return y if b is None else y + b.float()
+
+    # x (bf16) * python float: the scale is taken in the compute dtype
+    scale = torch.tensor(Dh ** -0.5, dtype=dt)
+    madd = None
+    if mask is not None:
+        madd = c(torch.where(mask > 0, 0.0, NEG_INF))          # (B, L, H, W)
+    state = x
+    for d, pair in enumerate(layers):
+        for half, p in enumerate(pair):
+            grid = half == 1
+            tok = to_windows(state, w, grid)                     # (B, XY, T, D)
+            G, T = tok.shape[1], tok.shape[2]
+            qkv = proj(c(ln_f32(tok, *p["ln_a"])), p["wqkv_t"]).to(dt)
+            q = (qkv[..., :D] * scale).float()
+            k, v = qkv[..., D:2 * D].float(), qkv[..., 2 * D:].float()
+
+            def heads4(t):
+                return t.reshape(B, G, T, heads, Dh).transpose(2, 3)
+
+            sim = heads4(q) @ heads4(k).transpose(-1, -2)  # (B, G, h, T, T)
+            sim = sim + bias[d, half].float().reshape(T, heads, T) \
+                .transpose(0, 1)
+            if madd is not None:
+                sim = sim + to_windows(madd, w, grid)[:, :, None, None, :]
+            e = c(torch.exp(sim - sim.amax(-1, keepdim=True)))
+            att = (e @ heads4(v)) / e.sum(-1, keepdim=True)
+            att = att.transpose(2, 3).reshape(B, G, T, D)
+            x1 = tok.float() + proj(c(att), p["wout_t"])
+            f = c(ln_f32(c(x1), *p["ln_f"]))
+            f = c(F.gelu(proj(f, p["w1_t"], p["b1"])))
+            f = proj(f, p["w2_t"], p["b2"])
+            state = from_windows((x1 + f).to(dt), L, H, W, w, grid)
+    st = state.float()
+    if mean_over_valid and agent_mask is not None:
+        am = agent_mask.float()
+        wsum = torch.zeros_like(st[:, 0])
+        tot = torch.zeros_like(am[:, 0])
+        for li in range(L):
+            wsum = wsum + st[:, li] * am[:, li, None, None, None]
+            tot = tot + am[:, li]
+        pooled = wsum / tot.clamp(min=1.0)[:, None, None, None]
+    else:
+        pooled = st.mean(1)
+    t = c(ln_f32(c(pooled), *head["ln"]))
+    return proj(t, head["w_t"], head["b"]).to(dt)
+
+
+def swap_fusion_reference(x, mask, agent_mask, bias_stack, layers, head,
+                          window: int, heads: int,
+                          mean_over_valid: bool = False):
+    """Plain PyTorch version of K4: the TPU body's chain on whole tensors,
+    with the same casts."""
+    p = _packed(layers, bias_stack, head, x.dtype)
+    return _reference(x, mask, agent_mask, p.bias, p.layers, p.head, window,
+                      heads, mean_over_valid)
+
+
+def _lib():
+    lib = _build.load("fused_swap_fusion")
+    P, I, IP = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    f = ctypes.c_float
+    lib.cobevt_fusion_qkv.argtypes = [P, P, P, f, P, IP, I, I, P]
+    lib.cobevt_fusion_attention.argtypes = [P, P, P, f, P, IP, I, I, P]
+    lib.cobevt_fusion_out.argtypes = [P] * 9 + [IP, I, I, P]
+    lib.cobevt_fusion_head.argtypes = [P] * 6 + [IP, I, I, P]
+    for fn in (lib.cobevt_fusion_qkv, lib.cobevt_fusion_attention,
+               lib.cobevt_fusion_out, lib.cobevt_fusion_head):
+        fn.restype = I
+    return lib
+
+
+def _launch_kernel(x, mask, agent_mask, bias, layers, head, window, heads,
+                   mean_over_valid):
+    B, L, H, W, D = x.shape
+    w = window
+    dt, dev = x.dtype, x.device
+    mlp = layers[0][0]["w1_t"].shape[0]
+    if dt not in KERNEL_DTYPES:
+        raise ValueError(f"K4 takes {KERNEL_DTYPES}, got {dt}")
+    if not kernel_accepts(L, H, W, D, w, heads, mlp):
+        raise ValueError(f"K4 does not take L={L}, {H}x{W}, D={D}, "
+                         f"window={w}, heads={heads}, mlp={mlp}")
+    T = L * w * w
+    depth = len(layers)
+    check_operand("x", x, (B, L, H, W, D), dt, dev)
+    check_aligned("x", x)
+    check_operand("bias_stack", bias, (depth, 2, T, heads * T), dt, dev)
+    if mask is not None:
+        check_operand("mask", mask, (B, L, H, W), torch.float32, dev)
+    if agent_mask is not None:
+        check_operand("agent_mask", agent_mask, (B, L), torch.float32, dev)
+    for pair in layers:
+        for p in pair:
+            for name, t in p.items():
+                check_operand(name, t, t.shape, dt, dev)
+    for name, t in head.items():
+        check_operand(name, t, t.shape, dt, dev)
+
+    flag, idx = int(dt == torch.bfloat16), dev.index
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scale = float(torch.tensor((D // heads) ** -0.5, dtype=dt))
+    mask_add = float(torch.tensor(NEG_INF, dtype=dt))
+    rows = B * L * H * W
+    qkv = torch.empty((rows, 3 * D), dtype=dt, device=dev)
+    att = torch.empty((rows, D), dtype=dt, device=dev)
+    bufs = (torch.empty_like(x), torch.empty_like(x))
+    out = torch.empty((B, H, W, D), dtype=dt, device=dev)
+    lib = _lib()
+
+    def launched(err, what):
+        _build.check(err, what)
+        fused_swap_fusion.launches += 1
+
+    def dims(grid):
+        return (ctypes.c_int * 9)(B, L, H, W, D, w, heads, mlp, int(grid))
+
+    state = x
+    for d, pair in enumerate(layers):
+        for half, p in enumerate(pair):
+            dm = dims(half == 1)
+            nxt = bufs[(2 * d + half) % 2]   # ping-pong: never in place
+            launched(lib.cobevt_fusion_qkv(
+                state.data_ptr(), p["ln_a"].data_ptr(),
+                p["wqkv_t"].data_ptr(), scale, qkv.data_ptr(), dm, flag, idx,
+                stream), "fused_swap_fusion qkv")
+            launched(lib.cobevt_fusion_attention(
+                qkv.data_ptr(), bias[d, half].data_ptr(),
+                None if mask is None else mask.data_ptr(), mask_add,
+                att.data_ptr(), dm, flag, idx, stream),
+                "fused_swap_fusion attention")
+            launched(lib.cobevt_fusion_out(
+                att.data_ptr(), state.data_ptr(), p["wout_t"].data_ptr(),
+                p["ln_f"].data_ptr(), p["w1_t"].data_ptr(),
+                p["b1"].data_ptr(), p["w2_t"].data_ptr(),
+                p["b2"].data_ptr(), nxt.data_ptr(), dm, flag, idx, stream),
+                "fused_swap_fusion out")
+            state = nxt
+    am = agent_mask if mean_over_valid else None
+    launched(lib.cobevt_fusion_head(
+        state.data_ptr(), None if am is None else am.data_ptr(),
+        head["ln"].data_ptr(), head["w_t"].data_ptr(), head["b"].data_ptr(),
+        out.data_ptr(), dims(False), flag, idx, stream),
+        "fused_swap_fusion head")
+    return out
+
+
+def fused_swap_fusion(x, mask, agent_mask, bias_stack, layers, head,
+                      window: int, heads: int, mean_over_valid: bool = False,
+                      impl=None):
+    """The SwapFusionEncoder at eval, fused.
+
+    x: (B, L, H, W, D); mask: (B, L, H, W) key mask or None (keys with
+    mask <= 0 get -1e9, in the compute dtype); agent_mask: (B, L), read
+    only with ``mean_over_valid`` (the mean then runs over the live
+    agents, else over all L); bias_stack: (depth, 2, T, heads*T) rel-pos
+    bias of the window and grid halves (T = L*window^2, column block h
+    holding head h); layers: per block a (window, grid) pair of dicts with
+    ln_a / ln_f = (gamma, beta), wqkv (D, 3D), wout (D, D), w1 (D, mlp), b1,
+    w2 (mlp, D), b2; head: {ln: (gamma, beta), w: (D, D), b: (D,)}.
+    ``layers`` may instead be the :func:`pack` of all three, with
+    bias_stack and head None.  Returns (B, H, W, D) in x's dtype.
+
+    ``impl``: None (kernel for CUDA tensors, plain version for CPU
+    tensors), "kernel" or "torch".  The kernel raises on a shape it does
+    not take."""
+    p = _packed(layers, bias_stack, head, x.dtype)
+    use_valid = mean_over_valid and agent_mask is not None
+    if resolve_impl(impl, x) == "torch":
+        return _reference(x, mask, agent_mask, p.bias, p.layers, p.head,
+                          window, heads, use_valid)
+    return _launch_kernel(
+        x.contiguous(), None if mask is None else mask.float().contiguous(),
+        agent_mask.float().contiguous() if use_valid else None, p.bias,
+        p.layers, p.head, window, heads, use_valid)
+
+
+# kernel launches since the last reset (plain-version calls do not count);
+# launches_per_call(depth) per encoder
+fused_swap_fusion.launches = 0

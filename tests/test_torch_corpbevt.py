@@ -2,12 +2,17 @@
 
 Small config of tests/test_corpbevt_parity.py (ResNet-18, 128^2 images,
 max_cav 4, 2 cameras, BEV 64^2), non-identity agent transforms, two
-live-agent counts.  The JAX side runs the stock configuration
-(COBEVT_FUSED_XATTN=0, COBEVT_FUSED_FUSION=0; the fused conv stays on, as
-in the port).  Same numpy weights and inputs, f32 on the CPU.  Tolerance
-on the seg logits: 1e-4 abs / 1e-3 rel (the full graph, summed in another
-order).  Also: the staged runner and serving loop, the weight bridge's
-round trip, and that the package imports without JAX.
+live-agent counts.  Every test runs in two configurations (the
+``switches`` fixture): "stock", both packages at COBEVT_FUSED_XATTN=0 and
+COBEVT_FUSED_FUSION=0; and "fused", the serving default, where the port
+takes K2 for every FAX cross-view branch and K4 for the fusion encoder and
+the JAX package runs its defaults with COBEVT_FUSED_FUSION=force (its K4
+runs only on a TPU or in interpret mode; the port's "force" takes K4 as
+its default does).  The fused conv stays on in both.  Same numpy weights
+and inputs, f32 on the CPU.  Tolerance on the seg logits: 1e-4 abs / 1e-3
+rel (the full graph, summed in another order).  Also: the staged runner
+and serving loop, the weight bridge's round trip under both switch
+settings, and that the package imports without JAX.
 """
 
 import dataclasses
@@ -27,8 +32,10 @@ from cobevt_tpu.utils.torch_port import (
     state_dict_to_numpy,
     torch_to_flax,
 )
+from cobevt_tpu_torch.models import fax as port_fax
 from cobevt_tpu_torch.models.corpbevt import CorpBEVT, CorpBEVTConfig
 from cobevt_tpu_torch.models.fax import FAXConfig
+from cobevt_tpu_torch.models.fusion import swap_fusion as port_fusion
 from cobevt_tpu_torch.tools import serve_camera
 from cobevt_tpu_torch.utils.serving import StagedBucketedRunner
 from tests.test_corpbevt_parity import our_config
@@ -45,10 +52,41 @@ MAX_CAV, M, IMG = 4, 2, 128
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-@pytest.fixture(autouse=True)
-def stock_jax_path(monkeypatch):
-    monkeypatch.setenv("COBEVT_FUSED_XATTN", "0")
-    monkeypatch.setenv("COBEVT_FUSED_FUSION", "0")
+@pytest.fixture(autouse=True, params=["stock", "fused"])
+def switches(request, monkeypatch):
+    if request.param == "stock":
+        monkeypatch.setenv("COBEVT_FUSED_XATTN", "0")
+        monkeypatch.setenv("COBEVT_FUSED_FUSION", "0")
+    else:
+        monkeypatch.delenv("COBEVT_FUSED_XATTN", raising=False)
+        monkeypatch.setenv("COBEVT_FUSED_FUSION", "force")
+    return request.param
+
+
+@pytest.fixture
+def fused_calls(monkeypatch):
+    """Counts the port's calls of the K2 and K4 wrappers."""
+    calls = {"K2": 0, "K4": 0}
+
+    def spy(name, module, attr):
+        real = getattr(module, attr)
+
+        def wrapped(*args, **kwargs):
+            calls[name] += 1
+            return real(*args, **kwargs)
+
+        monkeypatch.setattr(module, attr, wrapped)
+
+    spy("K2", port_fax, "fused_cross_view_attention")
+    spy("K4", port_fusion, "fused_swap_fusion")
+    return calls
+
+
+def expected_calls(switches, frames=1, encodes=1):
+    """Six K2 branches per encode (two per FAX stage), one K4 per fuse."""
+    if switches == "stock":
+        return {"K2": 0, "K4": 0}
+    return {"K2": 6 * encodes, "K4": frames}
 
 
 def port_config(jcfg) -> CorpBEVTConfig:
@@ -91,7 +129,7 @@ def _torch_batch(batch):
 
 
 @pytest.mark.parametrize("n_live", [3, 1])
-def test_full_forward_matches_jax(models, n_live):
+def test_full_forward_matches_jax(models, n_live, switches, fused_calls):
     jm, v, port = models
     batch = make_batch(n_live, seed=n_live)
     want = jax_apply(jm, v, jnp_tree(batch), False)
@@ -99,10 +137,12 @@ def test_full_forward_matches_jax(models, n_live):
         got = port(_torch_batch(batch))
     assert got["dynamic_seg"].shape == (1, 1, 64, 64, 2)
     assert_close(got, want, **TOL)
+    assert fused_calls == expected_calls(switches)
 
 
 @pytest.mark.parametrize("n_live", [3, 2])
-def test_staged_encode_fuse_matches_jax(models, n_live):
+def test_staged_encode_fuse_matches_jax(models, n_live, switches,
+                                        fused_calls):
     jm, v, port = models
     batch = make_batch(n_live, seed=10 + n_live)
     live = {k: a[:, :n_live] for k, a in batch.items()}
@@ -119,6 +159,7 @@ def test_staged_encode_fuse_matches_jax(models, n_live):
     # the port's runner: encode on the live agents, pad, fuse
     got = StagedBucketedRunner(port, MAX_CAV)(batch)
     assert_close(got, want, **TOL)
+    assert fused_calls == expected_calls(switches, frames=1, encodes=2)
     # exact bucketing: the staged frame equals the full padded forward
     with torch.no_grad():
         full = port(_torch_batch(batch))
@@ -159,6 +200,19 @@ def test_bridge_round_trip_gives_the_jax_tree(models):
     for col in v:
         back = fit_to_template(converted[col], v[col])
         jax.tree.map(np.testing.assert_array_equal, back, v[col])
+
+
+def test_state_dict_is_the_same_under_both_switches(monkeypatch):
+    """No switch adds or drops a leaf: the fused and stock paths share one
+    state_dict, so one JAX tree loads into either."""
+    cfg = port_config(our_config())
+    keys = {}
+    for xattn, fusion in (("0", "0"), ("1", "1")):
+        monkeypatch.setenv("COBEVT_FUSED_XATTN", xattn)
+        monkeypatch.setenv("COBEVT_FUSED_FUSION", fusion)
+        sd = CorpBEVT(cfg).state_dict()
+        keys[xattn] = {k: tuple(t.shape) for k, t in sd.items()}
+    assert keys["0"] == keys["1"]
 
 
 def test_bridge_raises_on_leftover_leaves(models):

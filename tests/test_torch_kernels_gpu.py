@@ -5,10 +5,13 @@ with one:
 
   python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 
-builds K1 and K3 with nvcc (sm_90a) on first use (``--noconftest``: the
+builds K1-K4 with nvcc (sm_90a) on first use (``--noconftest``: the
 repo's conftest sets up JAX, which these tests do not need).  Tolerances: f32
 1e-4 abs / 1e-4 rel (sums in another order); bf16 2e-2 abs / 2e-2 rel
-(both sides round an f32 result to bf16 once).
+(both sides round an f32 result to bf16 once, or at the same casts of one
+chain: K2), and for K4 in bf16 5e-2 abs / 2e-2 rel: its residual state is
+rounded to bf16 after each of 2*depth sublayers, and a one-ulp flip at
+|x| ~ 4 (0.03) carries on through the sublayers after it.
 """
 
 import pytest
@@ -17,6 +20,14 @@ import torch
 from cobevt_tpu_torch import ops
 from cobevt_tpu_torch.nn.layers import BasicBlock
 from cobevt_tpu_torch.ops.conv2d import fused_conv3x3
+from cobevt_tpu_torch.ops.fused_cross_attention import (
+    LAUNCHES_PER_CALL,
+    fused_cross_view_attention,
+)
+from cobevt_tpu_torch.ops.fused_swap_fusion import (
+    fused_swap_fusion,
+    launches_per_call,
+)
 from cobevt_tpu_torch.ops.window_attention import (
     fused_window_attention_packed,
 )
@@ -25,6 +36,8 @@ pytestmark = pytest.mark.gpu
 
 TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
        torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+K4_TOL = {torch.float32: TOL[torch.float32],
+          torch.bfloat16: dict(atol=5e-2, rtol=2e-2)}
 
 
 @pytest.fixture
@@ -113,3 +126,133 @@ def test_kernel_rejects_what_it_does_not_take(gen):
     with pytest.raises(ValueError, match="C % 16"):
         fused_conv3x3(x, torch.randn(3, 3, 8, 8, device="cuda"),
                       torch.zeros(8, device="cuda"))
+
+
+def _rand(gen, *shape, scale=1.0):
+    return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+
+def _ln(gen, D):
+    return 1.0 + 0.1 * _rand(gen, D), 0.1 * _rand(gen, D)
+
+
+def k2_operands(gen, B, n, H, W, D, C, h, w, embed, tail):
+    x, key, val = (_rand(gen, B, H, W, D), _rand(gen, B, n, h, w, D),
+                   _rand(gen, B, n, h, w, D))
+    w_embed = _rand(gen, H, W, D) if embed else None
+    c_embed = _rand(gen, B, n, D) if embed else None
+    params = dict(ln_q=_ln(gen, D), ln_k=_ln(gen, D), ln_v=_ln(gen, D))
+    for name, (i, o) in (("q", (D, C)), ("k", (D, C)), ("v", (D, C)),
+                         ("o", (C, D))):
+        params[f"w{name}"] = _rand(gen, i, o, scale=i ** -0.5)
+        params[f"b{name}"] = _rand(gen, o, scale=0.1)
+    mlp = post_ln = None
+    if tail:
+        mlp = {"ln": _ln(gen, D), "w1": _rand(gen, D, 2 * D, scale=D ** -0.5),
+               "b1": _rand(gen, 2 * D, scale=0.1),
+               "w2": _rand(gen, 2 * D, D, scale=(2 * D) ** -0.5),
+               "b2": _rand(gen, D, scale=0.1)}
+        post_ln = _ln(gen, D)
+    return x, w_embed, c_embed, key, val, params, mlp, post_ln
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    # (B, n, H, W, D, C, h, w, q_win, k_win, heads, embed, tail, grid, skip)
+    (2, 4, 32, 32, 128, 128, 16, 16, (8, 8), (4, 4), 4, True, True, False,
+     True),
+    (2, 4, 32, 32, 128, 128, 16, 16, (8, 8), (4, 4), 4, False, True, True,
+     True),
+    # a branch without embed or MLP, no skip, head dim 16
+    (3, 2, 16, 24, 32, 32, 8, 12, (8, 8), (4, 4), 2, False, False, False,
+     False),
+    # head dim 8, ragged query tiles (40 rows a window), grid keys
+    (1, 3, 20, 16, 64, 64, 8, 8, (10, 4), (4, 2), 8, True, False, True,
+     True),
+])
+def test_k2_kernel_matches_plain(gen, dtype, case):
+    B, n, H, W, D, C, h, w, q_win, k_win, heads, embed, tail, grid, skip = \
+        case
+    x, we, ce, key, val, params, mlp, post_ln = k2_operands(
+        gen, B, n, H, W, D, C, h, w, embed, tail)
+
+    def cast(t):
+        return None if t is None else t.to(dtype)
+
+    args = (cast(x), cast(we), cast(ce), cast(key), cast(val), params, q_win,
+            k_win, heads, (C // heads) ** -0.5, skip)
+    before = fused_cross_view_attention.launches
+    got = fused_cross_view_attention(*args, mlp=mlp, post_ln=post_ln,
+                                     grid_keys=grid)
+    assert fused_cross_view_attention.launches == before + LAUNCHES_PER_CALL
+    want = fused_cross_view_attention(*args, mlp=mlp, post_ln=post_ln,
+                                      grid_keys=grid, impl="torch")
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (B, H, W, D)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def k4_operands(gen, B, L, H, W, D, w, heads, depth, mlp):
+    T = L * w * w
+
+    def layer():
+        return {"ln_a": _ln(gen, D), "wqkv": _rand(gen, D, 3 * D,
+                                                    scale=D ** -0.5),
+                "wout": _rand(gen, D, D, scale=D ** -0.5), "ln_f": _ln(gen, D),
+                "w1": _rand(gen, D, mlp, scale=D ** -0.5),
+                "b1": _rand(gen, mlp, scale=0.1),
+                "w2": _rand(gen, mlp, D, scale=mlp ** -0.5),
+                "b2": _rand(gen, D, scale=0.1)}
+
+    layers = [(layer(), layer()) for _ in range(depth)]
+    bias = _rand(gen, depth, 2, T, heads * T, scale=0.5)
+    head = {"ln": _ln(gen, D), "w": _rand(gen, D, D, scale=D ** -0.5),
+            "b": _rand(gen, D, scale=0.1)}
+    return _rand(gen, B, L, H, W, D), layers, bias, head
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    # (B, L, H, W, D, window, heads, depth, mlp, mask, mean_over_valid)
+    (1, 5, 32, 32, 128, 8, 4, 3, 256, "random", False),   # CorpBEVT
+    (2, 3, 16, 16, 64, 4, 2, 2, 128, "mostly_masked", True),
+    (2, 4, 16, 8, 32, 4, 4, 1, 32, None, True),            # head dim 8
+    (1, 2, 8, 24, 32, 4, 2, 2, 48, "random", False),       # head dim 16
+])
+def test_k4_kernel_matches_plain(gen, dtype, case):
+    B, L, H, W, D, w, heads, depth, mlp, mask_kind, valid = case
+    x, layers, bias, head = k4_operands(gen, B, L, H, W, D, w, heads, depth,
+                                        mlp)
+    mask = None
+    if mask_kind is not None:
+        mask = (torch.rand(B, L, H, W, generator=gen, device="cuda")
+                > 0.3).float()
+        mask[:, 0] = 1.0
+        if mask_kind == "mostly_masked":
+            # window (0, 0) and grid cell (0, 0) keep one live key each
+            mask[:, :, :w, :w] = 0.0
+            mask[:, :, ::H // w, ::W // w] = 0.0
+            mask[:, 0, 0, 0] = 1.0
+    agent_mask = torch.ones(B, L, device="cuda")
+    agent_mask[:, -1] = 0.0
+    args = (x.to(dtype), mask, agent_mask, bias, layers, head, w, heads, valid)
+    before = fused_swap_fusion.launches
+    got = fused_swap_fusion(*args)
+    assert fused_swap_fusion.launches == before + launches_per_call(depth)
+    want = fused_swap_fusion(*args, impl="torch")
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (B, H, W, D)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), **K4_TOL[dtype])
+
+
+def test_fused_kernels_reject_what_they_do_not_take(gen):
+    x, we, ce, key, val, params, _, _ = k2_operands(
+        gen, 1, 2, 16, 16, 64, 64, 8, 8, True, False)
+    with pytest.raises(ValueError, match="K2 does not take"):   # head dim 64
+        fused_cross_view_attention(x, we, ce, key, val, params, (8, 8),
+                                   (4, 4), 1, 1.0)
+    x, layers, bias, head = k4_operands(gen, 1, 3, 12, 12, 32, 3, 2, 1, 32)
+    with pytest.raises(ValueError, match="K4 does not take"):
+        fused_swap_fusion(x, None, None, bias, layers, head, 3, 2)

@@ -143,7 +143,9 @@ def test_cpu_tensors_run_plain_versions_without_launching():
     x = torch.randn(1, 4, 4, 16)
     fused_conv3x3(x, torch.randn(3, 3, 16, 16), torch.zeros(16))
     assert ops.launch_counts() == {"fused_window_attention_packed": 0,
-                                   "fused_conv3x3": 0}
+                                   "fused_cross_view_attention": 0,
+                                   "fused_conv3x3": 0,
+                                   "fused_swap_fusion": 0}
 
 
 def test_kernel_impl_on_cpu_raises():
