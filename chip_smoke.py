@@ -7,13 +7,17 @@ Phases, all under main(); any failure raises and the process exits
 non-zero without printing the final line:
 
   1. environment: torch, CUDA, nvcc, the card's name and power limit;
-  2. build: compiles K1 (csrc/window_attention.cu), K2
-     (csrc/fused_cross_attention.cu), K3 (csrc/conv3x3.cu) and K4
-     (csrc/fused_swap_fusion.cu) with nvcc for sm_90a from the checkout's
-     sources, one nvcc process each, all started together;
+  2. build: compiles K1 and K8 (csrc/window_attention.cu), K2
+     (csrc/fused_cross_attention.cu), K3 (csrc/conv3x3.cu), K4
+     (csrc/fused_swap_fusion.cu) and K5 (csrc/window_attention_bwd.cu) with
+     nvcc for sm_90a from the checkout's sources, one nvcc process each, all
+     started together;
   3. kernels vs plain: every kernel against its plain PyTorch version on
-     the card at every shape of the CorpBEVT serving forward (5 agents x 4
-     cameras x 512^2, BEV 256^2), in f32 and bf16, timed with CUDA events;
+     the card at every shape of the CorpBEVT serving forward and train step
+     (5 agents x 4 cameras x 512^2, BEV 256^2), in f32 and bf16, timed with
+     CUDA events, each beside its bound (the larger of its bytes over 3.35
+     TB/s and its operations over 989 TFLOP/s) and, where one PyTorch call
+     computes the same function, that call's time;
   4. slice, the serving default (COBEVT_FUSED_XATTN and
      COBEVT_FUSED_FUSION unset): full-width CorpBEVT (ResNet-34, seeded
      random weights) in bf16 serves synthetic requests with mixed
@@ -23,7 +27,15 @@ non-zero without printing the final line:
      dynamic_seg);
   5. stock path (both switches "0"): a shorter run with 13 K1 and 20 K3
      launches per frame, and the argmax IoU of its bf16 output against the
-     fused path's on one frame.
+     fused path's on one frame;
+  6. train: a few optimizer steps of full-width CorpBEVT in bf16 (f32
+     master parameters) on the seeded synthetic batch, through the code of
+     cobevt_tpu_torch/tools/benchmark.py: every step runs 13 K1 and 12 K5
+     launches and none of K2, K3, K4, with finite loss and gradient norm;
+     then the gradient gate of tools/validate_kernels.py (K1 + K5 against
+     COBEVT_FLASH_BWD=0, same dropout seed);
+  7. K8: the head-major entry point, forward and gradients, at the
+     self-attention and the fusion shape.
 
 The last stdout lines are the kernels JSON line, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.  Imports
@@ -60,6 +72,28 @@ K1_CASES = [
     ("fusion_fully_masked_window", 16, 320, 320, True, True, False, 0, 0),
 ]
 K1_HEADS, K1_HEAD_DIM = 4, 32
+# K5: the backward of every weight-free K1 call of a train step (name, G,
+# Tq, Tk, bias, mask, calls per step); the 13th attention of a step, the
+# self-attention with its dropout weight, takes the composite backward
+K5_CASES = [
+    ("fax_local_stage0", 320, 1024, 256, False, False, 1),
+    ("fax_grid_stage0", 320, 256, 256, False, False, 1),
+    ("fax_stage1", 80, 256, 256, False, False, 2),
+    ("fax_stage2", 5, 1024, 1024, False, False, 2),
+    ("fusion", 16, 320, 320, True, True, 6),
+    # off the train step: dropout-free self-attention and the other operand
+    # combinations
+    ("fax_self_attn_no_dropout", 5, 1024, 1024, True, False, 0),
+    ("fusion_bias_only", 16, 320, 320, True, False, 0),
+    ("fusion_mask_only", 16, 320, 320, False, True, 0),
+    ("fusion_fully_masked_window", 16, 320, 320, True, True, 0),
+]
+# K8: head-major attention (name, G, Tq, Tk, bias, mask)
+K8_CASES = [
+    ("fax_self_attn", 5, 1024, 1024, True, False),
+    ("fax_local_stage0", 320, 1024, 256, False, False),
+    ("fusion", 16, 320, 320, True, True),
+]
 # (name, N, H, W, C=O, residual, launches per frame); N = 5 agents x 4 cams
 K3_CASES = [
     ("layer2", 20, 64, 64, 128, False, 3),
@@ -96,6 +130,21 @@ K4_CASES = [
 # one-ulp flip at |x| ~ 4 (0.03) carries on: 5e-2 abs.
 TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
 K4_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (5e-2, 2e-2)}
+# K5: dq, dk, dv and dbias are sums of up to 1024 terms, so the tolerance is
+# a share of the plain result's largest value: f32 1e-4 (sums in another
+# order; dbias also sums the windows with atomics, in any order), bf16 2e-2
+# (the kernel takes the row maximum per head, the plain version over all
+# heads as the TPU body does, so the exp rounds to bf16 elsewhere: one bf16
+# ulp on a weight, summed with random signs).
+K5_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the card's published peaks (NVIDIA H100 SXM data sheet)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+TRAIN_STEPS = 3
+TRAIN_PER_STEP = {"fused_window_attention_packed": 13,
+                  "fused_window_attention_packed_bwd": 12,
+                  "fused_cross_view_attention": 0, "fused_conv3x3": 0,
+                  "fused_swap_fusion": 0, "fused_window_attention": 0}
 SERVE_AGENTS = [5, 3, 1, 4, 2, 5, 3, 5, 2, 4]
 STOCK_AGENTS = [5, 2, 4]
 # launches per frame on each path: K2 6 branches x 4, K4 3 blocks x 2
@@ -108,7 +157,7 @@ STOCK_PER_FRAME = {"fused_window_attention_packed": 13,
                    "fused_cross_view_attention": 0,
                    "fused_conv3x3": 20, "fused_swap_fusion": 0}
 KERNELS = ("window_attention", "fused_cross_attention", "conv3x3",
-           "fused_swap_fusion")
+           "fused_swap_fusion", "window_attention_bwd")
 IOU_FLOOR = 0.99
 
 
@@ -153,6 +202,35 @@ def compare(got, want, dtype_name, tol=TOL):
     rel_err = abs_err / (float(w.abs().max()) + 1e-12)
     worst = float((diff - (atol + rtol * w.abs())).max())
     return abs_err, rel_err, worst <= 0
+
+
+def compare_scaled(got, want, dtype_name):
+    """|kernel - plain| <= tol * (max|plain| + |plain|): K5's check."""
+    import torch
+    tol = K5_TOL[dtype_name]
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        raise AssertionError("kernel output has non-finite values")
+    scale = max(float(w.abs().max()), 1e-3)
+    diff = (g - w).abs()
+    abs_err = float(diff.max())
+    worst = float((diff - tol * (scale + w.abs())).max())
+    return abs_err, abs_err / scale, worst <= 0
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(flops, bytes_, dtype_name):
+    """The least time (ms) the card could take: the larger of the bytes
+    (each input read once, each output written once) over the memory rate
+    and the operations over the peak rate of their type."""
+    t_bytes = bytes_ / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bytes_ms": t_bytes,
+            "ops_ms": t_ops,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def argmax_iou(a, b):
@@ -302,6 +380,55 @@ def k4_inputs(case, dtype, gen):
             head, w, heads)
 
 
+def sdpa_mask(bias_flat, mask, dtype):
+    """Packed bias (Tq, H*Tk) and key mask (G, Tk) as the additive
+    ``attn_mask`` of ``scaled_dot_product_attention``, or None."""
+    import torch
+    add = None
+    if bias_flat is not None:
+        Tq = bias_flat.shape[0]
+        add = bias_flat.reshape(Tq, K1_HEADS, -1).permute(1, 0, 2)[None]
+        add = add.to(dtype)
+    if mask is not None:
+        m = torch.where(mask > 0, 0.0, -1e9)[:, None, None, :].to(dtype)
+        add = m if add is None else add + m
+    if add is not None:
+        add = add.contiguous()
+    return add
+
+
+def attention_work(G, Tq, Tk, products):
+    """Operations of ``products`` (Tq x Tk x D) products per (window, head):
+    2 for a forward, 5 for the backward."""
+    return 2.0 * products * G * K1_HEADS * Tq * Tk * K1_HEAD_DIM
+
+
+def k2_work(case, dtype_size):
+    """(operations, bytes) of one FAX cross-view branch."""
+    _, H, h, q_win, k_win, embed, _, _ = case
+    B, n, D = K2_B, K2_CAMS, K2_DIM
+    nq = n if embed else 1
+    rows_k, rows_q, rows_o = B * n * h * h, B * nq * H * H, B * H * H
+    windows = B * (H // q_win) ** 2
+    flops = 2.0 * D * D * (2 * rows_k + rows_q + rows_o + 4 * rows_o)
+    flops += 4.0 * windows * nq * q_win ** 2 * n * k_win ** 2 * D
+    elems = 2 * rows_k * D + 2 * rows_o * D + 8 * D * D
+    if embed:
+        elems += H * H * D + B * n * D
+    return flops, elems * dtype_size
+
+
+def k4_work(dtype_size):
+    """(operations, bytes) of the FuseBEVT encoder at CorpBEVT."""
+    B, L, H, D, w, depth, mlp = 1, 5, 32, 128, 8, 3, 256
+    rows, T, G = B * L * H * H, L * w * w, B * (H // w) ** 2
+    sub = 2.0 * rows * D * (3 * D + D + 2 * mlp) + 4.0 * G * T * T * D
+    flops = 2 * depth * sub + 2.0 * B * H * H * D * D
+    weights = 2 * depth * (4 * D * D + 2 * D * mlp) + D * D
+    elems = rows * D + B * H * H * D + weights + 2 * depth * T * 4 * T
+    return flops, elems * dtype_size + B * L * H * H * 4
+
+
 def phase_kernels():
     """Every kernel vs its plain version at every slice shape, f32 and
     bf16.  Returns one row per (case, dtype); raises if any disagrees."""
@@ -315,7 +442,9 @@ def phase_kernels():
     from cobevt_tpu_torch.ops.fused_swap_fusion import fused_swap_fusion, pack
     from cobevt_tpu_torch.ops.window_attention import (
         _packed_to_4d,
+        fused_window_attention,
         fused_window_attention_packed,
+        fused_window_attention_packed_bwd,
     )
     log("== kernels vs plain versions (CUDA events, after warmup)")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -341,11 +470,17 @@ def phase_kernels():
                    "max_rel_err": rel_err, "ok": ok,
                    "ms": time_ms(lambda: attn("kernel"), iters),
                    "plain_ms": time_ms(lambda: attn("torch"), iters)}
-            if bias is None and mask is None and weight is None:
+            row.update(bound(attention_work(*case[1:4], 2),
+                             nbytes(q, k, v, got, bias, mask, weight), dname))
+            if weight is None:
+                # one library call expresses bias and mask as an additive
+                # mask; the dropout weight it cannot take
                 q4, k4, v4 = (_packed_to_4d(t, K1_HEADS) for t in (q, k, v))
-                row["library_sdpa_ms"] = time_ms(
-                    lambda: F.scaled_dot_product_attention(q4, k4, v4,
-                                                           scale=1.0), iters)
+                add = sdpa_mask(bias, mask, dtype)
+                row["library_ms"] = time_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        q4, k4, v4, attn_mask=add, scale=1.0), iters)
+                del q4, k4, v4, add
             details.append(row)
             if not ok:
                 failures.append(row)
@@ -367,8 +502,11 @@ def phase_kernels():
                    "max_rel_err": rel_err, "ok": ok,
                    "ms": time_ms(lambda: conv("kernel"), 5),
                    "plain_ms": time_ms(lambda: conv("torch"), 5),
-                   "library_cudnn_conv_ms": time_ms(
+                   "library_ms": time_ms(
                        lambda: F.conv2d(x_cl, w_oihw, padding=1), 5)}
+            _, N, H, W, C = case[:5]
+            row.update(bound(2.0 * N * H * W * 9 * C * C,
+                             nbytes(x, w, shift, res, got), dname))
             details.append(row)
             if not ok:
                 failures.append(row)
@@ -394,6 +532,7 @@ def phase_kernels():
                    "max_rel_err": rel_err, "ok": ok,
                    "ms": time_ms(lambda: xattn("kernel"), 5),
                    "plain_ms": time_ms(lambda: xattn("torch"), 5)}
+            row.update(bound(*k2_work(case, x.element_size()), dname))
             details.append(row)
             if not ok:
                 failures.append(row)
@@ -416,17 +555,113 @@ def phase_kernels():
                    "max_rel_err": rel_err, "ok": ok,
                    "ms": time_ms(lambda: fusion("kernel"), 10),
                    "plain_ms": time_ms(lambda: fusion("torch"), 10)}
+            row.update(bound(*k4_work(x.element_size()), dname))
             details.append(row)
             if not ok:
                 failures.append(row)
             del x, mask, am, bias, layers, head, packed, got, want
+        for case in K5_CASES:
+            name, G, Tq, Tk, has_bias, has_mask, per_step = case
+            q, k, v, bias, mask, _ = k1_inputs(
+                (name, G, Tq, Tk, has_bias, has_mask, False), dtype, gen)
+            g = torch.randn(G, Tq, K1_HEADS * K1_HEAD_DIM, generator=gen,
+                            device="cuda").to(dtype)
+            out = fused_window_attention_packed(q, k, v, K1_HEADS, bias, mask,
+                                                impl="kernel")
+
+            def bwd(impl):
+                return fused_window_attention_packed_bwd(
+                    q, k, v, g, out, K1_HEADS, bias, mask, impl=impl)
+
+            got, want = bwd("kernel"), bwd("torch")
+            torch.cuda.synchronize()
+            errs = {}
+            ok = True
+            for part, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+                if (a is None) != (b is None) or (a is None) != (
+                        part == "dbias" and bias is None):
+                    raise AssertionError(f"K5 {name}: {part} presence")
+                if a is not None:
+                    abs_err, rel_err, part_ok = compare_scaled(a, b, dname)
+                    errs[part] = (abs_err, rel_err)
+                    ok = ok and part_ok
+            iters = 3 if G * Tq * Tk > 5e7 else 10
+            row = {"kernel": "K5", "case": name, "dtype": dname,
+                   "per_frame": per_step,
+                   "max_abs_err": max(e[0] for e in errs.values()),
+                   "max_rel_err": max(e[1] for e in errs.values()),
+                   "errors": {k_: list(e) for k_, e in errs.items()},
+                   "ok": ok, "ms": time_ms(lambda: bwd("kernel"), iters)}
+            del want
+            row["plain_ms"] = time_ms(lambda: bwd("torch"), 2, warmup=1)
+            row.update(bound(
+                attention_work(G, Tq, Tk, 5),
+                nbytes(q, k, v, g, out, bias, mask, *got), dname))
+            # library yardstick: forward + backward of one
+            # scaled_dot_product_attention call, less its forward
+            leaves = [_packed_to_4d(t, K1_HEADS).contiguous().requires_grad_()
+                      for t in (q, k, v)]
+            add = sdpa_mask(bias, mask, dtype)
+            if add is not None and bias is not None:
+                add = add.requires_grad_()
+            g4 = _packed_to_4d(g, K1_HEADS).contiguous()
+
+            def sdpa(backward):
+                o = F.scaled_dot_product_attention(*leaves, attn_mask=add,
+                                                   scale=1.0)
+                if backward:
+                    o.backward(g4)
+
+            row["library_ms"] = max(
+                time_ms(lambda: sdpa(True), iters)
+                - time_ms(lambda: sdpa(False), iters), 0.0)
+            details.append(row)
+            if not ok:
+                failures.append(row)
+            del q, k, v, g, out, bias, mask, got, leaves, add, g4
+        for case in K8_CASES:
+            name, G, Tq, Tk, has_bias, has_mask = case
+            q, k, v, bias, mask, _ = k1_inputs(
+                (name, G, Tq, Tk, has_bias, has_mask, False), dtype, gen)
+            q, k, v = (_packed_to_4d(t, K1_HEADS).contiguous()
+                       for t in (q, k, v))
+            if bias is not None:
+                bias = bias.reshape(Tq, K1_HEADS, Tk).permute(
+                    1, 0, 2).contiguous()
+
+            def hm(impl):
+                return fused_window_attention(q, k, v, bias, mask, impl=impl)
+
+            got, want = hm("kernel"), hm("torch")
+            torch.cuda.synchronize()
+            abs_err, rel_err, ok = compare(got, want, dname)
+            iters = 3 if G * Tq * Tk > 5e7 else 10
+            add = sdpa_mask(None, mask, dtype)
+            if bias is not None:
+                add = bias[None].to(dtype) if add is None else \
+                    add + bias[None].to(dtype)
+            row = {"kernel": "K8", "case": name, "dtype": dname,
+                   "per_frame": 1, "max_abs_err": abs_err,
+                   "max_rel_err": rel_err, "ok": ok,
+                   "ms": time_ms(lambda: hm("kernel"), iters),
+                   "plain_ms": time_ms(lambda: hm("torch"), iters),
+                   "library_ms": time_ms(
+                       lambda: F.scaled_dot_product_attention(
+                           q, k, v, attn_mask=add, scale=1.0), iters)}
+            row.update(bound(attention_work(G, Tq, Tk, 2),
+                             nbytes(q, k, v, got, bias, mask), dname))
+            details.append(row)
+            if not ok:
+                failures.append(row)
+            del q, k, v, bias, mask, got, want, add
     for r in details:
-        extra = "".join(f"  {k}={r[k]:.3f}" for k in r if k.startswith(
-            "library"))
+        extra = f"  library={r['library_ms']:.3f} ms" \
+            if r.get("library_ms") is not None else ""
         log(f"{r['kernel']} {r['case']:<28} {r['dtype']:<8} "
             f"abs={r['max_abs_err']:.2e} rel={r['max_rel_err']:.2e} "
             f"{'ok ' if r['ok'] else 'BAD'} kernel={r['ms']:.3f} ms "
-            f"plain={r['plain_ms']:.3f} ms{extra}")
+            f"plain={r['plain_ms']:.3f} ms bound={r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}){extra}")
     if failures:
         raise AssertionError(f"{len(failures)} kernel cases disagree with "
                              f"their plain versions: "
@@ -564,6 +799,96 @@ def phase_slice(seed=0):
         "stock_counts": stock_counts, "stock_serve": stock}
 
 
+def phase_train(seed=0):
+    """A few optimizer steps at corpbevt.yaml width in bf16 through the
+    code of tools/benchmark.py, with exact launch counts per step, then the
+    K1 + K5 against stock-autograd gradient gate."""
+    import torch
+    from cobevt_tpu_torch import ops
+    from cobevt_tpu_torch.tools import benchmark, validate_kernels
+
+    log("== train: CorpBEVT 5 agents x 4 cameras x 512^2, BEV 256^2, bf16 "
+        "compute, f32 master parameters, B 1")
+    opt = benchmark.parse_args(["--train", "--iters", str(TRAIN_STEPS),
+                                "--warmup", "1", "--seed", str(seed)])
+    device = torch.device("cuda", torch.cuda.current_device())
+    model, batch, _ = benchmark.build_corpbevt(opt.max_cav, opt.seed, device)
+    ops.reset_launch_counts()
+    row = benchmark.measure_train(model, opt.model, batch, opt, device)
+    counts = ops.launch_counts()
+    log("train " + json.dumps(row))
+    log(f"train launches over {TRAIN_STEPS} steps after one warmup step: "
+        f"{counts}")
+    for fn, n in TRAIN_PER_STEP.items():
+        if counts[fn] != n * TRAIN_STEPS:
+            raise AssertionError(f"train: {fn} ran {counts[fn]} launches over "
+                                 f"{TRAIN_STEPS} steps, expected {n} each")
+    import math
+    if not (math.isfinite(row["loss"]) and math.isfinite(row["grad_norm"])):
+        raise AssertionError(f"train: loss {row['loss']}, gradient norm "
+                             f"{row['grad_norm']}")
+    del model, batch
+    torch.cuda.empty_cache()
+
+    log("== gradient gate: K1 + K5 vs COBEVT_FLASH_BWD=0, one step, bf16")
+    gate = validate_kernels.validate_train(device, bf16=True, seed=seed)
+    log("gate " + json.dumps(gate))
+    for fn in ("fused_window_attention_packed",
+               "fused_window_attention_packed_bwd"):
+        if gate["launches"][fn] != TRAIN_PER_STEP[fn]:
+            raise AssertionError(f"gate: {fn} ran {gate['launches'][fn]}")
+    if not gate["ok"]:
+        raise AssertionError("gradient gate failed: " + json.dumps(gate))
+    torch.cuda.empty_cache()
+    return counts, row, gate
+
+
+def phase_k8(seed=0):
+    """The head-major entry point as a caller uses it: forward and
+    gradients through autograd at the self-attention and the fusion shape,
+    against the plain version.  Returns the launch count."""
+    import torch
+    from cobevt_tpu_torch import ops
+    from cobevt_tpu_torch.ops.window_attention import fused_window_attention
+
+    log("== K8: fused_window_attention forward + gradients, bf16")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dtype = torch.bfloat16
+    ops.reset_launch_counts()
+    for name, G, Tq, Tk, has_bias, has_mask in K8_CASES[::2]:
+        def randn(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda")
+
+        q = (randn(G, K1_HEADS, Tq, K1_HEAD_DIM) * K1_HEAD_DIM ** -0.5).to(
+            dtype)
+        k = randn(G, K1_HEADS, Tk, K1_HEAD_DIM).to(dtype)
+        v = randn(G, K1_HEADS, Tk, K1_HEAD_DIM).to(dtype)
+        bias = randn(K1_HEADS, Tq, Tk) * 0.5 if has_bias else None
+        mask = ((torch.rand(G, Tk, generator=gen, device="cuda") > 0.3)
+                .float() if has_mask else None)
+        g = randn(G, K1_HEADS, Tq, K1_HEAD_DIM).to(dtype)
+        results = {}
+        for impl in ("kernel", "torch"):
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            b = None if bias is None else bias.clone().requires_grad_()
+            out = fused_window_attention(*leaves, b, mask, impl=impl)
+            out.backward(g)
+            results[impl] = [out.detach()] + [t.grad for t in leaves] + (
+                [] if b is None else [b.grad])
+        torch.cuda.synchronize()
+        for part, a, w in zip(("out", "dq", "dk", "dv", "dbias"),
+                              results["kernel"], results["torch"]):
+            abs_err, rel_err, ok = compare_scaled(a, w, "bfloat16")
+            log(f"K8 {name} {part}: abs={abs_err:.2e} rel={rel_err:.2e} "
+                f"{'ok' if ok else 'BAD'}")
+            if not ok:
+                raise AssertionError(f"K8 {name}: {part} disagrees")
+    launches = ops.launch_counts()["fused_window_attention"]
+    if launches != len(K8_CASES[::2]):
+        raise AssertionError(f"K8 ran {launches} launches")
+    return launches
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default=None,
@@ -580,7 +905,10 @@ def main(argv=None):
     phase_build()
     details = phase_kernels()
     counts, summary, plain, ref_check = phase_slice()
+    train_counts, train_row, gate = phase_train()
+    k8_launches = phase_k8()
 
+    # (wrapper, source, TPU kernel, launches on its path)
     sources = {
         "K1": ("fused_window_attention_packed",
                "cobevt_tpu_torch/csrc/window_attention.cu",
@@ -593,25 +921,50 @@ def main(argv=None):
         "K4": ("fused_swap_fusion",
                "cobevt_tpu_torch/csrc/fused_swap_fusion.cu",
                "cobevt_tpu/ops/fused_swap_fusion.py:232"),
+        "K5": ("fused_window_attention_packed_bwd",
+               "cobevt_tpu_torch/csrc/window_attention_bwd.cu",
+               "cobevt_tpu/ops/window_attention.py:671"),
+        "K8": ("fused_window_attention",
+               "cobevt_tpu_torch/csrc/window_attention.cu",
+               "cobevt_tpu/ops/window_attention.py:899"),
     }
+    launches = dict(counts)
+    launches["fused_window_attention_packed_bwd"] = train_counts[
+        "fused_window_attention_packed_bwd"]
+    launches["fused_window_attention"] = k8_launches
     kernels = []
     for key, (fn, src, replaces) in sources.items():
         rows = [r for r in details if r["kernel"] == key]
-        bf16 = [r for r in rows if r["dtype"] == "bfloat16"]
+        # one 5-agent frame's calls on the fused serving path (K1-K4), one
+        # train step's calls (K5), one call at each shape (K8), bf16
+        bf16 = [r for r in rows
+                if r["dtype"] == "bfloat16" and r["per_frame"]]
+
+        def total(field):
+            return sum(r[field] * r["per_frame"] for r in bf16)
+
+        library = None
+        if all(r.get("library_ms") is not None for r in bf16):
+            library = total("library_ms")
+        if launches[fn] <= 0:
+            raise AssertionError(f"{fn} was launched no time on its path")
         kernels.append({
             "name": fn, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": counts[fn],
+            "launches": launches[fn],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
-            # one 5-agent frame's calls on the fused path, bf16
-            "ms": sum(r["ms"] * r["per_frame"] for r in bf16),
-            "plain_ms": sum(r["plain_ms"] * r["per_frame"] for r in bf16),
+            "ms": total("ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": total("bound_ms"),
+            "bound_by": ("bytes" if total("bytes_ms") >= total("ops_ms")
+                         else "operations"),
+            "library_ms": library,
         })
     if opt.out:
         os.makedirs(os.path.dirname(os.path.abspath(opt.out)), exist_ok=True)
         with open(opt.out, "w") as f:
             json.dump({"cases": details, "serve": summary,
                        "serve_plain": plain, "reference": ref_check,
-                       "kernels": kernels, "card": card_line(),
+                       "train": train_row, "train_counts": train_counts,
+                       "gradient_gate": gate, "kernels": kernels, "card": card_line(),
                        "torch": torch.__version__,
                        "cuda": torch.version.cuda,
                        "seconds": time.perf_counter() - t0}, f, indent=1)

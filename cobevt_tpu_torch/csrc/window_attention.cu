@@ -12,9 +12,12 @@
 //   (G, Tq, H*D) in q's dtype.  f32 or bf16, D in {16, 32}, Tq and Tk
 //   multiples of 8.
 //
-// What bounds it on the H100: the work is two (Tq x Tk x D) products per
-// (window, head); at the CorpBEVT shapes that is ~70 GFLOP a frame against
-// a few hundred MB of q/k/v/bias traffic, so it is bound by arithmetic.
+// What bounds it on the H100: two (Tq x Tk x D) products per (window, head)
+// against q/k/v in and the output out: Tq Tk / (Tq + Tk) operations per
+// byte in bf16, 128 to 512 at the CorpBEVT shapes, around the card's ~295.
+// So the bytes bind for the 256-key windows (0.063 ms at the largest shape,
+// G 320, 1024 x 256, with the arithmetic at 0.043 ms) and the arithmetic for
+// the 1024 x 1024 ones.
 // Both kernels are flash style: one block per (window, head, query tile),
 // key tiles streamed through shared memory, an online softmax with f32
 // running max, sum and accumulator, so the similarity matrix never leaves
@@ -32,7 +35,15 @@
 //    query row; k/v tiles are read from shared memory as warp-wide
 //    broadcasts.
 //
-// Numerics differ from the TPU body in one documented place: there the
+// K8, the head-major twin (cobevt_tpu/ops/window_attention.py:
+// fused_window_attention -> _forward_core -> _attn_body), runs the same two
+// kernels through another Layout: q (G, H, Tq, D), k/v (G, H, Tk, D), bias
+// (H, Tq, Tk), no weight.  _attn_body sums the exp in f32 before it rounds
+// it for the e v product, which is what these kernels do, so K8 needs no
+// numeric switch: only the strides differ (entry point
+// cobevt_window_attention_hm).  The same bound holds: arithmetic.
+//
+// Numerics differ from the TPU body of K1 in one documented place: there the
 // exp is rounded to bf16 once and that value feeds both the sum and the AV
 // product.  The bf16 kernel rounds the probabilities to bf16 for the P v
 // product (as the TPU does) but sums them in f32; the f32 kernel keeps
@@ -52,6 +63,26 @@ constexpr int kBlockQ = 64;  // query rows per block, one per thread
 constexpr int kBlockK = 32;  // keys per shared-memory tile
 constexpr float kMaskAdd = -1e9f;
 
+// Where element (window, head, row, d) of q/out and of k/v lives, and where
+// bias (head, row, key) lives: packed (K1) or head-major (K8).
+struct Layout {
+  long long q_win, kv_win;    // elements between windows
+  long long q_head, kv_head;  // elements between heads
+  int ldq, ldkv;              // elements between rows
+  long long b_head;           // bias: elements between heads
+  long long ldb;              // bias: elements between query rows
+};
+
+inline Layout packed_layout(int Tq, int Tk, int H, int D) {
+  const long long C = (long long)H * D;
+  return {Tq * C, Tk * C, D, D, (int)C, (int)C, Tk, (long long)H * Tk};
+}
+
+inline Layout head_major_layout(int Tq, int Tk, int H, int D) {
+  return {(long long)H * Tq * D, (long long)H * Tk * D, (long long)Tq * D,
+          (long long)Tk * D, D, D, (long long)Tq * Tk, Tk};
+}
+
 // f32 path.  grid: (ceil(Tq / kBlockQ), H, G); block: kBlockQ threads.
 template <int D>
 __global__ void __launch_bounds__(kBlockQ)
@@ -61,7 +92,8 @@ __global__ void __launch_bounds__(kBlockQ)
                             const float* __restrict__ bias,
                             const float* __restrict__ mask,
                             const float* __restrict__ weight,
-                            float* __restrict__ out, int Tq, int Tk, int H) {
+                            float* __restrict__ out, int Tq, int Tk, int H,
+                            Layout L) {
   __shared__ __align__(16) float ks[kBlockK][D];
   __shared__ __align__(16) float vs[kBlockK][D];
   __shared__ float bs[kBlockQ][kBlockK + 1];  // +1: conflict-free row reads
@@ -72,7 +104,6 @@ __global__ void __launch_bounds__(kBlockQ)
   const int q0 = blockIdx.x * kBlockQ;
   const int h = blockIdx.y;
   const int g = blockIdx.z;
-  const int C = H * D;
   const size_t HTk = (size_t)H * Tk;
   const int row = q0 + tid;
   const bool live = row < Tq;
@@ -80,7 +111,8 @@ __global__ void __launch_bounds__(kBlockQ)
   float qr[D];
   float acc[D];
   {
-    const float* qp = q + ((size_t)g * Tq + (live ? row : 0)) * C + h * D;
+    const float* qp = q + g * L.q_win + (size_t)(live ? row : 0) * L.ldq +
+                      h * L.q_head;
 #pragma unroll
     for (int d = 0; d < D; ++d) {
       qr[d] = live ? qp[d] : 0.f;
@@ -97,7 +129,8 @@ __global__ void __launch_bounds__(kBlockQ)
       const int d = i - j * D;
       float kv = 0.f, vv = 0.f;
       if (j < nk) {
-        const size_t off = ((size_t)g * Tk + k0 + j) * C + h * D + d;
+        const size_t off =
+            g * L.kv_win + (size_t)(k0 + j) * L.ldkv + h * L.kv_head + d;
         kv = k[off];
         vv = v[off];
       }
@@ -110,7 +143,7 @@ __global__ void __launch_bounds__(kBlockQ)
         const int c = i - r * kBlockK;
         float b = 0.f;
         if (q0 + r < Tq && c < nk)
-          b = bias[(size_t)(q0 + r) * HTk + (size_t)h * Tk + k0 + c];
+          b = bias[h * L.b_head + (q0 + r) * L.ldb + k0 + c];
         bs[r][c] = b;
       }
     }
@@ -177,7 +210,7 @@ __global__ void __launch_bounds__(kBlockQ)
 
   if (live) {
     const float inv = 1.f / l_run;
-    float* op = out + ((size_t)g * Tq + row) * C + h * D;
+    float* op = out + g * L.q_win + (size_t)row * L.ldq + h * L.q_head;
 #pragma unroll
     for (int d = 0; d < D; ++d) op[d] = acc[d] * inv;
   }
@@ -186,13 +219,13 @@ __global__ void __launch_bounds__(kBlockQ)
 template <int D>
 void launch(const void* q, const void* k, const void* v, const void* bias,
             const void* mask, const void* weight, void* out, int G, int Tq,
-            int Tk, int H, cudaStream_t stream) {
+            int Tk, int H, const Layout& L, cudaStream_t stream) {
   const dim3 grid((Tq + kBlockQ - 1) / kBlockQ, H, G);
   window_attention_kernel<D><<<grid, kBlockQ, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(bias),
       static_cast<const float*>(mask), static_cast<const float*>(weight),
-      static_cast<float*>(out), Tq, Tk, H);
+      static_cast<float*>(out), Tq, Tk, H, L);
 }
 
 // ---------------------------------------------------------------------------
@@ -222,7 +255,7 @@ __global__ void __launch_bounds__(32 * kTcWarps)
                                const float* __restrict__ mask,
                                const __nv_bfloat16* __restrict__ weight,
                                __nv_bfloat16* __restrict__ out, int Tq,
-                               int Tk, int H) {
+                               int Tk, int H, Layout L) {
   constexpr int kPadK = D + 8;       // Ks row, halves
   constexpr int kPadV = kTcK + 8;    // Vt row, halves
   __shared__ __align__(16) __nv_bfloat16 Ks[kTcK][kPadK];
@@ -235,7 +268,6 @@ __global__ void __launch_bounds__(32 * kTcWarps)
   const int t = lane & 3;    // thread in group
   const int h = blockIdx.y;
   const int win = blockIdx.z;
-  const int C = H * D;
   const size_t HTk = (size_t)H * Tk;
 
   // this thread's two query rows (fragment rows g and g + 8)
@@ -246,8 +278,9 @@ __global__ void __launch_bounds__(32 * kTcWarps)
 
   uint32_t qa[D / 16][4];
   {
-    const __nv_bfloat16* q0p = q + ((size_t)win * Tq + rc0) * C + h * D;
-    const __nv_bfloat16* q1p = q + ((size_t)win * Tq + rc1) * C + h * D;
+    const __nv_bfloat16* qw = q + win * L.q_win + h * L.q_head;
+    const __nv_bfloat16* q0p = qw + (size_t)rc0 * L.ldq;
+    const __nv_bfloat16* q1p = qw + (size_t)rc1 * L.ldq;
 #pragma unroll
     for (int kd = 0; kd < D / 16; ++kd) {
       qa[kd][0] = ld32(q0p + kd * 16 + 2 * t);
@@ -271,7 +304,8 @@ __global__ void __launch_bounds__(32 * kTcWarps)
       const int d = (c - j * (D / 8)) * 8;
       uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
       if (k0 + j < Tk) {
-        const size_t off = ((size_t)win * Tk + k0 + j) * C + h * D + d;
+        const size_t off = win * L.kv_win + (size_t)(k0 + j) * L.ldkv +
+                           h * L.kv_head + d;
         kv = *reinterpret_cast<const uint4*>(k + off);
         vv = *reinterpret_cast<const uint4*>(v + off);
       }
@@ -308,7 +342,7 @@ __global__ void __launch_bounds__(32 * kTcWarps)
         if (key < Tk) {
           if (bias != nullptr) {
             const float2 b = *reinterpret_cast<const float2*>(
-                bias + (size_t)row * HTk + (size_t)h * Tk + key);
+                bias + h * L.b_head + row * L.ldb + key);
             x0 += b.x;
             x1 += b.y;
           }
@@ -397,7 +431,8 @@ __global__ void __launch_bounds__(32 * kTcWarps)
     const int row = hr ? r1 : r0;
     if (row >= Tq) continue;
     const float inv = 1.f / l_run[hr];
-    __nv_bfloat16* op = out + ((size_t)win * Tq + row) * C + h * D;
+    __nv_bfloat16* op =
+        out + win * L.q_win + (size_t)row * L.ldq + h * L.q_head;
 #pragma unroll
     for (int nd = 0; nd < D / 8; ++nd)
       *reinterpret_cast<__nv_bfloat162*>(op + nd * 8 + 2 * t) =
@@ -409,7 +444,7 @@ __global__ void __launch_bounds__(32 * kTcWarps)
 template <int D>
 void launch_tc(const void* q, const void* k, const void* v, const void* bias,
                const void* mask, const void* weight, void* out, int G, int Tq,
-               int Tk, int H, cudaStream_t stream) {
+               int Tk, int H, const Layout& L, cudaStream_t stream) {
   const dim3 grid((Tq + kTcQ - 1) / kTcQ, H, G);
   window_attention_tc_kernel<D><<<grid, 32 * kTcWarps, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
@@ -417,33 +452,56 @@ void launch_tc(const void* q, const void* k, const void* v, const void* bias,
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias),
       static_cast<const float*>(mask),
       static_cast<const __nv_bfloat16*>(weight),
-      static_cast<__nv_bfloat16*>(out), Tq, Tk, H);
+      static_cast<__nv_bfloat16*>(out), Tq, Tk, H, L);
+}
+
+// Picks the kernel for (D, dtype).  Returns the launch's cudaError_t.
+cudaError_t dispatch(const void* q, const void* k, const void* v,
+                     const void* bias, const void* mask, const void* weight,
+                     void* out, int G, int Tq, int Tk, int H, int D,
+                     int is_bf16, const Layout& L, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (G <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || G > 65535 || H > 65535)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 32 && is_bf16)
+    launch_tc<32>(q, k, v, bias, mask, weight, out, G, Tq, Tk, H, L, s);
+  else if (D == 32)
+    launch<32>(q, k, v, bias, mask, weight, out, G, Tq, Tk, H, L, s);
+  else if (D == 16 && is_bf16)
+    launch_tc<16>(q, k, v, bias, mask, weight, out, G, Tq, Tk, H, L, s);
+  else if (D == 16)
+    launch<16>(q, k, v, bias, mask, weight, out, G, Tq, Tk, H, L, s);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry point, loaded with ctypes.  bias, mask and weight may be
-// null.  Returns the cudaError_t of the launch (0 on success).
+// Plain C entry points, loaded with ctypes.  bias, mask and weight may be
+// null.  Each returns the cudaError_t of the launch (0 on success).
+
+// K1: packed layout, q (G, Tq, H*D), bias (Tq, H*Tk).
 extern "C" int cobevt_window_attention(const void* q, const void* k,
                                        const void* v, const void* bias,
                                        const void* mask, const void* weight,
                                        void* out, int G, int Tq, int Tk,
                                        int H, int D, int is_bf16, int device,
                                        void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (G <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || G > 65535 || H > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 32 && is_bf16)
-    launch_tc<32>(q, k, v, bias, mask, weight, out, G, Tq, Tk, H, s);
-  else if (D == 32)
-    launch<32>(q, k, v, bias, mask, weight, out, G, Tq, Tk, H, s);
-  else if (D == 16 && is_bf16)
-    launch_tc<16>(q, k, v, bias, mask, weight, out, G, Tq, Tk, H, s);
-  else if (D == 16)
-    launch<16>(q, k, v, bias, mask, weight, out, G, Tq, Tk, H, s);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  return (int)dispatch(q, k, v, bias, mask, weight, out, G, Tq, Tk, H, D,
+                       is_bf16, packed_layout(Tq, Tk, H, D), device, stream);
+}
+
+// K8: head-major layout, q (G, H, Tq, D), bias (H, Tq, Tk), no weight.
+extern "C" int cobevt_window_attention_hm(const void* q, const void* k,
+                                          const void* v, const void* bias,
+                                          const void* mask, void* out, int G,
+                                          int Tq, int Tk, int H, int D,
+                                          int is_bf16, int device,
+                                          void* stream) {
+  return (int)dispatch(q, k, v, bias, mask, nullptr, out, G, Tq, Tk, H, D,
+                       is_bf16, head_major_layout(Tq, Tk, H, D), device,
+                       stream);
 }

@@ -35,6 +35,8 @@ class CorpBEVTConfig:
     # encoder
     encoder_num_layers: int = 34
     encoder_id_pick: Tuple[int, ...] = (1, 2, 3)
+    # rematerialise the trunk blocks in the backward pass (training only)
+    encoder_remat: bool = False
     image_height: int = 512
     image_width: int = 512
     # fax (backbone_output_shape auto-derived if empty)
@@ -84,7 +86,8 @@ class CorpBEVT(nn.Module):
         fax = cfg.resolved_fax()
         dim = fax.dim[-1]
         self.encoder = ResNetEncoder(cfg.encoder_num_layers,
-                                     cfg.encoder_id_pick)
+                                     cfg.encoder_id_pick,
+                                     remat=cfg.encoder_remat)
         self.fax = FAXModule(fax)
         if cfg.compression > 0:
             self.naive_compressor = NaiveCompressor(dim, cfg.compression)
@@ -99,7 +102,8 @@ class CorpBEVT(nn.Module):
         self.seg_head = BevSegHead(cfg.target, cfg.seg_head_dim,
                                    cfg.output_class)
 
-    def forward(self, batch, stage: str = "full", agent_bev=None):
+    def forward(self, batch, stage: str = "full", agent_bev=None,
+                generator=None):
         """batch: dict of tensors on the model's device
              inputs: (B, L, M, H, W, 3) uint8 or float images (padded to
                      max_cav)
@@ -117,13 +121,18 @@ class CorpBEVT(nn.Module):
                       ``agent_bev`` padded back to max_cav (only
                       ``transformation_matrix`` and ``agent_mask`` are
                       read from ``batch``).
+
+        ``generator`` draws the attention-dropout mask of a training
+        forward (the JAX package's ``rngs={"dropout": key}``); None takes
+        the device's global generator.
         """
         cfg = self.config
         dtype = self.encoder.encoder.conv1.weight.dtype
         if stage in ("full", "encode"):
             x = images_from_uint8(batch["inputs"]).to(dtype)
             feats = self.encoder(x)
-            x = self.fax(feats, batch["intrinsic"], batch["extrinsic"])
+            x = self.fax(feats, batch["intrinsic"], batch["extrinsic"],
+                         generator=generator)
             if cfg.compression > 0:
                 Bc, Lc, H, W, C = x.shape
                 x = self.naive_compressor(

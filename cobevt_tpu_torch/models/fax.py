@@ -166,7 +166,8 @@ class SelfAttention(nn.Module):
             torch.from_numpy(rel_pos_indices_2d(window_size)),
             persistent=False)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
+        """``generator`` draws the dropout keep-mask in training."""
         B, H, W, d = x.shape
         heads = self.heads
         T = H * W
@@ -179,8 +180,8 @@ class SelfAttention(nn.Module):
         bias_flat = bias.permute(0, 2, 1).reshape(T, heads * T)
         drop_w = None
         if self.training and self.dropout > 0:
-            keep = torch.rand((B, T, heads * T), device=x.device) \
-                >= self.dropout
+            keep = torch.rand((B, T, heads * T), device=x.device,
+                              generator=generator) >= self.dropout
             drop_w = keep.to(q.dtype) / (1.0 - self.dropout)
         out = fused_window_attention_packed(
             q.contiguous(), k.contiguous(), v.contiguous(), n_heads=heads,
@@ -506,9 +507,10 @@ class FAXModule(nn.Module):
         x = F.relu(bn_nhwc(seq[3], conv_nhwc(seq[2], x)))
         return bn_nhwc(seq[6], conv_nhwc(seq[5], x))
 
-    def forward(self, features, intrinsic, extrinsic):
+    def forward(self, features, intrinsic, extrinsic, generator=None):
         """features: list of (b, l, n, h, w, c) per pyramid stage;
-        intrinsic: (b, l, n, 3, 3); extrinsic: (b, l, n, 4, 4).
+        intrinsic: (b, l, n, 3, 3); extrinsic: (b, l, n, 4, 4);
+        ``generator`` draws the self-attention dropout mask in training.
         Returns (b, l, H, W, dim[-1])."""
         cfg = self.config
         b, l, n = features[0].shape[:3]
@@ -529,6 +531,6 @@ class FAXModule(nn.Module):
             if i < len(features) - 1:
                 x = self._downsample(x, i)
         if cfg.use_self_attn:
-            x = self.self_attn(x)
+            x = self.self_attn(x, generator=generator)
         H, W = x.shape[1:3]
         return x.reshape(b, l, H, W, -1)

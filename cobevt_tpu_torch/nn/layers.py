@@ -2,7 +2,8 @@
 
 Counterpart of ``cobevt_tpu/nn/layers.py``:
 
-  * BatchNorm: eps 1e-5, momentum 0.1 (flax momentum 0.9)
+  * BatchNorm: eps 1e-5, momentum 0.1 (flax momentum 0.9); the running
+    variance stores the biased batch variance, as flax does
   * LayerNorm: eps 1e-5
   * GELU: exact (erf) form
 
@@ -15,7 +16,9 @@ reference's torch attribute paths, which the flax tree mirrors.
 
 from __future__ import annotations
 
+import contextlib
 import os
+import threading
 
 import torch
 import torch.nn as nn
@@ -61,9 +64,57 @@ def conv_nhwc(conv: nn.Conv2d, x):
     return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
+_bn_state = threading.local()
+
+
+@contextlib.contextmanager
+def frozen_bn_statistics():
+    """No running-statistics update inside the block: the second forward of
+    a rematerialised block (``torch.utils.checkpoint``) must not count its
+    batch twice."""
+    prev = getattr(_bn_state, "frozen", False)
+    _bn_state.frozen = True
+    try:
+        yield
+    finally:
+        _bn_state.frozen = prev
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train-mode update stores what flax's
+    ``nn.BatchNorm`` stores: ``running_var`` moves towards the *biased*
+    batch variance (PyTorch's own update uses the unbiased one, a factor
+    n/(n-1) apart), so a model trained here has the JAX package's
+    ``batch_stats``.  The state_dict names are PyTorch's.
+
+    The running statistics may be kept in f32 under bf16 parameters (the
+    train state does); scale and shift are then cast to f32 at use, the
+    mixed-precision form PyTorch's kernels take."""
+
+    def forward(self, x):
+        w, b = self.weight, self.bias
+        if w.dtype != self.running_mean.dtype:
+            w, b = w.to(self.running_mean.dtype), b.to(self.running_mean.dtype)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, w, b,
+                                False, 0.0, self.eps)
+        # momentum 1 into zeroed buffers: the batch mean and the unbiased
+        # batch variance, with no second pass over x
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.zeros_like(self.running_var)
+        y = F.batch_norm(x, mean, var, w, b, True, 1.0, self.eps)
+        if not getattr(_bn_state, "frozen", False):
+            n = x.numel() // x.shape[1]
+            with torch.no_grad():
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var * ((n - 1) / n), self.momentum)
+                self.num_batches_tracked += 1
+        return y
+
+
 def batch_norm(features: int, eps: float = 1e-5,
-               momentum: float = 0.1) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(features, eps=eps, momentum=momentum)
+               momentum: float = 0.1) -> BatchNorm2d:
+    return BatchNorm2d(features, eps=eps, momentum=momentum)
 
 
 def bn_nhwc(bn: nn.BatchNorm2d, x):

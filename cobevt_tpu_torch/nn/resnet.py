@@ -4,16 +4,21 @@ Counterpart of ``cobevt_tpu/nn/resnet.py`` (reference
 ``opv2v/opencood/models/backbones/resnet_ms.py:8``): a torchvision-style
 ResNet over every camera of every agent, returning the stages selected by
 ``id_pick``.  NHWC in and out; all (B, L, M) axes are folded into one batch
-axis.  The JAX package's int8 layer1 region and training remat are not
-ported here.
+axis.  ``remat`` rematerialises each trunk block's activations in the
+backward pass (``torch.utils.checkpoint``), the JAX package's
+``encoder_remat``; its int8 layer1 region is not ported here.
 """
 
 from __future__ import annotations
 
 from typing import Sequence, Tuple
 
+import contextlib
+
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from cobevt_tpu_torch.nn.layers import (
     BasicBlock,
@@ -21,6 +26,7 @@ from cobevt_tpu_torch.nn.layers import (
     batch_norm,
     bn_nhwc,
     conv_nhwc,
+    frozen_bn_statistics,
     torch_conv,
 )
 
@@ -48,11 +54,16 @@ def _stage(inplanes, block, planes, depth, stride):
     return nn.Sequential(*blocks), inplanes
 
 
+def _remat_contexts():
+    return contextlib.nullcontext(), frozen_bn_statistics()
+
+
 class ResNetTrunk(nn.Module):
     """Bare torchvision-style trunk on (N, H, W, 3); returns all 4 stages."""
 
-    def __init__(self, num_layers: int = 34):
+    def __init__(self, num_layers: int = 34, remat: bool = False):
         super().__init__()
+        self.remat = remat
         block, depths = _SPECS[num_layers]
         self.conv1 = torch_conv(3, 64, 7, 2, 3, False)
         self.bn1 = batch_norm(64)
@@ -66,8 +77,13 @@ class ResNetTrunk(nn.Module):
         x = F.relu(bn_nhwc(self.bn1, conv_nhwc(self.conv1, x)))
         x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
         outs = []
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for i in range(4):
-            x = getattr(self, f"layer{i + 1}")(x)
+            for block in getattr(self, f"layer{i + 1}"):
+                # the second forward leaves the BN running statistics alone
+                x = checkpoint(block, x, use_reentrant=False,
+                               context_fn=_remat_contexts) if remat \
+                    else block(x)
             outs.append(x)
         return outs
 
@@ -80,10 +96,10 @@ class ResNetEncoder(nn.Module):
     ``encoder``, mirroring the reference's ``ResnetEncoder.encoder``."""
 
     def __init__(self, num_layers: int = 34,
-                 id_pick: Sequence[int] = (1, 2, 3)):
+                 id_pick: Sequence[int] = (1, 2, 3), remat: bool = False):
         super().__init__()
         self.id_pick = tuple(id_pick)
-        self.encoder = ResNetTrunk(num_layers)
+        self.encoder = ResNetTrunk(num_layers, remat)
 
     @staticmethod
     def output_shapes(num_layers: int, id_pick,

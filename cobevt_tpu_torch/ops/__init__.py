@@ -8,11 +8,14 @@ from cobevt_tpu_torch.ops.fused_cross_attention import (
 )
 from cobevt_tpu_torch.ops.fused_swap_fusion import fused_swap_fusion
 from cobevt_tpu_torch.ops.window_attention import (
+    fused_window_attention,
     fused_window_attention_packed,
+    fused_window_attention_packed_bwd,
 )
 
 KERNEL_WRAPPERS = (fused_window_attention_packed, fused_cross_view_attention,
-                   fused_conv3x3, fused_swap_fusion)
+                   fused_conv3x3, fused_swap_fusion,
+                   fused_window_attention_packed_bwd, fused_window_attention)
 
 
 def reset_launch_counts() -> None:
@@ -26,5 +29,6 @@ def launch_counts() -> dict:
 
 __all__ = ["KERNEL_WRAPPERS", "fold_bn", "forced_impl", "fused_conv3x3",
            "fused_cross_view_attention", "fused_swap_fusion",
-           "fused_window_attention_packed", "launch_counts",
+           "fused_window_attention", "fused_window_attention_packed",
+           "fused_window_attention_packed_bwd", "launch_counts",
            "reset_launch_counts"]

@@ -103,8 +103,13 @@ def fused_conv3x3(x, w, shift, residual=None, relu: bool = True, impl=None):
     x: (N, H, W, C); w: (3, 3, C, O) with any BatchNorm scale folded in;
     shift: (O,) (the folded BN bias, applied in f32); residual:
     (N, H, W, O) or None, added before the ReLU.  Returns (N, H, W, O) in
-    x's dtype.  Inference only.  ``impl``: None (kernel for CUDA tensors,
-    plain version for CPU tensors), "kernel" or "torch"."""
+    x's dtype.  ``impl``: None (kernel for CUDA tensors, plain version for
+    CPU tensors), "kernel" or "torch".
+
+    Inference only: the kernel has no backward, its result carries no
+    ``grad_fn``, and an eval forward under autograd gives no gradient
+    through it.  Training runs the unfused block (``self.training``
+    gates the dispatch)."""
     if resolve_impl(impl, x) == "torch":
         return conv3x3_reference(x, w, shift, residual, relu)
     w = w.to(x.dtype).contiguous()

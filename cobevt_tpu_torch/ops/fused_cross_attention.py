@@ -294,7 +294,12 @@ def fused_cross_view_attention(x, w_embed, c_embed, key, val, params,
 
     ``impl``: None (kernel for CUDA tensors, plain version for CPU
     tensors), "kernel" or "torch".  The kernel takes contiguous tensors in
-    x's dtype and raises on a shape it does not take."""
+    x's dtype and raises on a shape it does not take.
+
+    Inference only: the kernel has no backward, its result carries no
+    ``grad_fn``, and an eval forward under autograd gives no gradient
+    through it.  Training runs the stock modules (``self.training``
+    gates the dispatch)."""
     q_win, k_win = tuple(q_win), tuple(k_win)
     p = _packed(params, mlp, post_ln, x.dtype)
     if resolve_impl(impl, x) == "torch":

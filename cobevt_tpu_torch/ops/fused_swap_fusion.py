@@ -306,7 +306,12 @@ def fused_swap_fusion(x, mask, agent_mask, bias_stack, layers, head,
 
     ``impl``: None (kernel for CUDA tensors, plain version for CPU
     tensors), "kernel" or "torch".  The kernel raises on a shape it does
-    not take."""
+    not take.
+
+    Inference only: the kernel has no backward, its result carries no
+    ``grad_fn``, and an eval forward under autograd gives no gradient
+    through it.  Training runs the stock modules (``self.training``
+    gates the dispatch)."""
     p = _packed(layers, bias_stack, head, x.dtype)
     use_valid = mean_over_valid and agent_mask is not None
     if resolve_impl(impl, x) == "torch":

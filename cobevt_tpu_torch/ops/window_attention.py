@@ -1,22 +1,36 @@
-"""Packed window attention (K1): wrapper, plain version and CUDA launch.
+"""Window attention: K1 (packed forward), K5 (its flash backward) and K8
+(the head-major twin), each with its plain version and CUDA launch.
 
-Counterpart of ``cobevt_tpu/ops/window_attention.py:
-fused_window_attention_packed``.  One kernel serves the three attention
-flavours of the CorpBEVT forward:
+Counterpart of ``cobevt_tpu/ops/window_attention.py``.  One kernel serves
+the three attention flavours of CorpBEVT:
 
   * ``CrossWinAttention`` (no bias, no mask)   -- models/fax.py
   * ``SelfAttention``     (2D rel-pos bias)    -- models/fax.py
   * ``FusionAttention``   (3D bias + key mask) -- models/fusion/swap_fusion.py
 
+:func:`fused_window_attention_packed` is differentiable through a
+``torch.autograd.Function`` that mirrors the JAX package's ``custom_vjp``
+(``_fused_packed``): it saves q, k, v, bias, mask, weight and the output,
+nothing of size Tq x Tk, and its backward recomputes the attention.  The
+backward takes K5 (``csrc/window_attention_bwd.cu`` on CUDA tensors,
+:func:`packed_backward_reference` on CPU tensors) where
+:func:`packed_bwd_kernel_ok` holds and ``COBEVT_FLASH_BWD_F32`` is not "1";
+otherwise :func:`packed_backward_composite`, the plain PyTorch form of the
+JAX package's XLA branch, which is no kernel there and none here.  The gate
+does not look at the device.  ``COBEVT_FLASH_BWD=0`` routes forward and
+backward through the plain version with stock autograd.  Both switches are
+read per call.
+
 The TPU kernel groups heads into 128-channel chunks to fill the MXU
 (``_fwa_packed_jit``); that is the same math and has no counterpart here:
-the CUDA kernel (``csrc/window_attention.cu``) runs one block per
-(window, head, query tile).
+the CUDA kernels run one block per (window, head, tile).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import os
 
 import torch
 
@@ -70,25 +84,149 @@ def packed_attention_reference(q, k, v, n_heads, bias_flat=None, mask=None,
     return _packed_from_4d(out).to(q.dtype)
 
 
-def _lib():
-    lib = _build.load("window_attention")
-    fn = lib.cobevt_window_attention
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+def _additive_mask(mask):
+    return torch.where(mask[:, None, None, :] > 0, 0.0, NEG_INF)
+
+
+def packed_backward_reference(q, k, v, g, out, n_heads, bias_flat=None,
+                              mask=None):
+    """Plain PyTorch version of K5, following the TPU body
+    (``_packed_bwd_kernel``) cast for cast: the exp rounded to the value
+    dtype feeds both the weights and their per-head sum; ``g * out`` is
+    multiplied in the input dtype; ds and p are rounded to the input dtype
+    for the products, which sum in f32 and are rounded once.  Returns
+    (dq, dk, dv, dbias_flat); dbias_flat is f32 (Tq, H*Tk) or None."""
+    dt = q.dtype
+    q4, k4, v4, g4 = (_packed_to_4d(t, n_heads).float()
+                      for t in (q, k, v, g))
+    sim = torch.einsum("ghqd,ghkd->ghqk", q4, k4)
+    if bias_flat is not None:
+        sim = sim + _flat_to_heads(bias_flat.float(), n_heads)[None]
+    if mask is not None:
+        sim = sim + _additive_mask(mask)
+    # the TPU body's row maximum spans every head of the row
+    m = sim.amax(dim=(1, 3), keepdim=True)
+    e = torch.exp(sim - m).to(dt).float()
+    p32 = e * (1.0 / e.sum(dim=-1, keepdim=True))
+    s = _packed_to_4d((g * out).float(), n_heads).sum(dim=-1, keepdim=True)
+    da = torch.einsum("ghqd,ghkd->ghqk", g4, v4)
+    ds32 = p32 * (da - s)
+    ds = ds32.to(dt).float()
+    dq = torch.einsum("ghqk,ghkd->ghqd", ds, k4)
+    dk = torch.einsum("ghqk,ghqd->ghkd", ds, q4)
+    dv = torch.einsum("ghqk,ghqd->ghkd", p32.to(dt).float(), g4)
+    dbias = None
+    if bias_flat is not None:
+        db = ds32.sum(dim=0)                               # (H, Tq, Tk)
+        dbias = db.permute(1, 0, 2).reshape(db.shape[1], -1)
+    return (_packed_from_4d(dq).to(dt), _packed_from_4d(dk).to(dt),
+            _packed_from_4d(dv).to(dt), dbias)
+
+
+def packed_backward_composite(q, k, v, g, out, n_heads, bias_flat=None,
+                              mask=None, weight=None, bwd_f32=False,
+                              need_dweight=False):
+    """The other backward formulation of the JAX package (the XLA branch of
+    ``_fused_packed_bwd``), cast for cast: plain softmax weights, every
+    (Tq, Tk)-sized tensor (p, da, dsim) rounded to ``dt`` -- the input
+    dtype, or f32 with ``bwd_f32`` -- and products summed in f32.  It takes
+    the post-softmax ``weight`` (the flash identity sum_d g*out =
+    sum_k da*w*p holds with it).  Returns (dq, dk, dv, dbias_flat,
+    dweight); dweight only with ``need_dweight``."""
+    dt = torch.float32 if bwd_f32 else q.dtype
+    q4, k4, v4 = (_packed_to_4d(t, n_heads).float() for t in (q, k, v))
+    g4 = _packed_to_4d(g, n_heads).to(dt).float()
+    out4 = _packed_to_4d(out, n_heads).to(dt).float()
+    w4 = None if weight is None else _weight_to_4d(weight, n_heads)
+    sim = torch.einsum("ghqd,ghkd->ghqk", q4, k4)
+    if bias_flat is not None:
+        sim = sim + _flat_to_heads(bias_flat.float(), n_heads)[None]
+    if mask is not None:
+        sim = sim + _additive_mask(mask)
+    p = torch.softmax(sim, dim=-1).to(dt)
+    a = p if w4 is None else p * w4.to(dt)
+    s = (g4 * out4).sum(dim=-1, keepdim=True)
+    dv4 = torch.einsum("ghqk,ghqd->ghkd", a.float(), g4)
+    da = torch.einsum("ghqd,ghkd->ghqk", g4, v4).to(dt)
+    dweight = None
+    if w4 is not None:
+        if need_dweight:
+            dw4 = (p.float() * da.float()).to(weight.dtype)
+            dweight = dw4.permute(0, 2, 1, 3).reshape(weight.shape)
+        ds = da * w4.to(dt)
+    else:
+        ds = da
+    dsim = (p.float() * (ds.float() - s)).to(dt).float()
+    dq4 = torch.einsum("ghqk,ghkd->ghqd", dsim, k4)
+    dk4 = torch.einsum("ghqk,ghqd->ghkd", dsim, q4)
+    dbias = None
+    if bias_flat is not None:
+        db = dsim.sum(dim=0)
+        dbias = db.permute(1, 0, 2).reshape(db.shape[1], -1).to(
+            bias_flat.dtype)
+    return (_packed_from_4d(dq4).to(q.dtype), _packed_from_4d(dk4).to(k.dtype),
+            _packed_from_4d(dv4).to(v.dtype), dbias, dweight)
+
+
+def flash_bwd_enabled() -> bool:
+    """``COBEVT_FLASH_BWD=0`` routes window attention through the plain
+    version with stock autograd (the JAX package's A/B lever)."""
+    return os.environ.get("COBEVT_FLASH_BWD", "1") != "0"
+
+
+def bwd_f32_enabled() -> bool:
+    """``COBEVT_FLASH_BWD_F32=1`` takes the composite backward with its
+    (Tq, Tk)-sized tensors in f32."""
+    return os.environ.get("COBEVT_FLASH_BWD_F32", "0") == "1"
+
+
+def packed_bwd_kernel_ok(q, k, weight, n_heads) -> bool:
+    """Whether a backward takes K5.  What is semantics in the JAX gate
+    (``_packed_bwd_pallas_ok``) stays: no post-softmax weight, Tq and Tk
+    multiples of 8.  Its lane and VMEM conditions are TPU tuning; in their
+    place stands what the CUDA kernel takes: head dim 16 or 32, f32 or
+    bf16.  The same on every device."""
+    _, Tq, C = q.shape
+    Tk = k.shape[1]
+    return (weight is None and Tq % 8 == 0 and Tk % 8 == 0
+            and C % n_heads == 0 and C // n_heads in _KERNEL_HEAD_DIMS
+            and q.dtype in _KERNEL_DTYPES)
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(name: str, n_ptr: int, n_int: int):
+    """A C entry point of the window-attention libraries: ``n_ptr``
+    pointers, ``n_int`` ints, then the stream."""
+    lib = _build.load("window_attention_bwd" if name.endswith("_bwd")
+                      else "window_attention")
+    fn = getattr(lib, name)
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _check_kernel_shapes(what, dtype, Tq, Tk, D):
+    if dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"{what} takes {_KERNEL_DTYPES}, got {dtype}")
+    if D not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"{what} takes head dims {_KERNEL_HEAD_DIMS}; got "
+                         f"{D}")
+    if Tq % 8 or Tk % 8:
+        raise ValueError(f"{what} takes Tq, Tk multiples of 8; got {Tq}, "
+                         f"{Tk}")
+
+
 def _launch_kernel(q, k, v, n_heads, bias_flat, mask, weight):
     G, Tq, C = q.shape
     Tk = k.shape[1]
-    if q.dtype not in _KERNEL_DTYPES:
-        raise ValueError(f"K1 takes {_KERNEL_DTYPES}, got {q.dtype}")
-    if C % n_heads or C // n_heads not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"K1 takes head dims {_KERNEL_HEAD_DIMS}; got "
-                         f"C={C} over {n_heads} heads")
-    if Tq % 8 or Tk % 8:
-        raise ValueError(f"K1 takes Tq, Tk multiples of 8; got {Tq}, {Tk}")
+    if C % n_heads:
+        raise ValueError(f"K1: C={C} does not divide over {n_heads} heads")
+    _check_kernel_shapes("K1", q.dtype, Tq, Tk, C // n_heads)
     dev = q.device
     check_operand("q", q, (G, Tq, C), q.dtype, dev)
     check_operand("k", k, (G, Tk, C), q.dtype, dev)
@@ -101,35 +239,74 @@ def _launch_kernel(q, k, v, n_heads, bias_flat, mask, weight):
     if weight is not None:
         check_operand("weight", weight, (G, Tq, HTk), q.dtype, dev)
     out = torch.empty_like(q)
-    err = _lib()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if bias_flat is None else bias_flat.data_ptr(),
-        None if mask is None else mask.data_ptr(),
-        None if weight is None else weight.data_ptr(),
-        out.data_ptr(), G, Tq, Tk, n_heads, C // n_heads,
-        int(q.dtype == torch.bfloat16), dev.index,
+    err = _entry("cobevt_window_attention", 7, 7)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias_flat),
+        _ptr(mask), _ptr(weight), out.data_ptr(), G, Tq, Tk, n_heads,
+        C // n_heads, int(q.dtype == torch.bfloat16), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "window_attention")
     fused_window_attention_packed.launches += 1
     return out
 
 
-def fused_window_attention_packed(q, k, v, n_heads: int, bias_flat=None,
-                                  mask=None, weight=None, impl=None):
-    """Packed-layout attention: q (G, Tq, H*D) pre-scaled, k/v
-    (G, Tk, H*D) with heads interleaved in the channel axis; bias_flat
-    (Tq, H*Tk) f32 with column block h holding head h's bias, or None;
-    mask (G, Tk) (keys with mask <= 0 get -1e9 added), or None; weight
-    (G, Tq, H*Tk) post-softmax multiplicative weights that scale the
-    numerator only (attention dropout), or None.  Returns (G, Tq, H*D) in
-    q's dtype.
+def _launch_bwd_kernel(q, k, v, g, out, n_heads, bias_flat, mask):
+    G, Tq, C = q.shape
+    Tk = k.shape[1]
+    if C % n_heads:
+        raise ValueError(f"K5: C={C} does not divide over {n_heads} heads")
+    _check_kernel_shapes("K5", q.dtype, Tq, Tk, C // n_heads)
+    dev = q.device
+    for name, t, T in (("q", q, Tq), ("k", k, Tk), ("v", v, Tk),
+                       ("g", g, Tq), ("out", out, Tq)):
+        check_operand(name, t, (G, T, C), q.dtype, dev)
+    HTk = n_heads * Tk
+    dbias = None
+    if bias_flat is not None:
+        check_operand("bias_flat", bias_flat, (Tq, HTk), torch.float32, dev)
+        dbias = torch.zeros_like(bias_flat)   # the kernel adds into it
+    if mask is not None:
+        check_operand("mask", mask, (G, Tk), torch.float32, dev)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    # row max, sum of the rounded exp and flash rowsum per (window, head,
+    # query row)
+    stats = torch.empty((3, G, n_heads, Tq), dtype=torch.float32, device=dev)
+    err = _entry("cobevt_window_attention_bwd", 12, 7)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        out.data_ptr(), _ptr(bias_flat), _ptr(mask), stats.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(dbias), G, Tq, Tk,
+        n_heads, C // n_heads, int(q.dtype == torch.bfloat16), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "window_attention_bwd")
+    fused_window_attention_packed_bwd.launches += 1
+    return dq, dk, dv, dbias
 
-    ``impl``: None (kernel for CUDA tensors, plain version for CPU
-    tensors), "kernel" or "torch".  The kernel path takes contiguous
-    tensors, casts bias and mask to f32 and weight to q's dtype."""
-    if weight is not None and mask is not None:
-        raise ValueError("weight+mask combination not implemented")
+
+def fused_window_attention_packed_bwd(q, k, v, g, out, n_heads: int,
+                                      bias_flat=None, mask=None, impl=None):
+    """K5: the flash backward of :func:`fused_window_attention_packed`
+    without a post-softmax weight.  q, g (the output's gradient), out
+    (G, Tq, H*D) and k, v (G, Tk, H*D) in one dtype; bias_flat (Tq, H*Tk)
+    f32 or None; mask (G, Tk) or None.  Returns (dq, dk, dv, dbias_flat)
+    with dbias_flat f32, summed over the windows, or None.
+
+    ``impl`` as in the forward.  One call is three kernel launches behind
+    one C entry point and counts once.  The kernel adds dbias with f32
+    atomics, so dbias is reproducible to the rounding of a G-term f32 sum,
+    not bit for bit."""
     if resolve_impl(impl, q) == "torch":
+        return packed_backward_reference(q, k, v, g, out, n_heads, bias_flat,
+                                         mask)
+    if bias_flat is not None:
+        bias_flat = bias_flat.float().contiguous()
+    if mask is not None:
+        mask = mask.float().contiguous()
+    return _launch_bwd_kernel(q.contiguous(), k.contiguous(), v.contiguous(),
+                              g.contiguous(), out.contiguous(), n_heads,
+                              bias_flat, mask)
+
+
+def _packed_forward(q, k, v, n_heads, bias_flat, mask, weight, impl):
+    if impl == "torch":
         return packed_attention_reference(q, k, v, n_heads, bias_flat, mask,
                                           weight)
     if bias_flat is not None:
@@ -141,5 +318,163 @@ def fused_window_attention_packed(q, k, v, n_heads: int, bias_flat=None,
     return _launch_kernel(q, k, v, n_heads, bias_flat, mask, weight)
 
 
+class _FusedPacked(torch.autograd.Function):
+    """K1 forward, recompute backward (``_fused_packed`` of the JAX
+    package).  Saves the operands and the output only."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias_flat, mask, weight, n_heads, impl,
+                bwd_f32):
+        out = _packed_forward(q, k, v, n_heads, bias_flat, mask, weight, impl)
+        ctx.save_for_backward(q, k, v, bias_flat, mask, weight, out)
+        ctx.n_heads, ctx.impl, ctx.bwd_f32 = n_heads, impl, bwd_f32
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias_flat, mask, weight, out = ctx.saved_tensors
+        n_heads = ctx.n_heads
+        dweight = None
+        if not ctx.bwd_f32 and packed_bwd_kernel_ok(q, k, weight, n_heads):
+            dq, dk, dv, dbias = fused_window_attention_packed_bwd(
+                q, k, v, g, out, n_heads, bias_flat, mask, impl=ctx.impl)
+        else:
+            dq, dk, dv, dbias, dweight = packed_backward_composite(
+                q, k, v, g, out, n_heads, bias_flat, mask, weight,
+                bwd_f32=ctx.bwd_f32,
+                need_dweight=weight is not None and ctx.needs_input_grad[5])
+        if dbias is not None:
+            dbias = dbias.to(bias_flat.dtype)
+        # the mask gets no gradient (JAX returns zeros for it)
+        return dq, dk, dv, dbias, None, dweight, None, None, None
+
+
+def fused_window_attention_packed(q, k, v, n_heads: int, bias_flat=None,
+                                  mask=None, weight=None, impl=None):
+    """Packed-layout attention: q (G, Tq, H*D) pre-scaled, k/v
+    (G, Tk, H*D) with heads interleaved in the channel axis; bias_flat
+    (Tq, H*Tk) f32 with column block h holding head h's bias, or None;
+    mask (G, Tk) (keys with mask <= 0 get -1e9 added), or None; weight
+    (G, Tq, H*Tk) post-softmax multiplicative weights that scale the
+    numerator only (attention dropout), or None.  Returns (G, Tq, H*D) in
+    q's dtype.  Differentiable in q, k, v, bias_flat and weight; see the
+    module docstring for which backward runs.
+
+    ``impl``: None (kernel for CUDA tensors, plain version for CPU
+    tensors), "kernel" or "torch"; it also picks K5's implementation in
+    the backward.  The kernel path takes contiguous tensors, casts bias and
+    mask to f32 and weight to q's dtype."""
+    if weight is not None and mask is not None:
+        raise ValueError("weight+mask combination not implemented")
+    if not flash_bwd_enabled():
+        return packed_attention_reference(q, k, v, n_heads, bias_flat, mask,
+                                          weight)
+    return _FusedPacked.apply(q, k, v, bias_flat, mask, weight, n_heads,
+                              resolve_impl(impl, q), bwd_f32_enabled())
+
+
+# ---------------------------------------------------------------------------
+# K8: the head-major variant
+# ---------------------------------------------------------------------------
+
+def window_attention_reference(q, k, v, bias=None, mask=None):
+    """Plain PyTorch version of K8 (the JAX ``_xla_reference``): q
+    (G, H, Tq, D), k/v (G, H, Tk, D), bias (H, Tq, Tk), mask (G, Tk);
+    products and softmax in f32, output in q's dtype."""
+    sim = torch.einsum("ghqd,ghkd->ghqk", q.float(), k.float())
+    if bias is not None:
+        sim = sim + bias.float()[None]
+    if mask is not None:
+        sim = sim + _additive_mask(mask)
+    attn = torch.softmax(sim, dim=-1)
+    return torch.einsum("ghqk,ghkd->ghqd", attn, v.float()).to(q.dtype)
+
+
+def window_attention_backward(q, k, v, g, out, bias=None, mask=None,
+                              bwd_f32=False):
+    """Backward of K8, the plain PyTorch form of the JAX package's
+    ``_fused_bwd`` (XLA there, so no kernel here): flash rowsum from the
+    saved output, (Tq, Tk)-sized tensors rounded to the input dtype (f32
+    with ``bwd_f32``), sums in f32.  Returns (dq, dk, dv, dbias)."""
+    dt = torch.float32 if bwd_f32 else q.dtype
+    qf, kf, vf = q.float(), k.float(), v.float()
+    sim = torch.einsum("ghqd,ghkd->ghqk", qf, kf)
+    if bias is not None:
+        sim = sim + bias.float()[None]
+    if mask is not None:
+        sim = sim + _additive_mask(mask)
+    p = torch.softmax(sim, dim=-1).to(dt).float()
+    gf = g.to(dt).float()
+    s = (gf * out.to(dt).float()).sum(dim=-1, keepdim=True)
+    dv = torch.einsum("ghqk,ghqd->ghkd", p, gf)
+    dp = torch.einsum("ghqd,ghkd->ghqk", gf, vf).to(dt).float()
+    ds = (p * (dp - s)).to(dt).float()
+    dq = torch.einsum("ghqk,ghkd->ghqd", ds, kf)
+    dk = torch.einsum("ghqk,ghqd->ghkd", ds, qf)
+    dbias = None if bias is None else ds.sum(dim=0).to(bias.dtype)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias
+
+
+def _launch_hm_kernel(q, k, v, bias, mask):
+    G, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    _check_kernel_shapes("K8", q.dtype, Tq, Tk, D)
+    dev = q.device
+    check_operand("q", q, (G, H, Tq, D), q.dtype, dev)
+    check_operand("k", k, (G, H, Tk, D), q.dtype, dev)
+    check_operand("v", v, (G, H, Tk, D), q.dtype, dev)
+    if bias is not None:
+        check_operand("bias", bias, (H, Tq, Tk), torch.float32, dev)
+    if mask is not None:
+        check_operand("mask", mask, (G, Tk), torch.float32, dev)
+    out = torch.empty_like(q)
+    err = _entry("cobevt_window_attention_hm", 6, 7)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), _ptr(mask),
+        out.data_ptr(), G, Tq, Tk, H, D, int(q.dtype == torch.bfloat16),
+        dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "window_attention (head-major)")
+    fused_window_attention.launches += 1
+    return out
+
+
+class _Fused(torch.autograd.Function):
+    """K8 forward, recompute backward (``_fused`` of the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, mask, impl, bwd_f32):
+        if impl == "torch":
+            out = window_attention_reference(q, k, v, bias, mask)
+        else:
+            out = _launch_hm_kernel(
+                q.contiguous(), k.contiguous(), v.contiguous(),
+                None if bias is None else bias.float().contiguous(),
+                None if mask is None else mask.float().contiguous())
+        ctx.save_for_backward(q, k, v, bias, mask, out)
+        ctx.bwd_f32 = bwd_f32
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias, mask, out = ctx.saved_tensors
+        dq, dk, dv, dbias = window_attention_backward(
+            q, k, v, g, out, bias, mask, ctx.bwd_f32)
+        return dq, dk, dv, dbias, None, None, None
+
+
+def fused_window_attention(q, k, v, bias=None, mask=None, impl=None):
+    """K8, head-major attention: q (G, H, Tq, D) pre-scaled, k/v
+    (G, H, Tk, D), bias (H, Tq, Tk) or None, mask (G, Tk) or None.
+    Returns (G, H, Tq, D) in q's dtype.  Differentiable: the backward
+    recomputes the attention in plain PyTorch, as the JAX package's does
+    in XLA.  ``impl`` and the two ``COBEVT_FLASH_BWD*`` switches as in
+    :func:`fused_window_attention_packed`."""
+    if not flash_bwd_enabled():
+        return window_attention_reference(q, k, v, bias, mask)
+    return _Fused.apply(q, k, v, bias, mask, resolve_impl(impl, q),
+                        bwd_f32_enabled())
+
+
 # kernel launches since the last reset (plain-version calls do not count)
 fused_window_attention_packed.launches = 0
+fused_window_attention_packed_bwd.launches = 0
+fused_window_attention.launches = 0

@@ -71,22 +71,27 @@ def _flax_leaf(module: nn.Module, leaf: str):
     return "params", leaf, lambda a: a
 
 
-def load_jax_variables(module: nn.Module, variables: dict) -> None:
-    """Fill ``module`` in place from JAX variables.  Raises on a shape
-    mismatch and on any leaf left over on either side."""
+def jax_tree_to_state_dict(module: nn.Module,
+                           variables: dict) -> Dict[str, np.ndarray]:
+    """JAX trees, given by collection (``{"params": ..., "batch_stats":
+    ...}``, nested dicts of numpy arrays), as a dict keyed and laid out like
+    ``module.state_dict()``.  Anything shaped like the parameters goes
+    through the same way: gradients, optimizer moments, updated
+    parameters, the ``batch_stats`` after a step.  A collection that is
+    absent is skipped, so ``{"params": grads}`` gives the entries of the
+    parameters alone.  Raises on a shape mismatch, on a port entry of a
+    given collection with no JAX leaf and on a JAX leaf left over."""
     flax = {}
     for collection, tree in variables.items():
         for path, value in _flat(tree).items():
             flax[(collection,) + path] = value
     used = set()
-    new_state = {}
-    state = module.state_dict()
-    for key, cur in state.items():
+    out = {}
+    for key, cur in module.state_dict().items():
         parts = key.split(".")
         owner = module.get_submodule(".".join(parts[:-1]))
         rule = _flax_leaf(owner, parts[-1])
-        if rule is None:
-            new_state[key] = cur
+        if rule is None or rule[0] not in variables:
             continue
         collection, leaf, convert = rule
         fkey = (collection, *_default_rename(parts[:-1]), leaf)
@@ -96,11 +101,23 @@ def load_jax_variables(module: nn.Module, variables: dict) -> None:
         if tuple(value.shape) != tuple(cur.shape):
             raise ValueError(f"{key}: port shape {tuple(cur.shape)} vs JAX "
                              f"{'/'.join(fkey)} {value.shape}")
-        new_state[key] = torch.tensor(value, dtype=cur.dtype)
+        out[key] = value
         used.add(fkey)
     left = sorted("/".join(k) for k in set(flax) - used)
     if left:
         raise KeyError(f"JAX leaves with no port counterpart: {left}")
+    return out
+
+
+def load_jax_variables(module: nn.Module, variables: dict) -> None:
+    """Fill ``module`` in place from JAX variables.  Raises on a shape
+    mismatch and on any leaf left over on either side."""
+    state = module.state_dict()
+    new_state = {k: torch.tensor(v, dtype=state[k].dtype) for k, v in
+                 jax_tree_to_state_dict(module, variables).items()}
+    for key, cur in state.items():
+        if key.endswith("num_batches_tracked"):
+            new_state[key] = cur
     module.load_state_dict(new_state, strict=True)
 
 

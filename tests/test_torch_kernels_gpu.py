@@ -5,13 +5,19 @@ with one:
 
   python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 
-builds K1-K4 with nvcc (sm_90a) on first use (``--noconftest``: the
+builds K1-K5 and K8 with nvcc (sm_90a) on first use (``--noconftest``: the
 repo's conftest sets up JAX, which these tests do not need).  Tolerances: f32
 1e-4 abs / 1e-4 rel (sums in another order); bf16 2e-2 abs / 2e-2 rel
 (both sides round an f32 result to bf16 once, or at the same casts of one
 chain: K2), and for K4 in bf16 5e-2 abs / 2e-2 rel: its residual state is
 rounded to bf16 after each of 2*depth sublayers, and a one-ulp flip at
-|x| ~ 4 (0.03) carries on through the sublayers after it.
+|x| ~ 4 (0.03) carries on through the sublayers after it.  K5's
+gradients are sums of up to Tq or Tk terms, so their tolerance scales with
+the largest value of the plain version's result: f32 1e-4 of it (sums in
+another order), bf16 2e-2 of it (the kernel takes the row maximum per head,
+the plain version over all heads as the TPU body does, so the exp rounds to
+bf16 at another place: one bf16 ulp on a weight); dbias also sums the
+windows with atomics, in any order.
 """
 
 import pytest
@@ -29,7 +35,10 @@ from cobevt_tpu_torch.ops.fused_swap_fusion import (
     launches_per_call,
 )
 from cobevt_tpu_torch.ops.window_attention import (
+    fused_window_attention,
     fused_window_attention_packed,
+    fused_window_attention_packed_bwd,
+    packed_bwd_kernel_ok,
 )
 
 pytestmark = pytest.mark.gpu
@@ -81,6 +90,108 @@ def test_k1_kernel_matches_plain(gen, dtype, D, extras):
     want = fused_window_attention_packed(q, k, v, H, bias, mask, weight,
                                          impl="torch")
     assert fused_window_attention_packed.launches == before + 1
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def _assert_close_scaled(got, want, dtype, name):
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    scale = max(float(want.abs().max()), 1e-3)
+    assert torch.isfinite(got).all(), name
+    torch.testing.assert_close(got.float(), want.float(), atol=tol * scale,
+                               rtol=tol, msg=lambda m: f"{name}: {m}")
+
+
+def _k5_inputs(gen, dtype, G, H, D, Tq, Tk, extras):
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    q = (rand(G, Tq, H * D) * 0.3).to(dtype)
+    k, v = rand(G, Tk, H * D).to(dtype), rand(G, Tk, H * D).to(dtype)
+    g = rand(G, Tq, H * D).to(dtype)
+    bias = rand(Tq, H * Tk) if "bias" in extras else None
+    mask = None
+    if "mask" in extras:
+        mask = (rand(G, Tk) > 0).float()
+        mask[1] = 0.0                  # a fully masked window
+    return q, k, v, g, bias, mask
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 32])
+@pytest.mark.parametrize("extras", ["", "bias", "mask", "bias+mask"])
+@pytest.mark.parametrize("Tq,Tk", [(72, 40), (128, 192)])
+def test_k5_kernel_matches_plain(gen, dtype, D, extras, Tq, Tk):
+    G, H = 3, 4                        # (72, 40): ragged tiles
+    q, k, v, g, bias, mask = _k5_inputs(gen, dtype, G, H, D, Tq, Tk, extras)
+    out = fused_window_attention_packed(q, k, v, H, bias, mask)
+    before = fused_window_attention_packed_bwd.launches
+    got = fused_window_attention_packed_bwd(q, k, v, g, out, H, bias, mask)
+    assert fused_window_attention_packed_bwd.launches == before + 1
+    want = fused_window_attention_packed_bwd(q, k, v, g, out, H, bias, mask,
+                                             impl="torch")
+    assert fused_window_attention_packed_bwd.launches == before + 1
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+        assert (a is None) == (b is None) == (
+            name == "dbias" and bias is None)
+        if a is not None:
+            assert a.dtype == (torch.float32 if name == "dbias" else dtype)
+            _assert_close_scaled(a, b, dtype, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("extras", ["bias+mask", "bias+weight"])
+def test_packed_attention_backward_on_the_card(gen, dtype, extras):
+    """autograd through the wrapper: K1 forward and K5 backward (or the
+    composite backward with a weight) against the plain versions."""
+    G, H, D, Tq, Tk = 3, 4, 32, 64, 64
+    q, k, v, g, bias, mask = _k5_inputs(gen, dtype, G, H, D, Tq, Tk, extras)
+    weight = None
+    if "weight" in extras:
+        weight = ((torch.rand(G, Tq, H * Tk, generator=gen, device="cuda")
+                   > 0.2).float() / 0.8).to(dtype)
+    grads = {}
+    for impl in ("kernel", "torch"):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+        ops.reset_launch_counts()
+        out = fused_window_attention_packed(*leaves[:3], H, leaves[3], mask,
+                                            weight, impl=impl)
+        out.backward(g)
+        counts = ops.launch_counts()
+        kernel = int(impl == "kernel")
+        assert counts["fused_window_attention_packed"] == kernel
+        assert counts["fused_window_attention_packed_bwd"] == (
+            kernel if packed_bwd_kernel_ok(q, k, weight, H) else 0)
+        grads[impl] = [t.grad for t in leaves]
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), grads["kernel"],
+                          grads["torch"]):
+        _assert_close_scaled(a, b, dtype, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 32])
+@pytest.mark.parametrize("extras", ["", "bias", "mask", "bias+mask"])
+def test_k8_kernel_matches_plain(gen, dtype, D, extras):
+    G, H, Tq, Tk = 3, 4, 72, 40
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    q = (rand(G, H, Tq, D) * 0.3).to(dtype)
+    k, v = rand(G, H, Tk, D).to(dtype), rand(G, H, Tk, D).to(dtype)
+    bias = rand(H, Tq, Tk) if "bias" in extras else None
+    mask = None
+    if "mask" in extras:
+        mask = (rand(G, Tk) > 0).float()
+        mask[1] = 0.0
+    before = fused_window_attention.launches
+    got = fused_window_attention(q, k, v, bias, mask)
+    assert fused_window_attention.launches == before + 1
+    want = fused_window_attention(q, k, v, bias, mask, impl="torch")
+    assert fused_window_attention.launches == before + 1
     torch.cuda.synchronize()
     assert got.dtype == dtype and torch.isfinite(got).all()
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
