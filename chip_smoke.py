@@ -9,12 +9,14 @@ non-zero without printing the final line:
   1. environment: torch, CUDA, nvcc, the card's name and power limit;
   2. build: compiles K1 and K8 (csrc/window_attention.cu), K2
      (csrc/fused_cross_attention.cu), K3 (csrc/conv3x3.cu), K4
-     (csrc/fused_swap_fusion.cu) and K5 (csrc/window_attention_bwd.cu) with
-     nvcc for sm_90a from the checkout's sources, one nvcc process each, all
-     started together;
+     (csrc/fused_swap_fusion.cu), K5 (csrc/window_attention_bwd.cu) and K6
+     (csrc/fused_swap_fusion_streaming.cu) with nvcc for sm_90a from the
+     checkout's sources, one nvcc process each, all started together;
   3. kernels vs plain: every kernel against its plain PyTorch version on
      the card at every shape of the CorpBEVT serving forward and train step
-     (5 agents x 4 cameras x 512^2, BEV 256^2), in f32 and bf16, timed with
+     (5 agents x 4 cameras x 512^2, BEV 256^2) and of the cooperative LiDAR
+     forward (fused map 5 x 96 x 176 x 256: K6, and K1 at the 264 windows
+     x 8 heads of its stock path), in f32 and bf16, timed with
      CUDA events, each beside its bound (the larger of its bytes over 3.35
      TB/s and its operations over 989 TFLOP/s) and, where one PyTorch call
      computes the same function, that call's time;
@@ -35,7 +37,15 @@ non-zero without printing the final line:
      then the gradient gate of tools/validate_kernels.py (K1 + K5 against
      COBEVT_FLASH_BWD=0, same dropout seed);
   7. K8: the head-major entry point, forward and gradients, at the
-     self-attention and the fusion shape.
+     self-attention and the fusion shape;
+  8. LiDAR: full-width PointPillar + FuseBEVT (5 agents x 8000 pillars x 32
+     points, 352 x 192 grid, fused map 96 x 176 x 256, seeded random
+     weights) in bf16 answers requests with 5, 3, 1, 4, 2 live agents on
+     the fused path (4 K6 launches a frame, no K1) and on the stock path
+     (COBEVT_FUSED_FUSION=0: 4 K1, no K6); fused against stock and bf16
+     against the f32 plain path within the budget of
+     tools/validate_kernels.py; two forwards of one request agree bit for
+     bit.
 
 The last stdout lines are the kernels JSON line, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.  Imports
@@ -55,22 +65,30 @@ import subprocess
 import sys
 import time
 
-# per-frame shapes of the CorpBEVT serving forward at 5 live agents
-# (name, G, Tq, Tk, bias, mask, weight, launches per frame on the stock
-# path, on the fused path); H=4, D=32
+# per-frame shapes of the CorpBEVT serving forward at 5 live agents, and
+# the fusion attention of the stock LiDAR path
+# (name, G, Tq, Tk, bias, mask, weight, launches per CorpBEVT frame on the
+# stock path, on the fused path, heads, launches per stock LiDAR frame);
+# head dim 32
 K1_CASES = [
-    ("fax_local_stage0", 320, 1024, 256, False, False, False, 1, 0),
-    ("fax_grid_stage0", 320, 256, 256, False, False, False, 1, 0),
-    ("fax_stage1", 80, 256, 256, False, False, False, 2, 0),
-    ("fax_stage2", 5, 1024, 1024, False, False, False, 2, 0),
-    ("fax_self_attn", 5, 1024, 1024, True, False, False, 1, 1),
-    ("fusion", 16, 320, 320, True, True, False, 6, 0),
+    ("fax_local_stage0", 320, 1024, 256, False, False, False, 1, 0, 4, 0),
+    ("fax_grid_stage0", 320, 256, 256, False, False, False, 1, 0, 4, 0),
+    ("fax_stage1", 80, 256, 256, False, False, False, 2, 0, 4, 0),
+    ("fax_stage2", 5, 1024, 1024, False, False, False, 2, 0, 4, 0),
+    ("fax_self_attn", 5, 1024, 1024, True, False, False, 1, 1, 4, 0),
+    ("fusion", 16, 320, 320, True, True, False, 6, 0, 4, 0),
+    # the 264 windows of the 96 x 176 LiDAR map, 8 heads: K6's oracle
+    ("lidar_fusion", 264, 320, 320, True, True, False, 0, 0, 8, 4),
     # off the serving path: the other operand combinations
-    ("fusion_mask_only", 16, 320, 320, False, True, False, 0, 0),
-    ("fusion_weight_only", 16, 320, 320, False, False, True, 0, 0),
-    ("self_attn_dropout", 5, 1024, 1024, True, False, True, 0, 0),
-    ("fusion_fully_masked_window", 16, 320, 320, True, True, False, 0, 0),
+    ("fusion_mask_only", 16, 320, 320, False, True, False, 0, 0, 4, 0),
+    ("fusion_weight_only", 16, 320, 320, False, False, True, 0, 0, 4, 0),
+    ("self_attn_dropout", 5, 1024, 1024, True, False, True, 0, 0, 4, 0),
+    ("fusion_fully_masked_window", 16, 320, 320, True, True, False, 0, 0, 4,
+     0),
+    ("lidar_fusion_fully_masked_window", 264, 320, 320, True, True, False,
+     0, 0, 8, 0),
 ]
+# heads of the K5 and K8 cases (K1's come with each case), and the head dim
 K1_HEADS, K1_HEAD_DIM = 4, 32
 # K5: the backward of every weight-free K1 call of a train step (name, G,
 # Tq, Tk, bias, mask, calls per step); the 13th attention of a step, the
@@ -123,11 +141,24 @@ K4_CASES = [
     ("encoder_mean_over_valid", True, True, 0),
     ("encoder_unmasked", False, False, 0),
 ]
+# K6: the streaming FuseBEVT sublayers, one call = depth x 2 sublayers + the
+# head.  (name, (B, L, H, W, D, window, heads, depth, mlp), mask,
+# mean_over_valid, calls per LiDAR frame); the first is the cooperative
+# LiDAR map, the small ones are the shapes of the CPU tests (D 128: one
+# 128-channel head group on the TPU, D 256: two)
+K6_LIDAR = (1, 5, 96, 176, 256, 8, 8, 2, 512)
+K6_CASES = [
+    ("lidar_masked", K6_LIDAR, "random", False, 1),
+    ("lidar_mean_over_valid", K6_LIDAR, "random", True, 0),
+    ("lidar_fully_masked_window", K6_LIDAR, "fully_masked", False, 0),
+    ("small_d128", (1, 3, 16, 16, 128, 8, 4, 2, 256), "random", False, 0),
+    ("small_d256", (1, 3, 16, 16, 256, 8, 8, 2, 512), "random", True, 0),
+]
 # kernel vs plain version: |kernel - plain| <= atol + rtol * |plain|.
 # f32: sums in another order (and __expf in K1).  bf16: both round an f32
 # result to bf16 once, so they differ by about one bf16 ulp (2^-8 rel).
-# K4 in bf16 rounds its residual state after each of 6 sublayers, and a
-# one-ulp flip at |x| ~ 4 (0.03) carries on: 5e-2 abs.
+# K4 in bf16 rounds its residual state after each of 6 sublayers (K6 after
+# each of 4), and a one-ulp flip at |x| ~ 4 (0.03) carries on: 5e-2 abs.
 TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
 K4_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (5e-2, 2e-2)}
 # K5: dq, dk, dv and dbias are sums of up to 1024 terms, so the tolerance is
@@ -144,7 +175,8 @@ TRAIN_STEPS = 3
 TRAIN_PER_STEP = {"fused_window_attention_packed": 13,
                   "fused_window_attention_packed_bwd": 12,
                   "fused_cross_view_attention": 0, "fused_conv3x3": 0,
-                  "fused_swap_fusion": 0, "fused_window_attention": 0}
+                  "fused_swap_fusion": 0, "fused_window_attention": 0,
+                  "fused_swap_fusion_streaming": 0}
 SERVE_AGENTS = [5, 3, 1, 4, 2, 5, 3, 5, 2, 4]
 STOCK_AGENTS = [5, 2, 4]
 # launches per frame on each path: K2 6 branches x 4, K4 3 blocks x 2
@@ -152,12 +184,20 @@ STOCK_AGENTS = [5, 2, 4]
 # launches_per_call)
 FUSED_PER_FRAME = {"fused_window_attention_packed": 1,
                    "fused_cross_view_attention": 6 * 4,
-                   "fused_conv3x3": 20, "fused_swap_fusion": 3 * 2 * 3 + 1}
+                   "fused_conv3x3": 20, "fused_swap_fusion": 3 * 2 * 3 + 1,
+                   "fused_swap_fusion_streaming": 0}
 STOCK_PER_FRAME = {"fused_window_attention_packed": 13,
                    "fused_cross_view_attention": 0,
-                   "fused_conv3x3": 20, "fused_swap_fusion": 0}
+                   "fused_conv3x3": 20, "fused_swap_fusion": 0,
+                   "fused_swap_fusion_streaming": 0}
+# the LiDAR forward: FuseBEVT depth 2 = 4 sublayers, each one K6 call on the
+# fused path or one K1 call (after a cuBLAS QKV projection) on the stock one
+LIDAR_AGENTS = [5, 3, 1, 4, 2]
+LIDAR_FUSED_PER_FRAME = {"fused_swap_fusion_streaming": 4}
+LIDAR_STOCK_PER_FRAME = {"fused_window_attention_packed": 4}
 KERNELS = ("window_attention", "fused_cross_attention", "conv3x3",
-           "fused_swap_fusion", "window_attention_bwd")
+           "fused_swap_fusion", "window_attention_bwd",
+           "fused_swap_fusion_streaming")
 IOU_FLOOR = 0.99
 
 
@@ -276,10 +316,10 @@ def phase_build():
         _build.load(name)
 
 
-def k1_inputs(case, dtype, gen):
+def k1_inputs(case, dtype, gen, heads=K1_HEADS):
     import torch
     name, G, Tq, Tk, has_bias, has_mask, has_weight = case[:7]
-    C = K1_HEADS * K1_HEAD_DIM
+    C = heads * K1_HEAD_DIM
     dev = "cuda"
 
     def randn(*shape):
@@ -287,15 +327,15 @@ def k1_inputs(case, dtype, gen):
 
     q = (randn(G, Tq, C) * K1_HEAD_DIM ** -0.5).to(dtype)
     k, v = randn(G, Tk, C).to(dtype), randn(G, Tk, C).to(dtype)
-    bias = randn(Tq, K1_HEADS * Tk) * 0.5 if has_bias else None
+    bias = randn(Tq, heads * Tk) * 0.5 if has_bias else None
     mask = None
     if has_mask:
         mask = (torch.rand(G, Tk, generator=gen, device=dev) > 0.3).float()
-        if name == "fusion_fully_masked_window":
+        if name.endswith("fully_masked_window"):
             mask[3] = 0.0
     weight = None
     if has_weight:
-        keep = torch.rand(G, Tq, K1_HEADS * Tk, generator=gen, device=dev)
+        keep = torch.rand(G, Tq, heads * Tk, generator=gen, device=dev)
         weight = ((keep > 0.1).float() / 0.9).to(dtype)
     return q, k, v, bias, mask, weight
 
@@ -345,17 +385,9 @@ def k2_inputs(case, dtype, gen):
     return x, w_embed, c_embed, key, val, params, mlp, post_ln
 
 
-def k4_inputs(case, dtype, gen):
-    """x, mask, agent_mask, bias_stack, layers, head of the FuseBEVT
-    encoder at CorpBEVT (one frame, 3 live agents of max_cav 5)."""
-    import torch
-    _, masked, _, _ = case
-    B, L, H, D, w, heads, depth, mlp = 1, 5, 32, 128, 8, 4, 3, 256
-    T = L * w * w
-
-    def randn(*shape, scale=1.0):
-        return torch.randn(*shape, generator=gen, device="cuda") * scale
-
+def fusion_operands(randn, D, mlp, depth, T, heads):
+    """(layers, bias_stack, head) of a FuseBEVT encoder, weights scaled like
+    the seeded model's; K4's and K6's operands."""
     def sub():
         return {"ln_a": _ln_pair(randn, D),
                 "wqkv": randn(D, 3 * D, scale=D ** -0.5),
@@ -366,28 +398,80 @@ def k4_inputs(case, dtype, gen):
                 "w2": randn(mlp, D, scale=mlp ** -0.5),
                 "b2": randn(D, scale=0.02)}
 
+    layers = [(sub(), sub()) for _ in range(depth)]
+    bias = randn(depth, 2, T, heads * T, scale=0.02)
+    head = {"ln": _ln_pair(randn, D), "w": randn(D, D, scale=D ** -0.5),
+            "b": randn(D, scale=0.02)}
+    return layers, bias, head
+
+
+def k4_inputs(case, dtype, gen):
+    """x, mask, agent_mask, bias_stack, layers, head of the FuseBEVT
+    encoder at CorpBEVT (one frame, 3 live agents of max_cav 5)."""
+    import torch
+    _, masked, _, _ = case
+    B, L, H, D, w, heads, depth, mlp = 1, 5, 32, 128, 8, 4, 3, 256
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
     agent_mask = torch.tensor([[1.0, 1.0, 1.0, 0.0, 0.0]], device="cuda")
     mask = None
     if masked:
         mask = (torch.rand(B, L, H, H, generator=gen, device="cuda")
                 > 0.3).float() * agent_mask[:, :, None, None]
         mask[:, 0] = 1.0
-    layers = [(sub(), sub()) for _ in range(depth)]
-    bias = randn(depth, 2, T, heads * T, scale=0.02)
-    head = {"ln": _ln_pair(randn, D), "w": randn(D, D, scale=D ** -0.5),
-            "b": randn(D, scale=0.02)}
+    layers, bias, head = fusion_operands(randn, D, mlp, depth, L * w * w,
+                                         heads)
     return (randn(B, L, H, H, D).to(dtype), mask, agent_mask, bias, layers,
             head, w, heads)
 
 
-def sdpa_mask(bias_flat, mask, dtype):
+def k6_inputs(case, dtype, gen):
+    """x, mask, agent_mask, bias_stack, layers, head, window, heads of the
+    streaming FuseBEVT encoder."""
+    import torch
+    _, (B, L, H, W, D, w, heads, depth, mlp), mask_kind, _, _ = case
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    agent_mask = torch.ones(B, L, device="cuda")
+    agent_mask[:, L - L // 3:] = 0.0
+    mask = (torch.rand(B, L, H, W, generator=gen, device="cuda")
+            > 0.3).float() * agent_mask[:, :, None, None]
+    mask[:, 0] = 1.0
+    if mask_kind == "fully_masked":
+        mask[:, :, :w, :w] = 0.0      # window (0, 0) has no live key
+    layers, bias, head = fusion_operands(randn, D, mlp, depth, L * w * w,
+                                         heads)
+    return (randn(B, L, H, W, D).to(dtype), mask, agent_mask, bias, layers,
+            head, w, heads)
+
+
+def k6_work(shape, dtype_size):
+    """(operations, bytes) of one K6 call: depth x 2 sublayers and the
+    head.  Bytes: the state in, the result out, the weights, the f32 bias of
+    every sublayer and the f32 mask, each once."""
+    B, L, H, W, D, w, _, depth, mlp = shape
+    rows, T, G = B * L * H * W, L * w * w, B * (H // w) * (W // w)
+    heads = shape[6]
+    sub = 2.0 * rows * D * (3 * D + D + 2 * mlp) + 4.0 * G * T * T * D
+    flops = 2 * depth * sub + 2.0 * B * H * W * D * D
+    weights = 2 * depth * (4 * D * D + 2 * D * mlp) + D * D
+    elems = rows * D + B * H * W * D + weights
+    return flops, (elems * dtype_size + 2 * depth * T * heads * T * 4
+                   + B * L * H * W * 4)
+
+
+def sdpa_mask(bias_flat, mask, dtype, heads=K1_HEADS):
     """Packed bias (Tq, H*Tk) and key mask (G, Tk) as the additive
     ``attn_mask`` of ``scaled_dot_product_attention``, or None."""
     import torch
     add = None
     if bias_flat is not None:
         Tq = bias_flat.shape[0]
-        add = bias_flat.reshape(Tq, K1_HEADS, -1).permute(1, 0, 2)[None]
+        add = bias_flat.reshape(Tq, heads, -1).permute(1, 0, 2)[None]
         add = add.to(dtype)
     if mask is not None:
         m = torch.where(mask > 0, 0.0, -1e9)[:, None, None, :].to(dtype)
@@ -397,10 +481,10 @@ def sdpa_mask(bias_flat, mask, dtype):
     return add
 
 
-def attention_work(G, Tq, Tk, products):
+def attention_work(G, Tq, Tk, products, heads=K1_HEADS):
     """Operations of ``products`` (Tq x Tk x D) products per (window, head):
     2 for a forward, 5 for the backward."""
-    return 2.0 * products * G * K1_HEADS * Tq * Tk * K1_HEAD_DIM
+    return 2.0 * products * G * heads * Tq * Tk * K1_HEAD_DIM
 
 
 def k2_work(case, dtype_size):
@@ -439,7 +523,12 @@ def phase_kernels():
         fused_cross_view_attention,
         pack_params,
     )
-    from cobevt_tpu_torch.ops.fused_swap_fusion import fused_swap_fusion, pack
+    from cobevt_tpu_torch.ops.fused_swap_fusion import (
+        _launch_streaming,
+        fused_swap_fusion,
+        fused_swap_fusion_streaming,
+        pack,
+    )
     from cobevt_tpu_torch.ops.window_attention import (
         _packed_to_4d,
         fused_window_attention,
@@ -453,11 +542,12 @@ def phase_kernels():
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         for case in K1_CASES:
-            q, k, v, bias, mask, weight = k1_inputs(case, dtype, gen)
+            heads = case[9]
+            q, k, v, bias, mask, weight = k1_inputs(case, dtype, gen, heads)
 
             def attn(impl):
                 return fused_window_attention_packed(
-                    q, k, v, K1_HEADS, bias_flat=bias, mask=mask,
+                    q, k, v, heads, bias_flat=bias, mask=mask,
                     weight=weight, impl=impl)
 
             got, want = attn("kernel"), attn("torch")
@@ -466,17 +556,18 @@ def phase_kernels():
             iters = 3 if case[1] * case[2] * case[3] > 5e7 else 10
             row = {"kernel": "K1", "case": case[0], "dtype": dname,
                    "per_frame": case[8], "per_frame_stock": case[7],
+                   "per_lidar_frame_stock": case[10], "heads": heads,
                    "max_abs_err": abs_err,
                    "max_rel_err": rel_err, "ok": ok,
                    "ms": time_ms(lambda: attn("kernel"), iters),
                    "plain_ms": time_ms(lambda: attn("torch"), iters)}
-            row.update(bound(attention_work(*case[1:4], 2),
+            row.update(bound(attention_work(*case[1:4], 2, heads),
                              nbytes(q, k, v, got, bias, mask, weight), dname))
             if weight is None:
                 # one library call expresses bias and mask as an additive
                 # mask; the dropout weight it cannot take
-                q4, k4, v4 = (_packed_to_4d(t, K1_HEADS) for t in (q, k, v))
-                add = sdpa_mask(bias, mask, dtype)
+                q4, k4, v4 = (_packed_to_4d(t, heads) for t in (q, k, v))
+                add = sdpa_mask(bias, mask, dtype, heads)
                 row["library_ms"] = time_ms(
                     lambda: F.scaled_dot_product_attention(
                         q4, k4, v4, attn_mask=add, scale=1.0), iters)
@@ -560,6 +651,39 @@ def phase_kernels():
             if not ok:
                 failures.append(row)
             del x, mask, am, bias, layers, head, packed, got, want
+        for case in K6_CASES:
+            x, mask, am, bias, layers, head, w, heads = k6_inputs(
+                case, dtype, gen)
+            packed = pack(layers, bias, head, dtype, torch.float32)
+            sublayers = 2 * case[1][7]
+
+            def stream(impl):
+                return fused_swap_fusion_streaming(
+                    x, mask, am, None, packed, None, w, heads,
+                    mean_over_valid=case[3], impl=impl)
+
+            got, want = stream("kernel"), stream("torch")
+            torch.cuda.synchronize()
+            abs_err, rel_err, ok = compare(got, want, dname, K4_TOL)
+            big = case[1] == K6_LIDAR
+            row = {"kernel": "K6", "case": case[0], "dtype": dname,
+                   "per_frame": case[4], "sublayers": sublayers,
+                   "max_abs_err": abs_err, "max_rel_err": rel_err, "ok": ok}
+            del want
+            row["ms"] = time_ms(lambda: stream("kernel"), 3 if big else 10)
+            # the sublayers' kernels alone, without the plain-PyTorch
+            # pooling and head that the call ends with
+            row["sublayers_ms"] = time_ms(
+                lambda: _launch_streaming(x, mask, packed.bias, packed.layers,
+                                          w, heads), 3 if big else 10)
+            row["plain_ms"] = time_ms(lambda: stream("torch"),
+                                      2 if big else 10, warmup=1)
+            row.update(bound(*k6_work(case[1], x.element_size()), dname))
+            details.append(row)
+            if not ok:
+                failures.append(row)
+            del x, mask, am, bias, layers, head, packed, got
+            torch.cuda.empty_cache()
         for case in K5_CASES:
             name, G, Tq, Tk, has_bias, has_mask, per_step = case
             q, k, v, bias, mask, _ = k1_inputs(
@@ -662,6 +786,15 @@ def phase_kernels():
             f"{'ok ' if r['ok'] else 'BAD'} kernel={r['ms']:.3f} ms "
             f"plain={r['plain_ms']:.3f} ms bound={r['bound_ms']:.4f} ms "
             f"({r['bound_by']}){extra}")
+        if r["kernel"] == "K6":
+            n = r["sublayers"]
+            log(f"   the {n} sublayers' kernels alone: "
+                f"{r['sublayers_ms']:.3f} ms, {r['sublayers_ms'] / n:.3f} ms "
+                f"each; pooling and head: "
+                f"{r['ms'] - r['sublayers_ms']:.3f} ms; a {n}th of the "
+                f"call: kernel={r['ms'] / n:.3f} ms "
+                f"plain={r['plain_ms'] / n:.3f} ms "
+                f"bound={r['bound_ms'] / n:.4f} ms")
     if failures:
         raise AssertionError(f"{len(failures)} kernel cases disagree with "
                              f"their plain versions: "
@@ -889,6 +1022,115 @@ def phase_k8(seed=0):
     return launches
 
 
+def lidar_requests(model, batch, agents, expect, name):
+    """Answer one request per entry of ``agents`` (that many live agents
+    through ``agent_mask``, B 1), each timed on the host clock around a
+    forward that ends in a synchronize, after one untimed warmup; the launch
+    counts are set to 0 just before the counted requests and read just
+    after.  Raises unless every frame ran exactly the ``expect`` launches
+    and nothing else."""
+    import numpy as np
+    import torch
+    from cobevt_tpu_torch import ops
+
+    def request(n):
+        live = dict(batch)
+        live["agent_mask"] = batch["agent_mask"].clone()
+        live["agent_mask"][:, n:] = 0.0
+        return live
+
+    def answer(req):
+        with torch.no_grad():
+            out = model(req)
+        torch.cuda.synchronize()
+        return out
+
+    answer(request(agents[0]))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    frame_ms, outs = [], []
+    for n in agents:
+        req = request(n)
+        t0 = time.perf_counter()
+        out = answer(req)
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        for key, shape in (("cls_preds", (1, 96, 176, 2)),
+                           ("reg_preds", (1, 96, 176, 14))):
+            if tuple(out[key].shape) != shape:
+                raise AssertionError(f"{name}: {key} {tuple(out[key].shape)}")
+            if not torch.isfinite(out[key]).all():
+                raise AssertionError(f"{name} ({n} agents): non-finite {key}")
+        outs.append(out)
+    counts = ops.launch_counts()
+    per_frame = {k: c / len(agents) for k, c in counts.items()}
+    summary = {"frames": len(agents), "agents": list(agents),
+               "frame_ms": frame_ms,
+               "p50_ms": float(np.percentile(frame_ms, 50)),
+               "min_ms": min(frame_ms), "max_ms": max(frame_ms),
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"{name}: {len(agents)} requests, launches per frame "
+        f"{ {k: v for k, v in per_frame.items() if v} }")
+    log(f"{name} summary " + json.dumps(summary))
+    for fn, c in counts.items():
+        if c != expect.get(fn, 0) * len(agents):
+            raise AssertionError(f"{name}: {fn} ran {c} launches over "
+                                 f"{len(agents)} frames, expected "
+                                 f"{expect.get(fn, 0)} each")
+    return counts, summary, outs
+
+
+def phase_lidar(seed=0):
+    """Full-width cooperative LiDAR forward (PointPillar + FuseBEVT) through
+    build_pointpillar of tools/benchmark.py: the fused path (K6), the stock
+    path (K1), fused vs stock and bf16 vs the f32 plain path within the
+    budget of tools/validate_kernels.py, and the bit-for-bit repeat of one
+    request."""
+    import torch
+    from cobevt_tpu_torch import ops
+    from cobevt_tpu_torch.tools import benchmark, validate_kernels
+
+    log("== LiDAR: PointPillar + FuseBEVT, 5 agents x 8000 pillars x 32 "
+        "points, grid 352 x 192, fused map 96 x 176 x 256, bf16")
+    device = torch.device("cuda", torch.cuda.current_device())
+    model, batch, _ = benchmark.build_pointpillar(5, seed, device)
+    ref_model = copy.deepcopy(model).eval()            # f32, same weights
+    model = model.to(torch.bfloat16).eval()
+    kernel = model.fusion_net.fused_kernel((1, 5, 96, 176, 256))
+    if kernel != "K6":
+        raise AssertionError(f"the LiDAR map dispatches to {kernel}, not K6")
+    budget = validate_kernels.BUDGET_FORWARD
+
+    with switches(None):
+        counts, fused, outs = lidar_requests(
+            model, batch, LIDAR_AGENTS, LIDAR_FUSED_PER_FRAME, "fused path")
+        with torch.no_grad():
+            again = model(batch)
+        for key, t in outs[0].items():
+            if not torch.equal(t, again[key]):
+                raise AssertionError(f"two forwards of one request differ in "
+                                     f"{key}")
+        log("two forwards of the 5-agent request agree bit for bit")
+        with ops.forced_impl("torch"), torch.no_grad():
+            ref = ref_model(batch)
+    del ref_model
+    with switches("0"):
+        stock_counts, stock, stock_outs = lidar_requests(
+            model, batch, LIDAR_AGENTS, LIDAR_STOCK_PER_FRAME, "stock path")
+    gates = [validate_kernels.compare_outputs(
+        f"pointpillar_fused_vs_stock_{n}_agents", f, s, budget)
+        for n, f, s in zip(LIDAR_AGENTS, outs, stock_outs)]
+    gates.append(validate_kernels.compare_outputs(
+        "pointpillar_bf16_kernels_vs_f32_plain", outs[0], ref, budget))
+    for g in gates:
+        log("gate " + json.dumps(g))
+    bad = [g["component"] for g in gates if not g["ok"]]
+    if bad:
+        raise AssertionError(f"LiDAR gates failed: {bad}")
+    torch.cuda.empty_cache()
+    return counts, {"fused": fused, "stock": stock,
+                    "stock_counts": stock_counts, "gates": gates}
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default=None,
@@ -907,6 +1149,7 @@ def main(argv=None):
     counts, summary, plain, ref_check = phase_slice()
     train_counts, train_row, gate = phase_train()
     k8_launches = phase_k8()
+    lidar_counts, lidar = phase_lidar()
 
     # (wrapper, source, TPU kernel, launches on its path)
     sources = {
@@ -924,6 +1167,9 @@ def main(argv=None):
         "K5": ("fused_window_attention_packed_bwd",
                "cobevt_tpu_torch/csrc/window_attention_bwd.cu",
                "cobevt_tpu/ops/window_attention.py:671"),
+        "K6": ("fused_swap_fusion_streaming",
+               "cobevt_tpu_torch/csrc/fused_swap_fusion_streaming.cu",
+               "cobevt_tpu/ops/fused_swap_fusion.py:387"),
         "K8": ("fused_window_attention",
                "cobevt_tpu_torch/csrc/window_attention.cu",
                "cobevt_tpu/ops/window_attention.py:899"),
@@ -932,11 +1178,14 @@ def main(argv=None):
     launches["fused_window_attention_packed_bwd"] = train_counts[
         "fused_window_attention_packed_bwd"]
     launches["fused_window_attention"] = k8_launches
+    launches["fused_swap_fusion_streaming"] = lidar_counts[
+        "fused_swap_fusion_streaming"]
     kernels = []
     for key, (fn, src, replaces) in sources.items():
         rows = [r for r in details if r["kernel"] == key]
         # one 5-agent frame's calls on the fused serving path (K1-K4), one
-        # train step's calls (K5), one call at each shape (K8), bf16
+        # train step's calls (K5), one LiDAR frame's four sublayers and head
+        # (K6), one call at each shape (K8), bf16
         bf16 = [r for r in rows
                 if r["dtype"] == "bfloat16" and r["per_frame"]]
 
@@ -964,7 +1213,8 @@ def main(argv=None):
             json.dump({"cases": details, "serve": summary,
                        "serve_plain": plain, "reference": ref_check,
                        "train": train_row, "train_counts": train_counts,
-                       "gradient_gate": gate, "kernels": kernels, "card": card_line(),
+                       "gradient_gate": gate, "lidar": lidar,
+                       "kernels": kernels, "card": card_line(),
                        "torch": torch.__version__,
                        "cuda": torch.version.cuda,
                        "seconds": time.perf_counter() - t0}, f, indent=1)

@@ -1,4 +1,4 @@
-// Flash-style window attention shared by K2 and K4.
+// Flash-style window attention shared by K2, K4 and K6.
 //
 // The design of K1 (window_attention.cu): one block per (query tile, head,
 // window), key tiles streamed through shared memory, an online softmax with
@@ -15,7 +15,10 @@
 //    read from the (B, L, H, W) mask through the window map (window or grid
 //    cells), added as mask_add (-1e9 rounded to T) after the bias;
 //  * the probabilities rounded to T before both the numerator and the sum,
-//    as the TPU bodies round their exp (fused_cross_attention.py:78-89).
+//    as the TPU bodies round their exp (fused_cross_attention.py:78-89);
+//  * for K6 the bias in f32 whatever T is (template parameter TB), as the
+//    streaming TPU body keeps it (fused_swap_fusion.py:400-401); its
+//    mask_add is then -1e9 itself, which is exact in f32.
 //
 // The bf16 kernel runs both products on the tensor cores (mma.sync
 // m16n8k16) for head dims 16 and 32; the scalar kernel (f32, and bf16 at
@@ -23,6 +26,8 @@
 #pragma once
 
 #include "rowops.cuh"
+
+#include <type_traits>
 
 namespace flash {
 
@@ -46,7 +51,8 @@ struct Args {
   int nseg;  // segments averaged; segment s holds query rows s*Tq + r
   int Tk;
   int heads;
-  const void* bias;   // (Tq, heads*Tk) in T, shared by every window; or null
+  const void* bias;   // (Tq, heads*Tk) in TB (T, or f32 for K6), shared by
+                      // every window; or null
   const float* mask;  // (B, L, Hs, Ws) key mask (keys with mask <= 0 get
                       // mask_add); or null
   int L, wsz, X, Y, Hs, Ws, grid;  // window map of the mask
@@ -72,11 +78,19 @@ __device__ __forceinline__ long long mask_offset(const Args& a, int g, int j) {
   return ((long long)(b * a.L + l) * a.Hs + y) * a.Ws + x;
 }
 
+// two consecutive bias values as f32
+__device__ __forceinline__ float2 bias2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 bias2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
 constexpr int kScalarQ = 64;  // query rows per block, one per thread
 constexpr int kScalarK = 32;  // keys per shared-memory tile
 
 // grid: (ceil(Tq / kScalarQ), heads, G); block: kScalarQ threads.
-template <typename T, int D>
+template <typename T, int D, typename TB = T>
 __global__ void __launch_bounds__(kScalarQ) scalar_kernel(Args a) {
   __shared__ __align__(16) float ks[kScalarK][D];
   __shared__ __align__(16) float vs[kScalarK][D];
@@ -92,7 +106,7 @@ __global__ void __launch_bounds__(kScalarQ) scalar_kernel(Args a) {
   const T* q = static_cast<const T*>(a.q) + g * a.q_win;
   const T* k = static_cast<const T*>(a.k) + g * a.kv_win;
   const T* v = static_cast<const T*>(a.v) + g * a.kv_win;
-  const T* bias = static_cast<const T*>(a.bias);
+  const TB* bias = static_cast<const TB*>(a.bias);
   const size_t HTk = (size_t)a.heads * a.Tk;
 
   float mean[D];
@@ -192,7 +206,7 @@ constexpr int kTcK = 64;             // keys per shared-memory tile
 // 32 * kTcWarps threads.  Four warps each own 16 query rows; the S
 // accumulator fragments are repacked in registers as the A operand of P v.
 // Needs Tk % 8 == 0 and 16-byte aligned k/v rows.
-template <int D>
+template <int D, typename TB = __nv_bfloat16>
 __global__ void __launch_bounds__(32 * kTcWarps) tc_kernel(Args a) {
   constexpr int kPadK = D + 8;     // Ks row, halves
   constexpr int kPadV = kTcK + 8;  // Vt row, halves
@@ -215,7 +229,7 @@ __global__ void __launch_bounds__(32 * kTcWarps) tc_kernel(Args a) {
                            win * a.kv_win;
   const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v) +
                            win * a.kv_win;
-  const __nv_bfloat16* bias = static_cast<const __nv_bfloat16*>(a.bias);
+  const TB* bias = static_cast<const TB*>(a.bias);
   const size_t HTk = (size_t)a.heads * Tk;
 
   const int r0 = blockIdx.x * kTcQ + warp * 16 + g;
@@ -301,9 +315,8 @@ __global__ void __launch_bounds__(32 * kTcWarps) tc_kernel(Args a) {
           float x0 = s[j][2 * hr], x1 = s[j][2 * hr + 1];
           if (key < Tk) {
             if (bias != nullptr) {
-              const float2 b = __bfloat1622float2(
-                  *reinterpret_cast<const __nv_bfloat162*>(
-                      bias + (size_t)row * HTk + (size_t)h * Tk + key));
+              const float2 b =
+                  bias2(bias + (size_t)row * HTk + (size_t)h * Tk + key);
               x0 += b.x;
               x1 += b.y;
             }
@@ -402,41 +415,45 @@ __global__ void __launch_bounds__(32 * kTcWarps) tc_kernel(Args a) {
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, typename TB>
 inline void launch_scalar(const Args& a, int G, cudaStream_t s) {
   const dim3 grid((a.Tq + kScalarQ - 1) / kScalarQ, a.heads, G);
-  scalar_kernel<T, D><<<grid, kScalarQ, 0, s>>>(a);
+  scalar_kernel<T, D, TB><<<grid, kScalarQ, 0, s>>>(a);
 }
 
-template <int D>
+template <int D, typename TB>
 inline void launch_tc(const Args& a, int G, cudaStream_t s) {
   const dim3 grid((a.Tq + kTcQ - 1) / kTcQ, a.heads, G);
-  tc_kernel<D><<<grid, 32 * kTcWarps, 0, s>>>(a);
+  tc_kernel<D, TB><<<grid, 32 * kTcWarps, 0, s>>>(a);
 }
 
 // Head dim D in {8, 16, 32}: bf16 at 16 and 32 on the tensor cores,
-// everything else scalar.  Returns the launch's cudaError_t.
+// everything else scalar.  BiasF32: the bias is f32 whatever the compute
+// dtype (K6); otherwise it is in the compute dtype.  Returns the launch's
+// cudaError_t.
+template <bool BiasF32 = false>
 inline cudaError_t launch(const Args& a, int G, int D, bool is_bf16,
                           cudaStream_t s) {
+  using TBh = typename std::conditional<BiasF32, float, __nv_bfloat16>::type;
   if (G <= 0 || G > 65535 || a.heads <= 0 || a.heads > 65535 || a.Tq <= 0 ||
       a.Tk <= 0 || a.nseg <= 0 || a.Tk % 8)
     return cudaErrorInvalidValue;
   if (is_bf16) {
     if (D == 32)
-      launch_tc<32>(a, G, s);
+      launch_tc<32, TBh>(a, G, s);
     else if (D == 16)
-      launch_tc<16>(a, G, s);
+      launch_tc<16, TBh>(a, G, s);
     else if (D == 8)
-      launch_scalar<__nv_bfloat16, 8>(a, G, s);
+      launch_scalar<__nv_bfloat16, 8, TBh>(a, G, s);
     else
       return cudaErrorInvalidValue;
   } else {
     if (D == 32)
-      launch_scalar<float, 32>(a, G, s);
+      launch_scalar<float, 32, float>(a, G, s);
     else if (D == 16)
-      launch_scalar<float, 16>(a, G, s);
+      launch_scalar<float, 16, float>(a, G, s);
     else if (D == 8)
-      launch_scalar<float, 8>(a, G, s);
+      launch_scalar<float, 8, float>(a, G, s);
     else
       return cudaErrorInvalidValue;
   }

@@ -34,6 +34,7 @@
 // its host dispatch.
 #include "flash.cuh"
 #include "rowops.cuh"
+#include "swap_state.cuh"
 
 namespace {
 
@@ -47,30 +48,10 @@ using rowops::rnd;
 using rowops::st8;
 using rowops::to_f;
 using rowops::zero8;
-
-struct Dims {
-  int B, L, H, W, D, w, heads, mlp, grid;
-};
-
-// element offset in the (B, L, H, W, D) state of row rr of the window-major
-// token order: window g = rr / T (b, wx, wy), token (l, p, s) of the window
-__device__ __forceinline__ long long state_offset(const Dims& d,
-                                                  long long rr) {
-  const int X = d.H / d.w, Y = d.W / d.w;
-  const int w2 = d.w * d.w;
-  const int T = d.L * w2;
-  const long long g = rr / T;
-  const int j = (int)(rr - g * T);
-  const int b = (int)(g / (X * Y));
-  const int wi = (int)(g - (long long)b * X * Y);
-  const int wx = wi / Y, wy = wi - (wi / Y) * Y;
-  const int l = j / w2;
-  const int p = (j - l * w2) / d.w;
-  const int s = j - l * w2 - p * d.w;
-  const int y = d.grid ? p * X + wx : wx * d.w + p;
-  const int x = d.grid ? s * Y + wy : wy * d.w + s;
-  return (((long long)(b * d.L + l) * d.H + y) * d.W + x) * d.D;
-}
+using swap_state::Dims;
+using swap_state::dims_ok;
+using swap_state::make_dims;
+using swap_state::state_offset;
 
 // 1. LN + QKV (no bias) into (B*nwin*T, 3D); q = cast(qkv) * scale, cast.
 template <typename T>
@@ -259,26 +240,6 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 int row_blocks(long long rows) { return (int)((rows + kRows - 1) / kRows); }
-
-Dims make_dims(const int* v) {
-  Dims d;
-  d.B = v[0];
-  d.L = v[1];
-  d.H = v[2];
-  d.W = v[3];
-  d.D = v[4];
-  d.w = v[5];
-  d.heads = v[6];
-  d.mlp = v[7];
-  d.grid = v[8];
-  return d;
-}
-
-bool dims_ok(const Dims& d) {
-  return d.B > 0 && d.L > 0 && d.w > 0 && d.H % d.w == 0 && d.W % d.w == 0 &&
-         d.D % 16 == 0 && d.mlp % 16 == 0 && d.heads > 0 &&
-         d.D % d.heads == 0;
-}
 
 template <typename T>
 int qkv_launch(const void* S, const void* ln_a, const void* wqkv_t,

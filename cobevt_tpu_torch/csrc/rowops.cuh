@@ -1,6 +1,8 @@
-// Token-row building blocks shared by K2 (fused_cross_attention.cu) and K4
-// (fused_swap_fusion.cu): a block owns kRows token rows held as f32 tiles in
-// shared memory, and runs LayerNorms and products with weights over them.
+// Token-row building blocks shared by K2 (fused_cross_attention.cu), K4
+// (fused_swap_fusion.cu) and K6 (fused_swap_fusion_streaming.cu): a block
+// owns kRows token rows (K6: 16, its tiles are twice as wide) held as
+// f32 tiles in shared memory, and runs LayerNorms and products with weights
+// over them.
 //
 // Numerics follow the TPU bodies: a tile holds f32 values, and wherever the
 // TPU body casts to the compute dtype T the kernel rounds with rnd<T>, so a
@@ -106,16 +108,16 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// LayerNorm in f32 (eps 1e-5) of the kRows rows of tile s (row stride ld,
+// LayerNorm in f32 (eps 1e-5) of the Rows rows of tile s (row stride ld,
 // width n), in place: (t - mu) * rsqrt(var + eps) * gamma + beta, as
 // cobevt_tpu/ops/fused_cross_attention.py:_ln_f32.  The result is rounded
 // to T when round_out.  One warp per row; callers sync before and after.
-template <typename T>
+template <typename T, int Rows = kRows>
 __device__ void layer_norm_rows(float* s, int ld, int n, const T* gamma,
                                 const T* beta, bool round_out) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  for (int r = warp; r < kRows; r += kThreads / 32) {
+  for (int r = warp; r < Rows; r += kThreads / 32) {
     float* row = s + r * ld;
     float sum = 0.f;
     for (int c = lane; c < n; c += 32) sum += row[c];
@@ -133,20 +135,24 @@ __device__ void layer_norm_rows(float* s, int ld, int n, const T* gamma,
   }
 }
 
-// out[r][c] = sum_k A[r][k] * Wt[c][k] for the kRows rows and c < N.
+// out[r][c] = sum_k A[r][k] * Wt[c][k] for the Rows rows and c < N.
 // A: f32 tile (row stride lda) whose values are exact in T; Wt: (N, K)
-// row-major in T.  f32 accumulation.  Needs K % 16 == 0 and N % 16 == 0.
-// Callers sync before (A complete) and after (out complete).
-template <typename T>
+// row-major in T.  f32 accumulation.  Rows is 16, 32 or 64: the 8 warps of
+// the tensor-core product form Rows / 16 row groups of 16 rows, and the
+// warps of a row group split the N columns evenly in 8-column tiles, so it
+// needs K % 16 == 0 and N % (8 * 8 / (Rows / 16)) == 0 (N % 16 at the
+// default 64 rows, N % 32 at 32 rows).  Callers sync before (A complete)
+// and after (out complete).
+template <typename T, int Rows = kRows>
 struct Gemm;
 
-template <>
-struct Gemm<float> {
+template <int Rows>
+struct Gemm<float, Rows> {
   static __device__ void run(const float* A, int lda, const float* Wt, int K,
                              int N, float* out, int ldo) {
     for (int c = threadIdx.x; c < N; c += kThreads) {
       const float* w = Wt + (size_t)c * K;
-      for (int r0 = 0; r0 < kRows; r0 += 16) {
+      for (int r0 = 0; r0 < Rows; r0 += 16) {
         float acc[16];
 #pragma unroll
         for (int i = 0; i < 16; ++i) acc[i] = 0.f;
@@ -170,18 +176,22 @@ struct Gemm<float> {
   }
 };
 
-template <>
-struct Gemm<__nv_bfloat16> {
+template <int Rows>
+struct Gemm<__nv_bfloat16, Rows> {
+  static_assert(Rows == 16 || Rows == 64,
+                "8 warps in row groups of 16 rows");
   static __device__ void run(const float* A, int lda,
                              const __nv_bfloat16* Wt, int K, int N,
                              float* out, int ldo) {
+    constexpr int kRowGroups = Rows / 16;
+    constexpr int kColGroups = (kThreads / 32) / kRowGroups;
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
     const int g = lane >> 2;
     const int t = lane & 3;
-    const int r0 = (warp & 3) * 16;
-    const int n_lo = (warp >> 2) * (N / 2);  // N % 16 == 0
-    const int n_hi = n_lo + N / 2;
+    const int r0 = (warp % kRowGroups) * 16;
+    const int n_lo = (warp / kRowGroups) * (N / kColGroups);
+    const int n_hi = n_lo + N / kColGroups;
     const float* a0p = A + (r0 + g) * lda + 2 * t;
     const float* a1p = a0p + 8 * lda;
     for (int n0 = n_lo; n0 < n_hi; n0 += 64) {

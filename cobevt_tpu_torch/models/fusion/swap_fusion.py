@@ -2,11 +2,12 @@
 
 Counterpart of ``cobevt_tpu/models/fusion/swap_fusion.py`` (reference
 ``swap_fusion_modules.py:233``), with the JAX package's dispatch: at eval
-the whole encoder runs as K4 (``ops/fused_swap_fusion.py``) where its gate
-holds; ``COBEVT_FUSED_FUSION=0`` or training runs the stock modules, each
-window attention through K1 (``ops/window_attention.py``) with the 3D
-relative-position bias and the additive key mask.  The canonical mask is
-(B, L, H, W).
+the whole encoder runs as K4 (``ops/fused_swap_fusion.py``) while the state
+is small enough to stay resident, and as K6, the streaming variant, beyond
+that (the cooperative-LiDAR map); ``COBEVT_FUSED_FUSION=0`` or training runs
+the stock modules, each window attention through K1
+(``ops/window_attention.py``) with the 3D relative-position bias and the
+additive key mask.  The canonical mask is (B, L, H, W).
 """
 
 from __future__ import annotations
@@ -22,9 +23,12 @@ from einops import rearrange
 from cobevt_tpu_torch.nn.layers import layer_norm
 from cobevt_tpu_torch.ops.dispatch import PackCache
 from cobevt_tpu_torch.ops.fused_swap_fusion import (
+    fits_resident,
     fused_swap_fusion,
+    fused_swap_fusion_streaming,
     kernel_accepts,
     pack,
+    stream_accepts,
 )
 from cobevt_tpu_torch.ops.window_attention import fused_window_attention_packed
 
@@ -195,9 +199,10 @@ class SwapFusionBlock(nn.Module):
 
 def fused_fusion_mode() -> str:
     """``COBEVT_FUSED_FUSION``, the JAX package's switch: "0" runs the
-    stock modules; "1" (the default) and "force" run K4 at eval wherever
-    its gate holds; "force-stream" asks for K6, the streaming variant,
-    which is not ported."""
+    stock modules; "1" (the default) and "force" run K4 at eval where the
+    state fits its resident budget and K6, the streaming variant, where it
+    does not; "force-stream" runs K6 wherever its gate holds.  Training
+    always runs the stock modules."""
     return os.environ.get("COBEVT_FUSED_FUSION", "1")
 
 
@@ -217,9 +222,9 @@ class SwapFusionEncoder(nn.Module):
     """depth x SwapFusionBlock, then the mean over agents + LN + Linear
     head.  By default the mean divides by ``max_cav`` rows, padded ones
     included, as the reference does; ``mean_over_valid`` averages only the
-    live agents of ``agent_mask``.  Eval runs the whole encoder as K4 where
-    :func:`fused_fusion_mode` and the kernel's gate allow; both paths share
-    one state_dict."""
+    live agents of ``agent_mask``.  Eval runs the whole encoder as K4 or K6
+    where :func:`fused_fusion_mode` and :meth:`fused_kernel` allow; all
+    paths share one state_dict."""
 
     def __init__(self, input_dim: int = 128, mlp_dim: int = 256,
                  agent_size: int = 5, window_size: int = 8,
@@ -241,24 +246,38 @@ class SwapFusionEncoder(nn.Module):
         self.mlp_head = nn.Sequential(nn.Identity(), nn.Identity(),
                                       layer_norm(input_dim),
                                       nn.Linear(input_dim, input_dim))
-        self._packed = PackCache()   # K4's operands, per agent count, dtype
+        # K4's and K6's operands, per kernel, agent count and dtype
+        self._packed = PackCache()
+
+    def fused_kernel(self, shape):
+        """Which fused kernel an eval forward of a (B, L, H, W, d) state
+        takes: "K4", "K6" or None (the stock modules).  The dispatch of the
+        JAX package (``models/fusion/swap_fusion.py:389-414``): K4 where the
+        state ``fits`` the resident budget, else K6 where it ``streams``;
+        "force-stream" takes K6 also where K4 would fit.  Each kernel's own
+        gate stands in for the JAX gate's TPU block-shape terms.  Reads the
+        shape and the switch, never the device, so CPU and GPU take the same
+        branch."""
+        mode = fused_fusion_mode()
+        if self.training or mode == "0":
+            return None
+        _, L, H, W, d = shape
+        geom = (L, H, W, d, self.window_size, self.heads)
+        fits = fits_resident(*geom) and kernel_accepts(*geom, self.mlp_dim)
+        streams = stream_accepts(*geom, self.mlp_dim)
+        if streams and (not fits or mode == "force-stream"):
+            return "K6"
+        return "K4" if fits else None
 
     def forward(self, x, mask=None, agent_mask=None):
         """x: (B, L, H, W, d); mask: (B, L, H, W); agent_mask: (B, L)
         (read only with ``mean_over_valid``).  Returns (B, H, W, d)."""
         if not self.mask:
             mask = None
-        mode = fused_fusion_mode()
-        if not self.training and mode != "0":
-            if mode == "force-stream":
-                raise NotImplementedError(
-                    "COBEVT_FUSED_FUSION=force-stream asks for K6 "
-                    "(fused_swap_fusion_streaming), which the port does not "
-                    "have yet")
-            B, L, H, W, d = x.shape
-            if kernel_accepts(L, H, W, d, self.window_size, self.heads,
-                              self.mlp_dim):
-                return self._fused_eval(x, mask, agent_mask)
+        kernel = self.fused_kernel(x.shape)
+        if kernel is not None:
+            return self._fused_eval(x, mask, agent_mask,
+                                    streaming=kernel == "K6")
         for layer in self.layers:
             x = layer(x, mask)
         if self.mean_over_valid and agent_mask is not None:
@@ -268,21 +287,25 @@ class SwapFusionEncoder(nn.Module):
             x = x.mean(dim=1)
         return self.mlp_head(x)
 
-    def _fused_eval(self, x, mask, agent_mask):
-        """K4 on this module's weights (``_fused_eval`` of the JAX
-        package, ``models/fusion/swap_fusion.py:432-491``): the bias
-        tables expanded to (depth, 2, T, heads*T), the (B, L, H, W) mask
-        passed as it is and read through the window map in the kernel.
-        The packed operands are built once per agent count and dtype and
-        reused while the weights are unchanged."""
+    def _fused_eval(self, x, mask, agent_mask, streaming=False):
+        """K4, or K6 when ``streaming``, on this module's weights
+        (``_fused_eval`` of the JAX package,
+        ``models/fusion/swap_fusion.py:432-491``): the bias tables expanded
+        to (depth, 2, T, heads*T) -- in the compute dtype for K4, kept in
+        f32 for K6 -- and the (B, L, H, W) mask passed as it is and read
+        through the window map in the kernel.  The packed operands are built
+        once per kernel, agent count and dtype and reused while the weights
+        are unchanged."""
         L = x.shape[1]
-        packed = self._packed.get("encoder", list(self.parameters()),
-                                  lambda: self._pack(L, x.dtype), L, x.dtype)
-        return fused_swap_fusion(
-            x, mask, agent_mask, None, packed, None, self.window_size,
-            self.heads, mean_over_valid=self.mean_over_valid)
+        bias_dtype = torch.float32 if streaming else x.dtype
+        packed = self._packed.get(
+            "stream" if streaming else "encoder", list(self.parameters()),
+            lambda: self._pack(L, x.dtype, bias_dtype), L, x.dtype)
+        fn = fused_swap_fusion_streaming if streaming else fused_swap_fusion
+        return fn(x, mask, agent_mask, None, packed, None, self.window_size,
+                  self.heads, mean_over_valid=self.mean_over_valid)
 
-    def _pack(self, L, dtype):
+    def _pack(self, L, dtype, bias_dtype):
         w = self.window_size
         layers, biases = [], []
         for block in self.layers:
@@ -296,4 +319,4 @@ class SwapFusionEncoder(nn.Module):
         ln, dense = self.mlp_head[2], self.mlp_head[3]
         head = {"ln": (ln.weight, ln.bias), "w": dense.weight.t(),
                 "b": dense.bias}
-        return pack(layers, torch.stack(biases), head, dtype)
+        return pack(layers, torch.stack(biases), head, dtype, bias_dtype)

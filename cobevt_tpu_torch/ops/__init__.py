@@ -6,7 +6,10 @@ from cobevt_tpu_torch.ops.dispatch import forced_impl
 from cobevt_tpu_torch.ops.fused_cross_attention import (
     fused_cross_view_attention,
 )
-from cobevt_tpu_torch.ops.fused_swap_fusion import fused_swap_fusion
+from cobevt_tpu_torch.ops.fused_swap_fusion import (
+    fused_swap_fusion,
+    fused_swap_fusion_streaming,
+)
 from cobevt_tpu_torch.ops.window_attention import (
     fused_window_attention,
     fused_window_attention_packed,
@@ -15,7 +18,8 @@ from cobevt_tpu_torch.ops.window_attention import (
 
 KERNEL_WRAPPERS = (fused_window_attention_packed, fused_cross_view_attention,
                    fused_conv3x3, fused_swap_fusion,
-                   fused_window_attention_packed_bwd, fused_window_attention)
+                   fused_window_attention_packed_bwd, fused_window_attention,
+                   fused_swap_fusion_streaming)
 
 
 def reset_launch_counts() -> None:
@@ -29,6 +33,7 @@ def launch_counts() -> dict:
 
 __all__ = ["KERNEL_WRAPPERS", "fold_bn", "forced_impl", "fused_conv3x3",
            "fused_cross_view_attention", "fused_swap_fusion",
+           "fused_swap_fusion_streaming",
            "fused_window_attention", "fused_window_attention_packed",
            "fused_window_attention_packed_bwd", "launch_counts",
            "reset_launch_counts"]

@@ -1,16 +1,30 @@
-"""Fused FuseBEVT encoder (K4): wrapper, plain version, CUDA launches.
+"""Fused FuseBEVT encoder (K4 and K6): wrappers, plain versions, launches.
 
-Counterpart of ``cobevt_tpu/ops/fused_swap_fusion.py:fused_swap_fusion``:
-the whole SwapFusionEncoder at eval, depth x [window, grid] sublayers (LN ->
-QKV -> attention with the 3-D rel-pos bias and the additive key mask ->
+Counterpart of ``cobevt_tpu/ops/fused_swap_fusion.py``: the whole
+SwapFusionEncoder at eval, depth x [window, grid] sublayers (LN -> QKV ->
+attention with the 3-D rel-pos bias and the additive key mask ->
 out-projection -> residual -> LN -> FFN -> residual), then the agent mean
--> LN -> Linear head.  The CUDA kernel is ``csrc/fused_swap_fusion.cu``:
-three launches per sublayer and one for the head, each counted.
+-> LN -> Linear head.
 
-Numerics follow the TPU body (``_kernel`` :117-184): weights, bias and
-mask rows in the compute dtype, f32 LayerNorms and products, q scaled after
-the cast of qkv, the exp rounded to the compute dtype before both the
-numerator and the sum.
+  * :func:`fused_swap_fusion` (K4, ``fused_swap_fusion`` of the JAX package)
+    for a state small enough to stay cache-resident: the CUDA kernel is
+    ``csrc/fused_swap_fusion.cu``, three launches per sublayer and one for
+    the head, each counted.  Bias and mask rows ride in the compute dtype
+    (``_kernel`` :117-184).
+  * :func:`fused_swap_fusion_streaming` (K6,
+    ``fused_swap_fusion_streaming`` of the JAX package, body
+    ``_stream_kernel`` :333-381) for larger states and wider tokens: the
+    CUDA kernel is ``csrc/fused_swap_fusion_streaming.cu``, one C entry per
+    sublayer, counted once per entry.  Bias and mask stay in f32; the agent
+    pooling and the head run outside the kernel as plain PyTorch, as the JAX
+    package leaves them to XLA.
+
+Shared numerics: weights in the compute dtype, f32 LayerNorms and products,
+q scaled after the cast of qkv, the exp rounded to the compute dtype before
+both the numerator and the sum.  Both kernels and both plain versions take
+the row maximum per head; the streaming TPU body takes it over the heads of
+a 128-channel group, which moves a bf16 weight by at most one ulp and
+nothing in f32.
 """
 
 from __future__ import annotations
@@ -31,6 +45,7 @@ from cobevt_tpu_torch.ops.fused_cross_attention import (
     KERNEL_DTYPES,
     KERNEL_HEAD_DIMS,
     SMEM_BYTES,
+    _pad,
     ln_f32,
     row_smem_bytes,
 )
@@ -59,20 +74,75 @@ def kernel_accepts(L: int, H: int, W: int, D: int, window: int, heads: int,
         <= SMEM_BYTES
 
 
+# The JAX dispatch keeps a state whole-resident (K4) while the f32 bias of a
+# sublayer and the bf16 state of one batch element each fit this many bytes;
+# anything larger streams (K6).  The split is kept so both packages run the
+# same kernel, with the same bias dtype, at the same shape.
+RESIDENT_BYTES = int(2.5 * 2 ** 20)
+
+
+# token rows of a K6 row-kernel block (csrc/fused_swap_fusion_streaming.cu)
+STREAM_ROWS = 16
+
+
+def fits_resident(L: int, H: int, W: int, D: int, window: int,
+                  heads: int) -> bool:
+    """``fits`` of the JAX dispatch (``models/fusion/swap_fusion.py:394``):
+    whole windows, the f32 bias (T, heads*T) and the bf16 state (L, H, W, D)
+    each within :data:`RESIDENT_BYTES`."""
+    if window <= 0 or H % window or W % window:
+        return False
+    T = L * window * window
+    return T * heads * T * 4 <= RESIDENT_BYTES and \
+        L * H * W * D * 2 <= RESIDENT_BYTES
+
+
+def stream_accepts(L: int, H: int, W: int, D: int, window: int, heads: int,
+                   mlp: int) -> bool:
+    """Shapes K6 takes.  Device-independent.  The semantic terms of the JAX
+    gate ``streams`` stay: whole windows and a multiple of 8 tokens per
+    window.  Its TPU block-shape terms (``d % 128``, ``w % 8 or w == W``,
+    ``n_win % 8``, an 8 MB resident bias) have no counterpart on the card
+    and give way to the kernel's own limits:
+
+      * head dim 8, 16 or 32: the attention kernels are instantiated for
+        these;
+      * D and mlp multiples of 64: the 8 warps of a row block split every
+        product's output columns in 8-column tiles.  Every model of the
+        repo qualifies (CorpBEVT 128/256, LiDAR 256/512); other widths run
+        the stock modules;
+      * f32 row tiles (:data:`STREAM_ROWS` rows) of widths D + 3D and
+        2D + mlp within one block's shared memory (D 256 with mlp 512 takes
+        67 KB of 227 KB; the limit is near D 896 with mlp 2D);
+      * B times the windows of a map at most 65,535, the launch grid's z
+        extent (checked at the launch, which knows B).
+
+    No size term: the bias is read tile by tile from device memory."""
+    if window <= 0 or H % window or W % window:
+        return False
+    if heads <= 0 or D % heads or D // heads not in KERNEL_HEAD_DIMS:
+        return False
+    if D % 64 or mlp % 64 or (L * window * window) % 8:
+        return False
+    tiles = max(_pad(D) + _pad(3 * D), 2 * _pad(D) + _pad(mlp))
+    return STREAM_ROWS * tiles * 4 <= SMEM_BYTES
+
+
 class PackedFusion(NamedTuple):
-    """K4's operands as both versions read them (:func:`pack`)."""
+    """K4's or K6's operands as both versions read them (:func:`pack`)."""
 
     layers: list      # per block, (window, grid) dicts of packed weights
-    bias: torch.Tensor  # (depth, 2, T, heads*T) in the compute dtype
+    bias: torch.Tensor  # (depth, 2, T, heads*T): compute dtype (K4), f32 (K6)
     head: dict
 
 
-def pack(layers, bias_stack, head, dtype) -> PackedFusion:
+def pack(layers, bias_stack, head, dtype, bias_dtype=None) -> PackedFusion:
     """Every weight, the bias and the head in the compute dtype, as the TPU
     body's stacks (``_pack_layer_params`` :187 and the head rows of
     ``_fused_eval``); matrices transposed to (out, in), LayerNorm pairs as
-    (2, D).  A caller that runs the encoder many times packs once and
-    passes the result as ``layers``."""
+    (2, D).  ``bias_dtype`` (default: the compute dtype, K4's) is
+    ``torch.float32`` for K6.  A caller that runs the encoder many times
+    packs once and passes the result as ``layers``."""
     def vec(*ts):
         return torch.stack([t.reshape(-1) for t in ts]).to(dtype).contiguous()
 
@@ -87,19 +157,21 @@ def pack(layers, bias_stack, head, dtype) -> PackedFusion:
 
     return PackedFusion(
         [(one(wp), one(gp)) for wp, gp in layers],
-        bias_stack.to(dtype).contiguous(),
+        bias_stack.to(bias_dtype or dtype).contiguous(),
         {"ln": vec(*head["ln"]), "w_t": mat_t(head["w"]),
          "b": head["b"].to(dtype).contiguous()})
 
 
-def _packed(layers, bias_stack, head, dtype) -> PackedFusion:
+def _packed(layers, bias_stack, head, dtype, bias_dtype) -> PackedFusion:
     if not isinstance(layers, PackedFusion):
-        return pack(layers, bias_stack, head, dtype)
+        return pack(layers, bias_stack, head, dtype, bias_dtype)
     if bias_stack is not None or head is not None:
         raise ValueError("packed layers already hold the bias and the head")
-    if layers.bias.dtype != dtype:
-        raise ValueError(f"layers were packed in {layers.bias.dtype}, x is "
-                         f"{dtype}")
+    if layers.head["b"].dtype != dtype or layers.bias.dtype != bias_dtype:
+        raise ValueError(
+            f"layers were packed in {layers.head['b'].dtype} with a "
+            f"{layers.bias.dtype} bias; this call needs {dtype} and "
+            f"{bias_dtype}")
     return layers
 
 
@@ -129,25 +201,53 @@ def from_windows(t, L: int, H: int, W: int, w: int, grid: bool):
     return t.reshape(B, L, H, W, D)
 
 
+def _proj(t, w_t, b=None):
+    y = t @ w_t.float().t()
+    return y if b is None else y + b.float()
+
+
+def _head_reference(state, agent_mask, head, mean_over_valid):
+    """Agent pooling in f32 (the mean over L, or over the live agents with
+    the divisor clamped at 1) -> cast -> LN -> cast -> Linear: the head of
+    both TPU bodies (``_kernel`` :163-184, ``fused_swap_fusion_streaming``
+    :460-475)."""
+    dt = state.dtype
+    L = state.shape[1]
+    st = state.float()
+    if mean_over_valid and agent_mask is not None:
+        am = agent_mask.float()
+        wsum = torch.zeros_like(st[:, 0])
+        tot = torch.zeros_like(am[:, 0])
+        for li in range(L):
+            wsum = wsum + st[:, li] * am[:, li, None, None, None]
+            tot = tot + am[:, li]
+        pooled = wsum / tot.clamp(min=1.0)[:, None, None, None]
+    else:
+        pooled = st.mean(1)
+    t = ln_f32(pooled.to(dt), *head["ln"]).to(dt).float()
+    return _proj(t, head["w_t"], head["b"]).to(dt)
+
+
 def _reference(x, mask, agent_mask, bias, layers, head, window, heads,
-               mean_over_valid):
+               mean_over_valid, mask_f32=False):
+    """``mask_f32``: the additive mask stays f32 (K6) instead of being
+    rounded to the compute dtype (K4); the bias is used in the dtype it was
+    packed in."""
     dt = x.dtype
     B, L, H, W, D = x.shape
     w = window
     Dh = D // heads
+    proj = _proj
 
     def c(t):   # the TPU body's astype(compute_dtype), kept as f32 values
         return t.to(dt).float()
-
-    def proj(t, w_t, b=None):
-        y = t @ w_t.float().t()
-        return y if b is None else y + b.float()
 
     # x (bf16) * python float: the scale is taken in the compute dtype
     scale = torch.tensor(Dh ** -0.5, dtype=dt)
     madd = None
     if mask is not None:
-        madd = c(torch.where(mask > 0, 0.0, NEG_INF))          # (B, L, H, W)
+        madd = torch.where(mask > 0, 0.0, NEG_INF)             # (B, L, H, W)
+        madd = madd.float() if mask_f32 else c(madd)
     state = x
     for d, pair in enumerate(layers):
         for half, p in enumerate(pair):
@@ -174,19 +274,7 @@ def _reference(x, mask, agent_mask, bias, layers, head, window, heads,
             f = c(F.gelu(proj(f, p["w1_t"], p["b1"])))
             f = proj(f, p["w2_t"], p["b2"])
             state = from_windows((x1 + f).to(dt), L, H, W, w, grid)
-    st = state.float()
-    if mean_over_valid and agent_mask is not None:
-        am = agent_mask.float()
-        wsum = torch.zeros_like(st[:, 0])
-        tot = torch.zeros_like(am[:, 0])
-        for li in range(L):
-            wsum = wsum + st[:, li] * am[:, li, None, None, None]
-            tot = tot + am[:, li]
-        pooled = wsum / tot.clamp(min=1.0)[:, None, None, None]
-    else:
-        pooled = st.mean(1)
-    t = c(ln_f32(c(pooled), *head["ln"]))
-    return proj(t, head["w_t"], head["b"]).to(dt)
+    return _head_reference(state, agent_mask, head, mean_over_valid)
 
 
 def swap_fusion_reference(x, mask, agent_mask, bias_stack, layers, head,
@@ -194,7 +282,7 @@ def swap_fusion_reference(x, mask, agent_mask, bias_stack, layers, head,
                           mean_over_valid: bool = False):
     """Plain PyTorch version of K4: the TPU body's chain on whole tensors,
     with the same casts."""
-    p = _packed(layers, bias_stack, head, x.dtype)
+    p = _packed(layers, bias_stack, head, x.dtype, x.dtype)
     return _reference(x, mask, agent_mask, p.bias, p.layers, p.head, window,
                       heads, mean_over_valid)
 
@@ -312,7 +400,7 @@ def fused_swap_fusion(x, mask, agent_mask, bias_stack, layers, head,
     ``grad_fn``, and an eval forward under autograd gives no gradient
     through it.  Training runs the stock modules (``self.training``
     gates the dispatch)."""
-    p = _packed(layers, bias_stack, head, x.dtype)
+    p = _packed(layers, bias_stack, head, x.dtype, x.dtype)
     use_valid = mean_over_valid and agent_mask is not None
     if resolve_impl(impl, x) == "torch":
         return _reference(x, mask, agent_mask, p.bias, p.layers, p.head,
@@ -326,3 +414,109 @@ def fused_swap_fusion(x, mask, agent_mask, bias_stack, layers, head,
 # kernel launches since the last reset (plain-version calls do not count);
 # launches_per_call(depth) per encoder
 fused_swap_fusion.launches = 0
+
+
+def swap_fusion_streaming_reference(x, mask, agent_mask, bias_stack, layers,
+                                    head, window: int, heads: int,
+                                    mean_over_valid: bool = False):
+    """Plain PyTorch version of K6: the streaming TPU body's chain on whole
+    tensors with the same casts, bias and additive mask in f32, then the
+    head."""
+    p = _packed(layers, bias_stack, head, x.dtype, torch.float32)
+    return _reference(x, mask, agent_mask, p.bias, p.layers, p.head, window,
+                      heads, mean_over_valid, mask_f32=True)
+
+
+def _stream_lib():
+    lib = _build.load("fused_swap_fusion_streaming")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = lib.cobevt_fusion_stream_sublayer
+    fn.argtypes = [P] * 14 + [ctypes.c_float, ctypes.POINTER(I), I, I, P]
+    fn.restype = I
+    return fn
+
+
+def _launch_streaming(x, mask, bias, layers, window, heads):
+    """depth x [window, grid] sublayers of K6 over ``x``; returns the final
+    (B, L, H, W, D) state.  The QKV and attention scratch and the two state
+    buffers are allocated once for the call."""
+    B, L, H, W, D = x.shape
+    w = window
+    dt, dev = x.dtype, x.device
+    mlp = layers[0][0]["w1_t"].shape[0]
+    if dt not in KERNEL_DTYPES:
+        raise ValueError(f"K6 takes {KERNEL_DTYPES}, got {dt}")
+    # the windows are the launch grid's z extent
+    if not stream_accepts(L, H, W, D, w, heads, mlp) or \
+            B * (H // w) * (W // w) > 65535:
+        raise ValueError(f"K6 does not take B={B}, L={L}, {H}x{W}, D={D}, "
+                         f"window={w}, heads={heads}, mlp={mlp}")
+    T = L * w * w
+    depth = len(layers)
+    check_operand("x", x, (B, L, H, W, D), dt, dev)
+    check_aligned("x", x)
+    check_operand("bias_stack", bias, (depth, 2, T, heads * T),
+                  torch.float32, dev)
+    if mask is not None:
+        check_operand("mask", mask, (B, L, H, W), torch.float32, dev)
+    for pair in layers:
+        for p in pair:
+            for name, t in p.items():
+                check_operand(name, t, t.shape, dt, dev)
+
+    flag, idx = int(dt == torch.bfloat16), dev.index
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scale = float(torch.tensor((D // heads) ** -0.5, dtype=dt))
+    rows = B * L * H * W
+    qkv = torch.empty((rows, 3 * D), dtype=dt, device=dev)
+    att = torch.empty((rows, D), dtype=dt, device=dev)
+    bufs = (torch.empty_like(x), torch.empty_like(x))
+    sublayer = _stream_lib()
+
+    state = x
+    for d, pair in enumerate(layers):
+        for half, p in enumerate(pair):
+            dims = (ctypes.c_int * 9)(B, L, H, W, D, w, heads, mlp, half)
+            nxt = bufs[(2 * d + half) % 2]   # ping-pong: never in place
+            _build.check(sublayer(
+                state.data_ptr(), nxt.data_ptr(), qkv.data_ptr(),
+                att.data_ptr(), p["ln_a"].data_ptr(), p["wqkv_t"].data_ptr(),
+                p["wout_t"].data_ptr(), p["ln_f"].data_ptr(),
+                p["w1_t"].data_ptr(), p["b1"].data_ptr(),
+                p["w2_t"].data_ptr(), p["b2"].data_ptr(),
+                bias[d, half].data_ptr(),
+                None if mask is None else mask.data_ptr(), scale, dims, flag,
+                idx, stream), "fused_swap_fusion_streaming sublayer")
+            fused_swap_fusion_streaming.launches += 1
+            state = nxt
+    return state
+
+
+def fused_swap_fusion_streaming(x, mask, agent_mask, bias_stack, layers, head,
+                                window: int, heads: int,
+                                mean_over_valid: bool = False, impl=None):
+    """The SwapFusionEncoder at eval for states that do not stay resident
+    (the cooperative-LiDAR map), one kernel call per sublayer.
+
+    Operands as :func:`fused_swap_fusion`, except that the key mask adds
+    -1e9 in f32 and ``bias_stack`` stays f32 (a :func:`pack` needs
+    ``bias_dtype=torch.float32``).  Returns (B, H, W, D) in x's dtype.
+
+    ``impl``: None (kernel for CUDA tensors, plain version for CPU
+    tensors), "kernel" or "torch".  The kernel raises on a shape it does
+    not take (:func:`stream_accepts`).  The agent pooling and the head are
+    plain PyTorch on either path.  Inference only, like K4."""
+    p = _packed(layers, bias_stack, head, x.dtype, torch.float32)
+    use_valid = mean_over_valid and agent_mask is not None
+    if resolve_impl(impl, x) == "torch":
+        return _reference(x, mask, agent_mask, p.bias, p.layers, p.head,
+                          window, heads, use_valid, mask_f32=True)
+    state = _launch_streaming(
+        x.contiguous(), None if mask is None else mask.float().contiguous(),
+        p.bias, p.layers, window, heads)
+    return _head_reference(state, agent_mask, p.head, use_valid)
+
+
+# sublayer calls since the last reset (plain-version calls do not count):
+# 2 * depth per encoder, each three kernel launches behind one C entry
+fused_swap_fusion_streaming.launches = 0

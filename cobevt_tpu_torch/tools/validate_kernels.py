@@ -1,7 +1,17 @@
-"""On-card gate of the training backward: K1 + K5 against stock autograd.
+"""On-card gates: the fused LiDAR forward against the stock one, and the
+training backward (K1 + K5) against stock autograd.
 
-The ``--train`` part of ``cobevt_tpu/tools/validate_kernels.py``
-(``validate_train``): loss and gradients of one CorpBEVT train forward and
+**Forward gate** (``--model pointpillar``; the forward gate of
+``cobevt_tpu/tools/validate_kernels.py`` for that model): the cooperative
+LiDAR eval forward at full width, once on the shipped path (FuseBEVT as K6,
+4 launches) and once with ``COBEVT_FUSED_FUSION=0`` (the stock modules, 4 K1
+launches), same weights and batch; every output's largest deviation over the
+stock output's largest value must stay within :data:`BUDGET_FORWARD`.
+
+  python -m cobevt_tpu_torch.tools.validate_kernels --model pointpillar
+
+**Gradient gate** (``--train``, CorpBEVT; ``validate_train`` of the JAX
+tool): loss and gradients of one CorpBEVT train forward and
 backward at ``corpbevt.yaml`` width in bf16, once on the shipped path (K1
 forward, K5 flash backward) and once with ``COBEVT_FLASH_BWD=0`` (the plain
 attention under stock autograd), same weights, batch and dropout seed.  It
@@ -26,7 +36,11 @@ import numpy as np
 import torch
 
 from cobevt_tpu_torch import ops
-from cobevt_tpu_torch.tools.benchmark import build_corpbevt, make_criterion
+from cobevt_tpu_torch.tools.benchmark import (
+    build_corpbevt,
+    build_pointpillar,
+    make_criterion,
+)
 
 # Budgets of the gate: relative drift of loss and global gradient norm,
 # relative drift of one parameter's gradient norm, and the share of the
@@ -40,6 +54,15 @@ from cobevt_tpu_torch.tools.benchmark import build_corpbevt, make_criterion
 BUDGET_SCALAR = 0.01
 BUDGET_LAYER = 0.075
 MATERIAL_FRAC = 0.01
+
+
+# Budget of the forward gate: max |fused - stock| over max |stock|, per
+# output.  About 3x the drift measured on an NVIDIA H100 80GB HBM3 (700 W)
+# at full LiDAR width in bf16 over seeds 0 and 1 and 5, 3, 1, 4, 2 live
+# agents: K6 against the stock path 0.0075..0.0133 (one or two bf16 ulps of
+# a logit near 2.4), the bf16 kernel path against the f32 plain path 0.0120
+# and 0.0126.  The JAX package's 5% was set on a TPU.
+BUDGET_FORWARD = 0.04
 
 
 @contextlib.contextmanager
@@ -58,6 +81,46 @@ def _env(**values):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+def compare_outputs(name, fused, stock, budget: float) -> dict:
+    """``compare`` of the JAX tool: per output the largest absolute
+    deviation and its share of the stock output's largest value; ok when
+    every share is within ``budget`` and everything is finite."""
+    outputs = {}
+    ok = True
+    for key, s in stock.items():
+        f, s = fused[key].float(), s.float()
+        adiff = float((f - s).abs().max())
+        rel = adiff / (float(s.abs().max()) + 1e-9)
+        finite = bool(torch.isfinite(f).all() and torch.isfinite(s).all())
+        ok = ok and finite and rel <= budget
+        outputs[key] = {"abs": adiff, "rel": rel}
+    return {"component": name, "ok": ok,
+            "max_rel": max(o["rel"] for o in outputs.values()),
+            "budget": budget, "outputs": outputs}
+
+
+def validate_forward(device, bf16: bool = True, seed: int = 0,
+                     config=None, max_cav: int = 5) -> dict:
+    """Run the LiDAR eval forward on the fused and the stock FuseBEVT path
+    and return the gate's report, with each path's launch counts."""
+    model, batch, _ = build_pointpillar(max_cav, seed, device, config)
+    model = model.eval()
+    if bf16:
+        model = model.to(torch.bfloat16)
+    runs = {}
+    for path, switch in (("fused", None), ("stock", "0")):
+        with _env(COBEVT_FUSED_FUSION=switch), torch.no_grad():
+            ops.reset_launch_counts()
+            out = model(batch)
+            runs[path] = (out, ops.launch_counts())
+    report = compare_outputs("pointpillar_fused_vs_stock", runs["fused"][0],
+                             runs["stock"][0], BUDGET_FORWARD)
+    report["precision"] = "bf16" if bf16 else "fp32"
+    report["seed"] = seed
+    report["launches"] = {path: counts for path, (_, counts) in runs.items()}
+    return report
 
 
 def loss_and_grad_norms(model, criterion, batch, seed: int):
@@ -167,6 +230,10 @@ def validate_train(device, bf16: bool = True, seed: int = 0,
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--train", action="store_true")
+    p.add_argument("--model", default="corpbevt",
+                   choices=["corpbevt", "pointpillar"],
+                   help="pointpillar: the forward gate; corpbevt with "
+                        "--train: the gradient gate")
     p.add_argument("--dtype", default="bf16", choices=["bf16", "f32"])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
@@ -178,12 +245,20 @@ def main(argv=None):
                   "run on the CPU", file=sys.stderr)
             return 1
         opt.device = "cuda"
-    if not opt.train:
-        print("validate_kernels: only --train is ported; the serving gates "
-              "run in chip_smoke.py", file=sys.stderr)
+    device, bf16 = torch.device(opt.device), opt.dtype == "bf16"
+    if opt.train and opt.model == "pointpillar":
+        print("validate_kernels: the LiDAR train step is not ported yet; "
+              "--model pointpillar without --train runs the forward gate",
+              file=sys.stderr)
         return 2
-    report = validate_train(torch.device(opt.device), opt.dtype == "bf16",
-                            opt.seed)
+    if not opt.train and opt.model == "corpbevt":
+        print("validate_kernels: CorpBEVT has --train (the gradient gate); "
+              "its serving gates run in chip_smoke.py", file=sys.stderr)
+        return 2
+    if opt.train:
+        report = validate_train(device, bf16, opt.seed)
+    else:
+        report = validate_forward(device, bf16, opt.seed)
     print(json.dumps(report))
     return 0 if report["ok"] else 1
 

@@ -5,7 +5,8 @@ variables (``{"params", "batch_stats"}`` as nested dicts of numpy
 arrays).  It walks the port's own ``state_dict`` keys and maps each one
 forward to its flax path with the same renaming the JAX package's
 ``torch_port._default_rename`` applies (torch Sequential / ModuleList
-digits fold into the parent segment); flax names are never inverted,
+digits fold into the parent segment, so ``blocks.0.4`` finds
+``blocks_0_4``); flax names are never inverted,
 since ``mlp_1_0`` could come from ``mlp_1.0`` or ``mlp.1_0``.  The reverse
 direction is ``cobevt_tpu.utils.torch_port.torch_to_flax``.
 """
@@ -57,6 +58,13 @@ def _flax_leaf(module: nn.Module, leaf: str):
             return "params", "scale", lambda a: a
         if isinstance(module, nn.Embedding):
             return "params", "embedding", lambda a: a
+        if isinstance(module, nn.ConvTranspose2d):
+            # flax ConvTranspose keeps (kh, kw, in, out) with the spatial
+            # taps flipped relative to torch's IOHW weight (the inverse of
+            # ``cobevt_tpu/utils/torch_port.py:183-191``); a symmetric or
+            # 1x1 kernel hides a missing flip
+            return "params", "kernel", lambda a: a[::-1, ::-1].transpose(
+                2, 3, 0, 1).copy()
         if isinstance(module, nn.Conv2d):
             # HWIO -> OIHW; a flax Dense standing in for a 1x1 conv is
             # (I, O) and reshapes to (1, 1, I, O) first
@@ -139,9 +147,12 @@ def seeded_init_(module: nn.Module, seed: int) -> None:
         params = dict(m.named_parameters(recurse=False))
         buffers = dict(m.named_buffers(recurse=False))
         new = {}
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             w = params["weight"]
-            fan_in = w[0].numel()
+            # a transposed conv whose stride equals its kernel (the only
+            # kind here) sums one tap of each input channel per output
+            fan_in = w.shape[0] if isinstance(m, nn.ConvTranspose2d) \
+                else w[0].numel()
             new["weight"] = draw(w.shape, "normal") / fan_in ** 0.5
             if "bias" in params:
                 new["bias"] = draw(params["bias"].shape, "normal") * 0.02

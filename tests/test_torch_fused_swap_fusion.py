@@ -97,15 +97,6 @@ def test_stock_switch_and_training_skip_the_kernel(monkeypatch):
     torch.testing.assert_close(fused, stock, atol=1e-4, rtol=1e-4)
 
 
-def test_force_stream_raises_naming_k6(monkeypatch):
-    kw, x, mask, _ = _setup(True, False)
-    port = ps.SwapFusionEncoder(**kw).eval()
-    monkeypatch.setenv("COBEVT_FUSED_FUSION", "force-stream")
-    with pytest.raises(NotImplementedError, match="K6"):
-        with torch.no_grad():
-            port(torch.from_numpy(x), torch.from_numpy(mask))
-
-
 def test_plain_version_matches_the_stock_modules_with_a_mostly_masked_window():
     """Window (0, 0) keeps only the ego agent's first token live: the
     additive mask must leave that one key, as the stock K1 mask does."""

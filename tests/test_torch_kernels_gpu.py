@@ -5,13 +5,14 @@ with one:
 
   python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 
-builds K1-K5 and K8 with nvcc (sm_90a) on first use (``--noconftest``: the
+builds K1-K6 and K8 with nvcc (sm_90a) on first use (``--noconftest``: the
 repo's conftest sets up JAX, which these tests do not need).  Tolerances: f32
 1e-4 abs / 1e-4 rel (sums in another order); bf16 2e-2 abs / 2e-2 rel
 (both sides round an f32 result to bf16 once, or at the same casts of one
 chain: K2), and for K4 in bf16 5e-2 abs / 2e-2 rel: its residual state is
 rounded to bf16 after each of 2*depth sublayers, and a one-ulp flip at
-|x| ~ 4 (0.03) carries on through the sublayers after it.  K5's
+|x| ~ 4 (0.03) carries on through the sublayers after it; K6 is held to
+the same bound for the same reason.  K5's
 gradients are sums of up to Tq or Tk terms, so their tolerance scales with
 the largest value of the plain version's result: f32 1e-4 of it (sums in
 another order), bf16 2e-2 of it (the kernel takes the row maximum per head,
@@ -32,6 +33,7 @@ from cobevt_tpu_torch.ops.fused_cross_attention import (
 )
 from cobevt_tpu_torch.ops.fused_swap_fusion import (
     fused_swap_fusion,
+    fused_swap_fusion_streaming,
     launches_per_call,
 )
 from cobevt_tpu_torch.ops.window_attention import (
@@ -90,6 +92,34 @@ def test_k1_kernel_matches_plain(gen, dtype, D, extras):
     want = fused_window_attention_packed(q, k, v, H, bias, mask, weight,
                                          impl="torch")
     assert fused_window_attention_packed.launches == before + 1
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fully_masked", [False, True])
+def test_k1_kernel_matches_plain_at_the_lidar_stock_shape(gen, dtype,
+                                                          fully_masked):
+    """The fusion attention of the stock cooperative-LiDAR path, which the
+    K6 path is held against: the 264 windows of the 96 x 176 map, 5 agents x
+    8 x 8 tokens, 8 heads of 32, f32 bias and key mask."""
+    G, H, D, T = 264, 8, 32, 320
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    q = (rand(G, T, H * D) * D ** -0.5).to(dtype)
+    k, v = rand(G, T, H * D).to(dtype), rand(G, T, H * D).to(dtype)
+    bias = rand(T, H * T) * 0.5
+    mask = (torch.rand(G, T, generator=gen, device="cuda") > 0.3).float()
+    if fully_masked:
+        mask[3] = 0.0
+    before = fused_window_attention_packed.launches
+    got = fused_window_attention_packed(q, k, v, H, bias, mask)
+    assert fused_window_attention_packed.launches == before + 1
+    want = fused_window_attention_packed(q, k, v, H, bias, mask,
+                                         impl="torch")
     torch.cuda.synchronize()
     assert got.dtype == dtype and torch.isfinite(got).all()
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
@@ -358,6 +388,45 @@ def test_k4_kernel_matches_plain(gen, dtype, case):
     torch.testing.assert_close(got.float(), want.float(), **K4_TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    # (B, L, H, W, D, window, heads, depth, mlp, mask, mean_over_valid)
+    (1, 3, 16, 16, 128, 8, 4, 2, 256, "random", False),
+    (1, 3, 16, 16, 256, 8, 8, 2, 512, "random", True),
+    (2, 3, 16, 24, 64, 4, 2, 1, 128, "mostly_masked", True),
+    (2, 4, 16, 8, 64, 4, 8, 1, 64, None, True),            # head dim 8
+    (1, 2, 8, 24, 64, 4, 4, 2, 192, "random", False),      # head dim 16
+    (1, 5, 24, 40, 256, 8, 8, 1, 512, "fully_masked", False),
+])
+def test_k6_kernel_matches_plain(gen, dtype, case):
+    B, L, H, W, D, w, heads, depth, mlp, mask_kind, valid = case
+    x, layers, bias, head = k4_operands(gen, B, L, H, W, D, w, heads, depth,
+                                        mlp)
+    mask = None
+    if mask_kind is not None:
+        mask = (torch.rand(B, L, H, W, generator=gen, device="cuda")
+                > 0.3).float()
+        mask[:, 0] = 1.0
+        if mask_kind == "mostly_masked":
+            mask[:, :, :w, :w] = 0.0
+            mask[:, :, ::H // w, ::W // w] = 0.0
+            mask[:, 0, 0, 0] = 1.0
+        if mask_kind == "fully_masked":
+            # no live key in window (0, 0): finite and uniform, as in K1
+            mask[:, :, :w, :w] = 0.0
+    agent_mask = torch.ones(B, L, device="cuda")
+    agent_mask[:, -1] = 0.0
+    args = (x.to(dtype), mask, agent_mask, bias, layers, head, w, heads, valid)
+    before = fused_swap_fusion_streaming.launches
+    got = fused_swap_fusion_streaming(*args)
+    assert fused_swap_fusion_streaming.launches == before + 2 * depth
+    want = fused_swap_fusion_streaming(*args, impl="torch")
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (B, H, W, D)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), **K4_TOL[dtype])
+
+
 def test_fused_kernels_reject_what_they_do_not_take(gen):
     x, we, ce, key, val, params, _, _ = k2_operands(
         gen, 1, 2, 16, 16, 64, 64, 8, 8, True, False)
@@ -367,3 +436,5 @@ def test_fused_kernels_reject_what_they_do_not_take(gen):
     x, layers, bias, head = k4_operands(gen, 1, 3, 12, 12, 32, 3, 2, 1, 32)
     with pytest.raises(ValueError, match="K4 does not take"):
         fused_swap_fusion(x, None, None, bias, layers, head, 3, 2)
+    with pytest.raises(ValueError, match="K6 does not take"):
+        fused_swap_fusion_streaming(x, None, None, bias, layers, head, 3, 2)

@@ -147,7 +147,8 @@ def test_cpu_tensors_run_plain_versions_without_launching():
                                    "fused_conv3x3": 0,
                                    "fused_swap_fusion": 0,
                                    "fused_window_attention_packed_bwd": 0,
-                                   "fused_window_attention": 0}
+                                   "fused_window_attention": 0,
+                                   "fused_swap_fusion_streaming": 0}
 
 
 def test_kernel_impl_on_cpu_raises():

@@ -149,7 +149,13 @@ def test_launch_counters_cover_every_ported_kernel():
     assert names == {"fused_window_attention_packed",
                      "fused_window_attention_packed_bwd",
                      "fused_window_attention", "fused_cross_view_attention",
-                     "fused_conv3x3", "fused_swap_fusion"}
+                     "fused_conv3x3", "fused_swap_fusion",
+                     "fused_swap_fusion_streaming"}
+    with open(os.path.join(REPO, "cobevt_tpu_torch", "csrc",
+                           "fused_swap_fusion_streaming.cu")) as f:
+        text = f.read()
+    assert 'extern "C" int cobevt_fusion_stream_sublayer(' in text
+    assert "torch/extension.h" not in text
     for name in ("window_attention", "window_attention_bwd"):
         with open(os.path.join(REPO, "cobevt_tpu_torch", "csrc",
                                f"{name}.cu")) as f:
