@@ -9,17 +9,24 @@ non-zero without printing the final line:
   1. environment: torch, CUDA, nvcc, the card's name and power limit;
   2. build: compiles K1 and K8 (csrc/window_attention.cu), K2
      (csrc/fused_cross_attention.cu), K3 (csrc/conv3x3.cu), K4
-     (csrc/fused_swap_fusion.cu), K5 (csrc/window_attention_bwd.cu) and K6
-     (csrc/fused_swap_fusion_streaming.cu) with nvcc for sm_90a from the
-     checkout's sources, one nvcc process each, all started together;
+     (csrc/fused_swap_fusion.cu), K5 (csrc/window_attention_bwd.cu), K6
+     (csrc/fused_swap_fusion_streaming.cu) and K7 with the int8 chain's conv
+     (csrc/conv3x3_int8.cu) with nvcc for sm_90a from the checkout's sources,
+     one nvcc process each, all started together; K9 and K10 (Triton,
+     ops/bn_stats.py) compile at their first launch in phase 3;
   3. kernels vs plain: every kernel against its plain PyTorch version on
      the card at every shape of the CorpBEVT serving forward and train step
      (5 agents x 4 cameras x 512^2, BEV 256^2) and of the cooperative LiDAR
      forward (fused map 5 x 96 x 176 x 256: K6, and K1 at the 264 windows
-     x 8 heads of its stock path), in f32 and bf16, timed with
+     x 8 heads of its stock path), K7 at the two trunk shapes of the int8
+     serving mode and the int8 chain's conv at layer1 (both must EQUAL their
+     plain versions: equal integers, the same unfused f32 epilogue), K9 and
+     K10 at the four shapes of tools/micro_bn_stats.py, in f32 and bf16,
+     timed with
      CUDA events, each beside its bound (the larger of its bytes over 3.35
-     TB/s and its operations over 989 TFLOP/s) and, where one PyTorch call
-     computes the same function, that call's time;
+     TB/s and its operations over 989 TFLOP/s, or 1,979 TOP/s for int8
+     products) and, where one PyTorch call computes the same function, that
+     call's time;
   4. slice, the serving default (COBEVT_FUSED_XATTN and
      COBEVT_FUSED_FUSION unset): full-width CorpBEVT (ResNet-34, seeded
      random weights) in bf16 serves synthetic requests with mixed
@@ -45,7 +52,15 @@ non-zero without printing the final line:
      (COBEVT_FUSED_FUSION=0: 4 K1, no K6); fused against stock and bf16
      against the f32 plain path within the budget of
      tools/validate_kernels.py; two forwards of one request agree bit for
-     bit.
+     bit;
+  9. int8 serving (COBEVT_INT8=1 on the fused path): full-width CorpBEVT in
+     bf16 answers requests with 5, 3, 1, 4, 2 live agents; every frame runs
+     14 K7, 6 K3 and 6 launches of the int8 chain's conv (layer1
+     int8-resident) beside 1 K1, 24 K2 and 19 K4; then the int8 gate of
+     tools/validate_kernels.py against the stock bf16 path (relative drift,
+     argmax IoU >= 0.99, clipped share <= 0.01 over 3 blocks), and one frame
+     with COBEVT_INT8_RESIDENT=0 (14 K7, 6 K3, no chain conv);
+ 10. tools/micro_bn_stats.py at its four full shapes (K9, K10).
 
 The last stdout lines are the kernels JSON line, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.  Imports
@@ -154,6 +169,25 @@ K6_CASES = [
     ("small_d128", (1, 3, 16, 16, 128, 8, 4, 2, 256), "random", False, 0),
     ("small_d256", (1, 3, 16, 16, 256, 8, 8, 2, 512), "random", True, 0),
 ]
+# K7 at the two shapes the int8 mode sends it (name, N, H, W, C=O, residual,
+# launches per frame): conv1 of a block has no residual, conv2 has one
+K7_CASES = [
+    ("layer3", 20, 32, 32, 256, False, 5),
+    ("layer3_residual", 20, 32, 32, 256, True, 5),
+    ("layer4", 20, 16, 16, 512, False, 2),
+    ("layer4_residual", 20, 16, 16, 512, True, 2),
+]
+# the int8 chain's conv over layer1 (20 x 128 x 128 x 64): (name, residual,
+# exit, launches per frame); a block's conv1 requantizes, conv2 adds the s8
+# residual and requantizes, the last block's conv2 casts to the model's dtype
+S8_SHAPE = (20, 128, 128, 64)
+S8_CASES = [
+    ("layer1_conv1", False, False, 3),
+    ("layer1_conv2", True, False, 2),
+    ("layer1_conv2_exit", True, True, 1),
+]
+# K9, K10: the (rows, channels) of tools/micro_bn_stats.py
+BN_TOL = 1e-4     # of the largest sum: f32 sums in another order
 # kernel vs plain version: |kernel - plain| <= atol + rtol * |plain|.
 # f32: sums in another order (and __expf in K1).  bf16: both round an f32
 # result to bf16 once, so they differ by about one bf16 ulp (2^-8 rel).
@@ -170,14 +204,16 @@ K4_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (5e-2, 2e-2)}
 K5_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # the card's published peaks (NVIDIA H100 SXM data sheet)
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 TRAIN_STEPS = 3
 TRAIN_PER_STEP = {"fused_window_attention_packed": 13,
                   "fused_window_attention_packed_bwd": 12,
                   "fused_cross_view_attention": 0, "fused_conv3x3": 0,
                   "fused_swap_fusion": 0, "fused_window_attention": 0,
-                  "fused_swap_fusion_streaming": 0}
+                  "fused_swap_fusion_streaming": 0, "fused_conv3x3_int8": 0,
+                  "conv3x3_s8": 0}
 SERVE_AGENTS = [5, 3, 1, 4, 2, 5, 3, 5, 2, 4]
+INT8_AGENTS = [5, 3, 1, 4, 2]
 STOCK_AGENTS = [5, 2, 4]
 # launches per frame on each path: K2 6 branches x 4, K4 3 blocks x 2
 # sublayers x 3 + the head (ops/fused_*.py: LAUNCHES_PER_CALL,
@@ -185,11 +221,18 @@ STOCK_AGENTS = [5, 2, 4]
 FUSED_PER_FRAME = {"fused_window_attention_packed": 1,
                    "fused_cross_view_attention": 6 * 4,
                    "fused_conv3x3": 20, "fused_swap_fusion": 3 * 2 * 3 + 1,
-                   "fused_swap_fusion_streaming": 0}
+                   "fused_swap_fusion_streaming": 0, "fused_conv3x3_int8": 0,
+                   "conv3x3_s8": 0}
+# COBEVT_INT8=1 on the fused path: layer3's 5 and layer4's 2 stride-1 blocks
+# take K7, layer2's 3 stay on K3, layer1's 3 blocks run the chain's conv
+INT8_PER_FRAME = dict(FUSED_PER_FRAME, fused_conv3x3=6,
+                      fused_conv3x3_int8=14, conv3x3_s8=6)
+INT8_NOT_RESIDENT_PER_FRAME = dict(INT8_PER_FRAME, conv3x3_s8=0)
 STOCK_PER_FRAME = {"fused_window_attention_packed": 13,
                    "fused_cross_view_attention": 0,
                    "fused_conv3x3": 20, "fused_swap_fusion": 0,
-                   "fused_swap_fusion_streaming": 0}
+                   "fused_swap_fusion_streaming": 0, "fused_conv3x3_int8": 0,
+                   "conv3x3_s8": 0}
 # the LiDAR forward: FuseBEVT depth 2 = 4 sublayers, each one K6 call on the
 # fused path or one K1 call (after a cuBLAS QKV projection) on the stock one
 LIDAR_AGENTS = [5, 3, 1, 4, 2]
@@ -197,7 +240,7 @@ LIDAR_FUSED_PER_FRAME = {"fused_swap_fusion_streaming": 4}
 LIDAR_STOCK_PER_FRAME = {"fused_window_attention_packed": 4}
 KERNELS = ("window_attention", "fused_cross_attention", "conv3x3",
            "fused_swap_fusion", "window_attention_bwd",
-           "fused_swap_fusion_streaming")
+           "fused_swap_fusion_streaming", "conv3x3_int8")
 IOU_FLOOR = 0.99
 
 
@@ -518,7 +561,19 @@ def phase_kernels():
     bf16.  Returns one row per (case, dtype); raises if any disagrees."""
     import torch
     import torch.nn.functional as F
-    from cobevt_tpu_torch.ops.conv2d import fused_conv3x3
+    from cobevt_tpu_torch.ops.bn_stats import bn_stats_bwd, bn_stats_fwd
+    from cobevt_tpu_torch.ops.conv2d import (
+        _launch_int8,
+        act_scale,
+        fused_conv3x3,
+        fused_conv3x3_int8,
+        pack_int8_weight,
+    )
+    from cobevt_tpu_torch.ops.int8_chain import (
+        conv3x3_s8,
+        pack_s8_weight,
+        quantize_dynamic,
+    )
     from cobevt_tpu_torch.ops.fused_cross_attention import (
         fused_cross_view_attention,
         pack_params,
@@ -535,6 +590,7 @@ def phase_kernels():
         fused_window_attention_packed,
         fused_window_attention_packed_bwd,
     )
+    from cobevt_tpu_torch.tools.micro_bn_stats import SHAPES as BN_SHAPES
     log("== kernels vs plain versions (CUDA events, after warmup)")
     gen = torch.Generator(device="cuda").manual_seed(0)
     details = []
@@ -602,6 +658,133 @@ def phase_kernels():
             if not ok:
                 failures.append(row)
             del x, w, shift, res, got, want
+        for case in K7_CASES:
+            x, w, shift, res = k3_inputs(case, dtype, gen)
+            # quantized once, as a block's cache does
+            packed = pack_int8_weight(w, shift)
+
+            def conv7(impl):
+                return fused_conv3x3_int8(x, None, None, res, relu=True,
+                                          impl=impl, packed=packed)
+
+            got, want = conv7("kernel"), conv7("torch")
+            torch.cuda.synchronize()
+            abs_err = float((got.float() - want.float()).abs().max())
+            w_oihw = w.to(dtype).permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            x_cl = x.permute(0, 3, 1, 2)
+            # equal integers and the same unfused f32 epilogue: bit for bit
+            row = {"kernel": "K7", "case": case[0], "dtype": dname,
+                   "per_frame": case[6], "max_abs_err": abs_err,
+                   "max_rel_err": abs_err / (float(want.abs().max()) + 1e-12),
+                   "ok": bool(torch.equal(got, want)
+                              and torch.isfinite(got).all()),
+                   "ms": time_ms(lambda: conv7("kernel"), 5),
+                   "plain_ms": time_ms(lambda: conv7("torch"), 2, warmup=1),
+                   "library_ms": time_ms(
+                       lambda: F.conv2d(x_cl, w_oihw, padding=1), 5),
+                   "k3_ms": time_ms(lambda: fused_conv3x3(
+                       x, w, shift, res, relu=True, impl="kernel"), 5)}
+            # the kernel alone, without the wrapper's max-reduce and scale
+            # arithmetic (a handful of small PyTorch launches)
+            s_a = act_scale(x)
+            scale, inv = s_a * packed.s_w, (1.0 / s_a).reshape(1)
+            row["launch_ms"] = time_ms(
+                lambda: _launch_int8(x, packed, scale, inv, res, True), 10)
+            _, N, H, W, C = case[:5]
+            row.update(bound(2.0 * N * H * W * 9 * C * C,
+                             nbytes(x, packed.wt, packed.s_w, packed.shift,
+                                    res, got), "int8"))
+            details.append(row)
+            if not row["ok"]:
+                failures.append(row)
+            del x, w, shift, res, packed, got, want, w_oihw, x_cl
+        N, H, W, C = S8_SHAPE
+        xq, sx = quantize_dynamic(
+            torch.randn(N, H, W, C, generator=gen, device="cuda").relu())
+        rq, rs = quantize_dynamic(
+            torch.randn(N, H, W, C, generator=gen, device="cuda").relu())
+        w = torch.randn(3, 3, C, C, generator=gen, device="cuda") * (
+            2 / (9 * C)) ** 0.5
+        p8 = pack_s8_weight(w, torch.randn(C, generator=gen,
+                                           device="cuda") * 0.1)
+        x_cl = torch.randn(N, C, H, W, generator=gen, device="cuda").to(
+            dtype).contiguous(memory_format=torch.channels_last)
+        w_oihw = w.to(dtype).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        for name, residual, leaves, per_frame in S8_CASES:
+            kwargs = {"out_dtype": dtype}
+            if residual:
+                kwargs.update(residual_q=rq, residual_scale=rs)
+            if not leaves:
+                kwargs["out_scale"] = sx * 2.0
+
+            def conv8(impl, with_sat=False):
+                return conv3x3_s8(xq, sx, p8.w_q, p8.s_w, p8.shift, relu=True,
+                                  impl=impl, wt=p8.wt, with_sat=with_sat,
+                                  **kwargs)
+
+            (got, sat), (want, want_sat) = (conv8("kernel", True),
+                                            conv8("torch", True))
+            torch.cuda.synchronize()
+            abs_err = float((got.float() - want.float()).abs().max())
+            row = {"kernel": "S8", "case": name, "dtype": dname,
+                   "per_frame": per_frame, "max_abs_err": abs_err,
+                   "max_rel_err": abs_err / (float(want.float().abs().max())
+                                             + 1e-12),
+                   "clipped_share": float(sat),
+                   "ok": bool(torch.equal(got, want)
+                              and float(sat) == float(want_sat)),
+                   "ms": time_ms(lambda: conv8("kernel"), 5),
+                   "plain_ms": time_ms(lambda: conv8("torch"), 2, warmup=1),
+                   # the convolution alone, in the model's float dtype
+                   "library_ms": time_ms(
+                       lambda: F.conv2d(x_cl, w_oihw, padding=1), 5)}
+            row.update(bound(2.0 * N * H * W * 9 * C * C,
+                             nbytes(xq, p8.wt, p8.s_w, p8.shift, got,
+                                    rq if residual else None), "int8"))
+            details.append(row)
+            if not row["ok"]:
+                failures.append(row)
+            del got, want
+        del xq, rq, w, p8, x_cl, w_oihw
+        # K9, K10: bf16 activations, as BatchNorm sees them in training
+        for (R, C), name in BN_SHAPES if dtype == torch.bfloat16 else ():
+            x = torch.randn(R, C, generator=gen, device="cuda").to(dtype)
+            dy = torch.randn(R, C, generator=gen, device="cuda").to(dtype)
+            for key, fn, reads in (
+                    ("K9", lambda impl: bn_stats_fwd(x, -1e30, impl=impl), 1),
+                    ("K10", lambda impl: bn_stats_bwd(dy, x, -1e30,
+                                                      impl=impl), 2)):
+                got, want = fn("kernel"), fn("torch")
+                torch.cuda.synchronize()
+                abs_err = max(float((g - w_).abs().max())
+                              for g, w_ in zip(got, want))
+                rel_err = max(float((g - w_).abs().max())
+                              / (float(w_.abs().max()) + 1e-9)
+                              for g, w_ in zip(got, want))
+                plain_ms = time_ms(lambda: fn("torch"), 5)
+                row = {"kernel": key, "case": name, "dtype": dname,
+                       "per_frame": 1, "max_abs_err": abs_err,
+                       "max_rel_err": rel_err,
+                       "ok": rel_err <= BN_TOL and all(
+                           bool(torch.isfinite(g).all()) for g in got),
+                       "ms": time_ms(lambda: fn("kernel"), 10),
+                       "plain_ms": plain_ms,
+                       # no one call gives both sums: the plain version's
+                       # few PyTorch calls are the library's way
+                       "library_ms": plain_ms}
+                # max, cast, add and multiply-add per element, f32 units
+                row.update(bound(4.0 * R * C * reads,
+                                 reads * R * C * x.element_size() + 8 * C,
+                                 "float32"))
+                row["gb_per_s"] = reads * R * C * x.element_size() / row[
+                    "ms"] / 1e6
+                details.append(row)
+                if not row["ok"]:
+                    failures.append(row)
+            del x, dy
+            torch.cuda.empty_cache()
         for case in K2_CASES:
             x, we, ce, key, val, params, mlp, post_ln = k2_inputs(
                 case, dtype, gen)
@@ -781,6 +964,11 @@ def phase_kernels():
     for r in details:
         extra = f"  library={r['library_ms']:.3f} ms" \
             if r.get("library_ms") is not None else ""
+        if "k3_ms" in r:
+            extra += (f"  kernel alone={r['launch_ms']:.3f} ms  K3 on the "
+                      f"same inputs={r['k3_ms']:.3f} ms")
+        if "gb_per_s" in r:
+            extra += f"  {r['gb_per_s']:.0f} GB/s"
         log(f"{r['kernel']} {r['case']:<28} {r['dtype']:<8} "
             f"abs={r['max_abs_err']:.2e} rel={r['max_rel_err']:.2e} "
             f"{'ok ' if r['ok'] else 'BAD'} kernel={r['ms']:.3f} ms "
@@ -855,27 +1043,24 @@ def serve_path(name, runner, frames, cfg, rng, per_frame, check):
     return counts, summary
 
 
-def phase_slice(seed=0):
-    """Full-width CorpBEVT serving on the fused path (the default), one
-    frame against the f32 plain path, then the stock path."""
+def serving_setup(seed, agents):
+    """Full-width CorpBEVT in bf16 with seeded weights behind the staged
+    runner, one synthetic request per entry of ``agents``, and the check
+    every answer must pass: (cfg, model, rng, frames, runner, check)."""
     import numpy as np
     import torch
-    from cobevt_tpu_torch import ops
     from cobevt_tpu_torch.configs.presets import corpbevt_default
     from cobevt_tpu_torch.models.corpbevt import CorpBEVT
     from cobevt_tpu_torch.tools import serve_camera
     from cobevt_tpu_torch.utils.serving import StagedBucketedRunner
     from cobevt_tpu_torch.utils.weights import seeded_init_
 
-    log("== slice: CorpBEVT 5 agents x 4 cameras x 512^2, BEV 256^2, bf16, "
-        "fused path (switches unset)")
     cfg = corpbevt_default()
     model = CorpBEVT(cfg)
     seeded_init_(model, seed)
     model = model.to("cuda", torch.bfloat16).eval()
     rng = np.random.RandomState(seed)
-    frames = [(n, serve_camera.synthetic_frame(rng, cfg, n))
-              for n in SERVE_AGENTS]
+    frames = [(n, serve_camera.synthetic_frame(rng, cfg, n)) for n in agents]
     runner = StagedBucketedRunner(model, cfg.max_cav)
 
     def check(i, n, out):
@@ -885,6 +1070,20 @@ def phase_slice(seed=0):
         if not torch.isfinite(seg).all():
             raise AssertionError(f"frame {i} ({n} agents): non-finite logits")
 
+    return cfg, model, rng, frames, runner, check
+
+
+def phase_slice(seed=0):
+    """Full-width CorpBEVT serving on the fused path (the default), one
+    frame against the f32 plain path, then the stock path."""
+    import numpy as np
+    from cobevt_tpu_torch import ops
+    from cobevt_tpu_torch.tools import serve_camera
+    from cobevt_tpu_torch.utils.serving import StagedBucketedRunner
+
+    log("== slice: CorpBEVT 5 agents x 4 cameras x 512^2, BEV 256^2, bf16, "
+        "fused path (switches unset)")
+    cfg, model, rng, frames, runner, check = serving_setup(seed, SERVE_AGENTS)
     frame = frames[0][1]
     with switches(None):
         counts, summary = serve_path("fused path", runner, frames, cfg, rng,
@@ -1131,6 +1330,73 @@ def phase_lidar(seed=0):
                     "stock_counts": stock_counts, "gates": gates}
 
 
+def phase_int8(seed=0):
+    """Full-width CorpBEVT served under COBEVT_INT8=1 on the fused path: the
+    launch counts of every frame, the same requests in bf16 for the A/B, one
+    frame with the int8-resident layer1 off, and the int8 gate of
+    tools/validate_kernels.py against the stock bf16 path."""
+    import torch
+    from cobevt_tpu_torch import ops
+    from cobevt_tpu_torch.ops.dispatch import env_switches
+    from cobevt_tpu_torch.tools import serve_camera, validate_kernels
+
+    log("== int8 serving: CorpBEVT 5 agents x 4 cameras x 512^2, bf16, "
+        "COBEVT_INT8=1 on the fused path")
+    cfg, model, rng, frames, runner, check = serving_setup(seed, INT8_AGENTS)
+    with switches(None), env_switches(COBEVT_INT8="1",
+                                      COBEVT_INT8_RESIDENT=None):
+        counts, summary = serve_path("int8 path", runner, frames, cfg, rng,
+                                     INT8_PER_FRAME, check)
+        with env_switches(COBEVT_INT8_RESIDENT="0"):
+            ops.reset_launch_counts()
+            check(0, INT8_AGENTS[0], runner(frames[0][1]))
+            torch.cuda.synchronize()
+            lone = ops.launch_counts()
+    log(f"COBEVT_INT8_RESIDENT=0, one 5-agent frame: launches {lone}")
+    for fn, n in INT8_NOT_RESIDENT_PER_FRAME.items():
+        if lone[fn] != n:
+            raise AssertionError(f"COBEVT_INT8_RESIDENT=0: {fn} ran "
+                                 f"{lone[fn]} launches, expected {n}")
+    # the same requests without the switch, in the same call: the A/B
+    with switches(None), env_switches(COBEVT_INT8=None):
+        bf16 = serve_camera.serve(runner, frames, cfg, rng, on_output=check)
+    log("bf16 fused path, same requests " + json.dumps(
+        {k: v for k, v in bf16.items() if k != "frame_ms"}))
+    del model, runner, frames
+    torch.cuda.empty_cache()
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    gate = validate_kernels.validate_int8(device, bf16=True, seed=seed)
+    log("gate " + json.dumps(gate))
+    for fn in ("fused_conv3x3", "fused_conv3x3_int8", "conv3x3_s8"):
+        if gate["launches"][fn] != INT8_PER_FRAME[fn]:
+            raise AssertionError(f"int8 gate: {fn} ran "
+                                 f"{gate['launches'][fn]} launches")
+    if gate["saturation"]["blocks_sampled"] != 3:
+        raise AssertionError("layer1 did not run int8-resident: "
+                             + json.dumps(gate["saturation"]))
+    if not gate["ok"]:
+        raise AssertionError("int8 gate failed: " + json.dumps(gate))
+    torch.cuda.empty_cache()
+    return counts, {"serve": summary, "serve_bf16": bf16, "gate": gate,
+                    "not_resident_counts": lone}
+
+
+def phase_micro_bn_stats():
+    """tools/micro_bn_stats.py at its four full shapes, as a user runs it;
+    returns the launch counts of that run."""
+    from cobevt_tpu_torch import ops
+    from cobevt_tpu_torch.tools import micro_bn_stats
+
+    log("== micro_bn_stats: K9 and K10 at the four shapes")
+    ops.reset_launch_counts()
+    rc = micro_bn_stats.main(["--iters", "10"])
+    counts = ops.launch_counts()
+    if rc != 0:
+        raise AssertionError(f"micro_bn_stats exited with {rc}")
+    return counts
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default=None,
@@ -1150,8 +1416,10 @@ def main(argv=None):
     train_counts, train_row, gate = phase_train()
     k8_launches = phase_k8()
     lidar_counts, lidar = phase_lidar()
+    int8_counts, int8 = phase_int8()
+    bn_counts = phase_micro_bn_stats()
 
-    # (wrapper, source, TPU kernel, launches on its path)
+    # (wrapper, source, the TPU function it replaces)
     sources = {
         "K1": ("fused_window_attention_packed",
                "cobevt_tpu_torch/csrc/window_attention.cu",
@@ -1170,22 +1438,39 @@ def main(argv=None):
         "K6": ("fused_swap_fusion_streaming",
                "cobevt_tpu_torch/csrc/fused_swap_fusion_streaming.cu",
                "cobevt_tpu/ops/fused_swap_fusion.py:387"),
+        "K7": ("fused_conv3x3_int8",
+               "cobevt_tpu_torch/csrc/conv3x3_int8.cu",
+               "cobevt_tpu/ops/conv2d.py:308"),
+        # the int8-resident chain's conv: XLA in the JAX package, the second
+        # entry of K7's source here
+        "S8": ("conv3x3_s8", "cobevt_tpu_torch/csrc/conv3x3_int8.cu",
+               "cobevt_tpu/ops/int8_chain.py:68"),
         "K8": ("fused_window_attention",
                "cobevt_tpu_torch/csrc/window_attention.cu",
                "cobevt_tpu/ops/window_attention.py:899"),
+        "K9": ("bn_stats_fwd", "cobevt_tpu_torch/ops/bn_stats.py",
+               "cobevt_tpu/tools/micro_bn_stats.py:55"),
+        "K10": ("bn_stats_bwd", "cobevt_tpu_torch/ops/bn_stats.py",
+                "cobevt_tpu/tools/micro_bn_stats.py:97"),
     }
+    triton_kernels = ("K9", "K10")
     launches = dict(counts)
     launches["fused_window_attention_packed_bwd"] = train_counts[
         "fused_window_attention_packed_bwd"]
     launches["fused_window_attention"] = k8_launches
     launches["fused_swap_fusion_streaming"] = lidar_counts[
         "fused_swap_fusion_streaming"]
+    for fn in ("fused_conv3x3_int8", "conv3x3_s8"):
+        launches[fn] = int8_counts[fn]
+    for fn in ("bn_stats_fwd", "bn_stats_bwd"):
+        launches[fn] = bn_counts[fn]
     kernels = []
     for key, (fn, src, replaces) in sources.items():
         rows = [r for r in details if r["kernel"] == key]
-        # one 5-agent frame's calls on the fused serving path (K1-K4), one
-        # train step's calls (K5), one LiDAR frame's four sublayers and head
-        # (K6), one call at each shape (K8), bf16
+        # one 5-agent frame's calls on the fused serving path (K1-K4) or in
+        # the int8 mode (K7 and the chain's conv), one train step's calls
+        # (K5), one LiDAR frame's four sublayers and head (K6), one call at
+        # each shape (K8, K9, K10), bf16
         bf16 = [r for r in rows
                 if r["dtype"] == "bfloat16" and r["per_frame"]]
 
@@ -1198,7 +1483,9 @@ def main(argv=None):
         if launches[fn] <= 0:
             raise AssertionError(f"{fn} was launched no time on its path")
         kernels.append({
-            "name": fn, "route": "cuda", "source": src, "replaces": replaces,
+            "name": fn,
+            "route": "triton" if key in triton_kernels else "cuda",
+            "source": src, "replaces": replaces,
             "launches": launches[fn],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": total("ms"), "plain_ms": total("plain_ms"),
@@ -1213,8 +1500,8 @@ def main(argv=None):
             json.dump({"cases": details, "serve": summary,
                        "serve_plain": plain, "reference": ref_check,
                        "train": train_row, "train_counts": train_counts,
-                       "gradient_gate": gate, "lidar": lidar,
-                       "kernels": kernels, "card": card_line(),
+                       "gradient_gate": gate, "lidar": lidar, "int8": int8,
+                       "bn_stats_counts": bn_counts, "kernels": kernels, "card": card_line(),
                        "torch": torch.__version__,
                        "cuda": torch.version.cuda,
                        "seconds": time.perf_counter() - t0}, f, indent=1)

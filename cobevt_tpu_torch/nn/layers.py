@@ -24,7 +24,18 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from cobevt_tpu_torch.ops.conv2d import fold_bn, fused_conv3x3
+from cobevt_tpu_torch.ops.conv2d import (
+    fold_bn,
+    fused_conv3x3,
+    fused_conv3x3_int8,
+    pack_int8_weight,
+)
+from cobevt_tpu_torch.ops.dispatch import PackCache
+from cobevt_tpu_torch.ops.int8_chain import (
+    INTERMEDIATE_HEADROOM,
+    conv3x3_s8,
+    pack_s8_weight,
+)
 
 
 def gelu(x):
@@ -134,6 +145,12 @@ def fused_conv_enabled(c_in: int, c_out: int) -> bool:
     return c_in >= 128 and c_out >= 128
 
 
+def int8_enabled() -> bool:
+    """COBEVT_INT8=1: the lossy post-training-quantized serving mode, read
+    at every call."""
+    return os.environ.get("COBEVT_INT8", "0") == "1"
+
+
 def _conv_hwio(conv: nn.Conv2d):
     return conv.weight.permute(2, 3, 1, 0)
 
@@ -147,7 +164,10 @@ class BasicBlock(nn.Module):
 
     Eval runs K3 (conv + folded BN + residual + ReLU in one kernel) for
     stride-1 blocks that pass :func:`fused_conv_enabled`; training and the
-    other blocks run the plain modules.  Both paths share one state_dict."""
+    other blocks run the plain modules.  Under ``COBEVT_INT8=1`` those
+    blocks take K7 (int8 products) when both channel axes are >= 256, the
+    JAX package's gate, and the trunk may run a narrow block int8-resident
+    (:meth:`int8_resident_eval`).  All paths share one state_dict."""
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  downsample: bool = False):
@@ -164,6 +184,12 @@ class BasicBlock(nn.Module):
             self.downsample = nn.Sequential(
                 torch_conv(inplanes, planes, 1, stride, 0, False),
                 batch_norm(planes))
+        # quantized weights of the int8 paths, rebuilt when a parameter
+        # changes; holds no parameter and is not part of the state_dict
+        self._int8_pack = PackCache()
+        # clipped share of the last int8-resident forward that was asked
+        # for it (a 0-d tensor), else None
+        self.int8_sat_frac = None
 
     def _identity(self, x):
         if self.downsample is None:
@@ -181,11 +207,60 @@ class BasicBlock(nn.Module):
 
     def _fused_eval(self, x):
         x = x.contiguous()
+        if int8_enabled() and min(x.shape[-1], self.planes) >= 256:
+            return self._fused_eval_int8(x)
         w1, t1 = fold_bn(_conv_hwio(self.conv1), *_bn_stats(self.bn1))
         out = fused_conv3x3(x, w1, t1, relu=True)
         identity = self._identity(x).contiguous()
         w2, t2 = fold_bn(_conv_hwio(self.conv2), *_bn_stats(self.bn2))
         return fused_conv3x3(out, w2, t2, residual=identity, relu=True)
+
+    def _folded(self, name, conv, bn, quantize):
+        """``quantize(*fold_bn(conv, bn))``, cached per weight version."""
+        return self._int8_pack.get(
+            name, [conv.weight, *_bn_stats(bn)],
+            lambda: quantize(*fold_bn(_conv_hwio(conv), *_bn_stats(bn))))
+
+    def _fused_eval_int8(self, x):
+        """Both convs as K7: weights quantized per output channel once,
+        activations per tensor inside the kernel."""
+        p1 = self._folded("k7_conv1", self.conv1, self.bn1, pack_int8_weight)
+        out = fused_conv3x3_int8(x, None, None, relu=True, packed=p1)
+        identity = self._identity(x).contiguous()
+        p2 = self._folded("k7_conv2", self.conv2, self.bn2, pack_int8_weight)
+        return fused_conv3x3_int8(out, None, None, residual=identity,
+                                  relu=True, packed=p2)
+
+    def int8_resident_eval(self, xq, s_in, s_out, out_dtype,
+                           with_sat: bool = False):
+        """COBEVT_INT8=1 path of a narrow stride-1 block without downsample:
+        activations arrive as int8 at scale ``s_in`` and leave as int8 at
+        ``s_out``, or as ``out_dtype`` when ``s_out`` is None (region exit:
+        the dequantization is conv2's epilogue).  The intermediate is int8
+        at ``s_in * INTERMEDIATE_HEADROOM``.  ``with_sat`` keeps the larger
+        clipped share of the two requantizations in ``self.int8_sat_frac``
+        (one more reduction per conv, so off unless a gate asks)."""
+        if self.stride != 1 or self.downsample is not None:
+            raise ValueError("the int8-resident path covers stride-1 blocks "
+                             "without downsample")
+        p1 = self._folded("s8_conv1", self.conv1, self.bn1, pack_s8_weight)
+        p2 = self._folded("s8_conv2", self.conv2, self.bn2, pack_s8_weight)
+        s_mid = s_in * INTERMEDIATE_HEADROOM
+        sats = []
+
+        def conv(x, s_x, p, **kwargs):
+            out = conv3x3_s8(x, s_x, p.w_q, p.s_w, p.shift, relu=True,
+                             with_sat=with_sat, wt=p.wt, **kwargs)
+            if with_sat:
+                sats.append(out[1])
+                return out[0]
+            return out
+
+        h = conv(xq, s_in, p1, out_scale=s_mid)
+        out = conv(h, s_mid, p2, out_scale=s_out, residual_q=xq,
+                   residual_scale=s_in, out_dtype=out_dtype)
+        self.int8_sat_frac = torch.maximum(*sats) if with_sat else None
+        return out
 
 
 class Bottleneck(nn.Module):

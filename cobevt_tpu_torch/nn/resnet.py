@@ -6,7 +6,9 @@ ResNet over every camera of every agent, returning the stages selected by
 ``id_pick``.  NHWC in and out; all (B, L, M) axes are folded into one batch
 axis.  ``remat`` rematerialises each trunk block's activations in the
 backward pass (``torch.utils.checkpoint``), the JAX package's
-``encoder_remat``; its int8 layer1 region is not ported here.
+``encoder_remat``.  Under ``COBEVT_INT8=1`` a basic-block trunk runs layer1
+int8-resident at eval (``ops/int8_chain.py``); ``COBEVT_INT8_RESIDENT=0``
+turns that off alone.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 from typing import Sequence, Tuple
 
 import contextlib
+import os
 
 import torch
 import torch.nn as nn
@@ -27,8 +30,10 @@ from cobevt_tpu_torch.nn.layers import (
     bn_nhwc,
     conv_nhwc,
     frozen_bn_statistics,
+    int8_enabled,
     torch_conv,
 )
+from cobevt_tpu_torch.ops.int8_chain import BLOCK_GROWTH, quantize_dynamic
 
 # (block type, per-stage depths)
 _SPECS = {
@@ -65,6 +70,11 @@ class ResNetTrunk(nn.Module):
         super().__init__()
         self.remat = remat
         block, depths = _SPECS[num_layers]
+        self.block = block
+        # set True to keep each int8-resident block's clipped share in
+        # ``int8_sat_fracs`` (the gate of tools/validate_kernels.py)
+        self.collect_int8_sat = False
+        self.int8_sat_fracs = []
         self.conv1 = torch_conv(3, 64, 7, 2, 3, False)
         self.bn1 = batch_norm(64)
         inplanes = 64
@@ -79,6 +89,10 @@ class ResNetTrunk(nn.Module):
         outs = []
         remat = self.remat and self.training and torch.is_grad_enabled()
         for i in range(4):
+            if i == 0 and self._int8_layer1_active():
+                x = self._int8_layer1(x)
+                outs.append(x)
+                continue
             for block in getattr(self, f"layer{i + 1}"):
                 # the second forward leaves the BN running statistics alone
                 x = checkpoint(block, x, use_reentrant=False,
@@ -86,6 +100,30 @@ class ResNetTrunk(nn.Module):
                     else block(x)
             outs.append(x)
         return outs
+
+    def _int8_layer1_active(self) -> bool:
+        """layer1 (C 64, the 1/4-resolution maps) runs int8-resident under
+        COBEVT_INT8=1 at eval, for basic blocks only (a bottleneck layer1
+        carries a downsample projection); COBEVT_INT8_RESIDENT=0 turns this
+        off and leaves K7 on.  Both variables are read at every call."""
+        return (not self.training and self.block == "basic"
+                and int8_enabled()
+                and os.environ.get("COBEVT_INT8_RESIDENT", "1") == "1")
+
+    def _int8_layer1(self, x):
+        """Quantize once, run every layer1 block int8-resident on the scale
+        schedule ``s0 * BLOCK_GROWTH**j``, and let the last block's conv2
+        epilogue dequantize back to x's dtype."""
+        xq, s0 = quantize_dynamic(x)
+        blocks = list(self.layer1)
+        for j, block in enumerate(blocks):
+            s_in = s0 * (BLOCK_GROWTH ** j)
+            s_out = None if j == len(blocks) - 1 else s_in * BLOCK_GROWTH
+            xq = block.int8_resident_eval(xq, s_in, s_out, x.dtype,
+                                          with_sat=self.collect_int8_sat)
+        self.int8_sat_fracs = [b.int8_sat_frac for b in blocks] \
+            if self.collect_int8_sat else []
+        return xq
 
 
 class ResNetEncoder(nn.Module):

@@ -7,12 +7,15 @@ takes the plain version for a CPU tensor and the kernel for a CUDA tensor;
 
 :func:`forced_impl` sets the choice for every wrapper reached inside a
 ``with`` block, so a whole model forward can run on the plain versions on
-the card (the reference run of ``chip_smoke.py``).
+the card (the reference run of ``chip_smoke.py``).  :func:`env_switches`
+sets the environment switches that pick a path (``COBEVT_INT8``, ...) for a
+block and restores the caller's values.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 
 import torch
@@ -32,6 +35,26 @@ def forced_impl(impl: str):
         yield
     finally:
         _state.impl = prev
+
+
+@contextlib.contextmanager
+def env_switches(**values):
+    """Set the package's environment switches (``COBEVT_*``; None unsets one)
+    inside the block and put back what the caller had, set or unset."""
+    old = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def resolve_impl(impl, tensor) -> str:

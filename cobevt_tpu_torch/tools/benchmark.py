@@ -9,6 +9,11 @@ per second, the kernel launches per frame and peak memory.
 
   python -m cobevt_tpu_torch.tools.benchmark --model pointpillar --iters 20
   python -m cobevt_tpu_torch.tools.benchmark --model corpbevt --profile_steps 2
+  python -m cobevt_tpu_torch.tools.benchmark --model corpbevt --int8
+
+``--int8`` is the serving A/B of the lossy ``COBEVT_INT8=1`` mode (K7 for the
+trunk blocks of 256 and 512 channels, layer1 int8-resident): the variable is
+set for the measurement only and the caller's value comes back afterwards.
 
 Train step (``--train``, CorpBEVT only: the LiDAR detection loss and target
 assignment are not ported yet): forward, loss, backward, AdamW, and one JSON
@@ -45,6 +50,8 @@ from cobevt_tpu_torch.models.lidar.point_pillar_models import (
     PointPillarConfig,
     PointPillarFuseBEVT,
 )
+from cobevt_tpu_torch.nn.layers import int8_enabled
+from cobevt_tpu_torch.ops.dispatch import env_switches
 from cobevt_tpu_torch.train import (
     create_train_state,
     make_optimizer,
@@ -72,6 +79,9 @@ def parse_args(argv=None):
                         "backward pass (encoder_remat)")
     p.add_argument("--no_grad_norm", action="store_true",
                    help="drop the per-step global grad-norm reduction")
+    p.add_argument("--int8", action="store_true",
+                   help="serving A/B: the lossy COBEVT_INT8=1 mode (K7 for C "
+                        ">= 256, int8-resident layer1); eval forward only")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--profile_steps", type=int, default=0,
                    help="also trace this many steps (or frames) with "
@@ -347,6 +357,7 @@ def measure_eval(model, model_name, batch, opt, device):
         "precision": "bf16" if opt.bf16 else "fp32",
         "batch": opt.batch,
         "fused_fusion_switch": fused_fusion_mode(),
+        "int8": int8_enabled(),
         "iters": opt.iters,
         "clock": "CUDA events" if on_card else "host",
         "host_ms_per_frame": host_ms,
@@ -378,6 +389,10 @@ def main(argv=None):
     device = torch.device(opt.device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
+    if opt.train and opt.int8:
+        print("benchmark: --int8 is a serving mode; training never takes "
+              "the int8 paths", file=sys.stderr)
+        return 2
     if opt.train and opt.model == "pointpillar":
         print("benchmark: --train --model pointpillar is not ported yet (the "
               "LiDAR detection loss and target assignment are missing); the "
@@ -392,7 +407,11 @@ def main(argv=None):
     model, batch, _ = BUILD_MODEL[opt.model](opt.max_cav, opt.seed, device,
                                              cfg)
     measure = measure_train if opt.train else measure_eval
-    print(json.dumps(measure(model, opt.model, batch, opt, device)))
+    # --int8 sets the switch for this measurement; without it the caller's
+    # own COBEVT_INT8 stands
+    with env_switches(**({"COBEVT_INT8": "1"} if opt.int8 else {})):
+        row = measure(model, opt.model, batch, opt, device)
+    print(json.dumps(row))
     return 0
 
 

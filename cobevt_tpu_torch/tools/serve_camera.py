@@ -6,6 +6,13 @@ frames with mixed live-agent counts through the staged runner
 overall p50/p95/p99 latency (ms) and frames/sec.
 
   python -m cobevt_tpu_torch.tools.serve_camera --synthetic 16 --half
+  python -m cobevt_tpu_torch.tools.serve_camera --synthetic 16 --half --int8
+
+``--int8`` serves in the lossy ``COBEVT_INT8=1`` mode (K7 for the trunk
+blocks of 256 and 512 channels, layer1 int8-resident; gate it with
+``tools/validate_kernels.py``).  The variable is set while this run serves
+and the caller's value comes back afterwards; the summary then carries
+``"int8": true`` and the K3, K7 and chain-conv launches per served frame.
 
 Weights are random, drawn from ``--seed``: restoring a trained checkpoint
 waits for the port of the checkpoint code.  Needs a CUDA card unless
@@ -21,6 +28,9 @@ import time
 import numpy as np
 import torch
 
+from cobevt_tpu_torch import ops
+from cobevt_tpu_torch.nn.layers import int8_enabled
+from cobevt_tpu_torch.ops.dispatch import env_switches
 from cobevt_tpu_torch.utils.serving import FullRunner, StagedBucketedRunner
 
 
@@ -80,6 +90,7 @@ def serve(runner, frames, cfg, rng, bucketing: str = "staged",
     for n in sorted({n for n, _ in frames}):
         _wait(runner(synthetic_frame(rng, cfg, n)))
 
+    before = ops.launch_counts()
     lat = {}
     frame_ms = []        # in completion order
     inflight = []        # (t_dispatch, i, n, out) FIFO
@@ -100,10 +111,17 @@ def serve(runner, frames, cfg, rng, bucketing: str = "staged",
     for item in inflight:
         finish(*item)
     wall = time.perf_counter() - t_all0
+    launches = {k: (c - before[k]) / max(len(frames), 1)
+                for k, c in ops.launch_counts().items()}
 
     return {
         "bucketing": bucketing,
         "pipeline": pipeline,
+        "int8": int8_enabled(),
+        "conv_launches_per_frame": {
+            "K3": launches["fused_conv3x3"],
+            "K7": launches["fused_conv3x3_int8"],
+            "int8_chain": launches["conv3x3_s8"]},
         "frames": len(frames),
         "frames_per_sec": len(frames) / wall,
         **_percentiles(frame_ms),
@@ -132,6 +150,9 @@ def parse_args(argv=None):
                    help="serve N synthetic frames with mixed agent counts")
     p.add_argument("--half", action="store_true",
                    help="bfloat16 weights and activations")
+    p.add_argument("--int8", action="store_true",
+                   help="post-training-quantized int8 conv paths "
+                        "(COBEVT_INT8=1, lossy)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda")
     p.add_argument("--pipeline", type=int, default=1)
@@ -155,8 +176,9 @@ def main(argv=None):
                      torch.bfloat16 if opt.half else torch.float32).eval()
     rng = np.random.RandomState(opt.seed)
     runner = build_runner(model, cfg, opt.bucketing)
-    summary = serve(runner, synthetic_frames(rng, cfg, opt.synthetic), cfg,
-                    rng, opt.bucketing, opt.pipeline)
+    with env_switches(**({"COBEVT_INT8": "1"} if opt.int8 else {})):
+        summary = serve(runner, synthetic_frames(rng, cfg, opt.synthetic),
+                        cfg, rng, opt.bucketing, opt.pipeline)
     print(json.dumps(summary))
     if opt.report:
         with open(opt.report, "w") as f:

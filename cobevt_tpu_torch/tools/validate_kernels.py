@@ -1,5 +1,21 @@
-"""On-card gates: the fused LiDAR forward against the stock one, and the
-training backward (K1 + K5) against stock autograd.
+"""On-card gates: the int8 serving mode against the stock path, the fused
+LiDAR forward against the stock one, and the training backward (K1 + K5)
+against stock autograd.
+
+**int8 gate** (``--model corpbevt``, the default; the int8 part of the forward
+gate of ``cobevt_tpu/tools/validate_kernels.py``): the CorpBEVT eval forward
+at ``corpbevt.yaml`` width under ``COBEVT_INT8=1`` (K7 for the blocks of 256
+and 512 channels, layer1 int8-resident, everything else the serving default)
+against the stock path (``COBEVT_FUSED_CONV``, ``COBEVT_FUSED_XATTN`` and
+``COBEVT_FUSED_FUSION`` all "0", no int8), same weights and batch.  Three
+checks: every output's largest deviation over the stock output's largest value
+within :data:`BUDGET_INT8`; the argmax IoU of ``dynamic_seg`` and
+``static_seg`` at least 0.99 (what a user of a lossy mode sees, meaningful
+even with random weights); and the largest share of values that the static
+scale schedule of the int8-resident blocks clipped at most 1%, so weights
+outside the schedule show instead of saturating silently.
+
+  python -m cobevt_tpu_torch.tools.validate_kernels
 
 **Forward gate** (``--model pointpillar``; the forward gate of
 ``cobevt_tpu/tools/validate_kernels.py`` for that model): the cooperative
@@ -27,15 +43,15 @@ Needs a CUDA card unless ``--device cpu`` is given.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
-import os
 import sys
 
 import numpy as np
 import torch
 
 from cobevt_tpu_torch import ops
+from cobevt_tpu_torch.nn.resnet import ResNetTrunk
+from cobevt_tpu_torch.ops.dispatch import env_switches
 from cobevt_tpu_torch.tools.benchmark import (
     build_corpbevt,
     build_pointpillar,
@@ -65,29 +81,37 @@ MATERIAL_FRAC = 0.01
 BUDGET_FORWARD = 0.04
 
 
-@contextlib.contextmanager
-def _env(**values):
-    old = {k: os.environ.get(k) for k in values}
-    for k, v in values.items():
-        if v is None:
-            os.environ.pop(k, None)
-        else:
-            os.environ[k] = v
-    try:
-        yield
-    finally:
-        for k, v in old.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+# Budget of the int8 gate: max |int8 - stock| over max |stock|, per output.
+# About 3x the drift measured on an NVIDIA H100 80GB HBM3 (700 W) at
+# corpbevt.yaml width in bf16: 0.0324 at seed 0 and 0.0479 at seed 1 (about
+# eight bf16 ulps of logits that stay below 0.3 at random weights; argmax IoU
+# 1.0 and 0.9971, no value clipped).  The JAX package's 6% was set on a TPU.
+BUDGET_INT8 = 0.15
+INT8_IOU_KEYS = ("dynamic_seg", "static_seg")
+INT8_IOU_FLOOR = 0.99
+INT8_SAT_BUDGET = 0.01
 
 
-def compare_outputs(name, fused, stock, budget: float) -> dict:
+def argmax_iou(a, b) -> float:
+    """Mean over classes of the IoU between the argmax maps of two logit
+    tensors (classes last): ``argmax_iou`` of the JAX tool."""
+    a, b = a.argmax(-1), b.argmax(-1)
+    ious = []
+    for c in torch.unique(torch.cat([a.flatten(), b.flatten()])):
+        union = ((a == c) | (b == c)).sum()
+        if union:
+            ious.append(float(((a == c) & (b == c)).sum() / union))
+    return float(np.mean(ious)) if ious else 1.0
+
+
+def compare_outputs(name, fused, stock, budget: float, iou_keys=(),
+                    iou_floor: float = INT8_IOU_FLOOR) -> dict:
     """``compare`` of the JAX tool: per output the largest absolute
     deviation and its share of the stock output's largest value; ok when
-    every share is within ``budget`` and everything is finite."""
+    every share is within ``budget``, everything is finite and every output
+    named in ``iou_keys`` keeps an argmax IoU of at least ``iou_floor``."""
     outputs = {}
+    ious = {}
     ok = True
     for key, s in stock.items():
         f, s = fused[key].float(), s.float()
@@ -96,9 +120,75 @@ def compare_outputs(name, fused, stock, budget: float) -> dict:
         finite = bool(torch.isfinite(f).all() and torch.isfinite(s).all())
         ok = ok and finite and rel <= budget
         outputs[key] = {"abs": adiff, "rel": rel}
-    return {"component": name, "ok": ok,
-            "max_rel": max(o["rel"] for o in outputs.values()),
-            "budget": budget, "outputs": outputs}
+        if key in iou_keys:
+            ious[key] = argmax_iou(f, s)
+            ok = ok and ious[key] >= iou_floor
+    report = {"component": name, "ok": ok,
+              "max_rel": max(o["rel"] for o in outputs.values()),
+              "budget": budget, "outputs": outputs}
+    if ious:
+        report.update(argmax_iou=ious, iou_floor=iou_floor)
+    return report
+
+
+STOCK_SWITCHES = dict(COBEVT_FUSED_CONV="0", COBEVT_FUSED_XATTN="0",
+                      COBEVT_FUSED_FUSION="0", COBEVT_INT8=None,
+                      COBEVT_INT8_RESIDENT=None)
+INT8_SWITCHES = dict(COBEVT_FUSED_CONV=None, COBEVT_FUSED_XATTN=None,
+                     COBEVT_FUSED_FUSION=None, COBEVT_INT8="1",
+                     COBEVT_INT8_RESIDENT=None)
+
+
+def int8_forward(model, batch):
+    """One eval forward under ``COBEVT_INT8=1`` with the clipped shares of
+    the int8-resident blocks collected: (outputs, launch counts, shares)."""
+    trunks = [m for m in model.modules() if isinstance(m, ResNetTrunk)]
+    for trunk in trunks:
+        trunk.collect_int8_sat = True
+    try:
+        with env_switches(**INT8_SWITCHES), torch.no_grad():
+            ops.reset_launch_counts()
+            out = model(batch)
+            counts = ops.launch_counts()
+        sats = [float(s) for trunk in trunks for s in trunk.int8_sat_fracs]
+    finally:
+        for trunk in trunks:
+            trunk.collect_int8_sat = False
+            trunk.int8_sat_fracs = []
+    return out, counts, sats
+
+
+def compare_int8(quant, stock, sats, budget: float = BUDGET_INT8) -> dict:
+    """The int8 gate's report from the two forwards' outputs and the
+    clipped shares."""
+    report = compare_outputs("corpbevt_int8_ptq", quant, stock, budget,
+                             iou_keys=INT8_IOU_KEYS)
+    max_sat = max(sats) if sats else 0.0
+    report["saturation"] = {"ok": max_sat <= INT8_SAT_BUDGET,
+                            "max_sat_frac": max_sat,
+                            "budget": INT8_SAT_BUDGET,
+                            "blocks_sampled": len(sats)}
+    report["ok"] = report["ok"] and report["saturation"]["ok"]
+    return report
+
+
+def validate_int8(device, bf16: bool = True, seed: int = 0, config=None,
+                  max_cav: int = 5) -> dict:
+    """Run the CorpBEVT eval forward on the stock path and under
+    ``COBEVT_INT8=1`` and return the gate's report, with the launch counts of
+    the int8 run."""
+    model, batch, _ = build_corpbevt(max_cav, seed, device, config)
+    model = model.eval()
+    if bf16:
+        model = model.to(torch.bfloat16)
+    with env_switches(**STOCK_SWITCHES), torch.no_grad():
+        stock = model(batch)
+    quant, counts, sats = int8_forward(model, batch)
+    report = compare_int8(quant, stock, sats)
+    report["precision"] = "bf16" if bf16 else "fp32"
+    report["seed"] = seed
+    report["launches"] = counts
+    return report
 
 
 def validate_forward(device, bf16: bool = True, seed: int = 0,
@@ -111,7 +201,7 @@ def validate_forward(device, bf16: bool = True, seed: int = 0,
         model = model.to(torch.bfloat16)
     runs = {}
     for path, switch in (("fused", None), ("stock", "0")):
-        with _env(COBEVT_FUSED_FUSION=switch), torch.no_grad():
+        with env_switches(COBEVT_FUSED_FUSION=switch), torch.no_grad():
             ops.reset_launch_counts()
             out = model(batch)
             runs[path] = (out, ops.launch_counts())
@@ -213,13 +303,13 @@ def validate_train(device, bf16: bool = True, seed: int = 0,
     criterion, train_batch = make_criterion("corpbevt", model, batch)
     if bf16:
         model = model.to(torch.bfloat16)
-    with _env(COBEVT_FLASH_BWD=None, COBEVT_FLASH_BWD_F32=None):
+    with env_switches(COBEVT_FLASH_BWD=None, COBEVT_FLASH_BWD_F32=None):
         ops.reset_launch_counts()
         flash = loss_and_grad_norms(model, criterion, train_batch, seed)
         counts = ops.launch_counts()
-    with _env(COBEVT_FLASH_BWD=None, COBEVT_FLASH_BWD_F32="1"):
+    with env_switches(COBEVT_FLASH_BWD=None, COBEVT_FLASH_BWD_F32="1"):
         control = loss_and_grad_norms(model, criterion, train_batch, seed)
-    with _env(COBEVT_FLASH_BWD="0", COBEVT_FLASH_BWD_F32=None):
+    with env_switches(COBEVT_FLASH_BWD="0", COBEVT_FLASH_BWD_F32=None):
         stock = loss_and_grad_norms(model, criterion, train_batch, seed)
     report = compare_train(flash, stock, control)
     report["precision"] = "bf16" if bf16 else "fp32"
@@ -232,8 +322,8 @@ def main(argv=None):
     p.add_argument("--train", action="store_true")
     p.add_argument("--model", default="corpbevt",
                    choices=["corpbevt", "pointpillar"],
-                   help="pointpillar: the forward gate; corpbevt with "
-                        "--train: the gradient gate")
+                   help="corpbevt: the int8 gate, with --train the gradient "
+                        "gate; pointpillar: the forward gate")
     p.add_argument("--dtype", default="bf16", choices=["bf16", "f32"])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
@@ -251,12 +341,10 @@ def main(argv=None):
               "--model pointpillar without --train runs the forward gate",
               file=sys.stderr)
         return 2
-    if not opt.train and opt.model == "corpbevt":
-        print("validate_kernels: CorpBEVT has --train (the gradient gate); "
-              "its serving gates run in chip_smoke.py", file=sys.stderr)
-        return 2
     if opt.train:
         report = validate_train(device, bf16, opt.seed)
+    elif opt.model == "corpbevt":
+        report = validate_int8(device, bf16, opt.seed)
     else:
         report = validate_forward(device, bf16, opt.seed)
     print(json.dumps(report))

@@ -5,8 +5,13 @@ with one:
 
   python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 
-builds K1-K6 and K8 with nvcc (sm_90a) on first use (``--noconftest``: the
-repo's conftest sets up JAX, which these tests do not need).  Tolerances: f32
+builds K1-K8 with nvcc (sm_90a) and compiles K9 and K10 with Triton on first
+use (``--noconftest``: the repo's conftest sets up JAX, which these tests do
+not need).  K7 and the int8 chain's conv (the second entry of K7's source)
+must EQUAL their plain versions bit for bit (equal integers, the same unfused
+f32 epilogue, one rounding to bf16 or to a tick; the clipped share is a count
+over the same size); K9 and K10 agree with theirs
+within 1e-4 of the largest sum (f32 sums in another order).  Tolerances: f32
 1e-4 abs / 1e-4 rel (sums in another order); bf16 2e-2 abs / 2e-2 rel
 (both sides round an f32 result to bf16 once, or at the same casts of one
 chain: K2), and for K4 in bf16 5e-2 abs / 2e-2 rel: its residual state is
@@ -26,7 +31,14 @@ import torch
 
 from cobevt_tpu_torch import ops
 from cobevt_tpu_torch.nn.layers import BasicBlock
-from cobevt_tpu_torch.ops.conv2d import fused_conv3x3
+from cobevt_tpu_torch.ops.bn_stats import bn_stats_bwd, bn_stats_fwd
+from cobevt_tpu_torch.ops.conv2d import fused_conv3x3, fused_conv3x3_int8
+from cobevt_tpu_torch.ops.int8_chain import (
+    conv3x3_s8,
+    pack_s8_weight,
+    quantize_dynamic,
+)
+from cobevt_tpu_torch.nn.resnet import ResNetTrunk
 from cobevt_tpu_torch.ops.fused_cross_attention import (
     LAUNCHES_PER_CALL,
     fused_cross_view_attention,
@@ -438,3 +450,166 @@ def test_fused_kernels_reject_what_they_do_not_take(gen):
         fused_swap_fusion(x, None, None, bias, layers, head, 3, 2)
     with pytest.raises(ValueError, match="K6 does not take"):
         fused_swap_fusion_streaming(x, None, None, bias, layers, head, 3, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (2, 32, 32, 256, 256),      # layer3: 4 image rows a block
+    (2, 16, 16, 512, 512),      # layer4: 8 image rows a block
+    (2, 9, 7, 64, 24),          # ragged: idle pixel slots, O below a block
+    (1, 3, 128, 64, 64),        # one image row a block
+    (1, 5, 48, 128, 136),       # rows that do not fill 128 slots, two blocks
+])
+@pytest.mark.parametrize("residual,relu", [(False, True), (True, True),
+                                           (True, False)])
+def test_k7_kernel_equals_plain(gen, dtype, shape, residual, relu):
+    N, H, W, C, O = shape
+    x = torch.randn(N, H, W, C, generator=gen, device="cuda").to(dtype)
+    w = torch.randn(3, 3, C, O, generator=gen, device="cuda") * 0.05
+    shift = torch.randn(O, generator=gen, device="cuda") * 0.1
+    res = (torch.randn(N, H, W, O, generator=gen, device="cuda").to(dtype)
+           if residual else None)
+    before = fused_conv3x3_int8.launches
+    got = fused_conv3x3_int8(x, w, shift, res, relu=relu)
+    assert fused_conv3x3_int8.launches == before + 1
+    want = fused_conv3x3_int8(x, w, shift, res, relu=relu, impl="torch")
+    assert fused_conv3x3_int8.launches == before + 1
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    assert torch.equal(got, want), float((got.float() - want.float())
+                                         .abs().max())
+
+
+def test_basic_block_eval_launches_k7_under_the_int8_switch(gen, monkeypatch):
+    wide = BasicBlock(256, 256).cuda().eval()
+    narrow = BasicBlock(128, 128).cuda().eval()
+    x = torch.randn(2, 16, 16, 256, generator=gen, device="cuda").relu()
+    monkeypatch.setenv("COBEVT_INT8", "1")
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        got = wide(x)
+        narrow(x[..., :128].contiguous())
+        counts = ops.launch_counts()
+        assert counts["fused_conv3x3_int8"] == 2
+        assert counts["fused_conv3x3"] == 2
+        with ops.forced_impl("torch"):
+            want = wide(x)
+    assert torch.equal(got, want)
+
+
+def test_k7_rejects_what_it_does_not_take(gen):
+    x = torch.randn(1, 4, 4, 96, device="cuda")
+    with pytest.raises(ValueError, match="C % 64"):
+        fused_conv3x3_int8(x, torch.randn(3, 3, 96, 64, device="cuda"),
+                           torch.zeros(64, device="cuda"))
+    x = torch.randn(1, 2, 256, 64, device="cuda")
+    with pytest.raises(ValueError, match="W <= 128"):
+        fused_conv3x3_int8(x, torch.randn(3, 3, 64, 64, device="cuda"),
+                           torch.zeros(64, device="cuda"))
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 128, 128, 64, 64),      # layer1: one image row and 64 channels a block
+    (2, 9, 7, 64, 24),          # ragged
+    (1, 16, 16, 128, 136),      # two 128-channel blocks, the second ragged
+])
+@pytest.mark.parametrize("case", ["interior", "interior_saturating",
+                                  "interior_residual", "exit_bf16_residual",
+                                  "exit_f32", "no_relu"])
+def test_s8_chain_kernel_equals_plain(gen, shape, case):
+    N, H, W, C, O = shape
+    x = torch.randn(N, H, W, C, generator=gen, device="cuda")
+    res = torch.randn(N, H, W, O, generator=gen, device="cuda").abs()
+    w = torch.randn(3, 3, C, O, generator=gen, device="cuda") * 0.1
+    t = torch.randn(O, generator=gen, device="cuda") * 0.05
+    xq, sx = quantize_dynamic(x)
+    rq, rs = quantize_dynamic(res)
+    p = pack_s8_weight(w, t)
+    kwargs = dict(relu=case != "no_relu", with_sat=True)
+    if "residual" in case:
+        kwargs.update(residual_q=rq, residual_scale=rs)
+    if case.startswith("exit"):
+        kwargs["out_dtype"] = (torch.float32 if case == "exit_f32"
+                               else torch.bfloat16)
+    else:
+        # a fifth of the range at "saturating": many values clip
+        kwargs["out_scale"] = sx * (0.2 if "saturating" in case else 2.0)
+    before = conv3x3_s8.launches
+    got, sat = conv3x3_s8(xq, sx, p.w_q, p.s_w, p.shift, wt=p.wt, **kwargs)
+    assert conv3x3_s8.launches == before + 1
+    want, want_sat = conv3x3_s8(xq, sx, p.w_q, p.s_w, p.shift, impl="torch",
+                                **kwargs)
+    assert conv3x3_s8.launches == before + 1
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    assert sat.item() == want_sat.item()
+    assert (sat.item() > 0.05) == ("saturating" in case)
+    # the weight operand is built from w_q when it is not handed in
+    kwargs["with_sat"] = False
+    assert torch.equal(conv3x3_s8(xq, sx, p.w_q, p.s_w, p.shift, **kwargs),
+                       got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_trunk_int8_region_equals_its_plain_versions(gen, monkeypatch, dtype):
+    """ResNet-34 under COBEVT_INT8=1: layer1 as 6 launches of the chain's
+    conv, layer3 and layer4 as 14 K7 launches, layer2 as 6 K3; the kernels'
+    integers are the plain versions', so the first stage is equal and the
+    later ones differ only by K3's and cuDNN's float sums."""
+    torch.manual_seed(0)
+    trunk = ResNetTrunk(34).cuda().to(dtype).eval()
+    x = torch.randn(2, 128, 128, 3, generator=gen, device="cuda").to(dtype)
+    monkeypatch.setenv("COBEVT_INT8", "1")
+    trunk.collect_int8_sat = True
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        got = trunk(x)
+        counts = ops.launch_counts()
+        sats = [float(s) for s in trunk.int8_sat_fracs]
+        with ops.forced_impl("torch"):
+            want = trunk(x)
+            want_sats = [float(s) for s in trunk.int8_sat_fracs]
+    assert counts["conv3x3_s8"] == 6 and counts["fused_conv3x3_int8"] == 14
+    assert counts["fused_conv3x3"] == 6
+    assert torch.equal(got[0], want[0]) and sats == want_sats
+    for g, w in zip(got[1:], want[1:]):
+        scale = float(w.float().abs().max())
+        assert float((g.float() - w.float()).abs().max()) <= 0.05 * scale
+
+
+def _assert_sums_close(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert torch.isfinite(g).all()
+        scale = float(w.abs().max()) + 1e-9
+        assert float((g - w).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(5 * 128 * 128, 128), (40_000, 144),
+                                   (1000, 336), (7, 192), (33, 8)])
+@pytest.mark.parametrize("s", [-1e30, 0.25])
+def test_k9_k10_kernels_match_plain(gen, dtype, shape, s):
+    x = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    dy = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    before = bn_stats_fwd.launches, bn_stats_bwd.launches
+    fwd, bwd = bn_stats_fwd(x, s), bn_stats_bwd(dy, x, s)
+    assert (bn_stats_fwd.launches, bn_stats_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    torch.cuda.synchronize()
+    _assert_sums_close(fwd, bn_stats_fwd(x, s, impl="torch"))
+    _assert_sums_close(bwd, bn_stats_bwd(dy, x, s, impl="torch"))
+    assert (bn_stats_fwd.launches, bn_stats_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    # no atomics: a second run gives the same bits
+    again = bn_stats_fwd(x, s)
+    assert torch.equal(fwd[0], again[0]) and torch.equal(fwd[1], again[1])
+
+
+def test_k9_k10_reject_what_they_do_not_take(gen):
+    x = torch.randn(8, 4, 16, device="cuda")
+    with pytest.raises(ValueError, match=r"\(R, C\)"):
+        bn_stats_fwd(x, 0.0)
+    x = torch.randn(16, 8, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        bn_stats_bwd(x, x.t().contiguous().t(), 0.0)

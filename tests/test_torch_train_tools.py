@@ -150,7 +150,9 @@ def test_launch_counters_cover_every_ported_kernel():
                      "fused_window_attention_packed_bwd",
                      "fused_window_attention", "fused_cross_view_attention",
                      "fused_conv3x3", "fused_swap_fusion",
-                     "fused_swap_fusion_streaming"}
+                     "fused_swap_fusion_streaming", "fused_conv3x3_int8",
+                     "conv3x3_s8",
+                     "bn_stats_fwd", "bn_stats_bwd"}
     with open(os.path.join(REPO, "cobevt_tpu_torch", "csrc",
                            "fused_swap_fusion_streaming.cu")) as f:
         text = f.read()
