@@ -11,9 +11,10 @@ non-zero without printing the final line:
      (csrc/fused_cross_attention.cu), K3 (csrc/conv3x3.cu), K4
      (csrc/fused_swap_fusion.cu), K5 (csrc/window_attention_bwd.cu), K6
      (csrc/fused_swap_fusion_streaming.cu) and K7 with the int8 chain's conv
-     (csrc/conv3x3_int8.cu) with nvcc for sm_90a from the checkout's sources,
-     one nvcc process each, all started together; K9 and K10 (Triton,
-     ops/bn_stats.py) compile at their first launch in phase 3;
+     (csrc/conv3x3_int8.cu), K11 and K12 (csrc/ffd_fused.cu) with nvcc for
+     sm_90a from the checkout's sources, one nvcc process each, all started
+     together; K9 and K10 (Triton, ops/bn_stats.py) compile at their first
+     launch in phase 3;
   3. kernels vs plain: every kernel against its plain PyTorch version on
      the card at every shape of the CorpBEVT serving forward and train step
      (5 agents x 4 cameras x 512^2, BEV 256^2) and of the cooperative LiDAR
@@ -21,8 +22,10 @@ non-zero without printing the final line:
      x 8 heads of its stock path), K7 at the two trunk shapes of the int8
      serving mode and the int8 chain's conv at layer1 (both must EQUAL their
      plain versions: equal integers, the same unfused f32 epilogue), K9 and
-     K10 at the four shapes of tools/micro_bn_stats.py, in f32 and bf16,
-     timed with
+     K10 at the four shapes of tools/micro_bn_stats.py, K5 also at the
+     LiDAR train step's shape (264 windows x 8 heads, mask), K11 and K12 at
+     the LiDAR fusion token count (84480 x 256, hidden 512) and at a shape
+     whose rows do not divide a tile, in f32 and bf16, timed with
      CUDA events, each beside its bound (the larger of its bytes over 3.35
      TB/s and its operations over 989 TFLOP/s, or 1,979 TOP/s for int8
      products) and, where one PyTorch call computes the same function, that
@@ -42,7 +45,9 @@ non-zero without printing the final line:
      cobevt_tpu_torch/tools/benchmark.py: every step runs 13 K1 and 12 K5
      launches and none of K2, K3, K4, with finite loss and gradient norm;
      then the gradient gate of tools/validate_kernels.py (K1 + K5 against
-     COBEVT_FLASH_BWD=0, same dropout seed);
+     COBEVT_FLASH_BWD=0, same dropout seed), and one training forward and
+     backward with COBEVT_FUSED_XATTN_TRAIN=1: 24 K2 launches, loss and
+     gradient norm within 1% of the switch-off run;
   7. K8: the head-major entry point, forward and gradients, at the
      self-attention and the fusion shape;
   8. LiDAR: full-width PointPillar + FuseBEVT (5 agents x 8000 pillars x 32
@@ -60,7 +65,14 @@ non-zero without printing the final line:
      tools/validate_kernels.py against the stock bf16 path (relative drift,
      argmax IoU >= 0.99, clipped share <= 0.01 over 3 blocks), and one frame
      with COBEVT_INT8_RESIDENT=0 (14 K7, 6 K3, no chain conv);
- 10. tools/micro_bn_stats.py at its four full shapes (K9, K10).
+ 10. tools/micro_bn_stats.py at its four full shapes (K9, K10);
+ 11. LiDAR train: a few optimizer steps of full-width PointPillar + FuseBEVT
+     in bf16 (f32 master parameters) on the detection loss, through the code
+     of tools/benchmark.py: every step runs 4 K1 and 4 K5 launches and no
+     K6, with finite loss and gradient norm; then the LiDAR gradient gate of
+     tools/validate_kernels.py with its f32 gradient-truth check;
+ 12. tools/micro_ffd_fused.py at the full shape in bf16 (K11, K12): the
+     parity figures against the erf oracle and the fused and autograd times.
 
 The last stdout lines are the kernels JSON line, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.  Imports
@@ -120,6 +132,9 @@ K5_CASES = [
     ("fusion_bias_only", 16, 320, 320, True, False, 0),
     ("fusion_mask_only", 16, 320, 320, False, True, 0),
     ("fusion_fully_masked_window", 16, 320, 320, True, True, 0),
+    # the LiDAR train step: the four fusion sublayers' 264 windows, 8 heads
+    # (an eighth field: the heads; a ninth: calls per LiDAR train step)
+    ("lidar_fusion", 264, 320, 320, True, True, 0, 8, 4),
 ]
 # K8: head-major attention (name, G, Tq, Tk, bias, mask)
 K8_CASES = [
@@ -186,6 +201,13 @@ S8_CASES = [
     ("layer1_conv2", True, False, 2),
     ("layer1_conv2_exit", True, True, 1),
 ]
+# K11, K12: (name, N, D, M, calls of the micro protocol's one pass): the
+# LiDAR fusion token count of tools/micro_ffd_fused.py, and a shape whose rows
+# divide neither kernel's row tile (16, 64)
+FFD_CASES = [
+    ("lidar_tokens", 84480, 256, 512, 1),
+    ("row_tail", 1000, 128, 256, 0),
+]
 # K9, K10: the (rows, channels) of tools/micro_bn_stats.py
 BN_TOL = 1e-4     # of the largest sum: f32 sums in another order
 # kernel vs plain version: |kernel - plain| <= atol + rtol * |plain|.
@@ -212,6 +234,11 @@ TRAIN_PER_STEP = {"fused_window_attention_packed": 13,
                   "fused_swap_fusion": 0, "fused_window_attention": 0,
                   "fused_swap_fusion_streaming": 0, "fused_conv3x3_int8": 0,
                   "conv3x3_s8": 0}
+# the LiDAR step: FuseBEVT depth 2 = 4 attentions, K1 forward and K5 backward
+# (the fusion dropouts sit on outputs, so no attention carries a weight);
+# every other wrapper 0
+LIDAR_TRAIN_PER_STEP = {"fused_window_attention_packed": 4,
+                        "fused_window_attention_packed_bwd": 4}
 SERVE_AGENTS = [5, 3, 1, 4, 2, 5, 3, 5, 2, 4]
 INT8_AGENTS = [5, 3, 1, 4, 2]
 STOCK_AGENTS = [5, 2, 4]
@@ -240,7 +267,7 @@ LIDAR_FUSED_PER_FRAME = {"fused_swap_fusion_streaming": 4}
 LIDAR_STOCK_PER_FRAME = {"fused_window_attention_packed": 4}
 KERNELS = ("window_attention", "fused_cross_attention", "conv3x3",
            "fused_swap_fusion", "window_attention_bwd",
-           "fused_swap_fusion_streaming", "conv3x3_int8")
+           "fused_swap_fusion_streaming", "conv3x3_int8", "ffd_fused")
 IOU_FLOOR = 0.99
 
 
@@ -574,6 +601,7 @@ def phase_kernels():
         pack_s8_weight,
         quantize_dynamic,
     )
+    from cobevt_tpu_torch.ops.ffd_fused import fused_ffd, fused_ffd_bwd
     from cobevt_tpu_torch.ops.fused_cross_attention import (
         fused_cross_view_attention,
         pack_params,
@@ -591,6 +619,7 @@ def phase_kernels():
         fused_window_attention_packed_bwd,
     )
     from cobevt_tpu_torch.tools.micro_bn_stats import SHAPES as BN_SHAPES
+    from cobevt_tpu_torch.tools.micro_ffd_fused import make_operands, ref_ffd
     log("== kernels vs plain versions (CUDA events, after warmup)")
     gen = torch.Generator(device="cuda").manual_seed(0)
     details = []
@@ -868,17 +897,20 @@ def phase_kernels():
             del x, mask, am, bias, layers, head, packed, got
             torch.cuda.empty_cache()
         for case in K5_CASES:
-            name, G, Tq, Tk, has_bias, has_mask, per_step = case
+            name, G, Tq, Tk, has_bias, has_mask, per_step = case[:7]
+            heads, per_lidar_step = case[7:] if len(case) > 7 else (K1_HEADS,
+                                                                    0)
             q, k, v, bias, mask, _ = k1_inputs(
-                (name, G, Tq, Tk, has_bias, has_mask, False), dtype, gen)
-            g = torch.randn(G, Tq, K1_HEADS * K1_HEAD_DIM, generator=gen,
+                (name, G, Tq, Tk, has_bias, has_mask, False), dtype, gen,
+                heads)
+            g = torch.randn(G, Tq, heads * K1_HEAD_DIM, generator=gen,
                             device="cuda").to(dtype)
-            out = fused_window_attention_packed(q, k, v, K1_HEADS, bias, mask,
+            out = fused_window_attention_packed(q, k, v, heads, bias, mask,
                                                 impl="kernel")
 
             def bwd(impl):
                 return fused_window_attention_packed_bwd(
-                    q, k, v, g, out, K1_HEADS, bias, mask, impl=impl)
+                    q, k, v, g, out, heads, bias, mask, impl=impl)
 
             got, want = bwd("kernel"), bwd("torch")
             torch.cuda.synchronize()
@@ -894,7 +926,8 @@ def phase_kernels():
                     ok = ok and part_ok
             iters = 3 if G * Tq * Tk > 5e7 else 10
             row = {"kernel": "K5", "case": name, "dtype": dname,
-                   "per_frame": per_step,
+                   "per_frame": per_step, "heads": heads,
+                   "per_lidar_step": per_lidar_step,
                    "max_abs_err": max(e[0] for e in errs.values()),
                    "max_rel_err": max(e[1] for e in errs.values()),
                    "errors": {k_: list(e) for k_, e in errs.items()},
@@ -902,16 +935,16 @@ def phase_kernels():
             del want
             row["plain_ms"] = time_ms(lambda: bwd("torch"), 2, warmup=1)
             row.update(bound(
-                attention_work(G, Tq, Tk, 5),
+                attention_work(G, Tq, Tk, 5, heads),
                 nbytes(q, k, v, g, out, bias, mask, *got), dname))
             # library yardstick: forward + backward of one
             # scaled_dot_product_attention call, less its forward
-            leaves = [_packed_to_4d(t, K1_HEADS).contiguous().requires_grad_()
+            leaves = [_packed_to_4d(t, heads).contiguous().requires_grad_()
                       for t in (q, k, v)]
-            add = sdpa_mask(bias, mask, dtype)
+            add = sdpa_mask(bias, mask, dtype, heads)
             if add is not None and bias is not None:
                 add = add.requires_grad_()
-            g4 = _packed_to_4d(g, K1_HEADS).contiguous()
+            g4 = _packed_to_4d(g, heads).contiguous()
 
             def sdpa(backward):
                 o = F.scaled_dot_product_attention(*leaves, attn_mask=add,
@@ -926,6 +959,74 @@ def phase_kernels():
             if not ok:
                 failures.append(row)
             del q, k, v, g, out, bias, mask, got, leaves, add, g4
+        for name, N, D, M, per_pass in FFD_CASES:
+            operands = make_operands(N, D, M, dtype, torch.device("cuda"))
+            x, gamma, beta, w1, b1, w2, b2 = operands
+            dy = torch.randn(N, D, generator=gen, device="cuda").to(dtype)
+            iters = 3 if dtype == torch.float32 and N > 10000 else 10
+
+            def ffd(impl):
+                with torch.no_grad():
+                    return fused_ffd(*operands, impl=impl)
+
+            def ffd_bwd(impl):
+                return fused_ffd_bwd(x, dy, gamma, beta, w1, b1, w2,
+                                     impl=impl)
+
+            got, want = ffd("kernel"), ffd("torch")
+            torch.cuda.synchronize()
+            abs_err, rel_err, ok = compare(got, want, dname)
+            with torch.no_grad():
+                lib_fwd = time_ms(lambda: ref_ffd(*operands), iters)
+            row = {"kernel": "K11", "case": name, "dtype": dname,
+                   "per_frame": per_pass, "max_abs_err": abs_err,
+                   "max_rel_err": rel_err, "ok": ok,
+                   "ms": time_ms(lambda: ffd("kernel"), iters),
+                   "plain_ms": time_ms(lambda: ffd("torch"), iters),
+                   # no one call computes the sublayer: the chain of library
+                   # calls (layer_norm, two products, gelu, add)
+                   "library_ms": lib_fwd}
+            row.update(bound(4.0 * N * D * M, nbytes(*operands, got), dname))
+            details.append(row)
+            if not ok:
+                failures.append(row)
+            del got, want
+            got, want = ffd_bwd("kernel"), ffd_bwd("torch")
+            again = ffd_bwd("kernel")
+            torch.cuda.synchronize()
+            errs = {}
+            ok = all(torch.equal(a, b) for a, b in zip(got, again))
+            for part, a, b in zip(("dx", "dgamma", "dbeta", "dw1", "db1",
+                                   "dw2", "db2"), got, want):
+                abs_err, rel_err, part_ok = compare_scaled(a, b, dname)
+                errs[part] = (abs_err, rel_err)
+                ok = ok and part_ok
+            row = {"kernel": "K12", "case": name, "dtype": dname,
+                   "per_frame": per_pass,
+                   "max_abs_err": max(e[0] for e in errs.values()),
+                   "max_rel_err": max(e[1] for e in errs.values()),
+                   "errors": {k_: list(e) for k_, e in errs.items()},
+                   "ok": ok, "ms": time_ms(lambda: ffd_bwd("kernel"), iters)}
+            del want, again
+            row["plain_ms"] = time_ms(lambda: ffd_bwd("torch"), 2, warmup=1)
+            row.update(bound(12.0 * N * D * M,
+                             nbytes(x, dy, gamma, beta, w1, b1, w2, *got),
+                             dname))
+            # library yardstick: autograd over the chain of library calls,
+            # forward + backward less its forward
+            leaves = [t.clone().requires_grad_() for t in operands]
+
+            def chain():
+                for t in leaves:
+                    t.grad = None
+                ref_ffd(*leaves).backward(dy)
+
+            row["library_ms"] = max(time_ms(chain, iters) - lib_fwd, 0.0)
+            details.append(row)
+            if not ok:
+                failures.append(row)
+            del operands, x, w1, w2, dy, got, leaves
+            torch.cuda.empty_cache()
         for case in K8_CASES:
             name, G, Tq, Tk, has_bias, has_mask = case
             q, k, v, bias, mask, _ = k1_inputs(
@@ -1172,6 +1273,36 @@ def phase_train(seed=0):
     if not gate["ok"]:
         raise AssertionError("gradient gate failed: " + json.dumps(gate))
     torch.cuda.empty_cache()
+
+    log("== COBEVT_FUSED_XATTN_TRAIN: one training forward + backward with "
+        "the switch on and off, bf16")
+    from cobevt_tpu_torch.ops.dispatch import env_switches
+    model, batch, _ = benchmark.build_corpbevt(opt.max_cav, seed, device)
+    criterion, train_batch = benchmark.make_criterion("corpbevt", model,
+                                                      batch)
+    model = model.to(torch.bfloat16)
+    xattn = {}
+    for value in ("1", None):
+        with env_switches(COBEVT_FUSED_XATTN_TRAIN=value):
+            ops.reset_launch_counts()
+            loss, gnorm, _ = validate_kernels.loss_and_grad_norms(
+                model, criterion, train_batch, seed)
+            xattn[value] = {"loss": loss, "grad_norm": gnorm,
+                            "launches": ops.launch_counts()}
+    on, off = xattn["1"], xattn[None]
+    log("fused_xattn_train " + json.dumps({"on": on, "off": off}))
+    k2 = "fused_cross_view_attention"
+    if on["launches"][k2] != FUSED_PER_FRAME[k2] or off["launches"][k2] != 0:
+        raise AssertionError(f"K2 launches with the switch on "
+                             f"{on['launches'][k2]}, off {off['launches'][k2]}")
+    for key in ("loss", "grad_norm"):
+        rel = abs(on[key] - off[key]) / (abs(off[key]) + 1e-9)
+        if not rel <= validate_kernels.BUDGET_SCALAR:
+            raise AssertionError(f"COBEVT_FUSED_XATTN_TRAIN: {key} moved by "
+                                 f"{rel:.3e}")
+    del model, batch, train_batch
+    torch.cuda.empty_cache()
+    gate["fused_xattn_train"] = {"on": on, "off": off}
     return counts, row, gate
 
 
@@ -1397,6 +1528,76 @@ def phase_micro_bn_stats():
     return counts
 
 
+def phase_lidar_train(seed=0):
+    """A few optimizer steps of the full-width LiDAR model in bf16 through
+    the code of tools/benchmark.py, with exact launch counts per step, then
+    its gradient gate with the f32 gradient-truth check."""
+    import math
+
+    import torch
+    from cobevt_tpu_torch import ops
+    from cobevt_tpu_torch.tools import benchmark, validate_kernels
+
+    log("== LiDAR train: PointPillar + FuseBEVT, 5 agents x 8000 pillars, "
+        "fused map 96 x 176 x 256, detection loss, bf16 compute, f32 master "
+        "parameters, B 1")
+    opt = benchmark.parse_args(["--train", "--model", "pointpillar",
+                                "--iters", str(TRAIN_STEPS), "--warmup", "1",
+                                "--seed", str(seed)])
+    device = torch.device("cuda", torch.cuda.current_device())
+    model, batch, _ = benchmark.build_pointpillar(opt.max_cav, opt.seed,
+                                                  device)
+    ops.reset_launch_counts()
+    row = benchmark.measure_train(model, opt.model, batch, opt, device)
+    counts = ops.launch_counts()
+    log("lidar train " + json.dumps(row))
+    log(f"lidar train launches over {TRAIN_STEPS} steps after one warmup "
+        f"step: {counts}")
+    for fn, n in counts.items():
+        want = LIDAR_TRAIN_PER_STEP.get(fn, 0) * TRAIN_STEPS
+        if n != want:
+            raise AssertionError(f"lidar train: {fn} ran {n} launches over "
+                                 f"{TRAIN_STEPS} steps, expected {want}")
+    if not (math.isfinite(row["loss"]) and math.isfinite(row["grad_norm"])):
+        raise AssertionError(f"lidar train: loss {row['loss']}, gradient norm "
+                             f"{row['grad_norm']}")
+    log(f"lidar train loss: first step {row['loss_first']:.4f}, after "
+        f"{TRAIN_STEPS + 1} steps {row['loss']:.4f}")
+    del model, batch
+    torch.cuda.empty_cache()
+
+    log("== LiDAR gradient gate: K1 + K5 vs COBEVT_FLASH_BWD=0, one step, "
+        "bf16; f32 gradient truth at a small width")
+    gate = validate_kernels.validate_train(device, bf16=True, seed=seed,
+                                           model_name="pointpillar")
+    gate["f32_truth"] = validate_kernels.gradient_truth(device, seed)
+    log("lidar gate " + json.dumps(gate))
+    for fn, n in LIDAR_TRAIN_PER_STEP.items():
+        if gate["launches"][fn] != n:
+            raise AssertionError(f"lidar gate: {fn} ran "
+                                 f"{gate['launches'][fn]}")
+    if not (gate["ok"] and gate["f32_truth"]["ok"]):
+        raise AssertionError("LiDAR gradient gate failed: "
+                             + json.dumps(gate))
+    torch.cuda.empty_cache()
+    return counts, row, gate
+
+
+def phase_micro_ffd_fused():
+    """tools/micro_ffd_fused.py at its full shape in bf16, as a user runs
+    it; returns the launch counts of that run."""
+    from cobevt_tpu_torch import ops
+    from cobevt_tpu_torch.tools import micro_ffd_fused
+
+    log("== micro_ffd_fused: K11 + K12 against autograd, 84480 x 256 x 512")
+    ops.reset_launch_counts()
+    rc = micro_ffd_fused.main(["--iters", "10"])
+    counts = ops.launch_counts()
+    if rc != 0:
+        raise AssertionError(f"micro_ffd_fused exited with {rc}")
+    return counts
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default=None,
@@ -1418,6 +1619,8 @@ def main(argv=None):
     lidar_counts, lidar = phase_lidar()
     int8_counts, int8 = phase_int8()
     bn_counts = phase_micro_bn_stats()
+    lidar_train_counts, lidar_train_row, lidar_gate = phase_lidar_train()
+    ffd_counts = phase_micro_ffd_fused()
 
     # (wrapper, source, the TPU function it replaces)
     sources = {
@@ -1452,6 +1655,10 @@ def main(argv=None):
                "cobevt_tpu/tools/micro_bn_stats.py:55"),
         "K10": ("bn_stats_bwd", "cobevt_tpu_torch/ops/bn_stats.py",
                 "cobevt_tpu/tools/micro_bn_stats.py:97"),
+        "K11": ("fused_ffd", "cobevt_tpu_torch/csrc/ffd_fused.cu",
+                "cobevt_tpu/tools/micro_ffd_fused.py:113"),
+        "K12": ("fused_ffd_bwd", "cobevt_tpu_torch/csrc/ffd_fused.cu",
+                "cobevt_tpu/tools/micro_ffd_fused.py:133"),
     }
     triton_kernels = ("K9", "K10")
     launches = dict(counts)
@@ -1464,13 +1671,16 @@ def main(argv=None):
         launches[fn] = int8_counts[fn]
     for fn in ("bn_stats_fwd", "bn_stats_bwd"):
         launches[fn] = bn_counts[fn]
+    for fn in ("fused_ffd", "fused_ffd_bwd"):
+        launches[fn] = ffd_counts[fn]
     kernels = []
     for key, (fn, src, replaces) in sources.items():
         rows = [r for r in details if r["kernel"] == key]
         # one 5-agent frame's calls on the fused serving path (K1-K4) or in
         # the int8 mode (K7 and the chain's conv), one train step's calls
         # (K5), one LiDAR frame's four sublayers and head (K6), one call at
-        # each shape (K8, K9, K10), bf16
+        # each shape (K8, K9, K10), one call at the micro protocol's shape
+        # (K11, K12), bf16
         bf16 = [r for r in rows
                 if r["dtype"] == "bfloat16" and r["per_frame"]]
 
@@ -1501,7 +1711,12 @@ def main(argv=None):
                        "serve_plain": plain, "reference": ref_check,
                        "train": train_row, "train_counts": train_counts,
                        "gradient_gate": gate, "lidar": lidar, "int8": int8,
-                       "bn_stats_counts": bn_counts, "kernels": kernels, "card": card_line(),
+                       "bn_stats_counts": bn_counts,
+                       "lidar_train": lidar_train_row,
+                       "lidar_train_counts": lidar_train_counts,
+                       "lidar_gradient_gate": lidar_gate,
+                       "ffd_counts": ffd_counts, "kernels": kernels,
+                       "card": card_line(),
                        "torch": torch.__version__,
                        "cuda": torch.version.cuda,
                        "seconds": time.perf_counter() - t0}, f, indent=1)

@@ -178,7 +178,7 @@ struct Gemm<float, Rows> {
 
 template <int Rows>
 struct Gemm<__nv_bfloat16, Rows> {
-  static_assert(Rows == 16 || Rows == 64,
+  static_assert(Rows == 16 || Rows == 32 || Rows == 64,
                 "8 warps in row groups of 16 rows");
   static __device__ void run(const float* A, int lda,
                              const __nv_bfloat16* Wt, int K, int N,

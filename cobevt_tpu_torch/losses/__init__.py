@@ -1,6 +1,9 @@
+from cobevt_tpu_torch.losses.detection_loss import PointPillarLoss, smooth_l1
 from cobevt_tpu_torch.losses.seg_losses import (
     VanillaSegLoss,
+    sigmoid_focal_loss,
     weighted_cross_entropy,
 )
 
-__all__ = ["VanillaSegLoss", "weighted_cross_entropy"]
+__all__ = ["PointPillarLoss", "VanillaSegLoss", "sigmoid_focal_loss",
+           "smooth_l1", "weighted_cross_entropy"]

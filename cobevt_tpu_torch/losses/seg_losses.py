@@ -2,8 +2,9 @@
 
 Counterpart of ``cobevt_tpu/losses/seg_losses.py``: ``VanillaSegLoss``
 (reference ``opv2v/opencood/loss/vanilla_seg_loss.py:7``), a
-class-weighted cross entropy with torch's weighted-mean normalisation.
-The nuScenes losses of that file come with their slice.
+class-weighted cross entropy with torch's weighted-mean normalisation, and
+``sigmoid_focal_loss``, which the LiDAR detection loss takes.  The nuScenes
+losses of that file come with their slice.
 """
 
 from __future__ import annotations
@@ -28,6 +29,25 @@ def weighted_cross_entropy(logits, labels, class_weights, valid_mask=None):
     if valid_mask is not None:
         w = w * valid_mask
     return -(w * picked).sum() / w.sum().clamp(min=1e-12)
+
+
+def sigmoid_bce(logits, labels):
+    """Numerically stable binary cross entropy with logits, elementwise."""
+    return logits.clamp(min=0) - logits * labels + \
+        torch.log1p(torch.exp(-logits.abs()))
+
+
+def sigmoid_focal_loss(logits, targets, alpha: float = -1.0,
+                       gamma: float = 2.0):
+    """fvcore-style sigmoid focal loss, elementwise (no reduction)."""
+    p = torch.sigmoid(logits)
+    ce = sigmoid_bce(logits, targets)
+    p_t = p * targets + (1 - p) * (1 - targets)
+    loss = ce * ((1 - p_t) ** gamma)
+    if alpha >= 0:
+        alpha_t = alpha * targets + (1 - alpha) * (1 - targets)
+        loss = alpha_t * loss
+    return loss
 
 
 @dataclasses.dataclass(frozen=True)

@@ -251,6 +251,15 @@ def fused_xattn_ok(H: int, W: int, q_win, h: int, w: int, k_win, dim: int,
                           n_cams * k_win[0] * k_win[1], hidden)
 
 
+def fused_xattn_train() -> bool:
+    """``COBEVT_FUSED_XATTN_TRAIN=1`` (read per call, default "0") takes K2
+    in training too: the cross-view branches carry no dropout and no batch
+    statistics, so the fused region means the same.  The backward is
+    autograd of the plain composite over K1 and K5; the switch is the A/B
+    lever, as in the JAX package."""
+    return os.environ.get("COBEVT_FUSED_XATTN_TRAIN", "0") == "1"
+
+
 def _ln_pair(ln: nn.LayerNorm):
     return ln.weight, ln.bias
 
@@ -320,21 +329,26 @@ class CrossViewSwapAttention(nn.Module):
         self._packed = PackCache()   # K2's operands, per branch and dtype
 
     def _fused_params(self, branch: int, dtype):
-        """K2's packed operands of the local (1) or grid (2) branch: the
-        attention, its MLP and, for the grid branch, the postnorm; packed
-        once and reused while the weights are unchanged."""
+        """K2's operands of the local (1) or grid (2) branch as keyword
+        arguments: the attention, its MLP and, for the grid branch, the
+        postnorm.  At eval packed once and reused while the weights are
+        unchanged; in training the raw parameters, which carry gradients."""
         attend = getattr(self, f"cross_win_attend_{branch}")
         prenorm = getattr(self, f"prenorm_{branch}")
         mlp = getattr(self, f"mlp_{branch}")
         post = self.postnorm if branch == 2 else None
+        if self.training:
+            return {"params": _cross_params(attend),
+                    "mlp": _mlp_params(prenorm, mlp),
+                    "post_ln": None if post is None else _ln_pair(post)}
         modules = (attend, prenorm, mlp) + (() if post is None else (post,))
-        return self._packed.get(
+        return {"params": self._packed.get(
             branch, [t for m in modules for t in m.parameters()],
             lambda: pack_params(_cross_params(attend),
                                 _mlp_params(prenorm, mlp),
                                 None if post is None else _ln_pair(post),
                                 dtype),
-            dtype)
+            dtype)}
 
     @staticmethod
     def _bn_relu_conv(seq, t):
@@ -371,10 +385,12 @@ class CrossViewSwapAttention(nn.Module):
 
         # eval takes K2 for both branches where the gate holds (the JAX
         # package's dispatch, cobevt_tpu/models/fax.py:417-504); training
-        # and COBEVT_FUSED_XATTN=0 run the stock modules
+        # takes it only with COBEVT_FUSED_XATTN_TRAIN=1, and
+        # COBEVT_FUSED_XATTN=0 runs the stock modules everywhere
         H, W = x.shape[1:3]
         n, kh, kw_ = key.shape[1:4]
-        use_fused = not self.training and fused_xattn_ok(
+        use_fused = (not self.training or fused_xattn_train()) \
+            and fused_xattn_ok(
             H, W, self.q_win_size, kh, kw_, self.feat_win_size, self.dim,
             self.heads, self.dim_head, n, self.mlp_1[0].out_features)
         scale = self.dim_head ** -0.5
@@ -385,8 +401,9 @@ class CrossViewSwapAttention(nn.Module):
         if use_fused:
             query = fused_cross_view_attention(
                 x, w_embed, c_embed if self.bev_embed_flag else None, key, val,
-                self._fused_params(1, x.dtype), self.q_win_size,
-                self.feat_win_size, self.heads, scale, add_skip=self.skip)
+                q_win=self.q_win_size, k_win=self.feat_win_size,
+                n_heads=self.heads, scale=scale, add_skip=self.skip,
+                **self._fused_params(1, x.dtype))
         else:
             if self.bev_embed_flag:
                 bev_embed = _normalize(w_embed[None, None]
@@ -410,9 +427,10 @@ class CrossViewSwapAttention(nn.Module):
         if use_fused:
             # keys ride the grid cells by index math inside the kernel
             return fused_cross_view_attention(
-                query, None, None, key, val, self._fused_params(2, x.dtype),
-                self.q_win_size, self.feat_win_size, self.heads, scale,
-                add_skip=self.skip, grid_keys=True)
+                query, None, None, key, val, q_win=self.q_win_size,
+                k_win=self.feat_win_size, n_heads=self.heads, scale=scale,
+                add_skip=self.skip, grid_keys=True,
+                **self._fused_params(2, x.dtype))
         qg = window_partition(query[:, None], *self.q_win_size)
         kg = grid_partition(key, *self.feat_win_size)
         vg = grid_partition(val, *self.feat_win_size)

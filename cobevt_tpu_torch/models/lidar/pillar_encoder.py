@@ -107,13 +107,40 @@ class PillarVFE(nn.Module):
         return features[:, 0, :]
 
 
+class _ScatterSum(torch.autograd.Function):
+    """Rows of ``feats`` (N, C) summed per cell index into (n_cells, C); rows
+    with index ``n_cells`` are dropped.  The backward is the gather of the
+    canvas gradient at each row's cell (zero for a dropped row): exact, in
+    the features' dtype, with no atomics."""
+
+    @staticmethod
+    def forward(ctx, feats, flat_idx, n_cells):
+        N = feats.shape[0]
+        sorted_idx, order = torch.sort(flat_idx, stable=True)
+        # rows of cell c are sorted rows [start[c], start[c + 1]); the dump
+        # row is the last segment
+        start = torch.searchsorted(
+            sorted_idx, torch.arange(n_cells + 1, device=feats.device))
+        lengths = torch.diff(start, append=start.new_full((1,), N))
+        canvas = torch.segment_reduce(feats.float()[order], "sum",
+                                      lengths=lengths, axis=0)
+        ctx.save_for_backward(flat_idx)
+        return canvas[:-1].to(feats.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (flat_idx,) = ctx.saved_tensors
+        g = torch.cat([g, g.new_zeros((1, g.shape[1]))])
+        return g[flat_idx], None, None
+
+
 def pillar_scatter(pillar_features, coords, batch_size: int,
                    grid_size: Tuple[int, int, int], voxel_mask=None):
     """Scatter-add (N, C) pillar features into a dense (B, ny, nx, C) canvas.
 
     coords: (N, 4) [batch, z, y, x]; nz must be 1.  Pillars with
     ``voxel_mask`` false go to one dump row past the canvas, which is
-    dropped.
+    dropped; they get a zero gradient.
 
     Deterministic: pillars that share a cell are summed in f32 in the order
     of their rows (a stable sort by cell, then one serial sum per cell) and
@@ -122,27 +149,17 @@ def pillar_scatter(pillar_features, coords, batch_size: int,
     could differ in the last bit; the JAX package's bf16 scatter-add rounds
     after every addend, so in bf16 a cell with colliding pillars can differ
     from it by the roundings this function does not make.  Cells with one
-    pillar, and f32, agree exactly."""
+    pillar, and f32, agree exactly.  The backward is a gather
+    (:class:`_ScatterSum`), as the JAX scatter-add's is."""
     nx, ny, nz = grid_size
     if nz != 1:
         raise ValueError(f"pillar_scatter needs nz == 1, got {nz}")
     n_cells = batch_size * ny * nx
-    N, C = pillar_features.shape
-    dev = pillar_features.device
+    C = pillar_features.shape[1]
     flat_idx = (coords[:, 0].long() * (ny * nx) + coords[:, 2].long() * nx
                 + coords[:, 3].long())
-    feats = pillar_features.float()
     if voxel_mask is not None:
         flat_idx = torch.where(voxel_mask, flat_idx,
                                torch.full_like(flat_idx, n_cells))
-        feats = feats * voxel_mask[:, None].float()
-    sorted_idx, order = torch.sort(flat_idx, stable=True)
-    # rows of cell c are sorted rows [start[c], start[c + 1]); the dump row
-    # is the last segment
-    start = torch.searchsorted(
-        sorted_idx, torch.arange(n_cells + 1, device=dev))
-    lengths = torch.diff(start, append=start.new_full((1,), N))
-    canvas = torch.segment_reduce(feats[order], "sum", lengths=lengths,
-                                  axis=0)
-    return canvas[:-1].to(pillar_features.dtype).reshape(batch_size, ny, nx,
-                                                         C)
+    canvas = _ScatterSum.apply(pillar_features, flat_idx, n_cells)
+    return canvas.reshape(batch_size, ny, nx, C)

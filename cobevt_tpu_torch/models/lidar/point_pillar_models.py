@@ -91,14 +91,19 @@ class PointPillarFuseBEVT(nn.Module):
         self.cls_head = nn.Conv2d(cfg.shrink_dim, cfg.anchor_num, 1)
         self.reg_head = nn.Conv2d(cfg.shrink_dim, 7 * cfg.anchor_num, 1)
 
-    def forward(self, batch):
+    def forward(self, batch, generator=None):
         """batch:
              voxel_features: (B, L, N, P, 4); voxel_num_points: (B, L, N)
              voxel_coords: (B, L, N, 4) [0, z, y, x] per-agent grids
              voxel_mask: (B, L, N) valid-voxel mask
              transformation_matrix: (B, L, 4, 4); agent_mask: (B, L)
         Returns {cls_preds (B, h, w, anchor_num),
-                 reg_preds (B, h, w, anchor_num*7)}."""
+                 reg_preds (B, h, w, anchor_num*7)}.
+
+        Training takes batch statistics in every BatchNorm and the fusion's
+        output dropouts; those draw from the device's global generator
+        (``torch.manual_seed``), so ``generator``, the train step's explicit
+        one, is accepted and not read."""
         cfg = self.config
         vf = batch["voxel_features"]
         B, L, N, P, _ = vf.shape

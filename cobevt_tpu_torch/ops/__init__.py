@@ -9,6 +9,7 @@ from cobevt_tpu_torch.ops.conv2d import (
     fused_conv3x3_int8,
 )
 from cobevt_tpu_torch.ops.dispatch import forced_impl
+from cobevt_tpu_torch.ops.ffd_fused import fused_ffd, fused_ffd_bwd
 from cobevt_tpu_torch.ops.fused_cross_attention import (
     fused_cross_view_attention,
 )
@@ -27,7 +28,8 @@ KERNEL_WRAPPERS = (fused_window_attention_packed, fused_cross_view_attention,
                    fused_conv3x3, fused_swap_fusion,
                    fused_window_attention_packed_bwd, fused_window_attention,
                    fused_swap_fusion_streaming, fused_conv3x3_int8,
-                   conv3x3_s8, bn_stats_fwd, bn_stats_bwd)
+                   conv3x3_s8, bn_stats_fwd, bn_stats_bwd, fused_ffd,
+                   fused_ffd_bwd)
 
 
 def reset_launch_counts() -> None:
@@ -41,7 +43,8 @@ def launch_counts() -> dict:
 
 __all__ = ["KERNEL_WRAPPERS", "bn_stats_bwd", "bn_stats_fwd", "conv3x3_s8",
            "fold_bn", "forced_impl", "fused_conv3x3", "fused_conv3x3_int8",
-           "fused_cross_view_attention", "fused_swap_fusion",
+           "fused_cross_view_attention", "fused_ffd", "fused_ffd_bwd",
+           "fused_swap_fusion",
            "fused_swap_fusion_streaming",
            "fused_window_attention", "fused_window_attention_packed",
            "fused_window_attention_packed_bwd", "launch_counts",

@@ -10,6 +10,12 @@ projection, skip, optional token MLP and post-LN).  The CUDA kernel is
 Numerics follow the TPU body (``_kernel`` :113-216): f32 LayerNorms and
 products, a cast to the compute dtype exactly where the body casts, every
 weight taken in the compute dtype (the body's packed parameter stack).
+
+Differentiable when the parameters come as the raw dicts and autograd is on:
+the forward is K2, the backward differentiates the plain composite with its
+attention through ``fused_window_attention_packed`` (K1 recompute + K5), as
+the JAX ``_cva_bwd`` is autodiff of ``_xla_composite``.  The JAX package has
+no backward kernel for this stage, so there is none here.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import ctypes
 
 import torch
 import torch.nn.functional as F
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from cobevt_tpu_torch.ops import _build
 from cobevt_tpu_torch.ops.dispatch import (
@@ -25,7 +32,10 @@ from cobevt_tpu_torch.ops.dispatch import (
     check_operand,
     resolve_impl,
 )
-from cobevt_tpu_torch.ops.window_attention import packed_attention_reference
+from cobevt_tpu_torch.ops.window_attention import (
+    fused_window_attention_packed,
+    packed_attention_reference,
+)
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 KERNEL_HEAD_DIMS = (8, 16, 32)
@@ -116,7 +126,10 @@ def _grid_windows(t, a: int, b: int):
 
 
 def _reference(x, w_embed, c_embed, key, val, p, q_win, k_win, n_heads,
-               scale, add_skip, grid_keys):
+               scale, add_skip, grid_keys, attention=None):
+    """``attention``: None for K1's plain version on the f32 values, else a
+    function of (q, k, v) in the compute dtype (the backward's composite
+    takes the differentiable ``fused_window_attention_packed``)."""
     dt = x.dtype
     B, H, W, D = x.shape
     wh, ww = q_win
@@ -142,9 +155,12 @@ def _reference(x, w_embed, c_embed, key, val, p, q_win, k_win, n_heads,
 
     Bq, nwin, Tq, C = q.shape
     Tk = k.shape[2]
-    out = packed_attention_reference(
-        q.reshape(Bq * nwin, Tq, C), k.reshape(Bq * nwin, Tk, C),
-        v.reshape(Bq * nwin, Tk, C), n_heads)           # f32
+    q, k, v = (q.reshape(Bq * nwin, Tq, C), k.reshape(Bq * nwin, Tk, C),
+               v.reshape(Bq * nwin, Tk, C))
+    if attention is None:
+        out = packed_attention_reference(q, k, v, n_heads)      # f32
+    else:
+        out = attention(q.to(dt), k.to(dt), v.to(dt)).float()
     nq = Tq // (wh * ww)
     out = out.reshape(B, nwin, nq, wh * ww, C).sum(2) / nq   # camera mean
     y = proj(c(out), p["wo_t"], p["bo"])
@@ -273,6 +289,55 @@ def _launch_kernel(x, w_embed, c_embed, key, val, p, q_win, k_win, n_heads,
     return out
 
 
+def _forward(x, w_embed, c_embed, key, val, p, q_win, k_win, n_heads, scale,
+             add_skip, grid_keys, impl):
+    if impl == "torch":
+        return _reference(x, w_embed, c_embed, key, val, p, q_win, k_win,
+                          n_heads, scale, add_skip, grid_keys)
+    dt = x.dtype
+
+    def cast(t):
+        return None if t is None else t.to(dt).contiguous()
+
+    return _launch_kernel(x.contiguous(), cast(w_embed), cast(c_embed),
+                          cast(key), cast(val), p, q_win, k_win, n_heads,
+                          scale, add_skip, grid_keys)
+
+
+class _FusedCrossView(torch.autograd.Function):
+    """K2 forward; the backward recomputes the plain composite under
+    autograd (``_fused_cva`` of the JAX package).  Saves the operands only."""
+
+    @staticmethod
+    def forward(ctx, statics, spec, x, w_embed, c_embed, key, val, *leaves):
+        params, mlp, post_ln = tree_unflatten(list(leaves), spec)
+        p = pack_params(params, mlp, post_ln, x.dtype)
+        ctx.save_for_backward(x, w_embed, c_embed, key, val, *leaves)
+        ctx.statics, ctx.spec = statics, spec
+        return _forward(x, w_embed, c_embed, key, val, p, *statics)
+
+    @staticmethod
+    def backward(ctx, g):
+        q_win, k_win, n_heads, scale, add_skip, grid_keys, impl = ctx.statics
+        needs = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            ins = [None if t is None else t.detach().requires_grad_(need)
+                   for t, need in zip(ctx.saved_tensors, needs)]
+            x, w_embed, c_embed, key, val = ins[:5]
+            params, mlp, post_ln = tree_unflatten(ins[5:], ctx.spec)
+            out = _reference(
+                x, w_embed, c_embed, key, val,
+                pack_params(params, mlp, post_ln, x.dtype), q_win, k_win,
+                n_heads, scale, add_skip, grid_keys,
+                attention=lambda q, k, v: fused_window_attention_packed(
+                    q, k, v, n_heads, impl=impl))
+            wanted = [t for t, need in zip(ins, needs) if need]
+            grads = iter(torch.autograd.grad(out, wanted, g,
+                                             allow_unused=True))
+        return (None, None) + tuple(next(grads) if need else None
+                                    for need in needs)
+
+
 def fused_cross_view_attention(x, w_embed, c_embed, key, val, params,
                                q_win, k_win, n_heads: int, scale: float,
                                add_skip: bool = True, mlp=None, post_ln=None,
@@ -296,23 +361,22 @@ def fused_cross_view_attention(x, w_embed, c_embed, key, val, params,
     tensors), "kernel" or "torch".  The kernel takes contiguous tensors in
     x's dtype and raises on a shape it does not take.
 
-    Inference only: the kernel has no backward, its result carries no
-    ``grad_fn``, and an eval forward under autograd gives no gradient
-    through it.  Training runs the stock modules (``self.training``
-    gates the dispatch)."""
+    Differentiable in x, w_embed, c_embed, key, val and every parameter
+    when ``params`` (with ``mlp``, ``post_ln``) are the raw dicts and
+    autograd is on: the backward recomputes the plain composite, its
+    attention through K1 and K5 (``impl`` picks their implementation too).
+    Packed params are built without autograd: a call with them carries no
+    ``grad_fn`` (the eval path)."""
     q_win, k_win = tuple(q_win), tuple(k_win)
-    p = _packed(params, mlp, post_ln, x.dtype)
-    if resolve_impl(impl, x) == "torch":
-        return _reference(x, w_embed, c_embed, key, val, p, q_win, k_win,
-                          n_heads, scale, add_skip, grid_keys)
-    dt = x.dtype
-
-    def cast(t):
-        return None if t is None else t.to(dt).contiguous()
-
-    return _launch_kernel(x.contiguous(), cast(w_embed), cast(c_embed),
-                          cast(key), cast(val), p, q_win, k_win, n_heads,
-                          scale, add_skip, grid_keys)
+    impl = resolve_impl(impl, x)
+    if isinstance(params, PackedParams) or not torch.is_grad_enabled():
+        return _forward(x, w_embed, c_embed, key, val,
+                        _packed(params, mlp, post_ln, x.dtype), q_win, k_win,
+                        n_heads, scale, add_skip, grid_keys, impl)
+    leaves, spec = tree_flatten((params, mlp, post_ln))
+    statics = (q_win, k_win, n_heads, scale, add_skip, grid_keys, impl)
+    return _FusedCrossView.apply(statics, spec, x, w_embed, c_embed, key, val,
+                                 *leaves)
 
 
 # kernel launches since the last reset (plain-version calls do not count);

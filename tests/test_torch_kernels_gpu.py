@@ -5,8 +5,8 @@ with one:
 
   python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 
-builds K1-K8 with nvcc (sm_90a) and compiles K9 and K10 with Triton on first
-use (``--noconftest``: the repo's conftest sets up JAX, which these tests do
+builds K1-K8, K11 and K12 with nvcc (sm_90a) and compiles K9 and K10 with
+Triton on first use (``--noconftest``: the repo's conftest sets up JAX, which these tests do
 not need).  K7 and the int8 chain's conv (the second entry of K7's source)
 must EQUAL their plain versions bit for bit (equal integers, the same unfused
 f32 epilogue, one rounding to bf16 or to a tick; the clipped share is a count
@@ -23,7 +23,10 @@ the largest value of the plain version's result: f32 1e-4 of it (sums in
 another order), bf16 2e-2 of it (the kernel takes the row maximum per head,
 the plain version over all heads as the TPU body does, so the exp rounds to
 bf16 at another place: one bf16 ulp on a weight); dbias also sums the
-windows with atomics, in any order.
+windows with atomics, in any order.  K11's output is held like K1's; K12's
+seven gradients like K5's (dx in the compute dtype, the parameter gradients
+f32 sums over up to 84,480 rows), and a second call must give the same bits
+(no atomics).
 """
 
 import pytest
@@ -39,6 +42,7 @@ from cobevt_tpu_torch.ops.int8_chain import (
     quantize_dynamic,
 )
 from cobevt_tpu_torch.nn.resnet import ResNetTrunk
+from cobevt_tpu_torch.ops.ffd_fused import fused_ffd, fused_ffd_bwd
 from cobevt_tpu_torch.ops.fused_cross_attention import (
     LAUNCHES_PER_CALL,
     fused_cross_view_attention,
@@ -181,6 +185,95 @@ def test_k5_kernel_matches_plain(gen, dtype, D, extras, Tq, Tk):
         if a is not None:
             assert a.dtype == (torch.float32 if name == "dbias" else dtype)
             _assert_close_scaled(a, b, dtype, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5_kernel_matches_plain_at_the_lidar_shape(gen, dtype):
+    """The LiDAR train step's attention backward: 264 windows of 320 tokens,
+    8 heads of 32, bias and communication mask, one window fully masked."""
+    G, H, D, T = 264, 8, 32, 320
+    q, k, v, g, bias, mask = _k5_inputs(gen, dtype, G, H, D, T, T,
+                                        "bias+mask")
+    assert packed_bwd_kernel_ok(q, k, None, H)
+    out = fused_window_attention_packed(q, k, v, H, bias, mask)
+    got = fused_window_attention_packed_bwd(q, k, v, g, out, H, bias, mask)
+    want = fused_window_attention_packed_bwd(q, k, v, g, out, H, bias, mask,
+                                             impl="torch")
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+        _assert_close_scaled(a, b, dtype, name)
+
+
+FFD_NAMES = ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2")
+
+
+def _ffd_operands(gen, dtype, N, D, M):
+    def rand(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    return (rand(N, D, scale=0.3).to(dtype), rand(D, scale=0.2) + 1.0,
+            rand(D, scale=0.1), rand(D, M, scale=0.05).to(dtype),
+            rand(M, scale=0.1), rand(M, D, scale=0.05).to(dtype),
+            rand(D, scale=0.1), rand(N, D).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (84480, 256, 512),      # the LiDAR fusion token count
+    (1000, 128, 256),       # rows divide neither 16 nor 64
+    (17, 64, 64),           # one ragged row block, the narrowest widths
+    (4096, 256, 1024),      # a wider hidden layer
+])
+def test_k11_k12_kernels_match_plain(gen, dtype, shape):
+    *operands, dy = _ffd_operands(gen, dtype, *shape)
+    x, gamma, beta, w1, b1, w2, b2 = operands
+    before = (fused_ffd.launches, fused_ffd_bwd.launches)
+    with torch.no_grad():
+        got = fused_ffd(*operands)
+        want = fused_ffd(*operands, impl="torch")
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    grads = fused_ffd_bwd(x, dy, gamma, beta, w1, b1, w2)
+    again = fused_ffd_bwd(x, dy, gamma, beta, w1, b1, w2)
+    plain = fused_ffd_bwd(x, dy, gamma, beta, w1, b1, w2, impl="torch")
+    torch.cuda.synchronize()
+    assert (fused_ffd.launches, fused_ffd_bwd.launches) == (
+        before[0] + 1, before[1] + 2)
+    for name, a, b, c in zip(FFD_NAMES, grads, again, plain):
+        assert a.dtype == (dtype if name == "dx" else torch.float32)
+        assert torch.equal(a, b), name
+        _assert_close_scaled(a, c, dtype, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_ffd_autograd_on_the_card(gen, dtype):
+    """The autograd function end to end: K11 forward, K12 backward, every
+    gradient in its operand's dtype, against the plain versions."""
+    *operands, dy = _ffd_operands(gen, dtype, 2000, 128, 256)
+    results = {}
+    for impl in ("kernel", "torch"):
+        leaves = [t.clone().requires_grad_() for t in operands]
+        fused_ffd(*leaves, impl=impl).backward(dy)
+        results[impl] = [t.grad for t in leaves]
+    torch.cuda.synchronize()
+    for name, t, a, b in zip(FFD_NAMES, operands, results["kernel"],
+                             results["torch"]):
+        assert a.dtype == t.dtype
+        _assert_close_scaled(a, b, dtype, name)
+
+
+def test_k11_k12_reject_what_they_do_not_take(gen):
+    *operands, dy = _ffd_operands(gen, torch.float32, 64, 96, 128)
+    with pytest.raises(ValueError, match="K11/K12"):
+        fused_ffd(*operands)                       # D not a multiple of 64
+    *operands, dy = _ffd_operands(gen, torch.float32, 64, 512, 512)
+    with pytest.raises(ValueError, match="K11/K12"):
+        fused_ffd(*operands)                       # D beyond 256
+    *operands, dy = _ffd_operands(gen, torch.float32, 64, 64, 64)
+    operands[3] = operands[3].bfloat16()           # w1 in another dtype
+    with pytest.raises(ValueError, match="w1"):
+        fused_ffd(*operands)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -150,7 +150,8 @@ def test_cpu_tensors_run_plain_versions_without_launching():
                                    "fused_window_attention": 0,
                                    "fused_swap_fusion_streaming": 0,
                                    "fused_conv3x3_int8": 0, "conv3x3_s8": 0,
-                                   "bn_stats_fwd": 0, "bn_stats_bwd": 0}
+                                   "bn_stats_fwd": 0, "bn_stats_bwd": 0,
+                                   "fused_ffd": 0, "fused_ffd_bwd": 0}
 
 
 def test_kernel_impl_on_cpu_raises():

@@ -226,7 +226,6 @@ def test_lidar_entry_points_refuse_to_run_without_a_card(module, capsys):
         pytest.skip("this host has a card")
     assert module.main(["--model", "pointpillar"]) == 1
     assert "--device cpu" in capsys.readouterr().err
-    # the LiDAR train step says plainly that it is not ported
-    assert module.main(["--train", "--model", "pointpillar", "--device",
-                        "cpu"]) == 2
-    assert "not ported yet" in capsys.readouterr().err
+    # the LiDAR train step is ported: it too refuses without a card
+    assert module.main(["--train", "--model", "pointpillar"]) == 1
+    assert "--device cpu" in capsys.readouterr().err

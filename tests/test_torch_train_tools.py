@@ -152,7 +152,8 @@ def test_launch_counters_cover_every_ported_kernel():
                      "fused_conv3x3", "fused_swap_fusion",
                      "fused_swap_fusion_streaming", "fused_conv3x3_int8",
                      "conv3x3_s8",
-                     "bn_stats_fwd", "bn_stats_bwd"}
+                     "bn_stats_fwd", "bn_stats_bwd",
+                     "fused_ffd", "fused_ffd_bwd"}
     with open(os.path.join(REPO, "cobevt_tpu_torch", "csrc",
                            "fused_swap_fusion_streaming.cu")) as f:
         text = f.read()
