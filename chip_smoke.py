@@ -11,11 +11,14 @@ non-zero without printing the final line:
      (csrc/fused_cross_attention.cu), K3 (csrc/conv3x3.cu), K4
      (csrc/fused_swap_fusion.cu), K5 (csrc/window_attention_bwd.cu), K6
      (csrc/fused_swap_fusion_streaming.cu) and K7 with the int8 chain's conv
-     (csrc/conv3x3_int8.cu), K11 and K12 (csrc/ffd_fused.cu) with nvcc for
-     sm_90a from the checkout's sources, one nvcc process each, all started
-     together; K9 and K10 (Triton, ops/bn_stats.py) compile at their first
-     launch in phase 3;
-  3. kernels vs plain: every kernel against its plain PyTorch version on
+     (csrc/conv3x3_int8.cu), K11 and K12 (csrc/ffd_fused.cu), and the bare
+     TMA + wgmma tile (csrc/hopper_tile.cu) with nvcc for sm_90a from the
+     checkout's sources, one nvcc process each, all started together (every
+     source includes the shared csrc/hopper.cuh or mma.cuh); K9 and K10
+     (Triton, ops/bn_stats.py) compile at their first launch in phase 3;
+  3. kernels vs plain: first the bare TMA + wgmma tile of each product form
+     that K1, K3 and K8 use against torch.matmul in f32; then every
+     kernel against its plain PyTorch version on
      the card at every shape of the CorpBEVT serving forward and train step
      (5 agents x 4 cameras x 512^2, BEV 256^2) and of the cooperative LiDAR
      forward (fused map 5 x 96 x 176 x 256: K6, and K1 at the 264 windows
@@ -29,7 +32,10 @@ non-zero without printing the final line:
      CUDA events, each beside its bound (the larger of its bytes over 3.35
      TB/s and its operations over 989 TFLOP/s, or 1,979 TOP/s for int8
      products) and, where one PyTorch call computes the same function, that
-     call's time;
+     call's time; K3 also alone (``launch_ms``: the kernel without its
+     wrapper, the weight packed once as a block's cache packs it) and with a
+     weight packed at every call (``unpacked_ms``), with the operand bytes
+     its wgmma tiles fetch from L2;
   4. slice, the serving default (COBEVT_FUSED_XATTN and
      COBEVT_FUSED_FUSION unset): full-width CorpBEVT (ResNet-34, seeded
      random weights) in bf16 serves synthetic requests with mixed
@@ -53,11 +59,11 @@ non-zero without printing the final line:
   8. LiDAR: full-width PointPillar + FuseBEVT (5 agents x 8000 pillars x 32
      points, 352 x 192 grid, fused map 96 x 176 x 256, seeded random
      weights) in bf16 answers requests with 5, 3, 1, 4, 2 live agents on
-     the fused path (4 K6 launches a frame, no K1) and on the stock path
-     (COBEVT_FUSED_FUSION=0: 4 K1, no K6); fused against stock and bf16
-     against the f32 plain path within the budget of
-     tools/validate_kernels.py; two forwards of one request agree bit for
-     bit;
+     the K6 path (COBEVT_FUSED_FUSION=force-stream: 4 K6 launches a frame,
+     no K1) and on the default path (the stock modules, which beat K6 on
+     the H100: 4 K1, no K6); K6 against the default and bf16 against the
+     f32 plain path within the budget of tools/validate_kernels.py; two
+     forwards of one request agree bit for bit;
   9. int8 serving (COBEVT_INT8=1 on the fused path): full-width CorpBEVT in
      bf16 answers requests with 5, 3, 1, 4, 2 live agents; every frame runs
      14 K7, 6 K3 and 6 launches of the int8 chain's conv (layer1
@@ -151,6 +157,8 @@ K3_CASES = [
     ("layer4", 20, 16, 16, 512, False, 2),
     ("layer4_residual", 20, 16, 16, 512, True, 2),
 ]
+# launches of each wgmma K3 case that must equal its first result bit for bit
+K3_REPEATS = 20
 # K2: the six FAX cross-view branches of a 5-agent frame (B = 5 agents,
 # n = 4 cameras, D = C = 128, 4 heads); each is one call of 4 launches
 # (name, BEV H=W, keys h=w, q_win, k_win, embed, post_ln, grid keys)
@@ -260,14 +268,19 @@ STOCK_PER_FRAME = {"fused_window_attention_packed": 13,
                    "fused_conv3x3": 20, "fused_swap_fusion": 0,
                    "fused_swap_fusion_streaming": 0, "fused_conv3x3_int8": 0,
                    "conv3x3_s8": 0}
-# the LiDAR forward: FuseBEVT depth 2 = 4 sublayers, each one K6 call on the
-# fused path or one K1 call (after a cuBLAS QKV projection) on the stock one
+# the LiDAR forward: FuseBEVT depth 2 = 4 sublayers, each one K6 call under
+# force-stream or one K1 call (after a cuBLAS QKV projection) on the default
+# path, which takes the stock modules at this map
 LIDAR_AGENTS = [5, 3, 1, 4, 2]
 LIDAR_FUSED_PER_FRAME = {"fused_swap_fusion_streaming": 4}
 LIDAR_STOCK_PER_FRAME = {"fused_window_attention_packed": 4}
 KERNELS = ("window_attention", "fused_cross_attention", "conv3x3",
            "fused_swap_fusion", "window_attention_bwd",
-           "fused_swap_fusion_streaming", "conv3x3_int8", "ffd_fused")
+           "fused_swap_fusion_streaming", "conv3x3_int8", "ffd_fused",
+           "hopper_tile")
+# the bare tile against torch.matmul in f32: exact bf16 products, f32 sums
+# in another order
+TILE_TOL = (1e-4, 1e-5)
 IOU_FLOOR = 0.99
 
 
@@ -291,6 +304,24 @@ def time_ms(fn, iters, warmup=2):
     import torch
     for _ in range(warmup):
         fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def device_ms(fn, iters):
+    """ms of one call on the card alone: the launches are queued behind a
+    sleep kernel, so the host's enqueue time does not pace them (where a
+    call's host work exceeds its kernel time, time_ms measures the host)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -557,6 +588,19 @@ def attention_work(G, Tq, Tk, products, heads=K1_HEADS):
     return 2.0 * products * G * heads * Tq * Tk * K1_HEAD_DIM
 
 
+def k3_l2_bytes(N, H, W, C, O, residual):
+    """Bytes the wgmma tiles of one K3 call move between L2 and the SMs:
+    every K step of every tile fetches a 128 x 64 box of x (once per tap)
+    and a 128 x 64 box of the weight; the residual tile is fetched and the
+    output tile stored once a tile."""
+    from cobevt_tpu_torch.ops.conv2d import conv_tile_plan
+    _, _, ty, tx = conv_tile_plan(H, W)
+    tiles = N * ty * tx * -(-O // 128)
+    steps = 9 * -(-C // 64)
+    return tiles * (steps * 2 * 128 * 64 * 2 + (2 if residual else 1) *
+                    128 * 128 * 2)
+
+
 def k2_work(case, dtype_size):
     """(operations, bytes) of one FAX cross-view branch."""
     _, H, h, q_win, k_win, embed, _, _ = case
@@ -590,11 +634,19 @@ def phase_kernels():
     import torch.nn.functional as F
     from cobevt_tpu_torch.ops.bn_stats import bn_stats_bwd, bn_stats_fwd
     from cobevt_tpu_torch.ops.conv2d import (
+        _kernel_path,
         _launch_int8,
+        _launch_kernel as _launch_k3,
         act_scale,
         fused_conv3x3,
         fused_conv3x3_int8,
+        pack_conv3x3_weight,
         pack_int8_weight,
+    )
+    from cobevt_tpu_torch.ops.hopper_tile import (
+        VARIANTS,
+        tile_product,
+        tile_reference,
     )
     from cobevt_tpu_torch.ops.int8_chain import (
         conv3x3_s8,
@@ -614,6 +666,7 @@ def phase_kernels():
     )
     from cobevt_tpu_torch.ops.window_attention import (
         _packed_to_4d,
+        attention_tile_plan,
         fused_window_attention,
         fused_window_attention_packed,
         fused_window_attention_packed_bwd,
@@ -624,6 +677,22 @@ def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
     details = []
     failures = []
+    # the Hopper building blocks alone, before the kernels that use them
+    atol, rtol = TILE_TOL
+    for variant, (a_shape, b_shape, c_shape, what) in VARIANTS.items():
+        a = torch.randn(*a_shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        b = torch.randn(*b_shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        got, want = tile_product(a, b, variant), tile_reference(a, b, variant)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        ok = bool((got - want).abs().le(atol + rtol * want.abs()).all())
+        log(f"bare TMA + wgmma tile {variant}: C {c_shape} = {what}, "
+            f"max abs err {err:.2e} {'ok' if ok else 'BAD'}")
+        if not ok:
+            raise AssertionError(f"bare tile {variant} disagrees with "
+                                 f"torch.matmul: {err:.3e}")
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         for case in K1_CASES:
@@ -642,6 +711,7 @@ def phase_kernels():
             row = {"kernel": "K1", "case": case[0], "dtype": dname,
                    "per_frame": case[8], "per_frame_stock": case[7],
                    "per_lidar_frame_stock": case[10], "heads": heads,
+                   "blocks": attention_tile_plan(case[1], heads, case[2])[1],
                    "max_abs_err": abs_err,
                    "max_rel_err": rel_err, "ok": ok,
                    "ms": time_ms(lambda: attn("kernel"), iters),
@@ -653,19 +723,27 @@ def phase_kernels():
                 # mask; the dropout weight it cannot take
                 q4, k4, v4 = (_packed_to_4d(t, heads) for t in (q, k, v))
                 add = sdpa_mask(bias, mask, dtype, heads)
-                row["library_ms"] = time_ms(
-                    lambda: F.scaled_dot_product_attention(
-                        q4, k4, v4, attn_mask=add, scale=1.0), iters)
+
+                def sdpa():
+                    return F.scaled_dot_product_attention(
+                        q4, k4, v4, attn_mask=add, scale=1.0)
+
+                row["library_ms"] = time_ms(sdpa, iters)
+                row["library_device_ms"] = device_ms(sdpa, iters)
                 del q4, k4, v4, add
+            row["device_ms"] = device_ms(lambda: attn("kernel"), iters)
             details.append(row)
             if not ok:
                 failures.append(row)
             del q, k, v, bias, mask, weight, got, want
         for case in K3_CASES:
             x, w, shift, res = k3_inputs(case, dtype, gen)
+            # packed once, as a block's cache packs it
+            packed = pack_conv3x3_weight(w, shift, dtype)
 
             def conv(impl):
-                return fused_conv3x3(x, w, shift, res, relu=True, impl=impl)
+                return fused_conv3x3(x, None, None, res, relu=True, impl=impl,
+                                     packed=packed)
 
             got, want = conv("kernel"), conv("torch")
             torch.cuda.synchronize()
@@ -673,20 +751,38 @@ def phase_kernels():
             w_oihw = w.to(dtype).permute(3, 2, 0, 1).contiguous(
                 memory_format=torch.channels_last)
             x_cl = x.permute(0, 3, 1, 2)
+            _, N, H, W, C = case[:5]
+            path = _kernel_path(x, C, C)
             row = {"kernel": "K3", "case": case[0], "dtype": dname,
-                   "per_frame": case[6], "max_abs_err": abs_err,
+                   "per_frame": case[6], "path": path,
+                   "max_abs_err": abs_err,
                    "max_rel_err": rel_err, "ok": ok,
-                   "ms": time_ms(lambda: conv("kernel"), 5),
+                   "ms": time_ms(lambda: conv("kernel"), 10),
+                   "launch_ms": time_ms(
+                       lambda: _launch_k3(x, packed, res, True), 10),
+                   "unpacked_ms": time_ms(lambda: fused_conv3x3(
+                       x, w, shift, res, relu=True, impl="kernel"), 10),
                    "plain_ms": time_ms(lambda: conv("torch"), 5),
                    "library_ms": time_ms(
-                       lambda: F.conv2d(x_cl, w_oihw, padding=1), 5)}
-            _, N, H, W, C = case[:5]
+                       lambda: F.conv2d(x_cl, w_oihw, padding=1), 10),
+                   "device_ms": device_ms(
+                       lambda: _launch_k3(x, packed, res, True), 10),
+                   "library_device_ms": device_ms(
+                       lambda: F.conv2d(x_cl, w_oihw, padding=1), 10)}
+            if path == "wgmma":
+                row["l2_bytes"] = k3_l2_bytes(N, H, W, C, C, res is not None)
+                # the warpgroups share a ring slot in the epilogue: a race
+                # there shows as a result that differs between launches
+                row["repeats_bit_equal"] = all(
+                    torch.equal(conv("kernel"), got)
+                    for _ in range(K3_REPEATS))
+                row["ok"] = ok = ok and row["repeats_bit_equal"]
             row.update(bound(2.0 * N * H * W * 9 * C * C,
-                             nbytes(x, w, shift, res, got), dname))
+                             nbytes(x, packed.w, shift, res, got), dname))
             details.append(row)
             if not ok:
                 failures.append(row)
-            del x, w, shift, res, got, want
+            del x, w, shift, res, packed, got, want
         for case in K7_CASES:
             x, w, shift, res = k3_inputs(case, dtype, gen)
             # quantized once, as a block's cache does
@@ -713,6 +809,8 @@ def phase_kernels():
                    "library_ms": time_ms(
                        lambda: F.conv2d(x_cl, w_oihw, padding=1), 5),
                    "k3_ms": time_ms(lambda: fused_conv3x3(
+                       x, w, shift, res, relu=True, impl="kernel"), 5),
+                   "k3_device_ms": device_ms(lambda: fused_conv3x3(
                        x, w, shift, res, relu=True, impl="kernel"), 5)}
             # the kernel alone, without the wrapper's max-reduce and scale
             # arithmetic (a handful of small PyTorch launches)
@@ -1067,7 +1165,21 @@ def phase_kernels():
             if r.get("library_ms") is not None else ""
         if "k3_ms" in r:
             extra += (f"  kernel alone={r['launch_ms']:.3f} ms  K3 on the "
-                      f"same inputs={r['k3_ms']:.3f} ms")
+                      f"same inputs={r['k3_ms']:.3f} ms (on the card alone "
+                      f"{r['k3_device_ms']:.3f})")
+        elif r["kernel"] == "K3":
+            extra += (f"  [{r['path']}] kernel alone={r['launch_ms']:.3f} ms"
+                      f"  weight packed every call={r['unpacked_ms']:.3f} ms")
+            if "l2_bytes" in r:
+                extra += (f"  L2 operand traffic {r['l2_bytes'] / 1e6:.0f} MB"
+                          f"  {K3_REPEATS} repeats bit-equal: "
+                          f"{r['repeats_bit_equal']}")
+        if "device_ms" in r:
+            extra += f"  on the card alone: kernel={r['device_ms']:.4f} ms"
+            if "library_device_ms" in r:
+                extra += f" library={r['library_device_ms']:.4f} ms"
+        if "blocks" in r:
+            extra += f"  {r['blocks']} blocks"
         if "gb_per_s" in r:
             extra += f"  {r['gb_per_s']:.0f} GB/s"
         log(f"{r['kernel']} {r['case']:<28} {r['dtype']:<8} "
@@ -1411,13 +1523,15 @@ def lidar_requests(model, batch, agents, expect, name):
 
 def phase_lidar(seed=0):
     """Full-width cooperative LiDAR forward (PointPillar + FuseBEVT) through
-    build_pointpillar of tools/benchmark.py: the fused path (K6), the stock
-    path (K1), fused vs stock and bf16 vs the f32 plain path within the
-    budget of tools/validate_kernels.py, and the bit-for-bit repeat of one
-    request."""
+    build_pointpillar of tools/benchmark.py: the K6 path (force-stream), the
+    default path (the stock modules, K1), K6 vs default and bf16 vs the f32
+    plain path within the budget of tools/validate_kernels.py, and the
+    bit-for-bit repeat of one request."""
     import torch
     from cobevt_tpu_torch import ops
     from cobevt_tpu_torch.tools import benchmark, validate_kernels
+
+    from cobevt_tpu_torch.ops.dispatch import env_switches
 
     log("== LiDAR: PointPillar + FuseBEVT, 5 agents x 8000 pillars x 32 "
         "points, grid 352 x 192, fused map 96 x 176 x 256, bf16")
@@ -1425,14 +1539,22 @@ def phase_lidar(seed=0):
     model, batch, _ = benchmark.build_pointpillar(5, seed, device)
     ref_model = copy.deepcopy(model).eval()            # f32, same weights
     model = model.to(torch.bfloat16).eval()
-    kernel = model.fusion_net.fused_kernel((1, 5, 96, 176, 256))
-    if kernel != "K6":
-        raise AssertionError(f"the LiDAR map dispatches to {kernel}, not K6")
+    lidar_map = (1, 5, 96, 176, 256)
+    with switches(None):
+        kernel = model.fusion_net.fused_kernel(lidar_map)
+    if kernel is not None:
+        raise AssertionError(f"by default the LiDAR map dispatches to "
+                             f"{kernel}, not the stock modules")
     budget = validate_kernels.BUDGET_FORWARD
 
-    with switches(None):
+    with env_switches(COBEVT_FUSED_FUSION="force-stream"):
+        kernel = model.fusion_net.fused_kernel(lidar_map)
+        if kernel != "K6":
+            raise AssertionError(f"force-stream dispatches the LiDAR map to "
+                                 f"{kernel}, not K6")
         counts, fused, outs = lidar_requests(
-            model, batch, LIDAR_AGENTS, LIDAR_FUSED_PER_FRAME, "fused path")
+            model, batch, LIDAR_AGENTS, LIDAR_FUSED_PER_FRAME,
+            "K6 path (force-stream)")
         with torch.no_grad():
             again = model(batch)
         for key, t in outs[0].items():
@@ -1443,9 +1565,10 @@ def phase_lidar(seed=0):
         with ops.forced_impl("torch"), torch.no_grad():
             ref = ref_model(batch)
     del ref_model
-    with switches("0"):
+    with switches(None):
         stock_counts, stock, stock_outs = lidar_requests(
-            model, batch, LIDAR_AGENTS, LIDAR_STOCK_PER_FRAME, "stock path")
+            model, batch, LIDAR_AGENTS, LIDAR_STOCK_PER_FRAME,
+            "default path (stock modules)")
     gates = [validate_kernels.compare_outputs(
         f"pointpillar_fused_vs_stock_{n}_agents", f, s, budget)
         for n, f, s in zip(LIDAR_AGENTS, outs, stock_outs)]

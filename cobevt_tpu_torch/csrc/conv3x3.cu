@@ -8,32 +8,43 @@
 // output (N, H, W, O) in x's dtype.  f32 or bf16; C % 16 == 0, O % 4 == 0.
 //
 // What bounds it on the H100: at the ResNet-34 trunk shapes (64^2 x 128,
-// 32^2 x 256, 16^2 x 512, N = 4 cameras per agent) each conv is ~24 GFLOP
+// 32^2 x 256, 16^2 x 512, N = 4 cameras x 5 agents) each conv is ~24 GFLOP
 // against ~20 MB of activations, so it is bound by arithmetic: the tensor
-// cores, not memory, set its floor.  Both kernels below are implicit GEMMs
-// -- M = N*H*W output pixels, N = O channels, K = 9*C taps x channels --
-// that walk K one tap at a time: the shifted input rows (with the zero
-// halo at the image edge) and the matching weight rows are staged in
-// shared memory, and the folded-BN shift, the residual and the ReLU run on
-// the f32 accumulators before the single store, so the conv output never
-// makes a round trip through device memory.
+// cores, not memory, set its floor (0.024 ms a conv at 989 TFLOP/s).  Both
+// kernels below are implicit GEMMs -- M = N*H*W output pixels, N = O
+// channels, K = 9*C taps x channels -- that walk K one tap at a time, and
+// the folded-BN shift, the residual and the ReLU run on the f32
+// accumulators before the single store, so the conv output never makes a
+// round trip through device memory.
 //
-//  * conv3x3_tc_kernel (bf16, C % 32 == 0, O % 8 == 0 -- every trunk
-//    block): tensor cores through mma.sync m16n8k16 (bf16 in, f32
-//    accumulate).  A block owns a 128-pixel x 128-channel tile; 8 warps
-//    each hold 32 x 64 accumulators in registers.  32-channel K slices are
-//    double-buffered in shared memory with cp.async (zero-filled for the
-//    halo), so the next slice loads while the tensor cores run.  Rows are
-//    padded to 40 halves so the fragment loads hit 32 distinct banks.
-//    wgmma/TMA would be the next step.
-//  * conv3x3_kernel (f32, and bf16 shapes the tensor-core path does not
-//    take): scalar f32 FMAs; a block owns a 64 x 64 tile, each thread a
-//    4 x 4 register tile, so one shared load feeds four FMAs.
+//  * conv3x3_wgmma_kernel (bf16, C % 32 == 0, O % 8 == 0 -- every trunk
+//    block): a tile is 128 output pixels of one image, a bh x bw spatial box
+//    (2 x 64 at W 64, 4 x 32 at W 32, 8 x 16 at W 16: ops/conv2d.py:
+//    conv_tile_plan), by 128 output channels.  A K step is 64 channels of one
+//    tap: one TMA 4D box of x at (c0, x0 + dx - 1, y0 + dy - 1, n) -- TMA's
+//    zero fill of out-of-range coordinates is the SAME halo, so no thread
+//    computes an address or a halo predicate -- and one TMA 2D box of the
+//    packed weight (O, 9C), both 128-byte rows in the 128B-swizzled layout
+//    that wgmma reads in place.  Where C % 64 == 32 the last step of a tap has
+//    its channels past C zero-filled the same way, so the 32 weight columns it
+//    reads beyond its tap are multiplied by zeros.  A ring of kStages such
+//    pairs is fed by one producer warp and drained by two consumer warpgroups,
+//    each owning 64 pixel rows and issuing m64n128k16 products from shared
+//    memory with f32 accumulators in registers; a stage's "empty" barrier
+//    frees it for the next load as soon as the products that read it have
+//    completed.  The residual tile arrives by TMA while the last steps run and
+//    the output leaves by TMA store, both through the ring slot after the last
+//    step, so the epilogue makes no scattered 4-byte accesses.  Two blocks
+//    share an SM, so one block's epilogue overlaps the other's products.  Each
+//    input box is fetched nine times, once per tap (L2 traffic: PERF.md).
+//  * conv3x3_kernel (f32, and bf16 shapes the wgmma kernel does not take):
+//    scalar f32 FMAs; a block owns a 64 x 64 tile, each thread a 4 x 4
+//    register tile, so one shared load feeds four FMAs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "mma.cuh"
+#include "hopper.cuh"
 
 #include <stdint.h>
 
@@ -172,173 +183,173 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// tensor-core path (bf16)
+// wgmma path (bf16, C % 32 == 0)
 // ---------------------------------------------------------------------------
 
-constexpr int kTcM = 128;      // output pixels per block
-constexpr int kTcN = 128;      // output channels per block
-constexpr int kTcK = 32;       // input channels of one tap per stage
-constexpr int kTcPad = 40;     // smem row length in halves (80 B)
-constexpr int kTcThreads = 256;
+constexpr int kWgM = 128;              // output pixels per tile
+constexpr int kWgN = 128;              // output channels per tile
+constexpr int kWgK = 64;               // channels of one tap per K step
+constexpr int kWgStages = 3;           // ring depth (two blocks an SM)
+constexpr int kWgConsumers = 2;        // warpgroups of 64 pixel rows
+constexpr int kWgThreads = 128 * kWgConsumers + 32;  // + the producer warp
+constexpr int kWgStageA = kWgM * kWgK * 2;   // 16 KB
+constexpr int kWgStageB = kWgN * kWgK * 2;   // 16 KB
+constexpr int kWgSmem = kWgStages * (kWgStageA + kWgStageB) + 1024 + 64;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int bytes = pred ? 16 : 0;  // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(bytes));
-}
+// grid: (N * tiles_y * tiles_x, ceil(O / kWgN)); block: kWgThreads.
+// xmap: x as (C, W, H, N), box (64, bw, bh, 1); wmap: the packed weight as
+// (9C, O), box (64, 128); rmap / omap: the residual and the output as
+// (O, W, H, N), boxes (64, bw, bh, 1); all SWIZZLE_128B.
+//
+// Epilogue: ring slot KT % kWgStages (the one after the last K step, free
+// once both warpgroups' products of step KT - kWgStages completed, which
+// its empty barrier records) holds the block's 128 x 128 output tile as two
+// 64-channel boxes in the same layout.  Each warpgroup writes the weight
+// half of the slot that the other still reads until then, so every
+// consumer waits for that release first: on the empty barrier, or with a
+// residual on the full barrier of the residual tile, which the producer
+// loads there by TMA only after the release.  The consumers add shift and
+// residual, apply the ReLU and round in place, and one thread writes the
+// boxes back by TMA store, which drops the pixels and channels outside the
+// tensor.
+__global__ void __launch_bounds__(kWgThreads, 2)
+    conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                         const __grid_constant__ CUtensorMap wmap,
+                         const __grid_constant__ CUtensorMap rmap,
+                         const __grid_constant__ CUtensorMap omap,
+                         const float* __restrict__ shift, int H, int W,
+                         int C, int O, int relu, int has_residual, int bh,
+                         int bw_log2) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  // 1024-byte alignment: the 128B swizzle repeats every 8 rows of 128 B
+  uint8_t* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* tiles_a = smem;
+  uint8_t* tiles_b = smem + kWgStages * kWgStageA;
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      smem + kWgStages * (kWgStageA + kWgStageB));
+  uint64_t* empty = full + kWgStages;
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// grid: (ceil(N*H*W / kTcM), ceil(O / kTcN)); block: kTcThreads.
-// wt is the folded weight transposed to (O, 9*C): K contiguous per channel.
-__global__ void __launch_bounds__(kTcThreads)
-    conv3x3_tc_kernel(const __nv_bfloat16* __restrict__ x,
-                      const __nv_bfloat16* __restrict__ wt,
-                      const float* __restrict__ shift,
-                      const __nv_bfloat16* __restrict__ residual,
-                      __nv_bfloat16* __restrict__ out, int N, int H, int W,
-                      int C, int O, int relu) {
-  __shared__ __align__(16) __nv_bfloat16 As[2][kTcM][kTcPad];
-  __shared__ __align__(16) __nv_bfloat16 Bs[2][kTcN][kTcPad];
+  const int bw = 1 << bw_log2;
+  const int tiles_x = (W + bw - 1) >> bw_log2;
+  const int tiles_y = (H + bh - 1) / bh;
+  int tile = blockIdx.x;
+  const int n = tile / (tiles_y * tiles_x);
+  tile -= n * tiles_y * tiles_x;
+  const int y0 = (tile / tiles_x) * bh;
+  const int x0 = (tile % tiles_x) << bw_log2;
+  const int o0 = blockIdx.y * kWgN;
+  const int chunks = (C + kWgK - 1) / kWgK;   // K steps per tap
+  const int KT = 9 * chunks;          // >= 9 > kWgStages
+  const int s_out = KT % kWgStages;   // the epilogue's ring slot
+  uint8_t* out_lo = tiles_a + s_out * kWgStageA;   // channels o0 .. o0+63
+  uint8_t* out_hi = tiles_b + s_out * kWgStageB;   // o0+64 .. o0+127
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int M = N * H * W;
-  const int m0 = blockIdx.x * kTcM;
-  const int o0 = blockIdx.y * kTcN;
-  const int K = 9 * C;
-
-  // loader roles: 2 x 16-byte chunks of A and of B per thread; chunk q
-  // covers row q / 4, halves (q % 4) * 8 .. +7 of the 32-wide K slice
-  int a_n[2], a_y[2], a_x[2];
-  bool a_live[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int m = m0 + ((tid + i * kTcThreads) >> 2);
-    a_live[i] = m < M;
-    const int mm = a_live[i] ? m : 0;
-    a_n[i] = mm / (H * W);
-    const int rem = mm - a_n[i] * H * W;
-    a_y[i] = rem / W;
-    a_x[i] = rem - a_y[i] * W;
-  }
-  const int part = (tid & 3) * 8;
-
-  auto load_stage = [&](int kb, int stage) {
-    const int tap = kb / C;
-    const int c0 = kb - tap * C;
-    const int dy = tap / 3 - 1;
-    const int dx = tap % 3 - 1;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = (tid + i * kTcThreads) >> 2;
-      const int iy = a_y[i] + dy;
-      const int ix = a_x[i] + dx;
-      const bool ok = a_live[i] && iy >= 0 && iy < H && ix >= 0 && ix < W;
-      const __nv_bfloat16* src =
-          ok ? x + (((size_t)a_n[i] * H + iy) * W + ix) * C + c0 + part : x;
-      cp_async16(&As[stage][row][part], src, ok);
-      const int o = o0 + row;
-      const bool okb = o < O;
-      const __nv_bfloat16* srcb = okb ? wt + (size_t)o * K + kb + part : wt;
-      cp_async16(&Bs[stage][row][part], srcb, okb);
+  if (tid == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * kWgConsumers);  // one arrival a warp
     }
-    cp_async_commit();
-  };
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-  // warp tile: rows wm*32 .. +31 (2 m16 tiles), cols wn*64 .. +63 (8 n8)
-  const int wm = warp & 3;
-  const int wn = warp >> 2;
-  const int g = lane >> 2;   // group id
-  const int t = lane & 3;    // thread in group
-  float acc[2][8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+  if (warp == 4 * kWgConsumers) {
+    // producer: one thread keeps the ring full
+    if ((tid & 31) == 0) {
+      prefetch_tensor_map(&xmap);
+      prefetch_tensor_map(&wmap);
+      for (int kt = 0; kt < KT; ++kt) {
+        const int s = kt % kWgStages;
+        if (kt >= kWgStages) mbar_wait(&empty[s], ((kt / kWgStages) - 1) & 1);
+        const int tap = kt / chunks;
+        const int c0 = (kt - tap * chunks) * kWgK;
+        mbar_arrive_expect_tx(&full[s], kWgStageA + kWgStageB);
+        tma_load_4d(tiles_a + s * kWgStageA, &xmap, &full[s], c0,
+                    x0 + tap % 3 - 1, y0 + tap / 3 - 1, n);
+        tma_load_2d(tiles_b + s * kWgStageB, &wmap, &full[s], tap * C + c0,
+                    o0);
+      }
+      if (has_residual) {
+        mbar_wait(&empty[s_out], ((KT / kWgStages) - 1) & 1);
+        mbar_arrive_expect_tx(&full[s_out], kWgStageA + kWgStageB);
+        tma_load_4d(out_lo, &rmap, &full[s_out], o0, x0, y0, n);
+        tma_load_4d(out_hi, &rmap, &full[s_out], o0 + 64, x0, y0, n);
+      }
+    }
+    return;
+  }
 
-  const int KT = K / kTcK;
-  load_stage(0, 0);
+  // consumers: warpgroup wg owns pixel rows 64 wg .. 64 wg + 63
+  const int wg = warp >> 2;
+  const int lane = tid & 31;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
   for (int kt = 0; kt < KT; ++kt) {
-    const int stage = kt & 1;
-    if (kt + 1 < KT) {
-      load_stage((kt + 1) * kTcK, stage ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
+    const int s = kt % kWgStages;
+    mbar_wait(&full[s], (kt / kWgStages) & 1);
+    const uint64_t da =
+        make_desc(tiles_a + s * kWgStageA + wg * 64 * 128, 1024, kSwizzle128);
+    const uint64_t db = make_desc(tiles_b + s * kWgStageB, 1024, kSwizzle128);
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kTcK; kk += 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = wm * 32 + i * 16 + g;
-        a[i][0] =
-            *reinterpret_cast<const uint32_t*>(&As[stage][r][kk + 2 * t]);
-        a[i][1] =
-            *reinterpret_cast<const uint32_t*>(&As[stage][r + 8][kk + 2 * t]);
-        a[i][2] =
-            *reinterpret_cast<const uint32_t*>(&As[stage][r][kk + 2 * t + 8]);
-        a[i][3] = *reinterpret_cast<const uint32_t*>(
-            &As[stage][r + 8][kk + 2 * t + 8]);
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int n = wn * 64 + j * 8 + g;
-        uint32_t b[2];
-        b[0] = *reinterpret_cast<const uint32_t*>(&Bs[stage][n][kk + 2 * t]);
-        b[1] =
-            *reinterpret_cast<const uint32_t*>(&Bs[stage][n][kk + 2 * t + 8]);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) mma_bf16_16816(acc[i][j], a[i], b);
-      }
-    }
-    __syncthreads();
+    for (int k = 0; k < kWgK / 16; ++k)
+      wgmma_m64n128k16_ss(acc, desc_add(da, 32 * k), desc_add(db, 32 * k), 1);
+    wgmma_commit();
+    // free the stage as soon as its products have completed: the ring then
+    // keeps two stages in flight ahead of the products (releasing a step
+    // later, to keep one group of products queued, ran slower on the H100)
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (lane == 0) mbar_arrive(&empty[s]);
   }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  if (has_residual)
+    mbar_wait(&full[s_out], (KT / kWgStages) & 1);
+  else
+    mbar_wait(&empty[s_out], ((KT / kWgStages) - 1) & 1);
 
-  // epilogue: C fragment rows g and g + 8, columns 2t, 2t + 1
+  // acc[4j + e] is pixel row r = 64 wg + 16 (warp % 4) + g + 8 (e / 2),
+  // channel o0 + 8j + 2t + e % 2: element (r, c) of a 64-channel box sits at
+  // r * 128 + ((c / 8) ^ (r % 8)) * 16 + (c % 8) * 2
+  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int o = o0 + wn * 64 + j * 8 + 2 * t;
-    if (o >= O) continue;
-    const float s0 = shift[o];
-    const float s1 = shift[o + 1];
+  for (int h = 0; h < 2; ++h) {
+    const int r = wg * 64 + (warp & 3) * 16 + g + 8 * h;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + wm * 32 + i * 16 + g + 8 * h;
-        if (m >= M) continue;
-        float v0 = acc[i][j][2 * h] + s0;
-        float v1 = acc[i][j][2 * h + 1] + s1;
-        const size_t off = (size_t)m * O + o;
-        if (residual != nullptr) {
-          const float2 r = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(residual + off));
-          v0 += r.x;
-          v1 += r.y;
-        }
-        if (relu) {
-          v0 = fmaxf(v0, 0.f);
-          v1 = fmaxf(v1, 0.f);
-        }
-        *reinterpret_cast<__nv_bfloat162*>(out + off) =
-            __floats2bfloat162_rn(v0, v1);
+    for (int j = 0; j < kWgN / 8; ++j) {
+      const int o = o0 + 8 * j + 2 * t;
+      uint8_t* box = j < 8 ? out_lo : out_hi;
+      __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(
+          box + r * 128 + (((j & 7) ^ (r & 7)) << 4) + 4 * t);
+      float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      if (o < O) {
+        v0 += shift[o];
+        v1 += shift[o + 1];
       }
+      if (has_residual) {
+        const float2 rr = __bfloat1622float2(*p);
+        v0 += rr.x;
+        v1 += rr.y;
+      }
+      if (relu) {
+        v0 = fmaxf(v0, 0.f);
+        v1 = fmaxf(v1, 0.f);
+      }
+      *p = __floats2bfloat162_rn(v0, v1);
     }
+  }
+  fence_async_shared();
+  named_barrier_sync(1, 128 * kWgConsumers);
+  if (tid == 0) {
+    tma_store_4d(&omap, out_lo, o0, x0, y0, n);
+    if (o0 + 64 < O) tma_store_4d(&omap, out_hi, o0 + 64, x0, y0, n);
+    tma_store_wait();
   }
 }
 
@@ -378,24 +389,63 @@ extern "C" int cobevt_conv3x3(const void* x, const void* w, const void* shift,
   return (int)cudaGetLastError();
 }
 
-// wt: (O, 9*C), the folded weight with K contiguous; tensor-core path,
-// bf16 only.
-extern "C" int cobevt_conv3x3_tc(const void* x, const void* wt,
-                                 const void* shift, const void* residual,
-                                 void* out, int N, int H, int W, int C, int O,
-                                 int relu, int device, void* stream) {
+// wt: (O, 9*C), the folded weight with K contiguous, tap-major and
+// channel-minor; wgmma path, bf16 only, C % 32 == 0, O % 8 == 0,
+// every pointer 16-byte aligned.  (bh, bw) is the tile's spatial box,
+// bh * bw == 128 and bw a power of two (ops/conv2d.py:conv_tile_plan).
+extern "C" int cobevt_conv3x3_wgmma(const void* x, const void* wt,
+                                    const void* shift, const void* residual,
+                                    void* out, int N, int H, int W, int C,
+                                    int O, int relu, int bh, int bw,
+                                    int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || O <= 0 || C % kTcK != 0 ||
-      O % 8 != 0)
+  int bw_log2 = 0;
+  while ((1 << bw_log2) < bw) ++bw_log2;
+  if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || O <= 0 || C % 32 != 0 ||
+      O % 8 != 0 || (1 << bw_log2) != bw || bh * bw != kWgM)
     return (int)cudaErrorInvalidValue;
-  const long long M = (long long)N * H * W;
-  const dim3 grid((unsigned)((M + kTcM - 1) / kTcM), (O + kTcN - 1) / kTcN);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  conv3x3_tc_kernel<<<grid, kTcThreads, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(wt), static_cast<const float*>(shift),
-      static_cast<const __nv_bfloat16*>(residual),
-      static_cast<__nv_bfloat16*>(out), N, H, W, C, O, relu);
+  // an NHWC activation of `ch` channels as (ch, W, H, N), 64-channel boxes
+  auto nhwc_map = [&](CUtensorMap* map, const void* base, int ch) {
+    const uint64_t dims[4] = {(uint64_t)ch, (uint64_t)W, (uint64_t)H,
+                              (uint64_t)N};
+    const uint64_t strides[3] = {(uint64_t)ch * 2, (uint64_t)W * ch * 2,
+                                 (uint64_t)H * W * ch * 2};
+    const uint32_t box[4] = {kWgK, (uint32_t)bw, (uint32_t)bh, 1};
+    return hopper_host::make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                                 base, dims, strides, box,
+                                 CU_TENSOR_MAP_SWIZZLE_128B);
+  };
+  CUtensorMap xmap, wmap, rmap, omap;
+  err = nhwc_map(&xmap, x, C);
+  if (err == cudaSuccess) err = nhwc_map(&omap, out, O);
+  // without a residual the kernel never reads rmap
+  if (err == cudaSuccess)
+    err = nhwc_map(&rmap, residual != nullptr ? residual : out, O);
+  if (err != cudaSuccess) return (int)err;
+  {
+    const uint64_t dims[2] = {(uint64_t)9 * C, (uint64_t)O};
+    const uint64_t strides[1] = {(uint64_t)9 * C * 2};
+    const uint32_t box[2] = {kWgK, kWgN};
+    err = hopper_host::make_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                                wt, dims, strides, box,
+                                CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err != cudaSuccess) return (int)err;
+  }
+  static bool configured[64] = {};
+  if (device >= 64 || !configured[device]) {
+    err = cudaFuncSetAttribute(conv3x3_wgmma_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kWgSmem);
+    if (err != cudaSuccess) return (int)err;
+    if (device < 64) configured[device] = true;
+  }
+  const long long tiles =
+      (long long)N * ((H + bh - 1) / bh) * ((W + bw - 1) / bw);
+  const dim3 grid((unsigned)tiles, (O + kWgN - 1) / kWgN);
+  conv3x3_wgmma_kernel<<<grid, kWgThreads, kWgSmem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      xmap, wmap, rmap, omap, static_cast<const float*>(shift), H, W, C, O,
+      relu, residual != nullptr, bh, bw_log2);
   return (int)cudaGetLastError();
 }

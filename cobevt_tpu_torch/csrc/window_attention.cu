@@ -17,30 +17,41 @@
 // byte in bf16, 128 to 512 at the CorpBEVT shapes, around the card's ~295.
 // So the bytes bind for the 256-key windows (0.063 ms at the largest shape,
 // G 320, 1024 x 256, with the arithmetic at 0.043 ms) and the arithmetic for
-// the 1024 x 1024 ones.
-// Both kernels are flash style: one block per (window, head, query tile),
-// key tiles streamed through shared memory, an online softmax with f32
-// running max, sum and accumulator, so the similarity matrix never leaves
-// registers.  The bias and weight are read tile by tile: the 16 MB
-// self-attention bias is never resident.
+// the 1024 x 1024 ones; where there is a bias it is the largest byte stream
+// (16.8 MB of f32 at the self-attention).  With D 32 every score also costs
+// one exp: at 16 a clock an SM the exps take about as long as the two
+// products at the tensor cores' rate, so the softmax, not the products,
+// sets the pace once the loads are hidden.
+// Both kernels are flash style: key tiles streamed through shared memory,
+// an online softmax with f32 running max, sum and accumulator, so the
+// similarity matrix never leaves registers.  The bias and weight are read
+// tile by tile: the 16 MB self-attention bias is never resident.
 //
-//  * window_attention_tc_kernel (bf16): tensor cores through mma.sync
-//    m16n8k16.  Four warps each own 16 query rows; S = q k^T and O += P v
-//    run on the tensor cores with f32 accumulators, and the S accumulator
-//    fragments are repacked in registers as the A operand of P v (no
-//    shared-memory round trip).  v is staged transposed so both B
-//    operands load as 32-bit words; rows are padded so the fragment loads
-//    hit distinct banks.
+//  * window_attention_wgmma_kernel (bf16): one block per (window, head,
+//    64 query rows: ops/window_attention.py:attention_tile_plan), one
+//    warpgroup, six blocks an SM.  Its thread 0 streams 64-key stages
+//    through a ring in shared memory by TMA with mbarrier completion,
+//    refilling a stage once the warpgroup is past it: k and v (64-byte
+//    rows, read in place by wgmma: k as the K-major B operand of S = q k^T,
+//    v as the MN-major B operand of O += P v), the f32 bias of the block's
+//    rows (two 32-key
+//    boxes, 128B-swizzled so the accumulator-layout reads hit distinct
+//    banks), the bf16 weight and the raw key mask.  Out-of-range rows and
+//    keys (ragged Tq and Tk) arrive as zeros from TMA; keys past Tk are then
+//    set to -inf.  The S accumulators become the A operand of P v in
+//    registers.  With a bias, the blocks of one (head, query tile) run
+//    side by side over the windows, so the bias tile is read from device
+//    memory once and from L2 for the other windows.
 //  * window_attention_kernel (f32): scalar f32 FMAs; one thread owns one
 //    query row; k/v tiles are read from shared memory as warp-wide
 //    broadcasts.
 //
 // K8, the head-major twin (cobevt_tpu/ops/window_attention.py:
 // fused_window_attention -> _forward_core -> _attn_body), runs the same two
-// kernels through another Layout: q (G, H, Tq, D), k/v (G, H, Tk, D), bias
-// (H, Tq, Tk), no weight.  _attn_body sums the exp in f32 before it rounds
-// it for the e v product, which is what these kernels do, so K8 needs no
-// numeric switch: only the strides differ (entry point
+// kernels through other strides and tensor maps: q (G, H, Tq, D), k/v
+// (G, H, Tk, D), bias (H, Tq, Tk), no weight.  _attn_body sums the exp in
+// f32 before it rounds it for the e v product, which is what these kernels
+// do, so K8 needs no numeric switch: only the layout differs (entry point
 // cobevt_window_attention_hm).  The same bound holds: arithmetic.
 //
 // Numerics differ from the TPU body of K1 in one documented place: there the
@@ -52,7 +63,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "mma.cuh"
+#include "hopper.cuh"
 
 #include <math.h>
 #include <stdint.h>
@@ -229,133 +240,216 @@ void launch(const void* q, const void* k, const void* v, const void* bias,
 }
 
 // ---------------------------------------------------------------------------
-// tensor-core path (bf16)
+// wgmma path (bf16)
 // ---------------------------------------------------------------------------
 
-constexpr int kTcWarps = 4;
-constexpr int kTcQ = 16 * kTcWarps;  // query rows per block
-constexpr int kTcK = 64;             // keys per shared-memory tile
+constexpr int kWgRows = 64;       // query rows per block: one warpgroup
+constexpr int kWgKeys = 64;       // keys per ring stage
+constexpr int kWgMaxStages = 4;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kWgBlocksPerSm = 6;   // 8 (64 registers) spills
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// Shared-memory plan of one block, the same on host and device: the
+// block's q rows, then `stages` ring stages of [k | v | bias | weight |
+// mask], every part aligned to 1024 bytes (the largest swizzle repeat),
+// then the barriers.
+struct WgPlan {
+  int q_bytes, k_bytes, bias_bytes, weight_bytes, mask_bytes, stage_bytes;
+  int stages, bar_off, smem_bytes;
+  uint32_t tx_bytes;   // what TMA delivers into one stage
+};
+
+__host__ __device__ inline int round1024(int b) { return (b + 1023) & ~1023; }
+
+__host__ __device__ inline WgPlan wg_plan(int D, bool bias, bool weight,
+                                          bool mask, int stages) {
+  WgPlan p;
+  p.q_bytes = round1024(kWgRows * D * 2);
+  p.k_bytes = round1024(kWgKeys * D * 2);
+  p.bias_bytes = bias ? 2 * kWgRows * 128 : 0;  // two 32-key f32 boxes
+  p.weight_bytes = weight ? kWgRows * 128 : 0;  // one 64-key bf16 box
+  p.mask_bytes = mask ? 1024 : 0;
+  p.stage_bytes = 2 * p.k_bytes + p.bias_bytes + p.weight_bytes +
+                  p.mask_bytes;
+  p.stages = stages;
+  p.bar_off = p.q_bytes + stages * p.stage_bytes;
+  p.smem_bytes = 1024 + p.bar_off + (1 + kWgMaxStages) * 8;
+  p.tx_bytes = 2 * kWgKeys * D * 2 + p.bias_bytes + p.weight_bytes +
+               (mask ? kWgKeys * 4 : 0);
+  return p;
 }
 
-// grid: (ceil(Tq / kTcQ), H, G); block: 32 * kTcWarps threads.
+// grid: G * H * ceil(Tq / 64) blocks of one warpgroup (128 threads); six
+// fit an SM (the kernel is bound by latency: the softmax of one warpgroup
+// hides the products and loads of the others).  Thread 0 keeps `stages`
+// 64-key tiles in flight, refilling a stage once the whole warpgroup is
+// past it.  Maps (the boxes of dispatch_wgmma): q and k/v as 4D (D, H, T,
+// G) packed or (D, T, H, G) head-major, boxes of 64 rows x D with the 64B
+// (D 32) or 32B (D 16) swizzle; bias as 3D (Tk, H, Tq) packed or (Tk, Tq,
+// H) head-major, boxes of 32 keys x 64 rows, f32, 128B swizzle; weight as
+// (Tk, H, Tq, G), boxes of 64 keys x 64 rows, 128B swizzle; mask as (Tk, G),
+// boxes of 64 keys.
 template <int D>
-__global__ void __launch_bounds__(32 * kTcWarps)
-    window_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                               const __nv_bfloat16* __restrict__ k,
-                               const __nv_bfloat16* __restrict__ v,
-                               const float* __restrict__ bias,
-                               const float* __restrict__ mask,
-                               const __nv_bfloat16* __restrict__ weight,
-                               __nv_bfloat16* __restrict__ out, int Tq,
-                               int Tk, int H, Layout L) {
-  constexpr int kPadK = D + 8;       // Ks row, halves
-  constexpr int kPadV = kTcK + 8;    // Vt row, halves
-  __shared__ __align__(16) __nv_bfloat16 Ks[kTcK][kPadK];
-  __shared__ __align__(16) __nv_bfloat16 Vt[D][kPadV];
+__global__ void __launch_bounds__(128, kWgBlocksPerSm)
+    window_attention_wgmma_kernel(
+        const __grid_constant__ CUtensorMap qmap,
+        const __grid_constant__ CUtensorMap kmap,
+        const __grid_constant__ CUtensorMap vmap,
+        const __grid_constant__ CUtensorMap bmap,
+        const __grid_constant__ CUtensorMap mmap,
+        const __grid_constant__ CUtensorMap wmap,
+        __nv_bfloat16* __restrict__ out, int G, int Tq, int Tk, int H,
+        Layout L, int head_major, int has_bias, int has_mask, int has_weight,
+        int stages) {
+  using namespace hopper;
+  constexpr Swizzle kSw = D == 32 ? kSwizzle64 : kSwizzle32;
+  constexpr uint32_t kRowBytes = D * 2;   // one q/k/v row: the swizzle span
+  const WgPlan plan = wg_plan(D, has_bias, has_weight, has_mask, stages);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* q_s = smem;
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(smem + plan.bar_off);
+  uint64_t* full = qbar + 1;
+  auto stage_ptr = [&](int s) {
+    return smem + plan.q_bytes + s * plan.stage_bytes;
+  };
+
+  // the windows of one (head, query tile) run side by side when there is a
+  // bias, so its tile is read from device memory once for all of them; the
+  // query tiles of one (window, head) otherwise, so they share k and v in L2
+  const int QT = (Tq + kWgRows - 1) / kWgRows;
+  int b = blockIdx.x, win, h, qt;
+  if (has_bias) {
+    win = b % G;
+    b /= G;
+    qt = b % QT;
+    h = b / QT;
+  } else {
+    qt = b % QT;
+    b /= QT;
+    h = b % H;
+    win = b / H;
+  }
+  const int q0 = qt * kWgRows;
+  const int KT = (Tk + kWgKeys - 1) / kWgKeys;
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;   // fragment row group
-  const int t = lane & 3;    // thread in group
-  const int h = blockIdx.y;
-  const int win = blockIdx.z;
-  const size_t HTk = (size_t)H * Tk;
-
-  // this thread's two query rows (fragment rows g and g + 8)
-  const int r0 = blockIdx.x * kTcQ + warp * 16 + g;
-  const int r1 = r0 + 8;
-  const int rc0 = min(r0, Tq - 1);   // clamped for loads of dead rows
-  const int rc1 = min(r1, Tq - 1);
-
-  uint32_t qa[D / 16][4];
-  {
-    const __nv_bfloat16* qw = q + win * L.q_win + h * L.q_head;
-    const __nv_bfloat16* q0p = qw + (size_t)rc0 * L.ldq;
-    const __nv_bfloat16* q1p = qw + (size_t)rc1 * L.ldq;
-#pragma unroll
-    for (int kd = 0; kd < D / 16; ++kd) {
-      qa[kd][0] = ld32(q0p + kd * 16 + 2 * t);
-      qa[kd][1] = ld32(q1p + kd * 16 + 2 * t);
-      qa[kd][2] = ld32(q0p + kd * 16 + 2 * t + 8);
-      qa[kd][3] = ld32(q1p + kd * 16 + 2 * t + 8);
-    }
+  const int warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < stages; ++s) mbar_init(&full[s], 1);
+    fence_barrier_init();
   }
-  float o[D / 8][4];
+  __syncthreads();
+
+  // key tile kt into its stage, completing on the stage's barrier
+  auto load_tile = [&](int kt) {
+    const int s = kt % stages;
+    uint8_t* st = stage_ptr(s);
+    const int k0 = kt * kWgKeys;
+    mbar_arrive_expect_tx(&full[s], plan.tx_bytes);
+    if (head_major) {
+      tma_load_4d(st, &kmap, &full[s], 0, k0, h, win);
+      tma_load_4d(st + plan.k_bytes, &vmap, &full[s], 0, k0, h, win);
+    } else {
+      tma_load_4d(st, &kmap, &full[s], 0, h, k0, win);
+      tma_load_4d(st + plan.k_bytes, &vmap, &full[s], 0, h, k0, win);
+    }
+    uint8_t* part = st + 2 * plan.k_bytes;
+    if (has_bias) {
+      for (int sb = 0; sb < 2; ++sb) {
+        if (head_major)
+          tma_load_3d(part + sb * kWgRows * 128, &bmap, &full[s],
+                      k0 + 32 * sb, q0, h);
+        else
+          tma_load_3d(part + sb * kWgRows * 128, &bmap, &full[s],
+                      k0 + 32 * sb, h, q0);
+      }
+      part += plan.bias_bytes;
+    }
+    if (has_weight) {
+      tma_load_4d(part, &wmap, &full[s], k0, h, q0, win);
+      part += plan.weight_bytes;
+    }
+    if (has_mask) tma_load_2d(part, &mmap, &full[s], k0, win);
+  };
+  if (tid == 0) {
+    mbar_arrive_expect_tx(qbar, kWgRows * D * 2);
+    if (head_major)
+      tma_load_4d(q_s, &qmap, qbar, 0, q0, h, win);
+    else
+      tma_load_4d(q_s, &qmap, qbar, 0, h, q0, win);
+    for (int kt = 0; kt < stages && kt < KT; ++kt) load_tile(kt);
+  }
+
+  // this thread's rows rl[0] and rl[1] (accumulator rows g, g + 8 of its
+  // warp), key columns 8j + 2t and 8j + 2t + 1 of each 64-key tile
+  const int g = lane >> 2, t = lane & 3;
+  const int rl[2] = {warp * 16 + g, warp * 16 + g + 8};
+  mbar_wait(qbar, 0);
+  const uint64_t dq = make_desc(q_s, 8 * kRowBytes, kSw);
+
+  float o[D / 2];
 #pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY};
   float l_run[2] = {0.f, 0.f};
 
-  for (int k0 = 0; k0 < Tk; k0 += kTcK) {
-    // stage K (key-major) and V (transposed, d-major), 8 halves a chunk
-    for (int c = tid; c < kTcK * D / 8; c += 32 * kTcWarps) {
-      const int j = c / (D / 8);
-      const int d = (c - j * (D / 8)) * 8;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (k0 + j < Tk) {
-        const size_t off = win * L.kv_win + (size_t)(k0 + j) * L.ldkv +
-                           h * L.kv_head + d;
-        kv = *reinterpret_cast<const uint4*>(k + off);
-        vv = *reinterpret_cast<const uint4*>(v + off);
-      }
-      *reinterpret_cast<uint4*>(&Ks[j][d]) = kv;
-      const __nv_bfloat16* vh = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) Vt[d + i][j] = vh[i];
-    }
-    __syncthreads();
+  for (int kt = 0; kt < KT; ++kt) {
+    const int s = kt % stages;
+    mbar_wait(&full[s], (kt / stages) & 1);
+    uint8_t* st = stage_ptr(s);
+    const uint8_t* bias_s = st + 2 * plan.k_bytes;
+    const uint8_t* weight_s = bias_s + plan.bias_bytes;
+    const float* mask_s =
+        reinterpret_cast<const float*>(weight_s + plan.weight_bytes);
+    const int k0 = kt * kWgKeys;
 
-    // S = q k^T: 8 n-tiles of 8 keys, f32 accumulators
-    float s[kTcK / 8][4];
+    // S = q k^T over this tile's 64 keys, f32
+    float sc[32];
 #pragma unroll
-    for (int j = 0; j < kTcK / 8; ++j) {
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    const uint64_t dk = make_desc(st, 8 * kRowBytes, kSw);
+    wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-      for (int kd = 0; kd < D / 16; ++kd) {
-        const uint32_t b[2] = {ld32(&Ks[j * 8 + g][kd * 16 + 2 * t]),
-                               ld32(&Ks[j * 8 + g][kd * 16 + 2 * t + 8])};
-        mma_bf16_16816(s[j], qa[kd], b);
-      }
-    }
+    for (int kd = 0; kd < D / 16; ++kd)
+      wgmma_m64n64k16_ss(sc, desc_add(dq, 32 * kd), desc_add(dk, 32 * kd), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
 
     // (q.k + bias) + mask, then the online softmax over this tile
     float tile_max[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int j = 0; j < kTcK / 8; ++j) {
-      const int key = k0 + j * 8 + 2 * t;   // columns key, key + 1
+    for (int j = 0; j < kWgKeys / 8; ++j) {
+      const int c = 8 * j + 2 * t;    // columns c, c + 1 of the tile
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
-        const int row = hr ? rc1 : rc0;
-        float x0 = s[j][2 * hr], x1 = s[j][2 * hr + 1];
-        if (key < Tk) {
-          if (bias != nullptr) {
-            const float2 b = *reinterpret_cast<const float2*>(
-                bias + h * L.b_head + row * L.ldb + key);
-            x0 += b.x;
-            x1 += b.y;
+        float x0 = sc[4 * j + 2 * hr], x1 = sc[4 * j + 2 * hr + 1];
+        if (k0 + c < Tk) {
+          if (has_bias) {
+            const int r = rl[hr], cc = c & 31;
+            const float2 bb = *reinterpret_cast<const float2*>(
+                bias_s + (c >> 5) * kWgRows * 128 + r * 128 +
+                ((((cc >> 2) ^ (r & 7)) << 4) | ((cc & 3) << 2)));
+            x0 += bb.x;
+            x1 += bb.y;
           }
-          if (mask != nullptr) {
-            const float* mp = mask + (size_t)win * Tk + key;
-            if (!(mp[0] > 0.f)) x0 += kMaskAdd;
-            if (!(mp[1] > 0.f)) x1 += kMaskAdd;
+          if (has_mask) {
+            const float2 mm = *reinterpret_cast<const float2*>(mask_s + c);
+            if (!(mm.x > 0.f)) x0 += kMaskAdd;
+            if (!(mm.y > 0.f)) x1 += kMaskAdd;
           }
         } else {
           x0 = x1 = -INFINITY;   // Tk % 8 == 0: both columns are past Tk
         }
-        s[j][2 * hr] = x0;
-        s[j][2 * hr + 1] = x1;
+        sc[4 * j + 2 * hr] = x0;
+        sc[4 * j + 2 * hr + 1] = x1;
         tile_max[hr] = fmaxf(tile_max[hr], fmaxf(x0, x1));
       }
     }
@@ -373,33 +467,31 @@ __global__ void __launch_bounds__(32 * kTcWarps)
       l_run[hr] *= alpha[hr];
     }
 #pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      o[nd][0] *= alpha[0];
-      o[nd][1] *= alpha[0];
-      o[nd][2] *= alpha[1];
-      o[nd][3] *= alpha[1];
-    }
+    for (int e = 0; e < D / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
 
-    // P (numerator weights) in bf16 A fragments; the sum stays f32 and
-    // unweighted
-    uint32_t pa[kTcK / 16][4];
+    // P (numerator weights) as the bf16 A fragments of P v; the sum stays
+    // f32 and unweighted.  The accumulator columns 16kk .. 16kk + 15 are
+    // exactly the A fragment of k-step kk.
+    // exp(s - m) as exp2(s log2(e) - m log2(e)): one FMA before the MUFU op
+    uint32_t pa[kWgKeys / 16][4];
+    const float m_log2e[2] = {m_run[0] * kLog2e, m_run[1] * kLog2e};
 #pragma unroll
-    for (int j = 0; j < kTcK / 8; ++j) {
+    for (int j = 0; j < kWgKeys / 8; ++j) {
       float p[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        p[e] = __expf(s[j][e] - m_run[e >> 1]);
+        p[e] = exp2f(fmaf(sc[4 * j + e], kLog2e, -m_log2e[e >> 1]));
         l_run[e >> 1] += p[e];
       }
-      if (weight != nullptr) {
-        const int key = min(k0 + j * 8 + 2 * t, Tk - 2);
+      if (has_weight) {
+        const int c = 8 * j + 2 * t;
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr) {
-          const int row = hr ? rc1 : rc0;
+          const int r = rl[hr];
           const float2 w = __bfloat1622float2(
               *reinterpret_cast<const __nv_bfloat162*>(
-                  weight + ((size_t)win * Tq + row) * HTk + (size_t)h * Tk +
-                  key));
+                  weight_s + r * 128 +
+                  ((((c >> 3) ^ (r & 7)) << 4) | ((c & 7) << 1))));
           p[2 * hr] *= w.x;
           p[2 * hr + 1] *= w.y;
         }
@@ -408,17 +500,26 @@ __global__ void __launch_bounds__(32 * kTcWarps)
       pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
     }
 
-    // O += P v
+    // O += P v, v read in place as the MN-major B operand
+    const uint64_t dv = make_desc(st + plan.k_bytes, 8 * kRowBytes, kSw);
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kTcK / 16; ++kk) {
-#pragma unroll
-      for (int nd = 0; nd < D / 8; ++nd) {
-        const uint32_t b[2] = {ld32(&Vt[nd * 8 + g][kk * 16 + 2 * t]),
-                               ld32(&Vt[nd * 8 + g][kk * 16 + 2 * t + 8])};
-        mma_bf16_16816(o[nd], pa[kk], b);
-      }
+    for (int kk = 0; kk < kWgKeys / 16; ++kk) {
+      if constexpr (D == 32)
+        wgmma_m64n32k16_rs_mn(o, pa[kk], desc_add(dv, 16 * kRowBytes * kk),
+                              1);
+      else
+        wgmma_m64n16k16_rs_mn(o, pa[kk], desc_add(dv, 16 * kRowBytes * kk),
+                              1);
     }
-    __syncthreads();
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    // every warp is past stage s: refill it with the tile `stages` ahead
+    if (kt + stages < KT) {
+      __syncthreads();
+      if (tid == 0) load_tile(kt + stages);
+    }
   }
 
 #pragma unroll
@@ -428,7 +529,7 @@ __global__ void __launch_bounds__(32 * kTcWarps)
   }
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
-    const int row = hr ? r1 : r0;
+    const int row = q0 + rl[hr];
     if (row >= Tq) continue;
     const float inv = 1.f / l_run[hr];
     __nv_bfloat16* op =
@@ -436,52 +537,155 @@ __global__ void __launch_bounds__(32 * kTcWarps)
 #pragma unroll
     for (int nd = 0; nd < D / 8; ++nd)
       *reinterpret_cast<__nv_bfloat162*>(op + nd * 8 + 2 * t) =
-          __floats2bfloat162_rn(o[nd][2 * hr] * inv,
-                                o[nd][2 * hr + 1] * inv);
+          __floats2bfloat162_rn(o[4 * nd + 2 * hr] * inv,
+                                o[4 * nd + 2 * hr + 1] * inv);
   }
 }
 
+// ring depth: as many stages, 2 .. 4, as keep kWgBlocksPerSm blocks on an SM
+// (each block also holds 1 KB of the SM's 228 KB for the system)
+inline int wg_stages(int D, bool bias, bool weight, bool mask) {
+  const int budget = 228 * 1024 / kWgBlocksPerSm - 1024;
+  const WgPlan one = wg_plan(D, bias, weight, mask, 1);
+  const int fixed = one.smem_bytes - one.stage_bytes;
+  const int stages = (budget - fixed) / one.stage_bytes;
+  return stages < 2 ? 2 : (stages > kWgMaxStages ? kWgMaxStages : stages);
+}
+
 template <int D>
-void launch_tc(const void* q, const void* k, const void* v, const void* bias,
-               const void* mask, const void* weight, void* out, int G, int Tq,
-               int Tk, int H, const Layout& L, cudaStream_t stream) {
-  const dim3 grid((Tq + kTcQ - 1) / kTcQ, H, G);
-  window_attention_tc_kernel<D><<<grid, 32 * kTcWarps, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias),
-      static_cast<const float*>(mask),
-      static_cast<const __nv_bfloat16*>(weight),
-      static_cast<__nv_bfloat16*>(out), Tq, Tk, H, L);
+cudaError_t launch_wgmma(const CUtensorMap* maps, void* out, int G, int Tq,
+                         int Tk, int H, const Layout& L, int head_major,
+                         bool bias, bool mask, bool weight, int device,
+                         cudaStream_t stream) {
+  auto kernel = window_attention_wgmma_kernel<D>;
+  static bool configured[64] = {};
+  if (device >= 64 || !configured[device]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+    if (err != cudaSuccess) return err;
+    if (device < 64) configured[device] = true;
+  }
+  const int stages = wg_stages(D, bias, weight, mask);
+  const WgPlan plan = wg_plan(D, bias, weight, mask, stages);
+  const long long blocks =
+      (long long)G * H * ((Tq + kWgRows - 1) / kWgRows);
+  kernel<<<(unsigned)blocks, 128, plan.smem_bytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5],
+      static_cast<__nv_bfloat16*>(out), G, Tq, Tk, H, L, head_major,
+      (int)bias, (int)mask, (int)weight, stages);
+  return cudaGetLastError();
+}
+
+// The tensor maps of one call (the boxes of the kernel's comment), then the
+// launch.  Maps of absent operands repeat q's and are never read.
+cudaError_t dispatch_wgmma(const void* q, const void* k, const void* v,
+                           const void* bias, const void* mask,
+                           const void* weight, void* out, int G, int Tq,
+                           int Tk, int H, int D, int head_major,
+                           const Layout& L, int device, cudaStream_t stream) {
+  using hopper_host::make_map;
+  if (head_major && weight != nullptr) return cudaErrorInvalidValue;
+  const CUtensorMapSwizzle sw =
+      D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+  const uint64_t row = (uint64_t)D * 2;
+  const uint64_t C = (uint64_t)H * D;
+  CUtensorMap maps[6];
+  cudaError_t err;
+  for (int i = 0; i < 3; ++i) {
+    const void* base = i == 0 ? q : (i == 1 ? k : v);
+    const uint64_t T = i == 0 ? Tq : Tk;
+    const uint32_t box_rows = i == 0 ? kWgRows : kWgKeys;
+    uint64_t dims[4], strides[3];
+    uint32_t box[4];
+    if (head_major) {   // (G, H, T, D)
+      const uint64_t d[4] = {(uint64_t)D, T, (uint64_t)H, (uint64_t)G};
+      const uint64_t st[3] = {row, T * row, (uint64_t)H * T * row};
+      const uint32_t bx[4] = {(uint32_t)D, box_rows, 1, 1};
+      for (int j = 0; j < 4; ++j) dims[j] = d[j], box[j] = bx[j];
+      for (int j = 0; j < 3; ++j) strides[j] = st[j];
+    } else {            // (G, T, H, D)
+      const uint64_t d[4] = {(uint64_t)D, (uint64_t)H, T, (uint64_t)G};
+      const uint64_t st[3] = {row, C * 2, T * C * 2};
+      const uint32_t bx[4] = {(uint32_t)D, 1, box_rows, 1};
+      for (int j = 0; j < 4; ++j) dims[j] = d[j], box[j] = bx[j];
+      for (int j = 0; j < 3; ++j) strides[j] = st[j];
+    }
+    err = make_map(&maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims,
+                   strides, box, sw);
+    if (err != cudaSuccess) return err;
+  }
+  maps[3] = maps[4] = maps[5] = maps[0];
+  if (bias != nullptr) {
+    const uint64_t tk4 = (uint64_t)Tk * 4;
+    if (head_major) {   // (H, Tq, Tk)
+      const uint64_t dims[3] = {(uint64_t)Tk, (uint64_t)Tq, (uint64_t)H};
+      const uint64_t strides[2] = {tk4, (uint64_t)Tq * tk4};
+      const uint32_t box[3] = {32, kWgRows, 1};
+      err = make_map(&maps[3], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, bias, dims,
+                     strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+    } else {            // (Tq, H, Tk)
+      const uint64_t dims[3] = {(uint64_t)Tk, (uint64_t)H, (uint64_t)Tq};
+      const uint64_t strides[2] = {tk4, (uint64_t)H * tk4};
+      const uint32_t box[3] = {32, 1, kWgRows};
+      err = make_map(&maps[3], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, bias, dims,
+                     strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+    }
+    if (err != cudaSuccess) return err;
+  }
+  if (mask != nullptr) {   // (G, Tk)
+    const uint64_t dims[2] = {(uint64_t)Tk, (uint64_t)G};
+    const uint64_t strides[1] = {(uint64_t)Tk * 4};
+    const uint32_t box[2] = {kWgKeys, 1};
+    err = make_map(&maps[4], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, mask, dims,
+                   strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (err != cudaSuccess) return err;
+  }
+  if (weight != nullptr) {   // (G, Tq, H, Tk)
+    const uint64_t tk2 = (uint64_t)Tk * 2;
+    const uint64_t dims[4] = {(uint64_t)Tk, (uint64_t)H, (uint64_t)Tq,
+                              (uint64_t)G};
+    const uint64_t strides[3] = {tk2, (uint64_t)H * tk2,
+                                 (uint64_t)Tq * H * tk2};
+    const uint32_t box[4] = {kWgKeys, 1, kWgRows, 1};
+    err = make_map(&maps[5], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, weight,
+                   dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err != cudaSuccess) return err;
+  }
+  const bool b = bias != nullptr, m = mask != nullptr, w = weight != nullptr;
+  if (D == 32)
+    return launch_wgmma<32>(maps, out, G, Tq, Tk, H, L, head_major, b, m, w,
+                            device, stream);
+  return launch_wgmma<16>(maps, out, G, Tq, Tk, H, L, head_major, b, m, w,
+                          device, stream);
 }
 
 // Picks the kernel for (D, dtype).  Returns the launch's cudaError_t.
 cudaError_t dispatch(const void* q, const void* k, const void* v,
                      const void* bias, const void* mask, const void* weight,
                      void* out, int G, int Tq, int Tk, int H, int D,
-                     int is_bf16, const Layout& L, int device, void* stream) {
+                     int is_bf16, int head_major, const Layout& L,
+                     int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (G <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || G > 65535 || H > 65535)
     return cudaErrorInvalidValue;
+  if (D != 16 && D != 32) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 32 && is_bf16)
-    launch_tc<32>(q, k, v, bias, mask, weight, out, G, Tq, Tk, H, L, s);
-  else if (D == 32)
+  if (is_bf16)
+    return dispatch_wgmma(q, k, v, bias, mask, weight, out, G, Tq, Tk, H, D,
+                          head_major, L, device, s);
+  if (D == 32)
     launch<32>(q, k, v, bias, mask, weight, out, G, Tq, Tk, H, L, s);
-  else if (D == 16 && is_bf16)
-    launch_tc<16>(q, k, v, bias, mask, weight, out, G, Tq, Tk, H, L, s);
-  else if (D == 16)
-    launch<16>(q, k, v, bias, mask, weight, out, G, Tq, Tk, H, L, s);
   else
-    return cudaErrorInvalidValue;
+    launch<16>(q, k, v, bias, mask, weight, out, G, Tq, Tk, H, L, s);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry points, loaded with ctypes.  bias, mask and weight may be
-// null.  Each returns the cudaError_t of the launch (0 on success).
+// null; every bf16 pointer is 16-byte aligned.  Each returns the
+// cudaError_t of the set-up and launch (0 on success).
 
 // K1: packed layout, q (G, Tq, H*D), bias (Tq, H*Tk).
 extern "C" int cobevt_window_attention(const void* q, const void* k,
@@ -491,7 +695,8 @@ extern "C" int cobevt_window_attention(const void* q, const void* k,
                                        int H, int D, int is_bf16, int device,
                                        void* stream) {
   return (int)dispatch(q, k, v, bias, mask, weight, out, G, Tq, Tk, H, D,
-                       is_bf16, packed_layout(Tq, Tk, H, D), device, stream);
+                       is_bf16, 0, packed_layout(Tq, Tk, H, D), device,
+                       stream);
 }
 
 // K8: head-major layout, q (G, H, Tq, D), bias (H, Tq, Tk), no weight.
@@ -502,6 +707,6 @@ extern "C" int cobevt_window_attention_hm(const void* q, const void* k,
                                           int is_bf16, int device,
                                           void* stream) {
   return (int)dispatch(q, k, v, bias, mask, nullptr, out, G, Tq, Tk, H, D,
-                       is_bf16, head_major_layout(Tq, Tk, H, D), device,
+                       is_bf16, 1, head_major_layout(Tq, Tk, H, D), device,
                        stream);
 }

@@ -200,9 +200,10 @@ class SwapFusionBlock(nn.Module):
 def fused_fusion_mode() -> str:
     """``COBEVT_FUSED_FUSION``, the JAX package's switch: "0" runs the
     stock modules; "1" (the default) and "force" run K4 at eval where the
-    state fits its resident budget and K6, the streaming variant, where it
-    does not; "force-stream" runs K6 wherever its gate holds.  Training
-    always runs the stock modules."""
+    state fits its resident budget, and the stock modules beyond it, where
+    the JAX package streams (K6): on the H100 K6 loses to them
+    (:meth:`SwapFusionEncoder.fused_kernel`); "force-stream" runs K6
+    wherever its gate holds.  Training always runs the stock modules."""
     return os.environ.get("COBEVT_FUSED_FUSION", "1")
 
 
@@ -251,33 +252,54 @@ class SwapFusionEncoder(nn.Module):
 
     def fused_kernel(self, shape):
         """Which fused kernel an eval forward of a (B, L, H, W, d) state
-        takes: "K4", "K6" or None (the stock modules).  The dispatch of the
-        JAX package (``models/fusion/swap_fusion.py:389-414``): K4 where the
-        state ``fits`` the resident budget, else K6 where it ``streams``;
-        "force-stream" takes K6 also where K4 would fit.  Each kernel's own
-        gate stands in for the JAX gate's TPU block-shape terms.  Reads the
-        shape and the switch, never the device, so CPU and GPU take the same
-        branch."""
+        takes: "K4", "K6" or None (the stock modules).  Reads the shape and
+        the switch, never the device, so CPU and GPU take the same branch.
+        The dispatch of the JAX package (``models/fusion/swap_fusion.py:
+        389-414``) takes K4 where the state ``fits`` the resident budget,
+        else K6 where it ``streams``; "force-stream" takes K6 also where K4
+        would fit.  Each kernel's own gate stands in for the JAX gate's TPU
+        block-shape terms, and one term is the H100's:
+
+          * beyond the resident budget the default ("1", and "force") takes
+            the stock modules, not K6: on the H100 the stock path (cuBLAS
+            products and K1) answers the cooperative LiDAR map
+            (1, 5, 96, 176, 256) faster than K6's four sublayers
+            (``tools/benchmark.py --model pointpillar`` with
+            ``COBEVT_FUSED_FUSION=force-stream`` against ``=0`` in one call;
+            PERF.md, section 5).  "force-stream" still takes K6;
+          * where the state fits but the port's K4 does not take its widths
+            (D 256 with mlp 512), K6 runs in K4's place with K4's bias
+            rounding (:meth:`_fused_eval`)."""
+        return self._dispatch(shape)[0]
+
+    def _dispatch(self, shape):
+        """(kernel, whether K6 stands in for the JAX package's K4)."""
         mode = fused_fusion_mode()
         if self.training or mode == "0":
-            return None
+            return None, False
         _, L, H, W, d = shape
         geom = (L, H, W, d, self.window_size, self.heads)
-        fits = fits_resident(*geom) and kernel_accepts(*geom, self.mlp_dim)
+        resident = fits_resident(*geom)
+        fits = resident and kernel_accepts(*geom, self.mlp_dim)
         streams = stream_accepts(*geom, self.mlp_dim)
-        if streams and (not fits or mode == "force-stream"):
-            return "K6"
-        return "K4" if fits else None
+        if streams and mode == "force-stream":
+            return "K6", False
+        if fits:
+            return "K4", False
+        if streams and resident:
+            return "K6", True
+        return None, False
 
     def forward(self, x, mask=None, agent_mask=None):
         """x: (B, L, H, W, d); mask: (B, L, H, W); agent_mask: (B, L)
         (read only with ``mean_over_valid``).  Returns (B, H, W, d)."""
         if not self.mask:
             mask = None
-        kernel = self.fused_kernel(x.shape)
+        kernel, in_k4s_place = self._dispatch(x.shape)
         if kernel is not None:
             return self._fused_eval(x, mask, agent_mask,
-                                    streaming=kernel == "K6")
+                                    streaming=kernel == "K6",
+                                    round_bias=in_k4s_place)
         for layer in self.layers:
             x = layer(x, mask)
         if self.mean_over_valid and agent_mask is not None:
@@ -287,25 +309,31 @@ class SwapFusionEncoder(nn.Module):
             x = x.mean(dim=1)
         return self.mlp_head(x)
 
-    def _fused_eval(self, x, mask, agent_mask, streaming=False):
+    def _fused_eval(self, x, mask, agent_mask, streaming=False,
+                    round_bias=False):
         """K4, or K6 when ``streaming``, on this module's weights
         (``_fused_eval`` of the JAX package,
         ``models/fusion/swap_fusion.py:432-491``): the bias tables expanded
         to (depth, 2, T, heads*T) -- in the compute dtype for K4, kept in
-        f32 for K6 -- and the (B, L, H, W) mask passed as it is and read
-        through the window map in the kernel.  The packed operands are built
-        once per kernel, agent count and dtype and reused while the weights
-        are unchanged."""
+        f32 for K6, and with ``round_bias`` (K6 in K4's place) rounded
+        through the compute dtype first, the values K4 sees -- and the
+        (B, L, H, W) mask passed as it is and read through the window map in
+        the kernel.  The packed operands are built once per kernel, agent
+        count and dtype and reused while the weights are unchanged."""
         L = x.shape[1]
         bias_dtype = torch.float32 if streaming else x.dtype
+        name = "encoder"
+        if streaming:
+            name = "stream_k4" if round_bias else "stream"
         packed = self._packed.get(
-            "stream" if streaming else "encoder", list(self.parameters()),
-            lambda: self._pack(L, x.dtype, bias_dtype), L, x.dtype)
+            name, list(self.parameters()),
+            lambda: self._pack(L, x.dtype, bias_dtype, round_bias), L,
+            x.dtype)
         fn = fused_swap_fusion_streaming if streaming else fused_swap_fusion
         return fn(x, mask, agent_mask, None, packed, None, self.window_size,
                   self.heads, mean_over_valid=self.mean_over_valid)
 
-    def _pack(self, L, dtype, bias_dtype):
+    def _pack(self, L, dtype, bias_dtype, round_bias=False):
         w = self.window_size
         layers, biases = [], []
         for block in self.layers:
@@ -319,4 +347,7 @@ class SwapFusionEncoder(nn.Module):
         ln, dense = self.mlp_head[2], self.mlp_head[3]
         head = {"ln": (ln.weight, ln.bias), "w": dense.weight.t(),
                 "b": dense.bias}
-        return pack(layers, torch.stack(biases), head, dtype, bias_dtype)
+        bias = torch.stack(biases)
+        if round_bias:
+            bias = bias.to(dtype)
+        return pack(layers, bias, head, dtype, bias_dtype)

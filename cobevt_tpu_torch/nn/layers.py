@@ -28,6 +28,7 @@ from cobevt_tpu_torch.ops.conv2d import (
     fold_bn,
     fused_conv3x3,
     fused_conv3x3_int8,
+    pack_conv3x3_weight,
     pack_int8_weight,
 )
 from cobevt_tpu_torch.ops.dispatch import PackCache
@@ -184,9 +185,10 @@ class BasicBlock(nn.Module):
             self.downsample = nn.Sequential(
                 torch_conv(inplanes, planes, 1, stride, 0, False),
                 batch_norm(planes))
-        # quantized weights of the int8 paths, rebuilt when a parameter
-        # changes; holds no parameter and is not part of the state_dict
-        self._int8_pack = PackCache()
+        # the kernels' prepared weights (K3's folded bf16 weights, the int8
+        # paths' quantized ones), rebuilt when a parameter changes; holds no
+        # parameter and is not part of the state_dict
+        self._pack = PackCache()
         # clipped share of the last int8-resident forward that was asked
         # for it (a 0-d tensor), else None
         self.int8_sat_frac = None
@@ -206,20 +208,27 @@ class BasicBlock(nn.Module):
         return F.relu(out + self._identity(x))
 
     def _fused_eval(self, x):
+        """Both convs as K3, on weights folded, cast and transposed once
+        per weight version and dtype."""
         x = x.contiguous()
         if int8_enabled() and min(x.shape[-1], self.planes) >= 256:
             return self._fused_eval_int8(x)
-        w1, t1 = fold_bn(_conv_hwio(self.conv1), *_bn_stats(self.bn1))
-        out = fused_conv3x3(x, w1, t1, relu=True)
+        p1 = self._folded("k3_conv1", self.conv1, self.bn1,
+                          pack_conv3x3_weight, x.dtype)
+        out = fused_conv3x3(x, None, None, relu=True, packed=p1)
         identity = self._identity(x).contiguous()
-        w2, t2 = fold_bn(_conv_hwio(self.conv2), *_bn_stats(self.bn2))
-        return fused_conv3x3(out, w2, t2, residual=identity, relu=True)
+        p2 = self._folded("k3_conv2", self.conv2, self.bn2,
+                          pack_conv3x3_weight, x.dtype)
+        return fused_conv3x3(out, None, None, residual=identity, relu=True,
+                             packed=p2)
 
-    def _folded(self, name, conv, bn, quantize):
-        """``quantize(*fold_bn(conv, bn))``, cached per weight version."""
-        return self._int8_pack.get(
+    def _folded(self, name, conv, bn, pack, *args):
+        """``pack(*fold_bn(conv, bn), *args)``, cached per weight version
+        and ``args``."""
+        return self._pack.get(
             name, [conv.weight, *_bn_stats(bn)],
-            lambda: quantize(*fold_bn(_conv_hwio(conv), *_bn_stats(bn))))
+            lambda: pack(*fold_bn(_conv_hwio(conv), *_bn_stats(bn)), *args),
+            *args)
 
     def _fused_eval_int8(self, x):
         """Both convs as K7: weights quantized per output channel once,

@@ -1,11 +1,14 @@
 """Build and load the hand-written CUDA kernels of ``cobevt_tpu_torch/csrc``.
 
 Each ``csrc/<name>.cu`` (with the shared ``csrc/*.cuh`` headers: ``mma.cuh``,
-``rowops.cuh``, ``flash.cuh``) exposes
+``rowops.cuh``, ``flash.cuh``, ``swap_state.cuh`` and ``hopper.cuh``, the
+TMA / ``wgmma`` building blocks) exposes
 plain C functions and compiles with ``nvcc`` for Hopper (``sm_90a``) into
 ``cobevt_tpu_torch/_build/`` the first time a kernel is launched; the
 shared library is then loaded with ``ctypes``.  No PyTorch headers and no
-ninja are involved, so a build takes seconds.  The library name carries a
+ninja are involved, so a build takes seconds.  Nothing is linked beyond the
+CUDA runtime: the TMA tensor-map encoder, a libcuda function, is reached at
+run time through ``cudaGetDriverEntryPoint`` (``hopper.cuh``).  The library name carries a
 hash of the sources and the flags, so a changed source is rebuilt and a
 stale library is never loaded.
 

@@ -27,7 +27,11 @@ import torch
 import torch.nn.functional as F
 
 from cobevt_tpu_torch.ops import _build
-from cobevt_tpu_torch.ops.dispatch import check_operand, resolve_impl
+from cobevt_tpu_torch.ops.dispatch import (
+    check_aligned,
+    check_operand,
+    resolve_impl,
+)
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -58,22 +62,63 @@ def conv3x3_reference(x, w, shift, residual=None, relu: bool = True):
 
 def _lib():
     lib = _build.load("conv3x3")
-    scalar, tc = lib.cobevt_conv3x3, lib.cobevt_conv3x3_tc
+    scalar, wg = lib.cobevt_conv3x3, lib.cobevt_conv3x3_wgmma
     scalar.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p]
-    tc.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+    wg.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [
         ctypes.c_void_p]
-    scalar.restype = tc.restype = ctypes.c_int
-    return scalar, tc
+    scalar.restype = wg.restype = ctypes.c_int
+    return scalar, wg
 
 
-def _tensor_core_path(x, C, O) -> bool:
+# the wgmma kernel's tile: 128 output pixels of one image by 128 channels
+_WGMMA_PIXELS = 128
+
+
+def conv_tile_plan(H: int, W: int):
+    """The spatial box of one output tile of the wgmma kernel: (bh, bw,
+    tiles_y, tiles_x).  bw is W rounded up to a power of two, at most 128,
+    and bh = 128 / bw, so a tile is 128 pixel slots of one image (2 x 64 at
+    W 64, 4 x 32 at W 32, 8 x 16 at W 16); slots past the image's edge are
+    zero-filled by TMA and not stored."""
+    bw = min(_WGMMA_PIXELS, 1 << max(W - 1, 0).bit_length())
+    bh = _WGMMA_PIXELS // bw
+    return bh, bw, -(-H // bh), -(-W // bw)
+
+
+@dataclasses.dataclass(frozen=True)
+class Conv3x3Weight:
+    """A folded conv weight prepared once for K3: ``w`` (3, 3, C, O) in the
+    compute dtype (the plain version and the scalar kernel), ``wt`` = w as
+    (O, 9*C) with K contiguous, tap-major and channel-minor (the wgmma
+    kernel's operand; None in f32), ``shift`` (O,) f32."""
+    w: torch.Tensor
+    wt: torch.Tensor
+    shift: torch.Tensor
+
+
+def pack_conv3x3_weight(w, shift, dtype) -> Conv3x3Weight:
+    """Cast and transpose a folded f32 weight once for activations of
+    ``dtype``; a module keeps the result in a ``PackCache``
+    (``ops/dispatch.py``) keyed on its parameters."""
+    w = w.to(dtype).contiguous()
+    C, O = w.shape[2:]
+    wt = None
+    if dtype == torch.bfloat16:
+        wt = w.reshape(9 * C, O).t().contiguous()
+    return Conv3x3Weight(w, wt, shift.float().contiguous())
+
+
+def _kernel_path(x, C, O) -> str:
     """bf16 with C % 32 == 0 and O % 8 == 0 (every trunk block) runs the
-    mma.sync kernel; everything else the scalar-FMA kernel."""
-    return x.dtype == torch.bfloat16 and C % 32 == 0 and O % 8 == 0
+    wgmma kernel; everything else the scalar-FMA kernel."""
+    if x.dtype == torch.bfloat16 and C % 32 == 0 and O % 8 == 0:
+        return "wgmma"
+    return "scalar"
 
 
-def _launch_kernel(x, w, shift, residual, relu):
+def _launch_kernel(x, packed: Conv3x3Weight, residual, relu):
+    w = packed.w
     if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[:2]) != (3, 3):
         raise ValueError(f"K3 takes x (N, H, W, C) and w (3, 3, C, O); got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
@@ -88,45 +133,62 @@ def _launch_kernel(x, w, shift, residual, relu):
                          f"O={O}")
     check_operand("x", x, (N, H, W, C), x.dtype, x.device)
     check_operand("w", w, (3, 3, C, O), x.dtype, x.device)
-    check_operand("shift", shift, (O,), torch.float32, x.device)
+    check_operand("shift", packed.shift, (O,), torch.float32, x.device)
     if residual is not None:
         check_operand("residual", residual, (N, H, W, O), x.dtype, x.device)
     out = torch.empty((N, H, W, O), dtype=x.dtype, device=x.device)
-    scalar, tc = _lib()
-    res_ptr = None if residual is None else residual.data_ptr()
+    scalar, wg = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if _tensor_core_path(x, C, O):
-        wt = w.reshape(9 * C, O).t().contiguous()   # (O, 9C): K contiguous
-        err = tc(x.data_ptr(), wt.data_ptr(), shift.data_ptr(), res_ptr,
-                 out.data_ptr(), N, H, W, C, O, int(relu), x.device.index,
-                 stream)
-    else:
-        err = scalar(x.data_ptr(), w.data_ptr(), shift.data_ptr(), res_ptr,
+    path = _kernel_path(x, C, O)
+    if path == "scalar":
+        err = scalar(x.data_ptr(), w.data_ptr(), packed.shift.data_ptr(),
+                     None if residual is None else residual.data_ptr(),
                      out.data_ptr(), N, H, W, C, O, int(relu),
                      int(x.dtype == torch.bfloat16), x.device.index, stream)
+    else:
+        check_operand("wt", packed.wt, (O, 9 * C), x.dtype, x.device)
+        # TMA reads and writes these from 16-byte-aligned bases
+        for name, t in (("x", x), ("wt", packed.wt), ("residual", residual)):
+            if t is not None:
+                check_aligned(name, t)
+        bh, bw, _, _ = conv_tile_plan(H, W)
+        err = wg(x.data_ptr(), packed.wt.data_ptr(), packed.shift.data_ptr(),
+                 None if residual is None else residual.data_ptr(),
+                 out.data_ptr(), N, H, W, C, O, int(relu), bh, bw,
+                 x.device.index, stream)
     _build.check(err, "conv3x3")
     fused_conv3x3.launches += 1
     return out
 
 
-def fused_conv3x3(x, w, shift, residual=None, relu: bool = True, impl=None):
+def fused_conv3x3(x, w, shift, residual=None, relu: bool = True, impl=None,
+                  packed: Conv3x3Weight = None):
     """Stride-1 SAME 3x3 conv + shift (+ residual) (+ ReLU), fused.
 
     x: (N, H, W, C); w: (3, 3, C, O) with any BatchNorm scale folded in;
     shift: (O,) (the folded BN bias, applied in f32); residual:
     (N, H, W, O) or None, added before the ReLU.  Returns (N, H, W, O) in
-    x's dtype.  ``impl``: None (kernel for CUDA tensors, plain version for
-    CPU tensors), "kernel" or "torch".
+    x's dtype.  ``packed``: the weight already prepared by
+    :func:`pack_conv3x3_weight` for x's dtype (``w`` and ``shift`` are then
+    not read), so a call launches the kernel and nothing else.  ``impl``:
+    None (kernel for CUDA tensors, plain version for CPU tensors), "kernel"
+    or "torch".
+
+    On the card, bf16 with C % 32 == 0 and O % 8 == 0 runs the wgmma
+    kernel, the rest (f32 included) the scalar kernel: a choice by shape,
+    the same function and roundings on both paths.  The kernel raises for
+    an x, residual or packed weight that does not start on a 16-byte
+    boundary (TMA's rule) rather than copy it.
 
     Inference only: the kernel has no backward, its result carries no
     ``grad_fn``, and an eval forward under autograd gives no gradient
     through it.  Training runs the unfused block (``self.training``
     gates the dispatch)."""
+    if packed is None:
+        packed = pack_conv3x3_weight(w, shift, x.dtype)
     if resolve_impl(impl, x) == "torch":
-        return conv3x3_reference(x, w, shift, residual, relu)
-    w = w.to(x.dtype).contiguous()
-    shift = shift.float().contiguous()
-    return _launch_kernel(x, w, shift, residual, relu)
+        return conv3x3_reference(x, packed.w, packed.shift, residual, relu)
+    return _launch_kernel(x, packed, residual, relu)
 
 
 # kernel launches since the last reset (plain-version calls do not count)

@@ -84,7 +84,7 @@ def check_operand(name, t, shape, dtype, device) -> None:
 
 def check_aligned(name, t, bytes_: int = 16) -> None:
     """Raise unless ``t`` starts on a ``bytes_`` boundary: the row kernels
-    move rows as 16-byte vectors."""
+    move rows as 16-byte vectors, and TMA takes 16-byte-aligned bases."""
     if t.data_ptr() % bytes_:
         raise ValueError(f"{name} must start on a {bytes_}-byte boundary")
 

@@ -23,7 +23,8 @@ read per call.
 
 The TPU kernel groups heads into 128-channel chunks to fill the MXU
 (``_fwa_packed_jit``); that is the same math and has no counterpart here:
-the CUDA kernels run one block per (window, head, tile).
+the CUDA kernels run one block per (window, head, query tile), the bf16
+one on ``wgmma`` with TMA-staged operands (:func:`attention_tile_plan`).
 """
 
 from __future__ import annotations
@@ -35,7 +36,11 @@ import os
 import torch
 
 from cobevt_tpu_torch.ops import _build
-from cobevt_tpu_torch.ops.dispatch import check_operand, resolve_impl
+from cobevt_tpu_torch.ops.dispatch import (
+    check_aligned,
+    check_operand,
+    resolve_impl,
+)
 
 NEG_INF = -1e9
 
@@ -210,6 +215,27 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+# the bf16 kernel's query rows per block: one warpgroup
+_TILE_ROWS = 64
+
+
+def attention_tile_plan(G: int, H: int, Tq: int):
+    """Query rows per block of the bf16 kernel and its number of blocks:
+    (64, G * H * ceil(Tq / 64)), one warpgroup a block.  Blocks of 64 rows
+    keep six warpgroups on an SM; the kernel is bound by latency, and on
+    the H100 two warpgroups sharing 128 rows, or 128-key stages, ran slower
+    wherever they applied (fewer warpgroups an SM)."""
+    return _TILE_ROWS, G * H * -(-Tq // _TILE_ROWS)
+
+
+def _check_tma_bases(**operands):
+    """Raise unless every operand present starts on a 16-byte boundary:
+    the bf16 kernel reads them all through TMA."""
+    for name, t in operands.items():
+        if t is not None:
+            check_aligned(name, t)
+
+
 def _check_kernel_shapes(what, dtype, Tq, Tk, D):
     if dtype not in _KERNEL_DTYPES:
         raise ValueError(f"{what} takes {_KERNEL_DTYPES}, got {dtype}")
@@ -238,6 +264,8 @@ def _launch_kernel(q, k, v, n_heads, bias_flat, mask, weight):
         check_operand("mask", mask, (G, Tk), torch.float32, dev)
     if weight is not None:
         check_operand("weight", weight, (G, Tq, HTk), q.dtype, dev)
+    _check_tma_bases(q=q, k=k, v=v, bias_flat=bias_flat, mask=mask,
+                     weight=weight)
     out = torch.empty_like(q)
     err = _entry("cobevt_window_attention", 7, 7)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias_flat),
@@ -305,6 +333,11 @@ def fused_window_attention_packed_bwd(q, k, v, g, out, n_heads: int,
                               bias_flat, mask)
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def _packed_forward(q, k, v, n_heads, bias_flat, mask, weight, impl):
     if impl == "torch":
         return packed_attention_reference(q, k, v, n_heads, bias_flat, mask,
@@ -369,8 +402,14 @@ def fused_window_attention_packed(q, k, v, n_heads: int, bias_flat=None,
     if not flash_bwd_enabled():
         return packed_attention_reference(q, k, v, n_heads, bias_flat, mask,
                                           weight)
+    impl = resolve_impl(impl, q)
+    if not _needs_grad(q, k, v, bias_flat, weight):
+        # no gradient can flow: the forward alone, without the autograd
+        # Function's bookkeeping on the host
+        return _packed_forward(q, k, v, n_heads, bias_flat, mask, weight,
+                               impl)
     return _FusedPacked.apply(q, k, v, bias_flat, mask, weight, n_heads,
-                              resolve_impl(impl, q), bwd_f32_enabled())
+                              impl, bwd_f32_enabled())
 
 
 # ---------------------------------------------------------------------------
@@ -427,6 +466,7 @@ def _launch_hm_kernel(q, k, v, bias, mask):
         check_operand("bias", bias, (H, Tq, Tk), torch.float32, dev)
     if mask is not None:
         check_operand("mask", mask, (G, Tk), torch.float32, dev)
+    _check_tma_bases(q=q, k=k, v=v, bias=bias, mask=mask)
     out = torch.empty_like(q)
     err = _entry("cobevt_window_attention_hm", 6, 7)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), _ptr(mask),
@@ -437,18 +477,21 @@ def _launch_hm_kernel(q, k, v, bias, mask):
     return out
 
 
+def _hm_forward(q, k, v, bias, mask, impl):
+    if impl == "torch":
+        return window_attention_reference(q, k, v, bias, mask)
+    return _launch_hm_kernel(
+        q.contiguous(), k.contiguous(), v.contiguous(),
+        None if bias is None else bias.float().contiguous(),
+        None if mask is None else mask.float().contiguous())
+
+
 class _Fused(torch.autograd.Function):
     """K8 forward, recompute backward (``_fused`` of the JAX package)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, mask, impl, bwd_f32):
-        if impl == "torch":
-            out = window_attention_reference(q, k, v, bias, mask)
-        else:
-            out = _launch_hm_kernel(
-                q.contiguous(), k.contiguous(), v.contiguous(),
-                None if bias is None else bias.float().contiguous(),
-                None if mask is None else mask.float().contiguous())
+        out = _hm_forward(q, k, v, bias, mask, impl)
         ctx.save_for_backward(q, k, v, bias, mask, out)
         ctx.bwd_f32 = bwd_f32
         return out
@@ -470,8 +513,10 @@ def fused_window_attention(q, k, v, bias=None, mask=None, impl=None):
     :func:`fused_window_attention_packed`."""
     if not flash_bwd_enabled():
         return window_attention_reference(q, k, v, bias, mask)
-    return _Fused.apply(q, k, v, bias, mask, resolve_impl(impl, q),
-                        bwd_f32_enabled())
+    impl = resolve_impl(impl, q)
+    if not _needs_grad(q, k, v, bias):
+        return _hm_forward(q, k, v, bias, mask, impl)
+    return _Fused.apply(q, k, v, bias, mask, impl, bwd_f32_enabled())
 
 
 # kernel launches since the last reset (plain-version calls do not count)

@@ -152,17 +152,28 @@ def test_plain_version_matches_the_stock_modules_with_a_fully_masked_window():
     torch.testing.assert_close(fused, stock, atol=1e-4, rtol=1e-4)
 
 
-# (B, L, H, W, D), encoder keywords, switch, training -> entry point
+# (B, L, H, W, D), encoder keywords, switch, training -> entry point.
+# Beyond K4's resident budget the JAX package streams (K6); the port's
+# default and "force" take the stock modules there (on the H100 they beat
+# K6), and only "force-stream" takes K6: the "*_k6" names below are the
+# JAX package's branch, the entry point the port's.
 DISPATCH = {
     "corpbevt_fits_k4": ((1, 5, 32, 32, 128), {}, None, False,
                          "fused_swap_fusion"),
-    "state_over_budget_k6": ((1, 5, 64, 64, 128), {}, None, False,
-                             "fused_swap_fusion_streaming"),
+    "state_over_budget_k6": ((1, 5, 64, 64, 128), {}, None, False, None),
     "force_state_over_budget_k6": ((1, 5, 64, 64, 128), {}, "force", False,
-                                   "fused_swap_fusion_streaming"),
+                                   None),
+    "state_over_budget_switch_1_stock": ((1, 5, 64, 64, 128), {}, "1",
+                                         False, None),
+    "force_stream_state_over_budget_k6": (
+        (1, 5, 64, 64, 128), {}, "force-stream", False,
+        "fused_swap_fusion_streaming"),
     "wide_tokens_k4_tiles_too_large_k6": (
         (1, 3, 16, 16, 256), dict(input_dim=256, mlp_dim=512), "1", False,
         "fused_swap_fusion_streaming"),
+    "force_wide_tokens_k4_tiles_too_large_k6": (
+        (1, 3, 16, 16, 256), dict(input_dim=256, mlp_dim=512), "force",
+        False, "fused_swap_fusion_streaming"),
     "force_stream_where_k4_fits": ((1, 5, 32, 32, 128), {}, "force-stream",
                                    False, "fused_swap_fusion_streaming"),
     "force_stream_head_dim_8_k6": (
@@ -186,7 +197,8 @@ DISPATCH = {
 def test_dispatch(monkeypatch, name):
     """The old fault: at (1, 5, 64, 64, 128) the port ran K4 (bf16 bias)
     where the JAX package runs K6 (f32 bias), because its gate had no size
-    term."""
+    term.  That state now takes the stock modules unless "force-stream"
+    asks for K6."""
     shape, extra, switch, training, entry = DISPATCH[name]
     kw = dict(input_dim=128, mlp_dim=256, agent_size=shape[1], window_size=8,
               dim_head=32, dropout=0.0, depth=1, mask=True)
@@ -209,9 +221,59 @@ def test_dispatch(monkeypatch, name):
     assert calls == ([] if entry is None else [entry])
 
 
-def test_lidar_shape_streams_without_looking_at_the_device():
+def test_k6_in_k4s_place_rounds_the_bias_as_k4_does(monkeypatch):
+    """At (1, 3, 16, 16, 256), mlp 512, 8 heads the state fits K4's resident
+    budget, so the JAX package runs K4 there, with the bias tables cast to
+    the compute dtype; the port's K4 does not take D 256 with mlp 512, so K6
+    runs in its place and must see the same bf16-rounded bias, carried in
+    f32.  f32 parameters, bf16 activations (the mixed case in which the
+    rounding shows).  JAX at "force" takes K4 in interpret mode on the CPU
+    (its "1" takes the stock modules off a TPU)."""
+    kw, x, mask, _ = _setup(True, D=256, depth=1, seed=8)
+    jm = js.SwapFusionEncoder(**kw)
+    v = jax_variables(jm, jnp.asarray(x), jnp.asarray(mask), False)
+    k4 = []
+    real = js.fused_swap_fusion
+
+    def jax_spy(*a, **k):
+        k4.append(1)
+        return real(*a, **k)
+
+    monkeypatch.setattr(js, "fused_swap_fusion", jax_spy)
+    monkeypatch.setenv("COBEVT_FUSED_FUSION", "force")
+    want = jax_apply(jm, v, jnp.asarray(x, jnp.bfloat16), jnp.asarray(mask),
+                     False)
+    assert k4 and want.dtype == jnp.bfloat16
+    monkeypatch.delenv("COBEVT_FUSED_FUSION")
+
+    port = port_from(ps.SwapFusionEncoder(**kw), v)
+    assert port.fused_kernel(x.shape) == "K6"
+    seen = []
+    real_k6 = ps.fused_swap_fusion_streaming
+
+    def spy(*a, **k):
+        seen.append(a[4])
+        return real_k6(*a, **k)
+
+    monkeypatch.setattr(ps, "fused_swap_fusion_streaming", spy)
+    with torch.no_grad():
+        got = port(torch.from_numpy(x).bfloat16(), torch.from_numpy(mask))
+    raw = port._pack(3, torch.float32, torch.float32).bias
+    assert len(seen) == 1 and seen[0].bias.dtype == torch.float32
+    assert torch.equal(seen[0].bias, raw.to(torch.bfloat16).float())
+    assert not torch.equal(seen[0].bias, raw)
+    assert got.dtype == torch.bfloat16
+    assert_close(got, want, **BF16_TOL)
+
+
+def test_lidar_shape_streams_without_looking_at_the_device(monkeypatch):
+    """The LiDAR map streams under "force-stream" and takes the stock
+    modules by default (K6 loses to them on the H100)."""
     enc = ps.SwapFusionEncoder(input_dim=256, mlp_dim=512, agent_size=5,
                                window_size=8, dim_head=32, depth=2).eval()
+    monkeypatch.delenv("COBEVT_FUSED_FUSION", raising=False)
+    assert enc.fused_kernel((1, 5, 96, 176, 256)) is None
+    monkeypatch.setenv("COBEVT_FUSED_FUSION", "force-stream")
     assert enc.fused_kernel((1, 5, 96, 176, 256)) == "K6"
     assert not pk.kernel_accepts(5, 96, 176, 256, 8, 8, 512)
     assert not pk.fits_resident(5, 96, 176, 256, 8, 8)

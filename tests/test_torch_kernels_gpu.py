@@ -35,7 +35,11 @@ import torch
 from cobevt_tpu_torch import ops
 from cobevt_tpu_torch.nn.layers import BasicBlock
 from cobevt_tpu_torch.ops.bn_stats import bn_stats_bwd, bn_stats_fwd
-from cobevt_tpu_torch.ops.conv2d import fused_conv3x3, fused_conv3x3_int8
+from cobevt_tpu_torch.ops.conv2d import (
+    fused_conv3x3,
+    fused_conv3x3_int8,
+    pack_conv3x3_weight,
+)
 from cobevt_tpu_torch.ops.int8_chain import (
     conv3x3_s8,
     pack_s8_weight,
@@ -52,7 +56,13 @@ from cobevt_tpu_torch.ops.fused_swap_fusion import (
     fused_swap_fusion_streaming,
     launches_per_call,
 )
+from cobevt_tpu_torch.ops.hopper_tile import (
+    VARIANTS,
+    tile_product,
+    tile_reference,
+)
 from cobevt_tpu_torch.ops.window_attention import (
+    attention_tile_plan,
     fused_window_attention,
     fused_window_attention_packed,
     fused_window_attention_packed_bwd,
@@ -80,6 +90,20 @@ def gen():
     yield torch.Generator(device="cuda").manual_seed(0)
     torch.backends.cuda.matmul.allow_tf32, \
         torch.backends.cudnn.allow_tf32 = flags
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_hopper_tile_matches_matmul(gen, variant):
+    """One bare TMA + wgmma tile of each product form K1, K3 and K8 use
+    (csrc/hopper_tile.cu), against torch.matmul in f32: bf16 inputs, exact
+    products, f32 sums in another order."""
+    a_shape, b_shape, _, _ = VARIANTS[variant]
+    a = torch.randn(*a_shape, generator=gen, device="cuda").to(torch.bfloat16)
+    b = torch.randn(*b_shape, generator=gen, device="cuda").to(torch.bfloat16)
+    got = tile_product(a, b, variant)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, tile_reference(a, b, variant), atol=1e-4,
+                               rtol=1e-5)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -139,6 +163,44 @@ def test_k1_kernel_matches_plain_at_the_lidar_stock_shape(gen, dtype,
     torch.cuda.synchronize()
     assert got.dtype == dtype and torch.isfinite(got).all()
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("D", [16, 32])
+@pytest.mark.parametrize("extras", ["", "bias", "mask", "bias+mask",
+                                    "bias+weight", "weight"])
+@pytest.mark.parametrize("G,Tq,Tk", [(80, 256, 256), (80, 256, 200),
+                                     (5, 1024, 1024), (3, 136, 72)])
+def test_k1_kernel_matches_plain_at_both_tile_plans(gen, D, extras, G, Tq,
+                                                    Tk):
+    """bf16 with whole query tiles (256, 1024) and a ragged last one (136),
+    a ragged key tile (200, 72) and a fully masked window; 80 windows give
+    the grid more blocks than the card holds at once."""
+    H = 4
+    rows, blocks = attention_tile_plan(G, H, Tq)
+    assert rows * blocks >= G * H * Tq
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    q = (rand(G, Tq, H * D) * D ** -0.5).to(torch.bfloat16)
+    k = rand(G, Tk, H * D).to(torch.bfloat16)
+    v = rand(G, Tk, H * D).to(torch.bfloat16)
+    bias = rand(Tq, H * Tk) * 0.5 if "bias" in extras else None
+    mask = None
+    if "mask" in extras:
+        mask = (rand(G, Tk) > -0.5).float()
+        mask[1] = 0.0
+    weight = None
+    if "weight" in extras:
+        weight = ((rand(G, Tq, H * Tk) > -1.2).float() / 0.9).to(
+            torch.bfloat16)
+    got = fused_window_attention_packed(q, k, v, H, bias, mask, weight)
+    want = fused_window_attention_packed(q, k, v, H, bias, mask, weight,
+                                         impl="torch")
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[torch.bfloat16])
 
 
 def _assert_close_scaled(got, want, dtype, name):
@@ -332,11 +394,38 @@ def test_k8_kernel_matches_plain(gen, dtype, D, extras):
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
+@pytest.mark.parametrize("extras", ["bias+mask", "mask"])
+@pytest.mark.parametrize("G,Tq,Tk", [(80, 256, 256), (3, 72, 40)])
+def test_k8_kernel_matches_plain_at_both_tile_plans(gen, extras, G, Tq, Tk):
+    H, D = 4, 32
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    q = (rand(G, H, Tq, D) * D ** -0.5).to(torch.bfloat16)
+    k = rand(G, H, Tk, D).to(torch.bfloat16)
+    v = rand(G, H, Tk, D).to(torch.bfloat16)
+    bias = rand(H, Tq, Tk) if "bias" in extras else None
+    mask = (rand(G, Tk) > -0.5).float()
+    mask[1] = 0.0
+    got = fused_window_attention(q, k, v, bias, mask)
+    want = fused_window_attention(q, k, v, bias, mask, impl="torch")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[torch.bfloat16])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [
-    (2, 9, 7, 32, 48),          # tensor-core path in bf16
-    (1, 16, 16, 128, 128),      # tensor-core path in bf16
+    (2, 9, 7, 32, 48),          # wgmma, C % 64 == 32: half-filled K step
+    (1, 8, 8, 96, 64),          # wgmma, C % 64 == 32 after a full K step
+    (1, 16, 16, 128, 128),      # wgmma path in bf16
     (2, 5, 6, 16, 24),          # C % 32 != 0: scalar path in bf16 too
+    (2, 64, 64, 128, 128),      # wgmma, 2 x 64 boxes (layer2)
+    (2, 32, 32, 256, 256),      # wgmma, 4 x 32 boxes (layer3)
+    (2, 16, 16, 512, 512),      # wgmma, 8 x 16 boxes (layer4)
+    (2, 9, 7, 64, 48),          # wgmma, 16 x 8 boxes past the edge, O < 128
+    (1, 3, 200, 64, 136),       # wgmma, W > 128: two boxes a row
 ])
 @pytest.mark.parametrize("residual", [False, True])
 def test_k3_kernel_matches_plain(gen, dtype, shape, residual):
@@ -350,6 +439,37 @@ def test_k3_kernel_matches_plain(gen, dtype, shape, residual):
     want = fused_conv3x3(x, w, shift, res, impl="torch")
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("residual", [False, True])
+def test_k3_kernel_repeats_bit_for_bit(gen, residual):
+    """The two consumer warpgroups write the output tile into a ring slot
+    the other reads until its last products: a missing wait there gives
+    results that differ between launches.  Layer2's shape, many launches."""
+    N, H, W, C = 4, 64, 64, 128
+    x = torch.randn(N, H, W, C, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    w = torch.randn(3, 3, C, C, generator=gen, device="cuda") * 0.05
+    shift = torch.randn(C, generator=gen, device="cuda")
+    res = (torch.randn(N, H, W, C, generator=gen, device="cuda").to(
+        torch.bfloat16) if residual else None)
+    packed = pack_conv3x3_weight(w, shift, torch.bfloat16)
+    first = fused_conv3x3(x, None, None, res, packed=packed)
+    for _ in range(50):
+        assert torch.equal(fused_conv3x3(x, None, None, res, packed=packed),
+                           first)
+
+
+def test_k3_rejects_a_misaligned_operand(gen):
+    """TMA takes 16-byte-aligned bases: a view that starts off one raises
+    instead of being copied."""
+    N, H, W, C = 1, 8, 8, 64
+    flat = torch.randn(N * H * W * C + 1, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    x = flat[1:].view(N, H, W, C)
+    w = torch.randn(3, 3, C, C, generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        fused_conv3x3(x, w, torch.zeros(C, device="cuda"))
 
 
 def test_basic_block_eval_launches_k3_twice(gen):

@@ -99,7 +99,12 @@ def test_swap_fusion_forward_matches_jax(monkeypatch, switch, n_live):
     assert_close(got, want, **TOL)
 
 
-def test_default_switch_takes_k4_at_the_small_size_and_k6_at_full_width():
+def test_default_switch_takes_k4_at_the_small_size_and_k6_at_full_width(
+        monkeypatch):
+    """At full width the JAX package streams (K6); the port takes K6 there
+    under "force-stream" and the stock modules by default, which beat K6 on
+    the H100 (SwapFusionEncoder.fused_kernel)."""
+    monkeypatch.delenv("COBEVT_FUSED_FUSION", raising=False)
     _, _, _, port, batch = _models("swap")
     assert port.fusion_net.fused_kernel((1, 2, 16, 16, 128)) == "K4"
     full = pm.PointPillarConfig(
@@ -109,6 +114,8 @@ def test_default_switch_takes_k4_at_the_small_size_and_k6_at_full_width():
         input_dim=full.shrink_dim, mlp_dim=full.fusion_mlp_dim,
         agent_size=full.max_cav, window_size=full.fusion_window_size,
         dim_head=full.fusion_dim_head, depth=full.fusion_depth).eval()
+    assert enc.fused_kernel((1, 5, 96, 176, 256)) is None
+    monkeypatch.setenv("COBEVT_FUSED_FUSION", "force-stream")
     assert enc.fused_kernel((1, 5, 96, 176, 256)) == "K6"
 
 
