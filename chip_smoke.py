@@ -35,7 +35,11 @@ non-zero without printing the final line:
      call's time; K3 also alone (``launch_ms``: the kernel without its
      wrapper, the weight packed once as a block's cache packs it) and with a
      weight packed at every call (``unpacked_ms``), with the operand bytes
-     its wgmma tiles fetch from L2;
+     its wgmma tiles fetch from L2; K5 (bf16) both fed by the row
+     statistics K1 writes in a train step and alone, and K5 and K2 with
+     each launch timed on the card alone (``launch_device_ms``), K5's SDPA
+     yardstick on the card alone too (``--kernels K5,K2`` runs only such
+     rows and stops without the final line);
   4. slice, the serving default (COBEVT_FUSED_XATTN and
      COBEVT_FUSED_FUSION unset): full-width CorpBEVT (ResNet-34, seeded
      random weights) in bf16 serves synthetic requests with mixed
@@ -330,6 +334,33 @@ def device_ms(fn, iters):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def kernel_device_ms(fn, iters):
+    """ms of each kernel that one call of ``fn`` launches, on the card
+    alone (queued behind a sleep kernel), by kernel name, from
+    torch.profiler's device times: the launches of a multi-launch call one
+    by one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(20_000_000)
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = e.cuda_time_total
+        name = e.key[5:] if e.key.startswith("void ") else e.key
+        name = name.replace("(anonymous namespace)::", "")
+        name = name.split("<")[0].split("(")[0].split("::")[-1].strip()
+        if us > 0 and name and "sleep" not in name and "spin" not in name:
+            out[name] = out.get(name, 0.0) + us / iters / 1e3
+    return out
 
 
 def compare(got, want, dtype_name, tol=TOL):
@@ -627,9 +658,10 @@ def k4_work(dtype_size):
     return flops, elems * dtype_size + B * L * H * H * 4
 
 
-def phase_kernels():
+def phase_kernels(only=None):
     """Every kernel vs its plain version at every slice shape, f32 and
-    bf16.  Returns one row per (case, dtype); raises if any disagrees."""
+    bf16 (``only``: the kernel keys to run, e.g. {"K5", "K2"}; None: all).
+    Returns one row per (case, dtype); raises if any disagrees."""
     import torch
     import torch.nn.functional as F
     from cobevt_tpu_torch.ops.bn_stats import bn_stats_bwd, bn_stats_fwd
@@ -665,8 +697,11 @@ def phase_kernels():
         pack,
     )
     from cobevt_tpu_torch.ops.window_attention import (
+        _launch_bwd_kernel,
+        _launch_kernel as _launch_k1,
         _packed_to_4d,
         attention_tile_plan,
+        bwd_tile_plan,
         fused_window_attention,
         fused_window_attention_packed,
         fused_window_attention_packed_bwd,
@@ -677,9 +712,14 @@ def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
     details = []
     failures = []
+
+    def selected(key):
+        return only is None or key in only
+
     # the Hopper building blocks alone, before the kernels that use them
     atol, rtol = TILE_TOL
-    for variant, (a_shape, b_shape, c_shape, what) in VARIANTS.items():
+    for variant, (a_shape, b_shape, c_shape, what) in (
+            VARIANTS.items() if selected("tiles") else ()):
         a = torch.randn(*a_shape, generator=gen, device="cuda").to(
             torch.bfloat16)
         b = torch.randn(*b_shape, generator=gen, device="cuda").to(
@@ -695,7 +735,7 @@ def phase_kernels():
                                  f"torch.matmul: {err:.3e}")
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        for case in K1_CASES:
+        for case in K1_CASES if selected("K1") else ():
             heads = case[9]
             q, k, v, bias, mask, weight = k1_inputs(case, dtype, gen, heads)
 
@@ -736,7 +776,7 @@ def phase_kernels():
             if not ok:
                 failures.append(row)
             del q, k, v, bias, mask, weight, got, want
-        for case in K3_CASES:
+        for case in K3_CASES if selected("K3") else ():
             x, w, shift, res = k3_inputs(case, dtype, gen)
             # packed once, as a block's cache packs it
             packed = pack_conv3x3_weight(w, shift, dtype)
@@ -783,7 +823,7 @@ def phase_kernels():
             if not ok:
                 failures.append(row)
             del x, w, shift, res, packed, got, want
-        for case in K7_CASES:
+        for case in K7_CASES if selected("K7") else ():
             x, w, shift, res = k3_inputs(case, dtype, gen)
             # quantized once, as a block's cache does
             packed = pack_int8_weight(w, shift)
@@ -839,7 +879,8 @@ def phase_kernels():
             dtype).contiguous(memory_format=torch.channels_last)
         w_oihw = w.to(dtype).permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
-        for name, residual, leaves, per_frame in S8_CASES:
+        for name, residual, leaves, per_frame in (S8_CASES if selected("S8")
+                                                  else ()):
             kwargs = {"out_dtype": dtype}
             if residual:
                 kwargs.update(residual_q=rq, residual_scale=rs)
@@ -876,7 +917,8 @@ def phase_kernels():
             del got, want
         del xq, rq, w, p8, x_cl, w_oihw
         # K9, K10: bf16 activations, as BatchNorm sees them in training
-        for (R, C), name in BN_SHAPES if dtype == torch.bfloat16 else ():
+        for (R, C), name in (BN_SHAPES if dtype == torch.bfloat16
+                             and selected("K9") else ()):
             x = torch.randn(R, C, generator=gen, device="cuda").to(dtype)
             dy = torch.randn(R, C, generator=gen, device="cuda").to(dtype)
             for key, fn, reads in (
@@ -912,7 +954,7 @@ def phase_kernels():
                     failures.append(row)
             del x, dy
             torch.cuda.empty_cache()
-        for case in K2_CASES:
+        for case in K2_CASES if selected("K2") else ():
             x, we, ce, key, val, params, mlp, post_ln = k2_inputs(
                 case, dtype, gen)
             _, _, _, q_win, k_win, _, _, grid = case
@@ -932,13 +974,16 @@ def phase_kernels():
                    "per_frame": 1, "max_abs_err": abs_err,
                    "max_rel_err": rel_err, "ok": ok,
                    "ms": time_ms(lambda: xattn("kernel"), 5),
-                   "plain_ms": time_ms(lambda: xattn("torch"), 5)}
+                   "plain_ms": time_ms(lambda: xattn("torch"), 5),
+                   "device_ms": device_ms(lambda: xattn("kernel"), 5),
+                   "launch_device_ms": kernel_device_ms(
+                       lambda: xattn("kernel"), 5)}
             row.update(bound(*k2_work(case, x.element_size()), dname))
             details.append(row)
             if not ok:
                 failures.append(row)
             del x, we, ce, key, val, params, mlp, post_ln, packed, got, want
-        for case in K4_CASES:
+        for case in K4_CASES if selected("K4") else ():
             x, mask, am, bias, layers, head, w, heads = k4_inputs(
                 case, dtype, gen)
             packed = pack(layers, bias, head, dtype)
@@ -961,7 +1006,7 @@ def phase_kernels():
             if not ok:
                 failures.append(row)
             del x, mask, am, bias, layers, head, packed, got, want
-        for case in K6_CASES:
+        for case in K6_CASES if selected("K6") else ():
             x, mask, am, bias, layers, head, w, heads = k6_inputs(
                 case, dtype, gen)
             packed = pack(layers, bias, head, dtype, torch.float32)
@@ -994,7 +1039,7 @@ def phase_kernels():
                 failures.append(row)
             del x, mask, am, bias, layers, head, packed, got
             torch.cuda.empty_cache()
-        for case in K5_CASES:
+        for case in K5_CASES if selected("K5") else ():
             name, G, Tq, Tk, has_bias, has_mask, per_step = case[:7]
             heads, per_lidar_step = case[7:] if len(case) > 7 else (K1_HEADS,
                                                                     0)
@@ -1011,10 +1056,23 @@ def phase_kernels():
                     q, k, v, g, out, heads, bias, mask, impl=impl)
 
             got, want = bwd("kernel"), bwd("torch")
+            # the train step's path in bf16: K1 wrote the row statistics in
+            # the forward, so K5 skips its own statistics sweep
+            stats = fed = None
+            if dtype == torch.bfloat16:
+                stats = torch.empty((3, G, heads, Tq), device="cuda")
+                _launch_k1(q, k, v, heads, bias, mask, None, stats)
+
+                def bwd_fed():
+                    return _launch_bwd_kernel(q, k, v, g, out, heads, bias,
+                                              mask, stats)
+
+                fed = bwd_fed()
             torch.cuda.synchronize()
             errs = {}
             ok = True
-            for part, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+            for part, a, b in zip(("dq", "dk", "dv", "dbias"),
+                                  fed or got, want):
                 if (a is None) != (b is None) or (a is None) != (
                         part == "dbias" and bias is None):
                     raise AssertionError(f"K5 {name}: {part} presence")
@@ -1026,10 +1084,32 @@ def phase_kernels():
             row = {"kernel": "K5", "case": name, "dtype": dname,
                    "per_frame": per_step, "heads": heads,
                    "per_lidar_step": per_lidar_step,
+                   "blocks": sum(bwd_tile_plan(G, heads, Tq, Tk)[1:]),
                    "max_abs_err": max(e[0] for e in errs.values()),
                    "max_rel_err": max(e[1] for e in errs.values()),
                    "errors": {k_: list(e) for k_, e in errs.items()},
                    "ok": ok, "ms": time_ms(lambda: bwd("kernel"), iters)}
+            if fed is not None:
+                # K5 alone with its own statistics sweep (the public
+                # wrapper), then fed by K1's statistics: what a train step
+                # launches; K1 without and with writing them
+                for part, a, b in zip(("dq", "dk", "dv", "dbias"), got,
+                                      want):
+                    if a is not None:
+                        row["ok"] = ok = ok and compare_scaled(a, b,
+                                                               dname)[2]
+                row["standalone_ms"] = row["ms"]
+                row["standalone_device_ms"] = device_ms(
+                    lambda: bwd("kernel"), iters)
+                row["standalone_launch_device_ms"] = kernel_device_ms(
+                    lambda: bwd("kernel"), iters)
+                row["ms"] = time_ms(bwd_fed, iters)
+                row["k1_device_ms"] = device_ms(
+                    lambda: _launch_k1(q, k, v, heads, bias, mask, None),
+                    iters)
+                row["k1_stats_device_ms"] = device_ms(
+                    lambda: _launch_k1(q, k, v, heads, bias, mask, None,
+                                       stats), iters)
             del want
             row["plain_ms"] = time_ms(lambda: bwd("torch"), 2, warmup=1)
             row.update(bound(
@@ -1044,20 +1124,29 @@ def phase_kernels():
                 add = add.requires_grad_()
             g4 = _packed_to_4d(g, heads).contiguous()
 
+            wrt = leaves + ([add] if add is not None and bias is not None
+                            else [])
+
             def sdpa(backward):
                 o = F.scaled_dot_product_attention(*leaves, attn_mask=add,
                                                    scale=1.0)
                 if backward:
-                    o.backward(g4)
+                    torch.autograd.grad(o, wrt, g4)
 
+            # both on the card alone: the host's autograd bookkeeping would
+            # otherwise pace the small shapes (PERF.md §6)
             row["library_ms"] = max(
-                time_ms(lambda: sdpa(True), iters)
-                - time_ms(lambda: sdpa(False), iters), 0.0)
+                device_ms(lambda: sdpa(True), iters)
+                - device_ms(lambda: sdpa(False), iters), 0.0)
+            timed = bwd_fed if fed is not None else (lambda: bwd("kernel"))
+            row["device_ms"] = device_ms(timed, iters)
+            row["launch_device_ms"] = kernel_device_ms(timed, iters)
             details.append(row)
             if not ok:
                 failures.append(row)
-            del q, k, v, g, out, bias, mask, got, leaves, add, g4
-        for name, N, D, M, per_pass in FFD_CASES:
+            del q, k, v, g, out, bias, mask, got, leaves, add, g4, wrt
+            del stats, fed
+        for name, N, D, M, per_pass in FFD_CASES if selected("K11") else ():
             operands = make_operands(N, D, M, dtype, torch.device("cuda"))
             x, gamma, beta, w1, b1, w2, b2 = operands
             dy = torch.randn(N, D, generator=gen, device="cuda").to(dtype)
@@ -1125,7 +1214,7 @@ def phase_kernels():
                 failures.append(row)
             del operands, x, w1, w2, dy, got, leaves
             torch.cuda.empty_cache()
-        for case in K8_CASES:
+        for case in K8_CASES if selected("K8") else ():
             name, G, Tq, Tk, has_bias, has_mask = case
             q, k, v, bias, mask, _ = k1_inputs(
                 (name, G, Tq, Tk, has_bias, has_mask, False), dtype, gen)
@@ -1180,6 +1269,17 @@ def phase_kernels():
                 extra += f" library={r['library_device_ms']:.4f} ms"
         if "blocks" in r:
             extra += f"  {r['blocks']} blocks"
+        if "launch_device_ms" in r:
+            extra += "  launches alone: " + ", ".join(
+                f"{k_} {v_:.4f}" for k_, v_ in r["launch_device_ms"].items())
+        if "standalone_device_ms" in r:
+            extra += (f"  [fed by K1's statistics; K5 alone with its own: "
+                      f"{r['standalone_ms']:.3f} ms, on the card alone "
+                      f"{r['standalone_device_ms']:.4f} ("
+                      + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in
+                                  r["standalone_launch_device_ms"].items())
+                      + f"); K1 on the card alone {r['k1_device_ms']:.4f} "
+                      f"ms, writing them {r['k1_stats_device_ms']:.4f}]")
         if "gb_per_s" in r:
             extra += f"  {r['gb_per_s']:.0f} GB/s"
         log(f"{r['kernel']} {r['case']:<28} {r['dtype']:<8} "
@@ -1725,6 +1825,10 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default=None,
                    help="also write every measurement to this JSON file")
+    p.add_argument("--kernels", default=None,
+                   help="comma-separated kernel keys (e.g. K5,K2): run only "
+                        "their phase-3 rows, then stop without the final "
+                        "line")
     opt = p.parse_args(argv)
 
     import torch
@@ -1735,6 +1839,16 @@ def main(argv=None):
     t0 = time.perf_counter()
     phase_environment()
     phase_build()
+    if opt.kernels:
+        details = phase_kernels(set(opt.kernels.split(",")))
+        if opt.out:
+            os.makedirs(os.path.dirname(os.path.abspath(opt.out)),
+                        exist_ok=True)
+            with open(opt.out, "w") as f:
+                json.dump({"cases": details, "card": card_line()}, f,
+                          indent=1)
+        log(f"total {time.perf_counter() - t0:.1f} s")
+        return 0
     details = phase_kernels()
     counts, summary, plain, ref_check = phase_slice()
     train_counts, train_row, gate = phase_train()

@@ -39,7 +39,10 @@
 //    banks), the bf16 weight and the raw key mask.  Out-of-range rows and
 //    keys (ragged Tq and Tk) arrive as zeros from TMA; keys past Tk are then
 //    set to -inf.  The S accumulators become the A operand of P v in
-//    registers.  With a bias, the blocks of one (head, query tile) run
+//    registers.  Where a gradient will run K5 (no weight), the kernel also
+//    keeps the sum of the exp rounded to bf16 at the running maximum and
+//    writes it (inverted) with the maximum times log2(e) to K5's statistics
+//    scratch, so K5 skips its own statistics sweep.  With a bias, the blocks of one (head, query tile) run
 //    side by side over the windows, so the bias tile is read from device
 //    memory once and from L2 for the other windows.
 //  * window_attention_kernel (f32): scalar f32 FMAs; one thread owns one
@@ -303,9 +306,9 @@ __global__ void __launch_bounds__(128, kWgBlocksPerSm)
         const __grid_constant__ CUtensorMap bmap,
         const __grid_constant__ CUtensorMap mmap,
         const __grid_constant__ CUtensorMap wmap,
-        __nv_bfloat16* __restrict__ out, int G, int Tq, int Tk, int H,
-        Layout L, int head_major, int has_bias, int has_mask, int has_weight,
-        int stages) {
+        __nv_bfloat16* __restrict__ out, float* __restrict__ stats, int G,
+        int Tq, int Tk, int H, Layout L, int head_major, int has_bias,
+        int has_mask, int has_weight, int stages) {
   using namespace hopper;
   constexpr Swizzle kSw = D == 32 ? kSwizzle64 : kSwizzle32;
   constexpr uint32_t kRowBytes = D * 2;   // one q/k/v row: the swizzle span
@@ -399,6 +402,11 @@ __global__ void __launch_bounds__(128, kWgBlocksPerSm)
   for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY};
   float l_run[2] = {0.f, 0.f};
+  // for K5 (stats non-null, no weight): the sum of the exp rounded to bf16
+  // at the running maximum, rescaled as it moves -- the same arithmetic, in
+  // the same order, as the statistics sweep of K5's dq kernel
+  float l_bf[2] = {0.f, 0.f};
+  float ml_prev[2] = {-INFINITY, -INFINITY};
 
   for (int kt = 0; kt < KT; ++kt) {
     const int s = kt % stages;
@@ -475,6 +483,13 @@ __global__ void __launch_bounds__(128, kWgBlocksPerSm)
     // exp(s - m) as exp2(s log2(e) - m log2(e)): one FMA before the MUFU op
     uint32_t pa[kWgKeys / 16][4];
     const float m_log2e[2] = {m_run[0] * kLog2e, m_run[1] * kLog2e};
+    if (stats != nullptr) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        l_bf[hr] *= exp2f(ml_prev[hr] - m_log2e[hr]);   // 0 at the first tile
+        ml_prev[hr] = m_log2e[hr];
+      }
+    }
 #pragma unroll
     for (int j = 0; j < kWgKeys / 8; ++j) {
       float p[4];
@@ -498,6 +513,16 @@ __global__ void __launch_bounds__(128, kWgBlocksPerSm)
       }
       pa[j >> 1][(j & 1) * 2] = pack_bf16(p[0], p[1]);
       pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+      if (stats != nullptr) {   // no weight: P holds the rounded exp itself
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const float2 e = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(
+                  &pa[j >> 1][(j & 1) * 2 + hr]));
+          l_bf[hr] += e.x;
+          l_bf[hr] += e.y;
+        }
+      }
     }
 
     // O += P v, v read in place as the MN-major B operand
@@ -527,6 +552,21 @@ __global__ void __launch_bounds__(128, kWgBlocksPerSm)
     l_run[hr] += __shfl_xor_sync(0xffffffffu, l_run[hr], 1);
     l_run[hr] += __shfl_xor_sync(0xffffffffu, l_run[hr], 2);
   }
+  if (stats != nullptr) {
+    // K5's row statistics (3, G, H, Tq): max * log2(e), 1 / rounded sum
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      l_bf[hr] += __shfl_xor_sync(0xffffffffu, l_bf[hr], 1);
+      l_bf[hr] += __shfl_xor_sync(0xffffffffu, l_bf[hr], 2);
+      const int row = q0 + rl[hr];
+      if (t == 0 && row < Tq) {
+        const size_t per = (size_t)G * H * Tq;
+        const size_t i0 = ((size_t)win * H + h) * Tq + row;
+        stats[i0] = ml_prev[hr];
+        stats[per + i0] = 1.f / l_bf[hr];
+      }
+    }
+  }
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int row = q0 + rl[hr];
@@ -553,10 +593,10 @@ inline int wg_stages(int D, bool bias, bool weight, bool mask) {
 }
 
 template <int D>
-cudaError_t launch_wgmma(const CUtensorMap* maps, void* out, int G, int Tq,
-                         int Tk, int H, const Layout& L, int head_major,
-                         bool bias, bool mask, bool weight, int device,
-                         cudaStream_t stream) {
+cudaError_t launch_wgmma(const CUtensorMap* maps, void* out, float* stats,
+                         int G, int Tq, int Tk, int H, const Layout& L,
+                         int head_major, bool bias, bool mask, bool weight,
+                         int device, cudaStream_t stream) {
   auto kernel = window_attention_wgmma_kernel<D>;
   static bool configured[64] = {};
   if (device >= 64 || !configured[device]) {
@@ -571,7 +611,7 @@ cudaError_t launch_wgmma(const CUtensorMap* maps, void* out, int G, int Tq,
       (long long)G * H * ((Tq + kWgRows - 1) / kWgRows);
   kernel<<<(unsigned)blocks, 128, plan.smem_bytes, stream>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], maps[5],
-      static_cast<__nv_bfloat16*>(out), G, Tq, Tk, H, L, head_major,
+      static_cast<__nv_bfloat16*>(out), stats, G, Tq, Tk, H, L, head_major,
       (int)bias, (int)mask, (int)weight, stages);
   return cudaGetLastError();
 }
@@ -580,11 +620,13 @@ cudaError_t launch_wgmma(const CUtensorMap* maps, void* out, int G, int Tq,
 // launch.  Maps of absent operands repeat q's and are never read.
 cudaError_t dispatch_wgmma(const void* q, const void* k, const void* v,
                            const void* bias, const void* mask,
-                           const void* weight, void* out, int G, int Tq,
-                           int Tk, int H, int D, int head_major,
+                           const void* weight, void* out, float* stats, int G,
+                           int Tq, int Tk, int H, int D, int head_major,
                            const Layout& L, int device, cudaStream_t stream) {
   using hopper_host::make_map;
   if (head_major && weight != nullptr) return cudaErrorInvalidValue;
+  if (stats != nullptr && (weight != nullptr || head_major))
+    return cudaErrorInvalidValue;
   const CUtensorMapSwizzle sw =
       D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
   const uint64_t row = (uint64_t)D * 2;
@@ -653,17 +695,17 @@ cudaError_t dispatch_wgmma(const void* q, const void* k, const void* v,
   }
   const bool b = bias != nullptr, m = mask != nullptr, w = weight != nullptr;
   if (D == 32)
-    return launch_wgmma<32>(maps, out, G, Tq, Tk, H, L, head_major, b, m, w,
-                            device, stream);
-  return launch_wgmma<16>(maps, out, G, Tq, Tk, H, L, head_major, b, m, w,
-                          device, stream);
+    return launch_wgmma<32>(maps, out, stats, G, Tq, Tk, H, L, head_major, b,
+                            m, w, device, stream);
+  return launch_wgmma<16>(maps, out, stats, G, Tq, Tk, H, L, head_major, b, m,
+                          w, device, stream);
 }
 
 // Picks the kernel for (D, dtype).  Returns the launch's cudaError_t.
 cudaError_t dispatch(const void* q, const void* k, const void* v,
                      const void* bias, const void* mask, const void* weight,
-                     void* out, int G, int Tq, int Tk, int H, int D,
-                     int is_bf16, int head_major, const Layout& L,
+                     void* out, float* stats, int G, int Tq, int Tk, int H,
+                     int D, int is_bf16, int head_major, const Layout& L,
                      int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -672,8 +714,9 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
   if (D != 16 && D != 32) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return dispatch_wgmma(q, k, v, bias, mask, weight, out, G, Tq, Tk, H, D,
-                          head_major, L, device, s);
+    return dispatch_wgmma(q, k, v, bias, mask, weight, out, stats, G, Tq, Tk,
+                          H, D, head_major, L, device, s);
+  if (stats != nullptr) return cudaErrorInvalidValue;   // bf16 only
   if (D == 32)
     launch<32>(q, k, v, bias, mask, weight, out, G, Tq, Tk, H, L, s);
   else
@@ -687,16 +730,19 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
 // null; every bf16 pointer is 16-byte aligned.  Each returns the
 // cudaError_t of the set-up and launch (0 on success).
 
-// K1: packed layout, q (G, Tq, H*D), bias (Tq, H*Tk).
+// K1: packed layout, q (G, Tq, H*D), bias (Tq, H*Tk).  stats: null, or (bf16
+// without weight, for K5) an f32 (3, G, H, Tq) scratch that receives the row
+// maximum times log2(e) and the inverse of the sum of the exp rounded to
+// bf16 in its first two planes.
 extern "C" int cobevt_window_attention(const void* q, const void* k,
                                        const void* v, const void* bias,
                                        const void* mask, const void* weight,
-                                       void* out, int G, int Tq, int Tk,
-                                       int H, int D, int is_bf16, int device,
-                                       void* stream) {
-  return (int)dispatch(q, k, v, bias, mask, weight, out, G, Tq, Tk, H, D,
-                       is_bf16, 0, packed_layout(Tq, Tk, H, D), device,
-                       stream);
+                                       void* out, void* stats, int G, int Tq,
+                                       int Tk, int H, int D, int is_bf16,
+                                       int device, void* stream) {
+  return (int)dispatch(q, k, v, bias, mask, weight, out,
+                       static_cast<float*>(stats), G, Tq, Tk, H, D, is_bf16,
+                       0, packed_layout(Tq, Tk, H, D), device, stream);
 }
 
 // K8: head-major layout, q (G, H, Tq, D), bias (H, Tq, Tk), no weight.
@@ -706,7 +752,7 @@ extern "C" int cobevt_window_attention_hm(const void* q, const void* k,
                                           int Tq, int Tk, int H, int D,
                                           int is_bf16, int device,
                                           void* stream) {
-  return (int)dispatch(q, k, v, bias, mask, nullptr, out, G, Tq, Tk, H, D,
-                       is_bf16, 1, head_major_layout(Tq, Tk, H, D), device,
-                       stream);
+  return (int)dispatch(q, k, v, bias, mask, nullptr, out, nullptr, G, Tq, Tk,
+                       H, D, is_bf16, 1, head_major_layout(Tq, Tk, H, D),
+                       device, stream);
 }

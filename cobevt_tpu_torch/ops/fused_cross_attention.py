@@ -5,7 +5,8 @@ fused_cross_view_attention``: one whole FAX cross-view branch (query build,
 LN + Q/K/V projections, window attention, camera mean before the output
 projection, skip, optional token MLP and post-LN).  The CUDA kernel is
 ``csrc/fused_cross_attention.cu``: four launches on the stream per branch
-(K/V rows, query rows, attention, output rows), each counted.
+(K/V rows, query rows, attention, output rows), each counted; which kernels
+they are, :func:`kernel_path` says.
 
 Numerics follow the TPU body (``_kernel`` :113-216): f32 LayerNorms and
 products, a cast to the compute dtype exactly where the body casts, every
@@ -56,6 +57,63 @@ def ln_f32(t, gamma, beta, eps: float = 1e-5):
     mu = t.mean(-1, keepdim=True)
     var = ((t - mu) ** 2).mean(-1, keepdim=True)
     return (t - mu) * torch.rsqrt(var + eps) * gamma.float() + beta.float()
+
+
+# the shapes of the wgmma kernels: CorpBEVT's FAX width, the token MLP's
+# hidden widths, the head dims of one wgmma product, the query segments
+WGMMA_WIDTH = 128
+WGMMA_HIDDEN = (0, 128, 256)
+WGMMA_HEAD_DIMS = (16, 32)
+WGMMA_SEGMENTS = (1, 4)
+_PATH_FLAGS = {"scalar": 0, "mma": 1, "wgmma": 2}
+
+
+def kernel_path(dtype, D: int, C: int, n_heads: int, hidden: int,
+                nq: int) -> str:
+    """Which kernels a branch's four launches take on the card: "wgmma"
+    (bf16 at D = C = 128, MLP hidden 0/128/256, head dim 16 or 32, 1 or 4
+    query segments: every CorpBEVT branch) -- persistent wgmma GEMMs with
+    the weights in shared memory and K1's wgmma attention with the cameras
+    as segments; "mma" (the other bf16 shapes): the row kernels of
+    ``rowops.cuh`` and ``flash.cuh``'s attention on ``mma.sync``; "scalar"
+    (f32).  Device-independent."""
+    if dtype != torch.bfloat16:
+        return "scalar"
+    if (D == C == WGMMA_WIDTH and hidden in WGMMA_HIDDEN
+            and n_heads > 0 and C % n_heads == 0
+            and C // n_heads in WGMMA_HEAD_DIMS and nq in WGMMA_SEGMENTS):
+        return "wgmma"
+    return "mma"
+
+
+def xattn_row_maps(B: int, n: int, H: int, W: int, h: int, w: int, q_win,
+                   k_win, nq: int, grid_keys: bool):
+    """The tokens the rows of the three projection launches touch, by the
+    index math of the kernels (``window_of`` and the row loops of
+    ``csrc/fused_cross_attention.cu``), as numpy arrays: (key rows -> flat
+    (b, cam, y, x) of key/val, query rows -> flat (b, y, x) of x, query rows
+    -> camera, output rows -> flat (b, y, x) of the output).  Rows are
+    window-major, camera-major inside a window; no tensor is copied."""
+    import numpy as np
+    wh, ww = q_win
+    kh, kw = k_win
+    X, Y = H // wh, W // ww
+    gw = np.arange(B * X * Y)
+    b, wx, wy = gw // (X * Y), gw % (X * Y) // Y, gw % (X * Y) % Y
+    j = np.arange(n * kh * kw)
+    cam, p, s_ = j // (kh * kw), j % (kh * kw) // kw, j % kw
+    if grid_keys:
+        y, x = p * X + wx[:, None], s_ * Y + wy[:, None]
+    else:
+        y, x = wx[:, None] * kh + p, wy[:, None] * kw + s_
+    key = (((b[:, None] * n + cam) * h + y) * w + x).reshape(-1)
+    jq = np.arange(nq * wh * ww)
+    tk = jq % (wh * ww)
+    pos = ((b[:, None] * H + wx[:, None] * wh + tk // ww) * W
+           + wy[:, None] * ww + tk % ww)
+    query_cam = np.broadcast_to(jq // (wh * ww), pos.shape).reshape(-1)
+    out = pos[:, :wh * ww].reshape(-1)
+    return key, pos.reshape(-1), query_cam, out
 
 
 def row_smem_bytes(*widths: int) -> int:
@@ -254,7 +312,12 @@ def _launch_kernel(x, w_embed, c_embed, key, val, p, q_win, k_win, n_heads,
     Tk = n * kh * kw
     dims = (ctypes.c_int * 14)(B, n, H, W, D, C, h, w, wh, ww, kh, kw, nq,
                                int(grid_keys))
-    flag, idx = int(dt == torch.bfloat16), dev.index
+    path = kernel_path(dt, D, C, n_heads, hidden, nq)
+    if path == "wgmma":
+        # the weights are read by TMA
+        for name, t in p.items():
+            check_aligned(name, t)
+    flag, idx = _PATH_FLAGS[path], dev.index
     stream = torch.cuda.current_stream(dev).cuda_stream
     k_s = torch.empty((G * Tk, C), dtype=dt, device=dev)
     v_s = torch.empty_like(k_s)

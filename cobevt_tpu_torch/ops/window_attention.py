@@ -11,7 +11,9 @@ the three attention flavours of CorpBEVT:
 :func:`fused_window_attention_packed` is differentiable through a
 ``torch.autograd.Function`` that mirrors the JAX package's ``custom_vjp``
 (``_fused_packed``): it saves q, k, v, bias, mask, weight and the output,
-nothing of size Tq x Tk, and its backward recomputes the attention.  The
+nothing of size Tq x Tk, and its backward recomputes the attention; where
+the backward will be the bf16 K5, K1 also writes the row statistics K5
+would otherwise take in a sweep of its own (3 G H Tq floats, saved too).  The
 backward takes K5 (``csrc/window_attention_bwd.cu`` on CUDA tensors,
 :func:`packed_backward_reference` on CPU tensors) where
 :func:`packed_bwd_kernel_ok` holds and ``COBEVT_FLASH_BWD_F32`` is not "1";
@@ -93,26 +95,53 @@ def _additive_mask(mask):
     return torch.where(mask[:, None, None, :] > 0, 0.0, NEG_INF)
 
 
-def packed_backward_reference(q, k, v, g, out, n_heads, bias_flat=None,
-                              mask=None):
-    """Plain PyTorch version of K5, following the TPU body
-    (``_packed_bwd_kernel``) cast for cast: the exp rounded to the value
-    dtype feeds both the weights and their per-head sum; ``g * out`` is
-    multiplied in the input dtype; ds and p are rounded to the input dtype
-    for the products, which sum in f32 and are rounded once.  Returns
-    (dq, dk, dv, dbias_flat); dbias_flat is f32 (Tq, H*Tk) or None."""
-    dt = q.dtype
-    q4, k4, v4, g4 = (_packed_to_4d(t, n_heads).float()
-                      for t in (q, k, v, g))
+def _packed_sim(q4, k4, n_heads, bias_flat, mask):
+    """(q k^T + bias) + mask in f32, (G, H, Tq, Tk)."""
     sim = torch.einsum("ghqd,ghkd->ghqk", q4, k4)
     if bias_flat is not None:
         sim = sim + _flat_to_heads(bias_flat.float(), n_heads)[None]
     if mask is not None:
         sim = sim + _additive_mask(mask)
-    # the TPU body's row maximum spans every head of the row
+    return sim
+
+
+def packed_row_stats_reference(q, k, n_heads, bias_flat=None, mask=None):
+    """Plain version of the row statistics the forward hands K5 (the bf16
+    K1 writes its own: the per-head max times log2(e) and the inverse of the
+    rounded-exp sum, ``csrc/window_attention.cu``): (2, G, H, Tq) f32, the
+    row max -- over every head of a row, as the TPU body takes it -- and the
+    per-head sum of the exp rounded to the value dtype.  Fed to
+    :func:`packed_backward_reference`, it stands for that function's own
+    first sweep."""
+    q4, k4 = (_packed_to_4d(t, n_heads).float() for t in (q, k))
+    sim = _packed_sim(q4, k4, n_heads, bias_flat, mask)
     m = sim.amax(dim=(1, 3), keepdim=True)
-    e = torch.exp(sim - m).to(dt).float()
-    p32 = e * (1.0 / e.sum(dim=-1, keepdim=True))
+    l = torch.exp(sim - m).to(q.dtype).float().sum(dim=-1)
+    return torch.stack([m[..., 0].expand_as(l), l])
+
+
+def packed_backward_reference(q, k, v, g, out, n_heads, bias_flat=None,
+                              mask=None, stats=None):
+    """Plain PyTorch version of K5, following the TPU body
+    (``_packed_bwd_kernel``) cast for cast: the exp rounded to the value
+    dtype feeds both the weights and their per-head sum; ``g * out`` is
+    multiplied in the input dtype; ds and p are rounded to the input dtype
+    for the products, which sum in f32 and are rounded once.  ``stats``: the
+    row max and sum of :func:`packed_row_stats_reference`, or None to take
+    them here.  Returns (dq, dk, dv, dbias_flat); dbias_flat is f32
+    (Tq, H*Tk) or None."""
+    dt = q.dtype
+    q4, k4, v4, g4 = (_packed_to_4d(t, n_heads).float()
+                      for t in (q, k, v, g))
+    sim = _packed_sim(q4, k4, n_heads, bias_flat, mask)
+    if stats is None:
+        # the TPU body's row maximum spans every head of the row
+        e = torch.exp(sim - sim.amax(dim=(1, 3), keepdim=True)).to(dt).float()
+        l = e.sum(dim=-1, keepdim=True)
+    else:
+        e = torch.exp(sim - stats[0][..., None]).to(dt).float()
+        l = stats[1][..., None]
+    p32 = e * (1.0 / l)
     s = _packed_to_4d((g * out).float(), n_heads).sum(dim=-1, keepdim=True)
     da = torch.einsum("ghqd,ghkd->ghqk", g4, v4)
     ds32 = p32 * (da - s)
@@ -228,6 +257,25 @@ def attention_tile_plan(G: int, H: int, Tq: int):
     return _TILE_ROWS, G * H * -(-Tq // _TILE_ROWS)
 
 
+def bwd_tile_plan(G: int, H: int, Tq: int, Tk: int):
+    """K5's bf16 grids: (rows a block owns, dq blocks, dk/dv blocks).  A
+    dq block owns 64 query rows of one (window, head) and sweeps its keys;
+    a dk/dv block owns 64 keys and sweeps the queries.  Both walk the tiles
+    fastest and the windows slowest (:func:`bwd_block_coords`)."""
+    return (_TILE_ROWS, G * H * -(-Tq // _TILE_ROWS),
+            G * H * -(-Tk // _TILE_ROWS))
+
+
+def bwd_block_coords(block: int, H: int, T: int):
+    """(window, head, first row) of K5 block ``block`` in a grid over T
+    rows (Tq for the dq launch, Tk for the dk/dv launch), as the kernels
+    decompose ``blockIdx.x``; the block's TMA boxes cover rows
+    [first, first + 64), zero-filled past T."""
+    tiles = -(-T // _TILE_ROWS)
+    return (block // (tiles * H), block // tiles % H,
+            block % tiles * _TILE_ROWS)
+
+
 def _check_tma_bases(**operands):
     """Raise unless every operand present starts on a 16-byte boundary:
     the bf16 kernel reads them all through TMA."""
@@ -247,7 +295,9 @@ def _check_kernel_shapes(what, dtype, Tq, Tk, D):
                          f"{Tk}")
 
 
-def _launch_kernel(q, k, v, n_heads, bias_flat, mask, weight):
+def _launch_kernel(q, k, v, n_heads, bias_flat, mask, weight, stats=None):
+    """K1; ``stats``: None, or (bf16, no weight) K5's (3, G, H, Tq) f32
+    scratch, whose first two planes the kernel fills."""
     G, Tq, C = q.shape
     Tk = k.shape[1]
     if C % n_heads:
@@ -264,20 +314,26 @@ def _launch_kernel(q, k, v, n_heads, bias_flat, mask, weight):
         check_operand("mask", mask, (G, Tk), torch.float32, dev)
     if weight is not None:
         check_operand("weight", weight, (G, Tq, HTk), q.dtype, dev)
+    if stats is not None:
+        check_operand("stats", stats, (3, G, n_heads, Tq), torch.float32,
+                      dev)
     _check_tma_bases(q=q, k=k, v=v, bias_flat=bias_flat, mask=mask,
                      weight=weight)
     out = torch.empty_like(q)
-    err = _entry("cobevt_window_attention", 7, 7)(
+    err = _entry("cobevt_window_attention", 8, 7)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias_flat),
-        _ptr(mask), _ptr(weight), out.data_ptr(), G, Tq, Tk, n_heads,
-        C // n_heads, int(q.dtype == torch.bfloat16), dev.index,
+        _ptr(mask), _ptr(weight), out.data_ptr(), _ptr(stats), G, Tq, Tk,
+        n_heads, C // n_heads, int(q.dtype == torch.bfloat16), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "window_attention")
     fused_window_attention_packed.launches += 1
     return out
 
 
-def _launch_bwd_kernel(q, k, v, g, out, n_heads, bias_flat, mask):
+def _launch_bwd_kernel(q, k, v, g, out, n_heads, bias_flat, mask,
+                       stats=None):
+    """K5; ``stats``: None (the kernel takes its own row statistics), or the
+    scratch K1 filled for these operands (bf16)."""
     G, Tq, C = q.shape
     Tk = k.shape[1]
     if C % n_heads:
@@ -295,14 +351,23 @@ def _launch_bwd_kernel(q, k, v, g, out, n_heads, bias_flat, mask):
     if mask is not None:
         check_operand("mask", mask, (G, Tk), torch.float32, dev)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    # row max, sum of the rounded exp and flash rowsum per (window, head,
-    # query row)
-    stats = torch.empty((3, G, n_heads, Tq), dtype=torch.float32, device=dev)
-    err = _entry("cobevt_window_attention_bwd", 12, 7)(
+    # per (window, head, query row): the row max (bf16: times log2(e)), the
+    # sum of the rounded exp (bf16: its inverse) and the flash rowsum
+    stats_ready = stats is not None
+    if stats_ready:
+        check_operand("stats", stats, (3, G, n_heads, Tq), torch.float32,
+                      dev)
+    else:
+        stats = torch.empty((3, G, n_heads, Tq), dtype=torch.float32,
+                            device=dev)
+    _check_tma_bases(q=q, k=k, v=v, g=g, out=out, bias_flat=bias_flat,
+                     mask=mask, stats=stats)
+    err = _entry("cobevt_window_attention_bwd", 12, 8)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         out.data_ptr(), _ptr(bias_flat), _ptr(mask), stats.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(dbias), G, Tq, Tk,
-        n_heads, C // n_heads, int(q.dtype == torch.bfloat16), dev.index,
+        n_heads, C // n_heads, int(q.dtype == torch.bfloat16),
+        int(stats_ready), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "window_attention_bwd")
     fused_window_attention_packed_bwd.launches += 1
@@ -317,20 +382,29 @@ def fused_window_attention_packed_bwd(q, k, v, g, out, n_heads: int,
     f32 or None; mask (G, Tk) or None.  Returns (dq, dk, dv, dbias_flat)
     with dbias_flat f32, summed over the windows, or None.
 
-    ``impl`` as in the forward.  One call is three kernel launches behind
-    one C entry point and counts once.  The kernel adds dbias with f32
-    atomics, so dbias is reproducible to the rounding of a G-term f32 sum,
-    not bit for bit."""
-    if resolve_impl(impl, q) == "torch":
+    ``impl`` as in the forward.  One call is two kernel launches in bf16
+    (dq with the row statistics, then dk/dv: :func:`bwd_tile_plan`) and
+    three in f32, behind one C entry point, and counts once.  The kernel
+    adds dbias with f32 atomics, so dbias is reproducible to the rounding of
+    a G-term f32 sum, not bit for bit; dq, dk and dv repeat bit for bit."""
+    return _packed_bwd(q, k, v, g, out, n_heads, bias_flat, mask,
+                       resolve_impl(impl, q))
+
+
+def _packed_bwd(q, k, v, g, out, n_heads, bias_flat, mask, impl,
+                stats=None):
+    """K5 or its plain version; ``stats``: K1's statistics scratch (kernel)
+    or :func:`packed_row_stats_reference` (plain), or None."""
+    if impl == "torch":
         return packed_backward_reference(q, k, v, g, out, n_heads, bias_flat,
-                                         mask)
+                                         mask, stats)
     if bias_flat is not None:
         bias_flat = bias_flat.float().contiguous()
     if mask is not None:
         mask = mask.float().contiguous()
     return _launch_bwd_kernel(q.contiguous(), k.contiguous(), v.contiguous(),
                               g.contiguous(), out.contiguous(), n_heads,
-                              bias_flat, mask)
+                              bias_flat, mask, stats)
 
 
 def _needs_grad(*tensors) -> bool:
@@ -338,7 +412,8 @@ def _needs_grad(*tensors) -> bool:
         t is not None and t.requires_grad for t in tensors)
 
 
-def _packed_forward(q, k, v, n_heads, bias_flat, mask, weight, impl):
+def _packed_forward(q, k, v, n_heads, bias_flat, mask, weight, impl,
+                    stats=None):
     if impl == "torch":
         return packed_attention_reference(q, k, v, n_heads, bias_flat, mask,
                                           weight)
@@ -348,29 +423,38 @@ def _packed_forward(q, k, v, n_heads, bias_flat, mask, weight, impl):
         mask = mask.float().contiguous()
     if weight is not None:
         weight = weight.to(q.dtype).contiguous()
-    return _launch_kernel(q, k, v, n_heads, bias_flat, mask, weight)
+    return _launch_kernel(q, k, v, n_heads, bias_flat, mask, weight, stats)
 
 
 class _FusedPacked(torch.autograd.Function):
     """K1 forward, recompute backward (``_fused_packed`` of the JAX
-    package).  Saves the operands and the output only."""
+    package).  Saves the operands and the output, and where the backward
+    will be the bf16 K5 the row statistics K1 wrote for it (3 G H Tq
+    floats), so K5 skips its own statistics sweep; nothing of size
+    Tq x Tk."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias_flat, mask, weight, n_heads, impl,
                 bwd_f32):
-        out = _packed_forward(q, k, v, n_heads, bias_flat, mask, weight, impl)
-        ctx.save_for_backward(q, k, v, bias_flat, mask, weight, out)
+        stats = None
+        if (impl == "kernel" and q.dtype == torch.bfloat16 and not bwd_f32
+                and packed_bwd_kernel_ok(q, k, weight, n_heads)):
+            stats = torch.empty((3, q.shape[0], n_heads, q.shape[1]),
+                                dtype=torch.float32, device=q.device)
+        out = _packed_forward(q, k, v, n_heads, bias_flat, mask, weight, impl,
+                              stats)
+        ctx.save_for_backward(q, k, v, bias_flat, mask, weight, out, stats)
         ctx.n_heads, ctx.impl, ctx.bwd_f32 = n_heads, impl, bwd_f32
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, bias_flat, mask, weight, out = ctx.saved_tensors
+        q, k, v, bias_flat, mask, weight, out, stats = ctx.saved_tensors
         n_heads = ctx.n_heads
         dweight = None
         if not ctx.bwd_f32 and packed_bwd_kernel_ok(q, k, weight, n_heads):
-            dq, dk, dv, dbias = fused_window_attention_packed_bwd(
-                q, k, v, g, out, n_heads, bias_flat, mask, impl=ctx.impl)
+            dq, dk, dv, dbias = _packed_bwd(q, k, v, g, out, n_heads,
+                                            bias_flat, mask, ctx.impl, stats)
         else:
             dq, dk, dv, dbias, dweight = packed_backward_composite(
                 q, k, v, g, out, n_heads, bias_flat, mask, weight,

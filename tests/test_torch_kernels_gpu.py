@@ -23,7 +23,8 @@ the largest value of the plain version's result: f32 1e-4 of it (sums in
 another order), bf16 2e-2 of it (the kernel takes the row maximum per head,
 the plain version over all heads as the TPU body does, so the exp rounds to
 bf16 at another place: one bf16 ulp on a weight); dbias also sums the
-windows with atomics, in any order.  K11's output is held like K1's; K12's
+windows with atomics, in any order, so only dq, dk and dv must repeat bit for
+bit.  K11's output is held like K1's; K12's
 seven gradients like K5's (dx in the compute dtype, the parameter gradients
 f32 sums over up to 84,480 rows), and a second call must give the same bits
 (no atomics).
@@ -50,6 +51,7 @@ from cobevt_tpu_torch.ops.ffd_fused import fused_ffd, fused_ffd_bwd
 from cobevt_tpu_torch.ops.fused_cross_attention import (
     LAUNCHES_PER_CALL,
     fused_cross_view_attention,
+    kernel_path,
 )
 from cobevt_tpu_torch.ops.fused_swap_fusion import (
     fused_swap_fusion,
@@ -264,6 +266,84 @@ def test_k5_kernel_matches_plain_at_the_lidar_shape(gen, dtype):
     torch.cuda.synchronize()
     for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
         _assert_close_scaled(a, b, dtype, name)
+
+
+# (G, Tq, Tk, heads) of chip_smoke.py:K5_CASES: the camera train step's
+# five attention shapes and the LiDAR step's fusion attention
+K5_PATH_SHAPES = [(320, 1024, 256, 4), (320, 256, 256, 4), (80, 256, 256, 4),
+                  (5, 1024, 1024, 4), (16, 320, 320, 4), (264, 320, 320, 8)]
+
+
+@pytest.mark.parametrize("D", [16, 32])
+@pytest.mark.parametrize("extras", ["", "bias", "mask", "bias+mask"])
+@pytest.mark.parametrize("G,Tq,Tk,H", K5_PATH_SHAPES)
+def test_k5_bf16_kernel_matches_plain_at_the_path_shapes(gen, D, extras, G,
+                                                         Tq, Tk, H):
+    q, k, v, g, bias, mask = _k5_inputs(gen, torch.bfloat16, G, H, D, Tq,
+                                        Tk, extras)
+    out = fused_window_attention_packed(q, k, v, H, bias, mask)
+    got = fused_window_attention_packed_bwd(q, k, v, g, out, H, bias, mask)
+    want = fused_window_attention_packed_bwd(q, k, v, g, out, H, bias, mask,
+                                             impl="torch")
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+        assert (a is None) == (b is None) == (
+            name == "dbias" and bias is None)
+        if a is not None:
+            _assert_close_scaled(a, b, torch.bfloat16, name)
+
+
+@pytest.mark.parametrize("G,Tq,Tk,H,extras", [
+    (320, 1024, 256, 4, ""), (5, 1024, 1024, 4, ""),
+    (16, 320, 320, 4, "bias+mask"), (264, 320, 320, 8, "bias+mask"),
+    (3, 72, 40, 4, "bias+mask")])
+def test_k5_bf16_repeats_bit_for_bit(gen, G, Tq, Tk, H, extras):
+    """No atomics on dq, dk, dv: 20 launches give the same bits.  dbias
+    sums the windows with f32 atomics in any order: within f32 rounding."""
+    q, k, v, g, bias, mask = _k5_inputs(gen, torch.bfloat16, G, H, 32, Tq,
+                                        Tk, extras)
+    out = fused_window_attention_packed(q, k, v, H, bias, mask)
+    first = fused_window_attention_packed_bwd(q, k, v, g, out, H, bias, mask)
+    for _ in range(20):
+        again = fused_window_attention_packed_bwd(q, k, v, g, out, H, bias,
+                                                  mask)
+        for a, b in zip(first[:3], again[:3]):
+            assert torch.equal(a, b)
+        if bias is not None:
+            scale = float(first[3].abs().max())
+            torch.testing.assert_close(again[3], first[3], rtol=0,
+                                       atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("G,Tq,Tk,H,extras", [
+    (320, 1024, 256, 4, ""), (320, 256, 256, 4, ""), (80, 256, 256, 4, ""),
+    (5, 1024, 1024, 4, ""), (16, 320, 320, 4, "bias+mask"),
+    (264, 320, 320, 8, "bias+mask"), (3, 72, 40, 4, "bias+mask")])
+def test_k5_fed_by_k1_statistics_on_the_train_path(gen, G, Tq, Tk, H,
+                                                   extras):
+    """Autograd in bf16: K1 writes the row statistics in the forward, K5
+    takes them and skips its own sweep; one K5 launch, within K5's
+    tolerance of the plain backward and of K5 alone."""
+    q, k, v, g, bias, mask = _k5_inputs(gen, torch.bfloat16, G, H, 32, Tq,
+                                        Tk, extras)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    b_leaf = None if bias is None else bias.clone().requires_grad_()
+    before = fused_window_attention_packed_bwd.launches
+    out = fused_window_attention_packed(*leaves, H, b_leaf, mask)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert fused_window_attention_packed_bwd.launches == before + 1
+    grads = [t.grad for t in leaves] + [None if b_leaf is None
+                                        else b_leaf.grad]
+    want = fused_window_attention_packed_bwd(q, k, v, g, out.detach(), H,
+                                             bias, mask, impl="torch")
+    alone = fused_window_attention_packed_bwd(q, k, v, g, out.detach(), H,
+                                              bias, mask)
+    for name, a, b, c in zip(("dq", "dk", "dv", "dbias"), grads, want,
+                             alone):
+        if a is not None:
+            _assert_close_scaled(a, b, torch.bfloat16, name)
+            _assert_close_scaled(a, c, torch.bfloat16, name)
 
 
 FFD_NAMES = ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2")
@@ -557,6 +637,66 @@ def test_k2_kernel_matches_plain(gen, dtype, case):
     assert got.dtype == dtype and got.shape == (B, H, W, D)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+# chip_smoke.py:K2_CASES: the six FAX branches of a 5-agent frame (B 5,
+# 4 cameras, D = C = 128, 4 heads of 32, MLP hidden 256)
+# (name, BEV H=W, keys h=w, q_win, k_win, embed, post_ln, grid keys)
+K2_PATH_CASES = [
+    ("stage0_local", 128, 64, 16, 8, True, False, False),
+    ("stage0_grid", 128, 64, 16, 8, False, True, True),
+    ("stage1_local", 64, 32, 16, 8, False, False, False),
+    ("stage1_grid", 64, 32, 16, 8, False, True, True),
+    ("stage2_local", 32, 16, 32, 16, False, False, False),
+    ("stage2_grid", 32, 16, 32, 16, False, True, True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", K2_PATH_CASES, ids=lambda c: c[0])
+def test_k2_kernel_matches_plain_at_the_path_shapes(gen, dtype, case):
+    _, H, h, q_win, k_win, embed, post, grid = case
+    B, n, D, heads = 5, 4, 128, 4
+    x, we, ce, key, val, params, mlp, post_ln = k2_operands(
+        gen, B, n, H, H, D, D, h, h, embed, True)
+    assert kernel_path(dtype, D, D, heads, 2 * D, n if embed else 1) == (
+        "wgmma" if dtype == torch.bfloat16 else "scalar")
+
+    def cast(t):
+        return None if t is None else t.to(dtype)
+
+    args = (cast(x), cast(we), cast(ce), cast(key), cast(val), params,
+            (q_win, q_win), (k_win, k_win), heads, (D // heads) ** -0.5, True)
+    kw = dict(mlp=mlp, post_ln=post_ln if post else None, grid_keys=grid)
+    before = fused_cross_view_attention.launches
+    got = fused_cross_view_attention(*args, **kw)
+    assert fused_cross_view_attention.launches == before + LAUNCHES_PER_CALL
+    want = fused_cross_view_attention(*args, **kw, impl="torch")
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (B, H, H, D)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    if dtype == torch.bfloat16:
+        assert torch.equal(fused_cross_view_attention(*args, **kw), got)
+
+
+def test_k2_rejects_what_it_does_not_take(gen):
+    x, we, ce, key, val, params, mlp, post_ln = k2_operands(
+        gen, 1, 4, 32, 32, 128, 128, 16, 16, True, True)
+    b = [t.to(torch.bfloat16) for t in (x, we, ce, key, val)]
+    with pytest.raises(ValueError, match="does not take"):   # head dim 128/5
+        fused_cross_view_attention(*b, params, (8, 8), (4, 4), 5, 0.1)
+    with pytest.raises(ValueError, match="matching window grids"):
+        fused_cross_view_attention(*b, params, (8, 8), (8, 8), 4, 0.1)
+    with pytest.raises(ValueError, match="takes"):
+        fused_cross_view_attention(*(t.half() for t in b), params, (8, 8),
+                                   (4, 4), 4, 0.1)
+    with pytest.raises(ValueError, match="boundary"):       # TMA bases
+        xs = torch.empty(x.numel() + 1, dtype=torch.bfloat16,
+                         device="cuda")[1:].view(x.shape)
+        xs.copy_(b[0])
+        fused_cross_view_attention(xs, *b[1:], params, (8, 8), (4, 4), 4,
+                                   0.1)
 
 
 def k4_operands(gen, B, L, H, W, D, w, heads, depth, mlp):
