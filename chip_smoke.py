@@ -36,10 +36,16 @@ non-zero without printing the final line:
      wrapper, the weight packed once as a block's cache packs it) and with a
      weight packed at every call (``unpacked_ms``), with the operand bytes
      its wgmma tiles fetch from L2; K5 (bf16) both fed by the row
-     statistics K1 writes in a train step and alone, and K5 and K2 with
+     statistics K1 writes in a train step and alone, and K5, K2 and K6 with
      each launch timed on the card alone (``launch_device_ms``), K5's SDPA
-     yardstick on the card alone too (``--kernels K5,K2`` runs only such
-     rows and stops without the final line);
+     yardstick on the card alone too; K7 with its scale path (one absmax
+     into a zeroed slot), alone on a slot, and both on the card alone, with
+     the slot its epilogue folds held to the plain fold of its output, the
+     absmax kernel (``int8_absmax``) against its plain version, and the
+     8-bit wgmma tiles (A from shared memory, and from registers as K7
+     loads it) against the integer product (``--kernels K5,K2`` or
+     ``--kernels tiles,K6,K7`` runs only such rows and stops without the
+     final line);
   4. slice, the serving default (COBEVT_FUSED_XATTN and
      COBEVT_FUSED_FUSION unset): full-width CorpBEVT (ResNet-34, seeded
      random weights) in bf16 serves synthetic requests with mixed
@@ -63,15 +69,17 @@ non-zero without printing the final line:
   8. LiDAR: full-width PointPillar + FuseBEVT (5 agents x 8000 pillars x 32
      points, 352 x 192 grid, fused map 96 x 176 x 256, seeded random
      weights) in bf16 answers requests with 5, 3, 1, 4, 2 live agents on
-     the K6 path (COBEVT_FUSED_FUSION=force-stream: 4 K6 launches a frame,
-     no K1) and on the default path (the stock modules, which beat K6 on
-     the H100: 4 K1, no K6); K6 against the default and bf16 against the
-     f32 plain path within the budget of tools/validate_kernels.py; two
-     forwards of one request agree bit for bit;
+     the default path (K6, as under force-stream: 4 K6 calls a frame, no
+     K1) and on the stock modules (COBEVT_FUSED_FUSION=0: 4 K1, no K6); K6
+     against the stock modules and bf16 against the f32 plain path within
+     the budget of tools/validate_kernels.py; two forwards of one request
+     agree bit for bit;
   9. int8 serving (COBEVT_INT8=1 on the fused path): full-width CorpBEVT in
      bf16 answers requests with 5, 3, 1, 4, 2 live agents; every frame runs
-     14 K7, 6 K3 and 6 launches of the int8 chain's conv (layer1
-     int8-resident) beside 1 K1, 24 K2 and 19 K4; then the int8 gate of
+     14 K7, 2 absmax, 6 K3 and 6 launches of the int8 chain's conv (layer1
+     int8-resident) beside 1 K1, 24 K2 and 19 K4, and one 5-agent frame
+     makes no more device operations (torch.profiler) than the same frame
+     in bf16; then the int8 gate of
      tools/validate_kernels.py against the stock bf16 path (relative drift,
      argmax IoU >= 0.99, clipped share <= 0.01 over 3 blocks), and one frame
      with COBEVT_INT8_RESIDENT=0 (14 K7, 6 K3, no chain conv);
@@ -204,6 +212,12 @@ K7_CASES = [
     ("layer4", 20, 16, 16, 512, False, 2),
     ("layer4_residual", 20, 16, 16, 512, True, 2),
 ]
+# the absmax kernel that scales a stage's first K7: the inputs of layer3's and
+# layer4's first stride-1 blocks (name, shape, launches per frame)
+A7_CASES = [
+    ("layer3_input", (20, 32, 32, 256), 1),
+    ("layer4_input", (20, 16, 16, 512), 1),
+]
 # the int8 chain's conv over layer1 (20 x 128 x 128 x 64): (name, residual,
 # exit, launches per frame); a block's conv1 requantizes, conv2 adds the s8
 # residual and requantizes, the last block's conv2 casts to the model's dtype
@@ -245,7 +259,7 @@ TRAIN_PER_STEP = {"fused_window_attention_packed": 13,
                   "fused_cross_view_attention": 0, "fused_conv3x3": 0,
                   "fused_swap_fusion": 0, "fused_window_attention": 0,
                   "fused_swap_fusion_streaming": 0, "fused_conv3x3_int8": 0,
-                  "conv3x3_s8": 0}
+                  "conv3x3_s8": 0, "int8_absmax": 0}
 # the LiDAR step: FuseBEVT depth 2 = 4 attentions, K1 forward and K5 backward
 # (the fusion dropouts sit on outputs, so no attention carries a weight);
 # every other wrapper 0
@@ -261,20 +275,22 @@ FUSED_PER_FRAME = {"fused_window_attention_packed": 1,
                    "fused_cross_view_attention": 6 * 4,
                    "fused_conv3x3": 20, "fused_swap_fusion": 3 * 2 * 3 + 1,
                    "fused_swap_fusion_streaming": 0, "fused_conv3x3_int8": 0,
-                   "conv3x3_s8": 0}
+                   "conv3x3_s8": 0, "int8_absmax": 0}
 # COBEVT_INT8=1 on the fused path: layer3's 5 and layer4's 2 stride-1 blocks
-# take K7, layer2's 3 stay on K3, layer1's 3 blocks run the chain's conv
+# take K7, layer2's 3 stay on K3, layer1's 3 blocks run the chain's conv; one
+# absmax a stage scales its first K7 (the strided block's output), every
+# later K7 reads the slot its producer K7 wrote
 INT8_PER_FRAME = dict(FUSED_PER_FRAME, fused_conv3x3=6,
-                      fused_conv3x3_int8=14, conv3x3_s8=6)
+                      fused_conv3x3_int8=14, conv3x3_s8=6, int8_absmax=2)
 INT8_NOT_RESIDENT_PER_FRAME = dict(INT8_PER_FRAME, conv3x3_s8=0)
 STOCK_PER_FRAME = {"fused_window_attention_packed": 13,
                    "fused_cross_view_attention": 0,
                    "fused_conv3x3": 20, "fused_swap_fusion": 0,
                    "fused_swap_fusion_streaming": 0, "fused_conv3x3_int8": 0,
-                   "conv3x3_s8": 0}
-# the LiDAR forward: FuseBEVT depth 2 = 4 sublayers, each one K6 call under
-# force-stream or one K1 call (after a cuBLAS QKV projection) on the default
-# path, which takes the stock modules at this map
+                   "conv3x3_s8": 0, "int8_absmax": 0}
+# the LiDAR forward: FuseBEVT depth 2 = 4 sublayers, each one K6 call by
+# default (and under force-stream) or one K1 call (after a cuBLAS QKV
+# projection) on the stock modules (COBEVT_FUSED_FUSION=0)
 LIDAR_AGENTS = [5, 3, 1, 4, 2]
 LIDAR_FUSED_PER_FRAME = {"fused_swap_fusion_streaming": 4}
 LIDAR_STOCK_PER_FRAME = {"fused_window_attention_packed": 4}
@@ -669,13 +685,17 @@ def phase_kernels(only=None):
         _kernel_path,
         _launch_int8,
         _launch_kernel as _launch_k3,
-        act_scale,
+        fold_amax_,
         fused_conv3x3,
         fused_conv3x3_int8,
+        int8_absmax,
+        int8_tile_plan,
+        new_amax_slots,
         pack_conv3x3_weight,
         pack_int8_weight,
     )
     from cobevt_tpu_torch.ops.hopper_tile import (
+        S8_VARIANTS,
         VARIANTS,
         tile_product,
         tile_reference,
@@ -733,6 +753,20 @@ def phase_kernels(only=None):
         if not ok:
             raise AssertionError(f"bare tile {variant} disagrees with "
                                  f"torch.matmul: {err:.3e}")
+    for variant, (a_shape, b_shape, c_shape, what) in (
+            S8_VARIANTS.items() if selected("tiles") else ()):
+        a = torch.randint(-127, 128, a_shape, generator=gen, device="cuda",
+                          dtype=torch.int8)
+        b = torch.randint(-127, 128, b_shape, generator=gen, device="cuda",
+                          dtype=torch.int8)
+        got, want = tile_product(a, b, variant), tile_reference(a, b, variant)
+        torch.cuda.synchronize()
+        ok = bool(torch.equal(got, want))
+        log(f"bare TMA + wgmma s8 tile {variant}: C {c_shape} = {what}, "
+            f"{'equal integers' if ok else 'BAD'}")
+        if not ok:
+            raise AssertionError(f"bare s8 tile {variant} disagrees with the "
+                                 f"integer product")
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         for case in K1_CASES if selected("K1") else ():
@@ -852,12 +886,25 @@ def phase_kernels(only=None):
                        x, w, shift, res, relu=True, impl="kernel"), 5),
                    "k3_device_ms": device_ms(lambda: fused_conv3x3(
                        x, w, shift, res, relu=True, impl="kernel"), 5)}
-            # the kernel alone, without the wrapper's max-reduce and scale
-            # arithmetic (a handful of small PyTorch launches)
-            s_a = act_scale(x)
-            scale, inv = s_a * packed.s_w, (1.0 / s_a).reshape(1)
+            # the kernel alone, on its input's |max| slot as a producer K7
+            # leaves it (the wrapper's own call adds a zeroed slot and one
+            # absmax); the slot its epilogue folds equals the plain fold of
+            # what it stored
+            slot = int8_absmax(x, new_amax_slots(1, x.device))
+            out_slot = new_amax_slots(1, x.device)
+            folded = _launch_int8(x, packed, slot, res, True, out_slot)
+            want_slot = fold_amax_(new_amax_slots(1, x.device), want)
+            row["slot_equal"] = bool(torch.equal(out_slot, want_slot)
+                                     and torch.equal(folded, want))
+            row["ok"] = row["ok"] and row["slot_equal"]
+            row["path"] = int8_tile_plan(*case[2:5]).path
             row["launch_ms"] = time_ms(
-                lambda: _launch_int8(x, packed, scale, inv, res, True), 10)
+                lambda: _launch_int8(x, packed, slot, res, True), 10)
+            # on the card alone: the wrapper's call with everything it
+            # launches, and the kernel alone
+            row["device_ms"] = device_ms(lambda: conv7("kernel"), 10)
+            row["alone_device_ms"] = device_ms(
+                lambda: _launch_int8(x, packed, slot, res, True), 10)
             _, N, H, W, C = case[:5]
             row.update(bound(2.0 * N * H * W * 9 * C * C,
                              nbytes(x, packed.wt, packed.s_w, packed.shift,
@@ -865,7 +912,31 @@ def phase_kernels(only=None):
             details.append(row)
             if not row["ok"]:
                 failures.append(row)
-            del x, w, shift, res, packed, got, want, w_oihw, x_cl
+            del x, w, shift, res, packed, got, want, w_oihw, x_cl, folded
+        for name, shape, per_frame in A7_CASES if selected("K7") else ():
+            x = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+            def absmax(impl):
+                return int8_absmax(x, new_amax_slots(1, x.device), impl=impl)
+
+            got, want = absmax("kernel"), absmax("torch")
+            torch.cuda.synchronize()
+            row = {"kernel": "A7", "case": name, "dtype": dname,
+                   "per_frame": per_frame,
+                   "max_abs_err": float((got.view(torch.float32)
+                                         - want.view(torch.float32)).abs()
+                                        .max()),
+                   "max_rel_err": 0.0, "ok": bool(torch.equal(got, want)),
+                   "ms": time_ms(lambda: absmax("kernel"), 10),
+                   "device_ms": device_ms(lambda: absmax("kernel"), 10),
+                   "plain_ms": time_ms(lambda: absmax("torch"), 10),
+                   "library_ms": time_ms(lambda: torch.linalg.vector_norm(
+                       x, float("inf")), 10)}
+            row.update(bound(x.numel(), nbytes(x, got), "float32"))
+            details.append(row)
+            if not row["ok"]:
+                failures.append(row)
+            del x, got, want
         N, H, W, C = S8_SHAPE
         xq, sx = quantize_dynamic(
             torch.randn(N, H, W, C, generator=gen, device="cuda").relu())
@@ -1031,6 +1102,15 @@ def phase_kernels(only=None):
             row["sublayers_ms"] = time_ms(
                 lambda: _launch_streaming(x, mask, packed.bias, packed.layers,
                                           w, heads), 3 if big else 10)
+            if big and case[4] and dtype == torch.bfloat16:
+                # the sublayers on the card alone, and each launch of them
+                # alone (summed over the call's sublayers)
+                row["sublayers_device_ms"] = device_ms(
+                    lambda: _launch_streaming(x, mask, packed.bias,
+                                              packed.layers, w, heads), 3)
+                row["launch_device_ms"] = kernel_device_ms(
+                    lambda: _launch_streaming(x, mask, packed.bias,
+                                              packed.layers, w, heads), 2)
             row["plain_ms"] = time_ms(lambda: stream("torch"),
                                       2 if big else 10, warmup=1)
             row.update(bound(*k6_work(case[1], x.element_size()), dname))
@@ -1253,7 +1333,8 @@ def phase_kernels(only=None):
         extra = f"  library={r['library_ms']:.3f} ms" \
             if r.get("library_ms") is not None else ""
         if "k3_ms" in r:
-            extra += (f"  kernel alone={r['launch_ms']:.3f} ms  K3 on the "
+            extra += (f"  kernel alone={r['launch_ms']:.3f} ms (on the card "
+                      f"alone {r['alone_device_ms']:.4f})  K3 on the "
                       f"same inputs={r['k3_ms']:.3f} ms (on the card alone "
                       f"{r['k3_device_ms']:.3f})")
         elif r["kernel"] == "K3":
@@ -1296,6 +1377,22 @@ def phase_kernels(only=None):
                 f"call: kernel={r['ms'] / n:.3f} ms "
                 f"plain={r['plain_ms'] / n:.3f} ms "
                 f"bound={r['bound_ms'] / n:.4f} ms")
+            if "sublayers_device_ms" in r:
+                log(f"   on the card alone: the {n} sublayers "
+                    f"{r['sublayers_device_ms']:.3f} ms (by launch above, "
+                    f"summed over them)")
+    k7 = [r for r in details if r["kernel"] == "K7"
+          and r["dtype"] == "bfloat16" and r["per_frame"]]
+    if k7:
+        def frame(field):
+            return sum(r[field] * r["per_frame"] for r in k7)
+        log(f"K7, the {sum(r['per_frame'] for r in k7)} calls of an int8 "
+            f"frame (bf16): with the wrapper {frame('ms'):.3f} ms (on the "
+            f"card alone {frame('device_ms'):.3f}), the kernel alone "
+            f"{frame('launch_ms'):.3f} ms (on the card alone "
+            f"{frame('alone_device_ms'):.3f}), bound "
+            f"{frame('bound_ms'):.4f} ms, cuDNN bf16 "
+            f"{frame('library_ms'):.3f} ms")
     if failures:
         raise AssertionError(f"{len(failures)} kernel cases disagree with "
                              f"their plain versions: "
@@ -1623,10 +1720,10 @@ def lidar_requests(model, batch, agents, expect, name):
 
 def phase_lidar(seed=0):
     """Full-width cooperative LiDAR forward (PointPillar + FuseBEVT) through
-    build_pointpillar of tools/benchmark.py: the K6 path (force-stream), the
-    default path (the stock modules, K1), K6 vs default and bf16 vs the f32
-    plain path within the budget of tools/validate_kernels.py, and the
-    bit-for-bit repeat of one request."""
+    build_pointpillar of tools/benchmark.py: the default path (K6, as
+    "force-stream"), the stock modules (COBEVT_FUSED_FUSION=0, K1), K6 vs
+    stock and bf16 vs the f32 plain path within the budget of
+    tools/validate_kernels.py, and the bit-for-bit repeat of one request."""
     import torch
     from cobevt_tpu_torch import ops
     from cobevt_tpu_torch.tools import benchmark, validate_kernels
@@ -1640,21 +1737,18 @@ def phase_lidar(seed=0):
     ref_model = copy.deepcopy(model).eval()            # f32, same weights
     model = model.to(torch.bfloat16).eval()
     lidar_map = (1, 5, 96, 176, 256)
-    with switches(None):
-        kernel = model.fusion_net.fused_kernel(lidar_map)
-    if kernel is not None:
-        raise AssertionError(f"by default the LiDAR map dispatches to "
-                             f"{kernel}, not the stock modules")
+    for value, want in ((None, "K6"), ("force-stream", "K6"), ("0", None)):
+        with env_switches(COBEVT_FUSED_FUSION=value):
+            kernel = model.fusion_net.fused_kernel(lidar_map)
+        if kernel != want:
+            raise AssertionError(f"COBEVT_FUSED_FUSION={value} dispatches "
+                                 f"the LiDAR map to {kernel}, not {want}")
     budget = validate_kernels.BUDGET_FORWARD
 
-    with env_switches(COBEVT_FUSED_FUSION="force-stream"):
-        kernel = model.fusion_net.fused_kernel(lidar_map)
-        if kernel != "K6":
-            raise AssertionError(f"force-stream dispatches the LiDAR map to "
-                                 f"{kernel}, not K6")
+    with switches(None):
         counts, fused, outs = lidar_requests(
             model, batch, LIDAR_AGENTS, LIDAR_FUSED_PER_FRAME,
-            "K6 path (force-stream)")
+            "default path (K6)")
         with torch.no_grad():
             again = model(batch)
         for key, t in outs[0].items():
@@ -1665,10 +1759,10 @@ def phase_lidar(seed=0):
         with ops.forced_impl("torch"), torch.no_grad():
             ref = ref_model(batch)
     del ref_model
-    with switches(None):
+    with env_switches(COBEVT_FUSED_FUSION="0"):
         stock_counts, stock, stock_outs = lidar_requests(
             model, batch, LIDAR_AGENTS, LIDAR_STOCK_PER_FRAME,
-            "default path (stock modules)")
+            "stock modules (COBEVT_FUSED_FUSION=0)")
     gates = [validate_kernels.compare_outputs(
         f"pointpillar_fused_vs_stock_{n}_agents", f, s, budget)
         for n, f, s in zip(LIDAR_AGENTS, outs, stock_outs)]
@@ -1692,7 +1786,8 @@ def phase_int8(seed=0):
     import torch
     from cobevt_tpu_torch import ops
     from cobevt_tpu_torch.ops.dispatch import env_switches
-    from cobevt_tpu_torch.tools import serve_camera, validate_kernels
+    from cobevt_tpu_torch.tools import benchmark, serve_camera, \
+        validate_kernels
 
     log("== int8 serving: CorpBEVT 5 agents x 4 cameras x 512^2, bf16, "
         "COBEVT_INT8=1 on the fused path")
@@ -1716,6 +1811,19 @@ def phase_int8(seed=0):
         bf16 = serve_camera.serve(runner, frames, cfg, rng, on_output=check)
     log("bf16 fused path, same requests " + json.dumps(
         {k: v for k, v in bf16.items() if k != "frame_ms"}))
+    # device operations of one 5-agent frame, int8 against bf16: with the
+    # scale fold no K7 call reduces its input or computes its scales on the
+    # side, so the int8 frame launches no more than the bf16 one
+    ops_per_frame = {}
+    for name, value in (("int8", "1"), ("bf16", None)):
+        with switches(None), env_switches(COBEVT_INT8=value,
+                                          COBEVT_INT8_RESIDENT=None):
+            ops_per_frame[name] = benchmark.profile_steps(
+                lambda: runner(frames[0][1]), 2, 1.0)["device_ops_per_step"]
+    log(f"device operations of a 5-agent frame: {ops_per_frame}")
+    if ops_per_frame["int8"] > ops_per_frame["bf16"]:
+        raise AssertionError(f"the int8 frame makes more device operations "
+                             f"than the bf16 frame: {ops_per_frame}")
     del model, runner, frames
     torch.cuda.empty_cache()
 
@@ -1733,7 +1841,8 @@ def phase_int8(seed=0):
         raise AssertionError("int8 gate failed: " + json.dumps(gate))
     torch.cuda.empty_cache()
     return counts, {"serve": summary, "serve_bf16": bf16, "gate": gate,
-                    "not_resident_counts": lone}
+                    "not_resident_counts": lone,
+                    "device_ops_per_frame": ops_per_frame}
 
 
 def phase_micro_bn_stats():
@@ -1881,6 +1990,10 @@ def main(argv=None):
         "K7": ("fused_conv3x3_int8",
                "cobevt_tpu_torch/csrc/conv3x3_int8.cu",
                "cobevt_tpu/ops/conv2d.py:308"),
+        # the absmax that scales a stage's first K7 (the JAX package's
+        # _act_scale, XLA there): a kernel of K7's source here
+        "A7": ("int8_absmax", "cobevt_tpu_torch/csrc/conv3x3_int8.cu",
+               "cobevt_tpu/ops/conv2d.py:280"),
         # the int8-resident chain's conv: XLA in the JAX package, the second
         # entry of K7's source here
         "S8": ("conv3x3_s8", "cobevt_tpu_torch/csrc/conv3x3_int8.cu",
@@ -1904,7 +2017,7 @@ def main(argv=None):
     launches["fused_window_attention"] = k8_launches
     launches["fused_swap_fusion_streaming"] = lidar_counts[
         "fused_swap_fusion_streaming"]
-    for fn in ("fused_conv3x3_int8", "conv3x3_s8"):
+    for fn in ("fused_conv3x3_int8", "conv3x3_s8", "int8_absmax"):
         launches[fn] = int8_counts[fn]
     for fn in ("bn_stats_fwd", "bn_stats_bwd"):
         launches[fn] = bn_counts[fn]

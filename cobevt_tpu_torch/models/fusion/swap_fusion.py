@@ -200,8 +200,7 @@ class SwapFusionBlock(nn.Module):
 def fused_fusion_mode() -> str:
     """``COBEVT_FUSED_FUSION``, the JAX package's switch: "0" runs the
     stock modules; "1" (the default) and "force" run K4 at eval where the
-    state fits its resident budget, and the stock modules beyond it, where
-    the JAX package streams (K6): on the H100 K6 loses to them
+    state fits its resident budget and K6 beyond it, where it streams
     (:meth:`SwapFusionEncoder.fused_kernel`); "force-stream" runs K6
     wherever its gate holds.  Training always runs the stock modules."""
     return os.environ.get("COBEVT_FUSED_FUSION", "1")
@@ -258,18 +257,21 @@ class SwapFusionEncoder(nn.Module):
         389-414``) takes K4 where the state ``fits`` the resident budget,
         else K6 where it ``streams``; "force-stream" takes K6 also where K4
         would fit.  Each kernel's own gate stands in for the JAX gate's TPU
-        block-shape terms, and one term is the H100's:
+        block-shape terms.  Where the state fits but the port's K4 does not
+        take its widths (D 256 with mlp 512), K6 runs in K4's place with
+        K4's bias rounding (:meth:`_fused_eval`).
 
-          * beyond the resident budget the default ("1", and "force") takes
-            the stock modules, not K6: on the H100 the stock path (cuBLAS
-            products and K1) answers the cooperative LiDAR map
-            (1, 5, 96, 176, 256) faster than K6's four sublayers
-            (``tools/benchmark.py --model pointpillar`` with
-            ``COBEVT_FUSED_FUSION=force-stream`` against ``=0`` in one call;
-            PERF.md, section 5).  "force-stream" still takes K6;
-          * where the state fits but the port's K4 does not take its widths
-            (D 256 with mlp 512), K6 runs in K4's place with K4's bias
-            rounding (:meth:`_fused_eval`)."""
+        For a while the port sent states beyond the resident budget to the
+        stock modules instead, because K6's first kernels (16-row blocks on
+        ``mma.sync``) lost to them: 10.9 ms for the four sublayers of the
+        cooperative LiDAR map (1, 5, 96, 176, 256) on the card alone, a
+        frame of ~16.0 ms device time against 10.3 ms stock (NVIDIA H100
+        80GB HBM3, 700 W).  K6's ``wgmma`` kernels take 2.9 ms for the four
+        sublayers, and in one call, in turns (``tools/benchmark.py --model
+        pointpillar --profile_steps 2``, ``PERF.md`` section 5), the K6
+        frame read 7.77-7.86 ms of device time against 10.30-10.49 ms on the
+        stock modules, so the JAX package's rule is back; "0" still reaches
+        the stock modules."""
         return self._dispatch(shape)[0]
 
     def _dispatch(self, shape):
@@ -286,8 +288,8 @@ class SwapFusionEncoder(nn.Module):
             return "K6", False
         if fits:
             return "K4", False
-        if streams and resident:
-            return "K6", True
+        if streams:
+            return "K6", resident
         return None, False
 
     def forward(self, x, mask=None, agent_mask=None):

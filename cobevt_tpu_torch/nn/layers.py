@@ -28,6 +28,8 @@ from cobevt_tpu_torch.ops.conv2d import (
     fold_bn,
     fused_conv3x3,
     fused_conv3x3_int8,
+    int8_absmax,
+    new_amax_slots,
     pack_conv3x3_weight,
     pack_int8_weight,
 )
@@ -199,6 +201,14 @@ class BasicBlock(nn.Module):
         conv, bn = self.downsample
         return bn_nhwc(bn, conv_nhwc(conv, x))
 
+    def takes_k7(self, c_in: int) -> bool:
+        """Whether an eval forward of a ``c_in``-channel input runs both
+        convs as K7: a stride-1 block that takes K3, under COBEVT_INT8=1,
+        with both channel axes >= 256 (the dispatch of :meth:`forward`)."""
+        return (not self.training and self.stride == 1
+                and fused_conv_enabled(c_in, self.planes)
+                and int8_enabled() and min(c_in, self.planes) >= 256)
+
     def forward(self, x):
         if not self.training and self.stride == 1 and \
                 fused_conv_enabled(x.shape[-1], self.planes):
@@ -211,7 +221,7 @@ class BasicBlock(nn.Module):
         """Both convs as K3, on weights folded, cast and transposed once
         per weight version and dtype."""
         x = x.contiguous()
-        if int8_enabled() and min(x.shape[-1], self.planes) >= 256:
+        if self.takes_k7(x.shape[-1]):
             return self._fused_eval_int8(x)
         p1 = self._folded("k3_conv1", self.conv1, self.bn1,
                           pack_conv3x3_weight, x.dtype)
@@ -232,13 +242,26 @@ class BasicBlock(nn.Module):
 
     def _fused_eval_int8(self, x):
         """Both convs as K7: weights quantized per output channel once,
-        activations per tensor inside the kernel."""
+        activations per tensor inside the kernel; x's scale from one
+        absmax, conv2's from conv1's epilogue."""
+        slots = new_amax_slots(3, x.device)
+        return self.int8_k7_eval(x, int8_absmax(x, slots[0:1]),
+                                 slots[1:2], slots[2:3])
+
+    def int8_k7_eval(self, x, amax, mid_slot, out_slot):
+        """Both convs as K7 on device scale slots (``ops/conv2d.py``):
+        ``amax`` holds x's |max|, ``mid_slot`` and ``out_slot`` (zeroed)
+        receive conv1's and conv2's; conv2 reads ``mid_slot``, and the next
+        K7 may read ``out_slot``.  No scale is reduced or computed outside
+        the kernels."""
         p1 = self._folded("k7_conv1", self.conv1, self.bn1, pack_int8_weight)
-        out = fused_conv3x3_int8(x, None, None, relu=True, packed=p1)
+        out = fused_conv3x3_int8(x, None, None, relu=True, packed=p1,
+                                 amax=amax, out_amax=mid_slot)
         identity = self._identity(x).contiguous()
         p2 = self._folded("k7_conv2", self.conv2, self.bn2, pack_int8_weight)
         return fused_conv3x3_int8(out, None, None, residual=identity,
-                                  relu=True, packed=p2)
+                                  relu=True, packed=p2, amax=mid_slot,
+                                  out_amax=out_slot)
 
     def int8_resident_eval(self, xq, s_in, s_out, out_dtype,
                            with_sat: bool = False):

@@ -33,6 +33,7 @@ from cobevt_tpu_torch.nn.layers import (
     int8_enabled,
     torch_conv,
 )
+from cobevt_tpu_torch.ops.conv2d import int8_absmax, new_amax_slots
 from cobevt_tpu_torch.ops.int8_chain import BLOCK_GROWTH, quantize_dynamic
 
 # (block type, per-stage depths)
@@ -93,13 +94,41 @@ class ResNetTrunk(nn.Module):
                 x = self._int8_layer1(x)
                 outs.append(x)
                 continue
-            for block in getattr(self, f"layer{i + 1}"):
+            blocks = getattr(self, f"layer{i + 1}")
+            if self.block == "basic" and len(blocks) > 1 and \
+                    blocks[1].takes_k7(blocks[1].planes):
+                x = self._k7_stage(blocks, x)
+                outs.append(x)
+                continue
+            for block in blocks:
                 # the second forward leaves the BN running statistics alone
                 x = checkpoint(block, x, use_reentrant=False,
                                context_fn=_remat_contexts) if remat \
                     else block(x)
             outs.append(x)
         return outs
+
+    def _k7_stage(self, blocks, x):
+        """A stage whose stride-1 blocks take K7 (COBEVT_INT8=1 at eval):
+        each K7 leaves the |max| of its output in a device slot that the
+        next K7 reads as its input scale, so one zeroed slot buffer a stage
+        and one absmax (on the strided block's output) replace a max-reduce
+        and the scale arithmetic at every call."""
+        slots, amax, used = None, None, 0
+        for block in blocks:
+            if not block.takes_k7(x.shape[-1]):
+                x, amax = block(x), None
+                continue
+            if slots is None:
+                slots = new_amax_slots(1 + 2 * len(blocks), x.device)
+            if amax is None:
+                amax = int8_absmax(x, slots[used:used + 1])
+                used += 1
+            x = block.int8_k7_eval(x, amax, slots[used:used + 1],
+                                   slots[used + 1:used + 2])
+            amax = slots[used + 1:used + 2]
+            used += 2
+        return x
 
     def _int8_layer1_active(self) -> bool:
         """layer1 (C 64, the 1/4-resolution maps) runs int8-resident under

@@ -7,6 +7,7 @@ from cobevt_tpu_torch.ops.conv2d import (
     fold_bn,
     fused_conv3x3,
     fused_conv3x3_int8,
+    int8_absmax,
 )
 from cobevt_tpu_torch.ops.dispatch import forced_impl
 from cobevt_tpu_torch.ops.ffd_fused import fused_ffd, fused_ffd_bwd
@@ -28,8 +29,8 @@ KERNEL_WRAPPERS = (fused_window_attention_packed, fused_cross_view_attention,
                    fused_conv3x3, fused_swap_fusion,
                    fused_window_attention_packed_bwd, fused_window_attention,
                    fused_swap_fusion_streaming, fused_conv3x3_int8,
-                   conv3x3_s8, bn_stats_fwd, bn_stats_bwd, fused_ffd,
-                   fused_ffd_bwd)
+                   conv3x3_s8, int8_absmax, bn_stats_fwd, bn_stats_bwd,
+                   fused_ffd, fused_ffd_bwd)
 
 
 def reset_launch_counts() -> None:
@@ -47,5 +48,5 @@ __all__ = ["KERNEL_WRAPPERS", "bn_stats_bwd", "bn_stats_fwd", "conv3x3_s8",
            "fused_swap_fusion",
            "fused_swap_fusion_streaming",
            "fused_window_attention", "fused_window_attention_packed",
-           "fused_window_attention_packed_bwd", "launch_counts",
-           "reset_launch_counts"]
+           "fused_window_attention_packed_bwd", "int8_absmax",
+           "launch_counts", "reset_launch_counts"]

@@ -10,11 +10,15 @@ NHWC activations, with the BatchNorm scale folded into ``w`` by
 ``fused_conv3x3_int8`` is its post-training-quantized twin (the lossy
 ``COBEVT_INT8=1`` serving mode): the folded weight quantized per output
 channel (:func:`quantize_weight`), the activations per tensor with a dynamic
-scale (:func:`act_scale`, one max-reduce) and quantized inside the kernel
-(``csrc/conv3x3_int8.cu``), s8 x s8 -> s32 products, f32 epilogue.  Weight
-quantization and the max-reduce are plain PyTorch outside the kernel, as they
-are XLA outside the Pallas body.  f32 and bf16 activations take the same
-kernel.
+scale (:func:`act_scale`) and quantized inside the kernel
+(``csrc/conv3x3_int8.cu``), s8 x s8 -> s32 products, f32 epilogue.  f32 and
+bf16 activations take the same kernel.  Weight quantization is plain
+PyTorch outside the kernel, as it is XLA outside the Pallas body.  The
+activation scale is folded into the kernels: a K7 reads the |max| of its
+input from a device slot (:func:`fold_amax_`) and computes s_a, 1 / s_a and
+s_a * s_w in its prologue with :func:`act_scale`'s rounded operations; the
+slot is written by the epilogue of the K7 that produced the input, or by
+one :func:`int8_absmax` launch where the producer is something else.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -224,6 +229,31 @@ def act_scale(x):
     return torch.clamp_min(s_a, 1e-12)
 
 
+# K7's scale fold.  A device slot is an int32 (1,) tensor holding the bits
+# of f32(max |t|) of the tensor t it belongs to; non-negative floats order
+# as their bits, so a maximum over parts is an integer maximum (the kernels'
+# atomicMax), exact in any order.  A slot starts at 0 (+0.0).
+
+def new_amax_slots(n: int, device) -> torch.Tensor:
+    """``n`` zeroed slots (one memset)."""
+    return torch.zeros(n, dtype=torch.int32, device=device)
+
+
+def fold_amax_(slot, t):
+    """Plain version of the slot update of K7's epilogue and of
+    :func:`int8_absmax`: slot = max(slot, bits(f32(max |t|)))."""
+    m = t.abs().amax().float().reshape(1).view(torch.int32)
+    slot.copy_(torch.maximum(slot, m))
+    return slot
+
+
+def scale_from_amax(slot):
+    """s_a of a tensor from its slot, with the rounded operations of
+    :func:`act_scale` (so the same bits): max(f32(m) / 127, 1e-12)."""
+    return torch.clamp_min(slot.view(torch.float32).reshape(()) / 127.0,
+                           1e-12)
+
+
 @contextlib.contextmanager
 def _full_f32_matmul():
     """TF32 off for the products inside: they must be exact."""
@@ -318,17 +348,97 @@ def int8_kernel_accepts(shape, O: int, dtype, dtypes=_KERNEL_DTYPES):
     return None
 
 
+class Int8TilePlan(NamedTuple):
+    """K7's launch plan (``csrc/conv3x3_int8.cu``)."""
+
+    path: str         # "wgmma" (C % 128 == 0) or "mma" (mma.sync)
+    rows: int         # whole image rows a block: 128 pixel slots / W
+    stages: int       # the wgmma kernel's weight ring (0 on "mma")
+    smem: int         # shared memory a block takes
+    blocks_per_sm: int
+
+
+# the wgmma kernel's ring boxes (128 channels of one tap x 128 outputs, s8),
+# its deepest ring, and what two blocks may take on one SM (228 KB less 1 KB
+# each for the system)
+_INT8_BOX, _INT8_MAX_STAGES, _INT8_TWO_BLOCKS = 128 * 128, 4, 114 * 1024 \
+    - 1024
+
+
+def int8_tile_plan(H: int, W: int, C: int) -> Int8TilePlan:
+    """The tile of both K7 kernels is 128 pixel slots of whole image rows;
+    C a multiple of 128 and of its channel group (256 channels, or C when
+    smaller) runs the wgmma kernel, whose halo tile holds one channel group
+    at a time, with as deep a weight ring (2 to 4 boxes) as keeps two
+    blocks on an SM, or else four boxes and one block (the same bytes as
+    ``wg::smem_bytes``)."""
+    rows = min(H, max(1, _INT8_SLOTS // W))
+    group = min(C, 256)
+    if C % 128 or C % group:
+        halo = (rows + 2) * (W + 2) * (C + 16)
+        return Int8TilePlan("mma", rows, 0, halo + 2 * 128 * 80, 1)
+    halo = (rows + 2) * (W + 2) * (group + 16)
+
+    def smem(stages):
+        return 1024 + stages * _INT8_BOX + (-(-halo // 1024) * 1024) + \
+            2 * 128 * 4 + 2 * _INT8_MAX_STAGES * 8
+
+    for stages in range(_INT8_MAX_STAGES, 1, -1):
+        if smem(stages) <= _INT8_TWO_BLOCKS:
+            return Int8TilePlan("wgmma", rows, stages, smem(stages), 2)
+    return Int8TilePlan("wgmma", rows, _INT8_MAX_STAGES,
+                        smem(_INT8_MAX_STAGES), 1)
+
+
 def _int8_lib():
-    fn = _build.load("conv3x3_int8").cobevt_conv3x3_int8
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
+    lib = _build.load("conv3x3_int8")
+    fn = lib.cobevt_conv3x3_int8
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    am = lib.cobevt_int8_absmax
+    am.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p] + [
+        ctypes.c_int] * 3 + [ctypes.c_void_p]
+    am.restype = ctypes.c_int
+    return fn, am
 
 
-def _launch_int8(x, packed: Int8Weight, scale, inv, residual, relu):
-    """Launch K7 with the scalars prepared: ``scale`` (O,) = s_a * s_w and
-    ``inv`` (1,) = 1 / s_a, f32 on x's device."""
+def _check_slot(name, slot, device):
+    check_operand(name, slot, (1,), torch.int32, device)
+
+
+def int8_absmax(x, slot, impl=None):
+    """Fold max |x| into ``slot`` (see :func:`fold_amax_`): the input scale
+    of a K7 whose producer is not a K7.  One kernel launch on CUDA tensors
+    (``csrc/conv3x3_int8.cu``: absmax_kernel), the plain version on CPU
+    tensors.  The slot must hold 0 or a smaller maximum."""
+    if resolve_impl(impl, x) == "torch":
+        return fold_amax_(slot, x)
+    if x.dtype not in _KERNEL_DTYPES or x.numel() % 8:
+        raise ValueError(f"int8_absmax takes {_KERNEL_DTYPES} with a "
+                         f"multiple of 8 values; got {x.dtype}, "
+                         f"{x.numel()} values")
+    check_operand("x", x, tuple(x.shape), x.dtype, x.device)
+    check_aligned("x", x)
+    _check_slot("slot", slot, x.device)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    blocks = max(1, min(4 * sms, -(-x.numel() // (8 * 256))))
+    err = _int8_lib()[1](
+        x.data_ptr(), x.numel(), slot.data_ptr(),
+        int(x.dtype == torch.bfloat16), blocks, x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "int8_absmax")
+    int8_absmax.launches += 1
+    return slot
+
+
+int8_absmax.launches = 0
+
+
+def _launch_int8(x, packed: Int8Weight, amax, residual, relu, out_amax=None):
+    """Launch K7 on the input's |max| slot ``amax`` (int32 (1,)); with
+    ``out_amax`` (a zeroed slot) the kernel also folds the |max| of its
+    stored output into it."""
     O, K = packed.wt.shape
     why = int8_kernel_accepts(x.shape, O, x.dtype)
     if why is not None:
@@ -338,40 +448,57 @@ def _launch_int8(x, packed: Int8Weight, scale, inv, residual, relu):
         raise ValueError(f"the weight has {K // 9} input channels, x has {C}")
     check_operand("x", x, (N, H, W, C), x.dtype, x.device)
     check_operand("wt", packed.wt, (O, 9 * C), torch.int8, x.device)
-    check_operand("scale", scale, (O,), torch.float32, x.device)
+    check_operand("s_w", packed.s_w, (O,), torch.float32, x.device)
     check_operand("shift", packed.shift, (O,), torch.float32, x.device)
-    check_operand("inv", inv, (1,), torch.float32, x.device)
+    _check_slot("amax", amax, x.device)
+    if out_amax is not None:
+        _check_slot("out_amax", out_amax, x.device)
     if residual is not None:
         check_operand("residual", residual, (N, H, W, O), x.dtype, x.device)
+    plan = int8_tile_plan(H, W, C)
+    if plan.path == "wgmma":
+        check_aligned("wt", packed.wt)   # TMA's 16-byte rule
     out = torch.empty((N, H, W, O), dtype=x.dtype, device=x.device)
-    err = _int8_lib()(
-        x.data_ptr(), packed.wt.data_ptr(), scale.data_ptr(),
-        packed.shift.data_ptr(), inv.data_ptr(),
+    err = _int8_lib()[0](
+        x.data_ptr(), packed.wt.data_ptr(), packed.s_w.data_ptr(),
+        packed.shift.data_ptr(), amax.data_ptr(),
         None if residual is None else residual.data_ptr(), out.data_ptr(),
-        N, H, W, C, O, int(relu), int(x.dtype == torch.bfloat16),
-        x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+        None if out_amax is None else out_amax.data_ptr(),
+        N, H, W, C, O, int(relu), int(x.dtype == torch.bfloat16), plan.rows,
+        plan.stages, x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "conv3x3_int8")
     fused_conv3x3_int8.launches += 1
     return out
 
 
 def fused_conv3x3_int8(x, w, shift, residual=None, relu: bool = True,
-                       impl=None, packed: Int8Weight = None):
+                       impl=None, packed: Int8Weight = None, amax=None,
+                       out_amax=None):
     """int8 post-training-quantized twin of :func:`fused_conv3x3`, same
     contract (folded-BN f32 ``w`` and ``shift``): the weight quantized per
     output channel, the activations per tensor with the dynamic scale of this
     call.  ``packed``: the weight already quantized by
     :func:`pack_int8_weight` (``w`` and ``shift`` are then not read).
-    ``impl``: None (kernel for CUDA tensors, plain version for CPU tensors),
-    "kernel" or "torch".  Inference only, as K3."""
+    ``amax``: x's |max| slot (int32 (1,), :func:`fold_amax_`), written by the
+    K7 that produced x; without it the call fills a new slot with one
+    :func:`int8_absmax`.  ``out_amax``: a zeroed slot that receives the
+    output's |max| for the next K7 (the kernel's epilogue folds it in).  The
+    scale is :func:`act_scale`'s, bit for bit, either way.  ``impl``: None
+    (kernel for CUDA tensors, plain version for CPU tensors), "kernel" or
+    "torch".  Inference only, as K3."""
     if packed is None:
         packed = pack_int8_weight(w, shift)
-    s_a = act_scale(x)
     if resolve_impl(impl, x) == "torch":
-        return conv3x3_int8_reference(x, packed.w_q, packed.s_w, s_a,
-                                      packed.shift, residual, relu)
-    return _launch_int8(x, packed, s_a * packed.s_w, (1.0 / s_a).reshape(1),
-                        residual, relu)
+        s_a = act_scale(x) if amax is None else scale_from_amax(amax)
+        out = conv3x3_int8_reference(x, packed.w_q, packed.s_w, s_a,
+                                     packed.shift, residual, relu)
+        if out_amax is not None:
+            fold_amax_(out_amax, out)
+        return out
+    if amax is None:
+        amax = int8_absmax(x, new_amax_slots(1, x.device))
+    return _launch_int8(x, packed, amax, residual, relu, out_amax)
 
 
 fused_conv3x3_int8.launches = 0

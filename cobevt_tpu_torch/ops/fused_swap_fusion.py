@@ -128,6 +128,64 @@ def stream_accepts(L: int, H: int, W: int, D: int, window: int, heads: int,
     return STREAM_ROWS * tiles * 4 <= SMEM_BYTES
 
 
+# K6's wgmma route (csrc/fused_swap_fusion_streaming.cu, namespace wg): 64-row
+# tiles, two warpgroups a block, the output launch's weight ring at most this
+# deep, one block's shared memory
+STREAM_TILE, STREAM_GROUPS, STREAM_MAX_STAGES = 64, 2, 4
+
+
+def stream_kernel_path(D: int, heads: int, mlp: int, dtype) -> str:
+    """Which K6 kernels a shape runs: "wgmma" (bf16, D 128 or 256, head dim
+    16 or 32, mlp a multiple of 128: every FuseBEVT of the repo) or "rows"
+    (f32, and bf16 at the other widths: the row kernels and flash.cuh).  A
+    choice by shape; both compute the same function and roundings."""
+    if dtype == torch.bfloat16 and D in (128, 256) and heads > 0 and \
+            D % heads == 0 and D // heads in (16, 32) and mlp % 128 == 0:
+        return "wgmma"
+    return "rows"
+
+
+class StreamPlan(NamedTuple):
+    """The launch plan of K6's wgmma route for ``rows`` token rows."""
+
+    tiles: int         # 64-row tiles
+    qkv_blocks: int    # the QKV launch's grid x (y: q, k, v)
+    out_blocks: int    # the output launch's persistent blocks
+    stages: int        # boxes in the output launch's weight ring
+    stage_bytes: int   # the largest box: D rows x 64 columns of bf16
+    qkv_smem: int      # shared memory a block of each launch takes
+    out_smem: int
+
+
+def stream_plan(rows: int, D: int, mlp: int, sms: int) -> StreamPlan:
+    """Grids and shared memory of K6's wgmma route, the same numbers as the
+    kernels' ``qkv_smem`` / ``out_smem``: one block an SM in each launch
+    (the QKV launch's blocks split over q, k, v, each holding its D x D
+    slice of Wqkv), and as deep a weight ring as fits beside the two
+    warpgroups' attention / LN tiles and hidden tiles.  Raises when two
+    boxes do not fit."""
+    tile, groups = STREAM_TILE, STREAM_GROUPS
+    tiles = -(-rows // tile)
+    pairs = -(-tiles // groups)
+    stage = D * 128
+    qkv_smem = 1024 + D * D * 2 + groups * tile * D * 2 + 2 * D * 4 + 16
+    fixed = 1024 + groups * (tile * D * 2 + tile * 128 * 2) + groups * tile \
+        * 4 + (2 * STREAM_MAX_STAGES + groups) * 8
+    stages = min(STREAM_MAX_STAGES, (SMEM_BYTES - fixed) // stage)
+    if stages < 2 or qkv_smem > SMEM_BYTES:
+        raise ValueError(f"K6's wgmma route does not fit D={D}, mlp={mlp} "
+                         f"in {SMEM_BYTES} bytes")
+    return StreamPlan(tiles, max(1, min(sms // 3, pairs)), min(sms, pairs),
+                      stages, stage, qkv_smem, fixed + stages * stage)
+
+
+def gather_key_mask(mask, window: int, grid: bool):
+    """The (B, L, H, W) key mask of one half as K1's kernel reads it: (G, T)
+    f32 in the window-major order of K6's rows (``to_windows``), one copy."""
+    T = mask.shape[1] * window * window
+    return to_windows(mask, window, grid).reshape(-1, T).contiguous()
+
+
 class PackedFusion(NamedTuple):
     """K4's or K6's operands as both versions read them (:func:`pack`)."""
 
@@ -431,7 +489,8 @@ def _stream_lib():
     lib = _build.load("fused_swap_fusion_streaming")
     P, I = ctypes.c_void_p, ctypes.c_int
     fn = lib.cobevt_fusion_stream_sublayer
-    fn.argtypes = [P] * 14 + [ctypes.c_float, ctypes.POINTER(I), I, I, P]
+    fn.argtypes = [P] * 14 + [ctypes.c_float, ctypes.POINTER(I),
+                              ctypes.POINTER(I), I, I, P]
     fn.restype = I
     return fn
 
@@ -468,6 +527,21 @@ def _launch_streaming(x, mask, bias, layers, window, heads):
     stream = torch.cuda.current_stream(dev).cuda_stream
     scale = float(torch.tensor((D // heads) ** -0.5, dtype=dt))
     rows = B * L * H * W
+    # the wgmma route: q, k, v as (3, rows, D), the key mask of each half
+    # gathered once into the (G, T) order of K1's kernel, and the plan
+    plan, masks = None, (mask, mask)
+    if stream_kernel_path(D, heads, mlp, dt) == "wgmma":
+        flag = 2
+        sp = stream_plan(
+            rows, D, mlp, torch.cuda.get_device_properties(dev)
+            .multi_processor_count)
+        plan = (ctypes.c_int * 3)(sp.qkv_blocks, sp.out_blocks, sp.stages)
+        for name, t in [("x", x), ("bias_stack", bias)] + [
+                (name, t) for pair in layers for p in pair
+                for name, t in p.items()]:
+            check_aligned(name, t)
+        if mask is not None:
+            masks = tuple(gather_key_mask(mask, w, g) for g in (False, True))
     qkv = torch.empty((rows, 3 * D), dtype=dt, device=dev)
     att = torch.empty((rows, D), dtype=dt, device=dev)
     bufs = (torch.empty_like(x), torch.empty_like(x))
@@ -478,6 +552,7 @@ def _launch_streaming(x, mask, bias, layers, window, heads):
         for half, p in enumerate(pair):
             dims = (ctypes.c_int * 9)(B, L, H, W, D, w, heads, mlp, half)
             nxt = bufs[(2 * d + half) % 2]   # ping-pong: never in place
+            m = masks[half]
             _build.check(sublayer(
                 state.data_ptr(), nxt.data_ptr(), qkv.data_ptr(),
                 att.data_ptr(), p["ln_a"].data_ptr(), p["wqkv_t"].data_ptr(),
@@ -485,7 +560,7 @@ def _launch_streaming(x, mask, bias, layers, window, heads):
                 p["w1_t"].data_ptr(), p["b1"].data_ptr(),
                 p["w2_t"].data_ptr(), p["b2"].data_ptr(),
                 bias[d, half].data_ptr(),
-                None if mask is None else mask.data_ptr(), scale, dims, flag,
+                None if m is None else m.data_ptr(), scale, dims, plan, flag,
                 idx, stream), "fused_swap_fusion_streaming sublayer")
             fused_swap_fusion_streaming.launches += 1
             state = nxt

@@ -20,8 +20,8 @@ outside the schedule show instead of saturating silently.
 **Forward gate** (``--model pointpillar``; the forward gate of
 ``cobevt_tpu/tools/validate_kernels.py`` for that model): the cooperative
 LiDAR eval forward at full width, once with FuseBEVT as K6
-(``COBEVT_FUSED_FUSION=force-stream``, 4 launches; the default takes the
-stock modules at this map, which beat K6 on the H100) and once with
+(``COBEVT_FUSED_FUSION=force-stream``, 4 launches; the default takes K6
+at this map too) and once with
 ``COBEVT_FUSED_FUSION=0`` (the stock modules, 4 K1 launches), same weights
 and batch; every output's largest deviation over the stock output's largest
 value must stay within :data:`BUDGET_FORWARD`.

@@ -160,11 +160,15 @@ def test_plain_version_matches_the_stock_modules_with_a_fully_masked_window():
 DISPATCH = {
     "corpbevt_fits_k4": ((1, 5, 32, 32, 128), {}, None, False,
                          "fused_swap_fusion"),
-    "state_over_budget_k6": ((1, 5, 64, 64, 128), {}, None, False, None),
+    "state_over_budget_k6": ((1, 5, 64, 64, 128), {}, None, False,
+                             "fused_swap_fusion_streaming"),
     "force_state_over_budget_k6": ((1, 5, 64, 64, 128), {}, "force", False,
-                                   None),
+                                   "fused_swap_fusion_streaming"),
+    # the H100 term that sent this state to the stock modules went with
+    # K6's wgmma kernels: "1" streams, as in the JAX package
     "state_over_budget_switch_1_stock": ((1, 5, 64, 64, 128), {}, "1",
-                                         False, None),
+                                         False,
+                                         "fused_swap_fusion_streaming"),
     "force_stream_state_over_budget_k6": (
         (1, 5, 64, 64, 128), {}, "force-stream", False,
         "fused_swap_fusion_streaming"),
@@ -197,8 +201,8 @@ DISPATCH = {
 def test_dispatch(monkeypatch, name):
     """The old fault: at (1, 5, 64, 64, 128) the port ran K4 (bf16 bias)
     where the JAX package runs K6 (f32 bias), because its gate had no size
-    term.  That state now takes the stock modules unless "force-stream"
-    asks for K6."""
+    term.  That state streams (K6) under "1", "force" and "force-stream",
+    the JAX package's rule; "0" and training take the stock modules."""
     shape, extra, switch, training, entry = DISPATCH[name]
     kw = dict(input_dim=128, mlp_dim=256, agent_size=shape[1], window_size=8,
               dim_head=32, dropout=0.0, depth=1, mask=True)
@@ -267,11 +271,13 @@ def test_k6_in_k4s_place_rounds_the_bias_as_k4_does(monkeypatch):
 
 
 def test_lidar_shape_streams_without_looking_at_the_device(monkeypatch):
-    """The LiDAR map streams under "force-stream" and takes the stock
-    modules by default (K6 loses to them on the H100)."""
+    """The LiDAR map streams (K6) by default and under "force-stream", and
+    takes the stock modules under "0"."""
     enc = ps.SwapFusionEncoder(input_dim=256, mlp_dim=512, agent_size=5,
                                window_size=8, dim_head=32, depth=2).eval()
     monkeypatch.delenv("COBEVT_FUSED_FUSION", raising=False)
+    assert enc.fused_kernel((1, 5, 96, 176, 256)) == "K6"
+    monkeypatch.setenv("COBEVT_FUSED_FUSION", "0")
     assert enc.fused_kernel((1, 5, 96, 176, 256)) is None
     monkeypatch.setenv("COBEVT_FUSED_FUSION", "force-stream")
     assert enc.fused_kernel((1, 5, 96, 176, 256)) == "K6"

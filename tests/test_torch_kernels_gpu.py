@@ -37,9 +37,15 @@ from cobevt_tpu_torch import ops
 from cobevt_tpu_torch.nn.layers import BasicBlock
 from cobevt_tpu_torch.ops.bn_stats import bn_stats_bwd, bn_stats_fwd
 from cobevt_tpu_torch.ops.conv2d import (
+    _launch_int8,
+    fold_amax_,
     fused_conv3x3,
     fused_conv3x3_int8,
+    int8_absmax,
+    int8_tile_plan,
+    new_amax_slots,
     pack_conv3x3_weight,
+    pack_int8_weight,
 )
 from cobevt_tpu_torch.ops.int8_chain import (
     conv3x3_s8,
@@ -59,6 +65,7 @@ from cobevt_tpu_torch.ops.fused_swap_fusion import (
     launches_per_call,
 )
 from cobevt_tpu_torch.ops.hopper_tile import (
+    S8_VARIANTS,
     VARIANTS,
     tile_product,
     tile_reference,
@@ -106,6 +113,24 @@ def test_hopper_tile_matches_matmul(gen, variant):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, tile_reference(a, b, variant), atol=1e-4,
                                rtol=1e-5)
+
+
+@pytest.mark.parametrize("variant", sorted(S8_VARIANTS))
+def test_hopper_s8_tile_matches_integer_matmul(gen, variant):
+    """The 8-bit wgmma forms of csrc/hopper.cuh (A from shared memory, and
+    K7's: A by ldmatrix from 144-byte rows into registers) against the
+    exact integer product, twice, bit for bit."""
+    a_shape, b_shape, _, _ = S8_VARIANTS[variant]
+    a = torch.randint(-127, 128, a_shape, generator=gen, device="cuda",
+                      dtype=torch.int8)
+    b = torch.randint(-127, 128, b_shape, generator=gen, device="cuda",
+                      dtype=torch.int8)
+    got = tile_product(a, b, variant)
+    again = tile_product(a, b, variant)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32
+    assert torch.equal(got, tile_reference(a, b, variant))
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -790,6 +815,84 @@ def test_k6_kernel_matches_plain(gen, dtype, case):
     assert got.dtype == dtype and got.shape == (B, H, W, D)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got.float(), want.float(), **K4_TOL[dtype])
+
+
+@pytest.mark.parametrize("case", ["masked", "mean_over_valid",
+                                  "fully_masked_window"])
+def test_k6_wgmma_matches_plain_at_the_lidar_shape(gen, case):
+    """K6's wgmma route at the cooperative-LiDAR map (1, 5, 96, 176, 256), 8
+    heads, window 8, depth 2, mlp 512, bf16: against the plain version
+    within K4_TOL, and a second call bit for bit."""
+    B, L, H, W, D, w, heads, depth, mlp = 1, 5, 96, 176, 256, 8, 8, 2, 512
+    x, layers, bias, head = k4_operands(gen, B, L, H, W, D, w, heads, depth,
+                                        mlp)
+    mask = (torch.rand(B, L, H, W, generator=gen, device="cuda")
+            > 0.3).float()
+    mask[:, 0] = 1.0
+    if case == "fully_masked_window":
+        mask[:, :, :w, :w] = 0.0
+    agent_mask = torch.ones(B, L, device="cuda")
+    agent_mask[:, -1] = 0.0
+    args = (x.to(torch.bfloat16), mask, agent_mask, bias, layers, head, w,
+            heads, case == "mean_over_valid")
+    before = fused_swap_fusion_streaming.launches
+    got = fused_swap_fusion_streaming(*args)
+    again = fused_swap_fusion_streaming(*args)
+    assert fused_swap_fusion_streaming.launches == before + 4 * depth
+    want = fused_swap_fusion_streaming(*args, impl="torch")
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **K4_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(20, 32, 32, 256), (20, 16, 16, 512)])
+@pytest.mark.parametrize("residual", [False, True])
+def test_k7_scale_fold_equals_plain_at_the_trunk_shapes(gen, dtype, shape,
+                                                         residual):
+    """K7 on wgmma at the two trunk shapes of the int8 mode: the wrapper's
+    call (one absmax into a zeroed slot, one K7) and the kernel on a slot
+    that folds its own output's |max| are bit-equal to the plain version
+    (act_scale's max-reduce), the folded slot to the plain fold of the
+    output, and a repeat to the first call."""
+    N, H, W, C = shape
+    assert int8_tile_plan(H, W, C).path == "wgmma"
+    x = torch.randn(N, H, W, C, generator=gen, device="cuda").relu().to(dtype)
+    w = torch.randn(3, 3, C, C, generator=gen, device="cuda") * (
+        2 / (9 * C)) ** 0.5
+    shift = torch.randn(C, generator=gen, device="cuda") * 0.1
+    res = (torch.randn(N, H, W, C, generator=gen, device="cuda").to(dtype)
+           if residual else None)
+    packed = pack_int8_weight(w, shift)
+    ops.reset_launch_counts()
+    got = fused_conv3x3_int8(x, None, None, res, packed=packed)
+    counts = ops.launch_counts()
+    assert counts["fused_conv3x3_int8"] == 1 and counts["int8_absmax"] == 1
+    want = fused_conv3x3_int8(x, None, None, res, packed=packed,
+                              impl="torch")
+    slot = int8_absmax(x, new_amax_slots(1, x.device))
+    out_slot = new_amax_slots(1, x.device)
+    folded = _launch_int8(x, packed, slot, res, True, out_slot)
+    again = _launch_int8(x, packed, slot, res, True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(folded, want)
+    assert torch.equal(again, want)
+    assert torch.equal(out_slot, fold_amax_(new_amax_slots(1, x.device),
+                                            want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(20, 32, 32, 256), (20, 16, 16, 512),
+                                   (3, 5, 7, 8), (1, 8)])
+def test_int8_absmax_equals_plain(gen, dtype, shape):
+    x = torch.randn(*shape, generator=gen, device="cuda").to(dtype) * 3
+    for start in (0.0, 1e3):      # a slot that already holds a larger max
+        init = torch.tensor([start], device="cuda").view(torch.int32)
+        got = int8_absmax(x, init.clone())
+        want = fold_amax_(init.clone(), x)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
 
 
 def test_fused_kernels_reject_what_they_do_not_take(gen):

@@ -101,9 +101,9 @@ def test_swap_fusion_forward_matches_jax(monkeypatch, switch, n_live):
 
 def test_default_switch_takes_k4_at_the_small_size_and_k6_at_full_width(
         monkeypatch):
-    """At full width the JAX package streams (K6); the port takes K6 there
-    under "force-stream" and the stock modules by default, which beat K6 on
-    the H100 (SwapFusionEncoder.fused_kernel)."""
+    """At full width the JAX package streams (K6), and so does the port, by
+    default and under "force-stream"; "0" takes the stock modules
+    (SwapFusionEncoder.fused_kernel)."""
     monkeypatch.delenv("COBEVT_FUSED_FUSION", raising=False)
     _, _, _, port, batch = _models("swap")
     assert port.fusion_net.fused_kernel((1, 2, 16, 16, 128)) == "K4"
@@ -114,9 +114,11 @@ def test_default_switch_takes_k4_at_the_small_size_and_k6_at_full_width(
         input_dim=full.shrink_dim, mlp_dim=full.fusion_mlp_dim,
         agent_size=full.max_cav, window_size=full.fusion_window_size,
         dim_head=full.fusion_dim_head, depth=full.fusion_depth).eval()
-    assert enc.fused_kernel((1, 5, 96, 176, 256)) is None
+    assert enc.fused_kernel((1, 5, 96, 176, 256)) == "K6"
     monkeypatch.setenv("COBEVT_FUSED_FUSION", "force-stream")
     assert enc.fused_kernel((1, 5, 96, 176, 256)) == "K6"
+    monkeypatch.setenv("COBEVT_FUSED_FUSION", "0")
+    assert enc.fused_kernel((1, 5, 96, 176, 256)) is None
 
 
 def test_max_fusion_forward_matches_jax():
