@@ -43,14 +43,18 @@ non-zero without printing the final line:
      the slot its epilogue folds held to the plain fold of its output, the
      absmax kernel (``int8_absmax``) against its plain version, and the
      8-bit wgmma tiles (A from shared memory, and from registers as K7
-     loads it) against the integer product (``--kernels K5,K2`` or
-     ``--kernels tiles,K6,K7`` runs only such rows and stops without the
-     final line);
+     and the chain's conv load it) against the integer product; K4 on the
+     card alone as it runs and by launch kind with its launches one after
+     the other, at four cases (one with a dead agent between live ones),
+     and the chain's conv and cuDNN's bf16 conv on the card alone, at the
+     layer1 cases and a height its strips do not divide (``--kernels
+     K5,K2``, ``--kernels tiles,K6,K7`` or ``--kernels K4,S8`` runs only
+     such rows and stops without the final line);
   4. slice, the serving default (COBEVT_FUSED_XATTN and
      COBEVT_FUSED_FUSION unset): full-width CorpBEVT (ResNet-34, seeded
      random weights) in bf16 serves synthetic requests with mixed
      live-agent counts through the staged runner; the launch counters show
-     every frame ran 1 K1, 6 x 4 K2, 20 K3 and 19 K4 launches; one frame is
+     every frame ran 1 K1, 6 x 4 K2, 20 K3 and 14 K4 launches; one frame is
      checked against the plain path in f32 (argmax IoU >= 0.99 on
      dynamic_seg);
   5. stock path (both switches "0"): a shorter run with 13 K1 and 20 K3
@@ -77,7 +81,7 @@ non-zero without printing the final line:
   9. int8 serving (COBEVT_INT8=1 on the fused path): full-width CorpBEVT in
      bf16 answers requests with 5, 3, 1, 4, 2 live agents; every frame runs
      14 K7, 2 absmax, 6 K3 and 6 launches of the int8 chain's conv (layer1
-     int8-resident) beside 1 K1, 24 K2 and 19 K4, and one 5-agent frame
+     int8-resident) beside 1 K1, 24 K2 and 14 K4, and one 5-agent frame
      makes no more device operations (torch.profiler) than the same frame
      in bf16; then the int8 gate of
      tools/validate_kernels.py against the stock bf16 path (relative drift,
@@ -190,6 +194,9 @@ K4_CASES = [
     ("encoder_masked", True, False, 1),
     ("encoder_mean_over_valid", True, True, 0),
     ("encoder_unmasked", False, False, 0),
+    # agent 2 of 5 dead (agent_mask 0, every key of it masked) between live
+    # ones, pooled over the live agents
+    ("encoder_dead_agent", True, True, 0),
 ]
 # K6: the streaming FuseBEVT sublayers, one call = depth x 2 sublayers + the
 # head.  (name, (B, L, H, W, D, window, heads, depth, mlp), mask,
@@ -218,14 +225,17 @@ A7_CASES = [
     ("layer3_input", (20, 32, 32, 256), 1),
     ("layer4_input", (20, 16, 16, 512), 1),
 ]
-# the int8 chain's conv over layer1 (20 x 128 x 128 x 64): (name, residual,
-# exit, launches per frame); a block's conv1 requantizes, conv2 adds the s8
-# residual and requantizes, the last block's conv2 casts to the model's dtype
+# the int8 chain's conv over layer1 (20 x 128 x 128 x 64): (name, (N, H, W,
+# C), residual, exit, launches per frame); a block's conv1 requantizes,
+# conv2 adds the s8 residual and requantizes, the last block's conv2 casts
+# to the model's dtype.  "tail": 45 rows, which the strip plan of 132 SMs
+# cuts into strips of 4 and a last strip of 1, at a width of 96
 S8_SHAPE = (20, 128, 128, 64)
 S8_CASES = [
-    ("layer1_conv1", False, False, 3),
-    ("layer1_conv2", True, False, 2),
-    ("layer1_conv2_exit", True, True, 1),
+    ("layer1_conv1", S8_SHAPE, False, False, 3),
+    ("layer1_conv2", S8_SHAPE, True, False, 2),
+    ("layer1_conv2_exit", S8_SHAPE, True, True, 1),
+    ("tail_conv2", (20, 45, 96, 64), True, False, 0),
 ]
 # K11, K12: (name, N, D, M, calls of the micro protocol's one pass): the
 # LiDAR fusion token count of tools/micro_ffd_fused.py, and a shape whose rows
@@ -268,12 +278,12 @@ LIDAR_TRAIN_PER_STEP = {"fused_window_attention_packed": 4,
 SERVE_AGENTS = [5, 3, 1, 4, 2, 5, 3, 5, 2, 4]
 INT8_AGENTS = [5, 3, 1, 4, 2]
 STOCK_AGENTS = [5, 2, 4]
-# launches per frame on each path: K2 6 branches x 4, K4 3 blocks x 2
-# sublayers x 3 + the head (ops/fused_*.py: LAUNCHES_PER_CALL,
-# launches_per_call)
+# launches per frame on each path: K2 6 branches x 4, K4 on its wgmma route
+# the first QKV, 3 blocks x 2 sublayers x 2 (attention, output with the next
+# QKV) and the head (ops/fused_*.py: LAUNCHES_PER_CALL, launches_per_call)
 FUSED_PER_FRAME = {"fused_window_attention_packed": 1,
                    "fused_cross_view_attention": 6 * 4,
-                   "fused_conv3x3": 20, "fused_swap_fusion": 3 * 2 * 3 + 1,
+                   "fused_conv3x3": 20, "fused_swap_fusion": 1 + 3 * 2 * 2 + 1,
                    "fused_swap_fusion_streaming": 0, "fused_conv3x3_int8": 0,
                    "conv3x3_s8": 0, "int8_absmax": 0}
 # COBEVT_INT8=1 on the fused path: layer3's 5 and layer4's 2 stride-1 blocks
@@ -555,15 +565,18 @@ def fusion_operands(randn, D, mlp, depth, T, heads):
 
 def k4_inputs(case, dtype, gen):
     """x, mask, agent_mask, bias_stack, layers, head of the FuseBEVT
-    encoder at CorpBEVT (one frame, 3 live agents of max_cav 5)."""
+    encoder at CorpBEVT (one frame, 3 live agents of max_cav 5; at
+    "encoder_dead_agent" 4, agent 2 dead)."""
     import torch
-    _, masked, _, _ = case
+    name, masked, _, _ = case
     B, L, H, D, w, heads, depth, mlp = 1, 5, 32, 128, 8, 4, 3, 256
 
     def randn(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device="cuda") * scale
 
-    agent_mask = torch.tensor([[1.0, 1.0, 1.0, 0.0, 0.0]], device="cuda")
+    live = [1.0, 1.0, 0.0, 1.0, 1.0] if name == "encoder_dead_agent" else \
+        [1.0, 1.0, 1.0, 0.0, 0.0]
+    agent_mask = torch.tensor([live], device="cuda")
     mask = None
     if masked:
         mask = (torch.rand(B, L, H, H, generator=gen, device="cuda")
@@ -672,6 +685,48 @@ def k4_work(dtype_size):
     weights = 2 * depth * (4 * D * D + 2 * D * mlp) + D * D
     elems = rows * D + B * H * H * D + weights + 2 * depth * T * 4 * T
     return flops, elems * dtype_size + B * L * H * H * 4
+
+
+def s8_plan_fields(shape):
+    """The launch plan of the chain's conv at (N, H, W, C = O)."""
+    import torch
+    from cobevt_tpu_torch.ops.int8_chain import s8_plan
+    N, H, W, C = shape
+    plan = s8_plan(N, H, W, C, C, torch.cuda.get_device_properties(0)
+                   .multi_processor_count)
+    return {"path": plan.path, "strip_rows": plan.rows,
+            "strips": plan.strips, "blocks": plan.blocks}
+
+
+@contextlib.contextmanager
+def k4_serial():
+    """K4's wgmma route without programmatic dependent launch inside the
+    block (its plan's ``pdl`` False): each launch starts after the last."""
+    import importlib
+    module = importlib.import_module("cobevt_tpu_torch.ops.fused_swap_fusion")
+    plan = module.k4_plan
+    module.k4_plan = lambda *args: plan(*args)._replace(pdl=False)
+    try:
+        yield
+    finally:
+        module.k4_plan = plan
+
+
+def k4_plan_fields(x, heads, layers):
+    """The route and launch plan of K4 on x (its packed layers)."""
+    import torch
+    from cobevt_tpu_torch.ops.fused_swap_fusion import k4_kernel_path, k4_plan
+    B, L, H, W, D = x.shape
+    mlp = layers[0][0]["w1_t"].shape[0]
+    path = k4_kernel_path(D, heads, mlp, x.dtype)
+    row = {"path": path}
+    if path == "wgmma":
+        plan = k4_plan(B * L * H * W, D, mlp,
+                       torch.cuda.get_device_properties(0)
+                       .multi_processor_count)
+        row.update(qkv_blocks=3 * plan.qkv_blocks, blocks=plan.out_blocks,
+                   stages=plan.stages)
+    return row
 
 
 def phase_kernels(only=None):
@@ -937,21 +992,21 @@ def phase_kernels(only=None):
             if not row["ok"]:
                 failures.append(row)
             del x, got, want
-        N, H, W, C = S8_SHAPE
-        xq, sx = quantize_dynamic(
-            torch.randn(N, H, W, C, generator=gen, device="cuda").relu())
-        rq, rs = quantize_dynamic(
-            torch.randn(N, H, W, C, generator=gen, device="cuda").relu())
-        w = torch.randn(3, 3, C, C, generator=gen, device="cuda") * (
-            2 / (9 * C)) ** 0.5
-        p8 = pack_s8_weight(w, torch.randn(C, generator=gen,
-                                           device="cuda") * 0.1)
-        x_cl = torch.randn(N, C, H, W, generator=gen, device="cuda").to(
-            dtype).contiguous(memory_format=torch.channels_last)
-        w_oihw = w.to(dtype).permute(3, 2, 0, 1).contiguous(
-            memory_format=torch.channels_last)
-        for name, residual, leaves, per_frame in (S8_CASES if selected("S8")
-                                                  else ()):
+        for name, shape, residual, leaves, per_frame in (
+                S8_CASES if selected("S8") else ()):
+            N, H, W, C = shape
+            xq, sx = quantize_dynamic(
+                torch.randn(N, H, W, C, generator=gen, device="cuda").relu())
+            rq, rs = quantize_dynamic(
+                torch.randn(N, H, W, C, generator=gen, device="cuda").relu())
+            w = torch.randn(3, 3, C, C, generator=gen, device="cuda") * (
+                2 / (9 * C)) ** 0.5
+            p8 = pack_s8_weight(w, torch.randn(C, generator=gen,
+                                               device="cuda") * 0.1)
+            x_cl = torch.randn(N, C, H, W, generator=gen, device="cuda").to(
+                dtype).contiguous(memory_format=torch.channels_last)
+            w_oihw = w.to(dtype).permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
             kwargs = {"out_dtype": dtype}
             if residual:
                 kwargs.update(residual_q=rq, residual_scale=rs)
@@ -978,15 +1033,19 @@ def phase_kernels(only=None):
                    "plain_ms": time_ms(lambda: conv8("torch"), 2, warmup=1),
                    # the convolution alone, in the model's float dtype
                    "library_ms": time_ms(
-                       lambda: F.conv2d(x_cl, w_oihw, padding=1), 5)}
+                       lambda: F.conv2d(x_cl, w_oihw, padding=1), 5),
+                   # both on the card alone
+                   "device_ms": device_ms(lambda: conv8("kernel"), 10),
+                   "library_device_ms": device_ms(
+                       lambda: F.conv2d(x_cl, w_oihw, padding=1), 10)}
+            row.update(s8_plan_fields(shape))
             row.update(bound(2.0 * N * H * W * 9 * C * C,
                              nbytes(xq, p8.wt, p8.s_w, p8.shift, got,
                                     rq if residual else None), "int8"))
             details.append(row)
             if not row["ok"]:
                 failures.append(row)
-            del got, want
-        del xq, rq, w, p8, x_cl, w_oihw
+            del got, want, xq, rq, w, p8, x_cl, w_oihw
         # K9, K10: bf16 activations, as BatchNorm sees them in training
         for (R, C), name in (BN_SHAPES if dtype == torch.bfloat16
                              and selected("K9") else ()):
@@ -1071,7 +1130,19 @@ def phase_kernels(only=None):
                    "per_frame": case[3], "max_abs_err": abs_err,
                    "max_rel_err": rel_err, "ok": ok,
                    "ms": time_ms(lambda: fusion("kernel"), 10),
-                   "plain_ms": time_ms(lambda: fusion("torch"), 10)}
+                   "plain_ms": time_ms(lambda: fusion("torch"), 10),
+                   # on the card alone
+                   "device_ms": device_ms(lambda: fusion("kernel"), 10)}
+            # each kind of launch alone (summed over the call's launches of
+            # that kind), the launches one after the other: with their
+            # programmatic overlap a kernel's time would include its wait
+            # for the one ahead of it
+            with k4_serial():
+                row["serial_device_ms"] = device_ms(
+                    lambda: fusion("kernel"), 10)
+                row["launch_device_ms"] = kernel_device_ms(
+                    lambda: fusion("kernel"), 5)
+            row.update(k4_plan_fields(x, heads, packed.layers))
             row.update(bound(*k4_work(x.element_size()), dname))
             details.append(row)
             if not ok:
@@ -1348,6 +1419,9 @@ def phase_kernels(only=None):
             extra += f"  on the card alone: kernel={r['device_ms']:.4f} ms"
             if "library_device_ms" in r:
                 extra += f" library={r['library_device_ms']:.4f} ms"
+            if "serial_device_ms" in r:
+                extra += (f" (launches one after the other: "
+                          f"{r['serial_device_ms']:.4f} ms)")
         if "blocks" in r:
             extra += f"  {r['blocks']} blocks"
         if "launch_device_ms" in r:
@@ -1393,6 +1467,17 @@ def phase_kernels(only=None):
             f"{frame('alone_device_ms'):.3f}), bound "
             f"{frame('bound_ms'):.4f} ms, cuDNN bf16 "
             f"{frame('library_ms'):.3f} ms")
+    s8 = [r for r in details if r["kernel"] == "S8"
+          and r["dtype"] == "bfloat16" and r["per_frame"]]
+    if s8:
+        def s8_frame(field):
+            return sum(r[field] * r["per_frame"] for r in s8)
+        log(f"S8, the {sum(r['per_frame'] for r in s8)} convs of an int8 "
+            f"frame (bf16 exit): {s8_frame('ms'):.3f} ms (on the card alone "
+            f"{s8_frame('device_ms'):.3f}), bound "
+            f"{s8_frame('bound_ms'):.4f} ms, cuDNN bf16 "
+            f"{s8_frame('library_ms'):.3f} ms (on the card alone "
+            f"{s8_frame('library_device_ms'):.3f})")
     if failures:
         raise AssertionError(f"{len(failures)} kernel cases disagree with "
                              f"their plain versions: "

@@ -20,10 +20,22 @@
 //
 // The second entry, cobevt_conv3x3_s8, is the conv of the int8-resident
 // chain (cobevt_tpu/ops/int8_chain.py:conv3x3_s8, plain XLA there: PyTorch
-// has no integer convolution on CUDA): x arrives as s8 and is copied into
-// the halo tile as it is; the residual is s8 at its own scale; the epilogue
-// either requantizes, clip(rint(f / out_scale), +-127) stored as s8 with the
-// clipped values counted, or casts to f32 / bf16 (the region's exit).
+// has no integer convolution on CUDA): x arrives as s8; the residual is s8
+// at its own scale; the epilogue either requantizes, clip(rint(f /
+// out_scale), +-127) stored as s8 with the clipped values counted, or casts
+// to f32 / bf16 (the region's exit).  At C = O = 64 and W <= 128 (layer1,
+// (20, 128, 128, 64): every launch of the chain) it runs conv3x3_s8_strip
+// (namespace chain), else conv3x3_int8_kernel with the s8 activations copied
+// into its halo tile as they are.  A layer1 conv is 24 G multiply-adds x 2
+// (0.012 ms at the int8 peak) against 21 MB of s8 in and out (+ 21 MB of
+// residual; 0.013-0.019 ms at 3.35 TB/s): memory and the epilogue, not the
+// tensor cores, bound it.  conv3x3_int8_kernel gave every image row its own
+// block (2,560 blocks), each staging a 3-row halo and streaming the whole
+// 36 KB weight through a two-stage ring: 0.158 / 0.171 / 0.132 ms a conv1 /
+// conv2 / exit conv on an H100, on the card alone, 2.1 times cuDNN's bf16
+// conv.  The strip kernel keeps the weight resident, reads each halo row
+// once a strip of rows, and its epilogue runs on the full-rate pipes; its
+// design is at the kernel and its times in PERF.md.
 //
 // What bounds it on the H100: a layer3 conv is 24 G multiply-adds x 2 against
 // ~21 MB of activations, so the integer tensor cores, not memory, set its
@@ -44,16 +56,16 @@
 //    mbarriers; the halo tile holds one group of 256 channels at a time, so
 //    two blocks fit an SM at both trunk shapes.  Its design and what bounds
 //    it are at the kernel;
-//  * conv3x3_int8_kernel (the rest, and the chain's conv): 128 channels a
-//    block, 8 warps each holding 32 x 64 (or 32 x 32) s32 accumulators on
-//    mma.sync.m16n8k32.s8.s8.s32, the weight through a two-stage cp.async
-//    ring of 64 input channels of one tap (rows padded to 80 bytes), the
-//    halo tile's pixels C + 16 bytes apart so the eight rows of a fragment
-//    hit distinct banks.
+//  * conv3x3_int8_kernel (the rest, and the chain's conv at other shapes):
+//    128 channels a block, 8 warps each holding 32 x 64 (or 32 x 32) s32
+//    accumulators on mma.sync.m16n8k32.s8.s8.s32, the weight through a
+//    two-stage cp.async ring of 64 input channels of one tap (rows padded
+//    to 80 bytes), the halo tile's pixels C + 16 bytes apart so the eight
+//    rows of a fragment hit distinct banks.
 //
-// Both epilogues use unfused multiplies, adds and divisions (__fmul_rn,
-// __fadd_rn, __fdiv_rn), so their results equal the plain PyTorch
-// version's bit for bit.
+// Every epilogue uses unfused multiplies, adds and divisions (__fmul_rn,
+// __fadd_rn, __fdiv_rn, or exact replacements of them), so its results
+// equal the plain PyTorch version's bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -163,6 +175,40 @@ __device__ __forceinline__ int8_t requantize(float v, float out_scale,
   const float ticks = rintf(__fdiv_rn(v, out_scale));
   clipped += fabsf(ticks) > 127.f;
   return (int8_t)(int)fminf(fmaxf(ticks, -127.f), 127.f);
+}
+
+// The int8 chain's epilogue, 4,096 outputs a warpgroup a row, holds most
+// of a block's time (tools/micro_s8.py), so it keeps its rounding and its
+// s8 bytes on the full-rate floating-point pipes, off the conversions (F2I,
+// FRND) that issue at a fraction of FADD's rate.  x + kMagic, for |x| <
+// 2^22, is 1.5 * 2^23 + rint(x) (round half to even), the integer in the
+// low mantissa bits.
+constexpr float kMagic = 12582912.f;
+
+// an s8 value as f32, exactly
+__device__ __forceinline__ float s8_float(int b) {
+  return __fsub_rn(__int_as_float(0x4B400000 + b), kMagic);
+}
+
+// rint(v / out_scale) as requantize computes it, with the quotient from a
+// multiply by inv = 1 / out_scale and the division only where the two may
+// round to different integers: the product's relative error against the
+// exact quotient is below 2^-22 (two roundings and the reciprocal's), so
+// their rint agree unless the product lies within that of a half-integer
+// (every |q| >= 2^22 takes the division too)
+__device__ __forceinline__ float requantize_ticks(float v, float out_scale,
+                                                  float inv) {
+  const float q = __fmul_rn(v, inv);
+  const float r = __fsub_rn(__fadd_rn(q, kMagic), kMagic);
+  return 0.5f - fabsf(q - r) <= fabsf(q) * 4.8e-7f
+             ? rintf(__fdiv_rn(v, out_scale))
+             : r;
+}
+
+// clip(ticks, +-127) as one s8 value (its two's complement byte)
+__device__ __forceinline__ int8_t ticks_s8(float ticks) {
+  return (int8_t)__float_as_int(
+      __fadd_rn(fminf(fmaxf(ticks, -127.f), 127.f), kMagic));
 }
 
 // Pointers to the scalars a launch may need; each may be null.
@@ -713,6 +759,350 @@ cudaError_t launch(const void* x, const void* wt, const void* in_amax,
 
 }  // namespace wg
 
+// ---------------------------------------------------------------------------
+// The int8 chain's conv on wgmma: C = O = 64, W <= 128 (layer1), s8 in
+// ---------------------------------------------------------------------------
+
+namespace chain {
+
+using namespace hopper;
+
+constexpr int kCh = 64;                    // C = O
+constexpr int kMaxW = 128;                 // two 64-pixel segments a row
+constexpr int kHaloPix = kMaxW + 2;        // a halo row's pixels
+constexpr int kHaloBytes = 8704;           // kHaloPix * 64, to 512 bytes
+constexpr int kHaloStages = 5;
+constexpr int kResBytes = kMaxW * kCh;
+constexpr int kResStages = 2;
+constexpr int kTapBytes = kCh * kCh;       // one tap of the weight
+constexpr int kWBytes = 9 * kTapBytes;
+constexpr int kOutBytes = 64 * kCh;        // a segment's s8 output row
+constexpr int kConsumers = 256;            // two warpgroups
+constexpr int kThreads = kConsumers + 32;  // and the producer warp
+
+// Shared memory of a block, laid out from a 1024-byte aligned base; the
+// host's plan (ops/int8_chain.py:s8_plan) computes the same bytes.
+constexpr int kHaloOff = kWBytes;
+constexpr int kResOff = kHaloOff + kHaloStages * kHaloBytes;
+constexpr int kOutOff = kResOff + kResStages * kResBytes;
+constexpr int kScaleOff = kOutOff + 2 * kOutBytes;
+constexpr int kBarOff = kScaleOff + 2 * kCh * 4;
+constexpr int kBars = 1 + 2 * kHaloStages + 2 * kResStages;
+constexpr int kSmemBytes = 1024 + kBarOff + kBars * 8 + 16;
+
+// Where a block's time goes (tools/micro_s8.py builds a copy that defines
+// these to stamp the global timer): the time since the last mark counts to
+// phase 0 (waiting for halo and residual rows), 1 (products) or 2
+// (epilogue).
+#ifndef S8_PHASES_BEGIN
+#define S8_PHASES_BEGIN
+#define S8_MARK(phase)
+#define S8_PHASES_END
+#endif
+
+// byte of (pixel p, channel c) in a row of 64-byte pixels written by TMA
+// with SWIZZLE_64B from a 512-byte aligned base: 16-byte chunk c / 16 of
+// pixel p sits at chunk (c / 16) ^ ((p / 2) % 4)
+__device__ __forceinline__ int sw64(int p, int c) {
+  return p * 64 + ((((c >> 4) ^ (p >> 1)) & 3) << 4) + (c & 15);
+}
+
+// grid: persistent blocks, each walking strips blockIdx.x, + gridDim.x, ...
+// of `strip` output rows of one image (the last strip of an image may be
+// shorter); block: two consumer warpgroups, one 64-pixel segment of a row
+// each, and a producer warp.  The producer's lane 0 TMA-loads the 36 KB
+// weight once (nine 64 x 64 taps, SWIZZLE_64B), then streams the strip's
+// halo rows (130 pixels x 64 channels from x = -1: TMA fills the columns
+// and rows outside the image with zeros) through a ring of kHaloStages
+// row buffers and the residual rows through a ring of kResStages, each
+// buffer with full / empty mbarriers; every input row is read once a
+// strip.  Output row y of the strip is the product of halo rows y - 1, y,
+// y + 1: per row buffer, six m64n64k32 s8 products with A from registers
+// (ldmatrix_x4 of the rows a tap shifts to, through the swizzle) and B the
+// resident tap.  The epilogue is the plain version's, unfused: f32(acc) *
+// scale[o] + shift[o] (+ f32(residual) * residual_scale), ReLU, then
+// clip(rint(f / out_scale), +-127) into a swizzled staging row that one
+// TMA store writes (KIND 0), or the cast to f32 (1) or bf16 (2) stored
+// from registers (the chain's exit, once a frame).  Clipped values are
+// counted in registers and added to *clipped once a block.
+template <int KIND>
+__global__ void __launch_bounds__(kThreads, 2)
+    conv3x3_s8_strip(const __grid_constant__ CUtensorMap xmap,
+                     const __grid_constant__ CUtensorMap wmap,
+                     const __grid_constant__ CUtensorMap rmap,
+                     const __grid_constant__ CUtensorMap omap,
+                     const float* __restrict__ scale,
+                     const float* __restrict__ shift,
+                     const float* __restrict__ residual_scale,
+                     const float* __restrict__ out_scale,
+                     unsigned int* __restrict__ clipped,
+                     void* __restrict__ out, int N, int H, int W, int strip,
+                     int has_res, int relu) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* w_s = base;
+  uint8_t* halo = base + kHaloOff;
+  uint8_t* res = base + kResOff;
+  float* sc = reinterpret_cast<float*>(base + kScaleOff);
+  float* sh = sc + kCh;
+  uint64_t* wbar = reinterpret_cast<uint64_t*>(base + kBarOff);
+  uint64_t* hfull = wbar + 1;
+  uint64_t* hempty = hfull + kHaloStages;
+  uint64_t* rfull = hempty + kHaloStages;
+  uint64_t* rempty = rfull + kResStages;
+  unsigned int* clip_s = reinterpret_cast<unsigned int*>(rempty + kResStages);
+
+  const int tid = threadIdx.x;
+  const int per_image = (H + strip - 1) / strip;
+  const int strips = N * per_image;
+  if (tid == 0) {
+    mbar_init(wbar, 1);
+    for (int s = 0; s < kHaloStages; ++s) {
+      mbar_init(&hfull[s], 1);
+      mbar_init(&hempty[s], kConsumers / 32);
+    }
+    for (int s = 0; s < kResStages; ++s) {
+      mbar_init(&rfull[s], 1);
+      mbar_init(&rempty[s], kConsumers / 32);
+    }
+    *clip_s = 0u;
+    fence_barrier_init();
+  }
+  if (tid < kCh) {
+    sc[tid] = scale[tid];
+    sh[tid] = shift[tid];
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {   // the producer warp; its lane 0 issues
+    if (tid != kConsumers) return;
+    mbar_arrive_expect_tx(wbar, kWBytes);
+    for (int tap = 0; tap < 9; ++tap)
+      tma_load_2d(w_s + tap * kTapBytes, &wmap, wbar, tap * kCh, 0);
+    int hi = 0, ri = 0;
+    auto halo_row = [&](int n, int y) {
+      const int s = hi % kHaloStages, r = hi / kHaloStages;
+      if (r > 0) mbar_wait(&hempty[s], (r - 1) & 1);
+      mbar_arrive_expect_tx(&hfull[s], kHaloPix * kCh);
+      tma_load_4d(halo + s * kHaloBytes, &xmap, &hfull[s], 0, -1, y, n);
+      ++hi;
+    };
+    auto res_row = [&](int n, int y) {
+      const int s = ri % kResStages, r = ri / kResStages;
+      if (r > 0) mbar_wait(&rempty[s], (r - 1) & 1);
+      mbar_arrive_expect_tx(&rfull[s], kResBytes);
+      tma_load_4d(res + s * kResBytes, &rmap, &rfull[s], 0, 0, y, n);
+      ++ri;
+    };
+    for (int st = blockIdx.x; st < strips; st += gridDim.x) {
+      const int n = st / per_image, y0 = (st - n * per_image) * strip;
+      const int rows = min(strip, H - y0);
+      halo_row(n, y0 - 1);
+      halo_row(n, y0);
+      for (int j = 0; j < rows; ++j) {
+        halo_row(n, y0 + j + 1);
+        if (has_res) res_row(n, y0 + j);
+      }
+    }
+    return;
+  }
+
+  const int grp = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int x0 = grp * 64;
+  // this lane's ldmatrix row: halo pixel lp + dx of a tap, chunk 2k + lc
+  const int lp = x0 + warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int lc = lane >> 4;
+  const float rs = has_res ? *residual_scale : 0.f;
+  const float os = KIND == 0 ? *out_scale : 1.f;
+  const float inv_os = KIND == 0 ? __fdiv_rn(1.f, os) : 1.f;
+  const bool count = KIND == 0 && clipped != nullptr;
+  uint8_t* stage = base + kOutOff + grp * kOutBytes;
+  unsigned int nclip = 0;
+  S8_PHASES_BEGIN
+  mbar_wait(wbar, 0);
+  int hi = 0, ri = 0;
+  for (int st = blockIdx.x; st < strips; st += gridDim.x) {
+    const int n = st / per_image, y0 = (st - n * per_image) * strip;
+    const int rows = min(strip, H - y0);
+    for (int j = 0; j < rows; ++j) {
+      const int y = y0 + j;
+      int acc[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = 0;
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {
+        const int item = hi + j + dy;
+        const int s = item % kHaloStages;
+        mbar_wait(&hfull[s], (item / kHaloStages) & 1);
+        S8_MARK(0)
+        const uint8_t* hrow = halo + s * kHaloBytes;
+        uint32_t a[3][2][4];
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+          for (int k = 0; k < 2; ++k)
+            ldmatrix_x4(a[dx][k], hrow + sw64(lp + dx, 32 * k + 16 * lc));
+        wgmma_fence();
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+          for (int k = 0; k < 2; ++k)
+            wgmma_m64n64k32_s8_rs(
+                acc, a[dx][k],
+                make_desc(w_s + (3 * dy + dx) * kTapBytes + 32 * k, 512,
+                          kSwizzle64),
+                1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        S8_MARK(1)
+      }
+      // halo row j has had its last reader in this warp
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&hempty[(hi + j) % kHaloStages]);
+
+      const uint8_t* rrow = nullptr;
+      if (has_res) {
+        const int s = ri % kResStages;
+        mbar_wait(&rfull[s], (ri / kResStages) & 1);
+        rrow = res + s * kResBytes;
+        S8_MARK(0)
+      }
+      if constexpr (KIND == 0) {   // the last row's store has read the stage
+        if ((tid & 127) == 0) tma_store_wait_read();
+        named_barrier_sync(1 + grp, 128);
+      }
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int o = 8 * jj + 2 * t;
+        const float2 sc2 = *reinterpret_cast<const float2*>(sc + o);
+        const float2 sh2 = *reinterpret_cast<const float2*>(sh + o);
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int p = warp * 16 + g + 8 * hr;   // pixel of the segment
+          const int x = x0 + p;
+          float v0 = __fadd_rn(
+              __fmul_rn((float)acc[4 * jj + 2 * hr], sc2.x), sh2.x);
+          float v1 = __fadd_rn(
+              __fmul_rn((float)acc[4 * jj + 2 * hr + 1], sc2.y), sh2.y);
+          if (has_res) {
+            const char2 r = *reinterpret_cast<const char2*>(rrow + sw64(x, o));
+            v0 = __fadd_rn(v0, __fmul_rn(s8_float(r.x), rs));
+            v1 = __fadd_rn(v1, __fmul_rn(s8_float(r.y), rs));
+          }
+          if (relu) {
+            v0 = fmaxf(v0, 0.f);
+            v1 = fmaxf(v1, 0.f);
+          }
+          if constexpr (KIND == 0) {
+            const float q0 = requantize_ticks(v0, os, inv_os);
+            const float q1 = requantize_ticks(v1, os, inv_os);
+            if (count && x < W)
+              nclip += (fabsf(q0) > 127.f) + (fabsf(q1) > 127.f);
+            char2 q;
+            q.x = ticks_s8(q0);
+            q.y = ticks_s8(q1);
+            *reinterpret_cast<char2*>(stage + sw64(p, o)) = q;
+          } else if (x < W) {
+            typedef typename std::conditional<KIND == 1, float,
+                                              __nv_bfloat16>::type TOut;
+            store2(static_cast<TOut*>(out) +
+                       (((size_t)n * H + y) * W + x) * kCh + o,
+                   v0, v1);
+          }
+        }
+      }
+      if (has_res) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&rempty[ri % kResStages]);
+        ++ri;
+      }
+      if constexpr (KIND == 0) {
+        fence_async_shared();
+        named_barrier_sync(1 + grp, 128);
+        if ((tid & 127) == 0 && x0 < W) {
+          tma_store_4d(&omap, stage, 0, x0, y, n);
+          tma_store_commit();
+        }
+      }
+      S8_MARK(2)
+    }
+    // the strip's last two halo rows
+    __syncwarp();
+    if (lane == 0) {
+      mbar_arrive(&hempty[(hi + rows) % kHaloStages]);
+      mbar_arrive(&hempty[(hi + rows + 1) % kHaloStages]);
+    }
+    hi += rows + 2;
+  }
+  if constexpr (KIND == 0) {
+    if ((tid & 127) == 0) tma_store_wait_all();
+    if (clipped != nullptr) {
+#pragma unroll
+      for (int d = 16; d > 0; d >>= 1)
+        nclip += __shfl_xor_sync(0xffffffffu, nclip, d);
+      if (lane == 0 && nclip) atomicAdd(clip_s, nclip);
+      named_barrier_sync(3, kConsumers);
+      if (tid == 0 && *clip_s) atomicAdd(clipped, *clip_s);
+    }
+  }
+  S8_PHASES_END
+}
+
+// s8 (N, H, W, 64) as a 4-D map (channels, x, y, n) with boxes of `pixels`
+// x 64 channels, SWIZZLE_64B
+inline cudaError_t row_map(CUtensorMap* map, const void* base, const Shape& s,
+                           int pixels) {
+  const uint64_t dims[4] = {(uint64_t)kCh, (uint64_t)s.W, (uint64_t)s.H,
+                            (uint64_t)s.N};
+  const uint64_t strides[3] = {(uint64_t)kCh, (uint64_t)s.W * kCh,
+                               (uint64_t)s.H * s.W * kCh};
+  const uint32_t box[4] = {kCh, (uint32_t)pixels, 1, 1};
+  return hopper_host::make_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, base,
+                               dims, strides, box,
+                               CU_TENSOR_MAP_SWIZZLE_64B);
+}
+
+template <int KIND>
+cudaError_t launch(const void* x, const void* wt, const void* scale,
+                   const void* shift, const void* residual,
+                   const void* residual_scale, void* out,
+                   const void* out_scale, void* clipped, const Shape& s,
+                   int relu, int strip, int blocks, cudaStream_t stream) {
+  if (s.C != kCh || s.O != kCh || s.W > kMaxW || strip <= 0 || blocks <= 0)
+    return cudaErrorInvalidValue;
+  CUtensorMap xmap, wmap, rmap, omap;
+  cudaError_t err = row_map(&xmap, x, s, kHaloPix);
+  if (err == cudaSuccess) {
+    const uint64_t dims[2] = {9 * (uint64_t)kCh, (uint64_t)kCh};
+    const uint64_t strides[1] = {9 * (uint64_t)kCh};
+    const uint32_t box[2] = {kCh, kCh};
+    err = hopper_host::make_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, wt,
+                                dims, strides, box,
+                                CU_TENSOR_MAP_SWIZZLE_64B);
+  }
+  rmap = omap = xmap;   // not read when absent
+  if (err == cudaSuccess && residual != nullptr)
+    err = row_map(&rmap, residual, s, kMaxW);
+  if (err == cudaSuccess && KIND == 0) err = row_map(&omap, out, s, 64);
+  if (err != cudaSuccess) return err;
+  auto kernel = conv3x3_s8_strip<KIND>;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, kThreads, kSmemBytes, stream>>>(
+      xmap, wmap, rmap, omap, static_cast<const float*>(scale),
+      static_cast<const float*>(shift),
+      static_cast<const float*>(residual_scale),
+      static_cast<const float*>(out_scale),
+      static_cast<unsigned int*>(clipped), out, s.N, s.H, s.W, strip,
+      residual != nullptr, relu);
+  return cudaGetLastError();
+}
+
+}  // namespace chain
+
 // max |x| over n values (n % 8 == 0) folded into *slot: 16-byte loads, one
 // atomicMax a warp
 template <typename T>
@@ -803,25 +1193,38 @@ extern "C" int cobevt_int8_absmax(const void* x, long long n, void* slot,
 // residual_scale: one f32 on the device (read when residual is given).
 // out_kind 0: requantize to s8 at *out_scale (one f32 on the device), adding
 // the number of clipped values to *clipped (one u32 on the device, may be
-// null); 1: cast to f32; 2: cast to bf16.
+// null); 1: cast to f32; 2: cast to bf16.  strip_rows, blocks: the strip
+// kernel's output rows a strip and persistent blocks (C = O = 64, W <= 128;
+// ops/int8_chain.py:s8_plan), or strip_rows 0 for the mma.sync kernel.
 extern "C" int cobevt_conv3x3_s8(const void* x, const void* wt,
                                  const void* scale, const void* shift,
                                  const void* residual,
                                  const void* residual_scale, void* out,
                                  const void* out_scale, void* clipped, int N,
                                  int H, int W, int C, int O, int relu,
-                                 int out_kind, int device, void* stream) {
+                                 int out_kind, int strip_rows, int blocks,
+                                 int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const Shape s{N, H, W, C, O};
   if (!shape_ok(s) || (residual != nullptr && residual_scale == nullptr) ||
-      (out_kind == 0 && out_scale == nullptr) || out_kind < 0 || out_kind > 2)
+      (out_kind == 0 && out_scale == nullptr) || out_kind < 0 ||
+      out_kind > 2 || strip_rows < 0)
     return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (strip_rows > 0) {
+#define S8_STRIP(KIND)                                                     \
+  chain::launch<KIND>(x, wt, scale, shift, residual, residual_scale, out, \
+                      out_scale, clipped, s, relu, strip_rows, blocks, st)
+    err = out_kind == 0 ? S8_STRIP(0) : (out_kind == 1 ? S8_STRIP(1)
+                                                        : S8_STRIP(2));
+#undef S8_STRIP
+    return (int)err;
+  }
   const Scalars scalars{nullptr, nullptr, nullptr,
                         static_cast<const float*>(residual_scale),
                         static_cast<const float*>(out_scale),
                         static_cast<unsigned int*>(clipped)};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (out_kind == 0)
     err = launch<int8_t, int8_t, int8_t>(x, wt, scale, shift, scalars,
                                          residual, out, s, relu, st);

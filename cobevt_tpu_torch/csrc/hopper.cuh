@@ -38,6 +38,8 @@
 
 #include <stdint.h>
 
+#include <utility>
+
 namespace hopper {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -176,6 +178,23 @@ __device__ __forceinline__ void tma_store_wait() {
 // warps, of the block
 __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// programmatic dependent launch
+// ---------------------------------------------------------------------------
+
+// A kernel launched with hopper_host::launch_pdl may start while the kernel
+// before it on the stream is still running: pdl_wait blocks until that
+// kernel has completed and its writes are visible (work that reads none of
+// them, such as barrier set-up and weight loads, goes before it), and
+// pdl_launch_dependents lets the next such kernel start.  Both are no-ops
+// for a kernel launched the usual way.
+__device__ __forceinline__ void pdl_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void pdl_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -385,6 +404,46 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8_rs(int (&d)[64],
         "r"(accumulate));
 }
 
+// D (64 x 64, s32) {+}= A (64 x 32) B (32 x 64), s8 x s8, A from registers
+// as in wgmma_m64n128k32_s8_rs, B K-major from shared memory: the int8
+// chain's conv (64 output channels)
+__device__ __forceinline__ void wgmma_m64n64k32_s8_rs(int (&d)[32],
+                                                      const uint32_t (&a)[4],
+                                                      uint64_t desc_b,
+                                                      int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate));
+}
+
+// TMA store commit, and the wait until the issuing thread's committed stores
+// have read shared memory; split so other work runs between them
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// waits until the issuing thread's committed TMA stores are complete (their
+// writes visible), before the kernel ends
+__device__ __forceinline__ void tma_store_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
 // s32 accumulators pinned in place around wgmma_wait, as fence_regs
 template <int R>
 __device__ __forceinline__ void fence_regs(int (&d)[R]) {
@@ -450,6 +509,26 @@ inline cudaError_t make_map(CUtensorMap* map, CUtensorMapDataType type,
                         swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Launches `kernel`; with `pdl`, so that it may start before the kernel
+// ahead of it on `stream` has finished (programmatic stream serialization):
+// the kernel calls hopper::pdl_wait before it reads what that kernel wrote.
+template <typename... Params, typename... Args>
+inline cudaError_t launch_pdl(bool pdl, void (*kernel)(Params...), dim3 grid,
+                              dim3 block, int smem, cudaStream_t stream,
+                              Args&&... args) {
+  cudaLaunchConfig_t config = {};
+  config.gridDim = grid;
+  config.blockDim = block;
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  config.attrs = attr;
+  config.numAttrs = pdl ? 1 : 0;
+  return cudaLaunchKernelEx(&config, kernel, std::forward<Args>(args)...);
 }
 
 }  // namespace hopper_host

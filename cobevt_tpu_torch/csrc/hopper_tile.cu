@@ -23,6 +23,11 @@
 //     registers, loaded by ldmatrix_x4 from a plain copy of A in shared
 //     memory whose rows are 144 bytes apart (K7's halo tile pads a pixel's
 //     channels by 16 bytes the same way).
+//   variant 5 (the int8 chain's conv, 8-bit, RS): C (64 x 64, s32) = A
+//     (64 x 64) B^T, s8, both loaded by TMA with 64-byte rows and
+//     SWIZZLE_64B (the layout of the conv's halo rows and weight taps); A
+//     from registers by ldmatrix_x4 through the swizzle, B through a
+//     descriptor, two k32 steps of m64n64k32.s8.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -48,14 +53,16 @@ __device__ __forceinline__ void store_tile(const float (&d)[R], float* c,
           d[4 * j + e];
 }
 
-// rows 16 * warp + g (+ 8) of the 64 x 128 s32 tile C, columns 8j + 2t (+ 1)
-__device__ __forceinline__ void store_tile_s32(const int (&d)[64], int* c,
+// rows 16 * warp + g (+ 8) of the 64 x N s32 tile C, columns 8j + 2t (+ 1)
+template <int R>
+__device__ __forceinline__ void store_tile_s32(const int (&d)[R], int* c,
                                                int warp, int g, int t) {
+  constexpr int N = 2 * R;
 #pragma unroll
-  for (int j = 0; j < 16; ++j)
+  for (int j = 0; j < N / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      c[(warp * 16 + g + 8 * (e >> 1)) * 128 + 8 * j + 2 * t + (e & 1)] =
+      c[(warp * 16 + g + 8 * (e >> 1)) * N + 8 * j + 2 * t + (e & 1)] =
           d[4 * j + e];
 }
 
@@ -82,7 +89,8 @@ __global__ void __launch_bounds__(128)
     const bool a_regs = variant == 2 || variant == 4;
     const uint32_t a_bytes =
         a_regs ? 0 : (variant == 0 || variant == 3 ? 8192 : 4096);
-    const uint32_t b_bytes = variant == 0 || variant >= 3 ? 16384 : 4096;
+    const uint32_t b_bytes =
+        variant == 0 || variant == 3 || variant == 4 ? 16384 : 4096;
     mbar_arrive_expect_tx(&bar, a_bytes + b_bytes);
     if (!a_regs) tma_load_2d(sa, &amap, &bar, 0, 0);
     tma_load_2d(sb, &bmap, &bar, 0, 0);
@@ -96,6 +104,29 @@ __global__ void __launch_bounds__(128)
   }
   mbar_wait(&bar, 0);
 
+  if (variant == 5) {
+    int d[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) d[i] = 0;
+    // row r's 16-byte chunk c sits at chunk c ^ ((r >> 1) & 3) (SWIZZLE_64B)
+    const int row = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+    uint32_t frag[2][4];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int chunk = 2 * k + (lane >> 4);
+      ldmatrix_x4(frag[k], sa + row * 64 + ((chunk ^ ((row >> 1) & 3)) << 4));
+    }
+    const uint64_t db = make_desc(sb, 512, kSwizzle64);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      wgmma_m64n64k32_s8_rs(d, frag[k], desc_add(db, 32 * k), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(d);
+    store_tile_s32(d, reinterpret_cast<int*>(c), warp, g, t);
+    return;
+  }
   if (variant >= 3) {
     int d[64];
 #pragma unroll
@@ -194,16 +225,20 @@ cudaError_t map_2d(CUtensorMap* map, const void* base, int rows, int cols,
 
 }  // namespace
 
-// a, b row-major, bf16 (variants 0-2, c f32) or s8 (3, 4, c s32), c
+// a, b row-major, bf16 (variants 0-2, c f32) or s8 (3-5, c s32), c
 // (64 x N), with the shapes of the variant (header comment).  Returns the
 // cudaError_t of the set-up and launch.
 extern "C" int cobevt_hopper_tile(const void* a, const void* b, void* c,
                                   int variant, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (variant < 0 || variant > 4) return (int)cudaErrorInvalidValue;
+  if (variant < 0 || variant > 5) return (int)cudaErrorInvalidValue;
   CUtensorMap amap, bmap;
-  if (variant >= 3) {
+  if (variant == 5) {
+    err = map_2d(&amap, a, 64, 64, CU_TENSOR_MAP_SWIZZLE_64B, 1);
+    if (err == cudaSuccess)
+      err = map_2d(&bmap, b, 64, 64, CU_TENSOR_MAP_SWIZZLE_64B, 1);
+  } else if (variant >= 3) {
     err = map_2d(&bmap, b, 128, 128, CU_TENSOR_MAP_SWIZZLE_128B, 1);
     amap = bmap;   // variant 4 does not read it
     if (err == cudaSuccess && variant == 3)

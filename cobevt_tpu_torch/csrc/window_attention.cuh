@@ -4,7 +4,9 @@
 // this very kernel and not a second one.  Contract and design: the header of
 // window_attention.cu.  Entry for another kernel's C function:
 // wattn::dispatch_wgmma (packed or head-major layout, f32 bias and key mask,
-// optional bf16 weight, optional K5 statistics).
+// optional bf16 weight, optional K5 statistics; with K4's numerics the bias
+// is bf16, the mask adds -1e9 rounded to bf16 and the softmax sum runs over
+// the exp rounded to bf16).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -24,6 +26,7 @@ namespace {
 namespace wattn {
 
 constexpr float kMaskAdd = -1e9f;
+constexpr float kMaskAddBf16 = -998244352.f;   // -1e9 rounded to bf16 (K4)
 
 
 // Where element (window, head, row, d) of q/out and of k/v lives, and where
@@ -75,11 +78,13 @@ struct WgPlan {
 __host__ __device__ inline int round1024(int b) { return (b + 1023) & ~1023; }
 
 __host__ __device__ inline WgPlan wg_plan(int D, bool bias, bool weight,
-                                          bool mask, int stages) {
+                                          bool mask, int stages,
+                                          bool bias16 = false) {
   WgPlan p;
   p.q_bytes = round1024(kWgRows * D * 2);
   p.k_bytes = round1024(kWgKeys * D * 2);
-  p.bias_bytes = bias ? 2 * kWgRows * 128 : 0;  // two 32-key f32 boxes
+  // two 32-key f32 boxes, or one 64-key bf16 box
+  p.bias_bytes = bias ? (bias16 ? 1 : 2) * kWgRows * 128 : 0;
   p.weight_bytes = weight ? kWgRows * 128 : 0;  // one 64-key bf16 box
   p.mask_bytes = mask ? 1024 : 0;
   p.stage_bytes = 2 * p.k_bytes + p.bias_bytes + p.weight_bytes +
@@ -99,10 +104,11 @@ __host__ __device__ inline WgPlan wg_plan(int D, bool bias, bool weight,
 // past it.  Maps (the boxes of dispatch_wgmma): q and k/v as 4D (D, H, T,
 // G) packed or (D, T, H, G) head-major, boxes of 64 rows x D with the 64B
 // (D 32) or 32B (D 16) swizzle; bias as 3D (Tk, H, Tq) packed or (Tk, Tq,
-// H) head-major, boxes of 32 keys x 64 rows, f32, 128B swizzle; weight as
+// H) head-major, boxes of 32 keys x 64 rows, f32, 128B swizzle (kK4: bf16,
+// boxes of 64 keys x 64 rows, packed only); weight as
 // (Tk, H, Tq, G), boxes of 64 keys x 64 rows, 128B swizzle; mask as (Tk, G),
 // boxes of 64 keys.
-template <int D>
+template <int D, bool kK4>
 __global__ void __launch_bounds__(128, kWgBlocksPerSm)
     window_attention_wgmma_kernel(
         const __grid_constant__ CUtensorMap qmap,
@@ -117,7 +123,7 @@ __global__ void __launch_bounds__(128, kWgBlocksPerSm)
   using namespace hopper;
   constexpr Swizzle kSw = D == 32 ? kSwizzle64 : kSwizzle32;
   constexpr uint32_t kRowBytes = D * 2;   // one q/k/v row: the swizzle span
-  const WgPlan plan = wg_plan(D, has_bias, has_weight, has_mask, stages);
+  const WgPlan plan = wg_plan(D, has_bias, has_weight, has_mask, stages, kK4);
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* q_s = smem;
@@ -154,6 +160,10 @@ __global__ void __launch_bounds__(128, kWgBlocksPerSm)
     fence_barrier_init();
   }
   __syncthreads();
+  if constexpr (kK4) {   // launched with hopper_host::launch_pdl
+    pdl_launch_dependents();
+    pdl_wait();
+  }
 
   // key tile kt into its stage, completing on the stage's barrier
   auto load_tile = [&](int kt) {
@@ -169,7 +179,10 @@ __global__ void __launch_bounds__(128, kWgBlocksPerSm)
       tma_load_4d(st + plan.k_bytes, &vmap, &full[s], 0, h, k0, win);
     }
     uint8_t* part = st + 2 * plan.k_bytes;
-    if (has_bias) {
+    if (has_bias && kK4) {
+      tma_load_3d(part, &bmap, &full[s], k0, h, q0);
+      part += plan.bias_bytes;
+    } else if (has_bias) {
       for (int sb = 0; sb < 2; ++sb) {
         if (head_major)
           tma_load_3d(part + sb * kWgRows * 128, &bmap, &full[s],
@@ -245,7 +258,15 @@ __global__ void __launch_bounds__(128, kWgBlocksPerSm)
       for (int hr = 0; hr < 2; ++hr) {
         float x0 = sc[4 * j + 2 * hr], x1 = sc[4 * j + 2 * hr + 1];
         if (k0 + c < Tk) {
-          if (has_bias) {
+          if (has_bias && kK4) {
+            const int r = rl[hr];
+            const float2 bb = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(
+                    bias_s + r * 128 +
+                    ((((c >> 3) ^ (r & 7)) << 4) | ((c & 7) << 1))));
+            x0 += bb.x;
+            x1 += bb.y;
+          } else if (has_bias) {
             const int r = rl[hr], cc = c & 31;
             const float2 bb = *reinterpret_cast<const float2*>(
                 bias_s + (c >> 5) * kWgRows * 128 + r * 128 +
@@ -255,8 +276,9 @@ __global__ void __launch_bounds__(128, kWgBlocksPerSm)
           }
           if (has_mask) {
             const float2 mm = *reinterpret_cast<const float2*>(mask_s + c);
-            if (!(mm.x > 0.f)) x0 += kMaskAdd;
-            if (!(mm.y > 0.f)) x1 += kMaskAdd;
+            constexpr float kAdd = kK4 ? kMaskAddBf16 : kMaskAdd;
+            if (!(mm.x > 0.f)) x0 += kAdd;
+            if (!(mm.y > 0.f)) x1 += kAdd;
           }
         } else {
           x0 = x1 = -INFINITY;   // Tk % 8 == 0: both columns are past Tk
@@ -301,6 +323,9 @@ __global__ void __launch_bounds__(128, kWgBlocksPerSm)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         p[e] = exp2f(fmaf(sc[4 * j + e], kLog2e, -m_log2e[e >> 1]));
+        // K4 (no weight): the sum of the exp as P v reads it, in bf16
+        if constexpr (kK4)
+          p[e] = __bfloat162float(__float2bfloat16_rn(p[e]));
         l_run[e >> 1] += p[e];
       }
       if (has_weight) {
@@ -387,22 +412,24 @@ __global__ void __launch_bounds__(128, kWgBlocksPerSm)
   }
 }
 
-// ring depth: as many stages, 2 .. 4, as keep kWgBlocksPerSm blocks on an SM
+// ring depth: as many stages, 2 .. 4, as keep `per_sm` blocks on an SM
 // (each block also holds 1 KB of the SM's 228 KB for the system)
-inline int wg_stages(int D, bool bias, bool weight, bool mask) {
-  const int budget = 228 * 1024 / kWgBlocksPerSm - 1024;
-  const WgPlan one = wg_plan(D, bias, weight, mask, 1);
+inline int wg_stages(int D, bool bias, bool weight, bool mask,
+                     bool bias16 = false, int per_sm = kWgBlocksPerSm) {
+  const int budget = 228 * 1024 / per_sm - 1024;
+  const WgPlan one = wg_plan(D, bias, weight, mask, 1, bias16);
   const int fixed = one.smem_bytes - one.stage_bytes;
   const int stages = (budget - fixed) / one.stage_bytes;
   return stages < 2 ? 2 : (stages > kWgMaxStages ? kWgMaxStages : stages);
 }
 
-template <int D>
-inline cudaError_t launch_wgmma(const CUtensorMap* maps, void* out, float* stats,
-                         int G, int Tq, int Tk, int H, const Layout& L,
-                         int head_major, bool bias, bool mask, bool weight,
-                         int device, cudaStream_t stream) {
-  auto kernel = window_attention_wgmma_kernel<D>;
+template <int D, bool kK4>
+inline cudaError_t launch_wgmma(const CUtensorMap* maps, void* out,
+                                float* stats, int G, int Tq, int Tk, int H,
+                                const Layout& L, int head_major, bool bias,
+                                bool mask, bool weight, int device,
+                                cudaStream_t stream, bool pdl) {
+  auto kernel = window_attention_wgmma_kernel<D, kK4>;
   static bool configured[64] = {};
   if (device >= 64 || !configured[device]) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -410,10 +437,20 @@ inline cudaError_t launch_wgmma(const CUtensorMap* maps, void* out, float* stats
     if (err != cudaSuccess) return err;
     if (device < 64) configured[device] = true;
   }
-  const int stages = wg_stages(D, bias, weight, mask);
-  const WgPlan plan = wg_plan(D, bias, weight, mask, stages);
+  // K4's launches (320 blocks at CorpBEVT) fill the card at three blocks an
+  // SM, so their ring is as deep as three allow
+  const int stages =
+      wg_stages(D, bias, weight, mask, kK4, kK4 ? 3 : kWgBlocksPerSm);
+  const WgPlan plan = wg_plan(D, bias, weight, mask, stages, kK4);
   const long long blocks =
       (long long)G * H * ((Tq + kWgRows - 1) / kWgRows);
+  if constexpr (kK4)   // K4's launches may overlap each other's set-up
+    return hopper_host::launch_pdl(
+        pdl, kernel, dim3((unsigned)blocks), dim3(128), plan.smem_bytes,
+        stream,
+        maps[0], maps[1], maps[2], maps[3], maps[4], maps[5],
+        static_cast<__nv_bfloat16*>(out), stats, G, Tq, Tk, H, L, head_major,
+        (int)bias, (int)mask, (int)weight, stages);
   kernel<<<(unsigned)blocks, 128, plan.smem_bytes, stream>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], maps[5],
       static_cast<__nv_bfloat16*>(out), stats, G, Tq, Tk, H, L, head_major,
@@ -423,13 +460,19 @@ inline cudaError_t launch_wgmma(const CUtensorMap* maps, void* out, float* stats
 
 // The tensor maps of one call (the boxes of the kernel's comment), then the
 // launch.  Maps of absent operands repeat q's and are never read.
+// k4_numerics (packed, no weight): the bias is bf16 (Tq, H * Tk), masked
+// keys add -1e9 rounded to bf16 and the softmax sum runs over the exp
+// rounded to bf16, as K4's TPU body; with pdl the launch may start before
+// the kernel ahead of it has finished (hopper_host::launch_pdl).
 inline cudaError_t dispatch_wgmma(const void* q, const void* k, const void* v,
                            const void* bias, const void* mask,
                            const void* weight, void* out, float* stats, int G,
                            int Tq, int Tk, int H, int D, int head_major,
-                           const Layout& L, int device, cudaStream_t stream) {
+                           const Layout& L, int device, cudaStream_t stream,
+                           bool k4_numerics = false, bool pdl = false) {
   using hopper_host::make_map;
   if (head_major && weight != nullptr) return cudaErrorInvalidValue;
+  if (k4_numerics && weight != nullptr) return cudaErrorInvalidValue;
   if (stats != nullptr && (weight != nullptr || head_major))
     return cudaErrorInvalidValue;
   const CUtensorMapSwizzle sw =
@@ -462,7 +505,16 @@ inline cudaError_t dispatch_wgmma(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return err;
   }
   maps[3] = maps[4] = maps[5] = maps[0];
-  if (bias != nullptr) {
+  if (bias != nullptr && k4_numerics) {   // (Tq, H, Tk) bf16
+    if (head_major) return cudaErrorInvalidValue;
+    const uint64_t tk2 = (uint64_t)Tk * 2;
+    const uint64_t dims[3] = {(uint64_t)Tk, (uint64_t)H, (uint64_t)Tq};
+    const uint64_t strides[2] = {tk2, (uint64_t)H * tk2};
+    const uint32_t box[3] = {kWgKeys, 1, kWgRows};
+    err = make_map(&maps[3], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, bias, dims,
+                   strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err != cudaSuccess) return err;
+  } else if (bias != nullptr) {
     const uint64_t tk4 = (uint64_t)Tk * 4;
     if (head_major) {   // (H, Tq, Tk)
       const uint64_t dims[3] = {(uint64_t)Tk, (uint64_t)Tq, (uint64_t)H};
@@ -499,11 +551,12 @@ inline cudaError_t dispatch_wgmma(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return err;
   }
   const bool b = bias != nullptr, m = mask != nullptr, w = weight != nullptr;
-  if (D == 32)
-    return launch_wgmma<32>(maps, out, stats, G, Tq, Tk, H, L, head_major, b,
-                            m, w, device, stream);
-  return launch_wgmma<16>(maps, out, stats, G, Tq, Tk, H, L, head_major, b, m,
-                          w, device, stream);
+#define WG_LAUNCH(HD, K4)                                                     \
+  launch_wgmma<HD, K4>(maps, out, stats, G, Tq, Tk, H, L, head_major, b, m, w, \
+                       device, stream, pdl)
+  if (D == 32) return k4_numerics ? WG_LAUNCH(32, true) : WG_LAUNCH(32, false);
+  return k4_numerics ? WG_LAUNCH(16, true) : WG_LAUNCH(16, false);
+#undef WG_LAUNCH
 }
 
 }  // namespace wattn

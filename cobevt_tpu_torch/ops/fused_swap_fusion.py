@@ -8,9 +8,12 @@ out-projection -> residual -> LN -> FFN -> residual), then the agent mean
 
   * :func:`fused_swap_fusion` (K4, ``fused_swap_fusion`` of the JAX package)
     for a state small enough to stay cache-resident: the CUDA kernel is
-    ``csrc/fused_swap_fusion.cu``, three launches per sublayer and one for
-    the head, each counted.  Bias and mask rows ride in the compute dtype
-    (``_kernel`` :117-184).
+    ``csrc/fused_swap_fusion.cu``, each launch counted.  bf16 at D 128
+    (:func:`k4_kernel_path`, CorpBEVT) runs on ``wgmma``: one QKV launch,
+    then per sublayer K1's attention kernel and an output launch that also
+    runs the next sublayer's LN + QKV, and the head (:func:`k4_plan`); f32
+    and the other widths run three row launches per sublayer and the head.
+    Bias and mask rows ride in the compute dtype (``_kernel`` :117-184).
   * :func:`fused_swap_fusion_streaming` (K6,
     ``fused_swap_fusion_streaming`` of the JAX package, body
     ``_stream_kernel`` :333-381) for larger states and wider tokens: the
@@ -53,10 +56,26 @@ from cobevt_tpu_torch.ops.fused_cross_attention import (
 NEG_INF = -1e9
 
 
-def launches_per_call(depth: int) -> int:
-    """Three launches per sublayer (QKV rows, attention, output rows), two
-    sublayers per block, and the head."""
+def launches_per_call(depth: int, path: str = "rows") -> int:
+    """K4's launches for ``depth`` blocks of two sublayers.  "rows": three a
+    sublayer (QKV rows, attention, output rows) and the head; "wgmma"
+    (:func:`k4_kernel_path`): the first QKV, two a sublayer (attention, and
+    the output with the next sublayer's QKV in its epilogue) and the
+    head."""
+    if path == "wgmma":
+        return 1 + depth * 2 * 2 + 1
     return depth * 2 * 3 + 1
+
+
+def k4_kernel_path(D: int, heads: int, mlp: int, dtype) -> str:
+    """Which K4 kernels a shape runs: "wgmma" (bf16, D 128, head dim 16 or
+    32, mlp a multiple of 128: CorpBEVT's encoder) or "rows" (f32, the
+    sharp check, and the other widths).  A choice by shape; both compute the
+    same function and roundings."""
+    if dtype == torch.bfloat16 and D == 128 and heads > 0 and \
+            D % heads == 0 and D // heads in (16, 32) and mlp % 128 == 0:
+        return "wgmma"
+    return "rows"
 
 
 def kernel_accepts(L: int, H: int, W: int, D: int, window: int, heads: int,
@@ -130,8 +149,10 @@ def stream_accepts(L: int, H: int, W: int, D: int, window: int, heads: int,
 
 # K6's wgmma route (csrc/fused_swap_fusion_streaming.cu, namespace wg): 64-row
 # tiles, two warpgroups a block, the output launch's weight ring at most this
-# deep, one block's shared memory
+# deep; K4's output launch (csrc/fused_swap_fusion.cu, out_k4) keeps barriers
+# for rings of K4_MAX_STAGES boxes
 STREAM_TILE, STREAM_GROUPS, STREAM_MAX_STAGES = 64, 2, 4
+K4_MAX_STAGES = 8
 
 
 def stream_kernel_path(D: int, heads: int, mlp: int, dtype) -> str:
@@ -177,6 +198,44 @@ def stream_plan(rows: int, D: int, mlp: int, sms: int) -> StreamPlan:
                          f"in {SMEM_BYTES} bytes")
     return StreamPlan(tiles, max(1, min(sms // 3, pairs)), min(sms, pairs),
                       stages, stage, qkv_smem, fixed + stages * stage)
+
+
+class K4Plan(NamedTuple):
+    """The launch plan of K4's wgmma route for ``rows`` token rows: 64-row
+    tiles; the output launch's two warpgroups share a tile, each owning
+    half of every product's columns and streaming its own weight ring."""
+
+    tiles: int         # 64-row tiles
+    qkv_blocks: int    # the first QKV launch's grid x (y: q, k, v)
+    out_blocks: int    # the output launches' persistent blocks
+    stages: int        # 16 KB boxes in each warpgroup's weight ring
+    qkv_smem: int      # shared memory a block of each launch takes
+    out_smem: int
+    # each launch may start while the one ahead of it runs, its blocks
+    # setting up and loading weights before they wait for its results
+    # (programmatic dependent launch; False: one launch after the other)
+    pdl: bool = True
+
+
+def k4_plan(rows: int, D: int, mlp: int, sms: int) -> K4Plan:
+    """Grids and shared memory of K4's wgmma route, the same numbers as
+    ``swapwg::qkv_smem`` (one warpgroup a block) and ``wg4::out_k4_smem``:
+    a block a tile while the tiles fit the SMs (80 blocks at CorpBEVT's
+    5,120 rows, where K6's plan gives 40), and the deepest weight rings
+    that fit (at most :data:`K4_MAX_STAGES` boxes).  Raises when it does
+    not fit."""
+    tile = STREAM_TILE
+    tiles = -(-rows // tile)
+    qkv_smem = 1024 + D * D * 2 + tile * D * 2 + 2 * D * 4 + 16
+    stage = 2 * 128 * 128     # a 16 KB box in each warpgroup's ring
+    fixed = 1024 + tile * D * 2 + tile * mlp * 2 + tile * 4 + \
+        2 * 2 * tile * 4 + (4 * K4_MAX_STAGES + 1) * 8
+    stages = min(K4_MAX_STAGES, (SMEM_BYTES - fixed) // stage)
+    if stages < 2 or qkv_smem > SMEM_BYTES or mlp % 128:
+        raise ValueError(f"K4's wgmma route does not fit D={D}, mlp={mlp} "
+                         f"in {SMEM_BYTES} bytes")
+    return K4Plan(tiles, tiles, min(sms, tiles), stages, qkv_smem,
+                  fixed + stages * stage)
 
 
 def gather_key_mask(mask, window: int, grid: bool):
@@ -352,9 +411,14 @@ def _lib():
     lib.cobevt_fusion_qkv.argtypes = [P, P, P, f, P, IP, I, I, P]
     lib.cobevt_fusion_attention.argtypes = [P, P, P, f, P, IP, I, I, P]
     lib.cobevt_fusion_out.argtypes = [P] * 9 + [IP, I, I, P]
-    lib.cobevt_fusion_head.argtypes = [P] * 6 + [IP, I, I, P]
+    lib.cobevt_fusion_head.argtypes = [P] * 6 + [IP, I, I, I, P]
+    lib.cobevt_fusion_wg_qkv.argtypes = [P, P, P, f, P, IP, I, I, I, P]
+    lib.cobevt_fusion_wg_attention.argtypes = [P, P, P, P, IP, I, I, P]
+    lib.cobevt_fusion_wg_out.argtypes = [P] * 12 + [f, IP, I, I, I, I, P]
     for fn in (lib.cobevt_fusion_qkv, lib.cobevt_fusion_attention,
-               lib.cobevt_fusion_out, lib.cobevt_fusion_head):
+               lib.cobevt_fusion_out, lib.cobevt_fusion_head,
+               lib.cobevt_fusion_wg_qkv, lib.cobevt_fusion_wg_attention,
+               lib.cobevt_fusion_wg_out):
         fn.restype = I
     return lib
 
@@ -391,7 +455,6 @@ def _launch_kernel(x, mask, agent_mask, bias, layers, head, window, heads,
     scale = float(torch.tensor((D // heads) ** -0.5, dtype=dt))
     mask_add = float(torch.tensor(NEG_INF, dtype=dt))
     rows = B * L * H * W
-    qkv = torch.empty((rows, 3 * D), dtype=dt, device=dev)
     att = torch.empty((rows, D), dtype=dt, device=dev)
     bufs = (torch.empty_like(x), torch.empty_like(x))
     out = torch.empty((B, H, W, D), dtype=dt, device=dev)
@@ -404,6 +467,34 @@ def _launch_kernel(x, mask, agent_mask, bias, layers, head, window, heads,
     def dims(grid):
         return (ctypes.c_int * 9)(B, L, H, W, D, w, heads, mlp, int(grid))
 
+    pdl = False
+    if k4_kernel_path(D, heads, mlp, dt) == "wgmma":
+        plan = k4_plan(rows, D, mlp, torch.cuda.get_device_properties(dev)
+                       .multi_processor_count)
+        pdl = plan.pdl
+        state = _launch_wgmma(x, mask, bias, layers, window, scale, att,
+                              bufs, dims, launched, plan)
+    else:
+        state = _launch_rows(x, mask, bias, layers, scale, mask_add, att,
+                             bufs, dims, launched)
+    am = agent_mask if mean_over_valid else None
+    launched(lib.cobevt_fusion_head(
+        state.data_ptr(), None if am is None else am.data_ptr(),
+        head["ln"].data_ptr(), head["w_t"].data_ptr(), head["b"].data_ptr(),
+        out.data_ptr(), dims(False), flag, int(pdl), idx, stream),
+        "fused_swap_fusion head")
+    return out
+
+
+def _launch_rows(x, mask, bias, layers, scale, mask_add, att, bufs, dims,
+                 launched):
+    """K4's row route: per sublayer the QKV rows, flash.cuh's attention and
+    the output rows; returns the final state."""
+    dt, dev = x.dtype, x.device
+    flag, idx = int(dt == torch.bfloat16), dev.index
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    qkv = torch.empty((att.shape[0], 3 * x.shape[-1]), dtype=dt, device=dev)
+    lib = _lib()
     state = x
     for d, pair in enumerate(layers):
         for half, p in enumerate(pair):
@@ -425,13 +516,56 @@ def _launch_kernel(x, mask, agent_mask, bias, layers, head, window, heads,
                 p["b2"].data_ptr(), nxt.data_ptr(), dm, flag, idx, stream),
                 "fused_swap_fusion out")
             state = nxt
-    am = agent_mask if mean_over_valid else None
-    launched(lib.cobevt_fusion_head(
-        state.data_ptr(), None if am is None else am.data_ptr(),
-        head["ln"].data_ptr(), head["w_t"].data_ptr(), head["b"].data_ptr(),
-        out.data_ptr(), dims(False), flag, idx, stream),
-        "fused_swap_fusion head")
-    return out
+    return state
+
+
+def _launch_wgmma(x, mask, bias, layers, window, scale, att, bufs, dims,
+                  launched, plan):
+    """K4's wgmma route (:func:`k4_kernel_path`): the first sublayer's QKV,
+    then per sublayer K1's attention kernel (with K4's numerics: the bf16
+    bias as it is) and the output launch, which also writes the next
+    sublayer's q, k, v; returns the final state.  The key mask of each half
+    is gathered once a call into K1's (G, T) order."""
+    B, L, H, W, D = x.shape
+    dev, idx = x.device, x.device.index
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rows = B * L * H * W
+    for name, t in [("x", x), ("bias_stack", bias)] + [
+            (name, t) for pair in layers for p in pair
+            for name, t in p.items()]:
+        check_aligned(name, t)
+    masks = (None, None) if mask is None else tuple(
+        gather_key_mask(mask, window, g) for g in (False, True))
+    qkv = torch.empty((3, rows, D), dtype=x.dtype, device=dev)
+    lib = _lib()
+    subs = [(d, half, p) for d, pair in enumerate(layers)
+            for half, p in enumerate(pair)]
+    launched(lib.cobevt_fusion_wg_qkv(
+        x.data_ptr(), subs[0][2]["ln_a"].data_ptr(),
+        subs[0][2]["wqkv_t"].data_ptr(), scale, qkv.data_ptr(),
+        dims(False), plan.qkv_blocks, int(plan.pdl), idx, stream),
+        "fused_swap_fusion wgmma qkv")
+    state = x
+    for i, (d, half, p) in enumerate(subs):
+        dm = dims(half == 1)
+        nxt = bufs[i % 2]   # ping-pong: never in place
+        m = masks[half]
+        launched(lib.cobevt_fusion_wg_attention(
+            qkv.data_ptr(), bias[d, half].data_ptr(),
+            None if m is None else m.data_ptr(), att.data_ptr(), dm,
+            int(plan.pdl), idx, stream), "fused_swap_fusion wgmma attention")
+        pn = subs[i + 1][2] if i + 1 < len(subs) else None
+        launched(lib.cobevt_fusion_wg_out(
+            att.data_ptr(), state.data_ptr(), p["wout_t"].data_ptr(),
+            p["ln_f"].data_ptr(), p["w1_t"].data_ptr(), p["b1"].data_ptr(),
+            p["w2_t"].data_ptr(), p["b2"].data_ptr(), nxt.data_ptr(),
+            None if pn is None else pn["ln_a"].data_ptr(),
+            None if pn is None else pn["wqkv_t"].data_ptr(),
+            None if pn is None else qkv.data_ptr(), scale, dm,
+            plan.out_blocks, plan.stages, int(plan.pdl), idx, stream),
+            "fused_swap_fusion wgmma out")
+        state = nxt
+    return state
 
 
 def fused_swap_fusion(x, mask, agent_mask, bias_stack, layers, head,
@@ -470,7 +604,7 @@ def fused_swap_fusion(x, mask, agent_mask, bias_stack, layers, head,
 
 
 # kernel launches since the last reset (plain-version calls do not count);
-# launches_per_call(depth) per encoder
+# launches_per_call(depth, k4_kernel_path(...)) per encoder
 fused_swap_fusion.launches = 0
 
 

@@ -1,7 +1,7 @@
 """The bare TMA + ``wgmma`` tile product of ``csrc/hopper_tile.cu``: the
-check of the Hopper building blocks (``csrc/hopper.cuh``) that K1, K3, K8 and
-K7 share, one product form at a time, against ``torch.matmul`` in f32 (the
-8-bit forms exactly, as integers).
+check of the Hopper building blocks (``csrc/hopper.cuh``) that K1, K3, K8,
+K7 and the int8 chain's conv share, one product form at a time, against
+``torch.matmul`` in f32 (the 8-bit forms exactly, as integers).
 
 Not on any model path; ``chip_smoke.py`` and the GPU tests call it before
 they hold the kernels that use the same descriptors against their plain
@@ -29,6 +29,8 @@ VARIANTS = {
 S8_VARIANTS = {
     3: ((64, 128), (128, 128), (64, 128), "a @ b.T"),  # A from shared memory
     4: ((64, 128), (128, 128), (64, 128), "a @ b.T"),  # K7's: A by ldmatrix
+    # the int8 chain's conv: 64-byte rows, SWIZZLE_64B, A by ldmatrix
+    5: ((64, 64), (64, 64), (64, 64), "a @ b.T"),
 }
 
 
@@ -43,8 +45,8 @@ def _entry():
 
 def tile_reference(a, b, variant: int):
     """What the tile computes: in f32 (TF32 off on the caller's side), or
-    for the 8-bit forms exactly in integers (every sum of 128 products of
-    s8 values is below 2^24, so the f32 product is exact)."""
+    for the 8-bit forms exactly in integers (every sum of at most 128
+    products of s8 values is below 2^24, so the f32 product is exact)."""
     if variant in S8_VARIANTS:
         old = torch.backends.cuda.matmul.allow_tf32
         torch.backends.cuda.matmul.allow_tf32 = False

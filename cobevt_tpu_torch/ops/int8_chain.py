@@ -16,11 +16,16 @@ input; a block's intermediate uses its input scale times
 
 The JAX module leaves the int8 convolution to XLA.  PyTorch has no integer
 convolution on CUDA, so on the card :func:`conv3x3_s8` launches the second
-entry of K7's source (``csrc/conv3x3_int8.cu:cobevt_conv3x3_s8``: the same
-implicit GEMM, the s8 activations copied into its halo tile as they are, the
-requantization or the exit cast and the count of clipped values in its
-epilogue), and the activations between the convs are ``torch.int8`` tensors in
-device memory: one int8 read and one int8 (or exit) write per conv.  Its plain
+entry of K7's source (``csrc/conv3x3_int8.cu:cobevt_conv3x3_s8``), and the
+activations between the convs are ``torch.int8`` tensors in device memory:
+one int8 read and one int8 (or exit) write per conv.  At C = O = 64 and W <=
+128 (layer1, every conv of the chain) it runs the strip kernel
+(:func:`s8_plan`): persistent blocks over strips of image rows, the 36 KB
+weight resident in shared memory, halo and residual rows streamed through
+rings by TMA, products on ``wgmma`` s8, and the requantization, the exit cast
+and the count of clipped values in its epilogue; other shapes run K7's
+``mma.sync`` implicit GEMM with the s8 activations copied into its halo tile
+as they are.  Its plain
 version (:func:`conv3x3_s8_reference`, CPU tensors and reference runs) takes
 the s32 conv from :func:`cobevt_tpu_torch.ops.conv2d.conv3x3_s32`.  Both give
 the JAX module's integers exactly.  Note the two quantizers here ADD 1e-12 to
@@ -31,6 +36,8 @@ reciprocal.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -98,10 +105,53 @@ def conv3x3_s8_reference(xq, sx, wq, sw, t, *, relu: bool = True,
 
 _OUT_KINDS = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
 
+# the strip kernel (csrc/conv3x3_int8.cu, namespace strip): its channels, its
+# widest row, the blocks it keeps on an SM, its ring depths and buffers
+S8_CHANNELS, S8_MAX_W, S8_BLOCKS_PER_SM = 64, 128, 2
+S8_HALO_STAGES, S8_RES_STAGES = 5, 2
+S8_HALO_BYTES = -(-(S8_MAX_W + 2) * S8_CHANNELS // 512) * 512
+S8_WEIGHT_BYTES = 9 * S8_CHANNELS * S8_CHANNELS
+S8_SMEM_BYTES = (1024 + S8_WEIGHT_BYTES + S8_HALO_STAGES * S8_HALO_BYTES
+                 + S8_RES_STAGES * S8_MAX_W * S8_CHANNELS
+                 + 2 * 64 * S8_CHANNELS + 2 * S8_CHANNELS * 4
+                 + (1 + 2 * S8_HALO_STAGES + 2 * S8_RES_STAGES) * 8 + 16)
+# what one block may take for two to share an SM (228 KB less 1 KB each)
+_TWO_BLOCKS = 114 * 1024 - 1024
+
+
+class S8Plan(NamedTuple):
+    """The chain conv's launch plan (``csrc/conv3x3_int8.cu``)."""
+
+    path: str     # "strip" (C = O = 64, W <= 128) or "mma" (K7's mma.sync)
+    rows: int     # output rows a strip (0 on "mma")
+    strips: int   # N * ceil(H / rows)
+    blocks: int   # persistent blocks, each walking strips b, b + blocks, ..
+    smem: int     # shared memory a block takes
+
+
+def s8_plan(N: int, H: int, W: int, C: int, O: int, sms: int) -> S8Plan:
+    """The strip kernel's plan on a card of ``sms`` SMs: the shortest strip
+    that still gives every block at most one strip (each image cut into
+    floor(2 sms / N) strips or fewer), so one wave of two blocks an SM
+    covers the tensor and each halo row is read (rows + 2) / rows times;
+    the blocks walk further strips where N exceeds 2 sms.  Other shapes take
+    K7's mma.sync kernel."""
+    if C != S8_CHANNELS or O != S8_CHANNELS or W > S8_MAX_W:
+        return S8Plan("mma", 0, 0, 0, 0)
+    slots = S8_BLOCKS_PER_SM * sms
+    rows = -(-H // max(1, slots // N))
+    strips = N * -(-H // rows)
+    return S8Plan("strip", rows, strips, min(strips, slots), S8_SMEM_BYTES)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
 
 def _lib():
     fn = _build.load("conv3x3_int8").cobevt_conv3x3_s8
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -147,11 +197,13 @@ def _launch(xq, sx, sw, t, wt, relu, out_scale, residual_q, residual_scale,
     def ptr(tensor):
         return None if tensor is None else tensor.data_ptr()
 
+    plan = s8_plan(N, H, W, C, O, _sms(dev.index))
     err = _lib()(
         xq.data_ptr(), wt.data_ptr(), scale.data_ptr(), shift.data_ptr(),
         ptr(residual_q), ptr(res_scale), out.data_ptr(), ptr(out_s),
         ptr(clipped), N, H, W, C, O, int(relu), _OUT_KINDS[out_dtype],
-        dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        plan.rows, plan.blocks, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "conv3x3_s8")
     conv3x3_s8.launches += 1
     if not with_sat:

@@ -9,8 +9,8 @@ builds K1-K8, K11 and K12 with nvcc (sm_90a) and compiles K9 and K10 with
 Triton on first use (``--noconftest``: the repo's conftest sets up JAX, which these tests do
 not need).  K7 and the int8 chain's conv (the second entry of K7's source)
 must EQUAL their plain versions bit for bit (equal integers, the same unfused
-f32 epilogue, one rounding to bf16 or to a tick; the clipped share is a count
-over the same size); K9 and K10 agree with theirs
+f32 epilogue or exact replacements of it, one rounding to bf16 or to a tick;
+the clipped share is a count over the same size); K9 and K10 agree with theirs
 within 1e-4 of the largest sum (f32 sums in another order).  Tolerances: f32
 1e-4 abs / 1e-4 rel (sums in another order); bf16 2e-2 abs / 2e-2 rel
 (both sides round an f32 result to bf16 once, or at the same casts of one
@@ -51,6 +51,7 @@ from cobevt_tpu_torch.ops.int8_chain import (
     conv3x3_s8,
     pack_s8_weight,
     quantize_dynamic,
+    s8_plan,
 )
 from cobevt_tpu_torch.nn.resnet import ResNetTrunk
 from cobevt_tpu_torch.ops.ffd_fused import fused_ffd, fused_ffd_bwd
@@ -62,6 +63,7 @@ from cobevt_tpu_torch.ops.fused_cross_attention import (
 from cobevt_tpu_torch.ops.fused_swap_fusion import (
     fused_swap_fusion,
     fused_swap_fusion_streaming,
+    k4_kernel_path,
     launches_per_call,
 )
 from cobevt_tpu_torch.ops.hopper_tile import (
@@ -770,7 +772,8 @@ def test_k4_kernel_matches_plain(gen, dtype, case):
     args = (x.to(dtype), mask, agent_mask, bias, layers, head, w, heads, valid)
     before = fused_swap_fusion.launches
     got = fused_swap_fusion(*args)
-    assert fused_swap_fusion.launches == before + launches_per_call(depth)
+    assert fused_swap_fusion.launches == before + launches_per_call(
+        depth, k4_kernel_path(D, heads, mlp, dtype))
     want = fused_swap_fusion(*args, impl="torch")
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (B, H, W, D)
@@ -1004,6 +1007,76 @@ def test_s8_chain_kernel_equals_plain(gen, shape, case):
     kwargs["with_sat"] = False
     assert torch.equal(conv3x3_s8(xq, sx, p.w_q, p.s_w, p.shift, **kwargs),
                        got)
+
+
+# chip_smoke.py:S8_CASES: the three layer1 convs of an int8 frame on the
+# strip kernel, and a height its strips do not divide at a width of 96
+@pytest.mark.parametrize("shape,case", [
+    ((20, 128, 128, 64), "conv1"),
+    ((20, 128, 128, 64), "conv2"),
+    ((20, 128, 128, 64), "conv2_exit"),
+    ((20, 45, 96, 64), "conv2"),
+])
+def test_s8_strip_kernel_equals_plain_at_the_chain_shapes(gen, shape, case):
+    N, H, W, C = shape
+    assert s8_plan(N, H, W, C, C, torch.cuda.get_device_properties(0)
+                   .multi_processor_count).path == "strip"
+    xq, sx = quantize_dynamic(
+        torch.randn(N, H, W, C, generator=gen, device="cuda").relu())
+    rq, rs = quantize_dynamic(
+        torch.randn(N, H, W, C, generator=gen, device="cuda").relu())
+    w = torch.randn(3, 3, C, C, generator=gen, device="cuda") * (
+        2 / (9 * C)) ** 0.5
+    p = pack_s8_weight(w, torch.randn(C, generator=gen, device="cuda") * 0.1)
+    kwargs = dict(with_sat=True, out_dtype=torch.bfloat16)
+    if case != "conv1":
+        kwargs.update(residual_q=rq, residual_scale=rs)
+    if case != "conv2_exit":
+        # half the range: some values clip
+        kwargs["out_scale"] = sx * 0.5
+    before = conv3x3_s8.launches
+    got, sat = conv3x3_s8(xq, sx, p.w_q, p.s_w, p.shift, wt=p.wt, **kwargs)
+    assert conv3x3_s8.launches == before + 1
+    want, want_sat = conv3x3_s8(xq, sx, p.w_q, p.s_w, p.shift, impl="torch",
+                                **kwargs)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    assert sat.item() == want_sat.item()
+    assert (sat.item() > 0) == (case != "conv2_exit")
+
+
+# chip_smoke.py:K4_CASES: CorpBEVT's encoder (1, 5, 32, 32, 128) in bf16 on
+# the wgmma route: (mask, mean_over_valid, live agents)
+@pytest.mark.parametrize("masked,valid,live", [
+    (True, False, [1, 1, 1, 0, 0]),
+    (True, True, [1, 1, 1, 0, 0]),
+    (False, False, [1, 1, 1, 0, 0]),
+    (True, True, [1, 1, 0, 1, 1]),       # agent 2 dead between live ones
+])
+def test_k4_wgmma_route_matches_plain_at_corpbevt(gen, masked, valid, live):
+    B, L, H, W, D, w, heads, depth, mlp = 1, 5, 32, 32, 128, 8, 4, 3, 256
+    assert k4_kernel_path(D, heads, mlp, torch.bfloat16) == "wgmma"
+    x, layers, bias, head = k4_operands(gen, B, L, H, W, D, w, heads, depth,
+                                        mlp)
+    agent_mask = torch.tensor([live], dtype=torch.float32, device="cuda")
+    mask = None
+    if masked:
+        mask = (torch.rand(B, L, H, W, generator=gen, device="cuda")
+                > 0.3).float() * agent_mask[:, :, None, None]
+        mask[:, 0] = 1.0
+    args = (x.bfloat16(), mask, agent_mask, bias, layers, head, w, heads,
+            valid)
+    before = fused_swap_fusion.launches
+    got = fused_swap_fusion(*args)
+    assert fused_swap_fusion.launches == before + launches_per_call(
+        depth, "wgmma")
+    want = fused_swap_fusion(*args, impl="torch")
+    torch.cuda.synchronize()
+    assert got.shape == (B, H, W, D) and torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(),
+                               **K4_TOL[torch.bfloat16])
+    # no atomics: a second call gives the same bits
+    assert torch.equal(fused_swap_fusion(*args), got)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
