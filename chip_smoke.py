@@ -17,7 +17,8 @@ non-zero without printing the final line:
      source includes the shared csrc/hopper.cuh or mma.cuh); K9 and K10
      (Triton, ops/bn_stats.py) compile at their first launch in phase 3;
   3. kernels vs plain: first the bare TMA + wgmma tile of each product form
-     that K1, K3 and K8 use against torch.matmul in f32; then every
+     that K1, K3, K8, K11 and K12 use against torch.matmul in f32 (and the
+     8-bit forms against the integer product); then every
      kernel against its plain PyTorch version on
      the card at every shape of the CorpBEVT serving forward and train step
      (5 agents x 4 cameras x 512^2, BEV 256^2) and of the cooperative LiDAR
@@ -36,9 +37,16 @@ non-zero without printing the final line:
      wrapper, the weight packed once as a block's cache packs it) and with a
      weight packed at every call (``unpacked_ms``), with the operand bytes
      its wgmma tiles fetch from L2; K5 (bf16) both fed by the row
-     statistics K1 writes in a train step and alone, and K5, K2 and K6 with
-     each launch timed on the card alone (``launch_device_ms``), K5's SDPA
-     yardstick on the card alone too; K7 with its scale path (one absmax
+     statistics K1 writes in a train step and alone, a second call equal bit
+     for bit (dbias included: bf16 sums its windows in a launch of its own,
+     per-chunk partials added in a fixed order,
+     ops/window_attention.py:dbias_plan), and K5,
+     K2, K6, K11 and K12 with each launch timed on the card alone
+     (``launch_device_ms``), K5's SDPA yardstick on the card alone too; K11
+     and K12 with their route (ops/ffd_fused.py:kernel_path) and, on the
+     card alone, the kernel and the library chain (autograd's forward +
+     backward less its forward for K12); K7's cuDNN and K8's SDPA yardsticks
+     on the card alone; K7 with its scale path (one absmax
      into a zeroed slot), alone on a slot, and both on the card alone, with
      the slot its epilogue folds held to the plain fold of its output, the
      absmax kernel (``int8_absmax``) against its plain version, and the
@@ -255,7 +263,7 @@ TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
 K4_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (5e-2, 2e-2)}
 # K5: dq, dk, dv and dbias are sums of up to 1024 terms, so the tolerance is
 # a share of the plain result's largest value: f32 1e-4 (sums in another
-# order; dbias also sums the windows with atomics, in any order), bf16 2e-2
+# order; dbias sums the windows through per-chunk partials), bf16 2e-2
 # (the kernel takes the row maximum per head, the plain version over all
 # heads as the TPU body does, so the exp rounds to bf16 elsewhere: one bf16
 # ulp on a weight, summed with random signs).
@@ -760,7 +768,11 @@ def phase_kernels(only=None):
         pack_s8_weight,
         quantize_dynamic,
     )
-    from cobevt_tpu_torch.ops.ffd_fused import fused_ffd, fused_ffd_bwd
+    from cobevt_tpu_torch.ops.ffd_fused import (
+        fused_ffd,
+        fused_ffd_bwd,
+        kernel_path as ffd_kernel_path,
+    )
     from cobevt_tpu_torch.ops.fused_cross_attention import (
         fused_cross_view_attention,
         pack_params,
@@ -777,6 +789,7 @@ def phase_kernels(only=None):
         _packed_to_4d,
         attention_tile_plan,
         bwd_tile_plan,
+        dbias_plan,
         fused_window_attention,
         fused_window_attention_packed,
         fused_window_attention_packed_bwd,
@@ -960,6 +973,8 @@ def phase_kernels(only=None):
             row["device_ms"] = device_ms(lambda: conv7("kernel"), 10)
             row["alone_device_ms"] = device_ms(
                 lambda: _launch_int8(x, packed, slot, res, True), 10)
+            row["library_device_ms"] = device_ms(
+                lambda: F.conv2d(x_cl, w_oihw, padding=1), 10)
             _, N, H, W, C = case[:5]
             row.update(bound(2.0 * N * H * W * 9 * C * C,
                              nbytes(x, packed.wt, packed.s_w, packed.shift,
@@ -1207,6 +1222,10 @@ def phase_kernels(only=None):
                     q, k, v, g, out, heads, bias, mask, impl=impl)
 
             got, want = bwd("kernel"), bwd("torch")
+            # a second call gives the same bits, dbias included: one writer
+            # an entry, window order in a chunk, chunks added in order
+            repeats = all((a is None and b is None) or torch.equal(a, b)
+                          for a, b in zip(got, bwd("kernel")))
             # the train step's path in bf16: K1 wrote the row statistics in
             # the forward, so K5 skips its own statistics sweep
             stats = fed = None
@@ -1219,9 +1238,12 @@ def phase_kernels(only=None):
                                               mask, stats)
 
                 fed = bwd_fed()
+                repeats = repeats and all(
+                    (a is None and b is None) or torch.equal(a, b)
+                    for a, b in zip(fed, bwd_fed()))
             torch.cuda.synchronize()
             errs = {}
-            ok = True
+            ok = repeats
             for part, a, b in zip(("dq", "dk", "dv", "dbias"),
                                   fed or got, want):
                 if (a is None) != (b is None) or (a is None) != (
@@ -1232,9 +1254,13 @@ def phase_kernels(only=None):
                     errs[part] = (abs_err, rel_err)
                     ok = ok and part_ok
             iters = 3 if G * Tq * Tk > 5e7 else 10
+            chunks, wpc, part_bytes = dbias_plan(G, heads, Tq, Tk, dtype)
             row = {"kernel": "K5", "case": name, "dtype": dname,
                    "per_frame": per_step, "heads": heads,
                    "per_lidar_step": per_lidar_step,
+                   "repeats_bit_equal": repeats,
+                   "dbias_chunks": [chunks, wpc] if has_bias else None,
+                   "dbias_partial_bytes": part_bytes if has_bias else 0,
                    "blocks": sum(bwd_tile_plan(G, heads, Tq, Tk)[1:]),
                    "max_abs_err": max(e[0] for e in errs.values()),
                    "max_rel_err": max(e[1] for e in errs.values()),
@@ -1314,16 +1340,27 @@ def phase_kernels(only=None):
             got, want = ffd("kernel"), ffd("torch")
             torch.cuda.synchronize()
             abs_err, rel_err, ok = compare(got, want, dname)
-            with torch.no_grad():
-                lib_fwd = time_ms(lambda: ref_ffd(*operands), iters)
+            route = ffd_kernel_path(N, D, M, dtype)
+
+            def lib_fwd_call():
+                with torch.no_grad():
+                    return ref_ffd(*operands)
+
+            lib_fwd = time_ms(lib_fwd_call, iters)
+            lib_fwd_device = device_ms(lib_fwd_call, iters)
             row = {"kernel": "K11", "case": name, "dtype": dname,
+                   "route": route,
                    "per_frame": per_pass, "max_abs_err": abs_err,
                    "max_rel_err": rel_err, "ok": ok,
                    "ms": time_ms(lambda: ffd("kernel"), iters),
+                   "device_ms": device_ms(lambda: ffd("kernel"), iters),
+                   "launch_device_ms": kernel_device_ms(
+                       lambda: ffd("kernel"), iters),
                    "plain_ms": time_ms(lambda: ffd("torch"), iters),
                    # no one call computes the sublayer: the chain of library
                    # calls (layer_norm, two products, gelu, add)
-                   "library_ms": lib_fwd}
+                   "library_ms": lib_fwd,
+                   "library_device_ms": lib_fwd_device}
             row.update(bound(4.0 * N * D * M, nbytes(*operands, got), dname))
             details.append(row)
             if not ok:
@@ -1340,14 +1377,18 @@ def phase_kernels(only=None):
                 errs[part] = (abs_err, rel_err)
                 ok = ok and part_ok
             row = {"kernel": "K12", "case": name, "dtype": dname,
-                   "per_frame": per_pass,
+                   "route": route, "per_frame": per_pass,
                    "max_abs_err": max(e[0] for e in errs.values()),
                    "max_rel_err": max(e[1] for e in errs.values()),
                    "errors": {k_: list(e) for k_, e in errs.items()},
-                   "ok": ok, "ms": time_ms(lambda: ffd_bwd("kernel"), iters)}
+                   "ok": ok, "ms": time_ms(lambda: ffd_bwd("kernel"), iters),
+                   "device_ms": device_ms(lambda: ffd_bwd("kernel"), iters),
+                   "launch_device_ms": kernel_device_ms(
+                       lambda: ffd_bwd("kernel"), iters)}
             del want, again
             row["plain_ms"] = time_ms(lambda: ffd_bwd("torch"), 2, warmup=1)
-            row.update(bound(12.0 * N * D * M,
+            # five products of 2 N D M: h, da, dt, dW1, dW2
+            row.update(bound(10.0 * N * D * M,
                              nbytes(x, dy, gamma, beta, w1, b1, w2, *got),
                              dname))
             # library yardstick: autograd over the chain of library calls,
@@ -1360,6 +1401,9 @@ def phase_kernels(only=None):
                 ref_ffd(*leaves).backward(dy)
 
             row["library_ms"] = max(time_ms(chain, iters) - lib_fwd, 0.0)
+            # both on the card alone
+            row["library_device_ms"] = max(
+                device_ms(chain, iters) - lib_fwd_device, 0.0)
             details.append(row)
             if not ok:
                 failures.append(row)
@@ -1386,14 +1430,18 @@ def phase_kernels(only=None):
             if bias is not None:
                 add = bias[None].to(dtype) if add is None else \
                     add + bias[None].to(dtype)
+            def sdpa_hm():
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=add,
+                                                      scale=1.0)
+
             row = {"kernel": "K8", "case": name, "dtype": dname,
                    "per_frame": 1, "max_abs_err": abs_err,
                    "max_rel_err": rel_err, "ok": ok,
                    "ms": time_ms(lambda: hm("kernel"), iters),
+                   "device_ms": device_ms(lambda: hm("kernel"), iters),
                    "plain_ms": time_ms(lambda: hm("torch"), iters),
-                   "library_ms": time_ms(
-                       lambda: F.scaled_dot_product_attention(
-                           q, k, v, attn_mask=add, scale=1.0), iters)}
+                   "library_ms": time_ms(sdpa_hm, iters),
+                   "library_device_ms": device_ms(sdpa_hm, iters)}
             row.update(bound(attention_work(G, Tq, Tk, 2),
                              nbytes(q, k, v, got, bias, mask), dname))
             details.append(row)
@@ -1424,6 +1472,14 @@ def phase_kernels(only=None):
                           f"{r['serial_device_ms']:.4f} ms)")
         if "blocks" in r:
             extra += f"  {r['blocks']} blocks"
+        if "route" in r:
+            extra += f"  [{r['route']}]"
+        if r["kernel"] == "K5":
+            extra += f"  repeats bit-equal: {r['repeats_bit_equal']}"
+            if r["dbias_chunks"]:
+                extra += (f"  dbias {r['dbias_chunks'][0]} chunks of "
+                          f"{r['dbias_chunks'][1]} windows, partials "
+                          f"{r['dbias_partial_bytes'] / 1e6:.1f} MB")
         if "launch_device_ms" in r:
             extra += "  launches alone: " + ", ".join(
                 f"{k_} {v_:.4f}" for k_, v_ in r["launch_device_ms"].items())

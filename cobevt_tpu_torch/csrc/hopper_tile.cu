@@ -1,7 +1,8 @@
 // One bare TMA + wgmma tile product, the check of csrc/hopper.cuh.
 //
 // Descriptor or swizzle bits that are wrong give silently wrong numbers, so
-// each product form that K1, K3 and K8 use is run here once, alone, on one
+// each product form that K1, K3, K8, K11 and K12 use is run here once, alone,
+// on one
 // tile loaded by TMA, and held against torch.matmul in f32 (bf16 inputs,
 // exact products, f32 sums): ops/hopper_tile.py, tests/test_torch_kernels_gpu
 // .py and chip_smoke.py phase 3.  One warpgroup, one block.
@@ -28,6 +29,18 @@
 //     SWIZZLE_64B (the layout of the conv's halo rows and weight taps); A
 //     from registers by ldmatrix_x4 through the swizzle, B through a
 //     descriptor, two k32 steps of m64n64k32.s8.
+//   variant 6 (K12's weight gradients): C (64 x 128) = A^T B, A stored
+//     (64 x 64) and B (64 x 128), both row-major, i.e. K x M and K x N:
+//     both MN-major, SWIZZLE_128B, B as two 64-column TMA boxes 8 KB apart
+//     (the descriptor's leading byte offset), four k16 steps of
+//     m64n128k16 with trans-a and trans-b, 16 K rows (2 KB) a step.
+//   variant 7 (K11's and K12's h = t w1, w1 in its own layout): C (64 x 64)
+//     = A B, A (64 x 64) K-major and B stored (64 x 64) row-major, i.e.
+//     K x N: MN-major, SWIZZLE_128B, four k16 steps of m64n64k16 with
+//     trans-b (A 32 bytes, B 16 K rows a step).
+//   variant 8 (K11's y = a w2, w2 in its own layout): C (64 x 128) = A B,
+//     B stored (64 x 128) as two 64-column boxes 8 KB apart (the leading
+//     byte offset), m64n128k16 with trans-b.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,11 +102,18 @@ __global__ void __launch_bounds__(128)
     const bool a_regs = variant == 2 || variant == 4;
     const uint32_t a_bytes =
         a_regs ? 0 : (variant == 0 || variant == 3 ? 8192 : 4096);
+    const bool mn = variant >= 6;   // B MN-major in 64-column boxes
     const uint32_t b_bytes =
-        variant == 0 || variant == 3 || variant == 4 ? 16384 : 4096;
-    mbar_arrive_expect_tx(&bar, a_bytes + b_bytes);
+        variant == 0 || variant == 3 || variant == 4 || variant == 6 ||
+                variant == 8
+            ? 16384
+            : (variant == 7 ? 8192 : 4096);
+    mbar_arrive_expect_tx(&bar, (mn ? 8192 : a_bytes) + b_bytes);
     if (!a_regs) tma_load_2d(sa, &amap, &bar, 0, 0);
     tma_load_2d(sb, &bmap, &bar, 0, 0);
+    // variants 6 and 8: B's second 64-column span, a box of its own
+    if (variant == 6 || variant == 8)
+      tma_load_2d(sb + 8192, &bmap, &bar, 64, 0);
   }
   if (variant == 4) {   // A (64 x 128 s8) into 144-byte rows, 16 bytes a go
     const uint8_t* as = reinterpret_cast<const uint8_t*>(a);
@@ -104,6 +124,57 @@ __global__ void __launch_bounds__(128)
   }
   mbar_wait(&bar, 0);
 
+  if (variant == 7) {
+    float d[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) d[i] = 0.f;
+    const uint64_t da = make_desc(sa, 1024, kSwizzle128);
+    const uint64_t db = make_desc(sb, 1024, kSwizzle128);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      wgmma_m64n64k16_ss_tb(d, desc_add(da, 32 * k), desc_add(db, 2048 * k),
+                            1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(d);
+    store_tile(d, c, warp, g, t);
+    return;
+  }
+  if (variant == 8) {
+    float d[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) d[i] = 0.f;
+    const uint64_t da = make_desc(sa, 1024, kSwizzle128);
+    const uint64_t db = make_desc_lbo(sb, 8192, 1024, kSwizzle128);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      wgmma_m64n128k16_ss_tb(d, desc_add(da, 32 * k), desc_add(db, 2048 * k),
+                             1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(d);
+    store_tile(d, c, warp, g, t);
+    return;
+  }
+  if (variant == 6) {
+    float d[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) d[i] = 0.f;
+    const uint64_t da = make_desc(sa, 1024, kSwizzle128);
+    const uint64_t db = make_desc_lbo(sb, 8192, 1024, kSwizzle128);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      wgmma_m64n128k16_ss_tt(d, desc_add(da, 2048 * k), desc_add(db, 2048 * k),
+                             1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(d);
+    store_tile(d, c, warp, g, t);
+    return;
+  }
   if (variant == 5) {
     int d[32];
 #pragma unroll
@@ -212,11 +283,14 @@ __global__ void __launch_bounds__(128)
   }
 }
 
+// box_cols: the box's inner extent (0: every column)
 cudaError_t map_2d(CUtensorMap* map, const void* base, int rows, int cols,
-                   CUtensorMapSwizzle swizzle, int elt = 2) {
+                   CUtensorMapSwizzle swizzle, int elt = 2,
+                   int box_cols = 0) {
   const uint64_t dims[2] = {(uint64_t)cols, (uint64_t)rows};
   const uint64_t strides[1] = {(uint64_t)cols * elt};
-  const uint32_t box[2] = {(uint32_t)cols, (uint32_t)rows};
+  const uint32_t box[2] = {(uint32_t)(box_cols ? box_cols : cols),
+                           (uint32_t)rows};
   return hopper_host::make_map(
       map, elt == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                     : CU_TENSOR_MAP_DATA_TYPE_UINT8,
@@ -225,16 +299,23 @@ cudaError_t map_2d(CUtensorMap* map, const void* base, int rows, int cols,
 
 }  // namespace
 
-// a, b row-major, bf16 (variants 0-2, c f32) or s8 (3-5, c s32), c
+// a, b row-major, bf16 (variants 0-2 and 6-8, c f32) or s8 (3-5, c s32), c
 // (64 x N), with the shapes of the variant (header comment).  Returns the
 // cudaError_t of the set-up and launch.
 extern "C" int cobevt_hopper_tile(const void* a, const void* b, void* c,
                                   int variant, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (variant < 0 || variant > 5) return (int)cudaErrorInvalidValue;
+  if (variant < 0 || variant > 8) return (int)cudaErrorInvalidValue;
   CUtensorMap amap, bmap;
-  if (variant == 5) {
+  if (variant >= 6) {
+    err = map_2d(&amap, a, 64, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err == cudaSuccess)
+      err = variant == 7
+                ? map_2d(&bmap, b, 64, 64, CU_TENSOR_MAP_SWIZZLE_128B)
+                : map_2d(&bmap, b, 64, 128, CU_TENSOR_MAP_SWIZZLE_128B, 2,
+                         64);
+  } else if (variant == 5) {
     err = map_2d(&amap, a, 64, 64, CU_TENSOR_MAP_SWIZZLE_64B, 1);
     if (err == cudaSuccess)
       err = map_2d(&bmap, b, 64, 64, CU_TENSOR_MAP_SWIZZLE_64B, 1);

@@ -73,23 +73,33 @@
 // Products per (query tile, key tile): seven on the training path, where
 // K1 wrote the statistics, and eight for a backward called alone (the TPU
 // body's: nine; five are the least: S, dA, dq, dk, dv); exps per score: two,
-// and three alone.  dbias is the sum over windows of ds32, which on the TPU is
-// carried from one grid step to the next; blocks here run in no order, so
-// the dq kernel adds its ds32 tile into the zeroed dbias with f32 vector
-// atomicAdd (four keys an atomic).
-// Each element receives G addends in an order that changes from run to run:
-// dbias is reproducible to the f32 rounding of a G-term sum (~1e-6
-// relative), not bit for bit; dq, dk and dv repeat bit for bit.  Blocks run
-// query (or key) tiles fastest and windows slowest, so the blocks in flight
-// add into different dbias tiles.
+// and three alone.  dbias is the sum over windows of ds32, which on the TPU
+// is carried from one grid step to the next; blocks here run in no order,
+// and G blocks adding into one dbias entry would make its bits depend on
+// their order.  So, with a bias, a third launch owns dbias:
+//   3. bwd_dbias_kernel: a block owns a 64 x 64 tile of dbias (query tile,
+//      head, key tile) in registers and walks a chunk of `wpc` consecutive
+//      windows in order, forming S and dA again (two more products a tile
+//      and window, nine in all) and ds32 from launch 1's statistics by
+//      launch 1's arithmetic; each chunk's tile goes to its slot of an f32
+//      partial buffer (P, Tq, H*Tk), and partials::add sums the P slots in
+//      order.  No entry has two writers and every sum has a fixed order, so
+//      dbias, like dq, dk and dv, repeats bit for bit.  P fills one wave of
+//      four blocks an SM (ops/window_attention.py:dbias_plan): 2 chunks of
+//      132 windows at the LiDAR shape, 4 of 4 at the camera fusion shape,
+//      6.6 MB of partials each; with P 1 the tile goes to dbias directly.
 //
 // f32: scalar kernels, one thread per row, three launches (statistics in
-// two sweeps, dq, dk/dv); the sharp check against the plain version.
+// two sweeps, dq, dk/dv); the sharp check against the plain version.  Its
+// dq blocks walk chunks of windows and add ds32 into the chunk's slot, each
+// entry by the one thread that owns it in every window (one thread's
+// operations on one address apply in program order), then partials::add.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "hopper.cuh"
+#include "partials.cuh"
 
 #include <math.h>
 #include <stdint.h>
@@ -112,8 +122,9 @@ struct Args {
   void* dq;
   void* dk;
   void* dv;
-  float* dbias;  // (Tq, H*Tk), zeroed by the caller; or null
+  float* dbias;  // the (P, Tq, H*Tk) partials (chunk p's slot); or null
   int Tq, Tk, H;
+  int wpc;       // windows a chunk
 };
 
 // ---------------------------------------------------------------------------
@@ -201,76 +212,89 @@ __global__ void __launch_bounds__(kRows) stats_kernel(Args a) {
   }
 }
 
-// grid: (ceil(Tq / kRows), H, G); block: kRows threads, one query row each.
+// grid: (ceil(Tq / kRows), H, P chunks); block: kRows threads, one query
+// row each, walking the windows of its chunk in order; ds goes into the
+// chunk's dbias slot (stored by the first window, added by the later ones
+// through the owning thread's own reductions, in window order).
 template <int D>
-__global__ void __launch_bounds__(kRows) dq_kernel(Args a) {
+__global__ void __launch_bounds__(kRows) dq_kernel(Args a, int G) {
   __shared__ __align__(16) float ks[kStep][D];
   __shared__ __align__(16) float vs[kStep][D];
   __shared__ float madd[kStep];
   const int tid = threadIdx.x;
   const int h = blockIdx.y;
-  const int win = blockIdx.z;
   const int C = a.H * D;
   const size_t HTk = (size_t)a.H * a.Tk;
   const int row = blockIdx.x * kRows + tid;
   const bool live = row < a.Tq;
   const int rc = live ? row : a.Tq - 1;
-  const size_t roff = ((size_t)win * a.Tq + rc) * C + h * D;
-  const float* q = static_cast<const float*>(a.q);
-  const float* g = static_cast<const float*>(a.g);
+  const int win0 = blockIdx.z * a.wpc;
+  const int win1 = min(win0 + a.wpc, G);
+  float* slot = a.dbias != nullptr
+                    ? a.dbias + (size_t)blockIdx.z * a.Tq * HTk
+                    : nullptr;
+  for (int win = win0; win < win1; ++win) {
+    const size_t roff = ((size_t)win * a.Tq + rc) * C + h * D;
+    const float* q = static_cast<const float*>(a.q);
+    const float* g = static_cast<const float*>(a.g);
 
-  float qr[D], gr[D], dq[D];
+    float qr[D], gr[D], dq[D];
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    qr[d] = q[roff + d];
-    gr[d] = g[roff + d];
-    dq[d] = 0.f;
-  }
-  const size_t si = ((size_t)win * a.H + h) * a.Tq + rc;
-  const float m = a.m[si];
-  const float il = 1.f / a.l[si];
-  const float s = a.s[si];
-
-  for (int k0 = 0; k0 < a.Tk; k0 += kStep) {
-    __syncthreads();
-    stage_f32<D>(ks, static_cast<const float*>(a.k), (size_t)win * a.Tk, k0,
-                 a.Tk, C, h, tid);
-    stage_f32<D>(vs, static_cast<const float*>(a.v), (size_t)win * a.Tk, k0,
-                 a.Tk, C, h, tid);
-    if (tid < kStep) {
-      float add = 0.f;
-      if (k0 + tid >= a.Tk)
-        add = -INFINITY;
-      else if (a.mask != nullptr &&
-               !(a.mask[(size_t)win * a.Tk + k0 + tid] > 0.f))
-        add = kMaskAdd;
-      madd[tid] = add;
+    for (int d = 0; d < D; ++d) {
+      qr[d] = q[roff + d];
+      gr[d] = g[roff + d];
+      dq[d] = 0.f;
     }
-    __syncthreads();
-#pragma unroll 2
-    for (int j = 0; j < kStep; ++j) {
-      float x = 0.f, da = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        x = fmaf(qr[d], ks[j][d], x);
-        da = fmaf(gr[d], vs[j][d], da);
+    const size_t si = ((size_t)win * a.H + h) * a.Tq + rc;
+    const float m = a.m[si];
+    const float il = 1.f / a.l[si];
+    const float s = a.s[si];
+
+    for (int k0 = 0; k0 < a.Tk; k0 += kStep) {
+      __syncthreads();
+      stage_f32<D>(ks, static_cast<const float*>(a.k), (size_t)win * a.Tk, k0,
+                   a.Tk, C, h, tid);
+      stage_f32<D>(vs, static_cast<const float*>(a.v), (size_t)win * a.Tk, k0,
+                   a.Tk, C, h, tid);
+      if (tid < kStep) {
+        float add = 0.f;
+        if (k0 + tid >= a.Tk)
+          add = -INFINITY;
+        else if (a.mask != nullptr &&
+                 !(a.mask[(size_t)win * a.Tk + k0 + tid] > 0.f))
+          add = kMaskAdd;
+        madd[tid] = add;
       }
-      const size_t bi =
-          (size_t)rc * HTk + (size_t)h * a.Tk + min(k0 + j, a.Tk - 1);
-      if (a.bias != nullptr) x += a.bias[bi];
-      x += madd[j];
-      const float p = expf(x - m) * il;  // 0 for a key past Tk
-      const float ds = p * (da - s);
+      __syncthreads();
+#pragma unroll 2
+      for (int j = 0; j < kStep; ++j) {
+        float x = 0.f, da = 0.f;
 #pragma unroll
-      for (int d = 0; d < D; ++d) dq[d] = fmaf(ds, ks[j][d], dq[d]);
-      if (a.dbias != nullptr && live && k0 + j < a.Tk)
-        atomicAdd(a.dbias + bi, ds);
+        for (int d = 0; d < D; ++d) {
+          x = fmaf(qr[d], ks[j][d], x);
+          da = fmaf(gr[d], vs[j][d], da);
+        }
+        const size_t bi =
+            (size_t)rc * HTk + (size_t)h * a.Tk + min(k0 + j, a.Tk - 1);
+        if (a.bias != nullptr) x += a.bias[bi];
+        x += madd[j];
+        const float p = expf(x - m) * il;  // 0 for a key past Tk
+        const float ds = p * (da - s);
+#pragma unroll
+        for (int d = 0; d < D; ++d) dq[d] = fmaf(ds, ks[j][d], dq[d]);
+        if (slot != nullptr && live && k0 + j < a.Tk) {
+          if (win == win0)
+            slot[bi] = ds;
+          else
+            atomicAdd(slot + bi, ds);   // this thread's entry, window order
+        }
+      }
     }
-  }
-  if (live) {
-    float* out = static_cast<float*>(a.dq) + roff;
+    if (live) {
+      float* out = static_cast<float*>(a.dq) + roff;
 #pragma unroll
-    for (int d = 0; d < D; ++d) out[d] = dq[d];
+      for (int d = 0; d < D; ++d) out[d] = dq[d];
+    }
   }
 }
 
@@ -363,8 +387,10 @@ typedef __nv_bfloat16 bf16;
 constexpr int kWgRows = 64;      // rows a block owns, and rows of a tile
 constexpr int kMaxStages = 4;
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kDqBlocksPerSm = 4;
+constexpr int kDqBlocksPerSm = 4;   // kFed (K1 wrote the row statistics)
+                                    // compiles the statistics sweep out
 constexpr int kDkvBlocksPerSm = 3;
+constexpr int kDbiasBlocksPerSm = 4;
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -418,9 +444,11 @@ struct BwdArgs {
   bf16* dq;
   bf16* dk;
   bf16* dv;
-  float* dbias;       // (Tq, H*Tk), zeroed; or null
+  float* dbias;       // the (P, Tq, H*Tk) partials; or null
+  float* dbias_out;   // (Tq, H*Tk): the partials' ordered sum (may be dbias)
   const float* mask;  // (G, Tk) or null
   int G, Tq, Tk, H, stages, has_bias, has_mask;
+  int wpc;            // windows a chunk (a dbias block walks them in order)
   int stats_ready;    // the first two planes of stats came from K1
 };
 
@@ -437,7 +465,7 @@ __device__ __forceinline__ const float* bias_at(const uint8_t* box, int r,
 // k, v as 4D (D, H, T, G), boxes of 64 rows x D, 64B (D 32) or 32B (D 16)
 // swizzle; bias as 3D (Tk, H, Tq), boxes of 32 keys x 64 rows, f32, 128B
 // swizzle; mask as (Tk, G), boxes of 64 keys.
-template <int D>
+template <int D, bool kFed>
 __global__ void __launch_bounds__(128, kDqBlocksPerSm)
     bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
                   const __grid_constant__ CUtensorMap gmap,
@@ -468,7 +496,7 @@ __global__ void __launch_bounds__(128, kDqBlocksPerSm)
   const int win = b / a.H;
   const int q0 = qt * kWgRows;
   // the stats sweep (unless K1 wrote the statistics), then the dq sweep
-  const int first = a.stats_ready ? KT : 0;
+  const int first = kFed ? KT : 0;
   const int steps = 2 * KT - first;
 
   const int tid = threadIdx.x;
@@ -551,7 +579,7 @@ __global__ void __launch_bounds__(128, kDqBlocksPerSm)
   float il[2] = {0.f, 0.f};
   const size_t per = (size_t)a.G * a.H * a.Tq;
   const size_t row0_i = ((size_t)win * a.H + h) * a.Tq + q0;
-  if (a.stats_ready) {
+  if (kFed) {
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       if (q0 + rl[hr] < a.Tq) {   // a row past Tq keeps 0: it adds nothing
@@ -579,7 +607,7 @@ __global__ void __launch_bounds__(128, kDqBlocksPerSm)
     const float* mask_s =
         reinterpret_cast<const float*>(bias_s + plan.bias_bytes);
     const int k0 = ((first + n) % KT) * kWgRows;
-    const bool dq_sweep = first + n >= KT;
+    const bool dq_sweep = kFed || first + n >= KT;
 
     // S = q k^T; in the dq sweep also dA = g v^T
     float sc[32], da[32];
@@ -668,8 +696,8 @@ __global__ void __launch_bounds__(128, kDqBlocksPerSm)
         }
       }
     } else {
-      // ds32 = p32 (dA - s) with p32 = bf16(exp) / sum; dbias += ds32;
-      // bf16(ds32) as the A fragments of dq += ds k
+      // ds32 = p32 (dA - s) with p32 = bf16(exp) / sum; bf16(ds32) as the
+      // A fragments of dq += ds k (launch 3 forms ds32 again for dbias)
       uint32_t pa[kWgRows / 16][4];
 #pragma unroll
       for (int j = 0; j < kWgRows / 8; ++j) {
@@ -681,21 +709,6 @@ __global__ void __launch_bounds__(128, kDqBlocksPerSm)
               rnd_bf16(exp2f(fmaf(sc[4 * j + e], kLog2e, -ml_run[hr]))) *
               il[hr];
           ds[e] = p * (da[4 * j + e] - rs[hr]);   // 0 for a key past Tk
-        }
-        if (a.has_bias) {
-          // four consecutive keys a thread, one vector atomic: an even t
-          // takes row rl[0] of its pair of threads, an odd t row rl[1]
-          const bool odd = t & 1;
-          const float s0 = __shfl_xor_sync(0xffffffffu, odd ? ds[0] : ds[2], 1);
-          const float s1 = __shfl_xor_sync(0xffffffffu, odd ? ds[1] : ds[3], 1);
-          const int key = k0 + 8 * j + 2 * (t & 2);
-          const int row = q0 + rl[odd];
-          if (key < a.Tk && row < a.Tq)   // Tk % 8 == 0: all four or none
-            atomicAdd(reinterpret_cast<float4*>(
-                          a.dbias + (size_t)row * a.H * a.Tk +
-                          (size_t)h * a.Tk + key),
-                      odd ? make_float4(s0, s1, ds[2], ds[3])
-                          : make_float4(ds[0], ds[1], s0, s1));
         }
         pa[j >> 1][(j & 1) * 2] = pack_bf16(ds[0], ds[1]);
         pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
@@ -926,6 +939,204 @@ __global__ void __launch_bounds__(128, kDkvBlocksPerSm)
   }
 }
 
+// Launch 3, with a bias: dbias.  grid: P * H * QT * KT blocks of one
+// warpgroup, key tiles fastest, then query tiles, heads, and the P chunks
+// of `wpc` windows slowest (ops/window_attention.py:dbias_plan).  The
+// block owns the 64 x 64 dbias tile (query tile, head, key tile) in
+// registers and walks its chunk's windows in order: per window S = q k^T
+// and dA = g v^T again (two products), ds32 = p32 (dA - rowsum) from the
+// statistics launch 1 used, by launch 1's arithmetic, and tile += ds32.
+// Then it stores the tile into its chunk's slot of the (P, Tq, H*Tk)
+// partials (into dbias itself when P is 1).  Shared memory: the two bias
+// boxes of the tile, loaded once, then `stages` ring stages of [q | g | k |
+// v | statistics | mask], each part aligned to 1024 bytes.
+struct DbiasPlan {
+  int tile_bytes, stage_bytes, stages, bar_off, smem_bytes;
+};
+
+__host__ __device__ inline DbiasPlan dbias_smem_plan(int D, bool mask,
+                                                     int stages) {
+  DbiasPlan p;
+  p.tile_bytes = round1024(kWgRows * D * 2);
+  p.stage_bytes = 4 * p.tile_bytes + 1024 + (mask ? 1024 : 0);
+  p.stages = stages;
+  p.bar_off = 2 * kWgRows * 128 + stages * p.stage_bytes;
+  p.smem_bytes = 1024 + p.bar_off + (1 + kMaxStages) * 8;
+  return p;
+}
+
+inline int dbias_stages(int D, bool mask) {
+  const int budget = 228 * 1024 / kDbiasBlocksPerSm - 1024;
+  const DbiasPlan one = dbias_smem_plan(D, mask, 1);
+  const int stages = (budget - (one.smem_bytes - one.stage_bytes)) /
+                     one.stage_bytes;
+  return stages < 2 ? 2 : (stages > kMaxStages ? kMaxStages : stages);
+}
+
+template <int D>
+__global__ void __launch_bounds__(128, kDbiasBlocksPerSm)
+    bwd_dbias_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap gmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     const __grid_constant__ CUtensorMap bmap,
+                     const __grid_constant__ CUtensorMap mmap,
+                     const __grid_constant__ CUtensorMap smap, BwdArgs a) {
+  using namespace hopper;
+  constexpr Swizzle kSw = D == 32 ? kSwizzle64 : kSwizzle32;
+  constexpr uint32_t kRowBytes = D * 2;
+  const DbiasPlan plan = dbias_smem_plan(D, a.has_mask, a.stages);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint8_t* bias_s = smem;
+  uint64_t* own = reinterpret_cast<uint64_t*>(smem + plan.bar_off);
+  uint64_t* full = own + 1;
+  auto stage_ptr = [&](int s) {
+    return smem + 2 * kWgRows * 128 + s * plan.stage_bytes;
+  };
+
+  const int KT = (a.Tk + kWgRows - 1) / kWgRows;
+  const int QT = (a.Tq + kWgRows - 1) / kWgRows;
+  int b = blockIdx.x;
+  const int kt = b % KT;
+  b /= KT;
+  const int qt = b % QT;
+  b /= QT;
+  const int h = b % a.H;
+  const int chunk = b / a.H;
+  const int win0 = chunk * a.wpc;
+  const int nwin = min(a.wpc, a.G - win0);
+  const int q0 = qt * kWgRows, k0 = kt * kWgRows;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    mbar_init(own, 1);
+    for (int s = 0; s < a.stages; ++s) mbar_init(&full[s], 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // step n: window win0 + n
+  auto load_step = [&](int n) {
+    const int s = n % a.stages;
+    const int win = win0 + n;
+    uint8_t* st = stage_ptr(s);
+    mbar_arrive_expect_tx(&full[s], 4 * kWgRows * D * 2 + 3 * kWgRows * 4 +
+                                        (a.has_mask ? kWgRows * 4 : 0));
+    tma_load_4d(st, &qmap, &full[s], 0, h, q0, win);
+    tma_load_4d(st + plan.tile_bytes, &gmap, &full[s], 0, h, q0, win);
+    tma_load_4d(st + 2 * plan.tile_bytes, &kmap, &full[s], 0, h, k0, win);
+    tma_load_4d(st + 3 * plan.tile_bytes, &vmap, &full[s], 0, h, k0, win);
+    tma_load_3d(st + 4 * plan.tile_bytes, &smap, &full[s], q0, win * a.H + h,
+                0);
+    if (a.has_mask)
+      tma_load_2d(st + 4 * plan.tile_bytes + 1024, &mmap, &full[s], k0, win);
+  };
+  if (tid == 0) {
+    mbar_arrive_expect_tx(own, 2 * kWgRows * 128);
+    for (int sb = 0; sb < 2; ++sb)
+      tma_load_3d(smem + sb * kWgRows * 128, &bmap, own, k0 + 32 * sb, h, q0);
+    for (int n = 0; n < a.stages && n < nwin; ++n) load_step(n);
+  }
+
+  // this thread's rows rl[0], rl[1] and key columns 8j + 2t, 8j + 2t + 1,
+  // as in launch 1
+  const int gq = lane >> 2, t = lane & 3;
+  const int rl[2] = {warp * 16 + gq, warp * 16 + gq + 8};
+  float db[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) db[i] = 0.f;
+  mbar_wait(own, 0);
+
+  for (int n = 0; n < nwin; ++n) {
+    const int s = n % a.stages;
+    mbar_wait(&full[s], (n / a.stages) & 1);
+    uint8_t* st = stage_ptr(s);
+    const float* stats_s =
+        reinterpret_cast<const float*>(st + 4 * plan.tile_bytes);
+    const float* mask_s = stats_s + 256;
+    const uint64_t desc_q = make_desc(st, 8 * kRowBytes, kSw);
+    const uint64_t desc_g = make_desc(st + plan.tile_bytes, 8 * kRowBytes,
+                                      kSw);
+    const uint64_t desc_k = make_desc(st + 2 * plan.tile_bytes,
+                                      8 * kRowBytes, kSw);
+    const uint64_t desc_v = make_desc(st + 3 * plan.tile_bytes,
+                                      8 * kRowBytes, kSw);
+    float sc[32], da[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = da[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kd = 0; kd < D / 16; ++kd)
+      wgmma_m64n64k16_ss(sc, desc_add(desc_q, 32 * kd),
+                         desc_add(desc_k, 32 * kd), 1);
+#pragma unroll
+    for (int kd = 0; kd < D / 16; ++kd)
+      wgmma_m64n64k16_ss(da, desc_add(desc_g, 32 * kd),
+                         desc_add(desc_v, 32 * kd), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(da);
+
+    // a row past Tq has 1 / sum = 0 from TMA's zero fill: it adds nothing
+    float ml[2], il[2], rs[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      ml[hr] = stats_s[rl[hr]];
+      il[hr] = stats_s[64 + rl[hr]];
+      rs[hr] = stats_s[128 + rl[hr]];
+    }
+#pragma unroll
+    for (int j = 0; j < kWgRows / 8; ++j) {
+      const int c = 8 * j + 2 * t;    // columns c, c + 1 of the tile
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float x0 = sc[4 * j + 2 * hr], x1 = sc[4 * j + 2 * hr + 1];
+        if (k0 + c < a.Tk) {
+          const float2 bb = *reinterpret_cast<const float2*>(
+              bias_at(bias_s + (c >> 5) * kWgRows * 128, rl[hr], c & 31));
+          x0 += bb.x;
+          x1 += bb.y;
+          if (a.has_mask) {
+            const float2 mm = *reinterpret_cast<const float2*>(mask_s + c);
+            if (!(mm.x > 0.f)) x0 += kMaskAdd;
+            if (!(mm.y > 0.f)) x1 += kMaskAdd;
+          }
+        } else {
+          x0 = x1 = -INFINITY;   // Tk % 8 == 0: both columns are past Tk
+        }
+        const float p0 =
+            rnd_bf16(exp2f(fmaf(x0, kLog2e, -ml[hr]))) * il[hr];
+        const float p1 =
+            rnd_bf16(exp2f(fmaf(x1, kLog2e, -ml[hr]))) * il[hr];
+        db[4 * j + 2 * hr] += p0 * (da[4 * j + 2 * hr] - rs[hr]);
+        db[4 * j + 2 * hr + 1] += p1 * (da[4 * j + 2 * hr + 1] - rs[hr]);
+      }
+    }
+    // every warp is past stage s: refill it with the window `stages` ahead
+    if (n + a.stages < nwin) {
+      __syncthreads();
+      if (tid == 0) load_step(n + a.stages);
+    }
+  }
+
+  float* slot = a.dbias + (size_t)chunk * a.Tq * a.H * a.Tk;
+#pragma unroll
+  for (int j = 0; j < kWgRows / 8; ++j) {
+    const int key = k0 + 8 * j + 2 * t;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = q0 + rl[hr];
+      if (row < a.Tq && key < a.Tk)
+        *reinterpret_cast<float2*>(slot + (size_t)row * a.H * a.Tk +
+                                   (size_t)h * a.Tk + key) =
+            make_float2(db[4 * j + 2 * hr], db[4 * j + 2 * hr + 1]);
+    }
+  }
+}
+
 template <typename K>
 cudaError_t allow_smem(K kernel, int device, bool (&configured)[64]) {
   if (device < 64 && configured[device]) return cudaSuccess;
@@ -938,20 +1149,41 @@ cudaError_t allow_smem(K kernel, int device, bool (&configured)[64]) {
 template <int D>
 cudaError_t launch_wgmma(const CUtensorMap* maps, BwdArgs a, int device,
                          cudaStream_t stream) {
-  static bool dq_ready[64] = {}, dkdv_ready[64] = {};
-  cudaError_t err = allow_smem(bwd_dq_kernel<D>, device, dq_ready);
-  if (err != cudaSuccess) return err;
-  err = allow_smem(bwd_dkdv_kernel<D>, device, dkdv_ready);
+  static bool dq_ready[2][64] = {}, dkdv_ready[64] = {};
+  static bool dbias_ready[64] = {};
+  const bool fed = a.stats_ready != 0;
+  auto* dq_kernel = fed ? bwd_dq_kernel<D, true> : bwd_dq_kernel<D, false>;
+  cudaError_t err = allow_smem(dq_kernel, device, dq_ready[fed]);
+  if (err == cudaSuccess)
+    err = allow_smem(bwd_dkdv_kernel<D>, device, dkdv_ready);
+  if (err == cudaSuccess)
+    err = allow_smem(bwd_dbias_kernel<D>, device, dbias_ready);
   if (err != cudaSuccess) return err;
   const bool bias = a.has_bias != 0, mask = a.has_mask != 0;
   const long long gh = (long long)a.G * a.H;
+  const int QT = (a.Tq + kWgRows - 1) / kWgRows;
+  const int KT = (a.Tk + kWgRows - 1) / kWgRows;
   a.stages = bwd_stages(D, false, bias, mask, kDqBlocksPerSm);
-  bwd_dq_kernel<D><<<(unsigned)(gh * ((a.Tq + kWgRows - 1) / kWgRows)), 128,
-                     bwd_plan(D, false, bias, mask, a.stages).smem_bytes,
-                     stream>>>(maps[0], maps[1], maps[2], maps[3], maps[4],
-                               maps[5], a);
+  dq_kernel<<<(unsigned)(gh * QT), 128,
+              bwd_plan(D, false, bias, mask, a.stages).smem_bytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  if (bias) {
+    // dbias from the statistics launch 1 left, then the chunks' partials
+    // added in order
+    const int P = (a.G + a.wpc - 1) / a.wpc;
+    a.stages = dbias_stages(D, mask);
+    bwd_dbias_kernel<D><<<(unsigned)((long long)P * a.H * QT * KT), 128,
+                          dbias_smem_plan(D, mask, a.stages).smem_bytes,
+                          stream>>>(maps[0], maps[1], maps[2], maps[3],
+                                    maps[4], maps[5], maps[6], a);
+    err = cudaGetLastError();
+    if (err == cudaSuccess && a.dbias_out != a.dbias)
+      err = partials::add(a.dbias, P, (long long)a.Tq * a.H * a.Tk,
+                          a.dbias_out, stream);
+    if (err != cudaSuccess) return err;
+  }
   a.stages = bwd_stages(D, true, bias, false, kDkvBlocksPerSm);
   bwd_dkdv_kernel<D><<<(unsigned)(gh * ((a.Tk + kWgRows - 1) / kWgRows)),
                        128, bwd_plan(D, true, bias, false, a.stages).smem_bytes,
@@ -962,8 +1194,9 @@ cudaError_t launch_wgmma(const CUtensorMap* maps, BwdArgs a, int device,
 
 // The tensor maps of one call (the boxes of the kernels' comments), then
 // the two launches.  Maps of absent operands repeat q's and are never read.
-cudaError_t dispatch_wgmma(const Args& x, float* stats, bool stats_ready,
-                           int G, int D, int device, cudaStream_t stream) {
+cudaError_t dispatch_wgmma(const Args& x, float* dbias_out, float* stats,
+                           bool stats_ready, int G, int D, int device,
+                           cudaStream_t stream) {
   using hopper_host::make_map;
   const int Tq = x.Tq, Tk = x.Tk, H = x.H;
   const CUtensorMapSwizzle sw =
@@ -1015,7 +1248,9 @@ cudaError_t dispatch_wgmma(const Args& x, float* stats, bool stats_ready,
   a.dk = static_cast<bf16*>(x.dk);
   a.dv = static_cast<bf16*>(x.dv);
   a.dbias = x.dbias;
+  a.dbias_out = dbias_out;
   a.mask = x.mask;
+  a.wpc = x.wpc;
   a.G = G;
   a.Tq = Tq;
   a.Tk = Tk;
@@ -1031,9 +1266,11 @@ cudaError_t dispatch_wgmma(const Args& x, float* stats, bool stats_ready,
 template <int D>
 cudaError_t launch_f32(const Args& a, int G, cudaStream_t s) {
   const dim3 grid_q((a.Tq + kRows - 1) / kRows, a.H, G);
+  const dim3 grid_c((a.Tq + kRows - 1) / kRows, a.H,
+                    (G + a.wpc - 1) / a.wpc);
   const dim3 grid_k((a.Tk + kRows - 1) / kRows, a.H, G);
   stats_kernel<D><<<grid_q, kRows, 0, s>>>(a);
-  dq_kernel<D><<<grid_q, kRows, 0, s>>>(a);
+  dq_kernel<D><<<grid_c, kRows, 0, s>>>(a, G);
   dkdv_kernel<D><<<grid_k, kRows, 0, s>>>(a);
   return cudaGetLastError();
 }
@@ -1041,7 +1278,11 @@ cudaError_t launch_f32(const Args& a, int G, cudaStream_t s) {
 }  // namespace
 
 // Plain C entry point, loaded with ctypes.  bias, mask and dbias may be null
-// (dbias exactly when bias is); dbias must be zeroed; stats is an f32
+// (dbias exactly when bias is); dbias_part is the (P, Tq, H*Tk) f32 scratch
+// of the P = ceil(G / wpc) chunks (ops/window_attention.py:dbias_plan),
+// which the dbias launch (bf16) or the dq launch (f32) fills and one more
+// launch adds in order into dbias; with P 1 it may be dbias itself (no
+// addition); stats is an f32
 // scratch of 3 * G * H * Tq values, whose first two planes K1 filled for
 // these operands when stats_ready (bf16 only); every pointer is 16-byte
 // aligned (the bf16 kernels read through TMA).  Returns the cudaError_t of
@@ -1049,12 +1290,14 @@ cudaError_t launch_f32(const Args& a, int G, cudaStream_t s) {
 extern "C" int cobevt_window_attention_bwd(
     const void* q, const void* k, const void* v, const void* g, const void* o,
     const void* bias, const void* mask, void* stats, void* dq, void* dk,
-    void* dv, void* dbias, int G, int Tq, int Tk, int H, int D, int is_bf16,
-    int stats_ready, int device, void* stream) {
+    void* dv, void* dbias, void* dbias_part, int G, int Tq, int Tk, int H,
+    int D, int wpc, int is_bf16, int stats_ready, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (G <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || G > 65535 || H > 65535 ||
       Tq % 8 || Tk % 8 || (bias == nullptr) != (dbias == nullptr) ||
+      (dbias == nullptr) != (dbias_part == nullptr) || wpc < 1 ||
+      (bias == nullptr && wpc != 1) ||
       (D != 16 && D != 32))
     return (int)cudaErrorInvalidValue;
   float* st = static_cast<float*>(stats);
@@ -1073,13 +1316,21 @@ extern "C" int cobevt_window_attention_bwd(
   a.dq = dq;
   a.dk = dk;
   a.dv = dv;
-  a.dbias = static_cast<float*>(dbias);
+  a.dbias = static_cast<float*>(dbias_part);
   a.Tq = Tq;
   a.Tk = Tk;
   a.H = H;
+  a.wpc = wpc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return (int)dispatch_wgmma(a, st, stats_ready != 0, G, D, device, s);
+  if (is_bf16)   // adds the dbias partials itself, between its launches
+    return (int)dispatch_wgmma(a, static_cast<float*>(dbias), st,
+                               stats_ready != 0, G, D, device, s);
   if (stats_ready) return (int)cudaErrorInvalidValue;   // bf16 only
-  return (int)(D == 32 ? launch_f32<32>(a, G, s) : launch_f32<16>(a, G, s));
+  err = D == 32 ? launch_f32<32>(a, G, s) : launch_f32<16>(a, G, s);
+  if (err != cudaSuccess || dbias == nullptr || dbias_part == dbias)
+    return (int)err;
+  const int P = (G + wpc - 1) / wpc;
+  return (int)partials::add(static_cast<const float*>(dbias_part), P,
+                            (long long)Tq * H * Tk, static_cast<float*>(dbias),
+                            s);
 }

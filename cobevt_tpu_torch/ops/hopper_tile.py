@@ -1,6 +1,6 @@
 """The bare TMA + ``wgmma`` tile product of ``csrc/hopper_tile.cu``: the
 check of the Hopper building blocks (``csrc/hopper.cuh``) that K1, K3, K8,
-K7 and the int8 chain's conv share, one product form at a time, against
+K7, K12 and the int8 chain's conv share, one product form at a time, against
 ``torch.matmul`` in f32 (the 8-bit forms exactly, as integers).
 
 Not on any model path; ``chip_smoke.py`` and the GPU tests call it before
@@ -24,6 +24,11 @@ VARIANTS = {
     0: ((64, 64), (128, 64), (64, 128), "a @ b.T"),   # K3's product
     1: ((64, 32), (64, 32), (64, 64), "a @ b.T"),     # K1's q k^T
     2: ((64, 64), (64, 32), (64, 32), "a @ b"),       # K1's P v
+    # K12's weight gradients: both operands MN-major (token rows as K)
+    6: ((64, 64), (64, 128), (64, 128), "a.T @ b"),
+    # K11's and K12's h = t w1 and K11's y = a w2: B MN-major (trans-b)
+    7: ((64, 64), (64, 64), (64, 64), "a @ b"),
+    8: ((64, 64), (64, 128), (64, 128), "a @ b"),
 }
 # the 8-bit forms: s8 operands, s32 C
 S8_VARIANTS = {
@@ -55,7 +60,10 @@ def tile_reference(a, b, variant: int):
         finally:
             torch.backends.cuda.matmul.allow_tf32 = old
     a, b = a.float(), b.float()
-    return a @ b if VARIANTS[variant][3] == "a @ b" else a @ b.t()
+    what = VARIANTS[variant][3]
+    if what == "a.T @ b":
+        return a.t() @ b
+    return a @ b if what == "a @ b" else a @ b.t()
 
 
 def tile_product(a, b, variant: int):

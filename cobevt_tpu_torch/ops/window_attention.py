@@ -266,6 +266,28 @@ def bwd_tile_plan(G: int, H: int, Tq: int, Tk: int):
             G * H * -(-Tk // _TILE_ROWS))
 
 
+# one wave of K5's blocks on 132 SMs at four blocks an SM
+_WAVE = 132 * 4
+
+
+def dbias_plan(G: int, H: int, Tq: int, Tk: int, dtype=torch.bfloat16):
+    """K5's dbias in a fixed order: (P chunks, windows a chunk, bytes of the
+    (P, Tq, H*Tk) f32 partial buffer).  The windows are cut into P chunks
+    of consecutive windows; a block sums its chunk's windows in order into
+    the chunk's slot, and one more launch adds the P slots in order (none
+    when P is 1: the slot is dbias itself, 0 extra bytes).  bf16: a block
+    of the dbias launch owns a 64 x 64 tile (query tile, head, key tile) in
+    registers; f32: a block of the scalar dq kernel owns 64 query rows of a
+    head, each entry added by the one thread that owns it.  P is the most
+    chunks whose blocks fit one wave, so no SM idles, and at most G."""
+    blocks = H * -(-Tq // _TILE_ROWS)
+    if dtype == torch.bfloat16:
+        blocks *= -(-Tk // _TILE_ROWS)
+    wpc = -(-G // max(1, _WAVE // blocks))
+    chunks = -(-G // wpc)
+    return chunks, wpc, (chunks * Tq * H * Tk * 4 if chunks > 1 else 0)
+
+
 def bwd_block_coords(block: int, H: int, T: int):
     """(window, head, first row) of K5 block ``block`` in a grid over T
     rows (Tq for the dq launch, Tk for the dk/dv launch), as the kernels
@@ -344,10 +366,15 @@ def _launch_bwd_kernel(q, k, v, g, out, n_heads, bias_flat, mask,
                        ("g", g, Tq), ("out", out, Tq)):
         check_operand(name, t, (G, T, C), q.dtype, dev)
     HTk = n_heads * Tk
-    dbias = None
+    dbias = part = None
+    wpc = 1
     if bias_flat is not None:
         check_operand("bias_flat", bias_flat, (Tq, HTk), torch.float32, dev)
-        dbias = torch.zeros_like(bias_flat)   # the kernel adds into it
+        dbias = torch.empty_like(bias_flat)
+        chunks, wpc, _ = dbias_plan(G, n_heads, Tq, Tk, q.dtype)
+        # each chunk's slot is written whole, then the slots are added
+        part = dbias if chunks == 1 else torch.empty(
+            (chunks, Tq, HTk), dtype=torch.float32, device=dev)
     if mask is not None:
         check_operand("mask", mask, (G, Tk), torch.float32, dev)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -362,11 +389,11 @@ def _launch_bwd_kernel(q, k, v, g, out, n_heads, bias_flat, mask,
                             device=dev)
     _check_tma_bases(q=q, k=k, v=v, g=g, out=out, bias_flat=bias_flat,
                      mask=mask, stats=stats)
-    err = _entry("cobevt_window_attention_bwd", 12, 8)(
+    err = _entry("cobevt_window_attention_bwd", 13, 9)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         out.data_ptr(), _ptr(bias_flat), _ptr(mask), stats.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(dbias), G, Tq, Tk,
-        n_heads, C // n_heads, int(q.dtype == torch.bfloat16),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(dbias), _ptr(part),
+        G, Tq, Tk, n_heads, C // n_heads, wpc, int(q.dtype == torch.bfloat16),
         int(stats_ready), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "window_attention_bwd")
@@ -384,9 +411,12 @@ def fused_window_attention_packed_bwd(q, k, v, g, out, n_heads: int,
 
     ``impl`` as in the forward.  One call is two kernel launches in bf16
     (dq with the row statistics, then dk/dv: :func:`bwd_tile_plan`) and
-    three in f32, behind one C entry point, and counts once.  The kernel
-    adds dbias with f32 atomics, so dbias is reproducible to the rounding of
-    a G-term f32 sum, not bit for bit; dq, dk and dv repeat bit for bit."""
+    three in f32, behind one C entry point, and counts once; with a bias,
+    bf16 adds a dbias launch (blocks owning 64 x 64 tiles of dbias, each
+    summing a chunk of windows in order), and both add the chunks' partials
+    in order (:func:`dbias_plan`).  No dbias entry has two writers and
+    every sum has a fixed order, so dq, dk, dv and dbias repeat bit for
+    bit."""
     return _packed_bwd(q, k, v, g, out, n_heads, bias_flat, mask,
                        resolve_impl(impl, q))
 

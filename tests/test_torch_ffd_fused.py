@@ -158,9 +158,21 @@ def test_kernel_gate_and_plan(shape, ok):
     assert ffd_fused.ffd_kernel_accepts(N, D, M, torch.bfloat16) is ok
     assert not ffd_fused.ffd_kernel_accepts(N, D, M, torch.float16)
     if ok:
-        blocks, splits = ffd_fused.bwd_plan(N, M)
-        assert 1 <= blocks <= 264 and blocks <= -(-N // 16)
-        assert 1 <= splits and splits * (M // 32) <= 264
+        plan = ffd_fused.ffd_plan(N, D, M, torch.bfloat16)
+        assert plan.route == ("wgmma" if D in (128, 256) and M % 128 == 0
+                              else "rows")
+        if plan.route == "rows":
+            # 16-row blocks; splits x 32-column slices in two waves
+            assert 1 <= plan.blocks <= 264 and plan.blocks <= -(-N // 16)
+            assert 1 <= plan.splits and plan.splits * (M // 32) <= 264
+        else:
+            # pairs of 64-row tiles; splits x output tiles in one wave
+            assert 1 <= plan.blocks <= 132
+            assert plan.blocks <= -(-N // (2 * plan.tile_rows))
+            assert 1 <= plan.splits
+            assert plan.splits * ffd_fused.weight_tiles(D, M) <= 132
+            assert max(plan.fwd_smem, plan.rows_smem,
+                       plan.weight_smem) <= 232448
 
 
 def test_kernel_impl_on_cpu_raises():

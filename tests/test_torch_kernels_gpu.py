@@ -22,12 +22,12 @@ gradients are sums of up to Tq or Tk terms, so their tolerance scales with
 the largest value of the plain version's result: f32 1e-4 of it (sums in
 another order), bf16 2e-2 of it (the kernel takes the row maximum per head,
 the plain version over all heads as the TPU body does, so the exp rounds to
-bf16 at another place: one bf16 ulp on a weight); dbias also sums the
-windows with atomics, in any order, so only dq, dk and dv must repeat bit for
-bit.  K11's output is held like K1's; K12's
+bf16 at another place: one bf16 ulp on a weight); dbias sums the windows
+through per-chunk partials added in a fixed order, so dq, dk, dv and dbias
+all repeat bit for bit.  K11's output is held like K1's; K12's
 seven gradients like K5's (dx in the compute dtype, the parameter gradients
 f32 sums over up to 84,480 rows), and a second call must give the same bits
-(no atomics).
+(no atomics), on both routes (``ops/ffd_fused.py:kernel_path``).
 """
 
 import pytest
@@ -54,7 +54,11 @@ from cobevt_tpu_torch.ops.int8_chain import (
     s8_plan,
 )
 from cobevt_tpu_torch.nn.resnet import ResNetTrunk
-from cobevt_tpu_torch.ops.ffd_fused import fused_ffd, fused_ffd_bwd
+from cobevt_tpu_torch.ops.ffd_fused import (
+    fused_ffd,
+    fused_ffd_bwd,
+    kernel_path as ffd_kernel_path,
+)
 from cobevt_tpu_torch.ops.fused_cross_attention import (
     LAUNCHES_PER_CALL,
     fused_cross_view_attention,
@@ -269,13 +273,15 @@ def test_k5_kernel_matches_plain(gen, dtype, D, extras, Tq, Tk):
     want = fused_window_attention_packed_bwd(q, k, v, g, out, H, bias, mask,
                                              impl="torch")
     assert fused_window_attention_packed_bwd.launches == before + 1
+    again = fused_window_attention_packed_bwd(q, k, v, g, out, H, bias, mask)
     torch.cuda.synchronize()
-    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+    for name, a, b, c in zip(("dq", "dk", "dv", "dbias"), got, want, again):
         assert (a is None) == (b is None) == (
             name == "dbias" and bias is None)
         if a is not None:
             assert a.dtype == (torch.float32 if name == "dbias" else dtype)
             _assert_close_scaled(a, b, dtype, name)
+            assert torch.equal(a, c), name
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -290,9 +296,11 @@ def test_k5_kernel_matches_plain_at_the_lidar_shape(gen, dtype):
     got = fused_window_attention_packed_bwd(q, k, v, g, out, H, bias, mask)
     want = fused_window_attention_packed_bwd(q, k, v, g, out, H, bias, mask,
                                              impl="torch")
+    again = fused_window_attention_packed_bwd(q, k, v, g, out, H, bias, mask)
     torch.cuda.synchronize()
-    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+    for name, a, b, c in zip(("dq", "dk", "dv", "dbias"), got, want, again):
         _assert_close_scaled(a, b, dtype, name)
+        assert torch.equal(a, c), name
 
 
 # (G, Tq, Tk, heads) of chip_smoke.py:K5_CASES: the camera train step's
@@ -312,12 +320,14 @@ def test_k5_bf16_kernel_matches_plain_at_the_path_shapes(gen, D, extras, G,
     got = fused_window_attention_packed_bwd(q, k, v, g, out, H, bias, mask)
     want = fused_window_attention_packed_bwd(q, k, v, g, out, H, bias, mask,
                                              impl="torch")
+    again = fused_window_attention_packed_bwd(q, k, v, g, out, H, bias, mask)
     torch.cuda.synchronize()
-    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+    for name, a, b, c in zip(("dq", "dk", "dv", "dbias"), got, want, again):
         assert (a is None) == (b is None) == (
             name == "dbias" and bias is None)
         if a is not None:
             _assert_close_scaled(a, b, torch.bfloat16, name)
+            assert torch.equal(a, c), name
 
 
 @pytest.mark.parametrize("G,Tq,Tk,H,extras", [
@@ -325,8 +335,9 @@ def test_k5_bf16_kernel_matches_plain_at_the_path_shapes(gen, D, extras, G,
     (16, 320, 320, 4, "bias+mask"), (264, 320, 320, 8, "bias+mask"),
     (3, 72, 40, 4, "bias+mask")])
 def test_k5_bf16_repeats_bit_for_bit(gen, G, Tq, Tk, H, extras):
-    """No atomics on dq, dk, dv: 20 launches give the same bits.  dbias
-    sums the windows with f32 atomics in any order: within f32 rounding."""
+    """20 launches give the same bits in dq, dk, dv and dbias: no dbias
+    entry has two writers (a block sums a chunk of windows in order), then
+    an ordered addition over the chunks."""
     q, k, v, g, bias, mask = _k5_inputs(gen, torch.bfloat16, G, H, 32, Tq,
                                         Tk, extras)
     out = fused_window_attention_packed(q, k, v, H, bias, mask)
@@ -334,12 +345,9 @@ def test_k5_bf16_repeats_bit_for_bit(gen, G, Tq, Tk, H, extras):
     for _ in range(20):
         again = fused_window_attention_packed_bwd(q, k, v, g, out, H, bias,
                                                   mask)
-        for a, b in zip(first[:3], again[:3]):
-            assert torch.equal(a, b)
-        if bias is not None:
-            scale = float(first[3].abs().max())
-            torch.testing.assert_close(again[3], first[3], rtol=0,
-                                       atol=1e-5 * scale)
+        for a, b in zip(first, again):
+            assert (a is None) == (b is None)
+            assert a is None or torch.equal(a, b)
 
 
 @pytest.mark.parametrize("G,Tq,Tk,H,extras", [
@@ -386,16 +394,50 @@ def _ffd_operands(gen, dtype, N, D, M):
             rand(D, scale=0.1), rand(N, D).to(dtype))
 
 
+# the device kernels one K12 call launches on each route (csrc/ffd_fused.cu)
+FFD_BWD_LAUNCHES = {
+    "wgmma": {"bwd_rows_wgmma": 1, "bwd_weights_wgmma": 1,
+              "add_partials_kernel": 2},
+    "rows": {"ffd_bwd_rows_kernel": 1, "ffd_bwd_weights_kernel": 1,
+             "add_partials_kernel": 2},
+}
+
+
+def _device_launches(fn):
+    """{kernel name: launches} of the device kernels of csrc/ffd_fused.cu
+    that ``fn`` runs (PyTorch's own copies left out), from torch.profiler
+    (template arguments and namespaces stripped)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = e.cuda_time_total
+        name = e.key[5:] if e.key.startswith("void ") else e.key
+        name = name.replace("(anonymous namespace)::", "")
+        name = name.split("<")[0].split("(")[0].split("::")[-1].strip()
+        if us > 0 and any(k in name for k in ("ffd", "wgmma", "partials")):
+            out[name] = out.get(name, 0) + e.count
+    return out
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [
     (84480, 256, 512),      # the LiDAR fusion token count
     (1000, 128, 256),       # rows divide neither 16 nor 64
     (17, 64, 64),           # one ragged row block, the narrowest widths
     (4096, 256, 1024),      # a wider hidden layer
+    (2000, 256, 192),       # M not a multiple of 128: the row kernels in bf16
 ])
 def test_k11_k12_kernels_match_plain(gen, dtype, shape):
     *operands, dy = _ffd_operands(gen, dtype, *shape)
     x, gamma, beta, w1, b1, w2, b2 = operands
+    route = ffd_kernel_path(*shape, dtype)
+    assert route == ("wgmma" if dtype == torch.bfloat16 and shape[1] >= 128
+                     and shape[2] % 128 == 0 else "rows")
     before = (fused_ffd.launches, fused_ffd_bwd.launches)
     with torch.no_grad():
         got = fused_ffd(*operands)
@@ -413,6 +455,11 @@ def test_k11_k12_kernels_match_plain(gen, dtype, shape):
         assert a.dtype == (dtype if name == "dx" else torch.float32)
         assert torch.equal(a, b), name
         _assert_close_scaled(a, c, dtype, name)
+    # one call: the route's four launches, counted once by the wrapper
+    launches = _device_launches(
+        lambda: fused_ffd_bwd(x, dy, gamma, beta, w1, b1, w2))
+    assert launches == FFD_BWD_LAUNCHES[route], launches
+    assert fused_ffd_bwd.launches == before[1] + 3
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
