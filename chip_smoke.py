@@ -11,11 +11,13 @@ non-zero without printing the final line:
      (csrc/fused_cross_attention.cu), K3 (csrc/conv3x3.cu), K4
      (csrc/fused_swap_fusion.cu), K5 (csrc/window_attention_bwd.cu), K6
      (csrc/fused_swap_fusion_streaming.cu) and K7 with the int8 chain's conv
-     (csrc/conv3x3_int8.cu), K11 and K12 (csrc/ffd_fused.cu), and the bare
-     TMA + wgmma tile (csrc/hopper_tile.cu) with nvcc for sm_90a from the
-     checkout's sources, one nvcc process each, all started together (every
-     source includes the shared csrc/hopper.cuh or mma.cuh); K9 and K10
-     (Triton, ops/bn_stats.py) compile at their first launch in phase 3;
+     (csrc/conv3x3_int8.cu), K11 and K12 (csrc/ffd_fused.cu), K9 and K10
+     (csrc/bn_stats.cu), and the bare TMA + wgmma tile
+     (csrc/hopper_tile.cu) with nvcc for sm_90a from the checkout's
+     sources, one nvcc process each, all started together (every source
+     includes the shared csrc/hopper.cuh or mma.cuh); the Triton route of
+     K9 and K10 (ops/bn_stats.py, shapes the CUDA kernel does not take)
+     compiles at its first launch in phase 3;
   3. kernels vs plain: first the bare TMA + wgmma tile of each product form
      that K1, K3, K8, K11 and K12 use against torch.matmul in f32 (and the
      8-bit forms against the integer product); then every
@@ -26,7 +28,12 @@ non-zero without printing the final line:
      x 8 heads of its stock path), K7 at the two trunk shapes of the int8
      serving mode and the int8 chain's conv at layer1 (both must EQUAL their
      plain versions: equal integers, the same unfused f32 epilogue), K9 and
-     K10 at the four shapes of tools/micro_bn_stats.py, K5 also at the
+     K10 at the four shapes of tools/micro_bn_stats.py (the route that
+     ran, which must be csrc/bn_stats.cu; a second call equal bit for
+     bit; on the card alone the kernel, the Triton route on the same
+     inputs in turns and the library's torch.batch_norm_stats and
+     torch.batch_norm_backward_reduce, and at corp_layer2, whose inputs fit
+     L2, both once more with L2 flushed before each call), K5 also at the
      LiDAR train step's shape (264 windows x 8 heads, mask), K11 and K12 at
      the LiDAR fusion token count (84480 x 256, hidden 512) and at a shape
      whose rows do not divide a tile, in f32 and bf16, timed with
@@ -57,7 +64,8 @@ non-zero without printing the final line:
      and the chain's conv and cuDNN's bf16 conv on the card alone, at the
      layer1 cases and a height its strips do not divide (``--kernels
      K5,K2``, ``--kernels tiles,K6,K7`` or ``--kernels K4,S8`` runs only
-     such rows and stops without the final line);
+     such rows and stops without the final line; ``--kernels K9`` the K9
+     and K10 rows, ``A7`` the absmax rows);
   4. slice, the serving default (COBEVT_FUSED_XATTN and
      COBEVT_FUSED_FUSION unset): full-width CorpBEVT (ResNet-34, seeded
      random weights) in bf16 serves synthetic requests with mixed
@@ -95,7 +103,8 @@ non-zero without printing the final line:
      tools/validate_kernels.py against the stock bf16 path (relative drift,
      argmax IoU >= 0.99, clipped share <= 0.01 over 3 blocks), and one frame
      with COBEVT_INT8_RESIDENT=0 (14 K7, 6 K3, no chain conv);
- 10. tools/micro_bn_stats.py at its four full shapes (K9, K10);
+ 10. tools/micro_bn_stats.py at its four full shapes (K9, K10), every
+     call on csrc/bn_stats.cu and none on the Triton route;
  11. LiDAR train: a few optimizer steps of full-width PointPillar + FuseBEVT
      in bf16 (f32 master parameters) on the detection loss, through the code
      of tools/benchmark.py: every step runs 4 K1 and 4 K5 launches and no
@@ -268,8 +277,9 @@ K4_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (5e-2, 2e-2)}
 # heads as the TPU body does, so the exp rounds to bf16 elsewhere: one bf16
 # ulp on a weight, summed with random signs).
 K5_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
-# the card's published peaks (NVIDIA H100 SXM data sheet)
+# the card's published peaks (NVIDIA H100 SXM data sheet) and its L2
 PEAK_BYTES_PER_S = 3.35e12
+L2_BYTES = 50 * 2 ** 20
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 TRAIN_STEPS = 3
 TRAIN_PER_STEP = {"fused_window_attention_packed": 13,
@@ -315,7 +325,7 @@ LIDAR_STOCK_PER_FRAME = {"fused_window_attention_packed": 4}
 KERNELS = ("window_attention", "fused_cross_attention", "conv3x3",
            "fused_swap_fusion", "window_attention_bwd",
            "fused_swap_fusion_streaming", "conv3x3_int8", "ffd_fused",
-           "hopper_tile")
+           "bn_stats", "hopper_tile")
 # the bare tile against torch.matmul in f32: exact bf16 products, f32 sums
 # in another order
 TILE_TOL = (1e-4, 1e-5)
@@ -356,18 +366,8 @@ def device_ms(fn, iters):
     """ms of one call on the card alone: the launches are queued behind a
     sleep kernel, so the host's enqueue time does not pace them (where a
     call's host work exceeds its kernel time, time_ms measures the host)."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    torch.cuda._sleep(20_000_000)
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
+    from cobevt_tpu_torch.tools import timing
+    return timing.device_ms(fn, iters)
 
 
 def kernel_device_ms(fn, iters):
@@ -794,7 +794,12 @@ def phase_kernels(only=None):
         fused_window_attention_packed,
         fused_window_attention_packed_bwd,
     )
-    from cobevt_tpu_torch.tools.micro_bn_stats import SHAPES as BN_SHAPES
+    from cobevt_tpu_torch.ops import bn_stats
+    from cobevt_tpu_torch.tools import timing
+    from cobevt_tpu_torch.tools.micro_bn_stats import (
+        SHAPES as BN_SHAPES,
+        library_calls as bn_library_calls,
+    )
     from cobevt_tpu_torch.tools.micro_ffd_fused import make_operands, ref_ffd
     log("== kernels vs plain versions (CUDA events, after warmup)")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -983,7 +988,8 @@ def phase_kernels(only=None):
             if not row["ok"]:
                 failures.append(row)
             del x, w, shift, res, packed, got, want, w_oihw, x_cl, folded
-        for name, shape, per_frame in A7_CASES if selected("K7") else ():
+        for name, shape, per_frame in (
+                A7_CASES if selected("K7") or selected("A7") else ()):
             x = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
             def absmax(impl):
@@ -1001,7 +1007,10 @@ def phase_kernels(only=None):
                    "device_ms": device_ms(lambda: absmax("kernel"), 10),
                    "plain_ms": time_ms(lambda: absmax("torch"), 10),
                    "library_ms": time_ms(lambda: torch.linalg.vector_norm(
-                       x, float("inf")), 10)}
+                       x, float("inf")), 10),
+                   "library_device_ms": device_ms(
+                       lambda: torch.linalg.vector_norm(x, float("inf")),
+                       10)}
             row.update(bound(x.numel(), nbytes(x, got), "float32"))
             details.append(row)
             if not row["ok"]:
@@ -1061,43 +1070,76 @@ def phase_kernels(only=None):
             if not row["ok"]:
                 failures.append(row)
             del got, want, xq, rq, w, p8, x_cl, w_oihw
-        # K9, K10: bf16 activations, as BatchNorm sees them in training
-        for (R, C), name in (BN_SHAPES if dtype == torch.bfloat16
-                             and selected("K9") else ()):
+        # K9, K10 (bf16 is how BatchNorm sees activations in training):
+        # the CUDA route against its plain version, the Triton route
+        # on the same inputs in turns (Triton, CUDA, CUDA, Triton) and the
+        # library's call, all on the card alone
+        for (R, C), name in BN_SHAPES if selected("K9") else ():
             x = torch.randn(R, C, generator=gen, device="cuda").to(dtype)
             dy = torch.randn(R, C, generator=gen, device="cuda").to(dtype)
-            for key, fn, reads in (
-                    ("K9", lambda impl: bn_stats_fwd(x, -1e30, impl=impl), 1),
-                    ("K10", lambda impl: bn_stats_bwd(dy, x, -1e30,
-                                                      impl=impl), 2)):
-                got, want = fn("kernel"), fn("torch")
+            library = bn_library_calls(x, dy)
+            for key, operands, fn, library_fn in (
+                    ("K9", (x,), lambda impl: bn_stats_fwd(x, -1e30,
+                                                           impl=impl),
+                     library["fwd"]),
+                    ("K10", (dy, x), lambda impl: bn_stats_bwd(
+                        dy, x, -1e30, impl=impl), library["bwd"])):
+                reads = len(operands)
+                # the route that ran: the one whose launch count moved
+                before = dict(bn_stats.route_launches)
+                got = fn("kernel")
+                taken = ",".join(k for k, n in bn_stats.route_launches.items()
+                                 if n != before[k])
+                want, again = fn("torch"), fn("kernel")
                 torch.cuda.synchronize()
                 abs_err = max(float((g - w_).abs().max())
                               for g, w_ in zip(got, want))
                 rel_err = max(float((g - w_).abs().max())
                               / (float(w_.abs().max()) + 1e-9)
                               for g, w_ in zip(got, want))
-                plain_ms = time_ms(lambda: fn("torch"), 5)
+                repeats = all(torch.equal(g, a) for g, a in zip(got, again))
+
+                def triton():
+                    return bn_stats._launch_triton(reads - 1, operands,
+                                                   -1e30)
+
+                turns = [device_ms(f, 10)
+                         for f in (triton, lambda: fn("kernel"),
+                                   lambda: fn("kernel"), triton)]
                 row = {"kernel": key, "case": name, "dtype": dname,
                        "per_frame": 1, "max_abs_err": abs_err,
-                       "max_rel_err": rel_err,
-                       "ok": rel_err <= BN_TOL and all(
-                           bool(torch.isfinite(g).all()) for g in got),
+                       "max_rel_err": rel_err, "route": taken,
+                       "repeats_bit_equal": repeats,
+                       # the tool's shapes are whole 16-byte vectors a row:
+                       # the CUDA kernel's, never Triton's
+                       "ok": rel_err <= BN_TOL and repeats and taken == "cuda"
+                       and all(bool(torch.isfinite(g).all()) for g in got),
                        "ms": time_ms(lambda: fn("kernel"), 10),
-                       "plain_ms": plain_ms,
-                       # no one call gives both sums: the plain version's
-                       # few PyTorch calls are the library's way
-                       "library_ms": plain_ms}
+                       "device_ms": (turns[1] + turns[2]) / 2,
+                       "turns_device_ms": turns,
+                       "triton_device_ms": (turns[0] + turns[3]) / 2,
+                       "plain_ms": time_ms(lambda: fn("torch"), 5),
+                       "library_ms": time_ms(library_fn, 10),
+                       "library_device_ms": device_ms(library_fn, 10),
+                       "launch_device_ms": kernel_device_ms(
+                           lambda: fn("kernel"), 10)}
+                if R * C * x.element_size() * reads < L2_BYTES:
+                    # the inputs fit L2: read once more from device memory,
+                    # a write of twice L2 before each call
+                    row["flushed_device_ms"] = timing.device_ms(
+                        lambda: fn("kernel"), 10, flush_bytes=2 * L2_BYTES)
+                    row["library_flushed_device_ms"] = timing.device_ms(
+                        library_fn, 10, flush_bytes=2 * L2_BYTES)
                 # max, cast, add and multiply-add per element, f32 units
                 row.update(bound(4.0 * R * C * reads,
                                  reads * R * C * x.element_size() + 8 * C,
                                  "float32"))
                 row["gb_per_s"] = reads * R * C * x.element_size() / row[
-                    "ms"] / 1e6
+                    "device_ms"] / 1e6
                 details.append(row)
                 if not row["ok"]:
                     failures.append(row)
-            del x, dy
+            del x, dy, library
             torch.cuda.empty_cache()
         for case in K2_CASES if selected("K2") else ():
             x, we, ce, key, val, params, mlp, post_ln = k2_inputs(
@@ -1470,6 +1512,13 @@ def phase_kernels(only=None):
             if "serial_device_ms" in r:
                 extra += (f" (launches one after the other: "
                           f"{r['serial_device_ms']:.4f} ms)")
+        if "triton_device_ms" in r:
+            extra += ("  alone in turns (Triton, CUDA, CUDA, Triton): "
+                      + ", ".join(f"{v_:.4f}" for v_ in r["turns_device_ms"])
+                      + f"  repeats bit-equal: {r['repeats_bit_equal']}")
+        if "flushed_device_ms" in r:
+            extra += (f"  L2 flushed: kernel={r['flushed_device_ms']:.4f} "
+                      f"library={r['library_flushed_device_ms']:.4f} ms")
         if "blocks" in r:
             extra += f"  {r['blocks']} blocks"
         if "route" in r:
@@ -1990,14 +2039,22 @@ def phase_micro_bn_stats():
     """tools/micro_bn_stats.py at its four full shapes, as a user runs it;
     returns the launch counts of that run."""
     from cobevt_tpu_torch import ops
+    from cobevt_tpu_torch.ops import bn_stats
     from cobevt_tpu_torch.tools import micro_bn_stats
 
     log("== micro_bn_stats: K9 and K10 at the four shapes")
     ops.reset_launch_counts()
+    before = dict(bn_stats.route_launches)
     rc = micro_bn_stats.main(["--iters", "10"])
     counts = ops.launch_counts()
+    routes = {k: n - before[k] for k, n in bn_stats.route_launches.items()}
     if rc != 0:
         raise AssertionError(f"micro_bn_stats exited with {rc}")
+    # every call of the run went through csrc/bn_stats.cu
+    calls = counts["bn_stats_fwd"] + counts["bn_stats_bwd"]
+    if routes != {"cuda": calls, "triton": 0}:
+        raise AssertionError(f"micro_bn_stats: {calls} calls took the routes "
+                             f"{routes}, expected all on cuda")
     return counts
 
 
@@ -2142,16 +2199,15 @@ def main(argv=None):
         "K8": ("fused_window_attention",
                "cobevt_tpu_torch/csrc/window_attention.cu",
                "cobevt_tpu/ops/window_attention.py:899"),
-        "K9": ("bn_stats_fwd", "cobevt_tpu_torch/ops/bn_stats.py",
+        "K9": ("bn_stats_fwd", "cobevt_tpu_torch/csrc/bn_stats.cu",
                "cobevt_tpu/tools/micro_bn_stats.py:55"),
-        "K10": ("bn_stats_bwd", "cobevt_tpu_torch/ops/bn_stats.py",
+        "K10": ("bn_stats_bwd", "cobevt_tpu_torch/csrc/bn_stats.cu",
                 "cobevt_tpu/tools/micro_bn_stats.py:97"),
         "K11": ("fused_ffd", "cobevt_tpu_torch/csrc/ffd_fused.cu",
                 "cobevt_tpu/tools/micro_ffd_fused.py:113"),
         "K12": ("fused_ffd_bwd", "cobevt_tpu_torch/csrc/ffd_fused.cu",
                 "cobevt_tpu/tools/micro_ffd_fused.py:133"),
     }
-    triton_kernels = ("K9", "K10")
     launches = dict(counts)
     launches["fused_window_attention_packed_bwd"] = train_counts[
         "fused_window_attention_packed_bwd"]
@@ -2185,7 +2241,9 @@ def main(argv=None):
             raise AssertionError(f"{fn} was launched no time on its path")
         kernels.append({
             "name": fn,
-            "route": "triton" if key in triton_kernels else "cuda",
+            # K9, K10: the route their wrapper took at every shape
+            "route": (",".join(sorted({r["route"] for r in rows}))
+                      if key in ("K9", "K10") else "cuda"),
             "source": src, "replaces": replaces,
             "launches": launches[fn],
             "max_abs_err": max(r["max_abs_err"] for r in rows),

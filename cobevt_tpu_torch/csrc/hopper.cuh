@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: tile loads
-// by the Tensor Memory Accelerator (TMA) with mbarrier completion, the
+// by the Tensor Memory Accelerator (TMA) with mbarrier completion (and 1-D
+// bulk copies of contiguous bytes, which need no tensor map), the
 // shared-memory descriptors and products of warpgroup matrix multiply
 // (wgmma), and the host-side encoder of TMA tensor maps.
 //
@@ -115,6 +116,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1)
+      : "memory");
+}
+
+// `bytes` contiguous bytes from global `src` into shared memory at `dst` by
+// the bulk-copy engine, with no tensor map: both addresses 16-byte aligned,
+// `bytes` a multiple of 16; completes `bytes` on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

@@ -1,6 +1,7 @@
 // The fixed-order addition of per-block partial sums, shared by K5
-// (window_attention_bwd.cu: dbias over chunks of windows) and K12
-// (ffd_fused.cu: the weight and vector gradients over blocks).  Blocks of a
+// (window_attention_bwd.cu: dbias over chunks of windows), K12
+// (ffd_fused.cu: the weight and vector gradients over blocks) and K9/K10
+// (bn_stats.cu: the per-channel sums over blocks of rows).  Blocks of a
 // grid run in no order, so a kernel that sums across blocks writes one
 // partial per block (or per chunk a block owns) and this launch adds them,
 // partial 0 first: two runs give the same bits, which f32 atomics from many
@@ -23,10 +24,18 @@ namespace partials {
 // thread.  The partials are read once and dead after: their L2 lines are
 // read with an evict_first policy, so they do not crowd the next kernel's
 // lines out of L2.
-// n % 4 == 0 and 16-byte aligned bases.
+// n % 4 == 0 and 16-byte aligned bases.  kPdl: launched programmatically
+// (add with pdl, K9/K10 only), its blocks may be resident before the kernel
+// that writes the partials has finished: they wait for it, then let the
+// next such launch start.
+template <bool kPdl>
 __global__ void add_partials_kernel(const float4* __restrict__ part, int P,
                                     long long n4, float4* __restrict__ out) {
   extern __shared__ float4 group_sum[];   // (G, 32)
+  if constexpr (kPdl) {
+    hopper::pdl_wait();
+    hopper::pdl_launch_dependents();
+  }
   const int G = blockDim.y;
   const long long i = (long long)blockIdx.x * 32 + threadIdx.x;
   float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -54,17 +63,22 @@ __global__ void add_partials_kernel(const float4* __restrict__ part, int P,
   out[i] = s;
 }
 
-// part (P, n) f32 -> out (n); n a multiple of 4
+// part (P, n) f32 -> out (n); n a multiple of 4.  pdl: a programmatic
+// launch (hopper_host::launch_pdl) after the kernel that writes part.
 inline cudaError_t add(const float* part, int P, long long n, float* out,
-                       cudaStream_t s) {
+                       cudaStream_t s, bool pdl = false) {
   if (P < 1 || n % 4) return cudaErrorInvalidValue;
   const long long n4 = n / 4;
   if (n4 == 0) return cudaSuccess;
   const int G = P < 32 ? P : 32;
-  add_partials_kernel<<<(unsigned)((n4 + 31) / 32), dim3(32, G),
-                        G * 32 * sizeof(float4), s>>>(
-      reinterpret_cast<const float4*>(part), P, n4,
-      reinterpret_cast<float4*>(out));
+  const dim3 grid((unsigned)((n4 + 31) / 32)), block(32, G);
+  const int smem = G * 32 * sizeof(float4);
+  const float4* part4 = reinterpret_cast<const float4*>(part);
+  float4* out4 = reinterpret_cast<float4*>(out);
+  if (pdl)
+    return hopper_host::launch_pdl(true, add_partials_kernel<true>, grid,
+                                   block, smem, s, part4, P, n4, out4);
+  add_partials_kernel<false><<<grid, block, smem, s>>>(part4, P, n4, out4);
   return cudaGetLastError();
 }
 

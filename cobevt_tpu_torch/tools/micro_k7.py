@@ -37,6 +37,7 @@ from cobevt_tpu_torch.ops.conv2d import (
     new_amax_slots,
     pack_int8_weight,
 )
+from cobevt_tpu_torch.tools.timing import device_ms
 
 # (N, H, W, C = O, calls an int8 frame): layer3's and layer4's stride-1 convs
 SHAPES = [(20, 32, 32, 256, 10), (20, 16, 16, 512, 4)]
@@ -55,20 +56,6 @@ def operands(shape, residual, gen):
          if residual else None)
     x = x.bfloat16()
     return x, p, r, int8_absmax(x, new_amax_slots(1, x.device))
-
-
-def alone_ms(run, iters):
-    run()
-    torch.cuda.synchronize()
-    torch.cuda._sleep(20_000_000)
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(iters):
-        run()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / iters
 
 
 def launcher(fn, shape, x, p, r, slot, out, stages):
@@ -94,7 +81,7 @@ def depths(gen, iters):
             out, first = torch.empty_like(x), None
             for stages in DEPTHS:
                 run = launcher(fn, shape, x, p, r, slot, out, stages)
-                ms = alone_ms(run, iters)
+                ms = device_ms(run, iters)
                 first = out.clone() if first is None else first
                 rows.append({"shape": shape[:4], "residual": residual,
                              "depth": stages, "alone_ms": ms,
@@ -176,7 +163,7 @@ def phases(gen, iters):
             plan = int8_tile_plan(H, W, C)
             run = launcher(fn, shape, x, p, r, slot, torch.empty_like(x),
                            plan.stages)
-            ms = alone_ms(run, iters)
+            ms = device_ms(run, iters)
             run()
             torch.cuda.synchronize()
             host = (ctypes.c_ulonglong * (4096 * 4))()

@@ -36,6 +36,7 @@ from cobevt_tpu_torch.ops.int8_chain import (
     quantize_dynamic,
     s8_plan,
 )
+from cobevt_tpu_torch.tools.timing import device_ms
 
 SHAPE = (20, 128, 128, 64)
 # (name, residual, exit, convs an int8 frame)
@@ -68,20 +69,6 @@ __device__ __forceinline__ unsigned long long s8_now() {{
     g_[3] = s8_last - s8_t0;                              \\
   }}
 """
-
-
-def alone_ms(run, iters):
-    run()
-    torch.cuda.synchronize()
-    torch.cuda._sleep(20_000_000)
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(iters):
-        run()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / iters
 
 
 def operands(gen):
@@ -153,7 +140,7 @@ def main(argv=None):
                               **kwargs)
 
         want = wrapped()
-        ms = alone_ms(wrapped, opt.iters)
+        ms = device_ms(wrapped, opt.iters)
         # the timed copy on the same operands, as the wrapper calls it
         out = torch.empty_like(want)
         scale = (sx * pk.s_w).float().contiguous()

@@ -5,13 +5,15 @@ with one:
 
   python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 
-builds K1-K8, K11 and K12 with nvcc (sm_90a) and compiles K9 and K10 with
-Triton on first use (``--noconftest``: the repo's conftest sets up JAX, which these tests do
-not need).  K7 and the int8 chain's conv (the second entry of K7's source)
+builds K1-K12 with nvcc (sm_90a) and compiles the Triton route of K9 and
+K10 (shapes the CUDA kernel does not take) on first use (``--noconftest``:
+the repo's conftest sets up JAX, which these tests do not need).  K7 and the int8 chain's conv (the second entry of K7's source)
 must EQUAL their plain versions bit for bit (equal integers, the same unfused
 f32 epilogue or exact replacements of it, one rounding to bf16 or to a tick;
 the clipped share is a count over the same size); K9 and K10 agree with theirs
-within 1e-4 of the largest sum (f32 sums in another order).  Tolerances: f32
+within 1e-4 of the largest sum (f32 sums in another order) on the route
+``ops/bn_stats.py:kernel_path`` picks, propagate NaN as ``torch.maximum``
+does, and repeat bit for bit.  Tolerances: f32
 1e-4 abs / 1e-4 rel (sums in another order); bf16 2e-2 abs / 2e-2 rel
 (both sides round an f32 result to bf16 once, or at the same casts of one
 chain: K2), and for K4 in bf16 5e-2 abs / 2e-2 rel: its residual state is
@@ -35,6 +37,7 @@ import torch
 
 from cobevt_tpu_torch import ops
 from cobevt_tpu_torch.nn.layers import BasicBlock
+from cobevt_tpu_torch.ops import bn_stats
 from cobevt_tpu_torch.ops.bn_stats import bn_stats_bwd, bn_stats_fwd
 from cobevt_tpu_torch.ops.conv2d import (
     _launch_int8,
@@ -83,6 +86,7 @@ from cobevt_tpu_torch.ops.window_attention import (
     fused_window_attention_packed_bwd,
     packed_bwd_kernel_ok,
 )
+from cobevt_tpu_torch.tools.micro_bn_stats import SHAPES as BN_SHAPES
 
 pytestmark = pytest.mark.gpu
 
@@ -1161,15 +1165,40 @@ def _assert_sums_close(got, want):
         assert float((g - w).abs().max()) <= 1e-4 * scale
 
 
+def _spy_routes(monkeypatch):
+    """The routes the wrappers launch, in order."""
+    taken = []
+    for route in ("cuda", "triton"):
+        real = getattr(bn_stats, f"_launch_{route}")
+
+        def spy(*args, real=real, route=route):
+            taken.append(route)
+            return real(*args)
+        monkeypatch.setattr(bn_stats, f"_launch_{route}", spy)
+    return taken
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(5 * 128 * 128, 128), (40_000, 144),
-                                   (1000, 336), (7, 192), (33, 8)])
+                                   (1000, 336), (7, 192), (33, 8),
+                                   (513, 100)]
+                         + [s for s, _ in BN_SHAPES])
 @pytest.mark.parametrize("s", [-1e30, 0.25])
-def test_k9_k10_kernels_match_plain(gen, dtype, shape, s):
+def test_k9_k10_kernels_match_plain(gen, monkeypatch, dtype, shape, s):
     x = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
     dy = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    taken = _spy_routes(monkeypatch)
     before = bn_stats_fwd.launches, bn_stats_bwd.launches
+    routes_before = dict(bn_stats.route_launches)
     fwd, bwd = bn_stats_fwd(x, s), bn_stats_bwd(dy, x, s)
+    # bf16 rows of 200 bytes are no whole number of 16-byte vectors
+    route = "triton" if shape == (513, 100) and dtype == torch.bfloat16 \
+        else "cuda"
+    assert taken == [route, route]
+    # the per-route count that chip_smoke.py reads moves with the route
+    assert {k: n - routes_before[k]
+            for k, n in bn_stats.route_launches.items()} == {
+        "cuda": 2 * (route == "cuda"), "triton": 2 * (route == "triton")}
     assert (bn_stats_fwd.launches, bn_stats_bwd.launches) == (
         before[0] + 1, before[1] + 1)
     torch.cuda.synchronize()
@@ -1177,9 +1206,81 @@ def test_k9_k10_kernels_match_plain(gen, dtype, shape, s):
     _assert_sums_close(bwd, bn_stats_bwd(dy, x, s, impl="torch"))
     assert (bn_stats_fwd.launches, bn_stats_bwd.launches) == (
         before[0] + 1, before[1] + 1)
-    # no atomics: a second run gives the same bits
-    again = bn_stats_fwd(x, s)
-    assert torch.equal(fwd[0], again[0]) and torch.equal(fwd[1], again[1])
+    # no atomics: a second run gives the same bits, both sums of both
+    for first, again in ((fwd, bn_stats_fwd(x, s)),
+                         (bwd, bn_stats_bwd(dy, x, s))):
+        assert torch.equal(first[0], again[0])
+        assert torch.equal(first[1], again[1])
+
+
+def test_k9_k10_misaligned_bases_take_triton(gen, monkeypatch):
+    buf = torch.randn(2 * 4096 * 144 + 8, generator=gen,
+                      device="cuda").bfloat16()
+    x = buf[1:4096 * 144 + 1].view(4096, 144)
+    dy = buf[4096 * 144 + 8:2 * 4096 * 144 + 8].view(4096, 144)
+    taken = _spy_routes(monkeypatch)
+    fwd, bwd = bn_stats_fwd(x, 0.25), bn_stats_bwd(dy, x, 0.25)
+    fwd2 = bn_stats_fwd(dy, 0.25)
+    assert taken == ["triton", "triton", "cuda"]
+    torch.cuda.synchronize()
+    _assert_sums_close(fwd, bn_stats_fwd(x, 0.25, impl="torch"))
+    _assert_sums_close(bwd, bn_stats_bwd(dy, x, 0.25, impl="torch"))
+    _assert_sums_close(fwd2, bn_stats_fwd(dy, 0.25, impl="torch"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k9_k10_threshold_as_a_device_tensor(gen, dtype):
+    x = torch.randn(40_000, 144, generator=gen, device="cuda").to(dtype)
+    dy = torch.randn(40_000, 144, generator=gen, device="cuda").to(dtype)
+    # 0.3001 rounds to 0.30078125 in bf16: the kernel must compare with
+    # that, whether s comes as a number or as an f32 tensor on the card
+    for s in (0.3001, -1e30):
+        st = torch.tensor(s, device="cuda")
+        for a, b in ((bn_stats_fwd(x, s), bn_stats_fwd(x, st)),
+                     (bn_stats_bwd(dy, x, s), bn_stats_bwd(dy, x, st))):
+            assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        _assert_sums_close(bn_stats_fwd(x, st),
+                           bn_stats_fwd(x, s, impl="torch"))
+        _assert_sums_close(bn_stats_bwd(dy, x, st),
+                           bn_stats_bwd(dy, x, s, impl="torch"))
+
+
+def test_k9_k10_on_two_streams(gen):
+    # each call launches on its caller's current stream with its own
+    # partial rows: calls on two streams at once give what one stream gives
+    x = torch.randn(322_560, 192, generator=gen, device="cuda").bfloat16()
+    dy = torch.randn(322_560, 192, generator=gen, device="cuda").bfloat16()
+    want = bn_stats_fwd(x, -1e30), bn_stats_bwd(dy, x, -1e30)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    for _ in range(3):
+        here = bn_stats_fwd(x, -1e30), bn_stats_bwd(dy, x, -1e30)
+        with torch.cuda.stream(side):
+            there = bn_stats_fwd(x, -1e30), bn_stats_bwd(dy, x, -1e30)
+        torch.cuda.synchronize()
+        for got in (here, there):
+            for g, w in zip(got, want):
+                assert torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k9_k10_propagate_nan(gen, dtype):
+    R, C = 5000, 144
+    x = torch.randn(R, C, generator=gen, device="cuda").to(dtype)
+    dy = torch.randn(R, C, generator=gen, device="cuda").to(dtype)
+    x[1234, 5] = float("nan")
+    dy[4321, 77] = float("nan")
+    for got, want in ((bn_stats_fwd(x, 0.25), bn_stats_fwd(
+                          x, 0.25, impl="torch")),
+                      (bn_stats_bwd(dy, x, 0.25), bn_stats_bwd(
+                          dy, x, 0.25, impl="torch"))):
+        for g, w in zip(got, want):
+            assert torch.equal(g.isnan(), w.isnan()) and bool(w.isnan().any())
+            ok = ~w.isnan()
+            scale = float(w[ok].abs().max())
+            assert float((g[ok] - w[ok]).abs().max()) <= 1e-4 * scale
+    # a NaN threshold makes every sum NaN, as torch.maximum does
+    assert bool(bn_stats_fwd(x, float("nan"))[0].isnan().all())
 
 
 def test_k9_k10_reject_what_they_do_not_take(gen):
