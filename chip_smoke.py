@@ -62,7 +62,13 @@ non-zero without printing the final line:
      card alone as it runs and by launch kind with its launches one after
      the other, at four cases (one with a dead agent between live ones),
      and the chain's conv and cuDNN's bf16 conv on the card alone, at the
-     layer1 cases and a height its strips do not divide (``--kernels
+     layer1 cases and a height its strips do not divide; since the
+     SinBEVT slice also K1 at the stock shapes of a nuScenes frame (Tq 600,
+     100 and 625: ragged query windows; a bit-for-bit repeat) and K2 at its
+     six nuScenes branches (route, launches one by one, a bit-for-bit
+     repeat), and K1, K2 and K3 at one SinBEVT-OPV2V vehicle's shapes (K1's
+     FAX and self-attention windows at G / 5, K2's six branches at B 1, K3
+     on 4 camera images; each with a bit-for-bit repeat) (``--kernels
      K5,K2``, ``--kernels tiles,K6,K7`` or ``--kernels K4,S8`` runs only
      such rows and stops without the final line; ``--kernels K9`` the K9
      and K10 rows, ``A7`` the absmax rows);
@@ -111,7 +117,25 @@ non-zero without printing the final line:
      K6, with finite loss and gradient norm; then the LiDAR gradient gate of
      tools/validate_kernels.py with its f32 gradient-truth check;
  12. tools/micro_ffd_fused.py at the full shape in bf16 (K11, K12): the
-     parity figures against the erf oracle and the fused and autograd times.
+     parity figures against the erf oracle and the fused and autograd times;
+ 13. SinBEVT: the nuScenes flagship (cvt_pyramid_axial_nuscenes_vehicle:
+     EfficientNet-b4, 6 cameras x 224 x 480, BEV 200^2, bev + center,
+     seeded random weights) in bf16 answers 5 frames on the serving default
+     (24 K2 launches a frame, no K1) and 2 on the stock path
+     (COBEVT_FUSED_XATTN=0: 6 K1, no K2); one frame against the f32 plain
+     path and the stock frame against the default one (relative drift
+     within tools/validate_kernels.py's budget, sign-of-logit IoU on bev
+     >= 0.99, and about the reference's median); each FAX stage's device
+     time on both paths; the frame through tools/benchmark.py --model
+     sinbevt with --profile_steps 2 on both paths; the forward gate at
+     seeds 0-4, and at seed 0 with each of its planted faults in one K2
+     or K1 call (it must fail on a dropped head; a wrong softmax scale,
+     which random weights hide, is read); then SinBEVT-OPV2V (corpbevt.yaml width, one vehicle x 4
+     cameras x 512^2) answers 3 frames on each path (24 K2 + 1 K1 + 20 K3,
+     or 7 K1 + 20 K3, a frame) within the drift budget of the f32 plain
+     path, and its benchmark row.  ``--sinbevt`` runs this phase alone after
+     the build (and the rows of ``--kernels``) and stops without the final
+     line.
 
 The last stdout lines are the kernels JSON line, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.  Imports
@@ -154,6 +178,31 @@ K1_CASES = [
     ("lidar_fusion_fully_masked_window", 264, 320, 320, True, True, False,
      0, 0, 8, 0),
 ]
+# K1 at the shapes of one vehicle's SinBEVT-OPV2V frame (4 cameras at
+# corpbevt.yaml width): CorpBEVT's FAX and self-attention cases at G / 5.
+# The fields of K1_CASES, then the calls per SinBEVT frame of each path
+K1_SINBEVT_CASES = [
+    (f"sinbevt_{c[0]}", c[1] // 5, *c[2:7], 0, 0, c[9], 0,
+     {"per_sinbevt_opv2v_frame": c[8],
+      "per_sinbevt_opv2v_frame_stock": c[7]})
+    for c in K1_CASES[:5]]
+# K1 at the stock path's shapes of a SinBEVT-nuScenes frame (B 1, 6 cameras,
+# EfficientNet-b4 at 224 x 480, BEV 200^2): the fields of K1_CASES, then the
+# calls per nuScenes stock frame.  Stage 0's local branch packs the 6
+# cameras' 10 x 10 query windows (600 rows), its grid branch and stage 1 one
+# window of 100, stage 2 one of 25 x 25 = 625; the keys are 6 cameras'
+# 6 x 12 or 14 x 30 windows.  100 and 625 are the ragged query windows K1
+# takes since the nuScenes slice.
+K1_NUSC_CASES = [
+    ("nusc_local_stage0", 100, 600, 432, False, False, False, 0, 0, 1, 0,
+     {"per_nuscenes_frame_stock": 1}),
+    ("nusc_grid_stage0", 100, 100, 432, False, False, False, 0, 0, 1, 0,
+     {"per_nuscenes_frame_stock": 1}),
+    ("nusc_stage1", 25, 100, 432, False, False, False, 0, 0, 2, 0,
+     {"per_nuscenes_frame_stock": 2}),
+    ("nusc_stage2", 1, 625, 2520, False, False, False, 0, 0, 4, 0,
+     {"per_nuscenes_frame_stock": 2}),
+]
 # heads of the K5 and K8 cases (K1's come with each case), and the head dim
 K1_HEADS, K1_HEAD_DIM = 4, 32
 # K5: the backward of every weight-free K1 call of a train step (name, G,
@@ -190,6 +239,10 @@ K3_CASES = [
     ("layer4", 20, 16, 16, 512, False, 2),
     ("layer4_residual", 20, 16, 16, 512, True, 2),
 ]
+# K3 at one vehicle's 4 camera images (SinBEVT-OPV2V); an eighth field, the
+# launches per SinBEVT-OPV2V frame
+K3_SINBEVT_CASES = [(f"sinbevt_{c[0]}", 4, *c[2:6], 0, c[6])
+                    for c in K3_CASES]
 # launches of each wgmma K3 case that must equal its first result bit for bit
 K3_REPEATS = 20
 # K2: the six FAX cross-view branches of a 5-agent frame (B = 5 agents,
@@ -204,6 +257,31 @@ K2_CASES = [
     ("stage2_grid", 32, 16, 32, 16, False, True, True),
 ]
 K2_B, K2_CAMS, K2_DIM, K2_HEADS = 5, 4, 128, 4
+# the maps of one SinBEVT-OPV2V frame: the same branches at one vehicle
+K2_SINBEVT_B = 1
+# K2 at the six branches of a SinBEVT-nuScenes frame (B 1, 6 cameras, keys
+# padded to window multiples; head dim 32, MLP hidden 2 D): (name, BEV H=W,
+# keys (h, w), q_win, k_win, D = C, heads, embed, post_ln, grid keys).  Stage
+# 0's local branch carries 6 query segments; stages 0 and 1 take the mma.sync
+# route (D 32 / 64), stage 2 (D 128, one window of 625 queries over 2,520
+# keys) the wgmma route (ops/fused_cross_attention.py:kernel_path).
+K2_NUSC_CASES = [
+    ("nusc_stage0_local", 100, (60, 120), (10, 10), (6, 12), 32, 1, True,
+     False, False),
+    ("nusc_stage0_grid", 100, (60, 120), (10, 10), (6, 12), 32, 1, False,
+     True, True),
+    ("nusc_stage1_local", 50, (30, 60), (10, 10), (6, 12), 64, 2, False,
+     False, False),
+    ("nusc_stage1_grid", 50, (30, 60), (10, 10), (6, 12), 64, 2, False,
+     True, True),
+    ("nusc_stage2_local", 25, (14, 30), (25, 25), (14, 30), 128, 4, False,
+     False, False),
+    ("nusc_stage2_grid", 25, (14, 30), (25, 25), (14, 30), 128, 4, False,
+     True, True),
+]
+K2_NUSC_B, K2_NUSC_CAMS = 1, 6
+# launches a kernel must repeat bit for bit at the SinBEVT shapes
+NUSC_REPEATS = 5
 # K4: the FuseBEVT encoder at CorpBEVT (B 1, L 5 = max_cav, 32^2, D 128,
 # window 8, 4 heads, depth 3, mlp 256); (name, mask, mean_over_valid,
 # calls per frame)
@@ -311,6 +389,19 @@ FUSED_PER_FRAME = {"fused_window_attention_packed": 1,
 INT8_PER_FRAME = dict(FUSED_PER_FRAME, fused_conv3x3=6,
                       fused_conv3x3_int8=14, conv3x3_s8=6, int8_absmax=2)
 INT8_NOT_RESIDENT_PER_FRAME = dict(INT8_PER_FRAME, conv3x3_s8=0)
+# phase 13, launches per frame (every other wrapper 0): SinBEVT-nuScenes
+# runs K2 for its 6 cross-view branches on the serving default and K1 for
+# each on the stock path (no self-attention, no 3x3 trunk conv: EfficientNet
+# has none); SinBEVT-OPV2V adds the final self-attention (K1) and the
+# ResNet-34 trunk's 20 K3 launches
+SINBEVT_FRAMES = 5
+SINBEVT_PER_FRAME = {"fused_cross_view_attention": 6 * 4}
+SINBEVT_STOCK_PER_FRAME = {"fused_window_attention_packed": 6}
+SINBEVT_OPV2V_PER_FRAME = {"fused_cross_view_attention": 6 * 4,
+                           "fused_window_attention_packed": 1,
+                           "fused_conv3x3": 20}
+SINBEVT_OPV2V_STOCK_PER_FRAME = {"fused_window_attention_packed": 7,
+                                 "fused_conv3x3": 20}
 STOCK_PER_FRAME = {"fused_window_attention_packed": 13,
                    "fused_cross_view_attention": 0,
                    "fused_conv3x3": 20, "fused_swap_fusion": 0,
@@ -508,7 +599,7 @@ def k1_inputs(case, dtype, gen, heads=K1_HEADS):
 
 def k3_inputs(case, dtype, gen):
     import torch
-    _, N, H, W, C, residual, _ = case
+    _, N, H, W, C, residual = case[:6]
     dev = "cuda"
     x = torch.randn(N, H, W, C, generator=gen, device=dev).relu().to(dtype)
     w = torch.randn(3, 3, C, C, generator=gen, device=dev)
@@ -525,27 +616,37 @@ def _ln_pair(randn, D):
     return 1.0 + 0.1 * randn(D), 0.1 * randn(D)
 
 
-def k2_inputs(case, dtype, gen):
+def k2_inputs(case, dtype, gen, B=K2_B):
     """x, w_embed, c_embed, key, val, params, mlp, post_ln of one FAX
-    branch at its serving shape, weights scaled like the seeded model's."""
-    import torch
+    branch at its serving shape over B maps, weights scaled like the
+    seeded model's."""
     _, H, h, _, _, embed, post, _ = case
-    B, n, D = K2_B, K2_CAMS, K2_DIM
+    return k2_branch_inputs(B, K2_CAMS, H, H, h, h, K2_DIM, K2_DIM,
+                            2 * K2_DIM, embed, post, dtype, gen)
+
+
+def k2_branch_inputs(B, n, H, W, h, w, D, C, hidden, embed, post, dtype,
+                     gen):
+    """The operands of one branch of B maps, n cameras, BEV H x W, keys
+    h x w, widths D and C, MLP hidden ``hidden``."""
+    import torch
 
     def randn(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device="cuda") * scale
 
-    x = randn(B, H, H, D).to(dtype)
-    key, val = randn(B, n, h, h, D).to(dtype), randn(B, n, h, h, D).to(dtype)
-    w_embed = randn(H, H, D).to(dtype) if embed else None
+    x = randn(B, H, W, D).to(dtype)
+    key, val = randn(B, n, h, w, D).to(dtype), randn(B, n, h, w, D).to(dtype)
+    w_embed = randn(H, W, D).to(dtype) if embed else None
     c_embed = randn(B, n, D).to(dtype) if embed else None
     params = {f"ln_{t}": _ln_pair(randn, D) for t in "qkv"}
-    for t in "qkvo":
-        params[f"w{t}"] = randn(D, D, scale=D ** -0.5)
-        params[f"b{t}"] = randn(D, scale=0.02)
-    mlp = {"ln": _ln_pair(randn, D), "w1": randn(D, 2 * D, scale=D ** -0.5),
-           "b1": randn(2 * D, scale=0.02),
-           "w2": randn(2 * D, D, scale=(2 * D) ** -0.5),
+    for t in "qkv":
+        params[f"w{t}"] = randn(D, C, scale=D ** -0.5)
+        params[f"b{t}"] = randn(C, scale=0.02)
+    params["wo"] = randn(C, D, scale=C ** -0.5)
+    params["bo"] = randn(D, scale=0.02)
+    mlp = {"ln": _ln_pair(randn, D), "w1": randn(D, hidden, scale=D ** -0.5),
+           "b1": randn(hidden, scale=0.02),
+           "w2": randn(hidden, D, scale=hidden ** -0.5),
            "b2": randn(D, scale=0.02)}
     post_ln = _ln_pair(randn, D) if post else None
     return x, w_embed, c_embed, key, val, params, mlp, post_ln
@@ -669,18 +770,30 @@ def k3_l2_bytes(N, H, W, C, O, residual):
                     128 * 128 * 2)
 
 
-def k2_work(case, dtype_size):
-    """(operations, bytes) of one FAX cross-view branch."""
+def k2_work(case, dtype_size, B=K2_B):
+    """(operations, bytes) of one FAX cross-view branch over B maps."""
     _, H, h, q_win, k_win, embed, _, _ = case
-    B, n, D = K2_B, K2_CAMS, K2_DIM
+    return k2_branch_work(B, K2_CAMS, H, H, h, h, (q_win, q_win),
+                          (k_win, k_win), K2_DIM, K2_DIM, 2 * K2_DIM, embed,
+                          dtype_size)
+
+
+def k2_branch_work(B, n, H, W, h, w, q_win, k_win, D, C, hidden, embed,
+                   dtype_size):
+    """(operations, bytes) of one branch: the K/V, Q, output and MLP
+    products, the two attention products of every (window, query segment)
+    over the window's n * kh * kw keys; bytes of x, key, val, the output,
+    the weights and the embeddings, each once."""
     nq = n if embed else 1
-    rows_k, rows_q, rows_o = B * n * h * h, B * nq * H * H, B * H * H
-    windows = B * (H // q_win) ** 2
-    flops = 2.0 * D * D * (2 * rows_k + rows_q + rows_o + 4 * rows_o)
-    flops += 4.0 * windows * nq * q_win ** 2 * n * k_win ** 2 * D
-    elems = 2 * rows_k * D + 2 * rows_o * D + 8 * D * D
+    rows_k, rows_q, rows_o = B * n * h * w, B * nq * H * W, B * H * W
+    windows = B * (H // q_win[0]) * (W // q_win[1])
+    flops = 2.0 * D * C * (2 * rows_k + rows_q + rows_o)
+    flops += 4.0 * rows_o * D * hidden
+    flops += 4.0 * windows * nq * q_win[0] * q_win[1] * n * k_win[0] * \
+        k_win[1] * C
+    elems = 2 * rows_k * D + 2 * rows_o * D + 4 * D * C + 2 * D * hidden
     if embed:
-        elems += H * H * D + B * n * D
+        elems += H * W * D + B * n * D
     return flops, elems * dtype_size
 
 
@@ -775,6 +888,7 @@ def phase_kernels(only=None):
     )
     from cobevt_tpu_torch.ops.fused_cross_attention import (
         fused_cross_view_attention,
+        kernel_path as k2_kernel_path,
         pack_params,
     )
     from cobevt_tpu_torch.ops.fused_swap_fusion import (
@@ -842,7 +956,8 @@ def phase_kernels(only=None):
                                  f"integer product")
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        for case in K1_CASES if selected("K1") else ():
+        for case in (K1_CASES + K1_SINBEVT_CASES + K1_NUSC_CASES
+                     if selected("K1") else ()):
             heads = case[9]
             q, k, v, bias, mask, weight = k1_inputs(case, dtype, gen, heads)
 
@@ -879,11 +994,19 @@ def phase_kernels(only=None):
                 row["library_device_ms"] = device_ms(sdpa, iters)
                 del q4, k4, v4, add
             row["device_ms"] = device_ms(lambda: attn("kernel"), iters)
+            if len(case) > 11:
+                # a SinBEVT path's shapes: launches a frame of that path
+                # and a bit-for-bit repeat
+                row.update(case[11])
+                row["repeats_bit_equal"] = all(
+                    torch.equal(attn("kernel"), got)
+                    for _ in range(NUSC_REPEATS))
+                row["ok"] = ok = ok and row["repeats_bit_equal"]
             details.append(row)
             if not ok:
                 failures.append(row)
             del q, k, v, bias, mask, weight, got, want
-        for case in K3_CASES if selected("K3") else ():
+        for case in K3_CASES + K3_SINBEVT_CASES if selected("K3") else ():
             x, w, shift, res = k3_inputs(case, dtype, gen)
             # packed once, as a block's cache packs it
             packed = pack_conv3x3_weight(w, shift, dtype)
@@ -916,8 +1039,11 @@ def phase_kernels(only=None):
                        lambda: _launch_k3(x, packed, res, True), 10),
                    "library_device_ms": device_ms(
                        lambda: F.conv2d(x_cl, w_oihw, padding=1), 10)}
+            if len(case) > 7:
+                row["per_sinbevt_opv2v_frame"] = case[7]
             if path == "wgmma":
                 row["l2_bytes"] = k3_l2_bytes(N, H, W, C, C, res is not None)
+            if path == "wgmma" or len(case) > 7:
                 # the warpgroups share a ring slot in the epilogue: a race
                 # there shows as a result that differs between launches
                 row["repeats_bit_equal"] = all(
@@ -1141,10 +1267,12 @@ def phase_kernels(only=None):
                     failures.append(row)
             del x, dy, library
             torch.cuda.empty_cache()
-        for case in K2_CASES if selected("K2") else ():
+        # CorpBEVT's 5 agents, then one SinBEVT-OPV2V vehicle
+        for B, case in ([(B, c) for B in (K2_B, K2_SINBEVT_B)
+                         for c in K2_CASES] if selected("K2") else ()):
             x, we, ce, key, val, params, mlp, post_ln = k2_inputs(
-                case, dtype, gen)
-            _, _, _, q_win, k_win, _, _, grid = case
+                case, dtype, gen, B)
+            _, _, _, q_win, k_win, embed, _, grid = case
             # packed once, as the model packs its weights once
             packed = pack_params(params, mlp, post_ln, dtype)
 
@@ -1157,17 +1285,63 @@ def phase_kernels(only=None):
             got, want = xattn("kernel"), xattn("torch")
             torch.cuda.synchronize()
             abs_err, rel_err, ok = compare(got, want, dname)
-            row = {"kernel": "K2", "case": case[0], "dtype": dname,
-                   "per_frame": 1, "max_abs_err": abs_err,
-                   "max_rel_err": rel_err, "ok": ok,
+            row = {"kernel": "K2", "dtype": dname,
+                   "route": k2_kernel_path(dtype, K2_DIM, K2_DIM, K2_HEADS,
+                                           2 * K2_DIM,
+                                           K2_CAMS if embed else 1),
+                   "max_abs_err": abs_err, "max_rel_err": rel_err,
                    "ms": time_ms(lambda: xattn("kernel"), 5),
                    "plain_ms": time_ms(lambda: xattn("torch"), 5),
                    "device_ms": device_ms(lambda: xattn("kernel"), 5),
                    "launch_device_ms": kernel_device_ms(
                        lambda: xattn("kernel"), 5)}
-            row.update(bound(*k2_work(case, x.element_size()), dname))
+            if B == K2_B:
+                row.update(case=case[0], per_frame=1, ok=ok)
+            else:
+                repeats = all(torch.equal(xattn("kernel"), got)
+                              for _ in range(NUSC_REPEATS))
+                row.update(case=f"sinbevt_{case[0]}", per_frame=0,
+                           per_sinbevt_opv2v_frame=1,
+                           repeats_bit_equal=repeats, ok=ok and repeats)
+            row.update(bound(*k2_work(case, x.element_size(), B), dname))
             details.append(row)
-            if not ok:
+            if not row["ok"]:
+                failures.append(row)
+            del x, we, ce, key, val, params, mlp, post_ln, packed, got, want
+        for case in K2_NUSC_CASES if selected("K2") else ():
+            name, H, (h, w), q_win, k_win, D, heads, embed, post, grid = case
+            B, n = K2_NUSC_B, K2_NUSC_CAMS
+            x, we, ce, key, val, params, mlp, post_ln = k2_branch_inputs(
+                B, n, H, H, h, w, D, D, 2 * D, embed, post, dtype, gen)
+            packed = pack_params(params, mlp, post_ln, dtype)
+
+            def xattn(impl):
+                return fused_cross_view_attention(
+                    x, we, ce, key, val, packed, q_win, k_win, heads,
+                    (D // heads) ** -0.5, add_skip=True, impl=impl,
+                    grid_keys=grid)
+
+            got, want = xattn("kernel"), xattn("torch")
+            torch.cuda.synchronize()
+            abs_err, rel_err, ok = compare(got, want, dname)
+            repeats = all(torch.equal(xattn("kernel"), got)
+                          for _ in range(NUSC_REPEATS))
+            row = {"kernel": "K2", "case": name, "dtype": dname,
+                   "per_frame": 0, "per_nuscenes_frame": 1,
+                   "route": k2_kernel_path(dtype, D, D, heads, 2 * D,
+                                           n if embed else 1),
+                   "max_abs_err": abs_err, "max_rel_err": rel_err,
+                   "repeats_bit_equal": repeats, "ok": ok and repeats,
+                   "ms": time_ms(lambda: xattn("kernel"), 5),
+                   "plain_ms": time_ms(lambda: xattn("torch"), 5),
+                   "device_ms": device_ms(lambda: xattn("kernel"), 5),
+                   "launch_device_ms": kernel_device_ms(
+                       lambda: xattn("kernel"), 5)}
+            row.update(bound(*k2_branch_work(
+                B, n, H, H, h, w, q_win, k_win, D, D, 2 * D, embed,
+                x.element_size()), dname))
+            details.append(row)
+            if not row["ok"]:
                 failures.append(row)
             del x, we, ce, key, val, params, mlp, post_ln, packed, got, want
         for case in K4_CASES if selected("K4") else ():
@@ -2128,6 +2302,248 @@ def phase_micro_ffd_fused():
     return counts
 
 
+def sign_iou_report(name, got, ref, budget):
+    """``tools/validate_kernels.py``'s comparison of two SinBEVT-nuScenes
+    outputs: per output the largest deviation over the reference's largest
+    value within ``budget``, and the sign-of-logit IoU on ``bev``."""
+    from cobevt_tpu_torch.tools import validate_kernels as vk
+    report = vk.compare_outputs(name, vk.sign_logits(got),
+                                vk.sign_logits(ref), budget,
+                                iou_keys=vk.SINBEVT_IOU_KEYS)
+    report["centered_bev_iou"] = iou = vk.centered_sign_iou(got["bev"],
+                                                            ref["bev"])
+    report["ok"] = report["ok"] and iou >= vk.SINBEVT_CENTERED_IOU_FLOOR
+    log(f"{name}: sign-of-logit IoU on bev "
+        f"{report['argmax_iou']['bev']:.5f} (floor {report['iou_floor']}), "
+        f"about the reference's median {iou:.5f} (floor "
+        f"{vk.SINBEVT_CENTERED_IOU_FLOOR}), "
+        f"max relative drift {report['max_rel']:.3e} (budget {budget}), "
+        f"per output {json.dumps(report['outputs'])}")
+    if not report["ok"]:
+        raise AssertionError(f"{name}: " + json.dumps(report))
+    return report
+
+
+def serve_frames(name, model, frames, per_frame, check):
+    """One eval forward of each batch in ``frames``, synchronised and
+    checked, with every launch count set to 0 just before and read just
+    after; raise unless each wrapper ran ``per_frame`` (0 where absent)
+    launches a frame.  Returns (counts, host ms of each frame)."""
+    import torch
+    from cobevt_tpu_torch import ops
+    ms = []
+    ops.reset_launch_counts()
+    for i, batch in enumerate(frames):
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = model(batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        check(i, out)
+    counts = ops.launch_counts()
+    log(f"{name}: {len(frames)} frames, host ms "
+        f"{[round(t, 2) for t in ms]}, launches {counts}")
+    for fn, n in counts.items():
+        if n != per_frame.get(fn, 0) * len(frames):
+            raise AssertionError(f"{name}: {fn} ran {n} launches over "
+                                 f"{len(frames)} frames, expected "
+                                 f"{per_frame.get(fn, 0)} each")
+    return counts, ms
+
+
+def new_images(batch, key, count, seed):
+    """``count`` copies of ``batch`` with fresh uniform images under
+    ``key``, drawn on the card from ``seed``."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [dict(batch, **{key: torch.rand(batch[key].shape, generator=gen,
+                                           device="cuda")})
+            for _ in range(count)]
+
+
+def phase_sinbevt(seed=0):
+    """Phase 13: SinBEVT-nuScenes (cvt_pyramid_axial_nuscenes_vehicle at
+    full width) and SinBEVT-OPV2V serve frames on the default and the stock
+    path with exact launch counts; the nuScenes frame against the f32 plain
+    path and the stock frame, the forward gate at seeds 0-4 and its planted
+    faults, and each model's frame time, device time, operations, idle share and peak
+    memory through tools/benchmark.py."""
+    import numpy as np
+    import torch
+    from cobevt_tpu_torch.ops.dispatch import forced_impl
+    from cobevt_tpu_torch.tools import benchmark
+    from cobevt_tpu_torch.tools import validate_kernels as vk
+    t0 = time.perf_counter()
+    device = torch.device("cuda", torch.cuda.current_device())
+    log("== phase 13: SinBEVT-nuScenes, EfficientNet-b4, 6 cameras x 224 x "
+        "480, BEV 200^2, bev + center, bf16, seeded random weights")
+    model, batch, key = benchmark.build_sinbevt(seed=seed, device=device)
+    ref_model = copy.deepcopy(model).eval()
+    model = model.eval().to(torch.bfloat16)
+    frames = [batch] + new_images(batch, key, SINBEVT_FRAMES - 1, seed + 1)
+
+    def check(i, out):
+        for k in ("bev", "center"):
+            if tuple(out[k].shape) != (1, 200, 200, 1):
+                raise AssertionError(f"frame {i}: {k} {tuple(out[k].shape)}")
+            if not torch.isfinite(out[k]).all():
+                raise AssertionError(f"frame {i}: non-finite {k}")
+
+    result = {}
+    with switches(None):
+        result["counts"], result["frame_ms"] = serve_frames(
+            "nuScenes default path", model, frames, SINBEVT_PER_FRAME, check)
+        with torch.no_grad():
+            out = model(batch)
+            with forced_impl("torch"):
+                ref = ref_model(batch)
+    del ref_model
+    budget = vk.BUDGET_SINBEVT
+    result["vs_f32_plain"] = sign_iou_report(
+        "bf16 default vs f32 plain, one frame", out, ref, budget)
+    with switches("0"):
+        result["stock_counts"], result["stock_frame_ms"] = serve_frames(
+            "nuScenes stock path (COBEVT_FUSED_XATTN=0)", model, frames[:2],
+            SINBEVT_STOCK_PER_FRAME, check)
+        with torch.no_grad():
+            stock = model(batch)
+    result["vs_stock"] = sign_iou_report(
+        "bf16 default vs bf16 stock, one frame", out, stock, budget)
+    result["bev_positive_share"] = float((ref["bev"] > 0).float().mean())
+    del out, ref, stock
+
+    # each FAX stage's device time on both paths (its two cross-view
+    # branches as K2, or as the stock modules over K1), on the inputs it
+    # gets in the frame: the sum of its kernels' times (torch.profiler),
+    # which the host's enqueue of ~100 launches a call cannot pace
+    stage_args = {}
+
+    def keep_args(i):
+        def hook(module, args):
+            stage_args[i] = args
+        return hook
+
+    hooks = [cv.register_forward_pre_hook(keep_args(i))
+             for i, cv in enumerate(model.encoder.cross_views)]
+    with torch.no_grad():
+        model(batch)
+    for h in hooks:
+        h.remove()
+    result["stage_device_ms"] = {}
+    for i, cv in enumerate(model.encoder.cross_views):
+        ms = {}
+        for path, value in (("default", None), ("stock", "0")):
+            with switches(value), torch.no_grad():
+                ms[path] = sum(kernel_device_ms(
+                    lambda: cv(*stage_args[i]), 5).values())
+        result["stage_device_ms"][i] = ms
+        log(f"nuScenes FAX stage {i}, device time (kernels summed): K2 "
+            f"{ms['default']:.4f} ms, stock modules over K1 "
+            f"{ms['stock']:.4f} ms")
+    del stage_args
+
+    # frame time, device time and operations, idle share, peak memory
+    opt = benchmark.parse_args(["--model", "sinbevt", "--iters", "10",
+                                "--profile_steps", "2"])
+    for path, value in (("default", None), ("stock", "0")):
+        with switches(value):
+            row = benchmark.measure_eval(model, "sinbevt", batch, opt, device)
+        log(f"nuScenes {path} benchmark " + json.dumps(row))
+        result[f"benchmark_{path}"] = row
+    del model, frames
+    torch.cuda.empty_cache()
+
+    log("== SinBEVT-nuScenes forward gate, seeds 0-4")
+    gate = vk.validate_sinbevt(device)
+    log("sinbevt gate " + json.dumps({k: v for k, v in gate.items()
+                                      if k != "per_seed"}))
+    for r in gate["per_seed"]:
+        log(f"  seed {r['seed']}: " + json.dumps(
+            {n: {"max_rel": r[n]["max_rel"],
+                 "bev_iou": r[n]["argmax_iou"]["bev"],
+                 "centered_bev_iou": r[n]["centered_bev_iou"]}
+             for n in ("bf16_default_vs_f32_plain", "default_vs_stock")})
+            + f", bev positive share {r['bev_positive_share']}")
+    if not gate["ok"]:
+        raise AssertionError("SinBEVT forward gate failed: "
+                             + json.dumps(gate))
+    result["gate"] = gate
+    log("== the gate with a fault planted in one K2 or K1 call, seed 0")
+    planted = vk.validate_sinbevt_faults(device)
+    for name, r in planted["faults"].items():
+        log(f"  {name}: " + json.dumps(r))
+    if not planted["ok"]:
+        raise AssertionError("the SinBEVT gate passed a planted fault it "
+                             "must fail: " + json.dumps(planted))
+    result["planted"] = planted
+    torch.cuda.empty_cache()
+
+    log("== phase 13: SinBEVT-OPV2V (corpbevt.yaml width, no fusion), one "
+        "vehicle x 4 cameras x 512^2, bf16")
+    model, batch, key = benchmark.build_sinbevt_opv2v(seed=seed,
+                                                      device=device)
+    ref_model = copy.deepcopy(model).eval()
+    model = model.eval().to(torch.bfloat16)
+    frames = [batch] + new_images(batch, key, 2, seed + 2)
+
+    def check_opv2v(i, out):
+        seg = out["dynamic_seg"]
+        if tuple(seg.shape) != (1, 1, 256, 256, 2):
+            raise AssertionError(f"frame {i}: dynamic_seg {tuple(seg.shape)}")
+        if not torch.isfinite(seg).all():
+            raise AssertionError(f"frame {i}: non-finite dynamic_seg")
+
+    opv2v, outs = {}, {}
+    with switches(None), torch.no_grad(), forced_impl("torch"):
+        ref = ref_model(batch)["dynamic_seg"].cpu().numpy()
+    del ref_model
+    margin = np.abs(ref[..., 1] - ref[..., 0])
+    opv2v["reference_class_shares"] = (np.bincount(
+        ref.argmax(-1).ravel(), minlength=2) / margin.size).tolist()
+    for path, value, per_frame in (
+            ("default", None, SINBEVT_OPV2V_PER_FRAME),
+            ("stock", "0", SINBEVT_OPV2V_STOCK_PER_FRAME)):
+        with switches(value):
+            opv2v[f"{path}_counts"], opv2v[f"{path}_frame_ms"] = \
+                serve_frames(f"OPV2V {path} path", model, frames, per_frame,
+                             check_opv2v)
+            with torch.no_grad():
+                out = model(batch)["dynamic_seg"].float().cpu().numpy()
+        diff = np.abs(out - ref)
+        rel = float(diff.max() / (np.abs(ref).max() + 1e-12))
+        # how many pixels the bf16 drift can flip: reference margins below
+        # the largest deviation of the logit difference
+        flip = float((margin <= np.abs((out[..., 1] - out[..., 0])
+                                       - (ref[..., 1] - ref[..., 0]))
+                      .max()).mean())
+        outs[path] = out
+        opv2v[f"{path}_vs_f32_plain"] = row = {
+            "max_rel_logit_err": rel, "argmax_iou": argmax_iou(out, ref),
+            "share_within_drift_of_the_boundary": flip}
+        log(f"OPV2V {path} bf16 vs f32 plain: " + json.dumps(row)
+            + f", reference class shares {opv2v['reference_class_shares']}")
+        if not rel <= vk.BUDGET_SINBEVT:
+            raise AssertionError(f"OPV2V {path}: relative logit drift "
+                                 f"{rel:.3e} > {vk.BUDGET_SINBEVT}")
+    opv2v["default_vs_stock_argmax_iou"] = argmax_iou(outs["default"],
+                                                      outs["stock"])
+    log(f"OPV2V default vs stock, bf16: argmax IoU "
+        f"{opv2v['default_vs_stock_argmax_iou']:.5f}")
+    opt = benchmark.parse_args(["--model", "sinbevt_opv2v", "--iters", "10",
+                                "--profile_steps", "2"])
+    with switches(None):
+        row = benchmark.measure_eval(model, "sinbevt_opv2v", batch, opt,
+                                     device)
+    log("OPV2V default benchmark " + json.dumps(row))
+    opv2v["benchmark_default"] = row
+    result["opv2v"] = opv2v
+    del model, frames
+    torch.cuda.empty_cache()
+    result["seconds"] = time.perf_counter() - t0
+    log(f"phase 13: {result['seconds']:.1f} s")
+    return result
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default=None,
@@ -2136,6 +2552,10 @@ def main(argv=None):
                    help="comma-separated kernel keys (e.g. K5,K2): run only "
                         "their phase-3 rows, then stop without the final "
                         "line")
+    p.add_argument("--sinbevt", action="store_true",
+                   help="run phase 13 (SinBEVT) after the build, and after "
+                        "the rows of --kernels if given, then stop without "
+                        "the final line")
     opt = p.parse_args(argv)
 
     import torch
@@ -2146,14 +2566,16 @@ def main(argv=None):
     t0 = time.perf_counter()
     phase_environment()
     phase_build()
-    if opt.kernels:
-        details = phase_kernels(set(opt.kernels.split(",")))
+    if opt.kernels or opt.sinbevt:
+        details = (phase_kernels(set(opt.kernels.split(",")))
+                   if opt.kernels else [])
+        sinbevt = phase_sinbevt() if opt.sinbevt else None
         if opt.out:
             os.makedirs(os.path.dirname(os.path.abspath(opt.out)),
                         exist_ok=True)
             with open(opt.out, "w") as f:
-                json.dump({"cases": details, "card": card_line()}, f,
-                          indent=1)
+                json.dump({"cases": details, "sinbevt": sinbevt,
+                           "card": card_line()}, f, indent=1)
         log(f"total {time.perf_counter() - t0:.1f} s")
         return 0
     details = phase_kernels()
@@ -2165,6 +2587,7 @@ def main(argv=None):
     bn_counts = phase_micro_bn_stats()
     lidar_train_counts, lidar_train_row, lidar_gate = phase_lidar_train()
     ffd_counts = phase_micro_ffd_fused()
+    sinbevt = phase_sinbevt()
 
     # (wrapper, source, the TPU function it replaces)
     sources = {
@@ -2220,6 +2643,13 @@ def main(argv=None):
         launches[fn] = bn_counts[fn]
     for fn in ("fused_ffd", "fused_ffd_bwd"):
         launches[fn] = ffd_counts[fn]
+    # K1, K2 and K3 on the SinBEVT paths of phase 13 too
+    for counts13 in (sinbevt["counts"], sinbevt["stock_counts"],
+                     sinbevt["opv2v"]["default_counts"],
+                     sinbevt["opv2v"]["stock_counts"]):
+        for fn in ("fused_window_attention_packed",
+                   "fused_cross_view_attention", "fused_conv3x3"):
+            launches[fn] += counts13[fn]
     kernels = []
     for key, (fn, src, replaces) in sources.items():
         rows = [r for r in details if r["kernel"] == key]
@@ -2264,7 +2694,8 @@ def main(argv=None):
                        "lidar_train": lidar_train_row,
                        "lidar_train_counts": lidar_train_counts,
                        "lidar_gradient_gate": lidar_gate,
-                       "ffd_counts": ffd_counts, "kernels": kernels,
+                       "ffd_counts": ffd_counts, "sinbevt": sinbevt,
+                       "kernels": kernels,
                        "card": card_line(),
                        "torch": torch.__version__,
                        "cuda": torch.version.cuda,

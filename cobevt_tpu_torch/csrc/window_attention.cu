@@ -9,8 +9,10 @@
 //   -1e9 where mask <= 0 (not -inf: a fully masked row stays finite and
 //   comes out as uniform weights, as in JAX); optional post-softmax weight
 //   (G, Tq, H*Tk) in q's dtype that scales the numerator only.  Output
-//   (G, Tq, H*D) in q's dtype.  f32 or bf16, D in {16, 32}, Tq and Tk
-//   multiples of 8.
+//   (G, Tq, H*D) in q's dtype.  f32 or bf16, D in {16, 32}, Tk a multiple
+//   of 8, any Tq >= 1 (the nuScenes windows hold 100 and 625 queries: the
+//   last query tile is cut at Tq by the q map's own row extent, so TMA
+//   zero-fills it, and rows past Tq are not stored).
 //
 // What bounds it on the H100: two (Tq x Tk x D) products per (window, head)
 // against q/k/v in and the output out: Tq Tk / (Tq + Tk) operations per

@@ -162,3 +162,35 @@ class CorpBEVT(nn.Module):
                 B, L, H, W)
         fused = self.fusion_net(x, com_mask, agent_mask=agent_mask)
         return self.seg_head(self.decoder(fused[:, None]))
+
+
+class SinBEVT(nn.Module):
+    """Single-agent FAX transformer, no V2V fusion: encoder -> FAX ->
+    decoder -> seg head on every agent independently (counterpart of
+    ``cobevt_tpu/models/corpbevt.py:SinBEVT``, reference
+    ``opv2v/opencood/models/fax_fused_transformer.py:13``).  Its FAX
+    cross-view branches take K2 at eval as CorpBEVT's do."""
+
+    def __init__(self, config: CorpBEVTConfig = CorpBEVTConfig()):
+        super().__init__()
+        cfg = config
+        self.config = cfg
+        fax = cfg.resolved_fax()
+        self.encoder = ResNetEncoder(cfg.encoder_num_layers,
+                                     cfg.encoder_id_pick,
+                                     remat=cfg.encoder_remat)
+        self.fax = FAXModule(fax)
+        self.decoder = NaiveDecoder(fax.dim[-1], cfg.decoder_num_layer,
+                                    cfg.decoder_num_ch)
+        self.seg_head = BevSegHead(cfg.target, cfg.seg_head_dim,
+                                   cfg.output_class)
+
+    def forward(self, batch, generator=None):
+        """batch: inputs (B, L, M, H, W, 3), intrinsic (B, L, M, 3, 3),
+        extrinsic (B, L, M, 4, 4).  Returns a dict of (B, L, H, W, classes)
+        seg logits, one map per agent."""
+        dtype = self.encoder.encoder.conv1.weight.dtype
+        x = images_from_uint8(batch["inputs"]).to(dtype)
+        x = self.fax(self.encoder(x), batch["intrinsic"], batch["extrinsic"],
+                     generator=generator)
+        return self.seg_head(self.decoder(x))

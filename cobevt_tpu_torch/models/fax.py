@@ -74,6 +74,15 @@ def image_plane_grid(feat_height: int, feat_width: int, image_height: int,
 
 
 @functools.lru_cache(maxsize=None)
+def on_device(grid_fn, args: tuple, device: torch.device) -> torch.Tensor:
+    """``grid_fn(*args)``, a static numpy grid, as a tensor on ``device``,
+    copied there once per (grid, device): a copy from pageable host memory
+    at every forward would make the host wait for the stream, so it could
+    not queue the next launches while the card works.  Read-only."""
+    return torch.from_numpy(grid_fn(*args)).to(device)
+
+
+@functools.lru_cache(maxsize=None)
 def rel_pos_indices_2d(window: int) -> np.ndarray:
     """(w^2, w^2) index table into a (2w-1)^2 relative-position embedding."""
     pos = np.arange(window)
@@ -138,8 +147,9 @@ class BEVEmbedding(nn.Module):
             sigma * torch.randn(dim, h, w))
 
     def world_grid(self, index: int, device) -> torch.Tensor:
-        return torch.from_numpy(bev_world_grid(
-            *self.grid_args, self.upsample_scales[index])).to(device)
+        return on_device(bev_world_grid,
+                         (*self.grid_args, self.upsample_scales[index]),
+                         device)
 
     def forward(self):
         return self.learned_features.permute(1, 2, 0)     # (H, W, dim)
@@ -363,8 +373,8 @@ class CrossViewSwapAttention(nn.Module):
         coordinates (None without the BEV embedding); feature:
         (b, n, h, w, feat_dim); I_inv: (b, n, 3, 3); E_inv: (b, n, 4, 4)."""
         dtype = self.cam_embed.weight.dtype
-        pixel = torch.from_numpy(image_plane_grid(*self.grid_args)).to(
-            x.device)                                          # (h, w, 3)
+        pixel = on_device(image_plane_grid, self.grid_args,
+                          x.device)                            # (h, w, 3)
 
         # camera-center embedding: last column of E_inv
         c_embed = self.cam_embed(E_inv[..., -1].to(dtype))     # (b, n, d)
@@ -475,24 +485,25 @@ class FAXConfig:
     use_self_attn: bool = True
 
 
-class FAXModule(nn.Module):
-    """3-stage FAX pyramid: BEV prior -> per-stage cross-view swap
-    attention + bottleneck convs + pixel-unshuffle downsample -> windowed
-    self-attention."""
+class FAXStages(nn.Module):
+    """The FAX pyramid's stages, shared by OPV2V's ``FAXModule`` and the
+    nuScenes ``PyramidAxialEncoder``: a BEV prior, then per stage a
+    cross-view swap attention and ``middle`` bottleneck convs, and between
+    stages conv3x3 -> pixel-unshuffle(2) -> conv3x3 -> BN -> ReLU ->
+    conv1x1 -> BN, whose first conv narrows to ``dim // narrow`` (4 in
+    OPV2V's FAX, 2 in the nuScenes encoder)."""
 
-    def __init__(self, config: FAXConfig):
-        super().__init__()
-        cfg = config
-        self.config = cfg
+    def _build_stages(self, cfg, shapes, narrow: int):
+        """``cfg``: the stage fields of a ``FAXConfig`` or a
+        ``PyramidAxialConfig``; ``shapes``: (h, w, c) of each backbone
+        map."""
         self.bev_embedding = BEVEmbedding(
             cfg.dim[0], cfg.sigma, cfg.bev_height, cfg.bev_width,
             cfg.h_meters, cfg.w_meters, cfg.offset, cfg.upsample_scales)
-        n_stages = len(cfg.backbone_output_shape)
         self.cross_views = nn.ModuleList()
         self.layers = nn.ModuleList()
         self.downsample_layers = nn.ModuleList()
-        for i in range(n_stages):
-            fh, fw, fc = cfg.backbone_output_shape[i]
+        for i, (fh, fw, fc) in enumerate(shapes):
             self.cross_views.append(CrossViewSwapAttention(
                 fh, fw, fc, cfg.dim[i], cfg.image_height, cfg.image_width,
                 cfg.qkv_bias, cfg.heads[i], cfg.dim_head[i],
@@ -501,29 +512,55 @@ class FAXModule(nn.Module):
             self.layers.append(nn.Sequential(*[
                 Bottleneck(cfg.dim[i], cfg.dim[i] // 4)
                 for _ in range(cfg.middle[i])]))
-            if i < n_stages - 1:
+            if i < len(shapes) - 1:
                 dim_in, dim_out = cfg.dim[i], cfg.dim[i + 1]
                 # torch path downsample_layers.<i>.0.<j>; 1 is the
                 # parameterless pixel-unshuffle, 4 the ReLU
                 self.downsample_layers.append(nn.Sequential(nn.Sequential(
-                    torch_conv(dim_in, dim_in // 4, 3, 1, 1, False),
+                    torch_conv(dim_in, dim_in // narrow, 3, 1, 1, False),
                     nn.PixelUnshuffle(2),
-                    torch_conv(dim_in, dim_out, 3, 1, 1, False),
+                    torch_conv(dim_in // narrow * 4, dim_out, 3, 1, 1,
+                               False),
                     batch_norm(dim_out), nn.ReLU(),
                     torch_conv(dim_out, dim_out, 1, 1, 0, False),
                     batch_norm(dim_out))))
-        if cfg.use_self_attn:
-            self.self_attn = SelfAttention(
-                cfg.dim[-1], cfg.self_attn_dim_head, cfg.self_attn_dropout,
-                cfg.self_attn_window)
 
     def _downsample(self, x, i):
-        """conv3x3 -> pixel-unshuffle(2) -> conv3x3 -> BN -> ReLU ->
-        conv1x1 -> BN."""
         seq = self.downsample_layers[i][0]
         x = pixel_unshuffle(conv_nhwc(seq[0], x), 2)
         x = F.relu(bn_nhwc(seq[3], conv_nhwc(seq[2], x)))
         return bn_nhwc(seq[6], conv_nhwc(seq[5], x))
+
+    def _run_stages(self, feats, I_inv, E_inv, dtype):
+        """feats: (b, n, h, w, c) per stage; I_inv: (b, n, 3, 3); E_inv:
+        (b, n, 4, 4).  Returns the (b, H, W, dim[-1]) BEV state, which runs
+        in ``dtype``."""
+        x = self.bev_embedding()
+        x = x[None].expand(feats[0].shape[0], *x.shape).to(dtype)
+        for i, feat in enumerate(feats):
+            world = (self.bev_embedding.world_grid(i, x.device)
+                     if self.config.bev_embedding_flag[i] else None)
+            x = self.cross_views[i](x, world, feat, I_inv, E_inv)
+            x = self.layers[i](x)
+            if i < len(feats) - 1:
+                x = self._downsample(x, i)
+        return x
+
+
+class FAXModule(FAXStages):
+    """3-stage FAX pyramid: BEV prior -> per-stage cross-view swap
+    attention + bottleneck convs + pixel-unshuffle downsample -> windowed
+    self-attention."""
+
+    def __init__(self, config: FAXConfig):
+        super().__init__()
+        cfg = config
+        self.config = cfg
+        self._build_stages(cfg, cfg.backbone_output_shape, narrow=4)
+        if cfg.use_self_attn:
+            self.self_attn = SelfAttention(
+                cfg.dim[-1], cfg.self_attn_dim_head, cfg.self_attn_dropout,
+                cfg.self_attn_window)
 
     def forward(self, features, intrinsic, extrinsic, generator=None):
         """features: list of (b, l, n, h, w, c) per pyramid stage;
@@ -532,22 +569,16 @@ class FAXModule(nn.Module):
         Returns (b, l, H, W, dim[-1])."""
         cfg = self.config
         b, l, n = features[0].shape[:3]
-        I_inv = torch.linalg.inv(
-            intrinsic.reshape(b * l, n, 3, 3).float())
+        # inv_ex: no host sync on a check of the result
+        I_inv = torch.linalg.inv_ex(
+            intrinsic.reshape(b * l, n, 3, 3).float())[0]
         E_inv = extrinsic.reshape(b * l, n, 4, 4).float()
 
         # the BEV residual stream runs in the compute dtype
-        x = self.bev_embedding()
-        x = x[None].expand(b * l, *x.shape).to(features[0].dtype)
-        for i, feature in enumerate(features):
-            fh, fw, fc = cfg.backbone_output_shape[i]
-            feat = feature.reshape(b * l, n, fh, fw, fc)
-            world = (self.bev_embedding.world_grid(i, x.device)
-                     if cfg.bev_embedding_flag[i] else None)
-            x = self.cross_views[i](x, world, feat, I_inv, E_inv)
-            x = self.layers[i](x)
-            if i < len(features) - 1:
-                x = self._downsample(x, i)
+        x = self._run_stages(
+            [f.reshape(b * l, n, *shape) for f, shape in
+             zip(features, cfg.backbone_output_shape)],
+            I_inv, E_inv, features[0].dtype)
         if cfg.use_self_attn:
             x = self.self_attn(x, generator=generator)
         H, W = x.shape[1:3]

@@ -57,11 +57,14 @@ def images_from_uint8(x, normalize: bool = True):
     if x.dtype != torch.uint8:
         return x
     x = x.float() / 255.0
-    if normalize:
-        mean = torch.tensor(IMAGENET_MEAN, dtype=x.dtype, device=x.device)
-        std = torch.tensor(IMAGENET_STD, dtype=x.dtype, device=x.device)
-        x = (x - mean) / std
-    return x
+    return normalize_image(x) if normalize else x
+
+
+def normalize_image(x):
+    """ImageNet mean/std normalization of channels-last images in [0, 1]."""
+    mean = torch.tensor(IMAGENET_MEAN, dtype=x.dtype, device=x.device)
+    std = torch.tensor(IMAGENET_STD, dtype=x.dtype, device=x.device)
+    return (x - mean) / std
 
 
 def torch_conv(in_features: int, features: int, kernel_size: int = 3,

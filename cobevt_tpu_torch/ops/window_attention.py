@@ -306,15 +306,33 @@ def _check_tma_bases(**operands):
             check_aligned(name, t)
 
 
-def _check_kernel_shapes(what, dtype, Tq, Tk, D):
+def _check_dtype_and_head_dim(what, dtype, D):
     if dtype not in _KERNEL_DTYPES:
         raise ValueError(f"{what} takes {_KERNEL_DTYPES}, got {dtype}")
     if D not in _KERNEL_HEAD_DIMS:
         raise ValueError(f"{what} takes head dims {_KERNEL_HEAD_DIMS}; got "
                          f"{D}")
+
+
+def check_k1_shapes(dtype, Tq, Tk, D):
+    """K1 takes any Tq >= 1: its query boxes are cut at Tq by the tensor
+    map (TMA zero-fills the rows past it) and rows past Tq are not stored,
+    so the nuScenes windows (10 x 10 = 100, 25 x 25 = 625 queries) run as
+    they are.  Tk stays a multiple of 8: a thread owns two adjacent keys of
+    each 8-key group, and both fall past Tk together."""
+    _check_dtype_and_head_dim("K1", dtype, D)
+    if Tq < 1 or Tk % 8:
+        raise ValueError(f"K1 takes Tq >= 1 and Tk multiples of 8; got "
+                         f"{Tq}, {Tk}")
+
+
+def _check_kernel_shapes(what, dtype, Tq, Tk, D):
+    """K5's and K8's shapes: Tq and Tk multiples of 8 (K5 at a ragged Tq is
+    work for the nuScenes training slice, ROADMAP Queue 1 item 12(b))."""
+    _check_dtype_and_head_dim(what, dtype, D)
     if Tq % 8 or Tk % 8:
-        raise ValueError(f"{what} takes Tq, Tk multiples of 8; got {Tq}, "
-                         f"{Tk}")
+        raise ValueError(f"{what} takes Tq, Tk multiples of 8 (a ragged Tq "
+                         f"waits for ROADMAP item 12(b)); got {Tq}, {Tk}")
 
 
 def _launch_kernel(q, k, v, n_heads, bias_flat, mask, weight, stats=None):
@@ -324,7 +342,7 @@ def _launch_kernel(q, k, v, n_heads, bias_flat, mask, weight, stats=None):
     Tk = k.shape[1]
     if C % n_heads:
         raise ValueError(f"K1: C={C} does not divide over {n_heads} heads")
-    _check_kernel_shapes("K1", q.dtype, Tq, Tk, C // n_heads)
+    check_k1_shapes(q.dtype, Tq, Tk, C // n_heads)
     dev = q.device
     check_operand("q", q, (G, Tq, C), q.dtype, dev)
     check_operand("k", k, (G, Tk, C), q.dtype, dev)

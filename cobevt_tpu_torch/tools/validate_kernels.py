@@ -28,6 +28,27 @@ value must stay within :data:`BUDGET_FORWARD`.
 
   python -m cobevt_tpu_torch.tools.validate_kernels --model pointpillar
 
+**SinBEVT forward gate** (``--model sinbevt``; the forward gate of
+``cobevt_tpu/tools/validate_kernels.py`` for the nuScenes flagship): the
+full-width ``cvt_pyramid_axial_nuscenes_vehicle`` eval forward (EfficientNet-b4,
+6 cameras x 224 x 480, BEV 200^2) at each of ``--seeds`` (weights and
+nothing else drawn from the seed), three times on the same batch: in bf16
+on the serving default (K2 for every cross-view branch), in bf16 on the
+stock path (``COBEVT_FUSED_XATTN=0``: K1), and in f32 on the plain versions
+of every kernel (``forced_impl("torch")``, the serving default's dispatch).
+Two comparisons, bf16 default against f32 plain and default against stock,
+each with three checks: per output the largest deviation over the
+reference's largest value within :data:`BUDGET_SINBEVT`; on ``bev`` the IoU
+of the two sign-of-logit maps (mean over the two classes, as
+``argmax_iou``) at least 0.99, and the same IoU taken about the reference's
+median at least :data:`SINBEVT_CENTERED_IOU_FLOOR` (at random weights the
+map may hold one sign everywhere).  Then, at seed 0, the gate again with
+each fault of :data:`SINBEVT_FAULTS` planted in one K2 or one K1 call: it
+must fail on a dropped head; a wrong softmax scale is read and reported
+(at random weights it moves the frame less than bf16 does).
+
+  python -m cobevt_tpu_torch.tools.validate_kernels --model sinbevt
+
 **Gradient gate** (``--train``; ``validate_train`` of the JAX tool): loss and
 gradients of one train forward and backward at full width in bf16, once on
 the shipped path (K1 forward, K5 flash backward) and once with
@@ -51,6 +72,7 @@ Needs a CUDA card unless ``--device cpu`` is given.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 
@@ -58,15 +80,18 @@ import numpy as np
 import torch
 
 from cobevt_tpu_torch import ops
+from cobevt_tpu_torch.models import fax
 from cobevt_tpu_torch.models.lidar.point_pillar_models import (
     PointPillarConfig,
 )
 from cobevt_tpu_torch.nn.resnet import ResNetTrunk
 from cobevt_tpu_torch.ops.dispatch import env_switches, forced_impl
+from cobevt_tpu_torch.ops.fused_cross_attention import PackedParams
 from cobevt_tpu_torch.tools.benchmark import (
     BUILD_MODEL,
     build_corpbevt,
     build_pointpillar,
+    build_sinbevt,
     make_criterion,
 )
 
@@ -128,6 +153,24 @@ BUDGET_INT8 = 0.15
 INT8_IOU_KEYS = ("dynamic_seg", "static_seg")
 INT8_IOU_FLOOR = 0.99
 INT8_SAT_BUDGET = 0.01
+
+
+# Budgets of the SinBEVT forward gate, set from readings on an NVIDIA H100
+# 80GB HBM3 (700 W) at full width, sound over seeds 0-4 and with each
+# planted fault at seed 0.  Drift (max |x - ref| over max |ref|, per
+# output): sound, bf16 default vs f32 plain 0.023-0.039, default vs stock
+# 0.026-0.048 (the center logits, rounded to bf16 after each of the trunk's
+# layers); one dropped head in K2 or K1 0.46-0.53; the budget sits between,
+# 3x the sound largest and a third of the faulted smallest.  At random
+# weights the bev logits keep one sign on all but a few pixels (positive
+# share 0 to 2.5e-5, or 0.9998), so the sign IoU (floor 0.99) is 1.0
+# whatever the map holds, a dropped head included; taken about the
+# reference's median it read 0.889-0.947 sound and 0.53-0.55 with a
+# dropped head, and its floor sits between.
+BUDGET_SINBEVT = 0.15
+SINBEVT_CENTERED_IOU_FLOOR = 0.75
+SINBEVT_IOU_KEYS = ("bev",)
+SINBEVT_SEEDS = (0, 1, 2, 3, 4)
 
 
 def argmax_iou(a, b) -> float:
@@ -249,6 +292,175 @@ def validate_forward(device, bf16: bool = True, seed: int = 0,
     report["seed"] = seed
     report["launches"] = {path: counts for path, (_, counts) in runs.items()}
     return report
+
+
+def sign_logits(out: dict) -> dict:
+    """Each output as two-class scores (0, logit), so that ``argmax_iou`` is
+    the IoU of the sign-of-logit maps, averaged over both signs."""
+    return {k: torch.stack([torch.zeros_like(v), v], dim=-1)
+            for k, v in out.items()}
+
+
+def centered_sign_iou(a, b) -> float:
+    """The sign IoU of ``a`` and ``b`` taken about the median of ``b``: at
+    random weights a logit map may keep one sign everywhere, which makes
+    the plain sign IoU 1 whatever the map holds; about the median each
+    sign covers half the reference."""
+    m = b.float().median()
+    return argmax_iou(*(sign_logits({"x": t.float() - m})["x"]
+                        for t in (a, b)))
+
+
+def _drop_k2_head(real, *args, params, n_heads, **kwargs):
+    """K2 with its first head's output dropped: the output projection's
+    columns of that head zeroed."""
+    params = PackedParams(params)
+    dh = params["wo_t"].shape[1] // n_heads
+    params["wo_t"] = params["wo_t"].clone()
+    params["wo_t"][:, :dh] = 0
+    return real(*args, params=params, n_heads=n_heads, **kwargs)
+
+
+def _k2_width_scale(real, *args, scale, n_heads, **kwargs):
+    """K2 with the softmax scale of the whole width, (heads * dh)^-0.5,
+    in place of a head's."""
+    return real(*args, scale=scale * n_heads ** -0.5, n_heads=n_heads,
+                **kwargs)
+
+
+def _drop_k1_head(real, q, k, v, n_heads, **kwargs):
+    """K1 with its first head's output zeroed."""
+    out = real(q, k, v, n_heads, **kwargs).clone()
+    out[..., :out.shape[-1] // n_heads] = 0
+    return out
+
+
+def _k1_width_scale(real, q, k, v, n_heads, **kwargs):
+    """K1 fed queries scaled by the whole width's (heads * dh)^-0.5 in
+    place of a head's."""
+    return real(q * n_heads ** -0.5, k, v, n_heads, **kwargs)
+
+
+# Faults planted in one call a frame on the gate's bf16 runs, to show what
+# its budgets catch: (the wrapper as models/fax.py calls it, the fault,
+# whether the gate must fail on it).  The call is the frame's fifth, stage
+# 2's local branch (4 heads; K2 on its wgmma route, or K1 at Tq 625 on the
+# stock path), so a K2 fault shows on both comparisons and a K1 fault on
+# default vs stock only.  A wrong softmax scale read within the sound range
+# on the H100 (drift 0.040-0.048, IoU about the median 0.924-0.933): at
+# random weights the attention rows are near uniform, so no budget on the
+# frame can see it; phase 3 of chip_smoke.py holds each kernel's scale
+# against its plain version.
+SINBEVT_FAULTS = {
+    "k2_dropped_head": ("fused_cross_view_attention", _drop_k2_head, True),
+    "k2_width_scale": ("fused_cross_view_attention", _k2_width_scale, False),
+    "k1_dropped_head": ("fused_window_attention_packed", _drop_k1_head,
+                        True),
+    "k1_width_scale": ("fused_window_attention_packed", _k1_width_scale,
+                       False),
+}
+SINBEVT_FAULT_CALL = 4
+
+
+@contextlib.contextmanager
+def planted_fault(name):
+    """While open, the ``SINBEVT_FAULT_CALL``-th call (from 0) of the
+    wrapper that fault ``name`` names runs with the fault; None plants
+    nothing."""
+    if name is None:
+        yield
+        return
+    attr, fault, _ = SINBEVT_FAULTS[name]
+    real, calls = getattr(fax, attr), [0]
+
+    def wrapped(*args, **kwargs):
+        calls[0] += 1
+        if calls[0] - 1 == SINBEVT_FAULT_CALL:
+            return fault(real, *args, **kwargs)
+        return real(*args, **kwargs)
+
+    setattr(fax, attr, wrapped)
+    try:
+        yield
+    finally:
+        setattr(fax, attr, real)
+
+
+def validate_sinbevt(device, seeds=SINBEVT_SEEDS, config=None,
+                     budget: float = BUDGET_SINBEVT, fault=None) -> dict:
+    """The SinBEVT forward gate at each seed: bf16 serving default against
+    the f32 plain path and against the bf16 stock path, with each run's
+    launch counts and the share of positive ``bev`` logits (how much of
+    the map the sign IoU weighs).  ``fault``: a key of
+    :data:`SINBEVT_FAULTS` planted in both bf16 runs."""
+    reports = []
+    for seed in seeds:
+        model, batch, _ = build_sinbevt(seed=seed, device=device,
+                                        config=config)
+        model = model.eval()
+        runs = {}
+        with env_switches(COBEVT_FUSED_XATTN=None), torch.no_grad(), \
+                forced_impl("torch"):
+            ops.reset_launch_counts()
+            runs["f32_plain"] = (model(batch), ops.launch_counts())
+        model = model.to(torch.bfloat16)
+        for path, switch in (("default", None), ("stock", "0")):
+            with env_switches(COBEVT_FUSED_XATTN=switch), torch.no_grad(), \
+                    planted_fault(fault):
+                ops.reset_launch_counts()
+                runs[path] = (model(batch), ops.launch_counts())
+        ref, default = runs["f32_plain"][0], runs["default"][0]
+        report = {"seed": seed,
+                  "launches": {p: c for p, (_, c) in runs.items()},
+                  "bev_positive_share": {
+                      p: float((o["bev"] > 0).float().mean())
+                      for p, (o, _) in runs.items()}}
+        for name, a, b in (("bf16_default_vs_f32_plain", default, ref),
+                           ("default_vs_stock", default, runs["stock"][0])):
+            r = compare_outputs(name, sign_logits(a), sign_logits(b), budget,
+                                iou_keys=SINBEVT_IOU_KEYS)
+            r["centered_bev_iou"] = centered_sign_iou(a["bev"], b["bev"])
+            r["ok"] = r["ok"] and \
+                r["centered_bev_iou"] >= SINBEVT_CENTERED_IOU_FLOOR
+            report[name] = r
+        report["ok"] = all(report[n]["ok"] for n in (
+            "bf16_default_vs_f32_plain", "default_vs_stock"))
+        reports.append(report)
+        del model
+    return {"component": "sinbevt_nuscenes_forward", "fault": fault,
+            "budget": budget,
+            "iou_floor": INT8_IOU_FLOOR,
+            "centered_iou_floor": SINBEVT_CENTERED_IOU_FLOOR,
+            "seeds": list(seeds),
+            "ok": all(r["ok"] for r in reports),
+            "max_rel": {n: max(r[n]["max_rel"] for r in reports)
+                        for n in ("bf16_default_vs_f32_plain",
+                                  "default_vs_stock")},
+            "min_bev_iou": {n: min(r[n]["argmax_iou"]["bev"]
+                                   for r in reports)
+                            for n in ("bf16_default_vs_f32_plain",
+                                      "default_vs_stock")},
+            "min_centered_bev_iou": {n: min(r[n]["centered_bev_iou"]
+                                            for r in reports)
+                                     for n in ("bf16_default_vs_f32_plain",
+                                               "default_vs_stock")},
+            "per_seed": reports}
+
+
+def validate_sinbevt_faults(device, seeds=(0,), config=None,
+                            budget: float = BUDGET_SINBEVT) -> dict:
+    """The SinBEVT gate once with each planted fault: what it reads, and
+    whether it failed, as it must on each fault marked so."""
+    faults = {}
+    for name, (_, _, must_trip) in SINBEVT_FAULTS.items():
+        r = validate_sinbevt(device, seeds, config, budget, fault=name)
+        faults[name] = {"tripped": not r["ok"], "must_trip": must_trip,
+                        "max_rel": r["max_rel"],
+                        "min_bev_iou": r["min_bev_iou"],
+                        "min_centered_bev_iou": r["min_centered_bev_iou"]}
+    return {"seeds": list(seeds), "budget": budget, "faults": faults,
+            "ok": all(f["tripped"] for f in faults.values()
+                      if f["must_trip"])}
 
 
 def loss_and_grads(model, criterion, batch, seed: int):
@@ -400,9 +612,10 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--train", action="store_true")
     p.add_argument("--model", default="corpbevt",
-                   choices=["corpbevt", "pointpillar"],
-                   help="corpbevt: the int8 gate; pointpillar: the forward "
-                        "gate; with --train the model's gradient gate")
+                   choices=["corpbevt", "pointpillar", "sinbevt"],
+                   help="corpbevt: the int8 gate; pointpillar and sinbevt: "
+                        "the model's forward gate (sinbevt at seeds 0-4); "
+                        "with --train the model's gradient gate")
     p.add_argument("--dtype", default="bf16", choices=["bf16", "f32"])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
@@ -415,7 +628,15 @@ def main(argv=None):
             return 1
         opt.device = "cuda"
     device, bf16 = torch.device(opt.device), opt.dtype == "bf16"
-    if opt.train:
+    if opt.train and opt.model == "sinbevt":
+        print("validate_kernels: SinBEVT has no train step yet",
+              file=sys.stderr)
+        return 2
+    if opt.model == "sinbevt":
+        report = validate_sinbevt(device)
+        report["planted"] = validate_sinbevt_faults(device)
+        report["ok"] = report["ok"] and report["planted"]["ok"]
+    elif opt.train:
         report = validate_train(device, bf16, opt.seed,
                                 model_name=opt.model)
         if opt.model == "pointpillar":

@@ -584,6 +584,11 @@ def test_k8_kernel_matches_plain_at_both_tile_plans(gen, extras, G, Tq, Tk):
     (2, 16, 16, 512, 512),      # wgmma, 8 x 16 boxes (layer4)
     (2, 9, 7, 64, 48),          # wgmma, 16 x 8 boxes past the edge, O < 128
     (1, 3, 200, 64, 136),       # wgmma, W > 128: two boxes a row
+    # chip_smoke.py:K3_SINBEVT_CASES: one SinBEVT-OPV2V vehicle (4 camera
+    # images of 512^2) at layers 2-4
+    (4, 64, 64, 128, 128),
+    (4, 32, 32, 256, 256),
+    (4, 16, 16, 512, 512),
 ])
 @pytest.mark.parametrize("residual", [False, True])
 def test_k3_kernel_matches_plain(gen, dtype, shape, residual):
@@ -597,6 +602,7 @@ def test_k3_kernel_matches_plain(gen, dtype, shape, residual):
     want = fused_conv3x3(x, w, shift, res, impl="torch")
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    assert torch.equal(fused_conv3x3(x, w, shift, res), got)
 
 
 @pytest.mark.parametrize("residual", [False, True])
@@ -732,9 +738,12 @@ K2_PATH_CASES = [
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", K2_PATH_CASES, ids=lambda c: c[0])
-def test_k2_kernel_matches_plain_at_the_path_shapes(gen, dtype, case):
+@pytest.mark.parametrize("B", [5, 1], ids=["corpbevt", "sinbevt_opv2v"])
+def test_k2_kernel_matches_plain_at_the_path_shapes(gen, dtype, case, B):
+    """B 5: CorpBEVT's agents; B 1: one SinBEVT-OPV2V vehicle, which
+    repeats bit for bit in f32 too."""
     _, H, h, q_win, k_win, embed, post, grid = case
-    B, n, D, heads = 5, 4, 128, 4
+    n, D, heads = 4, 128, 4
     x, we, ce, key, val, params, mlp, post_ln = k2_operands(
         gen, B, n, H, H, D, D, h, h, embed, True)
     assert kernel_path(dtype, D, D, heads, 2 * D, n if embed else 1) == (
@@ -754,8 +763,87 @@ def test_k2_kernel_matches_plain_at_the_path_shapes(gen, dtype, case):
     assert got.dtype == dtype and got.shape == (B, H, H, D)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
-    if dtype == torch.bfloat16:
+    if dtype == torch.bfloat16 or B == 1:
         assert torch.equal(fused_cross_view_attention(*args, **kw), got)
+
+
+# K1 on the SinBEVT paths, head dim 32: (G, Tq, Tk, heads, bias).
+# chip_smoke.py:K1_NUSC_CASES, the stock path of a nuScenes frame (100 and
+# 625 are ragged query windows), then K1_SINBEVT_CASES, one SinBEVT-OPV2V
+# vehicle's FAX windows (stage 0 local and grid, stage 1, stage 2) and its
+# self-attention with its relative-position bias
+K1_SINBEVT_SHAPES = [(100, 600, 432, 1, False), (100, 100, 432, 1, False),
+                     (25, 100, 432, 2, False), (1, 625, 2520, 4, False),
+                     (64, 1024, 256, 4, False), (64, 256, 256, 4, False),
+                     (16, 256, 256, 4, False), (1, 1024, 1024, 4, False),
+                     (1, 1024, 1024, 4, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,Tq,Tk,H,bias", K1_SINBEVT_SHAPES)
+def test_k1_kernel_matches_plain_at_the_sinbevt_shapes(gen, dtype, G, Tq,
+                                                       Tk, H, bias):
+    q = (_rand(gen, G, Tq, H * 32) * 32 ** -0.5).to(dtype)
+    k, v = _rand(gen, G, Tk, H * 32).to(dtype), _rand(gen, G, Tk, H * 32).to(
+        dtype)
+    b = _rand(gen, Tq, H * Tk) * 0.5 if bias else None
+    before = fused_window_attention_packed.launches
+    got = fused_window_attention_packed(q, k, v, H, bias_flat=b)
+    assert fused_window_attention_packed.launches == before + 1
+    want = fused_window_attention_packed(q, k, v, H, bias_flat=b,
+                                         impl="torch")
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    assert torch.equal(fused_window_attention_packed(q, k, v, H, bias_flat=b),
+                       got)
+
+
+# chip_smoke.py:K2_NUSC_CASES: the six branches of a SinBEVT-nuScenes frame
+# (B 1, 6 cameras, head dim 32, MLP hidden 2 D): (name, BEV H=W, keys (h, w),
+# q_win, k_win, D = C, heads, embed, post_ln, grid keys, route in bf16)
+K2_NUSC_CASES = [
+    ("stage0_local", 100, (60, 120), (10, 10), (6, 12), 32, 1, True, False,
+     False, "mma"),
+    ("stage0_grid", 100, (60, 120), (10, 10), (6, 12), 32, 1, False, True,
+     True, "mma"),
+    ("stage1_local", 50, (30, 60), (10, 10), (6, 12), 64, 2, False, False,
+     False, "mma"),
+    ("stage1_grid", 50, (30, 60), (10, 10), (6, 12), 64, 2, False, True,
+     True, "mma"),
+    ("stage2_local", 25, (14, 30), (25, 25), (14, 30), 128, 4, False, False,
+     False, "wgmma"),
+    ("stage2_grid", 25, (14, 30), (25, 25), (14, 30), 128, 4, False, True,
+     True, "wgmma"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", K2_NUSC_CASES, ids=lambda c: c[0])
+def test_k2_kernel_matches_plain_at_the_nuscenes_shapes(gen, dtype, case):
+    _, H, (h, w), q_win, k_win, D, heads, embed, post, grid, route = case
+    B, n = 1, 6
+    x, we, ce, key, val, params, mlp, post_ln = k2_operands(
+        gen, B, n, H, H, D, D, h, w, embed, True)
+    assert kernel_path(dtype, D, D, heads, 2 * D, n if embed else 1) == (
+        route if dtype == torch.bfloat16 else "scalar")
+
+    def cast(t):
+        return None if t is None else t.to(dtype)
+
+    args = (cast(x), cast(we), cast(ce), cast(key), cast(val), params,
+            q_win, k_win, heads, (D // heads) ** -0.5, True)
+    kw = dict(mlp=mlp, post_ln=post_ln if post else None, grid_keys=grid)
+    before = fused_cross_view_attention.launches
+    got = fused_cross_view_attention(*args, **kw)
+    assert fused_cross_view_attention.launches == before + LAUNCHES_PER_CALL
+    want = fused_cross_view_attention(*args, **kw, impl="torch")
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (B, H, H, D)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    assert torch.equal(fused_cross_view_attention(*args, **kw), got)
 
 
 def test_k2_rejects_what_it_does_not_take(gen):

@@ -92,3 +92,32 @@ def assert_close(port_out, jax_out, atol, rtol):
     want = np.asarray(jax_out, np.float32)
     assert got.shape == want.shape, (got.shape, want.shape)
     np.testing.assert_allclose(got, want, atol=atol, rtol=rtol)
+
+
+def calibrate_bn(port: torch.nn.Module, variables: dict, *args,
+                 **kwargs) -> dict:
+    """Set every BatchNorm's running statistics of ``port`` to the batch
+    statistics of one forward of ``args`` (momentum 1, the other modules
+    in eval mode), so a deep net at random weights is not saturated, and
+    return the JAX variables holding the same values (the bridge's
+    reverse direction).  ``port`` is left in eval mode."""
+    from cobevt_tpu.utils.torch_port import (
+        fit_to_template,
+        state_dict_to_numpy,
+        torch_to_flax,
+    )
+    bns = [m for m in port.modules()
+           if isinstance(m, torch.nn.BatchNorm2d)]
+    momenta = [bn.momentum for bn in bns]
+    port.eval()
+    for bn in bns:
+        bn.momentum = 1.0
+        bn.train()
+    with torch.no_grad():
+        port(*args, **kwargs)
+    for bn, momentum in zip(bns, momenta):
+        bn.momentum = momentum
+    port.eval()
+    converted = torch_to_flax(state_dict_to_numpy(port.state_dict()))
+    return {col: fit_to_template(converted[col], variables[col])
+            for col in variables}
