@@ -66,12 +66,17 @@ non-zero without printing the final line:
      SinBEVT slice also K1 at the stock shapes of a nuScenes frame (Tq 600,
      100 and 625: ragged query windows; a bit-for-bit repeat) and K2 at its
      six nuScenes branches (route, launches one by one, a bit-for-bit
-     repeat), and K1, K2 and K3 at one SinBEVT-OPV2V vehicle's shapes (K1's
-     FAX and self-attention windows at G / 5, K2's six branches at B 1, K3
-     on 4 camera images; each with a bit-for-bit repeat) (``--kernels
-     K5,K2``, ``--kernels tiles,K6,K7`` or ``--kernels K4,S8`` runs only
-     such rows and stops without the final line; ``--kernels K9`` the K9
-     and K10 rows, ``A7`` the absmax rows);
+     repeat), since the SinBEVT training slice K5 at the four shapes of a
+     nuScenes train step (B 8: Tq 600, 100 and 625, each with its launches a
+     step; K1's output at those windows, with and without the statistics,
+     against its plain forward, whose output feeds the plain backward) and
+     K2's six branches at B 8 too (the train step under
+     COBEVT_FUSED_XATTN_TRAIN=1), and K1, K2 and K3 at one SinBEVT-OPV2V
+     vehicle's shapes (K1's FAX and self-attention windows at G / 5, K2's
+     six branches at B 1, K3 on 4 camera images; each with a bit-for-bit
+     repeat) (``--kernels K5,K2``, ``--kernels tiles,K6,K7`` or ``--kernels
+     K4,S8`` runs only such rows and stops without the final line;
+     ``--kernels K9`` the K9 and K10 rows, ``A7`` the absmax rows);
   4. slice, the serving default (COBEVT_FUSED_XATTN and
      COBEVT_FUSED_FUSION unset): full-width CorpBEVT (ResNet-34, seeded
      random weights) in bf16 serves synthetic requests with mixed
@@ -130,12 +135,30 @@ non-zero without printing the final line:
      sinbevt with --profile_steps 2 on both paths; the forward gate at
      seeds 0-4, and at seed 0 with each of its planted faults in one K2
      or K1 call (it must fail on a dropped head; a wrong softmax scale,
-     which random weights hide, is read); then SinBEVT-OPV2V (corpbevt.yaml width, one vehicle x 4
-     cameras x 512^2) answers 3 frames on each path (24 K2 + 1 K1 + 20 K3,
-     or 7 K1 + 20 K3, a frame) within the drift budget of the f32 plain
-     path, and its benchmark row.  ``--sinbevt`` runs this phase alone after
-     the build (and the rows of ``--kernels``) and stops without the final
-     line.
+     which random weights hide, is read); then SinBEVT-OPV2V (corpbevt.yaml
+     width, one vehicle x 4 cameras x 512^2) answers 3 frames on each path
+     (24 K2 + 1 K1 + 20 K3, or 7 K1 + 20 K3, a frame) within the drift
+     budget of the f32 plain path, and its benchmark row.  ``--sinbevt``
+     runs this phase alone after the build (and the rows of ``--kernels``)
+     and stops without the final line;
+ 14. SinBEVT train: the nuScenes flagship's train step at B 8 (8 distinct
+     seeded samples) on its experiment's recipe (visibility-masked focal +
+     0.1 x center loss, one-cycle AdamW, clip 5.0) through
+     tools/benchmark.py, 1 warmup, 3 timed and 2 profiled steps: 6 K1 and 6
+     K5 launches a step (K5 at the ragged windows of 600, 100 and 625
+     queries), no backward on the composite, finite loss and gradient norm;
+     one step under COBEVT_FUSED_XATTN_TRAIN=1 (24 K2 launches, and 6 K1 and
+     6 K5 in the composite's backward); the fused-xattn gate of
+     tools/validate_kernels.py (that step against the default step at B 8,
+     both bf16, seeds 0-4: scalars, each parameter's gradient and the
+     train forward's outputs within budgets of their own, which a dropped K2
+     head at stage 2 must fail at every seed); the
+     SinBEVT gradient gate of tools/validate_kernels.py at seeds 0-4 and
+     with each of its planted K5 faults (it must fail on both); then
+     SinBEVT-OPV2V's train step on the OPV2V recipe (1 + 2 steps: 7 K1, 6 K5
+     and one composite backward, the self-attention's, a step).
+     ``--sinbevt_train`` runs this phase alone after the build and stops
+     without the final line.
 
 The last stdout lines are the kernels JSON line, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.  Imports
@@ -224,6 +247,17 @@ K5_CASES = [
     # (an eighth field: the heads; a ninth: calls per LiDAR train step)
     ("lidar_fusion", 264, 320, 320, True, True, 0, 8, 4),
 ]
+# K5 at the nuScenes train step's shapes (B 8, the stock FAX modules over K1:
+# K1_NUSC_CASES at eight samples): stage 0's local branch (6 cameras' 10 x 10
+# query windows, 600 rows), its grid branch and stage 1 (100 rows), stage 2
+# (one window of 625 rows a sample); the ragged query windows K5 takes since
+# the nuScenes training slice.  The fields of K5_CASES, then the calls per
+# nuScenes train step
+K5_NUSC_B = 8
+K5_NUSC_CASES = [
+    (c[0], c[1] * K5_NUSC_B, *c[2:6], 0, c[9], 0,
+     {"per_nuscenes_train_step": c[11]["per_nuscenes_frame_stock"]})
+    for c in K1_NUSC_CASES]
 # K8: head-major attention (name, G, Tq, Tk, bias, mask)
 K8_CASES = [
     ("fax_self_attn", 5, 1024, 1024, True, False),
@@ -279,7 +313,9 @@ K2_NUSC_CASES = [
     ("nusc_stage2_grid", 25, (14, 30), (25, 25), (14, 30), 128, 4, False,
      True, True),
 ]
-K2_NUSC_B, K2_NUSC_CAMS = 1, 6
+# batches of the K2 nuScenes rows: a serving frame (B 1) and the train
+# step under COBEVT_FUSED_XATTN_TRAIN=1 (B 8, one call a step each)
+K2_NUSC_BATCHES, K2_NUSC_CAMS = (1, 8), 6
 # launches a kernel must repeat bit for bit at the SinBEVT shapes
 NUSC_REPEATS = 5
 # K4: the FuseBEVT encoder at CorpBEVT (B 1, L 5 = max_cav, 32^2, D 128,
@@ -389,6 +425,19 @@ FUSED_PER_FRAME = {"fused_window_attention_packed": 1,
 INT8_PER_FRAME = dict(FUSED_PER_FRAME, fused_conv3x3=6,
                       fused_conv3x3_int8=14, conv3x3_s8=6, int8_absmax=2)
 INT8_NOT_RESIDENT_PER_FRAME = dict(INT8_PER_FRAME, conv3x3_s8=0)
+# phase 14, launches per train step (every other wrapper 0; "composite": the
+# backwards of window attention that take the composite): the nuScenes step
+# runs the stock FAX modules, K1 forward and K5 backward for each of its 6
+# cross-view branches, none with a weight; under COBEVT_FUSED_XATTN_TRAIN=1
+# K2's forward and the composite's K1 and K5 behind it; SinBEVT-OPV2V adds the
+# self-attention, whose dropout weight takes the composite backward
+NUSC_TRAIN_PER_STEP = {"fused_window_attention_packed": 6,
+                       "fused_window_attention_packed_bwd": 6}
+NUSC_FUSED_XATTN_TRAIN_PER_STEP = dict(NUSC_TRAIN_PER_STEP,
+                                       fused_cross_view_attention=6 * 4)
+SINBEVT_OPV2V_TRAIN_PER_STEP = {"fused_window_attention_packed": 7,
+                                "fused_window_attention_packed_bwd": 6,
+                                "composite": 1}
 # phase 13, launches per frame (every other wrapper 0): SinBEVT-nuScenes
 # runs K2 for its 6 cross-view branches on the serving default and K1 for
 # each on the stock path (no self-attention, no 3x3 trunk conv: EfficientNet
@@ -907,6 +956,7 @@ def phase_kernels(only=None):
         fused_window_attention,
         fused_window_attention_packed,
         fused_window_attention_packed_bwd,
+        stats_scratch,
     )
     from cobevt_tpu_torch.ops import bn_stats
     from cobevt_tpu_torch.tools import timing
@@ -917,6 +967,7 @@ def phase_kernels(only=None):
     from cobevt_tpu_torch.tools.micro_ffd_fused import make_operands, ref_ffd
     log("== kernels vs plain versions (CUDA events, after warmup)")
     gen = torch.Generator(device="cuda").manual_seed(0)
+    nusc_gen = torch.Generator(device="cuda").manual_seed(14)
     details = []
     failures = []
 
@@ -1308,9 +1359,10 @@ def phase_kernels(only=None):
             if not row["ok"]:
                 failures.append(row)
             del x, we, ce, key, val, params, mlp, post_ln, packed, got, want
-        for case in K2_NUSC_CASES if selected("K2") else ():
+        for B, case in [(B, c) for B in K2_NUSC_BATCHES
+                        for c in K2_NUSC_CASES] if selected("K2") else ():
             name, H, (h, w), q_win, k_win, D, heads, embed, post, grid = case
-            B, n = K2_NUSC_B, K2_NUSC_CAMS
+            n = K2_NUSC_CAMS
             x, we, ce, key, val, params, mlp, post_ln = k2_branch_inputs(
                 B, n, H, H, h, w, D, D, 2 * D, embed, post, dtype, gen)
             packed = pack_params(params, mlp, post_ln, dtype)
@@ -1326,8 +1378,10 @@ def phase_kernels(only=None):
             abs_err, rel_err, ok = compare(got, want, dname)
             repeats = all(torch.equal(xattn("kernel"), got)
                           for _ in range(NUSC_REPEATS))
-            row = {"kernel": "K2", "case": name, "dtype": dname,
-                   "per_frame": 0, "per_nuscenes_frame": 1,
+            row = {"kernel": "K2", "case": name if B == 1 else f"{name}_b{B}",
+                   "dtype": dname, "batch": B, "per_frame": 0,
+                   "per_nuscenes_frame": int(B == 1),
+                   "per_nuscenes_fused_xattn_train_step": int(B > 1),
                    "route": k2_kernel_path(dtype, D, D, heads, 2 * D,
                                            n if embed else 1),
                    "max_abs_err": abs_err, "max_rel_err": rel_err,
@@ -1421,21 +1475,35 @@ def phase_kernels(only=None):
                 failures.append(row)
             del x, mask, am, bias, layers, head, packed, got
             torch.cuda.empty_cache()
-        for case in K5_CASES if selected("K5") else ():
+        for case in K5_CASES + K5_NUSC_CASES if selected("K5") else ():
             name, G, Tq, Tk, has_bias, has_mask, per_step = case[:7]
-            heads, per_lidar_step = case[7:] if len(case) > 7 else (K1_HEADS,
-                                                                    0)
+            heads, per_lidar_step = case[7:9] if len(case) > 7 else (
+                K1_HEADS, 0)
+            # the nuScenes rows draw from a generator of their own, so the
+            # rows before them keep their inputs
+            nusc = len(case) > 9
+            draw = nusc_gen if nusc else gen
             q, k, v, bias, mask, _ = k1_inputs(
-                (name, G, Tq, Tk, has_bias, has_mask, False), dtype, gen,
+                (name, G, Tq, Tk, has_bias, has_mask, False), dtype, draw,
                 heads)
-            g = torch.randn(G, Tq, heads * K1_HEAD_DIM, generator=gen,
+            g = torch.randn(G, Tq, heads * K1_HEAD_DIM, generator=draw,
                             device="cuda").to(dtype)
             out = fused_window_attention_packed(q, k, v, heads, bias, mask,
                                                 impl="kernel")
+            # at a nuScenes train step's windows (G 800, 200, 8) K1 is held
+            # here against its plain forward, and the plain backward takes
+            # the plain output: a wrong K1 output fails the row instead of
+            # feeding both backwards alike
+            plain_out = fused_window_attention_packed(
+                q, k, v, heads, bias, mask, impl="torch") if nusc else out
+            fwd_errs = {}
+            if nusc:
+                fwd_errs["k1_out"] = compare(out, plain_out, dname)
 
             def bwd(impl):
                 return fused_window_attention_packed_bwd(
-                    q, k, v, g, out, heads, bias, mask, impl=impl)
+                    q, k, v, g, out if impl == "kernel" else plain_out, heads,
+                    bias, mask, impl=impl)
 
             got, want = bwd("kernel"), bwd("torch")
             # a second call gives the same bits, dbias included: one writer
@@ -1446,8 +1514,13 @@ def phase_kernels(only=None):
             # the forward, so K5 skips its own statistics sweep
             stats = fed = None
             if dtype == torch.bfloat16:
-                stats = torch.empty((3, G, heads, Tq), device="cuda")
-                _launch_k1(q, k, v, heads, bias, mask, None, stats)
+                stats = stats_scratch(G, heads, Tq, "cuda")
+                stats_out = _launch_k1(q, k, v, heads, bias, mask, None,
+                                       stats)
+                if nusc:   # K1 writing the statistics at the padded pitch
+                    fwd_errs["k1_stats_out"] = compare(stats_out, plain_out,
+                                                       dname)
+                del stats_out
 
                 def bwd_fed():
                     return _launch_bwd_kernel(q, k, v, g, out, heads, bias,
@@ -1459,7 +1532,7 @@ def phase_kernels(only=None):
                     for a, b in zip(fed, bwd_fed()))
             torch.cuda.synchronize()
             errs = {}
-            ok = repeats
+            ok = repeats and all(e[2] for e in fwd_errs.values())
             for part, a, b in zip(("dq", "dk", "dv", "dbias"),
                                   fed or got, want):
                 if (a is None) != (b is None) or (a is None) != (
@@ -1482,6 +1555,8 @@ def phase_kernels(only=None):
                    "max_rel_err": max(e[1] for e in errs.values()),
                    "errors": {k_: list(e) for k_, e in errs.items()},
                    "ok": ok, "ms": time_ms(lambda: bwd("kernel"), iters)}
+            if fwd_errs:
+                row["k1_errors"] = {k_: list(e) for k_, e in fwd_errs.items()}
             if fed is not None:
                 # K5 alone with its own statistics sweep (the public
                 # wrapper), then fed by K1's statistics: what a train step
@@ -1534,11 +1609,14 @@ def phase_kernels(only=None):
             timed = bwd_fed if fed is not None else (lambda: bwd("kernel"))
             row["device_ms"] = device_ms(timed, iters)
             row["launch_device_ms"] = kernel_device_ms(timed, iters)
+            if len(case) > 9:
+                # a nuScenes train step's shapes: its launches a step
+                row.update(case[9])
             details.append(row)
             if not ok:
                 failures.append(row)
-            del q, k, v, g, out, bias, mask, got, leaves, add, g4, wrt
-            del stats, fed
+            del q, k, v, g, out, plain_out, bias, mask, got, leaves, add, g4
+            del wrt, stats, fed
         for name, N, D, M, per_pass in FFD_CASES if selected("K11") else ():
             operands = make_operands(N, D, M, dtype, torch.device("cuda"))
             x, gamma, beta, w1, b1, w2, b2 = operands
@@ -2544,6 +2622,169 @@ def phase_sinbevt(seed=0):
     return result
 
 
+def train_run(name, model_name, model, batch, per_step, argv):
+    """The train step of tools/benchmark.py (``--train --model
+    model_name`` and ``argv``) on ``model``, with every launch count set to
+    0 just before the timed steps and read just after the profiled ones,
+    and the calls of the composite backward of window attention counted
+    over every step; raise unless each wrapper ran ``per_step`` (0 where
+    absent) launches a step, the composite ran ``per_step["composite"]``
+    (0 where absent) times a step, and loss and gradient norm are finite.
+    Returns (counts, benchmark row)."""
+    import math
+    import torch
+    from cobevt_tpu_torch import ops
+    from cobevt_tpu_torch.ops import window_attention
+    from cobevt_tpu_torch.tools import benchmark
+    opt = benchmark.parse_args(["--train", "--model", model_name, *argv])
+    real, composite = window_attention.packed_backward_composite, [0]
+
+    def counted(*args, **kwargs):
+        composite[0] += 1
+        return real(*args, **kwargs)
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    window_attention.packed_backward_composite = counted
+    try:
+        ops.reset_launch_counts()
+        before = time.perf_counter()
+        row = benchmark.measure_train(model, model_name, batch, opt, device)
+        counts = ops.launch_counts()
+    finally:
+        window_attention.packed_backward_composite = real
+    # measure_train sets the counts to 0 again after its warmup steps
+    steps = opt.iters + opt.profile_steps
+    row["composite_backwards"] = composite[0]
+    log(f"{name}: {opt.warmup} + {steps} steps in "
+        f"{time.perf_counter() - before:.1f} s, launches after the warmup "
+        f"{counts}, composite backwards {composite[0]}")
+    log(f"{name} benchmark " + json.dumps(row))
+    for fn, n in counts.items():
+        if n != per_step.get(fn, 0) * steps:
+            raise AssertionError(f"{name}: {fn} ran {n} launches over {steps} "
+                                 f"steps, expected {per_step.get(fn, 0)} "
+                                 f"each")
+    if composite[0] != per_step.get("composite", 0) * (opt.warmup + steps):
+        raise AssertionError(f"{name}: {composite[0]} backwards took the "
+                             f"composite")
+    if not (math.isfinite(row["loss"]) and math.isfinite(row["grad_norm"])):
+        raise AssertionError(f"{name}: loss {row['loss']}, gradient norm "
+                             f"{row['grad_norm']}")
+    return counts, row
+
+
+def phase_sinbevt_train(seed=0):
+    """Phase 14: the nuScenes flagship's train step at B 8, full width, on
+    its experiment's recipe through tools/benchmark.py (1 warmup, 3 timed
+    and 2 profiled steps: K1 x6 and K5 x6 a step, no composite backward),
+    one step under COBEVT_FUSED_XATTN_TRAIN=1 (K2 x24, and K1 and K5 x6 in
+    the composite's backward), that step's gate against the default step at
+    seeds 0-4 and with a dropped K2 head, the SinBEVT gradient gate at
+    seeds 0-4 and its planted K5 faults, then SinBEVT-OPV2V's step (1 + 2
+    steps).  The nuScenes batches hold 8 distinct samples."""
+    import torch
+    from cobevt_tpu_torch.ops.dispatch import env_switches
+    from cobevt_tpu_torch.tools import benchmark
+    from cobevt_tpu_torch.tools import validate_kernels as vk
+    t0 = time.perf_counter()
+    result = {}
+    device = torch.device("cuda", torch.cuda.current_device())
+    log("== phase 14: SinBEVT-nuScenes train step, B 8, EfficientNet-b4, 6 "
+        "cameras x 224 x 480, BEV 200^2, bf16 compute, f32 master "
+        "parameters, one-cycle AdamW clipped at 5.0")
+    argv = ["--iters", str(TRAIN_STEPS), "--warmup", "1", "--seed",
+            str(seed), "--profile_steps", "2"]
+    # the experiment's batch (--batch's default), B distinct samples
+    B = benchmark.parse_args(["--train", "--model", "sinbevt"]).batch
+    model, batch, _ = benchmark.build_sinbevt(seed=seed, device=device,
+                                              batch_size=B)
+    result["counts"], result["step"] = train_run(
+        "nuScenes train", "sinbevt", model, batch, NUSC_TRAIN_PER_STEP, argv)
+    del model, batch
+    torch.cuda.empty_cache()
+    model, batch, _ = benchmark.build_sinbevt(seed=seed, device=device,
+                                              batch_size=B)
+    with env_switches(COBEVT_FUSED_XATTN_TRAIN="1"):
+        result["fused_xattn_counts"], result["fused_xattn_step"] = train_run(
+            "nuScenes train, COBEVT_FUSED_XATTN_TRAIN=1", "sinbevt", model,
+            batch, NUSC_FUSED_XATTN_TRAIN_PER_STEP,
+            ["--iters", "1", "--warmup", "0", "--seed", str(seed)])
+    del model, batch
+    torch.cuda.empty_cache()
+    log(f"== COBEVT_FUSED_XATTN_TRAIN=1 against the default step, both "
+        f"bf16, B {vk.SINBEVT_XATTN_TRAIN_BATCH}, seeds 0-4; then with K2's "
+        f"first head dropped in stage 2's local branch")
+    xattn = vk.validate_sinbevt_xattn_train(device)
+    xattn["planted"] = vk.validate_sinbevt_xattn_train(device, fault=True)
+    for kind, run in (("sound", xattn), ("fault", xattn["planted"])):
+        for r in run["per_seed"]:
+            log(f"  {kind}, seed {r['seed']}: " + json.dumps(
+                {k: r[k] for k in ("ok", "max_scalar", "max_material_rel",
+                                   "max_rel", "output_drift", "control",
+                                   "worst_material_params", "scalars")}))
+    for r in xattn["per_seed"]:
+        if r["launches"] != dict(
+                {fn: 0 for fn in r["launches"]},
+                **{fn: n for fn, n in NUSC_FUSED_XATTN_TRAIN_PER_STEP.items()
+                   if fn != "composite"}):
+            raise AssertionError(f"fused-xattn gate seed {r['seed']}: "
+                                 f"launches {r['launches']}")
+    if not xattn["ok"]:
+        raise AssertionError("COBEVT_FUSED_XATTN_TRAIN=1 left the default "
+                             "step's budget: " + json.dumps(xattn))
+    if any(r["ok"] for r in xattn["planted"]["per_seed"]):
+        raise AssertionError("the fused-xattn gate passed a dropped K2 head: "
+                             + json.dumps(xattn["planted"]))
+    result["fused_xattn_gate"] = xattn
+    torch.cuda.empty_cache()
+
+    log(f"== SinBEVT gradient gate: the bf16 step vs the f32 plain step and "
+        f"vs K5's plain version in its backward, B {vk.SINBEVT_TRAIN_BATCH}, "
+        f"seeds 0-4")
+    gate = vk.validate_sinbevt_train(device)
+    log("sinbevt train gate " + json.dumps(
+        {k: v for k, v in gate.items() if k != "per_seed"}))
+    for r in gate["per_seed"]:
+        log(f"  seed {r['seed']}: " + json.dumps(
+            {n: {k: r[n][k] for k in ("max_scalar", "max_material_rel",
+                                      "max_rel", "worst_material_params",
+                                      "scalars")}
+             for n in ("truth", "plain")}))
+        if r["launches"] != dict(
+                {fn: 0 for fn in r["launches"]},
+                **{fn: n for fn, n in NUSC_TRAIN_PER_STEP.items()
+                   if fn != "composite"}):
+            raise AssertionError(f"gate seed {r['seed']}: launches "
+                                 f"{r['launches']}")
+    if not gate["ok"]:
+        raise AssertionError("SinBEVT gradient gate failed: "
+                             + json.dumps(gate))
+    result["gate"] = gate
+    log("== the gate with a fault planted in the first K5 call (stage 2, "
+        "Tq 625), seed 0")
+    planted = vk.validate_sinbevt_train_faults(device)
+    for name, r in planted["faults"].items():
+        log(f"  {name}: " + json.dumps(r))
+    if not planted["ok"]:
+        raise AssertionError("the SinBEVT gradient gate passed a planted "
+                             "fault it must fail: " + json.dumps(planted))
+    result["planted"] = planted
+    torch.cuda.empty_cache()
+
+    log("== phase 14: SinBEVT-OPV2V train step (corpbevt.yaml width, one "
+        "vehicle x 4 cameras x 512^2), the OPV2V recipe, B 1")
+    model, batch, _ = benchmark.build_sinbevt_opv2v(seed=seed, device=device)
+    result["opv2v_counts"], result["opv2v_step"] = train_run(
+        "SinBEVT-OPV2V train", "sinbevt_opv2v", model, batch,
+        SINBEVT_OPV2V_TRAIN_PER_STEP,
+        ["--iters", "2", "--warmup", "1", "--seed", str(seed)])
+    del model, batch
+    torch.cuda.empty_cache()
+    result["seconds"] = time.perf_counter() - t0
+    log(f"phase 14: {result['seconds']:.1f} s")
+    return result
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default=None,
@@ -2556,6 +2797,10 @@ def main(argv=None):
                    help="run phase 13 (SinBEVT) after the build, and after "
                         "the rows of --kernels if given, then stop without "
                         "the final line")
+    p.add_argument("--sinbevt_train", action="store_true",
+                   help="run phase 14 (SinBEVT's train step) after the "
+                        "build, and after --kernels and --sinbevt if given, "
+                        "then stop without the final line")
     opt = p.parse_args(argv)
 
     import torch
@@ -2566,15 +2811,17 @@ def main(argv=None):
     t0 = time.perf_counter()
     phase_environment()
     phase_build()
-    if opt.kernels or opt.sinbevt:
+    if opt.kernels or opt.sinbevt or opt.sinbevt_train:
         details = (phase_kernels(set(opt.kernels.split(",")))
                    if opt.kernels else [])
         sinbevt = phase_sinbevt() if opt.sinbevt else None
+        sinbevt_train = phase_sinbevt_train() if opt.sinbevt_train else None
         if opt.out:
             os.makedirs(os.path.dirname(os.path.abspath(opt.out)),
                         exist_ok=True)
             with open(opt.out, "w") as f:
                 json.dump({"cases": details, "sinbevt": sinbevt,
+                           "sinbevt_train": sinbevt_train,
                            "card": card_line()}, f, indent=1)
         log(f"total {time.perf_counter() - t0:.1f} s")
         return 0
@@ -2588,6 +2835,7 @@ def main(argv=None):
     lidar_train_counts, lidar_train_row, lidar_gate = phase_lidar_train()
     ffd_counts = phase_micro_ffd_fused()
     sinbevt = phase_sinbevt()
+    sinbevt_train = phase_sinbevt_train()
 
     # (wrapper, source, the TPU function it replaces)
     sources = {
@@ -2643,13 +2891,21 @@ def main(argv=None):
         launches[fn] = bn_counts[fn]
     for fn in ("fused_ffd", "fused_ffd_bwd"):
         launches[fn] = ffd_counts[fn]
-    # K1, K2 and K3 on the SinBEVT paths of phase 13 too
+    # K1, K2 and K3 on the SinBEVT paths of phase 13 too, and K1, K5 and K2
+    # on the train steps of phase 14
     for counts13 in (sinbevt["counts"], sinbevt["stock_counts"],
                      sinbevt["opv2v"]["default_counts"],
                      sinbevt["opv2v"]["stock_counts"]):
         for fn in ("fused_window_attention_packed",
                    "fused_cross_view_attention", "fused_conv3x3"):
             launches[fn] += counts13[fn]
+    for counts14 in (sinbevt_train["counts"],
+                     sinbevt_train["fused_xattn_counts"],
+                     sinbevt_train["opv2v_counts"]):
+        for fn in ("fused_window_attention_packed",
+                   "fused_window_attention_packed_bwd",
+                   "fused_cross_view_attention"):
+            launches[fn] += counts14[fn]
     kernels = []
     for key, (fn, src, replaces) in sources.items():
         rows = [r for r in details if r["kernel"] == key]
@@ -2695,6 +2951,7 @@ def main(argv=None):
                        "lidar_train_counts": lidar_train_counts,
                        "lidar_gradient_gate": lidar_gate,
                        "ffd_counts": ffd_counts, "sinbevt": sinbevt,
+                       "sinbevt_train": sinbevt_train,
                        "kernels": kernels,
                        "card": card_line(),
                        "torch": torch.__version__,

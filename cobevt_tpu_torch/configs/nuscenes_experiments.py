@@ -4,9 +4,9 @@ Counterpart of ``cobevt_tpu/configs/nuscenes_experiments.py``: each
 experiment is one frozen dataclass bundling encoder, output slices, loss
 composition, label grouping and trainer hyperparameters
 (``config/experiment/*.yaml``); :func:`experiment_to_dict` exports it in the
-reference's flattened schema.  The pyramid-axial presets are here; the
-dense-CVT ablation (``cvt_nuscenes_vehicle``) waits for the CVT encoder,
-and ``build_criterion`` for the nuScenes losses.
+reference's flattened schema, and :func:`build_criterion` composes its
+loss.  The pyramid-axial presets are here; the dense-CVT ablation
+(``cvt_nuscenes_vehicle``) waits for the CVT encoder.
 """
 
 from __future__ import annotations
@@ -16,6 +16,11 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from cobevt_tpu_torch.losses import (
+    BinarySegmentationLoss,
+    CenterLoss,
+    MultipleLoss,
+)
 from cobevt_tpu_torch.models.sinbevt_nuscenes import (
     CrossViewTransformer,
     PyramidAxialConfig,
@@ -110,6 +115,29 @@ def build_model(exp: NuScenesExperiment, half: bool = False):
         exp.encoder, decoder_blocks=exp.decoder_blocks,
         dim_last=exp.dim_last, outputs=exp.outputs)
     return model.to(torch.bfloat16) if half else model
+
+
+def build_criterion(exp: NuScenesExperiment) -> MultipleLoss:
+    """The experiment's ``MultipleLoss`` (reference ``common.py:31``): the
+    vehicle preset's visibility-masked focal loss on ``bev`` (labels folded
+    by ``label_indices``) plus 0.1 x the masked center loss, the road
+    preset's unmasked focal loss."""
+    losses, weights = [], []
+    for name, spec in exp.losses:
+        if spec.kind == "binary_seg":
+            fn = BinarySegmentationLoss(
+                label_indices=(exp.label_indices
+                               if spec.use_label_indices else None),
+                min_visibility=spec.min_visibility,
+                alpha=spec.alpha, gamma=spec.gamma)
+        elif spec.kind == "center":
+            fn = CenterLoss(min_visibility=spec.min_visibility,
+                            alpha=spec.alpha, gamma=spec.gamma)
+        else:
+            raise ValueError(f"unknown loss kind {spec.kind!r}")
+        losses.append((name, fn))
+        weights.append((name, spec.weight))
+    return MultipleLoss(losses=tuple(losses), weights=tuple(weights))
 
 
 def experiment_to_dict(exp: NuScenesExperiment) -> dict:

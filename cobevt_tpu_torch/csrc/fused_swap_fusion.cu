@@ -887,7 +887,7 @@ extern "C" int cobevt_fusion_wg_attention(const void* qkv, const void* bias,
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(qkv);
   return (int)wattn::dispatch_wgmma(
       q, q + (size_t)rows * d.D, q + 2 * (size_t)rows * d.D, bias, mask,
-      nullptr, att, nullptr, rows / T, T, T, d.heads, hd, 0,
+      nullptr, att, nullptr, 0, rows / T, T, T, d.heads, hd, 0,
       wattn::packed_layout(T, T, d.heads, hd), device,
       static_cast<cudaStream_t>(stream), true, pdl != 0);
 }

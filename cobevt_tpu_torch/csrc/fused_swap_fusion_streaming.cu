@@ -631,7 +631,7 @@ cudaError_t sublayer(const void* S_in, void* S_out, void* qkv, void* att,
   const int hd = D / d.heads;
   const bf16* q = static_cast<const bf16*>(qkv);
   err = wattn::dispatch_wgmma(q, q + (size_t)rows * D, q + 2 * (size_t)rows * D,
-                              bias, mask, nullptr, att, nullptr, G, T, T,
+                              bias, mask, nullptr, att, nullptr, 0, G, T, T,
                               d.heads, hd, 0,
                               wattn::packed_layout(T, T, d.heads, hd),
                               device, s);

@@ -223,9 +223,9 @@ void launch(const void* q, const void* k, const void* v, const void* bias,
 // Picks the kernel for (D, dtype).  Returns the launch's cudaError_t.
 cudaError_t dispatch(const void* q, const void* k, const void* v,
                      const void* bias, const void* mask, const void* weight,
-                     void* out, float* stats, int G, int Tq, int Tk, int H,
-                     int D, int is_bf16, int head_major, const Layout& L,
-                     int device, void* stream) {
+                     void* out, float* stats, int ldst, int G, int Tq,
+                     int Tk, int H, int D, int is_bf16, int head_major,
+                     const Layout& L, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (G <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || G > 65535 || H > 65535)
@@ -233,8 +233,8 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
   if (D != 16 && D != 32) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return dispatch_wgmma(q, k, v, bias, mask, weight, out, stats, G, Tq, Tk,
-                          H, D, head_major, L, device, s);
+    return dispatch_wgmma(q, k, v, bias, mask, weight, out, stats, ldst, G,
+                          Tq, Tk, H, D, head_major, L, device, s);
   if (stats != nullptr) return cudaErrorInvalidValue;   // bf16 only
   if (D == 32)
     launch<32>(q, k, v, bias, mask, weight, out, G, Tq, Tk, H, L, s);
@@ -250,18 +250,20 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
 // cudaError_t of the set-up and launch (0 on success).
 
 // K1: packed layout, q (G, Tq, H*D), bias (Tq, H*Tk).  stats: null, or (bf16
-// without weight, for K5) an f32 (3, G, H, Tq) scratch that receives the row
-// maximum times log2(e) and the inverse of the sum of the exp rounded to
-// bf16 in its first two planes.
+// without weight, for K5) an f32 (3, G, H, ldst) scratch, ldst >= Tq a
+// multiple of 4 (K5 reads it through TMA), that receives the row maximum
+// times log2(e) and the inverse of the sum of the exp rounded to bf16 in its
+// first two planes.
 extern "C" int cobevt_window_attention(const void* q, const void* k,
                                        const void* v, const void* bias,
                                        const void* mask, const void* weight,
                                        void* out, void* stats, int G, int Tq,
-                                       int Tk, int H, int D, int is_bf16,
-                                       int device, void* stream) {
+                                       int Tk, int H, int D, int ldst,
+                                       int is_bf16, int device, void* stream) {
   return (int)dispatch(q, k, v, bias, mask, weight, out,
-                       static_cast<float*>(stats), G, Tq, Tk, H, D, is_bf16,
-                       0, packed_layout(Tq, Tk, H, D), device, stream);
+                       static_cast<float*>(stats), ldst, G, Tq, Tk, H, D,
+                       is_bf16, 0, packed_layout(Tq, Tk, H, D), device,
+                       stream);
 }
 
 // K8: head-major layout, q (G, H, Tq, D), bias (H, Tq, Tk), no weight.
@@ -271,7 +273,7 @@ extern "C" int cobevt_window_attention_hm(const void* q, const void* k,
                                           int Tq, int Tk, int H, int D,
                                           int is_bf16, int device,
                                           void* stream) {
-  return (int)dispatch(q, k, v, bias, mask, nullptr, out, nullptr, G, Tq, Tk,
-                       H, D, is_bf16, 1, head_major_layout(Tq, Tk, H, D),
+  return (int)dispatch(q, k, v, bias, mask, nullptr, out, nullptr, 0, G, Tq,
+                       Tk, H, D, is_bf16, 1, head_major_layout(Tq, Tk, H, D),
                        device, stream);
 }

@@ -117,8 +117,8 @@ __global__ void __launch_bounds__(128, kWgBlocksPerSm)
         const __grid_constant__ CUtensorMap bmap,
         const __grid_constant__ CUtensorMap mmap,
         const __grid_constant__ CUtensorMap wmap,
-        __nv_bfloat16* __restrict__ out, float* __restrict__ stats, int G,
-        int Tq, int Tk, int H, Layout L, int head_major, int has_bias,
+        __nv_bfloat16* __restrict__ out, float* __restrict__ stats, int ldst,
+        int G, int Tq, int Tk, int H, Layout L, int head_major, int has_bias,
         int has_mask, int has_weight, int stages) {
   using namespace hopper;
   constexpr Swizzle kSw = D == 32 ? kSwizzle64 : kSwizzle32;
@@ -383,15 +383,16 @@ __global__ void __launch_bounds__(128, kWgBlocksPerSm)
     l_run[hr] += __shfl_xor_sync(0xffffffffu, l_run[hr], 2);
   }
   if (stats != nullptr) {
-    // K5's row statistics (3, G, H, Tq): max * log2(e), 1 / rounded sum
+    // K5's row statistics (3, G, H, ldst): max * log2(e), 1 / rounded sum;
+    // rows ldst floats apart (the caller's pitch, as K5's TMA reads them)
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       l_bf[hr] += __shfl_xor_sync(0xffffffffu, l_bf[hr], 1);
       l_bf[hr] += __shfl_xor_sync(0xffffffffu, l_bf[hr], 2);
       const int row = q0 + rl[hr];
       if (t == 0 && row < Tq) {
-        const size_t per = (size_t)G * H * Tq;
-        const size_t i0 = ((size_t)win * H + h) * Tq + row;
+        const size_t per = (size_t)G * H * ldst;
+        const size_t i0 = ((size_t)win * H + h) * ldst + row;
         stats[i0] = ml_prev[hr];
         stats[per + i0] = 1.f / l_bf[hr];
       }
@@ -425,7 +426,8 @@ inline int wg_stages(int D, bool bias, bool weight, bool mask,
 
 template <int D, bool kK4>
 inline cudaError_t launch_wgmma(const CUtensorMap* maps, void* out,
-                                float* stats, int G, int Tq, int Tk, int H,
+                                float* stats, int ldst, int G, int Tq, int Tk,
+                                int H,
                                 const Layout& L, int head_major, bool bias,
                                 bool mask, bool weight, int device,
                                 cudaStream_t stream, bool pdl) {
@@ -449,11 +451,13 @@ inline cudaError_t launch_wgmma(const CUtensorMap* maps, void* out,
         pdl, kernel, dim3((unsigned)blocks), dim3(128), plan.smem_bytes,
         stream,
         maps[0], maps[1], maps[2], maps[3], maps[4], maps[5],
-        static_cast<__nv_bfloat16*>(out), stats, G, Tq, Tk, H, L, head_major,
+        static_cast<__nv_bfloat16*>(out), stats, ldst, G, Tq, Tk, H, L,
+        head_major,
         (int)bias, (int)mask, (int)weight, stages);
   kernel<<<(unsigned)blocks, 128, plan.smem_bytes, stream>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], maps[5],
-      static_cast<__nv_bfloat16*>(out), stats, G, Tq, Tk, H, L, head_major,
+      static_cast<__nv_bfloat16*>(out), stats, ldst, G, Tq, Tk, H, L,
+      head_major,
       (int)bias, (int)mask, (int)weight, stages);
   return cudaGetLastError();
 }
@@ -466,14 +470,16 @@ inline cudaError_t launch_wgmma(const CUtensorMap* maps, void* out,
 // the kernel ahead of it has finished (hopper_host::launch_pdl).
 inline cudaError_t dispatch_wgmma(const void* q, const void* k, const void* v,
                            const void* bias, const void* mask,
-                           const void* weight, void* out, float* stats, int G,
-                           int Tq, int Tk, int H, int D, int head_major,
+                           const void* weight, void* out, float* stats,
+                           int ldst, int G, int Tq, int Tk, int H, int D,
+                           int head_major,
                            const Layout& L, int device, cudaStream_t stream,
                            bool k4_numerics = false, bool pdl = false) {
   using hopper_host::make_map;
   if (head_major && weight != nullptr) return cudaErrorInvalidValue;
   if (k4_numerics && weight != nullptr) return cudaErrorInvalidValue;
-  if (stats != nullptr && (weight != nullptr || head_major))
+  if (stats != nullptr && (weight != nullptr || head_major || ldst < Tq ||
+                           ldst % 4))
     return cudaErrorInvalidValue;
   const CUtensorMapSwizzle sw =
       D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
@@ -552,8 +558,8 @@ inline cudaError_t dispatch_wgmma(const void* q, const void* k, const void* v,
   }
   const bool b = bias != nullptr, m = mask != nullptr, w = weight != nullptr;
 #define WG_LAUNCH(HD, K4)                                                     \
-  launch_wgmma<HD, K4>(maps, out, stats, G, Tq, Tk, H, L, head_major, b, m, w, \
-                       device, stream, pdl)
+  launch_wgmma<HD, K4>(maps, out, stats, ldst, G, Tq, Tk, H, L, head_major, \
+                       b, m, w, device, stream, pdl)
   if (D == 32) return k4_numerics ? WG_LAUNCH(32, true) : WG_LAUNCH(32, false);
   return k4_numerics ? WG_LAUNCH(16, true) : WG_LAUNCH(16, false);
 #undef WG_LAUNCH

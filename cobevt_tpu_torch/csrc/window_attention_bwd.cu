@@ -8,8 +8,20 @@
 //        windows; optional f32 key mask (G, Tk), -1e9 added where mask <= 0.
 //   out: dq (G, Tq, H*D), dk, dv (G, Tk, H*D) in the input dtype, and
 //        dbias (Tq, H*Tk) f32 summed over the windows.
-//   f32 or bf16, D in {16, 32}, Tq and Tk multiples of 8.  No post-softmax
-//   weight: that case takes the plain composite backward, as in JAX.
+//   f32 or bf16, D in {16, 32}, any Tq >= 1 (the nuScenes windows of 100
+//   and 625 queries included), Tk a multiple of 8.  No post-softmax weight:
+//   that case takes the plain composite backward, as in JAX.  The row
+//   statistics scratch is (3, G, H, ldst) f32, the pitch ldst >= Tq a
+//   multiple of 4 given by the caller (ops/window_attention.py:stats_pitch),
+//   so every (window, head) row starts on 16 bytes, as TMA's strides must;
+//   K1 writes it at the same pitch.
+//
+// Rows past Tq: the q, g and out maps are 4D (D, H, T, G), so TMA
+// zero-fills a tile's rows past Tq and never reads the next window's; their
+// statistics read 0 (K1 and launch 1 never write them, the statistics map
+// is cut at Tq and zero-fills), so p = bf16(exp2(0 - 0)) * 0 = 0 exactly,
+// and ds = 0 * (0 - 0): they add nothing to dk, dv or dbias, and their dq
+// is never stored.
 //
 // Roundings follow the TPU body: sim = q k^T in f32, + bias, + mask;
 // e = exp(sim - max) rounded to the value dtype, the per-head sum taken from
@@ -41,7 +53,11 @@
 // fax_grid_stage0 (320, 256^2) 0.050 ms, fax_stage1 (80, 256^2) 0.013 ms
 // and fusion (16, 320^2, bias, mask) 0.004 ms, bytes; fax_stage2 (5,
 // 1024^2) 6.7 GFLOP, the operations bind at 0.007 ms; lidar_fusion (264,
-// 320^2, 8 heads, bias, mask) 352 MB, bytes, 0.105 ms.  With D 32 each
+// 320^2, 8 heads, bias, mask) 352 MB, bytes, 0.105 ms; the nuScenes train
+// step at B 8 (bias- and mask-free): stage 0 local (G 800, 600 x 432, 1
+// head) 66 GFLOP / 211 MB, operations at 0.067 ms; stage 0 grid (800, 100
+// x 432) 0.033 ms and stage 1 (200, 100 x 432, 2 heads) 0.016, bytes; stage
+// 2 (8, 625 x 2,520, 4 heads) 16 GFLOP, operations at 0.016.  With D 32 each
 // score costs 64 operations of a product but one exp and some ten f32
 // operations of the softmax, so, as in K1, the exp and the f32 arithmetic,
 // not the tensor cores, set the pace once the loads are hidden: the design
@@ -116,14 +132,15 @@ struct Args {
   const void* o;
   const float* bias;  // (Tq, H*Tk) or null
   const float* mask;  // (G, Tk) or null
-  float* m;           // (G, H, Tq) row max
-  float* l;           // (G, H, Tq) sum of the rounded exp
-  float* s;           // (G, H, Tq) flash rowsum
+  float* m;           // (G, H, ldst) row max
+  float* l;           // (G, H, ldst) sum of the rounded exp
+  float* s;           // (G, H, ldst) flash rowsum
   void* dq;
   void* dk;
   void* dv;
   float* dbias;  // the (P, Tq, H*Tk) partials (chunk p's slot); or null
   int Tq, Tk, H;
+  int ldst;      // the statistics' row pitch, Tq rounded up to 4
   int wpc;       // windows a chunk
 };
 
@@ -205,7 +222,7 @@ __global__ void __launch_bounds__(kRows) stats_kernel(Args a) {
     float s = 0.f;
 #pragma unroll
     for (int d = 0; d < D; ++d) s = fmaf(g[roff + d], o[roff + d], s);
-    const size_t si = ((size_t)win * a.H + h) * a.Tq + row;
+    const size_t si = ((size_t)win * a.H + h) * a.ldst + row;
     a.m[si] = m;
     a.l[si] = l;
     a.s[si] = s;
@@ -245,7 +262,7 @@ __global__ void __launch_bounds__(kRows) dq_kernel(Args a, int G) {
       gr[d] = g[roff + d];
       dq[d] = 0.f;
     }
-    const size_t si = ((size_t)win * a.H + h) * a.Tq + rc;
+    const size_t si = ((size_t)win * a.H + h) * a.ldst + rc;
     const float m = a.m[si];
     const float il = 1.f / a.l[si];
     const float s = a.s[si];
@@ -339,7 +356,7 @@ __global__ void __launch_bounds__(kRows) dkdv_kernel(Args a) {
     if (tid < kStep) {
       const bool ql = q0 + tid < a.Tq;
       const size_t si =
-          ((size_t)win * a.H + h) * a.Tq + (ql ? q0 + tid : a.Tq - 1);
+          ((size_t)win * a.H + h) * a.ldst + (ql ? q0 + tid : a.Tq - 1);
       // a query past Tq adds nothing: exp(x - inf) = 0, times 0
       ms[tid] = ql ? a.m[si] : INFINITY;
       ils[tid] = ql ? 1.f / a.l[si] : 0.f;
@@ -440,7 +457,7 @@ inline int bwd_stages(int D, bool stats, bool bias, bool mask, int per_sm) {
 struct BwdArgs {
   const bf16* g;      // (G, Tq, C): the flash rowsum's operands
   const bf16* o;
-  float* stats;       // (3, G, H, Tq): max * log2(e), 1 / sum, rowsum
+  float* stats;       // (3, G, H, ldst): max * log2(e), 1 / sum, rowsum
   bf16* dq;
   bf16* dk;
   bf16* dv;
@@ -448,6 +465,7 @@ struct BwdArgs {
   float* dbias_out;   // (Tq, H*Tk): the partials' ordered sum (may be dbias)
   const float* mask;  // (G, Tk) or null
   int G, Tq, Tk, H, stages, has_bias, has_mask;
+  int ldst;           // the statistics' row pitch, Tq rounded up to 4
   int wpc;            // windows a chunk (a dbias block walks them in order)
   int stats_ready;    // the first two planes of stats came from K1
 };
@@ -577,8 +595,8 @@ __global__ void __launch_bounds__(128, kDqBlocksPerSm)
   float ml_run[2] = {-INFINITY, -INFINITY};
   float l_run[2] = {0.f, 0.f};
   float il[2] = {0.f, 0.f};
-  const size_t per = (size_t)a.G * a.H * a.Tq;
-  const size_t row0_i = ((size_t)win * a.H + h) * a.Tq + q0;
+  const size_t per = (size_t)a.G * a.H * a.ldst;
+  const size_t row0_i = ((size_t)win * a.H + h) * a.ldst + q0;
   if (kFed) {
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
@@ -750,7 +768,8 @@ __global__ void __launch_bounds__(128, kDqBlocksPerSm)
 
 // Launch 2.  grid: G * H * ceil(Tk / 64) blocks of one warpgroup, key
 // tiles fastest, windows slowest.  Maps as launch 1, and the statistics as
-// 3D (Tq, G*H, 3) f32, boxes of 64 queries x 1 x 3.  The accumulator rows
+// 3D (Tq, G*H, 3) f32 with rows ldst floats apart, boxes of 64 queries x
+// 1 x 3, zero-filled past Tq.  The accumulator rows
 // are this block's keys, the columns a tile's queries.
 template <int D>
 __global__ void __launch_bounds__(128, kDkvBlocksPerSm)
@@ -1232,9 +1251,10 @@ cudaError_t dispatch_wgmma(const Args& x, float* dbias_out, float* stats,
                    strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
     if (err != cudaSuccess) return err;
   }
-  {   // statistics (3, G*H, Tq)
+  {   // statistics (3, G*H, ldst), cut at Tq
+    const uint64_t ld4 = (uint64_t)x.ldst * 4;   // a multiple of 16 bytes
     const uint64_t dims[3] = {(uint64_t)Tq, (uint64_t)G * H, 3};
-    const uint64_t strides[2] = {(uint64_t)Tq * 4, (uint64_t)G * H * Tq * 4};
+    const uint64_t strides[2] = {ld4, (uint64_t)G * H * ld4};
     const uint32_t box[3] = {kWgRows, 1, 3};
     err = make_map(&maps[6], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, stats, dims,
                    strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
@@ -1255,6 +1275,7 @@ cudaError_t dispatch_wgmma(const Args& x, float* dbias_out, float* stats,
   a.Tq = Tq;
   a.Tk = Tk;
   a.H = H;
+  a.ldst = x.ldst;
   a.stages = 2;
   a.has_bias = x.bias != nullptr;
   a.has_mask = x.mask != nullptr;
@@ -1283,7 +1304,8 @@ cudaError_t launch_f32(const Args& a, int G, cudaStream_t s) {
 // which the dbias launch (bf16) or the dq launch (f32) fills and one more
 // launch adds in order into dbias; with P 1 it may be dbias itself (no
 // addition); stats is an f32
-// scratch of 3 * G * H * Tq values, whose first two planes K1 filled for
+// scratch (3, G, H, ldst), ldst >= Tq a multiple of 4, whose first two
+// planes K1 filled for
 // these operands when stats_ready (bf16 only); every pointer is 16-byte
 // aligned (the bf16 kernels read through TMA).  Returns the cudaError_t of
 // the set-up and launches (0 on success).
@@ -1291,17 +1313,19 @@ extern "C" int cobevt_window_attention_bwd(
     const void* q, const void* k, const void* v, const void* g, const void* o,
     const void* bias, const void* mask, void* stats, void* dq, void* dk,
     void* dv, void* dbias, void* dbias_part, int G, int Tq, int Tk, int H,
-    int D, int wpc, int is_bf16, int stats_ready, int device, void* stream) {
+    int D, int ldst, int wpc, int is_bf16, int stats_ready, int device,
+    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (G <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || G > 65535 || H > 65535 ||
-      Tq % 8 || Tk % 8 || (bias == nullptr) != (dbias == nullptr) ||
+      Tk % 8 || ldst < Tq || ldst % 4 ||
+      (bias == nullptr) != (dbias == nullptr) ||
       (dbias == nullptr) != (dbias_part == nullptr) || wpc < 1 ||
       (bias == nullptr && wpc != 1) ||
       (D != 16 && D != 32))
     return (int)cudaErrorInvalidValue;
   float* st = static_cast<float*>(stats);
-  const size_t n = (size_t)G * H * Tq;
+  const size_t n = (size_t)G * H * ldst;
   Args a;
   a.q = q;
   a.k = k;
@@ -1320,6 +1344,7 @@ extern "C" int cobevt_window_attention_bwd(
   a.Tq = Tq;
   a.Tk = Tk;
   a.H = H;
+  a.ldst = ldst;
   a.wpc = wpc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)   // adds the dbias partials itself, between its launches

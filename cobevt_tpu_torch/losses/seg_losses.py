@@ -1,16 +1,27 @@
-"""Segmentation losses of the OPV2V camera track.
+"""Segmentation losses of both tracks.
 
-Counterpart of ``cobevt_tpu/losses/seg_losses.py``: ``VanillaSegLoss``
-(reference ``opv2v/opencood/loss/vanilla_seg_loss.py:7``), a
-class-weighted cross entropy with torch's weighted-mean normalisation, and
-``sigmoid_focal_loss``, which the LiDAR detection loss takes.  The nuScenes
-losses of that file come with their slice.
+Counterpart of ``cobevt_tpu/losses/seg_losses.py``:
+
+  * ``VanillaSegLoss`` -- reference
+    ``opv2v/opencood/loss/vanilla_seg_loss.py:7``, a class-weighted cross
+    entropy with torch's weighted-mean normalisation;
+  * ``sigmoid_focal_loss`` -- fvcore semantics, which the nuScenes losses and
+    the LiDAR detection loss take;
+  * ``BinarySegmentationLoss`` / ``CenterLoss`` -- reference
+    ``nuscenes/cross_view_transformer/losses.py:27/:59``: the focal loss,
+    optionally over the pixels of visibility >= ``min_visibility`` only
+    (mean over the kept pixels);
+  * ``MultipleLoss`` -- reference ``losses.py:82``: a weighted sum, with the
+    unweighted parts.
+
+The nuScenes losses compute in the logits' dtype (labels are cast to it),
+as the JAX criterion does.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -80,3 +91,74 @@ class VanillaSegLoss:
         return total, {"static_loss": static_loss,
                        "dynamic_loss": dynamic_loss,
                        "total_loss": total}
+
+
+def _masked_mean(loss, mask):
+    """Mean of ``loss`` over the entries where ``mask`` holds (all of them
+    without a mask); the denominator is clamped at 1e-12, so a batch with
+    no kept pixel gives 0, not NaN."""
+    if mask is None:
+        return loss.mean()
+    mask = mask.to(loss.dtype)
+    return (loss * mask).sum() / mask.sum().clamp(min=1e-12)
+
+
+def _visibility_mask(batch, min_visibility, shape):
+    if min_visibility is None:
+        return None
+    vis = batch["visibility"] >= min_visibility            # (B, H, W)
+    return vis[..., None].expand(shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class BinarySegmentationLoss:
+    """Focal loss on the ``bev`` logits, optionally restricted to pixels of
+    visibility >= ``min_visibility``.  ``label_indices`` folds the label
+    channels of each group with a max (reference ``losses.py:46-49``)."""
+
+    label_indices: Optional[Tuple[Tuple[int, ...], ...]] = None
+    min_visibility: Optional[int] = None
+    alpha: float = -1.0
+    gamma: float = 2.0
+
+    def __call__(self, pred, batch):
+        logits = pred["bev"] if isinstance(pred, dict) else pred
+        label = batch["bev"].to(logits.dtype)            # (B, H, W, n)
+        if self.label_indices is not None:
+            label = torch.stack([label[..., list(idx)].amax(-1)
+                                 for idx in self.label_indices], dim=-1)
+        loss = sigmoid_focal_loss(logits, label, self.alpha, self.gamma)
+        return _masked_mean(loss, _visibility_mask(
+            batch, self.min_visibility, loss.shape))
+
+
+@dataclasses.dataclass(frozen=True)
+class CenterLoss:
+    """Focal loss on the ``center`` logits against the centerness map,
+    masked like :class:`BinarySegmentationLoss`."""
+
+    min_visibility: Optional[int] = None
+    alpha: float = -1.0
+    gamma: float = 2.0
+
+    def __call__(self, pred, batch):
+        logits = pred["center"]
+        label = batch["center"].to(logits.dtype)
+        loss = sigmoid_focal_loss(logits, label, self.alpha, self.gamma)
+        return _masked_mean(loss, _visibility_mask(
+            batch, self.min_visibility, loss.shape))
+
+
+@dataclasses.dataclass(frozen=True)
+class MultipleLoss:
+    """Weighted sum of named losses: (total, {name: unweighted value}); a
+    name without a weight weighs 1."""
+
+    losses: Tuple[Tuple[str, object], ...] = ()
+    weights: Tuple[Tuple[str, float], ...] = ()
+
+    def __call__(self, pred, batch):
+        w = dict(self.weights)
+        outputs = {name: fn(pred, batch) for name, fn in self.losses}
+        total = sum(w.get(name, 1.0) * v for name, v in outputs.items())
+        return total, outputs

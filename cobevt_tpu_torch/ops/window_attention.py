@@ -13,7 +13,8 @@ the three attention flavours of CorpBEVT:
 (``_fused_packed``): it saves q, k, v, bias, mask, weight and the output,
 nothing of size Tq x Tk, and its backward recomputes the attention; where
 the backward will be the bf16 K5, K1 also writes the row statistics K5
-would otherwise take in a sweep of its own (3 G H Tq floats, saved too).  The
+would otherwise take in a sweep of its own (3 G H Tq floats, each row padded
+to 16 bytes: :func:`stats_pitch`; saved too).  The
 backward takes K5 (``csrc/window_attention_bwd.cu`` on CUDA tensors,
 :func:`packed_backward_reference` on CPU tensors) where
 :func:`packed_bwd_kernel_ok` holds and ``COBEVT_FLASH_BWD_F32`` is not "1";
@@ -216,15 +217,34 @@ def bwd_f32_enabled() -> bool:
 
 def packed_bwd_kernel_ok(q, k, weight, n_heads) -> bool:
     """Whether a backward takes K5.  What is semantics in the JAX gate
-    (``_packed_bwd_pallas_ok``) stays: no post-softmax weight, Tq and Tk
-    multiples of 8.  Its lane and VMEM conditions are TPU tuning; in their
-    place stands what the CUDA kernel takes: head dim 16 or 32, f32 or
-    bf16.  The same on every device."""
+    (``_packed_bwd_pallas_ok``) stays: no post-softmax weight.  Its Tq % 8,
+    lane and VMEM conditions are TPU tiling (the sublane of 8 rows, 128
+    lanes); in their place stands what the CUDA kernel takes
+    (:func:`check_k5_shapes`): any Tq, Tk a multiple of 8, head dim 16 or
+    32, f32 or bf16.  So the nuScenes windows of 100 and 625 queries take
+    K5 here where the JAX package takes its XLA composite.  The same on
+    every device."""
     _, Tq, C = q.shape
     Tk = k.shape[1]
-    return (weight is None and Tq % 8 == 0 and Tk % 8 == 0
+    return (weight is None and Tq >= 1 and Tk % 8 == 0
             and C % n_heads == 0 and C // n_heads in _KERNEL_HEAD_DIMS
             and q.dtype in _KERNEL_DTYPES)
+
+
+def stats_pitch(Tq: int) -> int:
+    """Floats between two rows of the (3, G, H, pitch) row-statistics
+    scratch that K1 writes and K5 reads: Tq rounded up to 4, so every
+    (window, head) row starts on 16 bytes, as K5's TMA map of it needs.
+    Equal to Tq wherever Tq % 4 == 0.  The one place the pitch is chosen:
+    the launches pass the scratch's row stride to both kernels."""
+    return -(-Tq // 4) * 4
+
+
+def stats_scratch(G: int, H: int, Tq: int, device):
+    """K5's row-statistics scratch for G windows of H heads and Tq rows;
+    the entries past Tq of a row are never read as a row's statistics."""
+    return torch.empty((3, G, H, stats_pitch(Tq)), dtype=torch.float32,
+                       device=device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -326,18 +346,28 @@ def check_k1_shapes(dtype, Tq, Tk, D):
                          f"{Tq}, {Tk}")
 
 
-def _check_kernel_shapes(what, dtype, Tq, Tk, D):
-    """K5's and K8's shapes: Tq and Tk multiples of 8 (K5 at a ragged Tq is
-    work for the nuScenes training slice, ROADMAP Queue 1 item 12(b))."""
-    _check_dtype_and_head_dim(what, dtype, D)
+def check_k5_shapes(dtype, Tq, Tk, D):
+    """K5 takes any Tq >= 1, as K1 does: its q, g and out maps cut the last
+    tile at Tq (TMA zero-fills the rows past it), the row statistics of
+    those rows read 0, which makes their weights exactly 0, and their dq is
+    not stored.  Tk stays a multiple of 8 (K1's reason)."""
+    _check_dtype_and_head_dim("K5", dtype, D)
+    if Tq < 1 or Tk % 8:
+        raise ValueError(f"K5 takes Tq >= 1 and Tk multiples of 8; got "
+                         f"{Tq}, {Tk}")
+
+
+def check_k8_shapes(dtype, Tq, Tk, D):
+    """K8's shapes: Tq and Tk multiples of 8 (no model path sends it
+    another)."""
+    _check_dtype_and_head_dim("K8", dtype, D)
     if Tq % 8 or Tk % 8:
-        raise ValueError(f"{what} takes Tq, Tk multiples of 8 (a ragged Tq "
-                         f"waits for ROADMAP item 12(b)); got {Tq}, {Tk}")
+        raise ValueError(f"K8 takes Tq, Tk multiples of 8; got {Tq}, {Tk}")
 
 
 def _launch_kernel(q, k, v, n_heads, bias_flat, mask, weight, stats=None):
-    """K1; ``stats``: None, or (bf16, no weight) K5's (3, G, H, Tq) f32
-    scratch, whose first two planes the kernel fills."""
+    """K1; ``stats``: None, or (bf16, no weight) K5's f32 scratch
+    (:func:`stats_scratch`), whose first two planes the kernel fills."""
     G, Tq, C = q.shape
     Tk = k.shape[1]
     if C % n_heads:
@@ -355,15 +385,16 @@ def _launch_kernel(q, k, v, n_heads, bias_flat, mask, weight, stats=None):
     if weight is not None:
         check_operand("weight", weight, (G, Tq, HTk), q.dtype, dev)
     if stats is not None:
-        check_operand("stats", stats, (3, G, n_heads, Tq), torch.float32,
-                      dev)
+        check_operand("stats", stats, (3, G, n_heads, stats_pitch(Tq)),
+                      torch.float32, dev)
     _check_tma_bases(q=q, k=k, v=v, bias_flat=bias_flat, mask=mask,
                      weight=weight)
     out = torch.empty_like(q)
-    err = _entry("cobevt_window_attention", 8, 7)(
+    err = _entry("cobevt_window_attention", 8, 8)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias_flat),
         _ptr(mask), _ptr(weight), out.data_ptr(), _ptr(stats), G, Tq, Tk,
-        n_heads, C // n_heads, int(q.dtype == torch.bfloat16), dev.index,
+        n_heads, C // n_heads, 0 if stats is None else stats.stride(2),
+        int(q.dtype == torch.bfloat16), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "window_attention")
     fused_window_attention_packed.launches += 1
@@ -378,7 +409,7 @@ def _launch_bwd_kernel(q, k, v, g, out, n_heads, bias_flat, mask,
     Tk = k.shape[1]
     if C % n_heads:
         raise ValueError(f"K5: C={C} does not divide over {n_heads} heads")
-    _check_kernel_shapes("K5", q.dtype, Tq, Tk, C // n_heads)
+    check_k5_shapes(q.dtype, Tq, Tk, C // n_heads)
     dev = q.device
     for name, t, T in (("q", q, Tq), ("k", k, Tk), ("v", v, Tk),
                        ("g", g, Tq), ("out", out, Tq)):
@@ -400,19 +431,18 @@ def _launch_bwd_kernel(q, k, v, g, out, n_heads, bias_flat, mask,
     # sum of the rounded exp (bf16: its inverse) and the flash rowsum
     stats_ready = stats is not None
     if stats_ready:
-        check_operand("stats", stats, (3, G, n_heads, Tq), torch.float32,
-                      dev)
+        check_operand("stats", stats, (3, G, n_heads, stats_pitch(Tq)),
+                      torch.float32, dev)
     else:
-        stats = torch.empty((3, G, n_heads, Tq), dtype=torch.float32,
-                            device=dev)
+        stats = stats_scratch(G, n_heads, Tq, dev)
     _check_tma_bases(q=q, k=k, v=v, g=g, out=out, bias_flat=bias_flat,
                      mask=mask, stats=stats)
-    err = _entry("cobevt_window_attention_bwd", 13, 9)(
+    err = _entry("cobevt_window_attention_bwd", 13, 10)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         out.data_ptr(), _ptr(bias_flat), _ptr(mask), stats.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(dbias), _ptr(part),
-        G, Tq, Tk, n_heads, C // n_heads, wpc, int(q.dtype == torch.bfloat16),
-        int(stats_ready), dev.index,
+        G, Tq, Tk, n_heads, C // n_heads, stats.stride(2), wpc,
+        int(q.dtype == torch.bfloat16), int(stats_ready), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "window_attention_bwd")
     fused_window_attention_packed_bwd.launches += 1
@@ -487,8 +517,7 @@ class _FusedPacked(torch.autograd.Function):
         stats = None
         if (impl == "kernel" and q.dtype == torch.bfloat16 and not bwd_f32
                 and packed_bwd_kernel_ok(q, k, weight, n_heads)):
-            stats = torch.empty((3, q.shape[0], n_heads, q.shape[1]),
-                                dtype=torch.float32, device=q.device)
+            stats = stats_scratch(q.shape[0], n_heads, q.shape[1], q.device)
         out = _packed_forward(q, k, v, n_heads, bias_flat, mask, weight, impl,
                               stats)
         ctx.save_for_backward(q, k, v, bias_flat, mask, weight, out, stats)
@@ -589,7 +618,7 @@ def window_attention_backward(q, k, v, g, out, bias=None, mask=None,
 def _launch_hm_kernel(q, k, v, bias, mask):
     G, H, Tq, D = q.shape
     Tk = k.shape[2]
-    _check_kernel_shapes("K8", q.dtype, Tq, Tk, D)
+    check_k8_shapes(q.dtype, Tq, Tk, D)
     dev = q.device
     check_operand("q", q, (G, H, Tq, D), q.dtype, dev)
     check_operand("k", k, (G, H, Tk, D), q.dtype, dev)

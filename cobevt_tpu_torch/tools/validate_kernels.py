@@ -66,6 +66,31 @@ plain path, as the relative L2 distance over all gradients.
   python -m cobevt_tpu_torch.tools.validate_kernels --train
   python -m cobevt_tpu_torch.tools.validate_kernels --train --model pointpillar
 
+**SinBEVT gradient gate** (``--train --model sinbevt``): one train forward
+and backward of the full-width nuScenes flagship on its experiment's
+criterion (visibility-masked focal + 0.1 x center) at B
+:data:`SINBEVT_TRAIN_BATCH`, at each of seeds 0-4 (weights, labels and
+drop-connect gates drawn from the seed), in three runs on the same batch:
+the bf16 default step (K1 forward, K5 backward at the ragged windows of 600,
+100 and 625 queries), an f32 step on the plain versions of every kernel
+(``forced_impl("torch")``, TF32 off) and the bf16 step with K5's plain
+version in its backward.  Against the f32 step: the loss, each loss part and
+the global gradient norm (relative drift) and each parameter's gradient norm,
+in the two tiers of ``compare_step``; against the plain backward: the same
+scalars and each parameter's gradient (relative L2 distance), where only
+K5's roundings part the two (:data:`SINBEVT_TRAIN_BUDGETS`).  Then, at seed
+0, the gate again with each fault of :data:`SINBEVT_K5_FAULTS` planted in
+the step's first K5 call (stage 2's grid branch, 625 queries): it must fail
+on a dropped dq head and on the rows past Tq let through.  Last, at B 8 and
+seeds 0-4, the ``COBEVT_FUSED_XATTN_TRAIN=1`` step (K2 in the training
+forward) against the default step, both bf16: the same scalars, each
+parameter's gradient and the train forward's outputs (relative L2
+distances, :data:`SINBEVT_XATTN_TRAIN_BUDGET`); then again with K2's first
+head dropped in stage 2's local branch, which it must fail at every seed
+(only the outputs tell it from K2's sound rounding at random weights).
+
+  python -m cobevt_tpu_torch.tools.validate_kernels --train --model sinbevt
+
 Needs a CUDA card unless ``--device cpu`` is given.
 """
 
@@ -86,6 +111,7 @@ from cobevt_tpu_torch.models.lidar.point_pillar_models import (
 )
 from cobevt_tpu_torch.nn.resnet import ResNetTrunk
 from cobevt_tpu_torch.ops.dispatch import env_switches, forced_impl
+from cobevt_tpu_torch.ops import window_attention
 from cobevt_tpu_torch.ops.fused_cross_attention import PackedParams
 from cobevt_tpu_torch.tools.benchmark import (
     BUILD_MODEL,
@@ -363,6 +389,25 @@ SINBEVT_FAULT_CALL = 4
 
 
 @contextlib.contextmanager
+def _fault_on_call(module, attr, index, fault):
+    """While open, call ``index`` (from 0) of ``module.attr`` runs
+    ``fault(real, *args)`` in place of ``real(*args)``."""
+    real, calls = getattr(module, attr), [0]
+
+    def wrapped(*args, **kwargs):
+        calls[0] += 1
+        if calls[0] - 1 == index:
+            return fault(real, *args, **kwargs)
+        return real(*args, **kwargs)
+
+    setattr(module, attr, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, attr, real)
+
+
+@contextlib.contextmanager
 def planted_fault(name):
     """While open, the ``SINBEVT_FAULT_CALL``-th call (from 0) of the
     wrapper that fault ``name`` names runs with the fault; None plants
@@ -371,19 +416,8 @@ def planted_fault(name):
         yield
         return
     attr, fault, _ = SINBEVT_FAULTS[name]
-    real, calls = getattr(fax, attr), [0]
-
-    def wrapped(*args, **kwargs):
-        calls[0] += 1
-        if calls[0] - 1 == SINBEVT_FAULT_CALL:
-            return fault(real, *args, **kwargs)
-        return real(*args, **kwargs)
-
-    setattr(fax, attr, wrapped)
-    try:
+    with _fault_on_call(fax, attr, SINBEVT_FAULT_CALL, fault):
         yield
-    finally:
-        setattr(fax, attr, real)
 
 
 def validate_sinbevt(device, seeds=SINBEVT_SEEDS, config=None,
@@ -463,23 +497,31 @@ def validate_sinbevt_faults(device, seeds=(0,), config=None,
                       if f["must_trip"])}
 
 
-def loss_and_grads(model, criterion, batch, seed: int):
+def step_gradients(model, criterion, batch, seed: int):
     """One train-mode forward and backward of ``model`` with every random
-    draw seeded: (loss, {parameter: gradient in f64, zeros where the loss
-    does not reach}).  The model's gradients are cleared before and after."""
+    draw seeded: (loss, {loss part: value}, {parameter: gradient in f64,
+    zeros where the loss does not reach}).  The model's gradients are
+    cleared before and after."""
     device = next(model.parameters()).device
     torch.manual_seed(seed)              # the modules' own dropouts
     gen = torch.Generator(device=device).manual_seed(seed)
     model.train()
     model.zero_grad(set_to_none=True)
     out = model(batch, generator=gen)
-    loss, _ = criterion(out, batch)
+    loss, parts = criterion(out, batch)
     loss.backward()
     grads = {name: (torch.zeros_like(p, dtype=torch.float64)
                     if p.grad is None else p.grad.double())
              for name, p in model.named_parameters()}
     model.zero_grad(set_to_none=True)
-    return float(loss.detach()), grads
+    return float(loss.detach()), {k: float(v.detach())
+                                  for k, v in parts.items()}, grads
+
+
+def loss_and_grads(model, criterion, batch, seed: int):
+    """(loss, gradients) of :func:`step_gradients`."""
+    loss, _, grads = step_gradients(model, criterion, batch, seed)
+    return loss, grads
 
 
 def loss_and_grad_norms(model, criterion, batch, seed: int):
@@ -492,65 +534,73 @@ def loss_and_grad_norms(model, criterion, batch, seed: int):
     return loss, gnorm, norms
 
 
-def compare_train(flash, stock, control=None,
-                  budget_scalar: float = BUDGET_SCALAR,
-                  budget_layer: float = BUDGET_LAYER,
-                  material_frac: float = MATERIAL_FRAC) -> dict:
-    """The two-tier gate of the JAX ``validate_train``.  Parameters whose
-    stock gradient norm is at least 0.1% of the global norm carry signal:
-    such a layer fails when it is both relatively off by more than
-    ``budget_layer`` and off by more than ``material_frac`` of the global
-    norm.  The others are rounding noise around a gradient that is zero in
-    exact arithmetic (a key-projection bias: softmax is invariant to it):
-    their flash norm must stay within 3x the stock norm or 0.3% of the
-    global norm."""
-    loss_f, gnorm_f, norms_f = flash
-    loss_s, gnorm_s, norms_s = stock
-    loss_rel = abs(loss_f - loss_s) / (abs(loss_s) + 1e-9)
-    gnorm_rel = abs(gnorm_f - gnorm_s) / (gnorm_s + 1e-9)
-    floor = 1e-3 * gnorm_s
-    layer_rels = {k: abs(norms_f[k] - norms_s[k]) / (norms_s[k] + 1e-12)
-                  for k in norms_s if norms_s[k] >= floor}
-    layer_bad = sorted(k for k, rel in layer_rels.items()
-                       if rel > budget_layer and
-                       abs(norms_f[k] - norms_s[k]) > material_frac * gnorm_s)
-    noise = [k for k in norms_s if norms_s[k] < floor]
+def compare_step(got, ref, scalar: float, param: float, material: float,
+                 metric: str = "l2") -> dict:
+    """The two-tier gate of the JAX ``validate_train``, on (loss, parts,
+    gradients) of a step (:func:`step_gradients`) against a reference step;
+    every gradient gate of this tool reads it.  Scalars: the loss, each part
+    and the global gradient norm within ``scalar`` relative drift.
+    Parameters whose reference gradient norm is at least 0.1% of the global
+    norm carry signal: one fails when its deviation exceeds ``param`` of its
+    reference norm and ``material`` of the global norm; the deviation is the
+    L2 distance of the two gradients (``metric`` "l2") or the difference of
+    their norms ("norm").  The others are rounding noise around a gradient
+    that is zero in exact arithmetic (a key-projection bias: softmax is
+    invariant to it): their norm must stay within 3x the reference norm or
+    0.3% of the global norm."""
+    loss_g, parts_g, grads_g = got
+    loss_r, parts_r, grads_r = ref
+    norm_r = {k: float(torch.linalg.vector_norm(g)) for k, g in
+              grads_r.items()}
+    norm_g = {k: float(torch.linalg.vector_norm(g)) for k, g in
+              grads_g.items()}
+    if metric == "l2":
+        dev = {k: float(torch.linalg.vector_norm(grads_g[k] - g))
+               for k, g in grads_r.items()}
+    else:
+        dev = {k: abs(norm_g[k] - norm_r[k]) for k in norm_r}
+    gnorm_r = float(np.sqrt(sum(v * v for v in norm_r.values())))
+    gnorm_g = float(np.sqrt(sum(v * v for v in norm_g.values())))
+
+    def rel(a, b):
+        return abs(a - b) / (abs(b) + 1e-9)
+
+    scalars = {"loss": rel(loss_g, loss_r), "grad_norm": rel(gnorm_g,
+                                                               gnorm_r)}
+    scalars.update({f"part_{k}": rel(parts_g[k], v)
+                    for k, v in parts_r.items()})
+    floor = 1e-3 * gnorm_r
+    signal = {k: dev[k] / norm_r[k] for k in norm_r if norm_r[k] >= floor}
+    bad = sorted(k for k, r in signal.items()
+                 if r > param and dev[k] > material * gnorm_r)
+    noise = [k for k in norm_r if norm_r[k] < floor]
     noise_bad = sorted(k for k in noise
-                       if norms_f[k] > max(3.0 * norms_s[k], 3.0 * floor))
-    worst = max(layer_rels, key=layer_rels.get)
-    material = max(abs(norms_f[k] - norms_s[k]) for k in norms_s) / gnorm_s
-    finite = all(np.isfinite(v) for v in (loss_f, loss_s, gnorm_f, gnorm_s))
-    ok = (finite and loss_rel <= budget_scalar and gnorm_rel <= budget_scalar
-          and not layer_bad and not noise_bad)
-    report = {
-        "component": "train_step_flash_bwd", "ok": ok,
-        "loss": {"flash": loss_f, "stock": loss_s, "rel": loss_rel},
-        "grad_norm": {"flash": gnorm_f, "stock": gnorm_s, "rel": gnorm_rel},
-        "layers_compared": len(layer_rels),
-        "layer_failures": layer_bad[:5],
-        "noise_tier_layers": len(noise),
-        "noise_tier_failures": noise_bad[:5],
-        "worst_layer": {"name": worst, "rel": layer_rels[worst],
-                        "flash_norm": norms_f[worst],
-                        "stock_norm": norms_s[worst]},
-        "largest_layer_deviation_over_gnorm": material,
-        # the worst relative drift among layers of at least 1% and 10% of
-        # the global norm: what the per-layer budget is set from
-        "worst_rel_of_layers_over": {
-            f"{frac:g}": max((rel for k, rel in layer_rels.items()
-                              if norms_s[k] >= frac * gnorm_s), default=0.0)
-            for frac in (0.01, 0.1)},
-        "budgets": {"scalar": budget_scalar, "per_layer": budget_layer,
-                    "material_frac": material_frac, "signal_floor": floor},
+                       if norm_g[k] > max(3.0 * norm_r[k], 3.0 * floor))
+    finite = all(np.isfinite(v) for v in
+                 [loss_g, gnorm_g, *parts_g.values(), *dev.values()])
+    # the worst parameters among those whose deviation is material: what
+    # the per-parameter budget is set from
+    material_rels = {k: r for k, r in signal.items()
+                     if dev[k] > material * gnorm_r}
+    worst = sorted(material_rels, key=material_rels.get, reverse=True)[:3]
+    return {
+        "ok": (finite and max(scalars.values()) <= scalar and not bad
+               and not noise_bad),
+        "finite": finite, "metric": metric,
+        "scalars": scalars, "max_scalar": max(scalars.values()),
+        "loss": {"got": loss_g, "ref": loss_r, "rel": scalars["loss"]},
+        "grad_norm": {"got": gnorm_g, "ref": gnorm_r,
+                      "rel": scalars["grad_norm"]},
+        "params_compared": len(signal), "param_failures": bad[:5],
+        "noise_tier_params": len(noise), "noise_tier_failures": noise_bad[:5],
+        "worst_material_params": [{"name": k, "rel": material_rels[k],
+                                   "over_gnorm": dev[k] / gnorm_r}
+                                  for k in worst],
+        "max_material_rel": max(material_rels.values(), default=0.0),
+        "max_rel": max(signal.values(), default=0.0),
+        "budgets": {"scalar": scalar, "param": param, "material": material,
+                    "signal_floor": floor},
     }
-    if control is not None:
-        loss_c, gnorm_c, _ = control
-        report["bf16_cast_drift"] = {
-            "note": "K5 path vs the composite backward with f32 epilogue "
-                    "(COBEVT_FLASH_BWD_F32=1)",
-            "loss_rel": abs(loss_f - loss_c) / (abs(loss_c) + 1e-9),
-            "gnorm_rel": abs(gnorm_f - gnorm_c) / (gnorm_c + 1e-9)}
-    return report
 
 
 def validate_train(device, bf16: bool = True, seed: int = 0,
@@ -564,13 +614,19 @@ def validate_train(device, bf16: bool = True, seed: int = 0,
         model = model.to(torch.bfloat16)
     with env_switches(COBEVT_FLASH_BWD=None, COBEVT_FLASH_BWD_F32=None):
         ops.reset_launch_counts()
-        flash = loss_and_grad_norms(model, criterion, train_batch, seed)
+        flash = step_gradients(model, criterion, train_batch, seed)
         counts = ops.launch_counts()
     with env_switches(COBEVT_FLASH_BWD=None, COBEVT_FLASH_BWD_F32="1"):
-        control = loss_and_grad_norms(model, criterion, train_batch, seed)
+        control = step_gradients(model, criterion, train_batch, seed)
     with env_switches(COBEVT_FLASH_BWD="0", COBEVT_FLASH_BWD_F32=None):
-        stock = loss_and_grad_norms(model, criterion, train_batch, seed)
-    report = compare_train(flash, stock, control, *TRAIN_BUDGETS[model_name])
+        stock = step_gradients(model, criterion, train_batch, seed)
+    budgets = TRAIN_BUDGETS[model_name]
+    report = compare_step(flash, stock, *budgets, metric="norm")
+    drift = compare_step(flash, control, *budgets, metric="norm")["scalars"]
+    report["bf16_cast_drift"] = {
+        "note": "K5 path vs the composite backward with f32 epilogue "
+                "(COBEVT_FLASH_BWD_F32=1)",
+        "loss_rel": drift["loss"], "gnorm_rel": drift["grad_norm"]}
     report["component"] = f"{model_name}_train_step_flash_bwd"
     report["precision"] = "bf16" if bf16 else "fp32"
     report["seed"] = seed
@@ -608,6 +664,307 @@ def gradient_truth(device, seed: int = 0, config=None,
     return report
 
 
+# The SinBEVT gradient gate: the batch, and the budgets of its two
+# comparisons (relative drift of the loss, of each loss part and of the
+# global gradient norm; the per-parameter budget; the share of the global
+# norm a parameter's deviation must reach to count).  "truth": the bf16
+# default step against the f32 plain step, per parameter the drift of the
+# gradient's norm (``compare_step``'s "norm"): at random weights the bf16
+# forward moves many gradients' directions by their own size (a relative L2
+# distance of 0.56 in the median at the CPU tests' small config; at full
+# width on the card up to 1.07 for parameters ahead of a train-mode
+# BatchNorm), so only norms and scalars can be held to the f32 truth.
+# "plain": the same bf16 step with K5's plain version in place of K5 in
+# every backward (K1's forward kept, so both steps see the same
+# activations), per parameter the relative L2 distance of the gradients:
+# the backward is linear in what K5 returns, so only K5's roundings part
+# the two, and a wrong K5 shows there.  Set from readings on an NVIDIA
+# H100 80GB HBM3 (700 W) at full width, B 2 (two distinct samples), seeds
+# 0-4 and each planted fault at seed 0.  "truth", sound: scalars up to
+# 0.0090 (the gradient norm; the loss 0.0084), norm drift of a material
+# parameter (deviation over 1% of the global norm) up to 0.55; the faults
+# read inside that range (0.0090, 0.43): no truth budget can see them, so
+# these are 3x the sound readings.  "plain", sound: scalars up to 4.9e-4
+# (the gradient norm), the relative L2 distance of a material parameter
+# (over 5e-4 of the global norm) up to 0.041, and 0.057 in another call
+# (two steps of one path read up to 0.028 apart, the backward's own
+# nondeterminism); a dropped dq head 0.52 (stage 2's query projection), the
+# rows past Tq let through 0.20 (its value projection); the budget 0.1 sits
+# between, near the geometric middle of 0.057 and 0.20.
+SINBEVT_TRAIN_BATCH = 2
+SINBEVT_TRAIN_BUDGETS = {
+    "truth": {"scalar": 0.065, "param": 1.5, "material": 1e-2,
+              "metric": "norm"},
+    "plain": {"scalar": 1.5e-3, "param": 0.1, "material": 5e-4,
+              "metric": "l2"},
+}
+
+
+def _drop_dq_head(real, q, k, v, g, out, n_heads, *args, **kwargs):
+    """K5 with its first head's dq dropped."""
+    dq, *rest = real(q, k, v, g, out, n_heads, *args, **kwargs)
+    dq = dq.clone()
+    dq[..., :dq.shape[-1] // n_heads] = 0
+    return (dq, *rest)
+
+
+def _rows_past_tq(real, q, k, v, g, out, n_heads, bias_flat, mask, impl,
+                  stats=None):
+    """K5 whose last query tile lets through the rows past Tq: q, g and out
+    padded to whole tiles of 64 with the next window's first rows (what a
+    map without the true row extent reads), those rows' own statistics,
+    and dq cut back to Tq.  dk and dv take the padded rows' terms."""
+    Tq = q.shape[1]
+    pad = -Tq % 64
+
+    def padded(t):
+        return torch.cat([t, torch.roll(t, -1, dims=0)[:, :pad]], dim=1)
+
+    dq, dk, dv, dbias = real(padded(q), k, v, padded(g), padded(out),
+                             n_heads, None if bias_flat is None else
+                             torch.cat([bias_flat, bias_flat[:pad]]),
+                             mask, impl)
+    if dbias is not None:
+        dbias = dbias[:Tq]
+    return dq[:, :Tq].contiguous(), dk, dv, dbias
+
+
+# Faults planted in one K5 call of the gate's bf16 step: (the fault, whether
+# the gate must fail on it).  The call is the step's first backward of window
+# attention, stage 2's grid branch (4 heads, 625 queries: the last query
+# tile holds 49 rows, and 15 of the next window's are let through).
+SINBEVT_K5_FAULTS = {
+    "k5_dropped_dq_head": (_drop_dq_head, True),
+    "k5_rows_past_tq": (_rows_past_tq, True),
+}
+SINBEVT_K5_FAULT_CALL = 0
+
+
+@contextlib.contextmanager
+def planted_k5_fault(name):
+    """While open, the ``SINBEVT_K5_FAULT_CALL``-th K5 call (from 0) of
+    the backwards run runs with fault ``name``; None plants nothing."""
+    if name is None:
+        yield
+        return
+    fault, _ = SINBEVT_K5_FAULTS[name]
+    with _fault_on_call(window_attention, "_packed_bwd",
+                        SINBEVT_K5_FAULT_CALL, fault):
+        yield
+
+
+@contextlib.contextmanager
+def k5_plain_backward():
+    """While open, every backward of window attention that takes K5 runs
+    K5's plain version on the same operands instead (its own row
+    statistics); the forward stays as it is."""
+    real = window_attention._packed_bwd
+
+    def plain(q, k, v, g, out, n_heads, bias_flat, mask, impl, stats=None):
+        return real(q, k, v, g, out, n_heads, bias_flat, mask, "torch")
+
+    window_attention._packed_bwd = plain
+    try:
+        yield
+    finally:
+        window_attention._packed_bwd = real
+
+
+@contextlib.contextmanager
+def full_f32():
+    """f32 products and convolutions in full precision (TF32 off) inside
+    the block, the caller's flags back after."""
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = flags
+
+
+def validate_sinbevt_train(device, seeds=SINBEVT_SEEDS, config=None,
+                           batch: int = SINBEVT_TRAIN_BATCH, budgets=None,
+                           fault=None) -> dict:
+    """The SinBEVT gradient gate at each seed: the bf16 default step
+    against the f32 plain step ("truth") and against the bf16 step with
+    K5's plain version in its backward ("plain"), with the default step's
+    launch counts.  ``config``: a
+    ``NuScenesExperiment`` (the flagship by default); ``budgets``: per
+    comparison, entries replacing :data:`SINBEVT_TRAIN_BUDGETS`';
+    ``fault``: a key of :data:`SINBEVT_K5_FAULTS` planted in the default
+    step."""
+    budgets = {name: dict(b, **(budgets or {}).get(name, {}))
+               for name, b in SINBEVT_TRAIN_BUDGETS.items()}
+    switches = dict(COBEVT_FLASH_BWD=None, COBEVT_FLASH_BWD_F32=None,
+                    COBEVT_FUSED_XATTN_TRAIN=None)
+    reports = []
+    for seed in seeds:
+        model, b, _ = build_sinbevt(seed=seed, device=device, config=config,
+                                    batch_size=batch)
+        criterion, train_batch = make_criterion("sinbevt", model, b, config)
+        steps = {}
+        with env_switches(**switches), forced_impl("torch"), full_f32():
+            steps["truth"] = step_gradients(model, criterion, train_batch,
+                                            seed)
+        model = model.to(torch.bfloat16)
+        with env_switches(**switches), k5_plain_backward():
+            steps["plain"] = step_gradients(model, criterion, train_batch,
+                                            seed)
+        with env_switches(**switches), planted_k5_fault(fault):
+            ops.reset_launch_counts()
+            got = step_gradients(model, criterion, train_batch, seed)
+            counts = ops.launch_counts()
+        report = {"seed": seed, "launches": counts}
+        for name, ref in steps.items():
+            report[name] = compare_step(got, ref, **budgets[name])
+        report["ok"] = all(report[n]["ok"] for n in steps)
+        reports.append(report)
+        del model, steps, got
+    return {"component": "sinbevt_nuscenes_train_step", "fault": fault,
+            "batch": batch, "budgets": budgets, "seeds": list(seeds),
+            "ok": all(r["ok"] for r in reports),
+            **{f"max_{k}": {n: max(r[n][k] for r in reports)
+                            for n in budgets}
+               for k in ("max_scalar", "max_material_rel", "max_rel")},
+            "param_failures": {n: sorted({k for r in reports
+                                          for k in r[n]["param_failures"]})
+                               for n in budgets},
+            "per_seed": reports}
+
+
+def validate_sinbevt_train_faults(device, seeds=(0,), config=None,
+                                  batch: int = SINBEVT_TRAIN_BATCH,
+                                  budgets=None) -> dict:
+    """The SinBEVT gradient gate once with each planted K5 fault: what it
+    reads, and whether it failed, as it must on each fault marked so."""
+    faults = {}
+    for name, (_, must_trip) in SINBEVT_K5_FAULTS.items():
+        r = validate_sinbevt_train(device, seeds, config, batch, budgets,
+                                   fault=name)
+        faults[name] = {"tripped": not r["ok"], "must_trip": must_trip,
+                        **{k: r[k] for k in (
+                            "max_max_scalar", "max_max_material_rel",
+                            "max_max_rel", "param_failures")},
+                        "worst_material_params": {
+                            n: r["per_seed"][0][n]["worst_material_params"]
+                            for n in r["budgets"]}}
+    return {"seeds": list(seeds), "faults": faults,
+            "ok": all(f["tripped"] for f in faults.values()
+                      if f["must_trip"])}
+
+
+# The COBEVT_FUSED_XATTN_TRAIN=1 step (K2 in the training forward, the
+# composite's backward over K1 and K5 behind it) against the default step
+# (the stock modules over K1 and K5), both bf16 on the same weights, batch and
+# draws: the two part only where K2 and the stock modules round the six
+# cross-view branches' forwards differently.  The loss, each part and the
+# global gradient norm (relative drift), each parameter's gradient (relative
+# L2 distance, ``compare_step`` "l2"), and the train forward's outputs
+# ("output": relative L2 distance, per output).  Read on an NVIDIA H100
+# 80GB HBM3 (700 W) at full width and the experiment's batch of 8 (no f32
+# step here, so the gate runs at the step's own batch), seeds 0-4, sound and
+# with K2's first head dropped in stage 2's local branch
+# (:func:`_drop_k2_head_forward`); the default step against itself reads
+# outputs 0 exactly and gradients up to 0.028 apart (the backward's own
+# nondeterminism).  Only the outputs separate the two: sound 0.219-0.290,
+# the fault 0.452-0.631 (at random weights the train-mode BatchNorms carry
+# K2's rounding far), so "output" sits near their geometric middle (0.362).
+# The others are ceilings, about 3x the sound readings, that the fault does
+# not always pass: scalars sound up to 0.0030 (the gradient norm; the loss
+# reads 0 in bf16 on both), the fault 0.00086-0.0139; per parameter sound
+# 1.33-1.82 (saturated, as bf16 against f32), the fault 1.55-2.24.
+SINBEVT_XATTN_TRAIN_BATCH = 8
+SINBEVT_XATTN_TRAIN_BUDGET = {"scalar": 0.01, "param": 5.0,
+                              "material": 5e-4, "metric": "l2",
+                              "output": 0.36}
+
+
+def _drop_k2_head_forward(real, *args, params, n_heads, **kwargs):
+    """K2 in a training forward with its first head's output dropped (the
+    output projection's rows of that head zeroed), the sound composite's
+    backward behind it: what a K2 that loses a head hands a train step."""
+    out = real(*args, params=params, n_heads=n_heads, **kwargs)
+    wo = params["wo"].detach().clone()
+    wo[:wo.shape[0] // n_heads] = 0
+    with torch.no_grad():
+        bad = real(*args, params=dict(params, wo=wo), n_heads=n_heads,
+                   **kwargs)
+    return out + (bad - out.detach())
+
+
+def validate_sinbevt_xattn_train(device, seeds=SINBEVT_SEEDS, config=None,
+                                 batch: int = SINBEVT_XATTN_TRAIN_BATCH,
+                                 budget=None, fault: bool = False,
+                                 bf16: bool = True) -> dict:
+    """The COBEVT_FUSED_XATTN_TRAIN=1 step against the default step at each
+    seed, both bf16 (f32 unless ``bf16``) (:data:`SINBEVT_XATTN_TRAIN_BUDGET`,
+    entries of ``budget`` replacing its), with the switched step's launch
+    counts.  ``fault``: K2's first head dropped in the forward of the step's
+    ``SINBEVT_FAULT_CALL``-th K2 call (stage 2's local branch).  Each seed
+    also reads the default step against a second run of itself
+    ("control"): the floor the budgets stand on, read and not gated."""
+    budget = dict(SINBEVT_XATTN_TRAIN_BUDGET, **(budget or {}))
+    switches = dict(COBEVT_FLASH_BWD=None, COBEVT_FLASH_BWD_F32=None)
+    reports = []
+    for seed in seeds:
+        model, b, _ = build_sinbevt(seed=seed, device=device, config=config,
+                                    batch_size=batch)
+        criterion, train_batch = make_criterion("sinbevt", model, b, config)
+        if bf16:
+            model = model.to(torch.bfloat16)
+        outs = {}
+
+        def capturing(name):
+            def read(out, batch):
+                outs[name] = {k: v.detach().float() for k, v in out.items()
+                              if torch.is_tensor(v)}
+                return criterion(out, batch)
+            return read
+
+        with env_switches(COBEVT_FUSED_XATTN_TRAIN=None, **switches):
+            ref = step_gradients(model, capturing("ref"), train_batch, seed)
+            again = step_gradients(model, capturing("again"), train_batch,
+                                   seed)
+        planted = (_fault_on_call(fax, "fused_cross_view_attention",
+                                  SINBEVT_FAULT_CALL, _drop_k2_head_forward)
+                   if fault else contextlib.nullcontext())
+        with env_switches(COBEVT_FUSED_XATTN_TRAIN="1", **switches), planted:
+            ops.reset_launch_counts()
+            got = step_gradients(model, capturing("got"), train_batch, seed)
+            counts = ops.launch_counts()
+        steps = {}
+        for name, step in (("got", got), ("again", again)):
+            r = compare_step(step, ref, **{k: v for k, v in budget.items()
+                                           if k != "output"})
+            drift = {k: float(torch.linalg.vector_norm(outs[name][k] - o)
+                              / (torch.linalg.vector_norm(o) + 1e-12))
+                     for k, o in outs["ref"].items()}
+            r.update(output_drift=drift, max_output_drift=max(drift.values()))
+            r["ok"] = r["ok"] and r["max_output_drift"] <= budget["output"]
+            steps[name] = r
+        report = steps["got"]
+        report.update(seed=seed, launches=counts, control={
+            k: steps["again"][k] for k in ("max_scalar", "max_material_rel",
+                                           "max_output_drift")})
+        reports.append(report)
+        del model, ref, again, got, outs
+    return {"component": "sinbevt_nuscenes_fused_xattn_train_step",
+            "fault": "k2_dropped_head" if fault else None, "batch": batch,
+            "budget": budget, "seeds": list(seeds),
+            "ok": all(r["ok"] for r in reports),
+            **{k: max(r[k] for r in reports)
+               for k in ("max_scalar", "max_material_rel", "max_rel",
+                         "max_output_drift")},
+            "control": {k: max(r["control"][k] for r in reports)
+                        for k in reports[0]["control"]},
+            "param_failures": sorted({k for r in reports
+                                      for k in r["param_failures"]}),
+            "per_seed": reports}
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--train", action="store_true")
@@ -615,7 +972,8 @@ def main(argv=None):
                    choices=["corpbevt", "pointpillar", "sinbevt"],
                    help="corpbevt: the int8 gate; pointpillar and sinbevt: "
                         "the model's forward gate (sinbevt at seeds 0-4); "
-                        "with --train the model's gradient gate")
+                        "with --train the model's gradient gate (sinbevt "
+                        "at seeds 0-4, and its planted K5 faults)")
     p.add_argument("--dtype", default="bf16", choices=["bf16", "f32"])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
@@ -629,10 +987,15 @@ def main(argv=None):
         opt.device = "cuda"
     device, bf16 = torch.device(opt.device), opt.dtype == "bf16"
     if opt.train and opt.model == "sinbevt":
-        print("validate_kernels: SinBEVT has no train step yet",
-              file=sys.stderr)
-        return 2
-    if opt.model == "sinbevt":
+        report = validate_sinbevt_train(device)
+        report["planted"] = validate_sinbevt_train_faults(device)
+        xattn = validate_sinbevt_xattn_train(device)
+        xattn["planted"] = validate_sinbevt_xattn_train(device, fault=True)
+        report["fused_xattn_train"] = xattn
+        report["ok"] = (report["ok"] and report["planted"]["ok"]
+                        and xattn["ok"] and not any(
+                            r["ok"] for r in xattn["planted"]["per_seed"]))
+    elif opt.model == "sinbevt":
         report = validate_sinbevt(device)
         report["planted"] = validate_sinbevt_faults(device)
         report["ok"] = report["ok"] and report["planted"]["ok"]

@@ -1,12 +1,17 @@
-"""Optimizer and LR schedule of the OPV2V recipe.
+"""Optimizers and LR schedules of the two recipes.
 
-Counterpart of ``cobevt_tpu/train/optim.py``: AdamW(lr 2e-4, eps 1e-10,
-wd 1e-2) with a cosine anneal after a linear warmup (reference
-``train_utils.py:174-258``, ``corpbevt.yaml:125-137``).  A schedule is a
-plain function step -> lr, counted from 0 as optax counts: the first
-update uses ``schedule(0)``.  The train step sets the optimizer's ``lr``
-from it before every update.  The nuScenes one-cycle schedule comes with
-its slice.
+Counterpart of ``cobevt_tpu/train/optim.py``:
+
+  * OPV2V: AdamW(lr 2e-4, eps 1e-10, wd 1e-2) with a cosine anneal after a
+    linear warmup (reference ``train_utils.py:174-258``,
+    ``corpbevt.yaml:125-137``);
+  * nuScenes: AdamW(lr 5e-3, eps 1e-8, wd 1e-7), a one-cycle schedule and a
+    global-norm clip of 5.0 (reference ``model_module.py:85-94``,
+    ``config.yaml:20-31``; the clip is the train state's ``grad_clip``).
+
+A schedule is a plain function step -> lr, counted from 0 as optax counts:
+the first update uses ``schedule(0)``.  The train step sets the
+optimizer's ``lr`` from it before every update.
 """
 
 from __future__ import annotations
@@ -35,6 +40,40 @@ def cosine_warmup_schedule(base_lr: float, warmup_lr: float,
         count = min(step - warmup_steps, decay)
         cosine = 0.5 * (1.0 + math.cos(math.pi * count / decay))
         return base_lr * ((1.0 - alpha) * cosine + alpha)
+
+    return schedule
+
+
+def onecycle_schedule(max_lr: float, total_steps: int,
+                      pct_start: float = 0.3, div_factor: float = 10.0,
+                      final_div_factor: float = 10.0
+                      ) -> Callable[[int], float]:
+    """The values of ``optax.cosine_onecycle_schedule(total_steps, max_lr,
+    pct_start, div_factor, final_div_factor)``: a cosine from max_lr /
+    div_factor up to max_lr over the first ``int(pct_start * total_steps)``
+    steps, then a cosine down to max_lr / (div_factor * final_div_factor)
+    at ``total_steps``, constant after.  Not ``torch.optim.lr_scheduler.
+    OneCycleLR``, whose phases end one step earlier (at ``pct_start *
+    total_steps - 1`` and ``total_steps - 1``) and whose final value is
+    the initial one over ``final_div_factor`` of its own."""
+    if total_steps <= 0:
+        raise ValueError(f"total_steps must be positive, got {total_steps}")
+    bounds = (0, int(pct_start * total_steps), int(total_steps))
+    init = max_lr / div_factor
+    values = (init, init * div_factor,
+              init * div_factor / (div_factor * final_div_factor))
+
+    def schedule(step: int) -> float:
+        for i in range(2):
+            lo, hi = bounds[i], bounds[i + 1]
+            if lo <= step < hi:
+                start, end = values[i], values[i + 1]
+                pct = (step - lo) / (hi - lo)
+                return end + (start - end) / 2.0 * (math.cos(math.pi * pct)
+                                                    + 1.0)
+        # before the first boundary the sum of optax's indicators is 0 (a
+        # negative step); at and past the last one the final value
+        return values[2] if step >= bounds[2] else 0.0
 
     return schedule
 

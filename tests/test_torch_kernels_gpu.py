@@ -26,7 +26,8 @@ another order), bf16 2e-2 of it (the kernel takes the row maximum per head,
 the plain version over all heads as the TPU body does, so the exp rounds to
 bf16 at another place: one bf16 ulp on a weight); dbias sums the windows
 through per-chunk partials added in a fixed order, so dq, dk, dv and dbias
-all repeat bit for bit.  K11's output is held like K1's; K12's
+all repeat bit for bit, at the nuScenes train step's ragged query windows
+(600, 100 and 625 rows) too.  K11's output is held like K1's; K12's
 seven gradients like K5's (dx in the compute dtype, the parameter gradients
 f32 sums over up to 84,480 rows), and a second call must give the same bits
 (no atomics), on both routes (``ops/ffd_fused.py:kernel_path``).
@@ -383,6 +384,89 @@ def test_k5_fed_by_k1_statistics_on_the_train_path(gen, G, Tq, Tk, H,
         if a is not None:
             _assert_close_scaled(a, b, torch.bfloat16, name)
             _assert_close_scaled(a, c, torch.bfloat16, name)
+
+
+# (G, Tq, Tk, heads) of chip_smoke.py:K5_NUSC_CASES: the nuScenes train
+# step's K5 calls at B 8 (stage 0's local and grid branches, stage 1, stage
+# 2: windows of 600, 100 and 625 queries), then ragged windows of 1, 13 and
+# 70 queries (one row of a tile, part of an 8-row group, a second tile of 6)
+K5_NUSC_SHAPES = [(800, 600, 432, 1), (800, 100, 432, 1), (200, 100, 432, 2),
+                  (8, 625, 2520, 4)]
+K5_RAGGED_SHAPES = [(3, 1, 40, 4), (3, 13, 40, 4), (2, 70, 64, 2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,Tq,Tk,H", K5_NUSC_SHAPES + K5_RAGGED_SHAPES)
+def test_k5_kernel_matches_plain_at_ragged_query_windows(gen, dtype, G, Tq,
+                                                         Tk, H):
+    """K5 at a Tq that is no multiple of 8 (the bf16 route's statistics map
+    at a row pitch of Tq rounded up to 4 floats; the f32 route's row
+    kernels clamped by row), both routes against the plain version, and a
+    second call equal bit for bit."""
+    q, k, v, g, bias, mask = _k5_inputs(gen, dtype, G, H, 32, Tq, Tk, "")
+    assert packed_bwd_kernel_ok(q, k, None, H)
+    out = fused_window_attention_packed(q, k, v, H)
+    before = fused_window_attention_packed_bwd.launches
+    got = fused_window_attention_packed_bwd(q, k, v, g, out, H)
+    assert fused_window_attention_packed_bwd.launches == before + 1
+    want = fused_window_attention_packed_bwd(q, k, v, g, out, H,
+                                             impl="torch")
+    again = fused_window_attention_packed_bwd(q, k, v, g, out, H)
+    torch.cuda.synchronize()
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, want, again):
+        _assert_close_scaled(a, b, dtype, name)
+        assert torch.equal(a, c), name
+    assert got[3] is None
+
+
+@pytest.mark.parametrize("extras", ["bias", "mask", "bias+mask"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,Tq,Tk,H", K5_RAGGED_SHAPES)
+def test_k5_ragged_query_windows_with_bias_and_mask(gen, dtype, extras, G,
+                                                    Tq, Tk, H):
+    """The other operands at a ragged Tq: the bias box's rows past Tq are
+    zero-filled too, dbias keeps Tq rows, a fully masked window stays
+    exact."""
+    q, k, v, g, bias, mask = _k5_inputs(gen, dtype, G, H, 32, Tq, Tk,
+                                        extras)
+    out = fused_window_attention_packed(q, k, v, H, bias, mask)
+    got = fused_window_attention_packed_bwd(q, k, v, g, out, H, bias, mask)
+    want = fused_window_attention_packed_bwd(q, k, v, g, out, H, bias, mask,
+                                             impl="torch")
+    again = fused_window_attention_packed_bwd(q, k, v, g, out, H, bias, mask)
+    torch.cuda.synchronize()
+    for name, a, b, c in zip(("dq", "dk", "dv", "dbias"), got, want, again):
+        assert (a is None) == (b is None) == (name == "dbias" and
+                                              bias is None)
+        if a is not None:
+            _assert_close_scaled(a, b, dtype, name)
+            assert torch.equal(a, c), name
+
+
+@pytest.mark.parametrize("G,Tq,Tk,H", K5_NUSC_SHAPES + K5_RAGGED_SHAPES)
+def test_k5_fed_by_k1_statistics_at_ragged_query_windows(gen, G, Tq, Tk, H):
+    """The nuScenes train step's path in bf16: K1 writes the row statistics
+    at the padded pitch, K5 reads them through its TMA map; one K5 launch,
+    within K5's tolerance of the plain backward and of K5 alone, and the
+    same bits on a second backward."""
+    q, k, v, g, _, _ = _k5_inputs(gen, torch.bfloat16, G, H, 32, Tq, Tk, "")
+    runs = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = fused_window_attention_packed_bwd.launches
+        out = fused_window_attention_packed(*leaves, H)
+        out.backward(g)
+        torch.cuda.synchronize()
+        assert fused_window_attention_packed_bwd.launches == before + 1
+        runs.append([t.grad for t in leaves])
+    want = fused_window_attention_packed_bwd(q, k, v, g, out.detach(), H,
+                                             impl="torch")
+    alone = fused_window_attention_packed_bwd(q, k, v, g, out.detach(), H)
+    for name, a, b, c, d in zip(("dq", "dk", "dv"), runs[0], want, alone,
+                                runs[1]):
+        _assert_close_scaled(a, b, torch.bfloat16, name)
+        _assert_close_scaled(a, c, torch.bfloat16, name)
+        assert torch.equal(a, d), name
 
 
 FFD_NAMES = ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2")

@@ -289,13 +289,17 @@ def test_full_width_stages_take_k2(stage, switches):
                                    (1, 8), (63, 64)])
 def test_k1_takes_ragged_query_windows(Tq, Tk):
     """K1 takes any Tq >= 1 (rows past Tq are neither read as live queries
-    nor written); Tk stays a multiple of 8.  K5 keeps its multiples of 8."""
+    nor written); Tk stays a multiple of 8.  K5 takes the same shapes since
+    the nuScenes training slice; K8 keeps its multiples of 8."""
     k1.check_k1_shapes(torch.bfloat16, Tq, Tk, 32)
     with pytest.raises(ValueError, match="multiples of 8"):
         k1.check_k1_shapes(torch.bfloat16, Tq, Tk + 4, 32)
+    k1.check_k5_shapes(torch.bfloat16, Tq, Tk, 32)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        k1.check_k5_shapes(torch.bfloat16, Tq, Tk + 4, 32)
     if Tq % 8:
-        with pytest.raises(ValueError, match="12"):
-            k1._check_kernel_shapes("K5", torch.bfloat16, Tq, Tk, 32)
+        with pytest.raises(ValueError, match="multiples of 8"):
+            k1.check_k8_shapes(torch.bfloat16, Tq, Tk, 32)
 
 
 def small_experiment():

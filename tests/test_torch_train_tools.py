@@ -13,7 +13,6 @@ import math
 import os
 import re
 
-import numpy as np
 import pytest
 import torch
 
@@ -115,22 +114,28 @@ def test_gradient_gate_at_a_small_config_on_the_cpu():
 
 
 def test_gradient_gate_trips_on_a_wrong_backward():
+    def step(loss, norms):
+        # (loss, parts, gradients): one-element gradients of these norms
+        return loss, {}, {k: torch.tensor([v], dtype=torch.float64)
+                          for k, v in norms.items()}
+
+    def compare(got, ref):
+        return validate_kernels.compare_step(
+            got, ref, *validate_kernels.TRAIN_BUDGETS["corpbevt"],
+            metric="norm")
+
     norms = {"a.weight": 3.0, "b.weight": 4.0, "k.bias": 1e-6}
-    stock = (1.0, 5.0, norms)
-    assert validate_kernels.compare_train(stock, stock)["ok"]
+    stock = step(1.0, norms)
+    assert compare(stock, stock)["ok"]
     # one large layer off by a fifth: relative and material
-    wrong = dict(norms, **{"a.weight": 3.6})
-    gnorm = float(np.sqrt(sum(v * v for v in wrong.values())))
-    report = validate_kernels.compare_train((1.0, gnorm, wrong), stock)
-    assert not report["ok"] and report["layer_failures"] == ["a.weight"]
+    report = compare(step(1.0, dict(norms, **{"a.weight": 3.6})), stock)
+    assert not report["ok"] and report["param_failures"] == ["a.weight"]
     # a noise-tier gradient that grew beyond three signal floors
-    noisy = dict(norms, **{"k.bias": 0.02})
-    report = validate_kernels.compare_train((1.0, 5.0, noisy), stock)
+    report = compare(step(1.0, dict(norms, **{"k.bias": 0.02})), stock)
     assert not report["ok"] and report["noise_tier_failures"] == ["k.bias"]
     # a drifted loss, and a non-finite one
-    assert not validate_kernels.compare_train((1.02, 5.0, norms), stock)["ok"]
-    assert not validate_kernels.compare_train((float("nan"), 5.0, norms),
-                                              stock)["ok"]
+    assert not compare(step(1.02, norms), stock)["ok"]
+    assert not compare(step(float("nan"), norms), stock)["ok"]
 
 
 def test_port_sources_name_no_jax_import():
