@@ -158,7 +158,28 @@ non-zero without printing the final line:
      SinBEVT-OPV2V's train step on the OPV2V recipe (1 + 2 steps: 7 K1, 6 K5
      and one composite backward, the self-attention's, a step).
      ``--sinbevt_train`` runs this phase alone after the build and stops
-     without the final line.
+     without the final line;
+ 15. camera entry points: a synthetic OPV2V fixture written through
+     data/image_io.py (1 scenario x 5 CAVs x 4 timestamps to train on, 3
+     CAVs x 2 to validate; 512^2 camera PNGs, 256^2 labels, JSON-text
+     YAML), then tools/train_camera.main on the full-width corpbevt.yaml
+     hypes of tools/export_config.py with --half (4 steps at batch 1, 2 of
+     them traced with torch.profiler, one validation pass, one save): each
+     step 13 K1 + 12 K5 + 1 composite backward, each validation frame 1
+     K1 + 24 K2 + 20 K3 + 14 K4; the saved checkpoint restored into a fresh
+     state bit for bit, with save and restore times; then
+     tools/inference_camera.main from the checkpoint (its IoU equal to the
+     trainer's) and tools/serve_camera.main --model_dir over the
+     validation folder (argmax IoU >= 0.99 against inference_camera, the
+     p50 a request).  ``--train_camera`` runs this phase alone after the
+     build and stops without the final line.
+
+K2's phase-3 rows (CorpBEVT, SinBEVT-OPV2V, SinBEVT-nuScenes) draw 20
+inputs a bf16 row (the first from the shared generator, the rest from K2's
+own) and hold every draw to compare_k2 (|kernel - plain| <= 0.02 + 0.02 *
+max(|plain|, k2_scale: the magnitude of the terms added at the skip and the
+MLP residual, through the post-LN's |gamma| / std)); a dropped head must
+fail it.
 
 The last stdout lines are the kernels JSON line, the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.  Imports
@@ -279,6 +300,9 @@ K3_SINBEVT_CASES = [(f"sinbevt_{c[0]}", 4, *c[2:6], 0, c[6])
                     for c in K3_CASES]
 # launches of each wgmma K3 case that must equal its first result bit for bit
 K3_REPEATS = 20
+# K2 rows: fresh input draws a row in each dtype, every one of which must
+# pass compare_k2
+K2_DRAWS = {"float32": 1, "bfloat16": 20}
 # K2: the six FAX cross-view branches of a 5-agent frame (B = 5 agents,
 # n = 4 cameras, D = C = 128, 4 heads); each is one call of 4 launches
 # (name, BEV H=W, keys h=w, q_win, k_win, embed, post_ln, grid keys)
@@ -407,6 +431,12 @@ TRAIN_PER_STEP = {"fused_window_attention_packed": 13,
 # every other wrapper 0
 LIDAR_TRAIN_PER_STEP = {"fused_window_attention_packed": 4,
                         "fused_window_attention_packed_bwd": 4}
+# phase 15: the fixture's train split (4 samples of 5 agents: 4 steps at
+# batch 1) and validation split (2 frames of 3 live agents), and the steps
+# after the first that torch.profiler traces
+TRAIN_CAM_CAVS, TRAIN_CAM_STAMPS = 5, 4
+VAL_CAM_CAVS, VAL_CAM_STAMPS = 3, 2
+TRAIN_CAM_PROFILED = 2
 SERVE_AGENTS = [5, 3, 1, 4, 2, 5, 3, 5, 2, 4]
 INT8_AGENTS = [5, 3, 1, 4, 2]
 STOCK_AGENTS = [5, 2, 4]
@@ -562,6 +592,76 @@ def compare_scaled(got, want, dtype_name):
     abs_err = float(diff.max())
     worst = float((diff - tol * (scale + w.abs())).max())
     return abs_err, abs_err / scale, worst <= 0
+
+
+def k2_scale(x, we, ce, key, val, p, q_win, k_win, heads, scale,
+             grid=False):
+    """The f32 magnitude K2's rounding error scales with, element by
+    element: |attention branch| + |x| (the skip) + |MLP term|, times the
+    post-LN's |gamma| / std (its beta adds a constant and cancels
+    nothing).  An output near zero can be the difference of two large
+    terms, each rounded to bf16.  The branch is the plain chain without its
+    tail, the tail is taken here in f32 in the chain's order."""
+    import torch
+    import torch.nn.functional as F
+    from cobevt_tpu_torch.ops.fused_cross_attention import (
+        PackedParams,
+        _reference,
+        ln_f32,
+    )
+    tail = ("ln_m", "w1_t", "b1", "w2_t", "b2", "ln_p")
+    a = _reference(x, we, ce, key, val,
+                   PackedParams({k: v for k, v in p.items()
+                                 if k not in tail}),
+                   tuple(q_win), tuple(k_win), heads, scale, False,
+                   grid).float()
+
+    def c(t):   # a rounding to the compute dtype, kept as f32 values
+        return t.to(x.dtype).float()
+
+    s = a + x.float()
+    mag = a.abs() + x.float().abs()
+    if "w1_t" in p:
+        t = c(ln_f32(c(s), *p["ln_m"]))
+        hid = c(F.gelu(t @ p["w1_t"].float().t() + p["b1"].float()))
+        m = hid @ p["w2_t"].float().t() + p["b2"].float()
+        s = c(s) + m
+        mag = mag + m.abs()
+    if "ln_p" in p:
+        s = c(s)
+        var = ((s - s.mean(-1, keepdim=True)) ** 2).mean(-1, keepdim=True)
+        mag = mag * p["ln_p"][0].float().abs() * torch.rsqrt(var + 1e-5)
+    return mag
+
+
+def compare_k2(got, want, mag, dtype_name):
+    """K2's check: |kernel - plain| <= atol + rtol * max(|plain|, mag),
+    ``mag`` from :func:`k2_scale`.  With the plain chain rounding where
+    the TPU body rounds, the |plain|-relative rule alone still reads above
+    1 at some bf16 draws (1.012 of its bound at CorpBEVT's stage0_local,
+    PERF.md), at outputs that cancel.
+    Returns the errors, the worst ratio of error to bound (<= 1 holds) and
+    that ratio under the |plain|-relative rule."""
+    import torch
+    atol, rtol = TOL[dtype_name]
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        raise AssertionError("kernel output has non-finite values")
+    diff = (g - w).abs()
+    abs_err = float(diff.max())
+    return {"abs_err": abs_err,
+            "rel_err": abs_err / (float(w.abs().max()) + 1e-12),
+            "ratio": float((diff / (atol + rtol * torch.maximum(
+                w.abs(), mag))).max()),
+            "ratio_plain": float((diff / (atol + rtol * w.abs())).max())}
+
+
+def k2_drop_head(out, heads):
+    """The attention output of packed (G, T, C) heads with head 0 zeroed:
+    the fault K2's check must see."""
+    out = out.clone()
+    out[..., :out.shape[-1] // heads] = 0
+    return out
 
 
 def nbytes(*tensors):
@@ -936,9 +1036,12 @@ def phase_kernels(only=None):
         kernel_path as ffd_kernel_path,
     )
     from cobevt_tpu_torch.ops.fused_cross_attention import (
+        _reference as k2_reference,
+        cross_view_attention_reference,
         fused_cross_view_attention,
         kernel_path as k2_kernel_path,
         pack_params,
+        packed_attention_rounded,
     )
     from cobevt_tpu_torch.ops.fused_swap_fusion import (
         _launch_streaming,
@@ -968,6 +1071,7 @@ def phase_kernels(only=None):
     log("== kernels vs plain versions (CUDA events, after warmup)")
     gen = torch.Generator(device="cuda").manual_seed(0)
     nusc_gen = torch.Generator(device="cuda").manual_seed(14)
+    k2_gen = torch.Generator(device="cuda").manual_seed(15)
     details = []
     failures = []
 
@@ -1318,64 +1422,107 @@ def phase_kernels(only=None):
                     failures.append(row)
             del x, dy, library
             torch.cuda.empty_cache()
+
+        def k2_draws(make, q_win, k_win, heads, scale, grid):
+            """One K2 row over fresh draws (the first from the shared
+            generator, the timed one; the rest from K2's own, so no other
+            row's inputs move), each held to compare_k2, then head 0 of
+            the attention dropped in the plain chain on the first draw:
+            (the draws' checks, the fault's check, the first draw's
+            operands and kernel output)."""
+            draws = []
+            for d in range(K2_DRAWS[dname]):
+                x, we, ce, key, val, params, mlp, post_ln = make(
+                    gen if d == 0 else k2_gen)
+                # packed once, as the model packs its weights once
+                args = (x, we, ce, key, val,
+                        pack_params(params, mlp, post_ln, dtype), q_win,
+                        k_win, heads, scale)
+                got = fused_cross_view_attention(*args, add_skip=True,
+                                                 impl="kernel",
+                                                 grid_keys=grid)
+                want = cross_view_attention_reference(
+                    *args, add_skip=True, grid_keys=grid)
+                mag = k2_scale(*args, grid)
+                draws.append(compare_k2(got, want, mag, dname))
+                if d == 0:
+                    first = (args, got, mag)
+                del x, we, ce, key, val, params, mlp, post_ln, args, want
+            args, got, mag = first
+            faulted = k2_reference(
+                *args[:6], tuple(q_win), tuple(k_win), heads, scale, True,
+                grid, attention=lambda q, k, v: k2_drop_head(
+                    packed_attention_rounded(q, k, v, heads, dtype), heads))
+            return draws, compare_k2(got, faulted, mag, dname), args, got
+
+        def k2_draw_fields(draws, fault):
+            ratios = sorted(r["ratio"] for r in draws)
+            return {"max_abs_err": max(r["abs_err"] for r in draws),
+                    "max_rel_err": max(r["rel_err"] for r in draws),
+                    "draws": len(draws), "ratio_max": ratios[-1],
+                    "ratio_median": ratios[len(ratios) // 2],
+                    "ratio_plain_max": max(r["ratio_plain"] for r in draws),
+                    "fault_ratio": fault["ratio"],
+                    "ok": ratios[-1] <= 1.0 and fault["ratio"] > 1.0}
+
+        def k2_log(row):
+            log(f"K2 {row['case']} {dname}: {row['draws']} draws, worst "
+                f"|kernel - plain| / bound {row['ratio_max']:.3f} (median "
+                f"{row['ratio_median']:.3f}), head 0 dropped "
+                f"{row['fault_ratio']:.2f}; the |plain| rule alone: worst "
+                f"{row['ratio_plain_max']:.3f}")
+
         # CorpBEVT's 5 agents, then one SinBEVT-OPV2V vehicle
         for B, case in ([(B, c) for B in (K2_B, K2_SINBEVT_B)
                          for c in K2_CASES] if selected("K2") else ()):
-            x, we, ce, key, val, params, mlp, post_ln = k2_inputs(
-                case, dtype, gen, B)
             _, _, _, q_win, k_win, embed, _, grid = case
-            # packed once, as the model packs its weights once
-            packed = pack_params(params, mlp, post_ln, dtype)
+            draws, fault, args, got = k2_draws(
+                lambda g: k2_inputs(case, dtype, g, B), (q_win, q_win),
+                (k_win, k_win), K2_HEADS, (K2_DIM // K2_HEADS) ** -0.5, grid)
 
             def xattn(impl):
                 return fused_cross_view_attention(
-                    x, we, ce, key, val, packed, (q_win, q_win),
-                    (k_win, k_win), K2_HEADS, (K2_DIM // K2_HEADS) ** -0.5,
-                    add_skip=True, impl=impl, grid_keys=grid)
+                    *args, add_skip=True, impl=impl, grid_keys=grid)
 
-            got, want = xattn("kernel"), xattn("torch")
-            torch.cuda.synchronize()
-            abs_err, rel_err, ok = compare(got, want, dname)
             row = {"kernel": "K2", "dtype": dname,
                    "route": k2_kernel_path(dtype, K2_DIM, K2_DIM, K2_HEADS,
                                            2 * K2_DIM,
                                            K2_CAMS if embed else 1),
-                   "max_abs_err": abs_err, "max_rel_err": rel_err,
+                   **k2_draw_fields(draws, fault),
                    "ms": time_ms(lambda: xattn("kernel"), 5),
                    "plain_ms": time_ms(lambda: xattn("torch"), 5),
                    "device_ms": device_ms(lambda: xattn("kernel"), 5),
                    "launch_device_ms": kernel_device_ms(
                        lambda: xattn("kernel"), 5)}
             if B == K2_B:
-                row.update(case=case[0], per_frame=1, ok=ok)
+                row.update(case=case[0], per_frame=1)
             else:
                 repeats = all(torch.equal(xattn("kernel"), got)
                               for _ in range(NUSC_REPEATS))
                 row.update(case=f"sinbevt_{case[0]}", per_frame=0,
                            per_sinbevt_opv2v_frame=1,
-                           repeats_bit_equal=repeats, ok=ok and repeats)
-            row.update(bound(*k2_work(case, x.element_size(), B), dname))
+                           repeats_bit_equal=repeats,
+                           ok=row["ok"] and repeats)
+            row.update(bound(*k2_work(case, args[0].element_size(), B),
+                             dname))
+            k2_log(row)
             details.append(row)
             if not row["ok"]:
                 failures.append(row)
-            del x, we, ce, key, val, params, mlp, post_ln, packed, got, want
+            del args, got
         for B, case in [(B, c) for B in K2_NUSC_BATCHES
                         for c in K2_NUSC_CASES] if selected("K2") else ():
             name, H, (h, w), q_win, k_win, D, heads, embed, post, grid = case
             n = K2_NUSC_CAMS
-            x, we, ce, key, val, params, mlp, post_ln = k2_branch_inputs(
-                B, n, H, H, h, w, D, D, 2 * D, embed, post, dtype, gen)
-            packed = pack_params(params, mlp, post_ln, dtype)
+            draws, fault, args, got = k2_draws(
+                lambda g: k2_branch_inputs(B, n, H, H, h, w, D, D, 2 * D,
+                                           embed, post, dtype, g),
+                q_win, k_win, heads, (D // heads) ** -0.5, grid)
 
             def xattn(impl):
                 return fused_cross_view_attention(
-                    x, we, ce, key, val, packed, q_win, k_win, heads,
-                    (D // heads) ** -0.5, add_skip=True, impl=impl,
-                    grid_keys=grid)
+                    *args, add_skip=True, impl=impl, grid_keys=grid)
 
-            got, want = xattn("kernel"), xattn("torch")
-            torch.cuda.synchronize()
-            abs_err, rel_err, ok = compare(got, want, dname)
             repeats = all(torch.equal(xattn("kernel"), got)
                           for _ in range(NUSC_REPEATS))
             row = {"kernel": "K2", "case": name if B == 1 else f"{name}_b{B}",
@@ -1384,20 +1531,22 @@ def phase_kernels(only=None):
                    "per_nuscenes_fused_xattn_train_step": int(B > 1),
                    "route": k2_kernel_path(dtype, D, D, heads, 2 * D,
                                            n if embed else 1),
-                   "max_abs_err": abs_err, "max_rel_err": rel_err,
-                   "repeats_bit_equal": repeats, "ok": ok and repeats,
+                   **k2_draw_fields(draws, fault),
+                   "repeats_bit_equal": repeats,
                    "ms": time_ms(lambda: xattn("kernel"), 5),
                    "plain_ms": time_ms(lambda: xattn("torch"), 5),
                    "device_ms": device_ms(lambda: xattn("kernel"), 5),
                    "launch_device_ms": kernel_device_ms(
                        lambda: xattn("kernel"), 5)}
+            row["ok"] = row["ok"] and repeats
             row.update(bound(*k2_branch_work(
                 B, n, H, H, h, w, q_win, k_win, D, D, 2 * D, embed,
-                x.element_size()), dname))
+                args[0].element_size()), dname))
+            k2_log(row)
             details.append(row)
             if not row["ok"]:
                 failures.append(row)
-            del x, we, ce, key, val, params, mlp, post_ln, packed, got, want
+            del args, got
         for case in K4_CASES if selected("K4") else ():
             x, mask, am, bias, layers, head, w, heads = k4_inputs(
                 case, dtype, gen)
@@ -2785,6 +2934,309 @@ def phase_sinbevt_train(seed=0):
     return result
 
 
+def write_opv2v_fixture(root, n_cavs, n_stamps, image_hw, bev, seed):
+    """One scenario of ``n_cavs`` CAVs x ``n_stamps`` timestamps in the
+    OPV2V on-disk layout (tests/test_data_pipeline.py's layout): per
+    timestamp a JSON-text YAML file (poses within COM_RANGE, 4 cameras),
+    four camera PNGs at ``image_hw`` and the five label PNGs at ``bev``^2,
+    written through the port's data/image_io.py (filter 0 without cv2)."""
+    import numpy as np
+    from cobevt_tpu_torch.data.image_io import imwrite
+    rng = np.random.RandomState(seed)
+    H, W = image_hw
+    for c in range(n_cavs):
+        cav_dir = os.path.join(root, "scenario_0", str(100 + c))
+        os.makedirs(cav_dir, exist_ok=True)
+        for t in range(n_stamps):
+            ts = f"{t:06d}"
+            pose = [8.0 * c + t, 3.0 * c, 0.0, 0.0, 15.0 * c, 0.0]
+            params = {"lidar_pose": pose, "true_ego_pos": pose}
+            for m in range(4):
+                params[f"camera{m}"] = {
+                    "cords": [pose[0], pose[1] + 0.5 * m, 1.8, 0.0,
+                              pose[4] + 90.0 * m, 0.0],
+                    "intrinsic": [[0.9 * W, 0.0, W / 2], [0.0, 0.9 * W, H / 2],
+                                  [0.0, 0.0, 1.0]],
+                    "extrinsic": np.eye(4).tolist()}
+            with open(os.path.join(cav_dir, f"{ts}.yaml"), "w") as f:
+                json.dump(params, f)
+            for m in range(4):
+                imwrite(os.path.join(cav_dir, f"{ts}_camera{m}.png"),
+                        rng.randint(0, 256, (H, W, 3), dtype=np.uint8))
+            for ext in ("bev_dynamic.png", "bev_static.png", "bev_lane.png",
+                        "bev_visibility.png", "bev_visibility_corp.png"):
+                imwrite(os.path.join(cav_dir, f"{ts}_{ext}"),
+                        (rng.rand(bev, bev) > 0.9).astype(np.uint8) * 255)
+
+
+@contextlib.contextmanager
+def counted_steps(train_calls, eval_calls):
+    """Record the launch counts of every train-step and eval-step call the
+    Trainer makes (``train/loop.py`` builds its steps from the two
+    factories), and the backwards of window attention that take the
+    composite, one dict per call."""
+    from cobevt_tpu_torch import ops
+    from cobevt_tpu_torch.ops import window_attention
+    from cobevt_tpu_torch.train import loop
+    real = (loop.make_train_step, loop.make_eval_step,
+            window_attention.packed_backward_composite)
+    composite = [0]
+
+    def composite_counted(*args, **kwargs):
+        composite[0] += 1
+        return real[2](*args, **kwargs)
+
+    def counting(make, calls):
+        def make_counted(*args, **kwargs):
+            step = make(*args, **kwargs)
+
+            def step_counted(*a, **kw):
+                before, c0 = ops.launch_counts(), composite[0]
+                out = step(*a, **kw)
+                after = ops.launch_counts()
+                calls.append({**{k: after[k] - before[k] for k in after},
+                              "composite": composite[0] - c0})
+                return out
+            return step_counted
+        return make_counted
+
+    loop.make_train_step = counting(real[0], train_calls)
+    loop.make_eval_step = counting(real[1], eval_calls)
+    window_attention.packed_backward_composite = composite_counted
+    try:
+        yield
+    finally:
+        (loop.make_train_step, loop.make_eval_step,
+         window_attention.packed_backward_composite) = real
+
+
+def check_calls(name, calls, expect, n):
+    """Every call launched ``expect`` (0 where absent) of each wrapper."""
+    if len(calls) != n:
+        raise AssertionError(f"{name}: {len(calls)} calls, expected {n}")
+    for i, got in enumerate(calls):
+        wrong = {k: v for k, v in got.items() if v != expect.get(k, 0)}
+        if wrong:
+            raise AssertionError(f"{name} {i}: launches {wrong}, expected "
+                                 f"{ {k: expect.get(k, 0) for k in wrong} }")
+
+
+def seg_iou(a, b):
+    """Mean over classes of the IoU of two class maps (argmax_iou's
+    rule)."""
+    import numpy as np
+    ious = []
+    for c in np.union1d(np.unique(a), np.unique(b)):
+        union = np.logical_or(a == c, b == c).sum()
+        if union:
+            ious.append(np.logical_and(a == c, b == c).sum() / union)
+    return float(np.mean(ious)) if ious else 1.0
+
+
+def phase_train_camera(seed=0):
+    """The port's main path through its entry points at corpbevt.yaml
+    width: a synthetic OPV2V fixture, tools/train_camera.py (4 bf16 steps,
+    one validation pass, one save), a restore into a fresh state,
+    tools/inference_camera.py and tools/serve_camera.py from the
+    checkpoint."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from cobevt_tpu_torch import ops
+    from cobevt_tpu_torch.configs.hypes import load_hypes
+    from cobevt_tpu_torch.tools import (
+        inference_camera,
+        serve_camera,
+        train_camera,
+    )
+    from cobevt_tpu_torch.tools.export_config import export_preset
+    from cobevt_tpu_torch.train import create_train_state, make_optimizer
+    from cobevt_tpu_torch.train.checkpoint import (
+        checkpoint_paths,
+        latest_checkpoint,
+        restore_checkpoint,
+        save_checkpoint,
+    )
+    from cobevt_tpu_torch.train.optim import constant_schedule
+
+    log("== train_camera: CorpBEVT 5 agents x 4 cameras x 512^2 through "
+        "train_camera / inference_camera / serve_camera --model_dir, bf16")
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="cobevt_camera_") as tmp:
+        t0 = time.perf_counter()
+        hypes = export_preset("corpbevt")
+        res = (hypes["preprocess"]["args"]["resize_y"],
+               hypes["preprocess"]["args"]["resize_x"])
+        bev = hypes["model"]["args"]["fax"]["bev_embedding"]["bev_height"]
+        train_dir, val_dir = (os.path.join(tmp, "train"),
+                              os.path.join(tmp, "validate"))
+        write_opv2v_fixture(train_dir, TRAIN_CAM_CAVS, TRAIN_CAM_STAMPS, res,
+                            bev, seed)
+        write_opv2v_fixture(val_dir, VAL_CAM_CAVS, VAL_CAM_STAMPS, res, bev,
+                            seed + 1)
+        hypes.update(root_dir=train_dir, validate_dir=val_dir)
+        hypes["train_params"].update(batch_size=1, epoches=1, eval_freq=1,
+                                     save_freq=1)
+        hypes_path = os.path.join(tmp, "corpbevt.yaml")
+        with open(hypes_path, "w") as f:
+            json.dump(hypes, f)
+        out["fixture_s"] = time.perf_counter() - t0
+        log(f"fixture: train {TRAIN_CAM_CAVS} CAVs x {TRAIN_CAM_STAMPS} "
+            f"timestamps, validate {VAL_CAM_CAVS} x {VAL_CAM_STAMPS}, cameras "
+            f"{res[0]}x{res[1]}, labels {bev}^2, written in "
+            f"{out['fixture_s']:.1f} s")
+
+        run = os.path.join(tmp, "run")
+        train_calls, eval_calls = [], []
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with counted_steps(train_calls, eval_calls):
+            trainer = train_camera.main([
+                "--hypes_yaml", hypes_path, "--save_dir", run, "--half",
+                "--log_every", "1",
+                "--profile_steps", str(TRAIN_CAM_PROFILED)])
+        out["train_camera_s"] = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        steps = [{"step": r["step"], "loss": r["scalars"]["loss"],
+                  "grad_norm": r["scalars"]["grad_norm"],
+                  "host_ms": r["step_s"] * 1e3,
+                  "loader_ms": r["loader_s"] * 1e3,
+                  "loader_share": r["loader_s"] / r["step_s"],
+                  "launches": {k: v for k, v in train_calls[i].items()
+                               if v}}
+                 for i, r in enumerate(trainer.records)]
+        for s_ in steps:
+            log(f"train_camera step {s_['step']}: loss {s_['loss']:.5f}, "
+                f"gradient norm {s_['grad_norm']:.4f}, host "
+                f"{s_['host_ms']:.1f} ms, waiting on the loader "
+                f"{s_['loader_ms']:.1f} ms ({s_['loader_share']:.3f}), "
+                f"launches {s_['launches']}")
+        import math
+        for s_ in steps:
+            if not (math.isfinite(s_["loss"])
+                    and math.isfinite(s_["grad_norm"])):
+                raise AssertionError(f"train_camera: step {s_}")
+        check_calls("train_camera step", train_calls,
+                    dict(TRAIN_PER_STEP, composite=1), TRAIN_CAM_STAMPS)
+        check_calls("validation frame", eval_calls, FUSED_PER_FRAME,
+                    VAL_CAM_STAMPS)
+        expect_total = {k: TRAIN_CAM_STAMPS * TRAIN_PER_STEP.get(k, 0) +
+                        VAL_CAM_STAMPS * FUSED_PER_FRAME.get(k, 0)
+                        for k in counts}
+        if counts != expect_total:
+            raise AssertionError(f"train_camera: launches {counts}, "
+                                 f"expected {expect_total}")
+        log("validation frame launches: "
+            f"{ {k: v for k, v in eval_calls[0].items() if v} }")
+        with open(os.path.join(run, "logs", "metrics.jsonl")) as f:
+            val = [json.loads(x) for x in f if "val_iou_dynamic" in x][-1]
+        out.update(steps=steps, counts=counts, profile=trainer.profile,
+                   val_iou_dynamic=val["val_iou_dynamic"],
+                   validation_launches=eval_calls[0])
+        log(f"train_camera: {len(steps)} steps + validation + save in "
+            f"{out['train_camera_s']:.1f} s; validation IoU "
+            f"{val['val_iou_dynamic']!r}")
+        if trainer.profile is None:
+            raise AssertionError("train_camera: no profile of the steps")
+        log("train_camera profile " + json.dumps(
+            {k: v for k, v in trainer.profile.items()
+             if k != "top_device_ops"}))
+
+        log("== restore: the saved checkpoint into a fresh state")
+        epoch = latest_checkpoint(run)
+        device = trainer.device
+        saved = trainer.state
+        t0 = time.perf_counter()
+        save_checkpoint(os.path.join(tmp, "again"), saved, epoch,
+                        trainer.generator)
+        torch.cuda.synchronize()
+        out["save_ms"] = (time.perf_counter() - t0) * 1e3
+        _, model, _ = train_camera.build_from_hypes(
+            load_hypes(os.path.join(run, "config.yaml")), device, seed + 1)
+        fresh = create_train_state(
+            model, make_optimizer(model.parameters(), constant_schedule(0.0)),
+            constant_schedule(0.0), compute_dtype=torch.bfloat16)
+        t0 = time.perf_counter()
+        fresh, got_epoch = restore_checkpoint(run, fresh)
+        torch.cuda.synchronize()
+        out["restore_ms"] = (time.perf_counter() - t0) * 1e3
+        out["checkpoint_bytes"] = sum(os.path.getsize(p) for p in
+                                      checkpoint_paths(run, epoch))
+        if got_epoch != 1 or fresh.step != saved.step:
+            raise AssertionError(f"restore: epoch {got_epoch}, step "
+                                 f"{fresh.step} vs {saved.step}")
+        a, b = saved.model.state_dict(), fresh.model.state_dict()
+        for k in a:
+            if not torch.equal(a[k], b[k]):
+                raise AssertionError(f"restore: {k} differs")
+        for p_old, p_new in zip(saved.params, fresh.params):
+            s_old = saved.optimizer.state[p_old]
+            s_new = fresh.optimizer.state[p_new]
+            for k in ("exp_avg", "exp_avg_sq", "step"):
+                if not torch.equal(s_old[k], s_new[k]):
+                    raise AssertionError(f"restore: AdamW {k} differs")
+        for t, m in zip(fresh.compute_model.modules(), fresh.model.modules()):
+            if isinstance(m, torch.nn.BatchNorm2d) and \
+                    t.running_mean is not m.running_mean:
+                raise AssertionError("restore: the twin lost the master's "
+                                     "BatchNorm buffers")
+        log(f"restore: bit for bit (parameters, BatchNorm buffers, AdamW "
+            f"moments, step {fresh.step}); save {out['save_ms']:.1f} ms, "
+            f"restore {out['restore_ms']:.1f} ms, checkpoint "
+            f"{out['checkpoint_bytes'] / 2**20:.1f} MiB")
+        del fresh, model, trainer, saved
+        torch.cuda.empty_cache()
+
+        log("== inference_camera --model_dir")
+        inf_dir, srv_dir = (os.path.join(tmp, "inference"),
+                            os.path.join(tmp, "serve"))
+        eval_calls = []
+        with counted_steps([], eval_calls):
+            ious = inference_camera.main(["--model_dir", run, "--out_dir",
+                                          inf_dir])
+        check_calls("inference frame", eval_calls, FUSED_PER_FRAME,
+                    VAL_CAM_STAMPS)
+        if ious["iou_dynamic"] != out["val_iou_dynamic"]:
+            raise AssertionError(f"inference_camera IoU {ious} vs the "
+                                 f"trainer's {out['val_iou_dynamic']!r}")
+        log(f"inference_camera: IoU {ious['iou_dynamic']!r}, the trainer's")
+        out["inference_iou"] = ious
+        torch.cuda.empty_cache()
+
+        log("== serve_camera --model_dir --root_dir (staged runner)")
+        ops.reset_launch_counts()
+        summary = serve_camera.main(["--model_dir", run, "--root_dir",
+                                     val_dir, "--half", "--out_dir",
+                                     srv_dir])
+        counts = ops.launch_counts()
+        served = summary["frames"] + len(summary["buckets"])
+        expect_total = {k: served * FUSED_PER_FRAME.get(k, 0) for k in counts}
+        if counts != expect_total:
+            raise AssertionError(f"serve_camera: launches {counts} over "
+                                 f"{served} frames (warmup included)")
+        frame_ious = []
+        for i in range(VAL_CAM_STAMPS):
+            name = f"frame_{i:06d}.npz"
+            a = np.load(os.path.join(inf_dir, name))
+            b = np.load(os.path.join(srv_dir, name))
+            if int(a["n_agents"]) != VAL_CAM_CAVS or \
+                    int(b["n_agents"]) != VAL_CAM_CAVS:
+                raise AssertionError(f"{name}: agents {a['n_agents']}, "
+                                     f"{b['n_agents']}")
+            frame_ious.append(seg_iou(a["seg"], b["seg"]))
+        log(f"serve_camera: p50 {summary['p50_ms']:.2f} ms a request over "
+            f"{summary['frames']} frames ({VAL_CAM_CAVS} live agents); "
+            f"argmax IoU against inference_camera {frame_ious}")
+        if min(frame_ious) < IOU_FLOOR:
+            raise AssertionError(f"serve_camera vs inference_camera argmax "
+                                 f"IoU {frame_ious}")
+        out.update(serve={k: summary[k] for k in (
+            "frames", "p50_ms", "p95_ms", "p99_ms", "frames_per_sec",
+            "buckets")}, serve_iou=frame_ious, serve_counts=counts)
+    return out
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default=None,
@@ -2801,6 +3253,10 @@ def main(argv=None):
                    help="run phase 14 (SinBEVT's train step) after the "
                         "build, and after --kernels and --sinbevt if given, "
                         "then stop without the final line")
+    p.add_argument("--train_camera", action="store_true",
+                   help="run phase 15 (the camera entry points from a "
+                        "fixture) after the build, and after the phases "
+                        "above if given, then stop without the final line")
     opt = p.parse_args(argv)
 
     import torch
@@ -2811,17 +3267,19 @@ def main(argv=None):
     t0 = time.perf_counter()
     phase_environment()
     phase_build()
-    if opt.kernels or opt.sinbevt or opt.sinbevt_train:
+    if opt.kernels or opt.sinbevt or opt.sinbevt_train or opt.train_camera:
         details = (phase_kernels(set(opt.kernels.split(",")))
                    if opt.kernels else [])
         sinbevt = phase_sinbevt() if opt.sinbevt else None
         sinbevt_train = phase_sinbevt_train() if opt.sinbevt_train else None
+        train_camera = phase_train_camera() if opt.train_camera else None
         if opt.out:
             os.makedirs(os.path.dirname(os.path.abspath(opt.out)),
                         exist_ok=True)
             with open(opt.out, "w") as f:
                 json.dump({"cases": details, "sinbevt": sinbevt,
                            "sinbevt_train": sinbevt_train,
+                           "train_camera": train_camera,
                            "card": card_line()}, f, indent=1)
         log(f"total {time.perf_counter() - t0:.1f} s")
         return 0
@@ -2836,6 +3294,7 @@ def main(argv=None):
     ffd_counts = phase_micro_ffd_fused()
     sinbevt = phase_sinbevt()
     sinbevt_train = phase_sinbevt_train()
+    train_camera = phase_train_camera()
 
     # (wrapper, source, the TPU function it replaces)
     sources = {
@@ -2906,6 +3365,14 @@ def main(argv=None):
                    "fused_window_attention_packed_bwd",
                    "fused_cross_view_attention"):
             launches[fn] += counts14[fn]
+    # K1-K5 through the camera entry points of phase 15: the train steps and
+    # validation frames of train_camera, and serve_camera's frames
+    for counts15 in (train_camera["counts"], train_camera["serve_counts"]):
+        for fn in ("fused_window_attention_packed",
+                   "fused_window_attention_packed_bwd",
+                   "fused_cross_view_attention", "fused_conv3x3",
+                   "fused_swap_fusion"):
+            launches[fn] += counts15[fn]
     kernels = []
     for key, (fn, src, replaces) in sources.items():
         rows = [r for r in details if r["kernel"] == key]
@@ -2952,6 +3419,7 @@ def main(argv=None):
                        "lidar_gradient_gate": lidar_gate,
                        "ffd_counts": ffd_counts, "sinbevt": sinbevt,
                        "sinbevt_train": sinbevt_train,
+                       "train_camera": train_camera,
                        "kernels": kernels,
                        "card": card_line(),
                        "torch": torch.__version__,

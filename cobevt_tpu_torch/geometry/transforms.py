@@ -1,14 +1,46 @@
 """Pose and grid math used by the CorpBEVT forward.
 
 Counterpart of the parts of ``cobevt_tpu/geometry/transforms.py`` the
-serving path uses: the host-side numpy grids are copied as they are, the
-traced functions take torch tensors and compute in f32.
+serving path and the OPV2V dataset use: the host-side numpy poses and grids
+are copied as they are, the traced functions take torch tensors and compute
+in f32.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def x_to_world(pose) -> np.ndarray:
+    """SE(3) matrix taking the ``pose`` frame to the CARLA world frame.
+
+    ``pose`` is the 6-dof CARLA convention ``[x, y, z, roll, yaw, pitch]``
+    in meters/degrees (reference ``transformation_utils.py:8``).
+    """
+    x, y, z, roll, yaw, pitch = (float(v) for v in pose[:6])
+    cy, sy = np.cos(np.radians(yaw)), np.sin(np.radians(yaw))
+    cr, sr = np.cos(np.radians(roll)), np.sin(np.radians(roll))
+    cp, sp = np.cos(np.radians(pitch)), np.sin(np.radians(pitch))
+
+    m = np.identity(4)
+    m[:3, 3] = (x, y, z)
+    m[0, 0] = cp * cy
+    m[0, 1] = cy * sp * sr - sy * cr
+    m[0, 2] = -cy * sp * cr - sy * sr
+    m[1, 0] = sy * cp
+    m[1, 1] = sy * sp * sr + cy * cr
+    m[1, 2] = -sy * sp * cr + cy * sr
+    m[2, 0] = sp
+    m[2, 1] = -cp * sr
+    m[2, 2] = cp * cr
+    return m
+
+
+def x1_to_x2(x1, x2) -> np.ndarray:
+    """SE(3) transform from frame ``x1`` to frame ``x2`` (both CARLA poses;
+    reference ``transformation_utils.py:52``)."""
+    return np.linalg.inv(x_to_world(x2)) @ x_to_world(x1)
 
 
 def get_view_matrix(h: int = 200, w: int = 200, h_meters: float = 100.0,

@@ -34,8 +34,9 @@ from cobevt_tpu_torch.ops.dispatch import (
     resolve_impl,
 )
 from cobevt_tpu_torch.ops.window_attention import (
+    _packed_from_4d,
+    _packed_to_4d,
     fused_window_attention_packed,
-    packed_attention_reference,
 )
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -183,11 +184,25 @@ def _grid_windows(t, a: int, b: int):
     return t.reshape(B, (H // a) * (W // b), n * a * b, D)
 
 
+def packed_attention_rounded(q, k, v, n_heads: int, dtype):
+    """The TPU body's attention core (``_packed_attn`` :63) on f32 values of
+    packed (G, T, C) heads: f32 products, the row max over every head of
+    the row, the exp rounded to ``dtype`` before both the numerator and the
+    per-head sum, the sum's quotient in f32.  Returns f32."""
+    q4, k4, v4 = (_packed_to_4d(t, n_heads).float() for t in (q, k, v))
+    sim = torch.einsum("ghqd,ghkd->ghqk", q4, k4)
+    m = sim.amax(dim=(1, 3), keepdim=True)
+    e = torch.exp(sim - m).to(dtype).float()
+    out = torch.einsum("ghqk,ghkd->ghqd", e, v4) / e.sum(-1, keepdim=True)
+    return _packed_from_4d(out)
+
+
 def _reference(x, w_embed, c_embed, key, val, p, q_win, k_win, n_heads,
                scale, add_skip, grid_keys, attention=None):
-    """``attention``: None for K1's plain version on the f32 values, else a
-    function of (q, k, v) in the compute dtype (the backward's composite
-    takes the differentiable ``fused_window_attention_packed``)."""
+    """``attention``: None for the TPU body's core on the f32 values
+    (:func:`packed_attention_rounded`), else a function of (q, k, v) in the
+    compute dtype (the backward's composite takes the differentiable
+    ``fused_window_attention_packed``)."""
     dt = x.dtype
     B, H, W, D = x.shape
     wh, ww = q_win
@@ -216,11 +231,16 @@ def _reference(x, w_embed, c_embed, key, val, p, q_win, k_win, n_heads,
     q, k, v = (q.reshape(Bq * nwin, Tq, C), k.reshape(Bq * nwin, Tk, C),
                v.reshape(Bq * nwin, Tk, C))
     if attention is None:
-        out = packed_attention_reference(q, k, v, n_heads)      # f32
+        out = packed_attention_rounded(q, k, v, n_heads, dt)
     else:
         out = attention(q.to(dt), k.to(dt), v.to(dt)).float()
     nq = Tq // (wh * ww)
-    out = out.reshape(B, nwin, nq, wh * ww, C).sum(2) / nq   # camera mean
+    # camera mean, the cameras added one after another as the body adds them
+    out = out.reshape(B, nwin, nq, wh * ww, C)
+    acc = out[:, :, 0]
+    for i in range(1, nq):
+        acc = acc + out[:, :, i]
+    out = acc / nq
     y = proj(c(out), p["wo_t"], p["bo"])
     X, Y = H // wh, W // ww
     y = y.reshape(B, X, Y, wh, ww, D).permute(0, 1, 3, 2, 4, 5).reshape(
@@ -253,8 +273,8 @@ def cross_view_attention_reference(x, w_embed, c_embed, key, val, params,
                                    add_skip: bool = True, mlp=None,
                                    post_ln=None, grid_keys: bool = False):
     """Plain PyTorch version of K2, the TPU body's chain on whole tensors
-    (the layout of ``_xla_composite`` :267), its attention core through
-    K1's plain version in f32."""
+    (the layout of ``_xla_composite`` :267), rounded where the body rounds,
+    the attention core's probabilities included."""
     p = _packed(params, mlp, post_ln, x.dtype)
     return _reference(x, w_embed, c_embed, key, val, p, tuple(q_win),
                       tuple(k_win), n_heads, scale, add_skip, grid_keys)

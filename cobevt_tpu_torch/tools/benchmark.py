@@ -88,6 +88,7 @@ from cobevt_tpu_torch.train.optim import (
     constant_schedule,
     onecycle_schedule,
 )
+from cobevt_tpu_torch.tools import timing
 from cobevt_tpu_torch.utils.weights import seeded_init_
 
 
@@ -378,10 +379,8 @@ def pointpillar_output_shapes(cfg, B: int):
 
 def profile_steps(run_step, n: int, ms_per_step: float) -> dict:
     """Trace ``n`` steps (or frames) with ``torch.profiler`` and sum the
-    kernels and copies that ran on the device: their time, their count, and
-    the share of an untraced step (``ms_per_step``, from the timed loop) in
-    which none ran."""
-    from torch.autograd import DeviceType
+    kernels and copies that ran on the device (``timing.device_profile``)
+    against an untraced step of ``ms_per_step``, from the timed loop."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -389,29 +388,7 @@ def profile_steps(run_step, n: int, ms_per_step: float) -> dict:
         for _ in range(n):
             run_step()
         torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or getattr(
-                e, "is_user_annotation", False):
-            continue         # operators and annotations repeat kernel time
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0.0)
-        if dev_us > 0:
-            rows.append((e.key, dev_us / 1e3, e.count))
-    if not rows:
-        raise RuntimeError("torch.profiler recorded no device activity")
-    rows.sort(key=lambda r: -r[1])
-    device_ms = sum(r[1] for r in rows) / n
-    return {
-        "profiled_steps": n,
-        "device_ms_per_step": device_ms,
-        "device_ops_per_step": sum(r[2] for r in rows) / n,
-        "device_idle_share": max(0.0, 1.0 - device_ms / ms_per_step),
-        "top_device_ops": [{"name": k[:72], "ms_per_step": ms / n,
-                            "count_per_step": c / n}
-                           for k, ms, c in rows[:16]],
-    }
+    return timing.device_profile(prof, n, ms_per_step)
 
 
 def train_recipe(model_name: str, config=None):

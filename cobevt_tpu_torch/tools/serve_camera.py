@@ -14,15 +14,26 @@ blocks of 256 and 512 channels, layer1 int8-resident; gate it with
 and the caller's value comes back afterwards; the summary then carries
 ``"int8": true`` and the K3, K7 and chain-conv launches per served frame.
 
-Weights are random, drawn from ``--seed``: restoring a trained checkpoint
-waits for the port of the checkpoint code.  Needs a CUDA card unless
-``--device cpu`` is given.
+With ``--model_dir`` the server restores ``config.yaml`` and the latest
+``net_epoch{N}.pth`` of a training run (``tools/train_camera.py``) and
+serves the frames of a dataset directory (``--root_dir``, by default the
+hypes' ``validate_dir``), writing each frame's argmax map to ``--out_dir``
+as ``frame_{i:06d}.npz`` (the format of ``tools/inference_camera.py
+--out_dir``); ``--half`` computes in bf16 on the twin training and
+evaluation use (``train/state.py:compute_twin``).  Without it the weights
+are random, drawn from ``--seed``, and the frames synthetic.  Needs a CUDA
+card unless ``--device cpu`` is given.
+
+  python -m cobevt_tpu_torch.tools.serve_camera --model_dir runs/corpbevt \
+      --root_dir /data/opv2v/validate --half --out_dir preds/
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
+import os
 import time
 
 import numpy as np
@@ -31,13 +42,22 @@ import torch
 from cobevt_tpu_torch import ops
 from cobevt_tpu_torch.nn.layers import int8_enabled
 from cobevt_tpu_torch.ops.dispatch import env_switches
-from cobevt_tpu_torch.utils.serving import FullRunner, StagedBucketedRunner
+from cobevt_tpu_torch.utils.serving import (
+    FullRunner,
+    StagedBucketedRunner,
+    save_prediction,
+)
 
 
 def build_runner(model, cfg, bucketing: str):
     """``staged``: exact agent-count bucketing; ``off``: the full padded
     forward."""
     if bucketing == "staged":
+        from cobevt_tpu_torch.models.corpbevt import CorpBEVT
+        if not isinstance(model, CorpBEVT):
+            raise ValueError(f"staged bucketing splits CorpBEVT's graph; "
+                             f"serve a {type(model).__name__} with "
+                             f"--bucketing off")
         return StagedBucketedRunner(model, cfg.max_cav)
     if bucketing == "off":
         return FullRunner(model)
@@ -82,8 +102,9 @@ def _percentiles(v):
 
 def serve(runner, frames, cfg, rng, bucketing: str = "staged",
           pipeline: int = 1, on_output=None) -> dict:
-    """Serve ``frames`` [(n_agents, batch)] through ``runner`` and return
-    the latency summary.  Every bucket is warmed first, outside the
+    """Serve ``frames`` [(n_agents, batch or a function that loads it)]
+    through ``runner`` and return the latency summary (a frame's load is
+    not part of its latency).  Every bucket is warmed first, outside the
     measured loop.  ``pipeline`` > 1 keeps that many frames in flight
     (latencies then include queueing); ``on_output(i, n, out)`` sees each
     finished frame."""
@@ -104,6 +125,8 @@ def serve(runner, frames, cfg, rng, bucketing: str = "staged",
             on_output(j, m, o)
 
     for i, (n, frame) in enumerate(frames):
+        if callable(frame):
+            frame = frame()
         t0 = time.perf_counter()
         inflight.append((t0, i, n, runner(frame)))
         while len(inflight) >= max(pipeline, 1):
@@ -146,8 +169,16 @@ def parse_args(argv=None):
                    choices=["staged", "off"],
                    help="staged = exact agent-count bucketing; off = full "
                         "padded forward")
-    p.add_argument("--synthetic", type=int, default=16,
-                   help="serve N synthetic frames with mixed agent counts")
+    p.add_argument("--model_dir", default=None,
+                   help="serve the latest checkpoint of this training run")
+    p.add_argument("--root_dir", default=None,
+                   help="dataset dir to serve (with --model_dir; defaults "
+                        "to the hypes' validate_dir)")
+    p.add_argument("--out_dir", default=None,
+                   help="write per-frame argmax seg maps (npz) here")
+    p.add_argument("--synthetic", type=int, default=None,
+                   help="serve N synthetic frames with mixed agent counts "
+                        "(16 without --model_dir)")
     p.add_argument("--half", action="store_true",
                    help="bfloat16 weights and activations")
     p.add_argument("--int8", action="store_true",
@@ -161,24 +192,71 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def dataset_frames(hypes: dict, root_dir: str):
+    """[(live agents, load)] of every sample of a dataset dir: the count
+    from the per-timestamp YAML files alone, ``load()`` decoding the sample
+    (a batch of one) when it is served, so no more than the frames in
+    flight are held decoded."""
+    from cobevt_tpu_torch.data.opv2v import (
+        OPV2VCameraDataset,
+        OPV2VScenarioDatabase,
+    )
+    from cobevt_tpu_torch.tools.train_camera import image_hw
+
+    tp = hypes["train_params"]
+    db = OPV2VScenarioDatabase(root_dir, max_cav=tp["max_cav"])
+    ds = OPV2VCameraDataset(db, image_hw=image_hw(hypes),
+                            visible=tp.get("visible", True), train=False)
+    def load(i):
+        return {k: np.stack([v]) for k, v in ds[i].items()}
+
+    return [(max(len(ds.plan(i)[2]), 1), functools.partial(load, i))
+            for i in range(len(ds))]
+
+
 def main(argv=None):
     opt = parse_args(argv)
-    from cobevt_tpu_torch.configs.presets import corpbevt_default
-    from cobevt_tpu_torch.models.corpbevt import CorpBEVT
+    from cobevt_tpu_torch.tools.train_camera import require_device
     from cobevt_tpu_torch.utils.weights import seeded_init_
 
-    if opt.device.startswith("cuda") and not torch.cuda.is_available():
-        raise SystemExit("no CUDA device; pass --device cpu to run on the CPU")
-    cfg = corpbevt_default()
-    model = CorpBEVT(cfg)
-    seeded_init_(model, opt.seed)
-    model = model.to(opt.device,
-                     torch.bfloat16 if opt.half else torch.float32).eval()
+    device = require_device(opt.device)
+    if opt.root_dir and not opt.model_dir:
+        raise SystemExit("--root_dir serves a trained model: give --model_dir")
     rng = np.random.RandomState(opt.seed)
+    if opt.model_dir:
+        from cobevt_tpu_torch.configs.hypes import (
+            build_from_hypes,
+            load_hypes,
+        )
+        from cobevt_tpu_torch.train.checkpoint import load_model_weights
+        from cobevt_tpu_torch.train.state import compute_twin
+
+        hypes = load_hypes(os.path.join(opt.model_dir, "config.yaml"))
+        cfg, model = build_from_hypes(hypes)
+        load_model_weights(opt.model_dir, model)
+        model = compute_twin(model.to(device),
+                             torch.bfloat16 if opt.half else None).eval()
+    else:
+        from cobevt_tpu_torch.configs.presets import corpbevt_default
+        from cobevt_tpu_torch.models.corpbevt import CorpBEVT
+
+        cfg = corpbevt_default()
+        model = CorpBEVT(cfg)
+        seeded_init_(model, opt.seed)
+        model = model.to(device,
+                         torch.bfloat16 if opt.half else torch.float32).eval()
+    if opt.model_dir and opt.synthetic is None:
+        frames = dataset_frames(hypes, opt.root_dir or hypes["validate_dir"])
+    else:
+        frames = synthetic_frames(rng, cfg, opt.synthetic or 16)
+    on_output = None
+    if opt.out_dir:
+        os.makedirs(opt.out_dir, exist_ok=True)
+        on_output = functools.partial(save_prediction, opt.out_dir)
     runner = build_runner(model, cfg, opt.bucketing)
     with env_switches(**({"COBEVT_INT8": "1"} if opt.int8 else {})):
-        summary = serve(runner, synthetic_frames(rng, cfg, opt.synthetic),
-                        cfg, rng, opt.bucketing, opt.pipeline)
+        summary = serve(runner, frames, cfg, rng, opt.bucketing,
+                        opt.pipeline, on_output=on_output)
     print(json.dumps(summary))
     if opt.report:
         with open(opt.report, "w") as f:

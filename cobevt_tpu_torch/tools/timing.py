@@ -1,4 +1,6 @@
-"""The card-alone timer that the micro tools and ``chip_smoke.py`` share.
+"""The card-alone timer that the micro tools and ``chip_smoke.py`` share,
+and the summary of a ``torch.profiler`` trace that the benchmark and the
+trainer share.
 
 ``device_ms(fn, iters)`` is the ms of one call of ``fn`` on the card alone:
 the calls are queued behind a sleep kernel, so the host's enqueue time does
@@ -36,3 +38,33 @@ def device_ms(fn, iters: int, flush_bytes: int = 0) -> float:
             stop.record()
     torch.cuda.synchronize()
     return sum(a.elapsed_time(b) for a, b in spans) / iters
+
+
+def device_profile(prof, n: int, ms_per_step: float) -> dict:
+    """Sum the kernels and copies that ran on the device in a finished
+    ``torch.profiler`` trace of ``n`` steps (or frames): their time, their
+    count, and the share of a step of ``ms_per_step`` in which none ran."""
+    from torch.autograd import DeviceType
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or getattr(
+                e, "is_user_annotation", False):
+            continue         # operators and annotations repeat kernel time
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            rows.append((e.key, dev_us / 1e3, e.count))
+    if not rows:
+        raise RuntimeError("torch.profiler recorded no device activity")
+    rows.sort(key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows) / n
+    return {
+        "profiled_steps": n,
+        "device_ms_per_step": device_ms,
+        "device_ops_per_step": sum(r[2] for r in rows) / n,
+        "device_idle_share": max(0.0, 1.0 - device_ms / ms_per_step),
+        "top_device_ops": [{"name": k[:72], "ms_per_step": ms / n,
+                            "count_per_step": c / n}
+                           for k, ms, c in rows[:16]],
+    }

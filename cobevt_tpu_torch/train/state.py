@@ -54,15 +54,24 @@ def _share_norm_statistics(master: nn.Module, twin: nn.Module) -> None:
             t.num_batches_tracked = m.num_batches_tracked
 
 
+def compute_twin(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """A copy of ``model`` computing in ``dtype`` whose BatchNorm running
+    statistics are the f32 master's own tensors (``model`` itself for
+    f32).  Training, evaluation and serving build their bf16 module this
+    one way, so a checkpoint gives the same outputs in each."""
+    if dtype is None or dtype == torch.float32:
+        return model
+    twin = copy.deepcopy(model).to(dtype)
+    _share_norm_statistics(model, twin)
+    return twin
+
+
 def create_train_state(model: nn.Module, optimizer, schedule,
                        compute_dtype: Optional[torch.dtype] = None,
                        grad_clip: Optional[float] = None) -> TrainState:
     """``model`` holds f32 parameters on its device and ``optimizer`` was
     made over them (``make_optimizer``).  ``compute_dtype=torch.bfloat16``
     adds the bf16 compute twin."""
-    compute = model
-    if compute_dtype is not None and compute_dtype != torch.float32:
-        compute = copy.deepcopy(model).to(compute_dtype)
-        _share_norm_statistics(model, compute)
+    compute = compute_twin(model, compute_dtype)
     return TrainState(model=model, optimizer=optimizer, schedule=schedule,
                       compute_model=compute, grad_clip=grad_clip)

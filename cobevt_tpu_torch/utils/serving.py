@@ -13,6 +13,8 @@ included.  PyTorch runs eagerly, so no per-bucket compile is needed.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -48,6 +50,16 @@ def slice_agents(batch: dict, n: int) -> dict:
         out[key] = value if axis is None else np.take(value, np.arange(n),
                                                       axis=axis)
     return out
+
+
+def save_prediction(out_dir: str, i: int, n: int, out: dict) -> None:
+    """Frame ``i``'s argmax map (``dynamic_seg`` where present) as
+    ``frame_{i:06d}.npz`` with its live-agent count ``n`` (the format of the
+    JAX package's ``serve_camera --out_dir``)."""
+    key = "dynamic_seg" if "dynamic_seg" in out else sorted(out)[0]
+    seg = out[key].argmax(-1).cpu().numpy()
+    np.savez_compressed(os.path.join(out_dir, f"frame_{i:06d}.npz"),
+                        seg=seg.astype(np.uint8), n_agents=n)
 
 
 class StagedBucketedRunner:
