@@ -173,6 +173,24 @@ non-zero without printing the final line:
      validation folder (argmax IoU >= 0.99 against inference_camera, the
      p50 a request).  ``--train_camera`` runs this phase alone after the
      build and stops without the final line.
+ 16. nuScenes entry points: PIL's and cv2's presence on the host; a
+     synthetic scene set written by data/nuscenes_labelgen.py through
+     tools/bench_input.py's fixture writer (2 scenes x 9 samples, 6 camera
+     PNGs at 1600 x 900 from 12 files, 200^2 bit-packed labels, visibility
+     and aux); decode + resize ms of one camera PNG with filter 0, the
+     adaptive filters and Paeth on every row; tools/train_nuscenes.main at
+     the default experiment (EfficientNet-b4, 6 x 224 x 480, B 8) with
+     --half, 4 steps and a checkpoint every 2 (the loader crosses an
+     epoch), each step 6 K1 + 6 K5 and no composite backward, each IoU-pass
+     frame 24 K2, with host, loader-wait and CUDA-event times, and the
+     device busy time of step 3 traced alone; the step-4 checkpoint
+     restored into a fresh state bit for bit (save and restore times); the
+     same command to 6 steps, which resumes from step 4 at the one-cycle
+     schedule's lr; finite IoUs; tools/view_data.py panels the codec
+     decodes; tools/bench_input.py on both fixtures (8 OPV2V and 32
+     nuScenes samples, 2 workers) against the device busy rates of this
+     phase and of phase 15.  ``--train_nuscenes`` runs this
+     phase alone after the build and stops without the final line.
 
 K2's phase-3 rows (CorpBEVT, SinBEVT-OPV2V, SinBEVT-nuScenes) draw 20
 inputs a bf16 row (the first from the shared generator, the rest from K2's
@@ -437,6 +455,18 @@ LIDAR_TRAIN_PER_STEP = {"fused_window_attention_packed": 4,
 TRAIN_CAM_CAVS, TRAIN_CAM_STAMPS = 5, 4
 VAL_CAM_CAVS, VAL_CAM_STAMPS = 3, 2
 TRAIN_CAM_PROFILED = 2
+# phase 16: the synthetic nuScenes scene set (2 scenes x 9 samples, 6 camera
+# PNGs at 1600 x 900 from a pool of 12 files, 200^2 labels), the steps of
+# the first run and of the resumed one, the checkpoint interval, the train
+# step of the first run that torch.profiler traces (its third: the workers
+# are up and the device is idle while the loader catches up), and the
+# bench_input fixtures (8 OPV2V samples at batch 1 and 32 nuScenes samples,
+# 4 batches of 8, each pass through the training loader's 2 workers)
+NUSC_CLI_SCENES, NUSC_CLI_SAMPLES, NUSC_CLI_POOL = 2, 9, 12
+NUSC_CLI_STEPS, NUSC_CLI_RESUMED_STEPS, NUSC_CLI_CKPT_EVERY = 4, 6, 2
+NUSC_CLI_TRACED = 2
+BENCH_INPUT_ARGS = ["--opv2v_frames", "8", "--nusc_frames", "32",
+                    "--num_workers", "2"]
 SERVE_AGENTS = [5, 3, 1, 4, 2, 5, 3, 5, 2, 4]
 INT8_AGENTS = [5, 3, 1, 4, 2]
 STOCK_AGENTS = [5, 2, 4]
@@ -2934,51 +2964,26 @@ def phase_sinbevt_train(seed=0):
     return result
 
 
-def write_opv2v_fixture(root, n_cavs, n_stamps, image_hw, bev, seed):
-    """One scenario of ``n_cavs`` CAVs x ``n_stamps`` timestamps in the
-    OPV2V on-disk layout (tests/test_data_pipeline.py's layout): per
-    timestamp a JSON-text YAML file (poses within COM_RANGE, 4 cameras),
-    four camera PNGs at ``image_hw`` and the five label PNGs at ``bev``^2,
-    written through the port's data/image_io.py (filter 0 without cv2)."""
-    import numpy as np
-    from cobevt_tpu_torch.data.image_io import imwrite
-    rng = np.random.RandomState(seed)
-    H, W = image_hw
-    for c in range(n_cavs):
-        cav_dir = os.path.join(root, "scenario_0", str(100 + c))
-        os.makedirs(cav_dir, exist_ok=True)
-        for t in range(n_stamps):
-            ts = f"{t:06d}"
-            pose = [8.0 * c + t, 3.0 * c, 0.0, 0.0, 15.0 * c, 0.0]
-            params = {"lidar_pose": pose, "true_ego_pos": pose}
-            for m in range(4):
-                params[f"camera{m}"] = {
-                    "cords": [pose[0], pose[1] + 0.5 * m, 1.8, 0.0,
-                              pose[4] + 90.0 * m, 0.0],
-                    "intrinsic": [[0.9 * W, 0.0, W / 2], [0.0, 0.9 * W, H / 2],
-                                  [0.0, 0.0, 1.0]],
-                    "extrinsic": np.eye(4).tolist()}
-            with open(os.path.join(cav_dir, f"{ts}.yaml"), "w") as f:
-                json.dump(params, f)
-            for m in range(4):
-                imwrite(os.path.join(cav_dir, f"{ts}_camera{m}.png"),
-                        rng.randint(0, 256, (H, W, 3), dtype=np.uint8))
-            for ext in ("bev_dynamic.png", "bev_static.png", "bev_lane.png",
-                        "bev_visibility.png", "bev_visibility_corp.png"):
-                imwrite(os.path.join(cav_dir, f"{ts}_{ext}"),
-                        (rng.rand(bev, bev) > 0.9).astype(np.uint8) * 255)
-
-
 @contextlib.contextmanager
-def counted_steps(train_calls, eval_calls):
-    """Record the launch counts of every train-step and eval-step call the
-    Trainer makes (``train/loop.py`` builds its steps from the two
-    factories), and the backwards of window attention that take the
-    composite, one dict per call."""
+def counted_steps(train_calls, eval_calls, module=None, traced=()):
+    """Record every train-step and eval-step call of the steps ``module``
+    builds from its ``make_train_step`` / ``make_eval_step`` (train/loop.py
+    by default, whose Trainer builds its steps from the two factories;
+    tools/train_nuscenes.py binds them too): each call's launch counts and
+    backwards of window attention on the composite (``launches``), its
+    start on the host clock, CUDA events around its launches (read by
+    read_step_events; the host paces the launches, so they read the
+    host's time where it exceeds the device's) and, for a train step, the
+    lr it ran at.  The train calls numbered in ``traced`` (from 0) run
+    alone under torch.profiler, the device synchronized before and after:
+    ``profile`` holds their device busy time (tools/timing.py)."""
+    import torch
     from cobevt_tpu_torch import ops
+    from cobevt_tpu_torch.tools.timing import device_profile
     from cobevt_tpu_torch.ops import window_attention
     from cobevt_tpu_torch.train import loop
-    real = (loop.make_train_step, loop.make_eval_step,
+    module = module or loop
+    real = (module.make_train_step, module.make_eval_step,
             window_attention.packed_backward_composite)
     composite = [0]
 
@@ -2986,28 +2991,61 @@ def counted_steps(train_calls, eval_calls):
         composite[0] += 1
         return real[2](*args, **kwargs)
 
-    def counting(make, calls):
+    def counting(make, calls, train):
         def make_counted(*args, **kwargs):
             step = make(*args, **kwargs)
 
-            def step_counted(*a, **kw):
+            def step_counted(state, *a, **kw):
+                prof = None
+                if train and len(calls) in traced:
+                    from torch.profiler import ProfilerActivity, profile
+                    torch.cuda.synchronize()
+                    prof = profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA])
+                    prof.__enter__()
                 before, c0 = ops.launch_counts(), composite[0]
-                out = step(*a, **kw)
+                events = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                t0 = time.perf_counter()
+                events[0].record()
+                out = step(state, *a, **kw)
+                events[1].record()
+                if prof is not None:
+                    torch.cuda.synchronize()
+                    wall_ms = (time.perf_counter() - t0) * 1e3
+                    prof.__exit__(None, None, None)
                 after = ops.launch_counts()
-                calls.append({**{k: after[k] - before[k] for k in after},
-                              "composite": composite[0] - c0})
+                rec = {"launches": {**{k: after[k] - before[k]
+                                       for k in after},
+                                    "composite": composite[0] - c0},
+                       "events": events, "t0": t0}
+                if prof is not None:
+                    rec["profile"] = device_profile(prof, 1, wall_ms)
+                if train:
+                    rec["lr"] = state.optimizer.param_groups[0]["lr"]
+                    rec["step_before"] = state.step - 1
+                calls.append(rec)
                 return out
             return step_counted
         return make_counted
 
-    loop.make_train_step = counting(real[0], train_calls)
-    loop.make_eval_step = counting(real[1], eval_calls)
+    module.make_train_step = counting(real[0], train_calls, True)
+    module.make_eval_step = counting(real[1], eval_calls, False)
     window_attention.packed_backward_composite = composite_counted
     try:
         yield
     finally:
-        (loop.make_train_step, loop.make_eval_step,
+        (module.make_train_step, module.make_eval_step,
          window_attention.packed_backward_composite) = real
+
+
+def read_step_events(calls):
+    """Pop each call's CUDA events into ``events_ms``."""
+    import torch
+    torch.cuda.synchronize()
+    for rec in calls:
+        start, stop = rec.pop("events")
+        rec["events_ms"] = start.elapsed_time(stop)
 
 
 def check_calls(name, calls, expect, n):
@@ -3050,6 +3088,7 @@ def phase_train_camera(seed=0):
         serve_camera,
         train_camera,
     )
+    from cobevt_tpu_torch.tools.bench_input import write_opv2v_fixture
     from cobevt_tpu_torch.tools.export_config import export_preset
     from cobevt_tpu_torch.train import create_train_state, make_optimizer
     from cobevt_tpu_torch.train.checkpoint import (
@@ -3103,8 +3142,8 @@ def phase_train_camera(seed=0):
                   "host_ms": r["step_s"] * 1e3,
                   "loader_ms": r["loader_s"] * 1e3,
                   "loader_share": r["loader_s"] / r["step_s"],
-                  "launches": {k: v for k, v in train_calls[i].items()
-                               if v}}
+                  "launches": {k: v for k, v in
+                               train_calls[i]["launches"].items() if v}}
                  for i, r in enumerate(trainer.records)]
         for s_ in steps:
             log(f"train_camera step {s_['step']}: loss {s_['loss']:.5f}, "
@@ -3117,10 +3156,10 @@ def phase_train_camera(seed=0):
             if not (math.isfinite(s_["loss"])
                     and math.isfinite(s_["grad_norm"])):
                 raise AssertionError(f"train_camera: step {s_}")
-        check_calls("train_camera step", train_calls,
+        check_calls("train_camera step", [c["launches"] for c in train_calls],
                     dict(TRAIN_PER_STEP, composite=1), TRAIN_CAM_STAMPS)
-        check_calls("validation frame", eval_calls, FUSED_PER_FRAME,
-                    VAL_CAM_STAMPS)
+        check_calls("validation frame", [c["launches"] for c in eval_calls],
+                    FUSED_PER_FRAME, VAL_CAM_STAMPS)
         expect_total = {k: TRAIN_CAM_STAMPS * TRAIN_PER_STEP.get(k, 0) +
                         VAL_CAM_STAMPS * FUSED_PER_FRAME.get(k, 0)
                         for k in counts}
@@ -3128,12 +3167,12 @@ def phase_train_camera(seed=0):
             raise AssertionError(f"train_camera: launches {counts}, "
                                  f"expected {expect_total}")
         log("validation frame launches: "
-            f"{ {k: v for k, v in eval_calls[0].items() if v} }")
+            f"{ {k: v for k, v in eval_calls[0]['launches'].items() if v} }")
         with open(os.path.join(run, "logs", "metrics.jsonl")) as f:
             val = [json.loads(x) for x in f if "val_iou_dynamic" in x][-1]
         out.update(steps=steps, counts=counts, profile=trainer.profile,
                    val_iou_dynamic=val["val_iou_dynamic"],
-                   validation_launches=eval_calls[0])
+                   validation_launches=eval_calls[0]["launches"])
         log(f"train_camera: {len(steps)} steps + validation + save in "
             f"{out['train_camera_s']:.1f} s; validation IoU "
             f"{val['val_iou_dynamic']!r}")
@@ -3195,8 +3234,8 @@ def phase_train_camera(seed=0):
         with counted_steps([], eval_calls):
             ious = inference_camera.main(["--model_dir", run, "--out_dir",
                                           inf_dir])
-        check_calls("inference frame", eval_calls, FUSED_PER_FRAME,
-                    VAL_CAM_STAMPS)
+        check_calls("inference frame", [c["launches"] for c in eval_calls],
+                    FUSED_PER_FRAME, VAL_CAM_STAMPS)
         if ious["iou_dynamic"] != out["val_iou_dynamic"]:
             raise AssertionError(f"inference_camera IoU {ious} vs the "
                                  f"trainer's {out['val_iou_dynamic']!r}")
@@ -3237,6 +3276,302 @@ def phase_train_camera(seed=0):
     return out
 
 
+def camera_decode_ms(tmp, seed):
+    """Decode + resize ms of one nuScenes camera (1600 x 900 PNG, read by
+    the codec, resized to 270 x 480 as the loader does) for each way of
+    filtering its rows: none, the adaptive choice, Paeth everywhere.  The
+    median of 3."""
+    import numpy as np
+    from cobevt_tpu_torch.data.image_io import (
+        read_png,
+        resize_bilinear_u8,
+        write_png,
+    )
+    from cobevt_tpu_torch.tools.bench_input import synth_camera
+    img = synth_camera(np.random.RandomState(seed), 900, 1600)
+    out = {}
+    for name, row_filter in (("filter0", 0), ("adaptive", "adaptive"),
+                             ("paeth", 4)):
+        path = os.path.join(tmp, f"camera_{name}.png")
+        write_png(path, img[..., ::-1], row_filter)
+        times, decode = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got = read_png(path)
+            t1 = time.perf_counter()
+            small = resize_bilinear_u8(got[..., 2::-1], (270, 480))
+            times.append((time.perf_counter() - t0) * 1e3)
+            decode.append((t1 - t0) * 1e3)
+        if not np.array_equal(got[..., ::-1], img) or small.shape != (
+                270, 480, 3):
+            raise AssertionError(f"camera {name}: decode or resize wrong")
+        out[name] = {"decode_resize_ms": sorted(times)[1],
+                     "decode_ms": sorted(decode)[1],
+                     "file_bytes": os.path.getsize(path)}
+    return out
+
+
+def camera_device_rate(train_camera):
+    """Samples/s of phase 15's camera step on the card (batch 1, the traced
+    steps' device time), or None where phase 15 did not run."""
+    if not train_camera or not train_camera.get("profile"):
+        return None
+    return 1e3 / train_camera["profile"]["device_ms_per_step"]
+
+
+def phase_train_nuscenes(seed=0, corpbevt_device_rate=None):
+    """The nuScenes track through its entry points at full width: a
+    synthetic scene set written by data/nuscenes_labelgen.py, then
+    tools/train_nuscenes.main at the default experiment with --half (4 steps,
+    a checkpoint every 2, the IoU pass), a bit-for-bit restore of step 4,
+    the same command to 6 steps (a resume from step 4), tools/view_data.py
+    and tools/bench_input.py."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from cobevt_tpu_torch import ops
+    from cobevt_tpu_torch.configs.nuscenes_experiments import (
+        build_model,
+        nuscenes_experiment,
+    )
+    from cobevt_tpu_torch.data.image_io import read_png
+    from cobevt_tpu_torch.tools import bench_input, train_nuscenes, view_data
+    from cobevt_tpu_torch.train import (
+        create_train_state,
+        make_optimizer,
+        onecycle_schedule,
+    )
+    from cobevt_tpu_torch.train.checkpoint import (
+        restore_step_checkpoint,
+        save_step_checkpoint,
+        step_checkpoint_paths,
+    )
+    from cobevt_tpu_torch.train.optim import constant_schedule
+
+    t_phase = time.perf_counter()
+    exp = nuscenes_experiment("cvt_pyramid_axial_nuscenes_vehicle")
+    log(f"== phase 16: train_nuscenes, {exp.name} (EfficientNet-b4, 6 "
+        f"cameras x {exp.encoder.image_height} x {exp.encoder.image_width}, "
+        f"B {exp.batch_size}, bf16 compute on f32 masters), from a synthetic "
+        f"scene set in the generated-label layout")
+    out = {"host_packages": {}}
+    for name in ("PIL", "cv2"):
+        try:
+            out["host_packages"][name] = importlib.import_module(
+                name).__version__
+        except ImportError:
+            out["host_packages"][name] = None
+    log(f"host packages: {out['host_packages']} (None: not installed)")
+    with tempfile.TemporaryDirectory(prefix="cobevt_nuscenes_") as tmp:
+        t0 = time.perf_counter()
+        data, labels = bench_input.write_nuscenes_fixture(
+            os.path.join(tmp, "fixture"), NUSC_CLI_SCENES, NUSC_CLI_SAMPLES,
+            seed=seed, camera_pool=NUSC_CLI_POOL)
+        out["fixture_s"] = time.perf_counter() - t0
+        log(f"fixture: {NUSC_CLI_SCENES} scenes x {NUSC_CLI_SAMPLES} samples, "
+            f"6 camera PNGs at 1600 x 900 ({NUSC_CLI_POOL} files), 200^2 "
+            f"labels, written in {out['fixture_s']:.1f} s")
+        out["camera_decode"] = camera_decode_ms(tmp, seed)
+        for name, r in out["camera_decode"].items():
+            log(f"camera {name}: decode + resize {r['decode_resize_ms']:.1f} ms "
+                f"(decode {r['decode_ms']:.1f} ms), {r['file_bytes']} bytes; "
+                f"{card_line()}")
+
+        save = os.path.join(tmp, "run")
+        argv = ["--dataset_dir", data, "--labels_dir", labels, "--save_dir",
+                save, "--half", "--ckpt_every", str(NUSC_CLI_CKPT_EVERY)]
+        runs = []
+        for steps in (NUSC_CLI_STEPS, NUSC_CLI_RESUMED_STEPS):
+            train_calls, eval_calls = [], []
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            traced = (NUSC_CLI_TRACED,) if steps == NUSC_CLI_STEPS else ()
+            with counted_steps(train_calls, eval_calls, train_nuscenes,
+                               traced):
+                run = train_nuscenes.main(argv + ["--steps", str(steps)])
+            wall = time.perf_counter() - t0
+            read_step_events(train_calls)
+            read_step_events(eval_calls)
+            counts = ops.launch_counts()
+            first = run.records[0]["step"]
+            check_calls(f"train_nuscenes step ({steps})",
+                        [c["launches"] for c in train_calls],
+                        dict(NUSC_TRAIN_PER_STEP, composite=0),
+                        steps - first + 1)
+            check_calls(f"IoU-pass frame ({steps})",
+                        [c["launches"] for c in eval_calls],
+                        dict(SINBEVT_PER_FRAME, composite=0),
+                        NUSC_CLI_SCENES * NUSC_CLI_SAMPLES)
+            for r, c in zip(run.records, train_calls):
+                r.update(events_ms=c["events_ms"], lr=c["lr"],
+                         traced="profile" in c,
+                         loader_share=r["loader_s"] / (r["loader_s"]
+                                                       + r["step_s"]))
+                log(f"train_nuscenes step {r['step']}: host "
+                    f"{r['step_s'] * 1e3:.1f} ms, waiting on the loader "
+                    f"{r['loader_s'] * 1e3:.1f} ms "
+                    f"({r['loader_share']:.3f} of the two), save "
+                    f"{r['save_s'] * 1e3:.1f} ms, CUDA events around its "
+                    f"host-paced launches {r['events_ms']:.2f} ms, lr "
+                    f"{r['lr']!r}; {card_line()}")
+                if "profile" in c:
+                    out["step_profile"] = c["profile"]
+                    log("train_nuscenes step {} traced alone: ".format(
+                        r["step"]) + json.dumps(
+                        {k: v for k, v in c["profile"].items()
+                         if k != "top_device_ops"}) + f"; {card_line()}")
+            ious = np.concatenate([run.iou_visible, run.iou_all])
+            if not np.all(np.isfinite(ious)):
+                raise AssertionError(f"train_nuscenes IoU {ious}")
+            starts = [c["t0"] for c in eval_calls]
+            runs.append({"steps": steps, "wall_s": wall,
+                         "iou_frame_ms": float(np.median(np.diff(starts)))
+                         * 1e3,
+                         "iou_frame_events_ms": float(np.median(
+                             [c["events_ms"] for c in eval_calls])),
+                         "resumed_from": run.resumed_from,
+                         "records": run.records, "counts": counts,
+                         "iou_visible": run.iou_visible.tolist(),
+                         "iou_all": run.iou_all.tolist()})
+            log(f"train_nuscenes --steps {steps}: {len(run.records)} steps + "
+                f"IoU pass over {len(eval_calls)} frames in {wall:.1f} s, "
+                f"resumed from {run.resumed_from}; IoU (vis>=2) "
+                f"{run.iou_visible.tolist()}, (with occlusions) "
+                f"{run.iou_all.tolist()}; launches {counts}")
+            if steps == NUSC_CLI_STEPS:
+                if run.resumed_from is not None:
+                    raise AssertionError("the first run resumed")
+                saved = run.state
+                log("== restore: the step-4 checkpoint into a fresh state")
+                t0 = time.perf_counter()
+                save_step_checkpoint(os.path.join(tmp, "again"), saved,
+                                     steps)
+                out["save_ms"] = (time.perf_counter() - t0) * 1e3
+                model = build_model(exp).to(
+                    next(saved.model.parameters()).device)
+                fresh = create_train_state(
+                    model, make_optimizer(model.parameters(),
+                                          constant_schedule(0.0)),
+                    constant_schedule(0.0), compute_dtype=torch.bfloat16)
+                t0 = time.perf_counter()
+                fresh, got = restore_step_checkpoint(
+                    os.path.join(save, "ckpt"), fresh)
+                torch.cuda.synchronize()
+                out["restore_ms"] = (time.perf_counter() - t0) * 1e3
+                out["checkpoint_bytes"] = sum(
+                    os.path.getsize(p) for p in step_checkpoint_paths(
+                        os.path.join(save, "ckpt"), steps))
+                if got != steps or fresh.step != saved.step:
+                    raise AssertionError(f"restore: step {got}, "
+                                         f"{fresh.step} vs {saved.step}")
+                a, b = saved.model.state_dict(), fresh.model.state_dict()
+                for k in a:
+                    if not torch.equal(a[k], b[k]):
+                        raise AssertionError(f"restore: {k} differs")
+                for p_old, p_new in zip(saved.params, fresh.params):
+                    s_old = saved.optimizer.state[p_old]
+                    s_new = fresh.optimizer.state[p_new]
+                    for k in ("exp_avg", "exp_avg_sq", "step"):
+                        if not torch.equal(s_old[k], s_new[k]):
+                            raise AssertionError(f"restore: AdamW {k}")
+                log(f"restore: bit for bit (parameters, BatchNorm buffers, "
+                    f"AdamW moments, step {fresh.step}); save "
+                    f"{out['save_ms']:.1f} ms, restore {out['restore_ms']:.1f} "
+                    f"ms, checkpoint {out['checkpoint_bytes'] / 2**20:.1f} MiB")
+                del fresh, model, saved, run
+                torch.cuda.empty_cache()
+            else:
+                if run.resumed_from != NUSC_CLI_STEPS:
+                    raise AssertionError(f"resumed from {run.resumed_from}")
+                want = onecycle_schedule(exp.lr, steps)(NUSC_CLI_STEPS)
+                got = run.records[0]["lr"]
+                if train_calls[0]["step_before"] != NUSC_CLI_STEPS or \
+                        got != want:
+                    raise AssertionError(f"resumed lr {got!r}, the schedule's "
+                                         f"{want!r}")
+                log(f"resume: step {NUSC_CLI_STEPS} restored, lr {got!r} = "
+                    f"the one-cycle schedule's at step {NUSC_CLI_STEPS} of "
+                    f"{steps}")
+                del run
+                torch.cuda.empty_cache()
+        out["runs"] = runs
+        # K1 and K5 a step and K2 an IoU-pass frame, both runs
+        out["counts"] = {k: sum(r["counts"][k] for r in runs)
+                         for k in runs[0]["counts"]}
+        # the steps after each run's first (which spawns the workers and,
+        # in the first run, sets up the card's libraries); the host and
+        # event times leave out the traced step (its wait for the loader,
+        # before the trace, stays in)
+        later = [r for run_ in runs for r in run_["records"][1:]]
+        untraced = [r for r in later if not r["traced"]]
+        out["ms_per_step"] = float(np.mean([r["step_s"] * 1e3
+                                            for r in untraced]))
+        out["events_ms_per_step"] = float(np.mean([r["events_ms"]
+                                                   for r in untraced]))
+        if "step_profile" not in out:
+            raise AssertionError("train_nuscenes: no traced step")
+        out["busy_ms_per_step"] = out["step_profile"]["device_ms_per_step"]
+        out["loader_ms_per_step"] = float(np.mean([r["loader_s"] * 1e3
+                                                   for r in later]))
+        out["loader_share"] = out["loader_ms_per_step"] / (
+            out["loader_ms_per_step"] + out["ms_per_step"])
+        out["iou_frame_ms"] = float(np.median([r["iou_frame_ms"]
+                                               for r in runs]))
+        out["iou_frame_events_ms"] = float(np.median(
+            [r["iou_frame_events_ms"] for r in runs]))
+        # samples/s at the device's busy time, at the host's pace of a
+        # step, and at a step with its wait for the loader
+        B = exp.batch_size
+        out["samples_per_sec"] = {
+            "device_busy": B * 1e3 / out["busy_ms_per_step"],
+            "host_step": B * 1e3 / out["ms_per_step"],
+            "with_loader": B * 1e3 / (out["ms_per_step"]
+                                      + out["loader_ms_per_step"])}
+        log(f"train_nuscenes: ms_per_step {out['ms_per_step']:.1f} (host, "
+            f"mean of the untraced steps after each run's first), CUDA "
+            f"events around them {out['events_ms_per_step']:.2f} ms, device "
+            f"busy {out['busy_ms_per_step']:.2f} ms (one step traced alone),"
+            f" loader wait {out['loader_ms_per_step']:.1f} ms a step (share "
+            f"{out['loader_share']:.3f}); samples/s "
+            f"{json.dumps(out['samples_per_sec'])}; IoU pass "
+            f"{out['iou_frame_ms']:.1f} ms a frame (host, between frames; "
+            f"CUDA events {out['iou_frame_events_ms']:.2f} ms); "
+            f"{card_line()}")
+
+        log("== view_data")
+        paths = view_data.main(["--dataset_dir", data, "--labels_dir",
+                                labels, "--out", os.path.join(tmp, "viz"),
+                                "--max_samples", "2"])
+        shapes = [read_png(p).shape for p in paths]
+        if len(paths) != 2 or any(len(sh) != 3 for sh in shapes):
+            raise AssertionError(f"view_data panels {shapes}")
+        log(f"view_data: {len(paths)} panels, {shapes}")
+        out["view_data"] = shapes
+
+        log("== bench_input")
+        argv = ["--root", os.path.join(tmp, "bench"),
+                "--sinbevt_device_rate",
+                str(out["samples_per_sec"]["device_busy"])] + BENCH_INPUT_ARGS
+        if corpbevt_device_rate is not None:
+            argv += ["--corpbevt_device_rate", str(corpbevt_device_rate)]
+        t0 = time.perf_counter()
+        rows = bench_input.main(argv)
+        out["bench_input_s"] = time.perf_counter() - t0
+        for r in rows:
+            log(f"bench_input {r['track']} {r['pipeline']} "
+                f"({r['camera_format']}, filter {r['png_filter']}): "
+                f"{r['samples_per_sec']:.3f} samples/s over "
+                f"{r['samples_timed']} samples, {r['num_workers']} workers "
+                f"(device busy rate {r['device_rate']}); {card_line()}")
+            if not (r["samples_per_sec"] > 0):
+                raise AssertionError(f"bench_input row {r}")
+        out["bench_input"] = rows
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 16: {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default=None,
@@ -3257,6 +3592,10 @@ def main(argv=None):
                    help="run phase 15 (the camera entry points from a "
                         "fixture) after the build, and after the phases "
                         "above if given, then stop without the final line")
+    p.add_argument("--train_nuscenes", action="store_true",
+                   help="run phase 16 (the nuScenes entry points from a "
+                        "fixture) after the build, and after the phases "
+                        "above if given, then stop without the final line")
     opt = p.parse_args(argv)
 
     import torch
@@ -3267,12 +3606,16 @@ def main(argv=None):
     t0 = time.perf_counter()
     phase_environment()
     phase_build()
-    if opt.kernels or opt.sinbevt or opt.sinbevt_train or opt.train_camera:
+    if (opt.kernels or opt.sinbevt or opt.sinbevt_train or opt.train_camera
+            or opt.train_nuscenes):
         details = (phase_kernels(set(opt.kernels.split(",")))
                    if opt.kernels else [])
         sinbevt = phase_sinbevt() if opt.sinbevt else None
         sinbevt_train = phase_sinbevt_train() if opt.sinbevt_train else None
         train_camera = phase_train_camera() if opt.train_camera else None
+        train_nuscenes = (phase_train_nuscenes(
+            corpbevt_device_rate=camera_device_rate(train_camera))
+            if opt.train_nuscenes else None)
         if opt.out:
             os.makedirs(os.path.dirname(os.path.abspath(opt.out)),
                         exist_ok=True)
@@ -3280,6 +3623,7 @@ def main(argv=None):
                 json.dump({"cases": details, "sinbevt": sinbevt,
                            "sinbevt_train": sinbevt_train,
                            "train_camera": train_camera,
+                           "train_nuscenes": train_nuscenes,
                            "card": card_line()}, f, indent=1)
         log(f"total {time.perf_counter() - t0:.1f} s")
         return 0
@@ -3295,6 +3639,8 @@ def main(argv=None):
     sinbevt = phase_sinbevt()
     sinbevt_train = phase_sinbevt_train()
     train_camera = phase_train_camera()
+    train_nuscenes = phase_train_nuscenes(
+        corpbevt_device_rate=camera_device_rate(train_camera))
 
     # (wrapper, source, the TPU function it replaces)
     sources = {
@@ -3373,6 +3719,11 @@ def main(argv=None):
                    "fused_cross_view_attention", "fused_conv3x3",
                    "fused_swap_fusion"):
             launches[fn] += counts15[fn]
+    # K1 and K5 in the steps of train_nuscenes, K2 in its IoU passes (16)
+    for fn in ("fused_window_attention_packed",
+               "fused_window_attention_packed_bwd",
+               "fused_cross_view_attention"):
+        launches[fn] += train_nuscenes["counts"][fn]
     kernels = []
     for key, (fn, src, replaces) in sources.items():
         rows = [r for r in details if r["kernel"] == key]
@@ -3420,6 +3771,7 @@ def main(argv=None):
                        "ffd_counts": ffd_counts, "sinbevt": sinbevt,
                        "sinbevt_train": sinbevt_train,
                        "train_camera": train_camera,
+                       "train_nuscenes": train_nuscenes,
                        "kernels": kernels,
                        "card": card_line(),
                        "torch": torch.__version__,

@@ -100,6 +100,11 @@ _EXPERIMENTS = {
 }
 
 
+def all_nuscenes_experiments():
+    """name -> zero-argument constructor of every nuScenes experiment."""
+    return dict(_EXPERIMENTS)
+
+
 def nuscenes_experiment(name: str) -> NuScenesExperiment:
     try:
         return _EXPERIMENTS[name]()

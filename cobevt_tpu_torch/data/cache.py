@@ -87,6 +87,11 @@ class CachedDataset:
     def draws_random(self) -> bool:
         return getattr(self.dataset, "draws_random", False)
 
+    def epoch_state(self):
+        """The wrapped dataset's (a miss decodes through it)."""
+        state = getattr(self.dataset, "epoch_state", None)
+        return state() if state is not None else None
+
     def plan(self, idx: int):
         """The wrapped dataset's plan on a miss; a hit draws nothing."""
         if os.path.exists(self._path(idx)):

@@ -11,10 +11,15 @@ asynchronously.
 
 Workers are spawned, not forked (the training process has CUDA's and the
 profiler's threads): each starts from a fresh import, receives the dataset
-pickled, runs its numpy code only and never touches CUDA.  They are started
-anew each epoch, so they see the dataset as it stands (a CAV order
-reshuffled at the end of the last epoch included), and each start costs an
-interpreter and its imports.
+pickled, runs its numpy code only and never touches CUDA.  A start costs an
+interpreter and its imports, so the workers are kept across epochs: the
+``torch.utils.data.DataLoader`` is built once and its workers persist.  A
+dataset whose content its caller changes between epochs (an OPV2V CAV
+order reshuffled at the end of an epoch) says so through ``epoch_state()``;
+when that differs from the state the workers were given, they are stopped
+and new ones receive the dataset as it stands.  An iteration abandoned
+before its end (an early ``break``) stops the workers too; :meth:`close`
+stops them at the end of a run.
 
 A dataset whose samples draw random numbers (``draws_random``: the wild
 settings, the late fusion's train-time CAV pick) makes its draws here, in
@@ -125,6 +130,8 @@ class DataLoader:
         self.prefetch = prefetch
         self.pin_memory = (device is not None and
                            torch.device(device).type == "cuda")
+        self._torch_loader = None      # with its workers, when they persist
+        self._state = None             # the dataset's epoch_state they hold
 
     @property
     def epoch(self) -> int:
@@ -136,24 +143,40 @@ class DataLoader:
     def __len__(self):
         return len(self.sampler)
 
-    def __iter__(self) -> Iterator:
+    def _build(self):
         workers = self.num_workers
         batches = self.sampler
         if getattr(self.dataset, "draws_random", False):
             batches = PlannedBatchSampler(self.sampler, self.dataset)
-        loader = torch.utils.data.DataLoader(
+        # the batch sampler is iterated here, in the loading process, at
+        # each epoch: the sampler's epoch and the plans' draws are read then
+        return torch.utils.data.DataLoader(
             self.dataset, batch_sampler=batches,
             collate_fn=TensorCollate(self.collate), num_workers=workers,
             pin_memory=self.pin_memory,
             prefetch_factor=self.prefetch if workers else None,
-            persistent_workers=False,
+            persistent_workers=workers > 0,
             multiprocessing_context="spawn" if workers else None)
-        it = iter(loader)
+
+    def close(self):
+        """Stop the workers, if any are running."""
+        loader, self._torch_loader = self._torch_loader, None
+        it = getattr(loader, "_iterator", None)
+        if it is not None:
+            it._shutdown_workers()
+            loader._iterator = None
+
+    def __iter__(self) -> Iterator:
+        epoch_state = getattr(self.dataset, "epoch_state", None)
+        state = epoch_state() if epoch_state is not None else None
+        if self._torch_loader is None or state != self._state:
+            self.close()
+            self._torch_loader, self._state = self._build(), state
+        finished = False
         try:
-            yield from it
+            yield from self._torch_loader
+            finished = True
         finally:
-            # an abandoned iteration (an early break) stops its workers now
-            shutdown = getattr(it, "_shutdown_workers", None)
-            if shutdown is not None:
-                shutdown()
-            del it
+            if not finished:
+                # an abandoned iteration (an early break) stops its workers
+                self.close()

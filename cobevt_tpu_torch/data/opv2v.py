@@ -267,6 +267,12 @@ class OPV2VCameraDataset:
         w = self.wild
         return (w.async_flag and w.async_mode == "real") or w.loc_err_flag
 
+    def epoch_state(self):
+        """Each scenario's CAV order, which ``db.reinitialize`` reshuffles
+        between epochs: the loader's workers hold a copy of the dataset, and
+        ``data/loader.py`` gives them a new one when this changes."""
+        return tuple(tuple(scenario) for scenario in self.db.scenarios)
+
     def plan(self, idx: int):
         """Sample ``idx``'s YAML reads and every random number it draws,
         made now from ``self.rng``: ``(idx, ego params, cavs)``, each live

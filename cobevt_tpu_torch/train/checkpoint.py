@@ -1,4 +1,5 @@
-"""Checkpoints in the reference's format, with epoch-scan resume.
+"""Checkpoints in the reference's format, with epoch-scan and step-scan
+resume.
 
 Counterpart of ``cobevt_tpu/train/checkpoint.py``, with the reference's
 files in place of orbax's step directories:
@@ -11,7 +12,11 @@ files in place of orbax's step directories:
   * ``train_state_epoch{N}.pt`` beside it holds the rest of the train
     state: ``optimizer.state_dict()``, the update count ``step``, the epoch,
     the state of the trainer's dropout generator and the compute dtype.  Its
-    name does not match the reference's ``*epoch*.pth`` scan.
+    name does not match the reference's ``*epoch*.pth`` scan;
+  * a run counted in steps (the nuScenes trainer, whose JAX CLI saves at
+    steps) writes the same two files as ``net_step{N}.pth`` and
+    ``train_state_step{N}.pt`` (the train-state file without an epoch):
+    ``save_step_checkpoint``, ``latest_step``, ``restore_step_checkpoint``.
 
 Every tensor is saved from the CPU and loaded with ``weights_only=True``;
 a restore is strict (``load_state_dict(strict=True)``) and refreshes the
@@ -26,13 +31,23 @@ from typing import Optional, Tuple
 
 import torch
 
-_NET_RE = re.compile(r"net_epoch(\d+)\.pth")
+_NET_RE = {unit: re.compile(rf"net_{unit}(\d+)\.pth")
+           for unit in ("epoch", "step")}
+
+
+def _paths(ckpt_dir: str, unit: str, n: int) -> Tuple[str, str]:
+    return (os.path.join(ckpt_dir, f"net_{unit}{n}.pth"),
+            os.path.join(ckpt_dir, f"train_state_{unit}{n}.pt"))
 
 
 def checkpoint_paths(ckpt_dir: str, epoch: int) -> Tuple[str, str]:
     """(model file, train-state file) of ``epoch``."""
-    return (os.path.join(ckpt_dir, f"net_epoch{epoch}.pth"),
-            os.path.join(ckpt_dir, f"train_state_epoch{epoch}.pt"))
+    return _paths(ckpt_dir, "epoch", epoch)
+
+
+def step_checkpoint_paths(ckpt_dir: str, step: int) -> Tuple[str, str]:
+    """(model file, train-state file) of ``step``."""
+    return _paths(ckpt_dir, "step", step)
 
 
 def _cpu(tree):
@@ -51,29 +66,59 @@ def _save(obj, path: str) -> None:
     os.replace(tmp, path)
 
 
+def _save_files(ckpt_dir: str, unit: str, n: int, state, extra: dict) -> str:
+    os.makedirs(ckpt_dir, exist_ok=True)
+    net, train_state = _paths(ckpt_dir, unit, n)
+    compute = next(state.compute_model.parameters()).dtype
+    _save({"optimizer": _cpu(state.optimizer.state_dict()),
+           "step": int(state.step), **extra,
+           "compute_dtype": str(compute).replace("torch.", "")}, train_state)
+    _save(_cpu(state.model.state_dict()), net)
+    return net
+
+
 def save_checkpoint(ckpt_dir: str, state, epoch: int,
                     generator: Optional[torch.Generator] = None) -> str:
     """Write the two files of ``epoch``; returns the model file's path.
     The train-state file is written first, so a model file found by
     :func:`latest_checkpoint` always has its companion."""
-    os.makedirs(ckpt_dir, exist_ok=True)
-    net, extra = checkpoint_paths(ckpt_dir, epoch)
-    compute = next(state.compute_model.parameters()).dtype
-    _save({"optimizer": _cpu(state.optimizer.state_dict()),
-           "step": int(state.step), "epoch": int(epoch),
-           "generator": None if generator is None else generator.get_state(),
-           "compute_dtype": str(compute).replace("torch.", "")}, extra)
-    _save(_cpu(state.model.state_dict()), net)
-    return net
+    return _save_files(ckpt_dir, "epoch", epoch, state, {
+        "epoch": int(epoch),
+        "generator": None if generator is None else generator.get_state()})
+
+
+def save_step_checkpoint(ckpt_dir: str, state, step: int) -> str:
+    """Write the two files of ``step`` (``net_step{step}.pth`` and its
+    train-state file, first); returns the model file's path."""
+    return _save_files(ckpt_dir, "step", step, state, {})
+
+
+def _latest(ckpt_dir: str, unit: str) -> Optional[int]:
+    if not os.path.isdir(ckpt_dir):
+        return None
+    found = [int(m.group(1)) for m in map(_NET_RE[unit].fullmatch,
+                                          os.listdir(ckpt_dir)) if m]
+    return max(found) if found else None
 
 
 def latest_checkpoint(ckpt_dir: str) -> Optional[int]:
     """The largest N of the ``net_epoch{N}.pth`` files in ``ckpt_dir``."""
-    if not os.path.isdir(ckpt_dir):
-        return None
-    epochs = [int(m.group(1)) for m in map(_NET_RE.fullmatch,
-                                           os.listdir(ckpt_dir)) if m]
-    return max(epochs) if epochs else None
+    return _latest(ckpt_dir, "epoch")
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    """The largest N of the ``net_step{N}.pth`` files in ``ckpt_dir``."""
+    return _latest(ckpt_dir, "step")
+
+
+def _restore_files(state, net: str, train_state: str) -> dict:
+    state.model.load_state_dict(torch.load(net, map_location="cpu",
+                                           weights_only=True), strict=True)
+    extra = torch.load(train_state, map_location="cpu", weights_only=True)
+    state.optimizer.load_state_dict(extra["optimizer"])
+    state.step = int(extra["step"])
+    state.refresh_compute_model()
+    return extra
 
 
 def load_model_weights(ckpt_dir: str, model: torch.nn.Module,
@@ -104,11 +149,19 @@ def restore_checkpoint(ckpt_dir: str, state, epoch: Optional[int] = None,
     epoch = epoch if epoch is not None else latest_checkpoint(ckpt_dir)
     if epoch is None:
         return state, None
-    load_model_weights(ckpt_dir, state.model, epoch)
-    extra = read_train_state(ckpt_dir, epoch)
-    state.optimizer.load_state_dict(extra["optimizer"])
-    state.step = int(extra["step"])
-    state.refresh_compute_model()
+    extra = _restore_files(state, *checkpoint_paths(ckpt_dir, epoch))
     if generator is not None and extra.get("generator") is not None:
         generator.set_state(extra["generator"])
     return state, epoch
+
+
+def restore_step_checkpoint(ckpt_dir: str, state,
+                            step: Optional[int] = None):
+    """Restore the model, the optimizer and ``step`` of the ``step``
+    checkpoint (the latest by default) into ``state`` in place.  Returns
+    (state, step), or (state, None) when there is nothing to restore."""
+    step = step if step is not None else latest_step(ckpt_dir)
+    if step is None:
+        return state, None
+    _restore_files(state, *step_checkpoint_paths(ckpt_dir, step))
+    return state, step
