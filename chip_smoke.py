@@ -15,9 +15,10 @@ non-zero without printing the final line:
      (csrc/bn_stats.cu), and the bare TMA + wgmma tile
      (csrc/hopper_tile.cu) with nvcc for sm_90a from the checkout's
      sources, one nvcc process each, all started together (every source
-     includes the shared csrc/hopper.cuh or mma.cuh); the Triton route of
-     K9 and K10 (ops/bn_stats.py, shapes the CUDA kernel does not take)
-     compiles at its first launch in phase 3;
+     includes the shared csrc/hopper.cuh or mma.cuh), and beside them the
+     host box library (csrc/box_ops.cpp, g++, utils/native_ops.py); the
+     Triton route of K9 and K10 (ops/bn_stats.py, shapes the CUDA kernel
+     does not take) compiles at its first launch in phase 3;
   3. kernels vs plain: first the bare TMA + wgmma tile of each product form
      that K1, K3, K8, K11 and K12 use against torch.matmul in f32 (and the
      8-bit forms against the integer product); then every
@@ -191,6 +192,27 @@ non-zero without printing the final line:
      nuScenes samples, 2 workers) against the device busy rates of this
      phase and of phase 15.  ``--train_nuscenes`` runs this
      phase alone after the build and stops without the final line.
+ 17. LiDAR data to AP: a synthetic OPV2V LiDAR scenario written by
+     tools/lidar_fixture.py (5 CAVs x 4 timestamps, 24 vehicles, ~120,000
+     returns a cloud from a 64-beam spinning sensor, one cloud in ASCII);
+     load_pcd and voxelize_points timed a cloud (with each CAV's voxels
+     before the cut at 8000) and generate_label a sample; OPV2VLidarDataset
+     at the LiDAR map's full width (+-70.4 x +-38.4 m, 8000 pillars x 32
+     points) through data/loader.py's 2 workers: 4 eval frames in bf16 on
+     the default dispatch (K6 x 4 each, outputs finite at (1, 96, 176, 2)
+     and (1, 96, 176, 14)), then 5 bf16 train steps on f32 masters with
+     PointPillarLoss on the augmented train split (K1 x 4 + K5 x 4 each,
+     across an epoch boundary), with loader waits and CUDA-event times,
+     one eval frame and one train step traced alone (torch.profiler: device
+     busy ms and idle share), and the time close() takes to stop the train
+     loader's abandoned iteration (it reads the batches in flight); the
+     ideal-map gate (each sample's targets decoded and NMS'd must give AP
+     1.0 at IoU 0.5 and 0.7 against its ground truth, and the anchor round
+     trip must hold; swapped x/y deltas and a one-cell shift must fail it);
+     one decode of the model's own eval maps (candidates over the score
+     threshold, boxes kept, ms); every box call of the phase on the native
+     route.  ``--lidar_data`` runs this phase alone after the build and
+     stops without the final line.
 
 K2's phase-3 rows (CorpBEVT, SinBEVT-OPV2V, SinBEVT-nuScenes) draw 20
 inputs a bf16 row (the first from the shared generator, the rest from K2's
@@ -522,6 +544,17 @@ STOCK_PER_FRAME = {"fused_window_attention_packed": 13,
 LIDAR_AGENTS = [5, 3, 1, 4, 2]
 LIDAR_FUSED_PER_FRAME = {"fused_swap_fusion_streaming": 4}
 LIDAR_STOCK_PER_FRAME = {"fused_window_attention_packed": 4}
+# phase 17: the synthetic LiDAR scenario (1 scenario, 5 CAVs x 4 timestamps,
+# 24 vehicles, ~120,000 returns a cloud from a 64-beam spinning sensor, one
+# cloud in ASCII), the train steps at batch 1 (epoch 0's 4 batches and the
+# first of epoch 1, so the loader crosses an epoch boundary), the eval frame
+# and the train step (numbered from 0) that torch.profiler traces alone, and
+# the AP thresholds of the ideal-map gate
+LIDAR_DATA_CAVS, LIDAR_DATA_STAMPS = 5, 4
+LIDAR_DATA_VEHICLES, LIDAR_DATA_POINTS = 24, 120_000
+LIDAR_DATA_TRAIN_STEPS = 5
+LIDAR_TRACED_FRAME, LIDAR_TRACED_STEP = 2, 2
+LIDAR_AP_IOUS = (0.5, 0.7)
 KERNELS = ("window_attention", "fused_cross_attention", "conv3x3",
            "fused_swap_fusion", "window_attention_bwd",
            "fused_swap_fusion_streaming", "conv3x3_int8", "ffd_fused",
@@ -739,11 +772,22 @@ def phase_environment():
 
 
 def phase_build():
+    import concurrent.futures
+
     from cobevt_tpu_torch.ops import _build
+    from cobevt_tpu_torch.utils import native_ops
     log("== build")
     t0 = time.perf_counter()
-    builds = _build.build_all(KERNELS)
-    log(f"{len(builds)} kernels built in {time.perf_counter() - t0:.1f} s")
+    # the host box library (g++, csrc/box_ops.cpp) beside the nvcc builds
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        box_lib = pool.submit(native_ops.get_lib)
+        builds = _build.build_all(KERNELS)
+        if box_lib.result() is None:
+            raise RuntimeError(f"the box library did not build: "
+                               f"{native_ops.build_error()}")
+    log(f"{len(builds)} kernels and the box library built in "
+        f"{time.perf_counter() - t0:.1f} s; box library "
+        f"{native_ops.library_path()}")
     for name, b in builds.items():
         log(f"{name}: {b.seconds:.1f} s -> {b.path}")
         for line in b.log.splitlines():
@@ -3572,6 +3616,437 @@ def phase_train_nuscenes(seed=0, corpbevt_device_rate=None):
     return out
 
 
+def lidar_ideal_gate(post, samples, fault=None):
+    """For each sample, its ideal maps (+-10 logits from its positive anchors,
+    its targets as the regression) decoded and NMS'd by ``post``, then AP at
+    LIDAR_AP_IOUS against the sample's own ground truth.  ``fault`` plants
+    one in the maps: "swap_xy" swaps every anchor's x and y deltas, "shift"
+    moves both maps one anchor cell along x.  Returns a row a sample."""
+    import numpy as np
+    from cobevt_tpu_torch.geometry.boxes import boxes_to_corners_3d
+    from cobevt_tpu_torch.metrics import detection_ap
+
+    rows = []
+    for s in samples:
+        cls = np.where(s["pos_equal_one"] > 0, 10.0, -10.0)
+        reg = s["targets"].copy()
+        if fault == "swap_xy":
+            r = reg.reshape(*reg.shape[:2], -1, 7)
+            r[..., [0, 1]] = r[..., [1, 0]]
+        elif fault == "shift":
+            cls, reg = np.roll(cls, 1, axis=1), np.roll(reg, 1, axis=1)
+        elif fault is not None:
+            raise ValueError(fault)
+        corners, scores = post.decode(cls, reg)
+        gt = s["object_bbx_center"][s["object_bbx_mask"] == 1]
+        gt_corners = boxes_to_corners_3d(gt, post.order)[:, :4, :2]
+        stat = detection_ap.new_result_stat(LIDAR_AP_IOUS)
+        for t in LIDAR_AP_IOUS:
+            detection_ap.accumulate_tp_fp(corners[:, :4, :2], scores,
+                                          gt_corners, stat, t)
+        rows.append({"gt": len(gt), "kept": len(corners),
+                     "ap": {t: detection_ap.calculate_ap(stat, t)[0]
+                            for t in LIDAR_AP_IOUS}})
+    return rows
+
+
+def lidar_gate_holds(rows):
+    return all(r["gt"] > 0 and min(r["ap"].values()) > 1 - 1e-9
+               for r in rows)
+
+
+def phase_lidar_data(seed=0):
+    """The cooperative LiDAR track from point clouds to AP at full width: a
+    synthetic OPV2V LiDAR scenario of .pcd files (tools/lidar_fixture.py),
+    the host stages timed one by one, OPV2VLidarDataset in eval and train
+    mode through data/loader.py's 2 workers, bf16 eval frames on the default
+    dispatch (K6 x 4 each), bf16 train steps on f32 masters with
+    PointPillarLoss on the dataset's batches (K1 x 4 + K5 x 4 each, across
+    an epoch boundary), then the ideal-map AP gate with its planted faults
+    and one decode of the model's own maps, every box call on the native
+    route."""
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+    from cobevt_tpu_torch import ops
+    from cobevt_tpu_torch.data.lidar_preprocess import (
+        load_pcd,
+        mask_ego_points,
+        mask_points_by_range,
+    )
+    from cobevt_tpu_torch.data.loader import DataLoader
+    from cobevt_tpu_torch.data.objects import GT_RANGE, generate_object_center
+    from cobevt_tpu_torch.data.opv2v import OPV2VScenarioDatabase
+    from cobevt_tpu_torch.data.opv2v_lidar import OPV2VLidarDataset
+    from cobevt_tpu_torch.data.voxelize import occupied_voxels, voxelize_points
+    from cobevt_tpu_torch.losses.detection_loss import PointPillarLoss
+    from cobevt_tpu_torch.models.lidar.point_pillar_models import (
+        PointPillarConfig,
+        PointPillarFuseBEVT,
+    )
+    from cobevt_tpu_torch.postprocess.voxel_postprocessor import (
+        AnchorArgs,
+        VoxelPostprocessor,
+    )
+    from cobevt_tpu_torch.tools import benchmark
+    from cobevt_tpu_torch.tools.debug_utils import check_anchor_roundtrip
+    from cobevt_tpu_torch.tools.lidar_fixture import write_lidar_scenario
+    from cobevt_tpu_torch.tools.timing import device_profile
+    from cobevt_tpu_torch.train import (
+        create_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+    from cobevt_tpu_torch.train.loop import batch_to_device
+    from cobevt_tpu_torch.utils import native_ops
+    from cobevt_tpu_torch.utils.weights import seeded_init_
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    rng_range = benchmark.POINTPILLAR_RANGE
+    voxel, max_voxels, max_points = (0.4, 0.4, 4.0), 8000, 32
+    log(f"== phase 17: the LiDAR track from point clouds to AP, "
+        f"{LIDAR_DATA_CAVS} CAVs x {LIDAR_DATA_STAMPS} timestamps, "
+        f"~{LIDAR_DATA_POINTS} returns a cloud, {max_voxels} pillars x "
+        f"{max_points} points over +-70.4 x +-38.4 m, bf16 on the card")
+    routes_before = {k: dict(v) for k, v in native_ops.route_calls.items()}
+    device = torch.device("cuda", torch.cuda.current_device())
+    out = {"card": card}
+
+    def cuda_ms(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        result = fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return result, start.elapsed_time(stop), \
+            (time.perf_counter() - t0) * 1e3
+
+    def traced_ms(fn):
+        """fn() alone under torch.profiler, the device synchronized before
+        and after: its result and its device profile (tools/timing.py)."""
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            result = fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        return result, device_profile(prof, 1, wall_ms)
+
+    def check_counts(name, expect):
+        counts = ops.launch_counts()
+        for fn, n in counts.items():
+            if n != expect.get(fn, 0):
+                raise AssertionError(f"{name}: {fn} ran {n} launches, "
+                                     f"expected {expect.get(fn, 0)}")
+        return counts
+
+    kept_keys = ("pos_equal_one", "targets", "object_bbx_center",
+                 "object_bbx_mask")
+    with tempfile.TemporaryDirectory(prefix="cobevt_lidar_") as tmp:
+        # (a) the scenario tree, and each host stage timed alone
+        t0 = time.perf_counter()
+        paths = write_lidar_scenario(tmp, LIDAR_DATA_CAVS, LIDAR_DATA_STAMPS,
+                                     LIDAR_DATA_VEHICLES, LIDAR_DATA_POINTS,
+                                     seed=seed)
+        out["fixture_s"] = time.perf_counter() - t0
+        log(f"fixture: {len(paths)} clouds written in "
+            f"{out['fixture_s']:.1f} s")
+        load_ms = {"binary": [], "ascii": []}
+        vox_ms, clouds = [], []
+        for path in paths:
+            with open(path, "rb") as f:
+                kind = "ascii" if b"DATA ascii" in f.read(512) else "binary"
+            t0 = time.perf_counter()
+            pts = load_pcd(path)
+            load_ms[kind].append((time.perf_counter() - t0) * 1e3)
+            pts_in = mask_ego_points(mask_points_by_range(pts, rng_range))
+            before_cut = occupied_voxels(pts_in, voxel, rng_range)
+            t0 = time.perf_counter()
+            vox = voxelize_points(pts_in, voxel, rng_range, max_voxels,
+                                  max_points)
+            vox_ms.append((time.perf_counter() - t0) * 1e3)
+            row = {"cloud": os.path.relpath(path, tmp), "format": kind,
+                   "points": len(pts), "in_range": len(pts_in),
+                   "voxels_before_cut": before_cut,
+                   "voxels_kept": int(vox["voxel_mask"].sum())}
+            clouds.append(row)
+            log(f"{row['cloud']} ({kind}): {row['points']} points, "
+                f"{row['in_range']} in range, {before_cut} voxels before "
+                f"the cut at {max_voxels}, {row['voxels_kept']} kept")
+        out["clouds"] = clouds
+        out["load_pcd_ms"] = {k: float(np.mean(v)) for k, v in
+                              load_ms.items()}
+        out["voxelize_ms"] = float(np.mean(vox_ms))
+        log(f"load_pcd: {out['load_pcd_ms']['binary']:.2f} ms a binary "
+            f"cloud (mean of {len(load_ms['binary'])}), "
+            f"{out['load_pcd_ms']['ascii']:.1f} ms the ASCII one; "
+            f"voxelize_points: {out['voxelize_ms']:.2f} ms a CAV (mean of "
+            f"{len(vox_ms)}); {card}")
+        if any(r["voxels_before_cut"] <= max_voxels for r in clouds):
+            log("note: some clouds stay under the max_voxels cap")
+
+        # (b) the datasets at full width, and generate_label alone
+        post = VoxelPostprocessor(
+            AnchorArgs(cav_lidar_range=rng_range, W=352, H=192,
+                       feature_stride=2))
+        kw = dict(voxel_size=voxel, lidar_range=rng_range,
+                  max_voxels=max_voxels, max_points_per_voxel=max_points,
+                  max_objects=100)
+        train_ds = OPV2VLidarDataset(
+            OPV2VScenarioDatabase(tmp, max_cav=LIDAR_DATA_CAVS), post,
+            augment=True, train=True, seed=seed, **kw)
+        eval_ds = OPV2VLidarDataset(
+            OPV2VScenarioDatabase(tmp, max_cav=LIDAR_DATA_CAVS), post,
+            train=False, **kw)
+        label_ms, n_boxes = [], []
+        for i in range(len(eval_ds)):
+            _, ego_pose, cavs = eval_ds.plan(i)
+            boxes, mask, _ = generate_object_center(
+                [p for p, _, _ in cavs], ego_pose, 100, order="hwl",
+                lidar_range=GT_RANGE)
+            t0 = time.perf_counter()
+            post.generate_label(boxes, mask)
+            label_ms.append((time.perf_counter() - t0) * 1e3)
+            n_boxes.append(int(mask.sum()))
+        out["generate_label_ms"] = float(np.mean(label_ms))
+        log(f"generate_label: {out['generate_label_ms']:.1f} ms a sample "
+            f"(mean of {len(label_ms)}; {n_boxes} boxes, 33,792 anchors); "
+            f"{card}")
+
+        cfg = PointPillarConfig(max_cav=LIDAR_DATA_CAVS,
+                                point_cloud_range=rng_range)
+        model = PointPillarFuseBEVT(cfg)
+        seeded_init_(model, seed)
+        model = model.to(device)
+        eval_model = copy.deepcopy(model).to(torch.bfloat16).eval()
+        samples, counts_total = [], {}
+
+        def add_counts(counts):
+            for k, n in counts.items():
+                counts_total[k] = counts_total.get(k, 0) + n
+
+        # (c) eval frames through the loader, bf16, default dispatch
+        loader = DataLoader(eval_ds, batch_size=1, shuffle=False,
+                            drop_last=False, num_workers=2, device=device)
+        frames, maps = [], None
+        with switches(None):
+            it = iter(loader)
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    break
+                wait_ms = (time.perf_counter() - t0) * 1e3
+                b = batch_to_device(batch, device)
+                ops.reset_launch_counts()
+                traced = len(frames) == LIDAR_TRACED_FRAME
+                with torch.no_grad():
+                    if traced:
+                        o, prof = traced_ms(lambda: eval_model(b))
+                        ev_ms = host_ms = None
+                    else:
+                        o, ev_ms, host_ms = cuda_ms(lambda: eval_model(b))
+                add_counts(check_counts(f"eval frame {len(frames)}",
+                                        LIDAR_FUSED_PER_FRAME))
+                for key, shape in (("cls_preds", (1, 96, 176, 2)),
+                                   ("reg_preds", (1, 96, 176, 14))):
+                    if tuple(o[key].shape) != shape or \
+                            not torch.isfinite(o[key]).all():
+                        raise AssertionError(f"eval frame {len(frames)}: "
+                                             f"{key} {tuple(o[key].shape)}")
+                if maps is None:
+                    maps = {k: v[0].float().cpu().numpy()
+                            for k, v in o.items()}
+                samples.append({k: batch[k][0].numpy().copy()
+                                for k in kept_keys})
+                frames.append({"wait_ms": wait_ms, "events_ms": ev_ms,
+                               "host_ms": host_ms,
+                               "agents": float(batch["agent_mask"].sum())})
+                if traced:
+                    out["forward_profile"] = prof
+                    timed = (f"traced alone: device busy "
+                             f"{prof['device_ms_per_step']:.2f} ms, idle "
+                             f"{prof['device_idle_share']:.3f}")
+                else:
+                    timed = (f"{ev_ms:.2f} ms CUDA events (host "
+                             f"{host_ms:.1f} ms)")
+                log(f"eval frame {len(frames) - 1}: loader wait "
+                    f"{wait_ms:.1f} ms, forward {timed}, "
+                    f"{frames[-1]['agents']:.0f} agents, launches "
+                    f"{LIDAR_FUSED_PER_FRAME}; {card}")
+        loader.close()
+        if len(frames) != LIDAR_DATA_STAMPS:
+            raise AssertionError(f"{len(frames)} eval frames")
+        out["eval_frames"] = frames
+        out["forward_events_ms"] = float(np.median(
+            [f["events_ms"] for f in frames[1:] if f["events_ms"]]))
+        del eval_model
+
+        # (d) train steps on the dataset's batches, across an epoch boundary
+        schedule, wd, eps, clip = benchmark.train_recipe("pointpillar")
+        state = create_train_state(
+            model, make_optimizer(model.parameters(), schedule,
+                                  weight_decay=wd, eps=eps),
+            schedule, compute_dtype=torch.bfloat16, grad_clip=clip)
+        loss_fn = PointPillarLoss()
+        step = make_train_step(model, lambda o, b: loss_fn(o, b))
+        gen = torch.Generator(device=device).manual_seed(seed)
+        torch.manual_seed(seed)
+        loader = DataLoader(train_ds, batch_size=1, shuffle=True, seed=seed,
+                            num_workers=2, device=device)
+        records, epoch = [], 0
+        while len(records) < LIDAR_DATA_TRAIN_STEPS:
+            loader.set_epoch(epoch)
+            it = iter(loader)
+            first = True
+            while len(records) < LIDAR_DATA_TRAIN_STEPS:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    break
+                wait_ms = (time.perf_counter() - t0) * 1e3
+                b = batch_to_device(batch, device)
+                ops.reset_launch_counts()
+                traced = len(records) == LIDAR_TRACED_STEP
+                if traced:
+                    logs, prof = traced_ms(lambda: step(state, b, gen))
+                    ev_ms = host_ms = None
+                    out["step_profile"] = prof
+                else:
+                    logs, ev_ms, host_ms = cuda_ms(
+                        lambda: step(state, b, gen))
+                add_counts(check_counts(f"train step {len(records) + 1}",
+                                        LIDAR_TRAIN_PER_STEP))
+                loss = float(logs["loss"])
+                if not (math.isfinite(loss) and
+                        math.isfinite(float(logs["grad_norm"]))):
+                    raise AssertionError(f"train step {len(records) + 1}: "
+                                         f"loss {loss}")
+                samples.append({k: batch[k][0].numpy().copy()
+                                for k in kept_keys})
+                records.append({"epoch": epoch, "epoch_start": first,
+                                "wait_ms": wait_ms, "events_ms": ev_ms,
+                                "host_ms": host_ms, "loss": loss,
+                                "grad_norm": float(logs["grad_norm"]),
+                                "positives": float(
+                                    batch["pos_equal_one"].sum())})
+                if traced:
+                    timed = (f"traced alone: device busy "
+                             f"{prof['device_ms_per_step']:.2f} ms, idle "
+                             f"{prof['device_idle_share']:.3f}")
+                else:
+                    timed = (f"{ev_ms:.2f} ms CUDA events (host "
+                             f"{host_ms:.1f} ms)")
+                log(f"train step {len(records)} (epoch {epoch}"
+                    f"{', first batch' if first else ''}): loader wait "
+                    f"{wait_ms:.1f} ms, step {timed}, loss {loss:.4f}, "
+                    f"{records[-1]['positives']:.0f} positive anchors, "
+                    f"launches {LIDAR_TRAIN_PER_STEP}; {card}")
+                first = False
+            t0 = time.perf_counter()
+            it.close()
+            close_ms = (time.perf_counter() - t0) * 1e3
+            if len(records) == LIDAR_DATA_TRAIN_STEPS:
+                # the iteration was abandoned: close() read the batches in
+                # flight, then stopped the workers
+                left = LIDAR_DATA_STAMPS - sum(r["epoch"] == epoch
+                                               for r in records)
+                out["abandoned_close_ms"] = close_ms
+                log(f"close() of the train loader's abandoned iteration "
+                    f"(epoch {epoch}, {left} batches not taken): "
+                    f"{close_ms:.1f} ms; {card}")
+            epoch += 1
+        loader.close()
+        del state, model, step
+        torch.cuda.empty_cache()
+        out["train_steps"] = records
+        later = records[1:]
+        out["step_events_ms"] = float(np.median(
+            [r["events_ms"] for r in later if r["events_ms"]]))
+        if "forward_profile" not in out or "step_profile" not in out:
+            raise AssertionError("phase 17 traced no eval frame or no "
+                                 "train step")
+        ready = [r["wait_ms"] for r in later if not r["epoch_start"]]
+        boundary = [r["wait_ms"] for r in later if r["epoch_start"]]
+        if not boundary:
+            raise AssertionError("the train loader crossed no epoch")
+        out["loader_wait_ms"] = {"first": records[0]["wait_ms"],
+                                 "ready": float(np.median(ready)),
+                                 "epoch_boundary": boundary}
+        log(f"loader wait a step: {out['loader_wait_ms']['ready']:.1f} ms "
+            f"with the workers running (median), "
+            f"{', '.join(f'{w:.1f}' for w in boundary)} ms at the epoch "
+            f"boundary, {records[0]['wait_ms']:.1f} ms at the first step "
+            f"(worker spawn); forward {out['forward_events_ms']:.2f} ms, "
+            f"train step {out['step_events_ms']:.2f} ms (CUDA events, "
+            f"medians of the untraced after the first); device busy "
+            f"{out['forward_profile']['device_ms_per_step']:.2f} ms a "
+            f"frame, {out['step_profile']['device_ms_per_step']:.2f} ms a "
+            f"step (each traced alone); {card}")
+
+    # (e) the ideal-map AP gate, its planted faults, the model's own maps
+    t0 = time.perf_counter()
+    gate = lidar_ideal_gate(post, samples)
+    ap_s = time.perf_counter() - t0
+    out["ideal_gate"] = gate
+    out["ap_frames_per_s"] = len(samples) / ap_s
+    roundtrip = [check_anchor_roundtrip(post, s["object_bbx_center"],
+                                        s["object_bbx_mask"])
+                 for s in samples]
+    log(f"ideal maps: {len(samples)} samples, AP "
+        f"{[r['ap'] for r in gate[:1]]} (first), min "
+        f"{min(min(r['ap'].values()) for r in gate):.12f}, kept "
+        f"{[r['kept'] for r in gate]} for {[r['gt'] for r in gate]} boxes; "
+        f"anchor round trips {roundtrip}; decode + NMS + AP "
+        f"{out['ap_frames_per_s']:.1f} frames/s; {card}")
+    if not (lidar_gate_holds(gate) and all(roundtrip)):
+        raise AssertionError("the ideal-map AP gate failed: "
+                             + json.dumps(gate))
+    out["faults"] = {}
+    for fault in ("swap_xy", "shift"):
+        rows = lidar_ideal_gate(post, samples, fault)
+        out["faults"][fault] = rows
+        worst = {t: min(r["ap"][t] for r in rows) for t in LIDAR_AP_IOUS}
+        log(f"planted fault {fault}: lowest AP {worst}")
+        if lidar_gate_holds(rows):
+            raise AssertionError(f"the ideal-map gate passed the planted "
+                                 f"fault {fault}")
+
+    scores = 1 / (1 + np.exp(-maps["cls_preds"].reshape(-1)))
+    out["model_candidates"] = int((scores > post.score_threshold).sum())
+    t0 = time.perf_counter()
+    corners, kept_scores = post.decode(maps["cls_preds"], maps["reg_preds"])
+    out["model_decode_ms"] = (time.perf_counter() - t0) * 1e3
+    out["model_kept"] = len(corners)
+    log(f"decode of the model's eval maps (random weights): "
+        f"{out['model_candidates']} of 33,792 anchors over the score "
+        f"threshold {post.score_threshold}, {out['model_kept']} boxes kept "
+        f"(max_num {post.max_num}), {out['model_decode_ms']:.1f} ms; {card}")
+
+    routes = {k: {r: native_ops.route_calls[k][r] - routes_before[k][r]
+                  for r in native_ops.ROUTES}
+              for k in native_ops.route_calls}
+    out["box_routes"] = routes
+    log(f"box calls in this process by route: {routes}")
+    for name in ("bbox_overlaps", "rotated_iou", "nms_rotated"):
+        if routes[name]["numpy"] or not routes[name]["native"]:
+            raise AssertionError(f"{name} did not run on the native route "
+                                 f"alone: {routes[name]}")
+    out["counts"] = counts_total
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 17: {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default=None,
@@ -3596,6 +4071,10 @@ def main(argv=None):
                    help="run phase 16 (the nuScenes entry points from a "
                         "fixture) after the build, and after the phases "
                         "above if given, then stop without the final line")
+    p.add_argument("--lidar_data", action="store_true",
+                   help="run phase 17 (the LiDAR track from point clouds "
+                        "to AP) after the build, and after the phases above "
+                        "if given, then stop without the final line")
     opt = p.parse_args(argv)
 
     import torch
@@ -3607,7 +4086,7 @@ def main(argv=None):
     phase_environment()
     phase_build()
     if (opt.kernels or opt.sinbevt or opt.sinbevt_train or opt.train_camera
-            or opt.train_nuscenes):
+            or opt.train_nuscenes or opt.lidar_data):
         details = (phase_kernels(set(opt.kernels.split(",")))
                    if opt.kernels else [])
         sinbevt = phase_sinbevt() if opt.sinbevt else None
@@ -3616,6 +4095,7 @@ def main(argv=None):
         train_nuscenes = (phase_train_nuscenes(
             corpbevt_device_rate=camera_device_rate(train_camera))
             if opt.train_nuscenes else None)
+        lidar_data = phase_lidar_data() if opt.lidar_data else None
         if opt.out:
             os.makedirs(os.path.dirname(os.path.abspath(opt.out)),
                         exist_ok=True)
@@ -3624,6 +4104,7 @@ def main(argv=None):
                            "sinbevt_train": sinbevt_train,
                            "train_camera": train_camera,
                            "train_nuscenes": train_nuscenes,
+                           "lidar_data": lidar_data,
                            "card": card_line()}, f, indent=1)
         log(f"total {time.perf_counter() - t0:.1f} s")
         return 0
@@ -3641,6 +4122,7 @@ def main(argv=None):
     train_camera = phase_train_camera()
     train_nuscenes = phase_train_nuscenes(
         corpbevt_device_rate=camera_device_rate(train_camera))
+    lidar_data = phase_lidar_data()
 
     # (wrapper, source, the TPU function it replaces)
     sources = {
@@ -3724,6 +4206,11 @@ def main(argv=None):
                "fused_window_attention_packed_bwd",
                "fused_cross_view_attention"):
         launches[fn] += train_nuscenes["counts"][fn]
+    # K6 in the eval frames of the LiDAR dataset, K1 and K5 in its train
+    # steps (17)
+    for fn in ("fused_swap_fusion_streaming", "fused_window_attention_packed",
+               "fused_window_attention_packed_bwd"):
+        launches[fn] += lidar_data["counts"][fn]
     kernels = []
     for key, (fn, src, replaces) in sources.items():
         rows = [r for r in details if r["kernel"] == key]
@@ -3772,6 +4259,7 @@ def main(argv=None):
                        "sinbevt_train": sinbevt_train,
                        "train_camera": train_camera,
                        "train_nuscenes": train_nuscenes,
+                       "lidar_data": lidar_data,
                        "kernels": kernels,
                        "card": card_line(),
                        "torch": torch.__version__,

@@ -18,8 +18,8 @@ dataset whose content its caller changes between epochs (an OPV2V CAV
 order reshuffled at the end of an epoch) says so through ``epoch_state()``;
 when that differs from the state the workers were given, they are stopped
 and new ones receive the dataset as it stands.  An iteration abandoned
-before its end (an early ``break``) stops the workers too; :meth:`close`
-stops them at the end of a run.
+before its end (an early ``break``) stops the workers too, once the batches
+they are making are read; :meth:`close` stops them at the end of a run.
 
 A dataset whose samples draw random numbers (``draws_random``: the wild
 settings, the late fusion's train-time CAV pick) makes its draws here, in
@@ -159,12 +159,23 @@ class DataLoader:
             multiprocessing_context="spawn" if workers else None)
 
     def close(self):
-        """Stop the workers, if any are running."""
+        """Stop the workers, if any are running.  The batches they are still
+        making for an abandoned iteration are read first: a worker told to
+        stop while it writes a batch into a pipe that no one reads any more
+        aborts as it exits.  The workers are stopped even when that read
+        fails (a worker that died raises there), and the error is passed
+        on."""
         loader, self._torch_loader = self._torch_loader, None
         it = getattr(loader, "_iterator", None)
-        if it is not None:
+        if it is None:
+            return
+        loader._iterator = None
+        try:
+            while getattr(it, "_tasks_outstanding", 0) > 0:
+                it._get_data()
+                it._tasks_outstanding -= 1
+        finally:
             it._shutdown_workers()
-            loader._iterator = None
 
     def __iter__(self) -> Iterator:
         epoch_state = getattr(self.dataset, "epoch_state", None)

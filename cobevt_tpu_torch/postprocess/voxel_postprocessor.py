@@ -1,12 +1,13 @@
-"""Anchors and training targets of the anchor-based LiDAR detector.
+"""Anchor-based detection post-processing (VoxelNet / PointPillars style).
 
-Counterpart of ``cobevt_tpu/postprocess/voxel_postprocessor.py`` for the
-train step: ``AnchorArgs``, ``generate_anchor_box``, ``corner2d_to_standup``
-and ``VoxelPostprocessor.generate_label`` (IoU target assignment on standup
-2-D boxes).  All numpy, run on the host at data time.  The two box helpers
-that ``generate_label`` calls there (``geometry/boxes.py:boxes_to_corners_3d``
-and the numpy twin of the native ``bbox_overlaps``) are copied in below.
-Decoding and NMS come with the LiDAR post-processing slice.
+Counterpart of ``cobevt_tpu/postprocess/voxel_postprocessor.py`` (reference
+``data_utils/post_processor/voxel_postprocessor.py``), numpy on the host:
+``generate_anchor_box`` (the anchor grid over the LiDAR range),
+``VoxelPostprocessor.generate_label`` (IoU target assignment on standup 2-D
+boxes, through ``utils/native_ops.py:bbox_overlaps``),
+``VoxelPostprocessor.decode`` (sigmoid scores, anchor-delta decoding, the
+score threshold and rotated NMS through ``native_ops.nms_rotated``) and
+``delta_to_boxes3d``.  The box helpers are ``geometry/boxes.py``'s.
 """
 
 from __future__ import annotations
@@ -17,48 +18,11 @@ from typing import Dict, Tuple
 
 import numpy as np
 
-_CORNER_TEMPLATE_3D = np.array(
-    [[1, -1, -1], [1, 1, -1], [-1, 1, -1], [-1, -1, -1],
-     [1, -1, 1], [1, 1, 1], [-1, 1, 1], [-1, -1, 1]], np.float32) / 2
-
-
-def _rotz(yaw):
-    c, s = np.cos(yaw), np.sin(yaw)
-    zeros = np.zeros_like(c)
-    ones = np.ones_like(c)
-    return np.stack([
-        np.stack([c, -s, zeros], -1),
-        np.stack([s, c, zeros], -1),
-        np.stack([zeros, zeros, ones], -1)], -2)
-
-
-def boxes_to_corners_3d(boxes, order: str = "lwh"):
-    """(N, 7) [x y z dx dy dz yaw] -> (N, 8, 3) corners (bottom 0-3, top
-    4-7)."""
-    boxes = np.asarray(boxes, np.float64)
-    dims = boxes[:, 3:6]
-    if order == "hwl":
-        dims = dims[:, ::-1]
-    corners = dims[:, None, :] * _CORNER_TEMPLATE_3D[None]
-    corners = np.einsum("nij,nkj->nki", _rotz(boxes[:, 6]), corners)
-    return corners + boxes[:, None, 0:3]
-
-
-def bbox_overlaps(boxes, query_boxes):
-    """(N, 4) x (K, 4) -> (N, K) axis-aligned IoU with the Fast-RCNN +1
-    convention, in f32."""
-    b = np.asarray(boxes, np.float32)
-    q = np.asarray(query_boxes, np.float32)
-    area_b = (b[:, 2] - b[:, 0] + 1) * (b[:, 3] - b[:, 1] + 1)
-    area_q = (q[:, 2] - q[:, 0] + 1) * (q[:, 3] - q[:, 1] + 1)
-    iw = (np.minimum(b[:, None, 2], q[None, :, 2]) -
-          np.maximum(b[:, None, 0], q[None, :, 0]) + 1).clip(min=0)
-    ih = (np.minimum(b[:, None, 3], q[None, :, 3]) -
-          np.maximum(b[:, None, 1], q[None, :, 1]) + 1).clip(min=0)
-    inter = iw * ih
-    union = area_b[:, None] + area_q[None] - inter
-    out = np.where(inter > 0, inter / np.maximum(union, 1e-12), 0.0)
-    return out.astype(np.float32)
+from cobevt_tpu_torch.geometry.boxes import (  # noqa: F401 (re-exported)
+    bbox_overlaps,
+    boxes_to_corners_3d,
+)
+from cobevt_tpu_torch.utils import native_ops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,18 +71,28 @@ def corner2d_to_standup(corners):
                      c[..., 0].max(-1), c[..., 1].max(-1)], -1)
 
 
+
+
 class VoxelPostprocessor:
-    """The anchors of one detector and the labels they get from ground-truth
-    boxes."""
+    """The anchors of one detector, the labels they get from ground-truth
+    boxes, and the boxes decoded from its maps (every ``native_ops`` call
+    on its native route)."""
 
     def __init__(self, anchor_args: AnchorArgs, order: str = "hwl",
-                 pos_threshold: float = 0.6, neg_threshold: float = 0.45):
+                 pos_threshold: float = 0.6, neg_threshold: float = 0.45,
+                 score_threshold: float = 0.2, nms_threshold: float = 0.15,
+                 max_num: int = 100):
         self.args = anchor_args
         self.order = order
         self.anchor_num = len(anchor_args.r)
         self.pos_threshold = pos_threshold
         self.neg_threshold = neg_threshold
+        self.score_threshold = score_threshold
+        self.nms_threshold = nms_threshold
+        self.max_num = max_num
         self.anchors = generate_anchor_box(anchor_args, order)
+
+    # -- training targets ---------------------------------------------------
 
     def generate_label(self, gt_box_center: np.ndarray,
                        mask: np.ndarray) -> Dict[str, np.ndarray]:
@@ -149,7 +123,7 @@ class VoxelPostprocessor:
 
         gt_corners = boxes_to_corners_3d(gt_valid, self.order)
         anchor_corners = boxes_to_corners_3d(flat, self.order)
-        iou = bbox_overlaps(
+        iou = native_ops.bbox_overlaps(
             corner2d_to_standup(anchor_corners[:, :4]).astype(np.float32),
             corner2d_to_standup(gt_corners[:, :4]).astype(np.float32))
 
@@ -188,3 +162,42 @@ class VoxelPostprocessor:
         neg[hx, hy, hz] = 0
         return {"pos_equal_one": pos, "neg_equal_one": neg,
                 "targets": targets}
+
+    # -- inference ----------------------------------------------------------
+
+    def decode(self, cls_preds: np.ndarray, reg_preds: np.ndarray):
+        """One sample's maps -> kept boxes: sigmoid scores, anchor-delta
+        decoding, the score threshold, rotated NMS on the BEV corners, the
+        first ``max_num`` kept.
+
+        cls_preds: (H, W, anchor_num); reg_preds: (H, W, anchor_num * 7).
+        Returns (corners3d (K, 8, 3), scores (K,))."""
+        scores = 1 / (1 + np.exp(-cls_preds.reshape(-1)))
+        boxes = delta_to_boxes3d(reg_preds[None], self.anchors)[0]
+        keep = scores > self.score_threshold
+        boxes, scores = boxes[keep], scores[keep]
+        if len(boxes) == 0:
+            return np.zeros((0, 8, 3)), np.zeros((0,))
+        corners = boxes_to_corners_3d(boxes, self.order)
+        keep_idx = native_ops.nms_rotated(
+            corners[:, :4, :2], scores, self.nms_threshold)
+        keep_idx = keep_idx[:self.max_num]
+        return corners[keep_idx], scores[keep_idx]
+
+
+def delta_to_boxes3d(deltas, anchors):
+    """(N, H, W, anchor_num * 7) deltas + (H, W, anchor_num, 7) anchors ->
+    (N, H * W * anchor_num, 7) decoded boxes (channels last)."""
+    deltas = np.asarray(deltas)
+    N = deltas.shape[0]
+    d = deltas.reshape(N, -1, 7)
+    a = np.asarray(anchors).reshape(-1, 7).astype(np.float64)
+    a_d = np.sqrt(a[:, 4] ** 2 + a[:, 5] ** 2)
+
+    out = np.zeros_like(d, dtype=np.float64)
+    out[..., 0] = d[..., 0] * a_d + a[None, :, 0]
+    out[..., 1] = d[..., 1] * a_d + a[None, :, 1]
+    out[..., 2] = d[..., 2] * a[None, :, 3] + a[None, :, 2]
+    out[..., 3:6] = np.exp(d[..., 3:6]) * a[None, :, 3:6]
+    out[..., 6] = d[..., 6] + a[None, :, 6]
+    return out
