@@ -213,6 +213,33 @@ non-zero without printing the final line:
      threshold, boxes kept, ms); every box call of the phase on the native
      route.  ``--lidar_data`` runs this phase alone after the build and
      stops without the final line.
+ 18. camera model zoo: each of the six OPV2V graphs (cvt, cvt_att_fuse,
+     cvt_swap_fuse, cvt_fcooper, cvt_v2vnet, cvt_disconet) built through
+     tools/export_config.export_preset -> configs/hypes.build_from_hypes at
+     its preset's width (ResNet-34, 4 cameras x 512^2, dense CVT at 32^2,
+     BEV 256^2; 3 of 5 agents live, turned and shifted, cameras a quarter
+     turn apart), seeded, on the bf16 compute twin with its kernels (K3 x
+     20 a frame, K4 x 14 for the swap fusion) against the f32 plain forward
+     of its weights: the largest logit deviation within ZOO_BUDGET of the
+     largest logit and ZOO_WITNESS_RATIO times the bf16 plain forward's,
+     a gate each graph must fail again with one K3 residual skipped (and,
+     for the swap fusion, one K4 head dropped); the argmax IoUs and the IoU
+     about the reference's median margin read beside it, with host ms, the
+     device ms of a frame traced alone and peak memory;
+     tools/train_camera.main on a phase-15-style fixture with the
+     cvt_swap_fuse hypes (2 bf16 steps at batch 1: K1 x 6 + K5 x 6 each;
+     a validation frame; the checkpoint restored bit for bit), then
+     tools/serve_camera.main from that checkpoint under --bucketing staged
+     (the sliced BucketedRunner) and off (FullRunner), the served sliced
+     frames held by the same gate, and the same faults, to that runner
+     over the served weights in f32 on the plain versions (beside it the
+     unrounded master's run); tools/train_nuscenes.main
+     --experiment cvt_nuscenes_vehicle (2 bf16 steps at B 8 on 2 scenes x 8
+     samples, finite losses and IoUs, the step-2 checkpoint restored bit
+     for bit).  ``--zoo`` runs this phase alone after the build and stops
+     without the final line; ``--zoo_seed`` draws its weights, frames and
+     fixtures from another seed.  A failing gate raises once the phase has
+     printed every reading.
 
 K2's phase-3 rows (CorpBEVT, SinBEVT-OPV2V, SinBEVT-nuScenes) draw 20
 inputs a bf16 row (the first from the shared generator, the rest from K2's
@@ -555,6 +582,50 @@ LIDAR_DATA_VEHICLES, LIDAR_DATA_POINTS = 24, 120_000
 LIDAR_DATA_TRAIN_STEPS = 5
 LIDAR_TRACED_FRAME, LIDAR_TRACED_STEP = 2, 2
 LIDAR_AP_IOUS = (0.5, 0.7)
+# phase 18: the six OPV2V graphs of the camera zoo (their presets' widths),
+# the live agents of a cooperative graph's frame, the bf16 frames each graph
+# serves with its kernels (every one timed, one more traced alone), the
+# launches a frame (the ResNet-34 trunk's 20 K3 in every graph; K4 for the
+# swap fusion, as CorpBEVT's FuseBEVT at the same (5, 32, 32, 128) state);
+# the camera fixture (5 CAVs x 2 timestamps to train on at batch 1, 3 CAVs
+# x 1 to validate), the synthetic requests each serve_camera run answers,
+# and cvt_swap_fuse's train step (3 FuseBEVT blocks = 6 window attentions,
+# K1 forward and K5 backward, no weight on any); the nuScenes fixture (2
+# scenes x 8 samples: 2 steps at B 8, no wrapper launched: the dense CVT
+# and EfficientNet have no kernel)
+ZOO_GRAPHS = ("cvt", "cvt_att_fuse", "cvt_swap_fuse", "cvt_fcooper",
+              "cvt_v2vnet", "cvt_disconet")
+ZOO_LIVE, ZOO_FRAMES = 3, 3
+# the gate of a zoo frame, bf16 with kernels against the f32 plain forward
+# of the same weights: the largest logit deviation within ZOO_BUDGET of the
+# reference's largest logit, and within ZOO_WITNESS_RATIO times the bf16
+# plain forward's own deviation (the kernels add little to bf16's).  Each
+# graph runs again with each fault of ZOO_FAULTS planted, which must fail
+# the gate.  Readings on an NVIDIA H100 80GB HBM3 (700 W) at --zoo_seed 0,
+# 1 and 2: sound, a deviation of 0.0093-0.0461 and 0.87-1.22x bf16 plain's
+# (the served frames included); faulted 0.157-1.052 and 10-34x, but for
+# cvt_v2vnet's K3 fault, 0.012-0.026 and 1.38-2.74x: at random weights its
+# output barely depends on the trunk, and at seed 1 the gate cannot see
+# that fault (phase 3 holds K3 to its plain version).  The budget sits at
+# 1.7x the sound largest and half the faulted smallest, the ratio between
+# 1.22 and 2.13.  The argmax IoU, bf16 plain's and the IoU about the
+# reference's median margin are reported: the last overlaps (sound
+# 0.782-0.981, faulted 0.265-0.854), so it gates nothing.
+ZOO_BUDGET = 0.08
+ZOO_WITNESS_RATIO = 1.6
+# the K3 call of a frame, counted among those with a residual (from 1), that
+# the planted K3 fault runs without it
+ZOO_K3_FAULT_CALL = 5
+ZOO_PER_FRAME = {"fused_conv3x3": 20}
+ZOO_SWAP_PER_FRAME = dict(ZOO_PER_FRAME,
+                          fused_swap_fusion=FUSED_PER_FRAME[
+                              "fused_swap_fusion"])
+ZOO_TRAIN_CAVS, ZOO_TRAIN_STAMPS = 5, 2
+ZOO_VAL_CAVS, ZOO_VAL_STAMPS = 3, 1
+ZOO_SERVE_FRAMES = 4
+ZOO_TRAIN_PER_STEP = {"fused_window_attention_packed": 6,
+                      "fused_window_attention_packed_bwd": 6}
+ZOO_NUSC_SCENES, ZOO_NUSC_SAMPLES, ZOO_NUSC_STEPS = 2, 8, 2
 KERNELS = ("window_attention", "fused_cross_attention", "conv3x3",
            "fused_swap_fusion", "window_attention_bwd",
            "fused_swap_fusion_streaming", "conv3x3_int8", "ffd_fused",
@@ -3018,9 +3089,10 @@ def counted_steps(train_calls, eval_calls, module=None, traced=()):
     start on the host clock, CUDA events around its launches (read by
     read_step_events; the host paces the launches, so they read the
     host's time where it exceeds the device's) and, for a train step, the
-    lr it ran at.  The train calls numbered in ``traced`` (from 0) run
-    alone under torch.profiler, the device synchronized before and after:
-    ``profile`` holds their device busy time (tools/timing.py)."""
+    lr it ran at and its loss (a float after read_step_events).  The
+    train calls numbered in ``traced`` (from 0) run alone under
+    torch.profiler, the device synchronized before and after: ``profile``
+    holds their device busy time (tools/timing.py)."""
     import torch
     from cobevt_tpu_torch import ops
     from cobevt_tpu_torch.tools.timing import device_profile
@@ -3068,6 +3140,7 @@ def counted_steps(train_calls, eval_calls, module=None, traced=()):
                 if train:
                     rec["lr"] = state.optimizer.param_groups[0]["lr"]
                     rec["step_before"] = state.step - 1
+                    rec["loss"] = out["loss"]
                 calls.append(rec)
                 return out
             return step_counted
@@ -3084,12 +3157,15 @@ def counted_steps(train_calls, eval_calls, module=None, traced=()):
 
 
 def read_step_events(calls):
-    """Pop each call's CUDA events into ``events_ms``."""
+    """Pop each call's CUDA events into ``events_ms`` (and a train step's
+    loss into a float)."""
     import torch
     torch.cuda.synchronize()
     for rec in calls:
         start, stop = rec.pop("events")
         rec["events_ms"] = start.elapsed_time(stop)
+        if "loss" in rec:
+            rec["loss"] = float(rec["loss"])
 
 
 def check_calls(name, calls, expect, n):
@@ -3115,6 +3191,57 @@ def seg_iou(a, b):
     return float(np.mean(ious)) if ious else 1.0
 
 
+def camera_run_hypes(tmp, preset, train_split, val_split, seed):
+    """A synthetic OPV2V fixture under ``tmp`` (``train_split`` and
+    ``val_split``: (CAVs, timestamps)) at the full-width ``preset``'s image
+    and label sizes, and its hypes (batch 1, one epoch, a validation pass
+    and a save) written as JSON text: (hypes path, validate dir, image
+    (h, w), label size)."""
+    from cobevt_tpu_torch.tools.bench_input import write_opv2v_fixture
+    from cobevt_tpu_torch.tools.export_config import export_preset
+
+    hypes = export_preset(preset)
+    res = (hypes["preprocess"]["args"]["resize_y"],
+           hypes["preprocess"]["args"]["resize_x"])
+    args = hypes["model"]["args"]
+    bev = (args.get("fax") or args["cvm"])["bev_embedding"]["bev_height"]
+    train_dir, val_dir = (os.path.join(tmp, "train"),
+                          os.path.join(tmp, "validate"))
+    write_opv2v_fixture(train_dir, *train_split, res, bev, seed)
+    write_opv2v_fixture(val_dir, *val_split, res, bev, seed + 1)
+    hypes.update(root_dir=train_dir, validate_dir=val_dir)
+    hypes["train_params"].update(batch_size=1, epoches=1, eval_freq=1,
+                                 save_freq=1)
+    path = os.path.join(tmp, f"{preset}.yaml")
+    with open(path, "w") as f:
+        json.dump(hypes, f)
+    return path, val_dir, res, bev
+
+
+def check_same_state(name, saved, fresh):
+    """Raise unless the restored train state ``fresh`` holds ``saved``'s
+    step, every model state_dict entry and AdamW moment bit for bit, and
+    its bf16 twin still shares the master's BatchNorm buffers."""
+    import torch
+    if fresh.step != saved.step:
+        raise AssertionError(f"{name}: step {fresh.step} vs {saved.step}")
+    a, b = saved.model.state_dict(), fresh.model.state_dict()
+    for k in a:
+        if not torch.equal(a[k], b[k]):
+            raise AssertionError(f"{name}: {k} differs")
+    for p_old, p_new in zip(saved.params, fresh.params):
+        s_old = saved.optimizer.state[p_old]
+        s_new = fresh.optimizer.state[p_new]
+        for k in ("exp_avg", "exp_avg_sq", "step"):
+            if not torch.equal(s_old[k], s_new[k]):
+                raise AssertionError(f"{name}: AdamW {k} differs")
+    for t, m in zip(fresh.compute_model.modules(), fresh.model.modules()):
+        if isinstance(m, torch.nn.BatchNorm2d) and \
+                t.running_mean is not m.running_mean:
+            raise AssertionError(f"{name}: the twin lost the master's "
+                                 "BatchNorm buffers")
+
+
 def phase_train_camera(seed=0):
     """The port's main path through its entry points at corpbevt.yaml
     width: a synthetic OPV2V fixture, tools/train_camera.py (4 bf16 steps,
@@ -3132,8 +3259,6 @@ def phase_train_camera(seed=0):
         serve_camera,
         train_camera,
     )
-    from cobevt_tpu_torch.tools.bench_input import write_opv2v_fixture
-    from cobevt_tpu_torch.tools.export_config import export_preset
     from cobevt_tpu_torch.train import create_train_state, make_optimizer
     from cobevt_tpu_torch.train.checkpoint import (
         checkpoint_paths,
@@ -3148,22 +3273,9 @@ def phase_train_camera(seed=0):
     out = {}
     with tempfile.TemporaryDirectory(prefix="cobevt_camera_") as tmp:
         t0 = time.perf_counter()
-        hypes = export_preset("corpbevt")
-        res = (hypes["preprocess"]["args"]["resize_y"],
-               hypes["preprocess"]["args"]["resize_x"])
-        bev = hypes["model"]["args"]["fax"]["bev_embedding"]["bev_height"]
-        train_dir, val_dir = (os.path.join(tmp, "train"),
-                              os.path.join(tmp, "validate"))
-        write_opv2v_fixture(train_dir, TRAIN_CAM_CAVS, TRAIN_CAM_STAMPS, res,
-                            bev, seed)
-        write_opv2v_fixture(val_dir, VAL_CAM_CAVS, VAL_CAM_STAMPS, res, bev,
-                            seed + 1)
-        hypes.update(root_dir=train_dir, validate_dir=val_dir)
-        hypes["train_params"].update(batch_size=1, epoches=1, eval_freq=1,
-                                     save_freq=1)
-        hypes_path = os.path.join(tmp, "corpbevt.yaml")
-        with open(hypes_path, "w") as f:
-            json.dump(hypes, f)
+        hypes_path, val_dir, res, bev = camera_run_hypes(
+            tmp, "corpbevt", (TRAIN_CAM_CAVS, TRAIN_CAM_STAMPS),
+            (VAL_CAM_CAVS, VAL_CAM_STAMPS), seed)
         out["fixture_s"] = time.perf_counter() - t0
         log(f"fixture: train {TRAIN_CAM_CAVS} CAVs x {TRAIN_CAM_STAMPS} "
             f"timestamps, validate {VAL_CAM_CAVS} x {VAL_CAM_STAMPS}, cameras "
@@ -3246,24 +3358,9 @@ def phase_train_camera(seed=0):
         out["restore_ms"] = (time.perf_counter() - t0) * 1e3
         out["checkpoint_bytes"] = sum(os.path.getsize(p) for p in
                                       checkpoint_paths(run, epoch))
-        if got_epoch != 1 or fresh.step != saved.step:
-            raise AssertionError(f"restore: epoch {got_epoch}, step "
-                                 f"{fresh.step} vs {saved.step}")
-        a, b = saved.model.state_dict(), fresh.model.state_dict()
-        for k in a:
-            if not torch.equal(a[k], b[k]):
-                raise AssertionError(f"restore: {k} differs")
-        for p_old, p_new in zip(saved.params, fresh.params):
-            s_old = saved.optimizer.state[p_old]
-            s_new = fresh.optimizer.state[p_new]
-            for k in ("exp_avg", "exp_avg_sq", "step"):
-                if not torch.equal(s_old[k], s_new[k]):
-                    raise AssertionError(f"restore: AdamW {k} differs")
-        for t, m in zip(fresh.compute_model.modules(), fresh.model.modules()):
-            if isinstance(m, torch.nn.BatchNorm2d) and \
-                    t.running_mean is not m.running_mean:
-                raise AssertionError("restore: the twin lost the master's "
-                                     "BatchNorm buffers")
+        if got_epoch != 1:
+            raise AssertionError(f"restore: epoch {got_epoch}")
+        check_same_state("restore", saved, fresh)
         log(f"restore: bit for bit (parameters, BatchNorm buffers, AdamW "
             f"moments, step {fresh.step}); save {out['save_ms']:.1f} ms, "
             f"restore {out['restore_ms']:.1f} ms, checkpoint "
@@ -3506,19 +3603,9 @@ def phase_train_nuscenes(seed=0, corpbevt_device_rate=None):
                 out["checkpoint_bytes"] = sum(
                     os.path.getsize(p) for p in step_checkpoint_paths(
                         os.path.join(save, "ckpt"), steps))
-                if got != steps or fresh.step != saved.step:
-                    raise AssertionError(f"restore: step {got}, "
-                                         f"{fresh.step} vs {saved.step}")
-                a, b = saved.model.state_dict(), fresh.model.state_dict()
-                for k in a:
-                    if not torch.equal(a[k], b[k]):
-                        raise AssertionError(f"restore: {k} differs")
-                for p_old, p_new in zip(saved.params, fresh.params):
-                    s_old = saved.optimizer.state[p_old]
-                    s_new = fresh.optimizer.state[p_new]
-                    for k in ("exp_avg", "exp_avg_sq", "step"):
-                        if not torch.equal(s_old[k], s_new[k]):
-                            raise AssertionError(f"restore: AdamW {k}")
+                if got != steps:
+                    raise AssertionError(f"restore: step {got}")
+                check_same_state("restore", saved, fresh)
                 log(f"restore: bit for bit (parameters, BatchNorm buffers, "
                     f"AdamW moments, step {fresh.step}); save "
                     f"{out['save_ms']:.1f} ms, restore {out['restore_ms']:.1f} "
@@ -4047,6 +4134,506 @@ def phase_lidar_data(seed=0):
     return out
 
 
+def centered_margin_iou(a, b):
+    """The argmax IoU of two (..., 2) logit maps taken about the median of
+    ``b``'s margin (class 1 minus class 0), so that each class covers half
+    the reference; at random weights one class may hold nearly every
+    pixel, which leaves the plain argmax IoU to the few of the other."""
+    import numpy as np
+    m = np.median(b[..., 1] - b[..., 0])
+    shift = np.zeros_like(b)
+    shift[..., 1] = m
+    return argmax_iou(a - shift, b - shift)
+
+
+def zoo_frame(rng, cfg, n_live):
+    """A synthetic padded request (serve_camera.synthetic_frame) with the
+    four cameras yawed a quarter turn apart and every live agent but the
+    ego turned by up to 0.3 rad and shifted by up to 8 m, its pairwise
+    transforms (agent j's frame into agent i's at [j, i]) consistent with
+    the agent -> ego ones."""
+    import numpy as np
+    from cobevt_tpu_torch.tools import serve_camera
+
+    frame = serve_camera.synthetic_frame(rng, cfg, n_live)
+    for m in range(4):
+        a = m * np.pi / 2
+        frame["extrinsic"][:, :, m, 0, 0] = np.cos(a)
+        frame["extrinsic"][:, :, m, 0, 2] = np.sin(a)
+        frame["extrinsic"][:, :, m, 2, 0] = -np.sin(a)
+        frame["extrinsic"][:, :, m, 2, 2] = np.cos(a)
+    tmat = frame["transformation_matrix"][0]
+    for j in range(1, n_live):
+        a = rng.uniform(-0.3, 0.3)
+        tmat[j, :2, :2] = [[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]]
+        tmat[j, :2, 3] = rng.uniform(-8.0, 8.0, 2)
+    L = tmat.shape[0]
+    frame["pairwise_t_matrix"][0] = np.stack([
+        np.stack([np.linalg.inv(tmat[i]) @ tmat[j] for i in range(L)])
+        for j in range(L)]).astype(np.float32)
+    return frame
+
+
+def _k3_skipped_residual(real):
+    """K3 whose ZOO_K3_FAULT_CALL-th call with a residual skips it."""
+    seen = [0]
+
+    def call(*args, residual=None, **kwargs):
+        if residual is not None:
+            seen[0] += 1
+            if seen[0] == ZOO_K3_FAULT_CALL:
+                residual = None
+        return real(*args, residual=residual, **kwargs)
+    return call
+
+
+def _k4_dropped_head(real):
+    """K4 with the first head of its first window attention dropped: the
+    output projection's columns of that head zeroed."""
+    def call(x, mask, agent_mask, bias, packed, head, window, heads,
+             **kwargs):
+        first = dict(packed.layers[0][0])
+        dh = first["wout_t"].shape[1] // heads
+        first["wout_t"] = first["wout_t"].clone()
+        first["wout_t"][:, :dh] = 0
+        layers = [(first, packed.layers[0][1])] + list(packed.layers[1:])
+        return real(x, mask, agent_mask, bias,
+                    packed._replace(layers=layers), head, window, heads,
+                    **kwargs)
+    return call
+
+
+# faults planted in one forward to show what the zoo gate catches: (the
+# module whose name the model calls, the wrapper, the faulted wrapper)
+ZOO_FAULTS = {
+    "k3_skipped_residual": ("cobevt_tpu_torch.nn.layers", "fused_conv3x3",
+                            _k3_skipped_residual),
+    "k4_dropped_head": ("cobevt_tpu_torch.models.fusion.swap_fusion",
+                        "fused_swap_fusion", _k4_dropped_head),
+}
+
+
+def zoo_faults(cfg):
+    """The faults of ZOO_FAULTS that a graph of ``cfg`` runs into."""
+    return [f for f in ZOO_FAULTS
+            if f != "k4_dropped_head" or cfg.fusion == "swap"]
+
+
+@contextlib.contextmanager
+def planted_zoo_fault(name):
+    """While open, the wrapper that fault ``name`` names runs faulted."""
+    module_name, attr, make = ZOO_FAULTS[name]
+    module = importlib.import_module(module_name)
+    real = getattr(module, attr)
+    setattr(module, attr, make(real))
+    try:
+        yield
+    finally:
+        setattr(module, attr, real)
+
+
+def zoo_gate(got, ref, plain):
+    """The zoo gate of a bf16 logit map with the kernels against its f32
+    plain reference, beside the bf16 plain forward's map."""
+    import numpy as np
+
+    def rel(x):
+        return float(np.abs(x - ref).max() / (np.abs(ref).max() + 1e-12))
+    drift, witness = rel(got), rel(plain)
+    return {"max_rel_logit_err": drift,
+            "bf16_plain_max_rel_logit_err": witness,
+            "centered_iou": centered_margin_iou(got, ref),
+            "passes": drift <= ZOO_BUDGET
+            and drift <= ZOO_WITNESS_RATIO * witness}
+
+
+def zoo_gate_failures(what, sound, faulted):
+    """The gate's verdicts as failures: ``sound`` must pass, each of
+    ``faulted`` (fault -> gate) must not."""
+    out = [] if sound["passes"] else [f"{what}: {sound}"]
+    return out + [f"{what}: the gate passed the planted fault {f}: {g}"
+                  for f, g in faulted.items() if g["passes"]]
+
+
+def zoo_graph(name, seed):
+    """One zoo graph at its preset's width, built as a user builds it
+    (export_preset -> build_from_hypes), seeded, on the card: its bf16
+    frames with the kernels, on the compute twin that ``--half`` training
+    and serving use (train/state.py:compute_twin: bf16 weights, the f32
+    master's BatchNorm statistics, as flax keeps batch_stats in f32),
+    against the twin's weights in f32 on the plain versions (phase_slice's
+    reference); beside them the twin's bf16 plain forward, and a forward
+    with each planted fault.  Gate failures are returned in ``failures``
+    for the phase to raise once every graph has been read."""
+    import numpy as np
+    import torch
+    from cobevt_tpu_torch import ops
+    from cobevt_tpu_torch.configs.hypes import build_from_hypes
+    from cobevt_tpu_torch.tools.export_config import export_preset
+    from cobevt_tpu_torch.tools.timing import device_profile
+    from cobevt_tpu_torch.train.state import compute_twin
+    from cobevt_tpu_torch.utils.serving import to_device
+    from cobevt_tpu_torch.utils.weights import seeded_init_
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, master = build_from_hypes(export_preset(name))
+    seeded_init_(master, seed)
+    model = compute_twin(master.to("cuda").eval(), torch.bfloat16).eval()
+    del master
+    live = min(ZOO_LIVE, cfg.max_cav)
+    batch = to_device(zoo_frame(np.random.RandomState(seed), cfg, live),
+                      "cuda")
+    per_frame = ZOO_SWAP_PER_FRAME if cfg.fusion == "swap" else ZOO_PER_FRAME
+    row = {"fusion": cfg.fusion, "agents": cfg.max_cav, "live": live}
+    if cfg.fusion == "swap":
+        H = cfg.cvm.bev_height // 2 ** cfg.cvm.decoder_blocks
+        row["fusion_kernel"] = model.fusion_net.fused_kernel(
+            (1, cfg.max_cav, H, H, cfg.cvm.dim))
+    with switches(None), torch.no_grad():
+        with ops.forced_impl("torch"):
+            ref_model = copy.deepcopy(model).float()
+            ref = ref_model(batch)["dynamic_seg"].cpu().numpy()
+            del ref_model
+            plain = model(batch)["dynamic_seg"].float().cpu().numpy()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        host_ms = []
+        for _ in range(ZOO_FRAMES):
+            t0 = time.perf_counter()
+            out = model(batch)["dynamic_seg"]
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = ops.launch_counts()
+        row["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model(batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        faulted = {}
+        for fault in zoo_faults(cfg):
+            with planted_zoo_fault(fault):
+                faulted[fault] = model(batch)["dynamic_seg"].float()
+    for fn, n in counts.items():
+        if n != per_frame.get(fn, 0) * ZOO_FRAMES:
+            raise AssertionError(f"{name}: {fn} ran {n} launches over "
+                                 f"{ZOO_FRAMES} frames, expected "
+                                 f"{per_frame.get(fn, 0)} each")
+    out = out.float().cpu().numpy()
+    rows = cfg.max_cav if cfg.fusion == "none" else 1
+    if out.shape != (1, rows, 256, 256, cfg.output_class) or \
+            not np.isfinite(out).all():
+        raise AssertionError(f"{name}: dynamic_seg {out.shape}, finite "
+                             f"{bool(np.isfinite(out).all())}")
+    profiled = device_profile(prof, 1, wall_ms)
+    row.update(
+        counts=counts, host_ms=host_ms,
+        device_ms=profiled["device_ms_per_step"],
+        device_idle_share=profiled["device_idle_share"],
+        top_device_ops=profiled["top_device_ops"][:6],
+        argmax_iou=argmax_iou(out, ref),
+        bf16_plain_argmax_iou=argmax_iou(plain, ref),
+        gate=zoo_gate(out, ref, plain),
+        faults={f: zoo_gate(t.cpu().numpy(), ref, plain)
+                for f, t in faulted.items()})
+    row["failures"] = zoo_gate_failures(name, row["gate"], row["faults"])
+    log(f"{name} ({cfg.fusion}, {live} of {cfg.max_cav} agents live): "
+        f"device {row['device_ms']:.3f} ms a frame (traced alone, idle "
+        f"{row['device_idle_share']:.3f}), host "
+        f"{[round(t, 2) for t in host_ms]} ms, peak {row['peak_gb']:.2f} GB, "
+        f"launches a frame K3 {counts['fused_conv3x3'] // ZOO_FRAMES} K4 "
+        f"{counts['fused_swap_fusion'] // ZOO_FRAMES} K1 "
+        f"{counts['fused_window_attention_packed'] // ZOO_FRAMES}"
+        + (f" (fusion kernel {row['fusion_kernel']})"
+           if "fusion_kernel" in row else "")
+        + f"; bf16 kernels vs f32 plain: argmax IoU {row['argmax_iou']:.5f}"
+        f" (bf16 plain {row['bf16_plain_argmax_iou']:.5f}), gate "
+        f"{json.dumps(row['gate'])}, planted faults "
+        f"{json.dumps(row['faults'])}; {card_line()}")
+    log(f"{name} top device ops: " + json.dumps(row["top_device_ops"]))
+    del model, batch, faulted
+    torch.cuda.empty_cache()
+    return row
+
+
+def zoo_serving(run, tmp, seed):
+    """serve_camera --model_dir on the cvt_swap_fuse checkpoint under
+    --bucketing staged (the sliced BucketedRunner: the graph has no stage=
+    split) and off (FullRunner); the sliced frames held by the zoo gate to
+    the same runner over the served weights in f32 on the plain versions,
+    each planted fault failing it.  Gate failures are returned in
+    ``failures`` for the phase to raise."""
+    import numpy as np
+    import torch
+    from cobevt_tpu_torch import ops
+    from cobevt_tpu_torch.configs.hypes import build_from_hypes, load_hypes
+    from cobevt_tpu_torch.tools import serve_camera
+    from cobevt_tpu_torch.train.checkpoint import load_model_weights
+    from cobevt_tpu_torch.train.state import compute_twin
+    from cobevt_tpu_torch.utils.serving import BucketedRunner
+
+    out = {}
+    for bucketing, runner in (("staged", "BucketedRunner"),
+                              ("off", "FullRunner")):
+        pred = os.path.join(tmp, f"serve_{bucketing}")
+        ops.reset_launch_counts()
+        summary = serve_camera.main([
+            "--model_dir", run, "--synthetic", str(ZOO_SERVE_FRAMES),
+            "--half", "--bucketing", bucketing, "--out_dir", pred,
+            "--seed", str(seed)])
+        counts = ops.launch_counts()
+        served = summary["frames"] + len(summary["buckets"])
+        expect = {k: served * ZOO_SWAP_PER_FRAME.get(k, 0) for k in counts}
+        if summary["runner"] != runner or counts != expect:
+            raise AssertionError(f"serve_camera --bucketing {bucketing}: "
+                                 f"{summary['runner']}, launches {counts} "
+                                 f"over {served} frames (warmups included)")
+        out[bucketing] = {k: summary[k] for k in (
+            "runner", "frames", "p50_ms", "p95_ms", "frames_per_sec",
+            "buckets")}
+        out[bucketing]["counts"] = counts
+        log(f"serve_camera cvt_swap_fuse --bucketing {bucketing}: "
+            f"{summary['runner']}, p50 {summary['p50_ms']:.2f} ms a request "
+            f"over {summary['frames']} requests, buckets "
+            f"{ {n: round(b['p50_ms'], 2) for n, b in summary['buckets'].items()} }"
+            f"; {card_line()}")
+
+    # the sliced frames are what the JAX semantics give: held to the same
+    # runner over the served weights in f32 on the plain versions, not to
+    # the padded forward; beside them the bf16 plain run, the unrounded f32
+    # master's plain run, and each planted fault
+    hypes = load_hypes(os.path.join(run, "config.yaml"))
+    cfg, master = build_from_hypes(hypes)
+    load_model_weights(run, master)
+    master = master.to("cuda").eval()
+    twin = compute_twin(master, torch.bfloat16).eval()
+    sliced = BucketedRunner(twin)
+    ref_runner = BucketedRunner(copy.deepcopy(twin).float())
+    master_runner = BucketedRunner(master)
+    frames = serve_camera.synthetic_frames(np.random.RandomState(seed), cfg,
+                                           ZOO_SERVE_FRAMES)
+    rows, failures = [], []
+    for i, (n, frame) in enumerate(frames):
+        got = sliced(frame)["dynamic_seg"].float().cpu().numpy()
+        faulted = {}
+        for fault in zoo_faults(cfg):
+            with planted_zoo_fault(fault):
+                faulted[fault] = sliced(frame)["dynamic_seg"].float()
+        with ops.forced_impl("torch"):
+            ref = ref_runner(frame)["dynamic_seg"].cpu().numpy()
+            plain = sliced(frame)["dynamic_seg"].float().cpu().numpy()
+            unrounded = master_runner(frame)["dynamic_seg"].cpu().numpy()
+        name = f"frame_{i:06d}.npz"
+        served = np.load(os.path.join(tmp, "serve_staged", name))
+        padded = np.load(os.path.join(tmp, "serve_off", name))
+        if int(served["n_agents"]) != n:
+            raise AssertionError(f"{name}: {served['n_agents']} agents, "
+                                 f"expected {n}")
+        margin = ref[..., 1] - ref[..., 0]
+        r = {"agents": n,
+             "served_argmax_iou": seg_iou(served["seg"], ref.argmax(-1)),
+             "bf16_plain_argmax_iou": argmax_iou(plain, ref),
+             "gate": zoo_gate(got, ref, plain),
+             "faults": {f: zoo_gate(t.cpu().numpy(), ref, plain)
+                        for f, t in faulted.items()},
+             "vs_unrounded_argmax_iou": argmax_iou(got, unrounded),
+             "rounded_weights_argmax_iou": argmax_iou(ref, unrounded),
+             "margin_range": [float(margin.min()), float(margin.max())],
+             "share_within_drift": float((np.abs(margin) <= np.abs(
+                 (got[..., 1] - got[..., 0]) - margin).max()).mean()),
+             "reference_class_shares": (np.bincount(
+                 ref.argmax(-1).ravel(), minlength=cfg.output_class)
+                 / margin.size).tolist(),
+             "served_vs_padded_iou": seg_iou(served["seg"], padded["seg"])}
+        rows.append(r)
+        failures += zoo_gate_failures(f"sliced frame {i} ({n} agents)",
+                                      r["gate"], r["faults"])
+        log(f"sliced frame, {n} agents: served map vs the runner's f32 plain"
+            f" argmax IoU {r['served_argmax_iou']:.5f} (bf16 plain "
+            f"{r['bf16_plain_argmax_iou']:.5f}), gate {json.dumps(r['gate'])}"
+            f", planted faults {json.dumps(r['faults'])}; against the unrounded f32 "
+            f"master: kernels {r['vs_unrounded_argmax_iou']:.5f}, the "
+            f"rounded weights in f32 {r['rounded_weights_argmax_iou']:.5f}; "
+            f"reference margin range {np.round(r['margin_range'], 4).tolist()}"
+            f", share within the kernels' margin drift "
+            f"{r['share_within_drift']:.4f}, class shares "
+            f"{np.round(r['reference_class_shares'], 4).tolist()}; vs the "
+            f"padded forward (not a gate: its fusion averages over max_cav "
+            f"rows) {r['served_vs_padded_iou']:.5f}")
+    out["sliced_frames"] = rows
+    out["failures"] = failures
+    del sliced, ref_runner, master_runner, twin, master
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_train_camera(tmp, seed):
+    """tools/train_camera.py on the phase-15 fixture with the full-width
+    cvt_swap_fuse hypes (2 bf16 steps at batch 1, a validation frame, a
+    save), then a bit-for-bit restore of its checkpoint.  Returns (summary,
+    run dir)."""
+    import math
+
+    import torch
+    from cobevt_tpu_torch import ops
+    from cobevt_tpu_torch.configs.hypes import load_hypes
+    from cobevt_tpu_torch.tools import train_camera
+    from cobevt_tpu_torch.train import create_train_state, make_optimizer
+    from cobevt_tpu_torch.train.checkpoint import restore_checkpoint
+    from cobevt_tpu_torch.train.optim import constant_schedule
+
+    path, _, _, _ = camera_run_hypes(
+        tmp, "cvt_swap_fuse", (ZOO_TRAIN_CAVS, ZOO_TRAIN_STAMPS),
+        (ZOO_VAL_CAVS, ZOO_VAL_STAMPS), seed)
+    run = os.path.join(tmp, "run")
+    train_calls, eval_calls = [], []
+    t0 = time.perf_counter()
+    with counted_steps(train_calls, eval_calls):
+        trainer = train_camera.main(["--hypes_yaml", path, "--save_dir", run,
+                                     "--half", "--log_every", "1"])
+    wall = time.perf_counter() - t0
+    read_step_events(train_calls)
+    check_calls("cvt_swap_fuse train step",
+                [c["launches"] for c in train_calls],
+                dict(ZOO_TRAIN_PER_STEP, composite=0), ZOO_TRAIN_STAMPS)
+    check_calls("cvt_swap_fuse validation frame",
+                [c["launches"] for c in eval_calls],
+                dict(ZOO_SWAP_PER_FRAME, composite=0), ZOO_VAL_STAMPS)
+    steps = [{"step": r["step"], "loss": r["scalars"]["loss"],
+              "grad_norm": r["scalars"]["grad_norm"],
+              "host_ms": r["step_s"] * 1e3, "events_ms": c["events_ms"]}
+             for r, c in zip(trainer.records, train_calls)]
+    for s_ in steps:
+        log(f"train_camera cvt_swap_fuse step {s_['step']}: loss "
+            f"{s_['loss']:.5f}, gradient norm {s_['grad_norm']:.4f}, host "
+            f"{s_['host_ms']:.1f} ms, CUDA events {s_['events_ms']:.1f} ms; "
+            f"{card_line()}")
+        if not (math.isfinite(s_["loss"]) and math.isfinite(s_["grad_norm"])):
+            raise AssertionError(f"train_camera cvt_swap_fuse: step {s_}")
+    counts = {k: sum(c["launches"].get(k, 0)
+                     for c in train_calls + eval_calls)
+              for k in ops.launch_counts()}
+    device = trainer.device
+    saved = trainer.state
+    _, model, _ = train_camera.build_from_hypes(
+        load_hypes(os.path.join(run, "config.yaml")), device, seed + 1)
+    fresh = create_train_state(
+        model, make_optimizer(model.parameters(), constant_schedule(0.0)),
+        constant_schedule(0.0), compute_dtype=torch.bfloat16)
+    fresh, _ = restore_checkpoint(run, fresh)
+    check_same_state("cvt_swap_fuse restore", saved, fresh)
+    log(f"train_camera cvt_swap_fuse: {len(steps)} steps + validation + "
+        f"save in {wall:.1f} s, launches {counts}; the checkpoint restores "
+        f"bit for bit (parameters, BatchNorm buffers, AdamW moments, step "
+        f"{fresh.step})")
+    del fresh, model, trainer, saved
+    torch.cuda.empty_cache()
+    return {"steps": steps, "counts": counts, "seconds": wall}, run
+
+
+def zoo_train_nuscenes(tmp, seed):
+    """tools/train_nuscenes.py --experiment cvt_nuscenes_vehicle on a
+    synthetic scene set (2 bf16 steps at B 8, a checkpoint at step 2, the
+    IoU pass), then a bit-for-bit restore of the step-2 checkpoint."""
+    import math
+
+    import numpy as np
+    import torch
+    from cobevt_tpu_torch.configs.nuscenes_experiments import (
+        build_model,
+        nuscenes_experiment,
+    )
+    from cobevt_tpu_torch.tools import bench_input, train_nuscenes
+    from cobevt_tpu_torch.train import create_train_state, make_optimizer
+    from cobevt_tpu_torch.train.checkpoint import restore_step_checkpoint
+    from cobevt_tpu_torch.train.optim import constant_schedule
+
+    exp = nuscenes_experiment("cvt_nuscenes_vehicle")
+    data, labels = bench_input.write_nuscenes_fixture(
+        os.path.join(tmp, "nuscenes"), ZOO_NUSC_SCENES, ZOO_NUSC_SAMPLES,
+        seed=seed, camera_pool=NUSC_CLI_POOL)
+    save = os.path.join(tmp, "nuscenes_run")
+    train_calls, eval_calls = [], []
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with counted_steps(train_calls, eval_calls, train_nuscenes):
+        run = train_nuscenes.main([
+            "--dataset_dir", data, "--labels_dir", labels, "--save_dir", save,
+            "--half", "--experiment", exp.name, "--steps",
+            str(ZOO_NUSC_STEPS), "--ckpt_every", str(ZOO_NUSC_STEPS)])
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    read_step_events(train_calls)
+    check_calls("cvt_nuscenes_vehicle step",
+                [c["launches"] for c in train_calls], {}, ZOO_NUSC_STEPS)
+    check_calls("cvt_nuscenes_vehicle IoU-pass frame",
+                [c["launches"] for c in eval_calls], {},
+                ZOO_NUSC_SCENES * ZOO_NUSC_SAMPLES)
+    steps = [{"step": r["step"], "loss": c["loss"],
+              "host_ms": r["step_s"] * 1e3, "loader_ms": r["loader_s"] * 1e3,
+              "events_ms": c["events_ms"]}
+             for r, c in zip(run.records, train_calls)]
+    for s_ in steps:
+        log(f"train_nuscenes cvt_nuscenes_vehicle step {s_['step']}: loss "
+            f"{s_['loss']:.5f}, host {s_['host_ms']:.1f} ms, waiting on the "
+            f"loader {s_['loader_ms']:.1f} ms, CUDA events "
+            f"{s_['events_ms']:.1f} ms; {card_line()}")
+        if not math.isfinite(s_["loss"]):
+            raise AssertionError(f"train_nuscenes cvt_nuscenes_vehicle: "
+                                 f"step {s_}")
+    ious = np.concatenate([run.iou_visible, run.iou_all])
+    if not np.all(np.isfinite(ious)):
+        raise AssertionError(f"train_nuscenes cvt_nuscenes_vehicle IoU "
+                             f"{ious}")
+    iou_visible, iou_all = run.iou_visible.tolist(), run.iou_all.tolist()
+    saved = run.state
+    model = build_model(exp).to(next(saved.model.parameters()).device)
+    fresh = create_train_state(
+        model, make_optimizer(model.parameters(), constant_schedule(0.0)),
+        constant_schedule(0.0), compute_dtype=torch.bfloat16)
+    fresh, got = restore_step_checkpoint(os.path.join(save, "ckpt"), fresh)
+    if got != ZOO_NUSC_STEPS:
+        raise AssertionError(f"cvt_nuscenes_vehicle restore: step {got}")
+    check_same_state("cvt_nuscenes_vehicle restore", saved, fresh)
+    log(f"train_nuscenes cvt_nuscenes_vehicle: {len(steps)} steps + IoU "
+        f"pass over {len(eval_calls)} frames in {wall:.1f} s, peak "
+        f"{peak_gb:.2f} GB; IoU (vis>=2) {iou_visible}, (with occlusions) "
+        f"{iou_all}; the step-{got} checkpoint restores bit for bit")
+    del fresh, model, saved, run
+    torch.cuda.empty_cache()
+    return {"steps": steps, "seconds": wall, "peak_gb": peak_gb,
+            "iou_visible": iou_visible, "iou_all": iou_all}
+
+
+def phase_zoo(seed=0):
+    """Phase 18: the camera zoo at its presets' widths (see the module
+    docstring)."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    log("== phase 18: the camera zoo: cvt, cvt_att_fuse, cvt_swap_fuse, "
+        "cvt_fcooper, cvt_v2vnet, cvt_disconet (ResNet-34, 4 cameras x "
+        "512^2, dense CVT at 32^2, BEV 256^2), bf16 kernels vs f32 plain")
+    out = {"graphs": {name: zoo_graph(name, seed) for name in ZOO_GRAPHS}}
+    with tempfile.TemporaryDirectory(prefix="cobevt_zoo_") as tmp:
+        log("== phase 18: train_camera on cvt_swap_fuse.yaml, then "
+            "serve_camera from its checkpoint")
+        out["train_camera"], run = zoo_train_camera(tmp, seed)
+        out["serve"] = zoo_serving(run, tmp, seed)
+        log("== phase 18: train_nuscenes --experiment cvt_nuscenes_vehicle "
+            "(EfficientNet-b4, 6 cameras x 224 x 480, B 8, BEV 200^2)")
+        out["train_nuscenes"] = zoo_train_nuscenes(tmp, seed)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 18: {out['seconds']:.1f} s")
+    failures = [f for g in out["graphs"].values() for f in g["failures"]]
+    failures += out["serve"]["failures"]
+    if failures:
+        raise AssertionError("the zoo gate: " + "; ".join(failures))
+    return out
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default=None,
@@ -4075,6 +4662,12 @@ def main(argv=None):
                    help="run phase 17 (the LiDAR track from point clouds "
                         "to AP) after the build, and after the phases above "
                         "if given, then stop without the final line")
+    p.add_argument("--zoo", action="store_true",
+                   help="run phase 18 (the camera model zoo) after the "
+                        "build, and after the phases above if given, then "
+                        "stop without the final line")
+    p.add_argument("--zoo_seed", type=int, default=0,
+                   help="seed of phase 18's weights, frames and fixtures")
     opt = p.parse_args(argv)
 
     import torch
@@ -4086,7 +4679,7 @@ def main(argv=None):
     phase_environment()
     phase_build()
     if (opt.kernels or opt.sinbevt or opt.sinbevt_train or opt.train_camera
-            or opt.train_nuscenes or opt.lidar_data):
+            or opt.train_nuscenes or opt.lidar_data or opt.zoo):
         details = (phase_kernels(set(opt.kernels.split(",")))
                    if opt.kernels else [])
         sinbevt = phase_sinbevt() if opt.sinbevt else None
@@ -4096,6 +4689,7 @@ def main(argv=None):
             corpbevt_device_rate=camera_device_rate(train_camera))
             if opt.train_nuscenes else None)
         lidar_data = phase_lidar_data() if opt.lidar_data else None
+        zoo = phase_zoo(opt.zoo_seed) if opt.zoo else None
         if opt.out:
             os.makedirs(os.path.dirname(os.path.abspath(opt.out)),
                         exist_ok=True)
@@ -4104,7 +4698,7 @@ def main(argv=None):
                            "sinbevt_train": sinbevt_train,
                            "train_camera": train_camera,
                            "train_nuscenes": train_nuscenes,
-                           "lidar_data": lidar_data,
+                           "lidar_data": lidar_data, "zoo": zoo,
                            "card": card_line()}, f, indent=1)
         log(f"total {time.perf_counter() - t0:.1f} s")
         return 0
@@ -4123,6 +4717,7 @@ def main(argv=None):
     train_nuscenes = phase_train_nuscenes(
         corpbevt_device_rate=camera_device_rate(train_camera))
     lidar_data = phase_lidar_data()
+    zoo = phase_zoo(opt.zoo_seed)
 
     # (wrapper, source, the TPU function it replaces)
     sources = {
@@ -4211,6 +4806,15 @@ def main(argv=None):
     for fn in ("fused_swap_fusion_streaming", "fused_window_attention_packed",
                "fused_window_attention_packed_bwd"):
         launches[fn] += lidar_data["counts"][fn]
+    # K3 and K4 in the zoo's eval frames, serve_camera's frames and the
+    # validation frame, K1 and K5 in cvt_swap_fuse's train steps (18)
+    for counts18 in ([g["counts"] for g in zoo["graphs"].values()]
+                     + [zoo["serve"][b]["counts"] for b in ("staged", "off")]
+                     + [zoo["train_camera"]["counts"]]):
+        for fn in ("fused_conv3x3", "fused_swap_fusion",
+                   "fused_window_attention_packed",
+                   "fused_window_attention_packed_bwd"):
+            launches[fn] += counts18[fn]
     kernels = []
     for key, (fn, src, replaces) in sources.items():
         rows = [r for r in details if r["kernel"] == key]
@@ -4259,7 +4863,7 @@ def main(argv=None):
                        "sinbevt_train": sinbevt_train,
                        "train_camera": train_camera,
                        "train_nuscenes": train_nuscenes,
-                       "lidar_data": lidar_data,
+                       "lidar_data": lidar_data, "zoo": zoo,
                        "kernels": kernels,
                        "card": card_line(),
                        "torch": torch.__version__,

@@ -8,7 +8,8 @@ Counterpart of ``cobevt_tpu/configs/hypes.py`` for the OPV2V camera track:
   * derived-geometry post hooks as a registry, not ``eval``;
   * the checkpoint dir's ``config.yaml`` taking priority on resume;
   * ``load_bev_params``, and hypes -> the port's typed model configs for
-    ``corpbevt`` and ``fax`` (SinBEVT-OPV2V).
+    all eight camera graphs: ``corpbevt``, ``fax`` (SinBEVT-OPV2V) and the
+    six of the CVT zoo.
 
 PyYAML is optional.  JSON is YAML, so where ``yaml`` cannot be imported a
 hypes file or a per-timestamp file is read as JSON, and
@@ -19,12 +20,20 @@ JSON, read where ``yaml`` is missing, raises an error naming PyYAML.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
 from typing import Callable, Dict, Optional
 
+from cobevt_tpu_torch.models.camera_bev_models import (
+    ZOO_FUSIONS,
+    CameraBEVConfig,
+    create_model,
+    zoo_core_method,
+)
 from cobevt_tpu_torch.models.corpbevt import CorpBEVTConfig
+from cobevt_tpu_torch.models.cvt_dense import CVTModuleConfig
 from cobevt_tpu_torch.models.fax import FAXConfig
 
 try:
@@ -197,38 +206,88 @@ def corpbevt_config_from_hypes(hypes: dict) -> CorpBEVTConfig:
         output_class=args["output_class"])
 
 
-# the camera zoo's core methods (the JAX ``_CORE_METHOD_TO_FUSION``): their
-# graphs are not ported yet
-ZOO_CORE_METHODS = (
-    "cross_view_transformer", "cvt",
-    "cross_view_transformer_att_fuse", "cvt_att_fuse",
-    "cross_view_transformer_swap_fuse", "cvt_swap_fuse",
-    "cross_view_transformer_fcooper", "cvt_fcooper",
-    "cross_view_transformer_v2vnet", "cvt_v2vnet",
-    "cross_view_transformer_disconet", "cvt_disconet",
-)
+# every zoo core_method, short and long, -> its registry key
+_ZOO_CORE_METHODS = {name: key for key in ZOO_FUSIONS
+                     for name in (key, zoo_core_method(key))}
+
+
+def camera_bev_config_from_hypes(hypes: dict) -> CameraBEVConfig:
+    """Map a cvt-variant hypes dict (reference
+    opv2v/opencood/hypes_yaml/opcamera/cvt*.yaml) onto CameraBEVConfig."""
+    fusion = ZOO_FUSIONS[_ZOO_CORE_METHODS[hypes["model"]["core_method"]]]
+    args = hypes["model"]["args"]
+    enc = args["encoder"]
+    dec = args["decoder"]
+    cvm_a = args["cvm"]
+    bev = cvm_a["bev_embedding"]
+    cv = cvm_a["cross_view"]
+
+    cvm = CVTModuleConfig(
+        dim=cvm_a["dim"], middle=tuple(cvm_a["middle"]),
+        image_height=cv["image_height"], image_width=cv["image_width"],
+        heads=cv["heads"], dim_head=cv["dim_head"],
+        qkv_bias=cv["qkv_bias"],
+        no_image_features=cv.get("no_image_features", False),
+        skip=cv.get("skip", True),
+        sigma=bev["sigma"], bev_height=bev["bev_height"],
+        bev_width=bev["bev_width"], h_meters=bev["h_meters"],
+        w_meters=bev["w_meters"], offset=bev["offset"],
+        decoder_blocks=len(bev["decoder_blocks"]))
+
+    kw = dict(
+        max_cav=args.get("max_cav", 1), target=args["target"],
+        encoder_num_layers=enc["num_layers"],
+        encoder_id_pick=tuple(enc["id_pick"]),
+        image_height=enc["image_height"], image_width=enc["image_width"],
+        cvm=cvm, fusion=fusion,
+        decoder_num_layer=dec["num_layer"],
+        decoder_num_ch=tuple(dec["num_ch_dec"]),
+        seg_head_dim=args["seg_head_dim"],
+        output_class=args["output_class"])
+    if "sttf" in args:
+        kw.update(sttf_resolution=args["sttf"]["resolution"],
+                  sttf_downsample_rate=args["sttf"]["downsample_rate"],
+                  use_roi_mask=args["sttf"].get("use_roi_mask", True))
+    if fusion == "att":
+        bt = args["base_transformer"]
+        kw.update(att_depth=bt["depth"], att_heads=bt["heads"],
+                  att_dim_head=bt["dim_head"], att_mlp_dim=bt["mlp_dim"],
+                  att_dropout=bt["dropout"])
+    elif fusion == "swap":
+        sf = args["swap_fusion"]
+        kw.update(swap_mlp_dim=sf["mlp_dim"],
+                  swap_window_size=sf["window_size"],
+                  swap_dim_head=sf["dim_head"],
+                  swap_dropout=sf["drop_out"], swap_depth=sf["depth"],
+                  swap_mask=sf.get("mask", True))
+    elif fusion in ("v2vnet", "disconet"):
+        gf = args.get("v2vnet_fusion") or args["disconet_fusion"]
+        kw.update(graph_num_iteration=gf["num_iteration"],
+                  graph_gru_flag=gf.get("gru_flag", True),
+                  graph_agg_operator=gf.get("agg_operator", "avg"))
+    return CameraBEVConfig(**kw)
 
 
 def model_config_from_hypes(hypes: dict):
-    """(registry_key, typed config) for an opcamera hypes dict: the
-    ``corpbevt`` and ``fax`` graphs of the reference ``create_model``
-    dispatch (``train_utils.py:102-135``)."""
+    """(registry_key, typed config) for any opcamera hypes dict: the eight
+    graphs of the reference ``create_model`` dispatch
+    (``train_utils.py:102-135``)."""
     core = hypes["model"]["core_method"]
     if core == "corpbevt":
         return "corpbevt", corpbevt_config_from_hypes(hypes)
     if core in ("fax_fused_transformer", "fax"):
         return "fax", corpbevt_config_from_hypes(hypes)
-    if core in ZOO_CORE_METHODS:
-        raise NotImplementedError(
-            f"core_method {core!r} is a graph of the camera model zoo, which "
-            "the port does not have yet (ROADMAP item 14)")
+    if core in _ZOO_CORE_METHODS:
+        return _ZOO_CORE_METHODS[core], camera_bev_config_from_hypes(hypes)
     raise KeyError(f"unknown model core_method {core!r}")
 
 
 def build_from_hypes(hypes: dict):
-    """Hypes dict -> (config, the f32 module on the CPU): CorpBEVT for
-    ``corpbevt``, SinBEVT for ``fax``."""
-    from cobevt_tpu_torch.models.corpbevt import CorpBEVT, SinBEVT
-
+    """Hypes dict -> (config, the f32 module on the CPU), built through
+    ``create_model``: CorpBEVT for ``corpbevt``, SinBEVT for ``fax``, a
+    ``CameraBEVModel`` for the zoo."""
     key, cfg = model_config_from_hypes(hypes)
-    return cfg, (CorpBEVT(cfg) if key == "corpbevt" else SinBEVT(cfg))
+    # the registry's builder sets a zoo graph's fusion from its key
+    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+          if not (f.name == "fusion" and key in ZOO_FUSIONS)}
+    return cfg, create_model(key, **kw)

@@ -5,8 +5,9 @@ experiment is one frozen dataclass bundling encoder, output slices, loss
 composition, label grouping and trainer hyperparameters
 (``config/experiment/*.yaml``); :func:`experiment_to_dict` exports it in the
 reference's flattened schema, and :func:`build_criterion` composes its
-loss.  The pyramid-axial presets are here; the dense-CVT ablation
-(``cvt_nuscenes_vehicle``) waits for the CVT encoder.
+loss.  The encoder is the pyramid-axial FAX (``PyramidAxialConfig``) or,
+in the ``cvt_nuscenes_vehicle`` ablation, the dense CVT
+(``CVTNuScenesConfig``).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from cobevt_tpu_torch.losses import (
     CenterLoss,
     MultipleLoss,
 )
+from cobevt_tpu_torch.models.cvt_nuscenes import CVTNuScenesConfig
 from cobevt_tpu_torch.models.sinbevt_nuscenes import (
     CrossViewTransformer,
     PyramidAxialConfig,
@@ -84,6 +86,18 @@ def _pyramid_axial_vehicle() -> NuScenesExperiment:
         label_indices=VEHICLE_LABELS)
 
 
+def _cvt_vehicle() -> NuScenesExperiment:
+    """The dense-CVT ablation of the flagship: model group ``cvt``
+    (``config/model/cvt.yaml``, bev output only), data nuscenes_vehicle and
+    default_loss (unmasked focal, ``config/loss/default_loss.yaml``)."""
+    return NuScenesExperiment(
+        name="cvt_nuscenes_vehicle",
+        encoder=CVTNuScenesConfig(),
+        outputs=(("bev", (0, 1)),),
+        losses=(("focal", LossSpec("binary_seg", weight=1.0)),),
+        label_indices=VEHICLE_LABELS)
+
+
 def _pyramid_axial_road() -> NuScenesExperiment:
     """Pyramid-axial on the static road task: bev output, unmasked focal."""
     return dataclasses.replace(
@@ -96,6 +110,7 @@ def _pyramid_axial_road() -> NuScenesExperiment:
 
 _EXPERIMENTS = {
     "cvt_pyramid_axial_nuscenes_vehicle": _pyramid_axial_vehicle,
+    "cvt_nuscenes_vehicle": _cvt_vehicle,
     "cvt_pyramid_axial_nuscenes_road": _pyramid_axial_road,
 }
 
@@ -148,33 +163,50 @@ def build_criterion(exp: NuScenesExperiment) -> MultipleLoss:
 def experiment_to_dict(exp: NuScenesExperiment) -> dict:
     """Flattened reference-schema export of the composed experiment."""
     enc = exp.encoder
-    model = {
-        "_target_": "cvt_pyramid_axial",
-        "dim": list(enc.dim), "middle": list(enc.middle),
-        "scale": enc.scale,
-        "backbone": {"model_name": enc.backbone_model,
-                     "layer_names": list(enc.backbone_layers),
-                     "image_height": enc.image_height,
-                     "image_width": enc.image_width},
-        "cross_view": {"heads": list(enc.heads),
-                       "dim_head": list(enc.dim_head),
-                       "qkv_bias": enc.qkv_bias,
-                       "skip": enc.skip,
-                       "no_image_features": enc.no_image_features},
-        "cross_view_swap": {
-            "q_win_size": [list(w) for w in enc.q_win_size],
-            "feat_win_size": [list(w) for w in enc.feat_win_size],
-            "bev_embedding_flag": list(enc.bev_embedding_flag)},
-        "bev_embedding": {
-            "sigma": enc.sigma, "bev_height": enc.bev_height,
-            "bev_width": enc.bev_width, "h_meters": enc.h_meters,
-            "w_meters": enc.w_meters, "offset": enc.offset,
-            "upsample_scales": list(enc.upsample_scales)},
-        "decoder": {"blocks": list(exp.decoder_blocks), "residual": True,
-                    "factor": 2},
-        "dim_last": exp.dim_last,
-        "outputs": {k: list(v) for k, v in exp.outputs},
-    }
+    if isinstance(enc, PyramidAxialConfig):
+        model = {
+            "_target_": "cvt_pyramid_axial",
+            "dim": list(enc.dim), "middle": list(enc.middle),
+            "scale": enc.scale,
+            "backbone": {"model_name": enc.backbone_model,
+                         "layer_names": list(enc.backbone_layers),
+                         "image_height": enc.image_height,
+                         "image_width": enc.image_width},
+            "cross_view": {"heads": list(enc.heads),
+                           "dim_head": list(enc.dim_head),
+                           "qkv_bias": enc.qkv_bias,
+                           "skip": enc.skip,
+                           "no_image_features": enc.no_image_features},
+            "cross_view_swap": {
+                "q_win_size": [list(w) for w in enc.q_win_size],
+                "feat_win_size": [list(w) for w in enc.feat_win_size],
+                "bev_embedding_flag": list(enc.bev_embedding_flag)},
+            "bev_embedding": {
+                "sigma": enc.sigma, "bev_height": enc.bev_height,
+                "bev_width": enc.bev_width, "h_meters": enc.h_meters,
+                "w_meters": enc.w_meters, "offset": enc.offset,
+                "upsample_scales": list(enc.upsample_scales)},
+        }
+    else:
+        model = {
+            "_target_": "cvt",
+            "dim": enc.dim, "middle": list(enc.middle),
+            "backbone": {"model_name": enc.backbone_model,
+                         "layer_names": list(enc.backbone_layers),
+                         "image_height": enc.image_height,
+                         "image_width": enc.image_width},
+            "cross_view": {"heads": enc.heads, "dim_head": enc.dim_head,
+                           "qkv_bias": enc.qkv_bias, "skip": enc.skip,
+                           "no_image_features": enc.no_image_features},
+            "bev_embedding": {
+                "sigma": enc.sigma, "bev_height": enc.bev_height,
+                "bev_width": enc.bev_width, "h_meters": enc.h_meters,
+                "w_meters": enc.w_meters, "offset": enc.offset},
+        }
+    model["decoder"] = {"blocks": list(exp.decoder_blocks),
+                        "residual": True, "factor": 2}
+    model["dim_last"] = exp.dim_last
+    model["outputs"] = {k: list(v) for k, v in exp.outputs}
     return {
         "experiment": {"name": exp.name, "seed": exp.seed,
                        "checkpoint_interval": exp.checkpoint_interval},

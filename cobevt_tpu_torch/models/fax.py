@@ -78,8 +78,11 @@ def on_device(grid_fn, args: tuple, device: torch.device) -> torch.Tensor:
     """``grid_fn(*args)``, a static numpy grid, as a tensor on ``device``,
     copied there once per (grid, device): a copy from pageable host memory
     at every forward would make the host wait for the stream, so it could
-    not queue the next launches while the card works.  Read-only."""
-    return torch.from_numpy(grid_fn(*args)).to(device)
+    not queue the next launches while the card works.  Read-only.  Made
+    outside inference mode, so that a grid a runner cached first may be
+    saved for a training step's backward."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(grid_fn(*args)).to(device)
 
 
 @functools.lru_cache(maxsize=None)

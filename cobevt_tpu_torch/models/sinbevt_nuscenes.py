@@ -22,6 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from cobevt_tpu_torch.models.cvt_nuscenes import CVTNuScenesEncoder
 from cobevt_tpu_torch.models.fax import FAXStages
 from cobevt_tpu_torch.nn.efficientnet import EfficientNetExtractor
 from cobevt_tpu_torch.nn.layers import (
@@ -195,8 +196,10 @@ class Decoder(nn.Module):
 
 class CrossViewTransformer(nn.Module):
     """encoder -> decoder -> to_logits, sliced into named NHWC outputs.
-    The encoder is the pyramid-axial one; the dense-CVT encoder
-    (``CVTNuScenesConfig``) is not ported."""
+    The config's type picks the encoder, as the reference's Hydra model
+    switch does (``config/model/{cvt_pyramid_axial,cvt}.yaml``): a
+    ``PyramidAxialConfig`` builds the FAX pyramid, a ``CVTNuScenesConfig``
+    (``models/cvt_nuscenes.py``) the dense CVT baseline."""
 
     def __init__(self, encoder_config=PyramidAxialConfig(),
                  decoder_blocks: Tuple[int, ...] = (128, 128, 64),
@@ -204,13 +207,13 @@ class CrossViewTransformer(nn.Module):
                  outputs: Tuple[Tuple[str, Tuple[int, int]], ...] = (
                      ("bev", (0, 1)),)):
         super().__init__()
-        if not isinstance(encoder_config, PyramidAxialConfig):
-            raise NotImplementedError(
-                f"{type(encoder_config).__name__}: the dense-CVT encoder "
-                f"(cobevt_tpu/models/cvt_nuscenes.py) is not ported")
         self.outputs = tuple(outputs)
-        self.encoder = PyramidAxialEncoder(encoder_config)
-        dim = encoder_config.dim[-1]
+        if isinstance(encoder_config, PyramidAxialConfig):
+            self.encoder = PyramidAxialEncoder(encoder_config)
+            dim = encoder_config.dim[-1]
+        else:
+            self.encoder = CVTNuScenesEncoder(encoder_config)
+            dim = encoder_config.dim
         self.decoder = Decoder(dim, tuple(decoder_blocks))
         dim_max = max(stop for _, (_, stop) in self.outputs)
         self.to_logits = nn.Sequential(

@@ -342,6 +342,16 @@ def pixel_unshuffle(x, factor: int = 2):
     return x.reshape(B, H // r, W // r, C * r * r)
 
 
+def dropout(x, p: float, training: bool, generator=None):
+    """Inverted dropout whose keep-mask is drawn from ``generator`` (None:
+    the device's global generator); the identity outside training or at
+    ``p`` 0."""
+    if not training or p == 0.0:
+        return x
+    keep = torch.rand(x.shape, device=x.device, generator=generator) >= p
+    return x * keep.to(x.dtype) / (1.0 - p)
+
+
 def mlp_seq(dim: int, hidden: int, out: int) -> nn.Sequential:
     """Linear -> GELU -> Linear (the FAX MLP; torch names ``0`` / ``2``)."""
     return nn.Sequential(nn.Linear(dim, hidden), nn.GELU(),

@@ -1,9 +1,14 @@
 """Cooperative-camera serving: bucketed inference and a latency report.
 
 Counterpart of ``cobevt_tpu/tools/serve_camera.py``.  Serves synthetic
-frames with mixed live-agent counts through the staged runner
-(``utils/serving.py``) and prints one JSON summary line: per-bucket and
-overall p50/p95/p99 latency (ms) and frames/sec.
+frames with mixed live-agent counts through an agent-count runner
+(``utils/serving.py``: ``--bucketing staged`` takes the exact staged runner
+for CorpBEVT and the sliced ``BucketedRunner`` for every other graph, as the
+JAX tool does; ``sliced`` and ``off`` force the sliced runner or the full
+padded forward; a sliced runner that averages over max_cav agents is
+approximate and says so on stderr) and prints one JSON summary line: per-bucket and overall
+p50/p95/p99 latency (ms), frames/sec and the runner taken (also named on
+stderr).
 
   python -m cobevt_tpu_torch.tools.serve_camera --synthetic 16 --half
   python -m cobevt_tpu_torch.tools.serve_camera --synthetic 16 --half --int8
@@ -34,6 +39,7 @@ import argparse
 import functools
 import json
 import os
+import sys
 import time
 
 import numpy as np
@@ -43,25 +49,46 @@ from cobevt_tpu_torch import ops
 from cobevt_tpu_torch.nn.layers import int8_enabled
 from cobevt_tpu_torch.ops.dispatch import env_switches
 from cobevt_tpu_torch.utils.serving import (
+    BucketedRunner,
     FullRunner,
     StagedBucketedRunner,
     save_prediction,
 )
 
 
+def slicing_is_exact(model) -> bool:
+    """Whether a forward sliced to the live agents gives the padded
+    forward's answer.  Every fusion of the port runs over the live agents
+    alone but FuseBEVT's agent mean without ``mean_over_valid``, which
+    averages over all max_cav rows (CorpBEVT by default, ``cvt_swap_fuse``)."""
+    from cobevt_tpu_torch.models.fusion.swap_fusion import SwapFusionEncoder
+
+    return not any(isinstance(m, SwapFusionEncoder) and not m.mean_over_valid
+                   for m in model.modules())
+
+
 def build_runner(model, cfg, bucketing: str):
-    """``staged``: exact agent-count bucketing; ``off``: the full padded
-    forward."""
-    if bucketing == "staged":
-        from cobevt_tpu_torch.models.corpbevt import CorpBEVT
-        if not isinstance(model, CorpBEVT):
-            raise ValueError(f"staged bucketing splits CorpBEVT's graph; "
-                             f"serve a {type(model).__name__} with "
-                             f"--bucketing off")
+    """The JAX tool's choice (``cobevt_tpu/tools/serve_camera.py:66-88``):
+    ``staged`` takes the exact ``StagedBucketedRunner`` for CorpBEVT and
+    the ``BucketedRunner`` for a graph without its ``stage=`` contract
+    (SinBEVT, the CVT zoo); ``sliced`` takes the ``BucketedRunner``; ``off``
+    the full padded forward.  A warning on stderr names a sliced runner
+    whose answer differs from the padded forward's
+    (:func:`slicing_is_exact`)."""
+    from cobevt_tpu_torch.models.corpbevt import CorpBEVT
+
+    if bucketing == "staged" and isinstance(model, CorpBEVT):
         return StagedBucketedRunner(model, cfg.max_cav)
     if bucketing == "off":
         return FullRunner(model)
-    raise ValueError(f"unknown bucketing {bucketing!r}")
+    if bucketing not in ("staged", "sliced"):
+        raise ValueError(f"unknown bucketing {bucketing!r}")
+    if not slicing_is_exact(model):
+        exact = "staged or off" if isinstance(model, CorpBEVT) else "off"
+        print(f"warning: the sliced runner is approximate for a fusion "
+              f"that averages over max_cav agents; --bucketing {exact} "
+              f"gives the padded forward's answer", file=sys.stderr)
+    return BucketedRunner(model)
 
 
 def synthetic_frame(rng, cfg, n_agents: int):
@@ -84,6 +111,8 @@ def synthetic_frame(rng, cfg, n_agents: int):
                              (1, L, M, 1, 1)),
         "transformation_matrix": np.tile(np.eye(4, dtype=np.float32),
                                          (1, L, 1, 1)),
+        "pairwise_t_matrix": np.tile(np.eye(4, dtype=np.float32),
+                                     (1, L, L, 1, 1)),
         "agent_mask": mask,
     }
 
@@ -166,9 +195,11 @@ def synthetic_frames(rng, cfg, count: int):
 def parse_args(argv=None):
     p = argparse.ArgumentParser("cobevt_tpu_torch camera serving")
     p.add_argument("--bucketing", default="staged",
-                   choices=["staged", "off"],
-                   help="staged = exact agent-count bucketing; off = full "
-                        "padded forward")
+                   choices=["staged", "sliced", "off"],
+                   help="staged = exact for reference-parity fusion "
+                        "(graphs without CorpBEVT's stage= split are "
+                        "sliced); sliced = exact only under "
+                        "fusion_mean_over_valid; off = full padded forward")
     p.add_argument("--model_dir", default=None,
                    help="serve the latest checkpoint of this training run")
     p.add_argument("--root_dir", default=None,
@@ -254,9 +285,13 @@ def main(argv=None):
         os.makedirs(opt.out_dir, exist_ok=True)
         on_output = functools.partial(save_prediction, opt.out_dir)
     runner = build_runner(model, cfg, opt.bucketing)
+    print(f"serve_camera: {type(model).__name__} behind "
+          f"{type(runner).__name__} (--bucketing {opt.bucketing})",
+          file=sys.stderr)
     with env_switches(**({"COBEVT_INT8": "1"} if opt.int8 else {})):
         summary = serve(runner, frames, cfg, rng, opt.bucketing,
                         opt.pipeline, on_output=on_output)
+    summary["runner"] = type(runner).__name__
     print(json.dumps(summary))
     if opt.report:
         with open(opt.report, "w") as f:

@@ -1,14 +1,23 @@
-"""Serving helpers: exact agent-count bucketing for CorpBEVT.
+"""Serving helpers: agent-count bucketing.
 
-Counterpart of ``cobevt_tpu/utils/serving.py:StagedBucketedRunner``.  At
-inference most cooperative frames carry fewer agents than the ``max_cav``
-pad, so the per-agent stages (encoder -> FAX -> compressor, most of the
-FLOPs) run on the live agents only; their BEV maps are zero-padded back to
-``max_cav`` and the cooperative tail (warp -> mask -> fusion -> decoder ->
-head) runs at full width with the padded transforms and mask.  The fusion
-input is then the same as in a full padded forward, so the output is exact
-for any fusion-mean semantics, the reference's mean over ``max_cav``
-included.  PyTorch runs eagerly, so no per-bucket compile is needed.
+Counterpart of ``cobevt_tpu/utils/serving.py``.  At inference most
+cooperative frames carry fewer agents than the ``max_cav`` pad, so the
+runners compute on the live agents only.  PyTorch runs eagerly, so no
+bucket needs a compile of its own.
+
+* ``BucketedRunner`` slices every per-agent entry to the live agents and
+  runs the whole graph on them.  The reference's fusion heads average over
+  ``max_cav`` rows, and padded rows are not zero after masked attention,
+  so this equals the padded forward only where the fusion runs over the
+  valid agents (``fusion_mean_over_valid``, or graphs that mask their
+  padding away); ``tools/serve_camera.py`` takes it for every graph without
+  CorpBEVT's ``stage=`` contract, as the JAX tool does.
+* ``StagedBucketedRunner`` (CorpBEVT) runs the per-agent stages (encoder ->
+  FAX -> compressor, most of the FLOPs) on the live agents, zero-pads their
+  BEV maps back to ``max_cav`` and runs the cooperative tail (warp -> mask
+  -> fusion -> decoder -> head) at full width with the padded transforms
+  and mask: the fusion input is that of a full padded forward, so the
+  output is exact for any fusion-mean semantics.
 """
 
 from __future__ import annotations
@@ -19,10 +28,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-# agent axis of every per-agent entry of a batch
+# agent axis of every per-agent entry of a batch; ``pairwise_t_matrix``
+# (B, L, L, 4, 4) is sliced on the next axis too
 BATCH_AGENT_AXES = {
     "inputs": 1, "intrinsic": 1, "extrinsic": 1,
-    "transformation_matrix": 1, "agent_mask": 1,
+    "transformation_matrix": 1, "pairwise_t_matrix": 1, "agent_mask": 1,
 }
 
 
@@ -47,8 +57,11 @@ def slice_agents(batch: dict, n: int) -> dict:
     for key, value in batch.items():
         axis = BATCH_AGENT_AXES.get(key)
         value = np.asarray(value)
-        out[key] = value if axis is None else np.take(value, np.arange(n),
-                                                      axis=axis)
+        if axis is not None:
+            value = np.take(value, np.arange(n), axis=axis)
+            if key == "pairwise_t_matrix":
+                value = np.take(value, np.arange(n), axis=axis + 1)
+        out[key] = value
     return out
 
 
@@ -62,15 +75,29 @@ def save_prediction(out_dir: str, i: int, n: int, out: dict) -> None:
                         seg=seg.astype(np.uint8), n_agents=n)
 
 
-class StagedBucketedRunner:
+class BucketedRunner:
+    """Runs a frame on its live agents alone: every per-agent entry sliced
+    to the fullest sample's live count, then the whole graph.  Takes host
+    (numpy) batches, returns the model's output dict on the model's device
+    without waiting for it."""
+
+    def __init__(self, model: torch.nn.Module):
+        self.model = model.eval()
+        self.device = model_device(model)
+
+    @torch.inference_mode()
+    def __call__(self, batch: dict) -> dict:
+        return self.model(to_device(slice_agents(batch, live_agents(batch)),
+                                    self.device))
+
+
+class StagedBucketedRunner(BucketedRunner):
     """Runs a CorpBEVT frame as encode on the live agents, zero-pad to
-    ``max_cav``, fuse.  Takes host (numpy) batches, returns the model's
-    output dict on the model's device without waiting for it."""
+    ``max_cav``, fuse."""
 
     def __init__(self, model: torch.nn.Module, max_cav: int):
-        self.model = model.eval()
+        super().__init__(model)
         self.max_cav = max_cav
-        self.device = model_device(model)
 
     @torch.inference_mode()
     def __call__(self, batch: dict) -> dict:

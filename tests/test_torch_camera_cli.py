@@ -132,13 +132,30 @@ def test_the_device_default_needs_a_card(tool, monkeypatch, tmp_path):
         module.main(argv)
 
 
-def test_staged_serving_refuses_a_single_agent_graph():
+@pytest.mark.parametrize("core,bucketing,runner", [
+    ("corpbevt", "staged", "StagedBucketedRunner"),
+    ("corpbevt", "sliced", "BucketedRunner"),
+    ("fax", "staged", "BucketedRunner"),
+    ("cvt_v2vnet", "staged", "BucketedRunner"),
+    ("cvt_v2vnet", "sliced", "BucketedRunner"),
+    ("cvt_v2vnet", "off", "FullRunner"),
+])
+def test_serving_takes_the_jax_tools_runner(core, bucketing, runner):
+    """``--bucketing staged`` splits CorpBEVT's graph and slices every graph
+    without its ``stage=`` contract, as the JAX tool does
+    (``cobevt_tpu/tools/serve_camera.py:66-88``)."""
     from cobevt_tpu_torch.configs.hypes import build_from_hypes
     from cobevt_tpu_torch.tools import serve_camera
+    from cobevt_tpu_torch.tools.export_config import hypes_from_camera_bev
+    from tests.test_torch_camera_zoo import port_cfg, tiny_cfg
 
-    hypes = copy.deepcopy(TINY_HYPES)
-    hypes["model"]["core_method"] = "fax"
+    if core.startswith("cvt"):
+        hypes = hypes_from_camera_bev(port_cfg(tiny_cfg("v2vnet")), "tiny")
+    else:
+        hypes = copy.deepcopy(TINY_HYPES)
+        hypes["model"]["core_method"] = core
     cfg, model = build_from_hypes(hypes)
-    with pytest.raises(ValueError, match="bucketing off"):
-        serve_camera.build_runner(model, cfg, "staged")
-    assert serve_camera.build_runner(model, cfg, "off").model is model
+    got = serve_camera.build_runner(model, cfg, bucketing)
+    assert type(got).__name__ == runner and got.model is model
+    with pytest.raises(ValueError, match="unknown bucketing"):
+        serve_camera.build_runner(model, cfg, "padded")

@@ -4,8 +4,9 @@
 resolver included) and on JSON text, with and without PyYAML; the port's
 typed config field by field against ``cobevt_tpu.configs.hypes.
 corpbevt_config_from_hypes`` for ``TINY_HYPES`` of ``tests/test_train_e2e.py``
-and for the full-width export; the zoo's core methods refused; config ->
-hypes -> config equal.  Exact equality throughout: no arithmetic.
+and for the full-width export; the twelve core methods of the camera zoo
+mapped to the JAX package's ``CameraBEVConfig`` field by field (an unknown
+one a ``KeyError``); config -> hypes -> config equal.  Exact equality throughout: no arithmetic.
 """
 
 import copy
@@ -117,13 +118,21 @@ def test_config_hypes_config_round_trip(tmp_path):
     assert ph.corpbevt_config_from_hypes(ph.load_hypes(str(path))) == cfg
 
 
-@pytest.mark.parametrize("core", ["cvt", "cross_view_transformer_att_fuse",
-                                  "cvt_swap_fuse", "cvt_v2vnet"])
-def test_zoo_core_methods_name_the_roadmap_item(core):
-    hypes = copy.deepcopy(TINY_HYPES)
+@pytest.mark.parametrize("core", sorted(jh._CORE_METHOD_TO_FUSION))
+def test_zoo_core_methods_map_as_the_jax_package(core):
+    fusion = jh._CORE_METHOD_TO_FUSION[core]
+    preset = {"none": "cvt", "att": "cvt_att_fuse", "swap": "cvt_swap_fuse",
+              "max": "cvt_fcooper", "v2vnet": "cvt_v2vnet",
+              "disconet": "cvt_disconet"}[fusion]
+    # the reference's long names on the static presets, the aliases on the
+    # dynamic ones, so both heads are read
+    static = core.startswith("cross_view_transformer")
+    hypes = jx.export_preset(preset + ("_static" if static else ""))
     hypes["model"]["core_method"] = core
-    with pytest.raises(NotImplementedError, match="item 14"):
-        ph.model_config_from_hypes(hypes)
+    key, cfg = ph.model_config_from_hypes(copy.deepcopy(hypes))
+    jkey, jcfg = jh.model_config_from_hypes(hypes)
+    assert key == jkey == preset and cfg.fusion == fusion
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     with pytest.raises(KeyError):
         hypes["model"]["core_method"] = "no_such_model"
         ph.model_config_from_hypes(hypes)
@@ -137,3 +146,8 @@ def test_build_from_hypes_gives_the_graph_of_the_core_method():
     assert isinstance(model, CorpBEVT) and model.config == cfg
     hypes["model"]["core_method"] = "fax"
     assert isinstance(ph.build_from_hypes(hypes)[1], SinBEVT)
+    from cobevt_tpu_torch.models.camera_bev_models import CameraBEVModel
+    zoo = px.export_preset("cvt_fcooper")
+    cfg, model = ph.build_from_hypes(zoo)
+    assert isinstance(model, CameraBEVModel) and model.config == cfg
+    assert cfg.fusion == "max" and not hasattr(model, "fusion_net")

@@ -222,13 +222,20 @@ def test_cvt_at_scale_half_matches_jax(switches):
     assert_close(got, want, **TOL)
 
 
-def test_dense_cvt_encoder_is_not_ported():
-    from cobevt_tpu.models.cvt_nuscenes import CVTNuScenesConfig
-    with pytest.raises(NotImplementedError, match="dense-CVT"):
-        psn.CrossViewTransformer(CVTNuScenesConfig())
+def test_dense_cvt_encoder_builds_at_full_width():
+    from cobevt_tpu_torch.models.cvt_nuscenes import (
+        CVTNuScenesConfig,
+        CVTNuScenesEncoder,
+    )
+    model = psn.CrossViewTransformer(CVTNuScenesConfig())
+    assert isinstance(model.encoder, CVTNuScenesEncoder)
+    assert [type(m).__name__ for m in model.encoder.cross_views] == [
+        "DenseCrossViewAttention"] * 2
+    assert model.decoder.layers[0].up.in_channels == 128
 
 
 @pytest.mark.parametrize("name", ["cvt_pyramid_axial_nuscenes_vehicle",
+                                  "cvt_nuscenes_vehicle",
                                   "cvt_pyramid_axial_nuscenes_road"])
 def test_presets_match_jax(name):
     jx, pt = jexp.nuscenes_experiment(name), pexp.nuscenes_experiment(name)
@@ -238,8 +245,9 @@ def test_presets_match_jax(name):
     model = pexp.build_model(pt, half=True)
     assert {p.dtype for p in model.parameters()} == {torch.bfloat16}
     assert model.outputs == jx.outputs
+    assert dataclasses.asdict(pt.encoder) == dataclasses.asdict(jx.encoder)
     with pytest.raises(KeyError, match="available"):
-        pexp.nuscenes_experiment("cvt_nuscenes_vehicle")
+        pexp.nuscenes_experiment("no_such_experiment")
 
 
 def test_module_imports_without_jax():
