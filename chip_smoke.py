@@ -240,6 +240,35 @@ non-zero without printing the final line:
      without the final line; ``--zoo_seed`` draws its weights, frames and
      fixtures from another seed.  A failing gate raises once the phase has
      printed every reading.
+ 19. the LiDAR zoo: SECOND + swap fusion from a tools/lidar_fixture.py
+     scenario (5 CAVs x 2 timestamps), its hypes (yaml_parser
+     load_second_params) through configs/hypes.load_hypes and
+     models/lidar/second_models.second_config_from_hypes at the JAX
+     SecondConfig's geometry (0.1 m voxels, grid 1408 x 800 x 40, BEV
+     backbone 128 / 256 upsampled to 512 channels, window 4, 16 heads of
+     32, mlp 256, depth 1), max_voxels set to the most occupied voxels of
+     any cloud (all kept), 5 points a voxel, OPV2VLidarDataset through
+     data/loader.py's 2 workers: 4 bf16 eval frames (each sample at 5 and
+     at 3 live agents; K6 x 2 each, the dispatch's choice printed), each
+     held to the same weights in f32 on the plain versions within
+     tools/validate_kernels.py's BUDGET_FORWARD beside the bf16 plain
+     witness, and again with a K6 head dropped, which must fail; 2 bf16
+     train steps on f32 masters with PointPillarLoss on the dataset's
+     labels (K1 x 2 + K5 x 2 each, peak memory) and the LiDAR gradient
+     gate (K1 + K5 against COBEVT_FLASH_BWD=0 at TRAIN_BUDGETS
+     ["pointpillar"]); AttBEVBackbone at PointPillarConfig's widths on the
+     same scenario's pillar BEV (5 agents, 3 live; compression 0 and 1):
+     bf16 against f32 plain and a padded agent that must not move the
+     output; ResNetEncoderConcat (ResNet-34, 5 agents x 4 cameras x 512^2,
+     FPN off and at 256) and ResNetEncoderSingle (id_pick 1): K3 x 20 a
+     frame, the zoo gate of phase 18 against f32 plain and a K3 residual
+     skipped that it must fail; HGTCavAttention at V2X-ViT's widths on the
+     (1, 5, 96, 176, 256) map (3 live agents of mixed types), bf16 against
+     f32 plain; each with device ms of a frame traced alone and peak
+     memory.  ``--lidar_zoo`` runs this phase alone after the build and
+     stops without the final line.  A failing gate raises once the phase
+     has printed every reading.  Phase 3's K6 rows hold SECOND's map
+     (1, 5, 100, 176, 512) too (bf16 takes K6's row kernels at D 512).
 
 K2's phase-3 rows (CorpBEVT, SinBEVT-OPV2V, SinBEVT-nuScenes) draw 20
 inputs a bf16 row (the first from the shared generator, the rest from K2's
@@ -426,8 +455,14 @@ K4_CASES = [
 # LiDAR map, the small ones are the shapes of the CPU tests (D 128: one
 # 128-channel head group on the TPU, D 256: two)
 K6_LIDAR = (1, 5, 96, 176, 256, 8, 8, 2, 512)
+# SECOND + swap fusion (phase 19): the (1, 5, 100, 176, 512) map of its BEV
+# backbone, window 4, 16 heads of 32, mlp 256, depth 1 (2 K6 calls a frame,
+# SECOND_PER_FRAME); bf16 at D 512 takes K6's row kernels
+# (ops/fused_swap_fusion.py:stream_kernel_path)
+K6_SECOND = (1, 5, 100, 176, 512, 4, 16, 1, 256)
 K6_CASES = [
     ("lidar_masked", K6_LIDAR, "random", False, 1),
+    ("second_d512_masked", K6_SECOND, "random", False, 0),
     ("lidar_mean_over_valid", K6_LIDAR, "random", True, 0),
     ("lidar_fully_masked_window", K6_LIDAR, "fully_masked", False, 0),
     ("small_d128", (1, 3, 16, 16, 128, 8, 4, 2, 256), "random", False, 0),
@@ -626,6 +661,27 @@ ZOO_SERVE_FRAMES = 4
 ZOO_TRAIN_PER_STEP = {"fused_window_attention_packed": 6,
                       "fused_window_attention_packed_bwd": 6}
 ZOO_NUSC_SCENES, ZOO_NUSC_SAMPLES, ZOO_NUSC_STEPS = 2, 8, 2
+# phase 19: the LiDAR zoo.  SECOND (+ swap fusion) from the phase-17
+# scenario writer at the JAX SecondConfig's geometry (+-70.4 x +-40 x
+# [-3, 1] m at 0.1 m: grid 1408 x 800 x 40, map 100 x 176 after the 8x
+# voxel stride), 5 CAVs x 2 timestamps; its eval frames at 5 and 3 live
+# agents, the train steps at batch 1; 5 points a voxel; depth 1 = a window
+# and a grid sublayer: 2 K6 calls an eval frame, 2 K1 + 2 K5 a train step
+SECOND_CAVS, SECOND_STAMPS = 5, 2
+SECOND_LIVE = (5, 3)
+SECOND_POINTS_PER_VOXEL = 5
+SECOND_TRAIN_STEPS = 2
+SECOND_PER_FRAME = {"fused_swap_fusion_streaming": 2}
+SECOND_TRAIN_PER_STEP = {"fused_window_attention_packed": 2,
+                         "fused_window_attention_packed_bwd": 2}
+# AttBEVBackbone at PointPillarConfig's backbone widths on the pillar BEV of
+# the same scenario (5 agents, 3 live); the ResNet variants at corpbevt.yaml
+# width (5 agents x 4 cameras x 512^2, ResNet-34: K3 x 20 a frame); HGT at
+# V2X-ViT's widths on the LiDAR fusion map (3 live agents of mixed types)
+ATT_BEV_LIVE = 3
+RESNET_ZOO_PER_FRAME = {"fused_conv3x3": 20}
+HGT_SHAPE, HGT_HEADS, HGT_TYPES = (1, 5, 96, 176, 256), 8, (0, 1, 0, 1, 0)
+HGT_LIVE = 3
 KERNELS = ("window_attention", "fused_cross_attention", "conv3x3",
            "fused_swap_fusion", "window_attention_bwd",
            "fused_swap_fusion_streaming", "conv3x3_int8", "ffd_fused",
@@ -1741,7 +1797,7 @@ def phase_kernels(only=None):
             got, want = stream("kernel"), stream("torch")
             torch.cuda.synchronize()
             abs_err, rel_err, ok = compare(got, want, dname, K4_TOL)
-            big = case[1] == K6_LIDAR
+            big = case[1] in (K6_LIDAR, K6_SECOND)
             row = {"kernel": "K6", "case": case[0], "dtype": dname,
                    "per_frame": case[4], "sublayers": sublayers,
                    "max_abs_err": abs_err, "max_rel_err": rel_err, "ok": ok}
@@ -1752,7 +1808,8 @@ def phase_kernels(only=None):
             row["sublayers_ms"] = time_ms(
                 lambda: _launch_streaming(x, mask, packed.bias, packed.layers,
                                           w, heads), 3 if big else 10)
-            if big and case[4] and dtype == torch.bfloat16:
+            if big and (case[4] or case[1] == K6_SECOND) and \
+                    dtype == torch.bfloat16:
                 # the sublayers on the card alone, and each launch of them
                 # alone (summed over the call's sublayers)
                 row["sublayers_device_ms"] = device_ms(
@@ -3780,7 +3837,6 @@ def phase_lidar_data(seed=0):
     from cobevt_tpu_torch.tools import benchmark
     from cobevt_tpu_torch.tools.debug_utils import check_anchor_roundtrip
     from cobevt_tpu_torch.tools.lidar_fixture import write_lidar_scenario
-    from cobevt_tpu_torch.tools.timing import device_profile
     from cobevt_tpu_torch.train import (
         create_train_state,
         make_optimizer,
@@ -3812,19 +3868,6 @@ def phase_lidar_data(seed=0):
         torch.cuda.synchronize()
         return result, start.elapsed_time(stop), \
             (time.perf_counter() - t0) * 1e3
-
-    def traced_ms(fn):
-        """fn() alone under torch.profiler, the device synchronized before
-        and after: its result and its device profile (tools/timing.py)."""
-        from torch.profiler import ProfilerActivity, profile
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            result = fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        return result, device_profile(prof, 1, wall_ms)
 
     def check_counts(name, expect):
         counts = ops.launch_counts()
@@ -3937,7 +3980,7 @@ def phase_lidar_data(seed=0):
                 traced = len(frames) == LIDAR_TRACED_FRAME
                 with torch.no_grad():
                     if traced:
-                        o, prof = traced_ms(lambda: eval_model(b))
+                        o, prof = traced_frame(lambda: eval_model(b))
                         ev_ms = host_ms = None
                     else:
                         o, ev_ms, host_ms = cuda_ms(lambda: eval_model(b))
@@ -4005,7 +4048,7 @@ def phase_lidar_data(seed=0):
                 ops.reset_launch_counts()
                 traced = len(records) == LIDAR_TRACED_STEP
                 if traced:
-                    logs, prof = traced_ms(lambda: step(state, b, gen))
+                    logs, prof = traced_frame(lambda: step(state, b, gen))
                     ev_ms = host_ms = None
                     out["step_profile"] = prof
                 else:
@@ -4174,22 +4217,22 @@ def zoo_frame(rng, cfg, n_live):
     return frame
 
 
-def _k3_skipped_residual(real):
-    """K3 whose ZOO_K3_FAULT_CALL-th call with a residual skips it."""
+def _k3_skipped_residual(real, at=ZOO_K3_FAULT_CALL):
+    """K3 whose ``at``-th call with a residual (from 1) skips it."""
     seen = [0]
 
     def call(*args, residual=None, **kwargs):
         if residual is not None:
             seen[0] += 1
-            if seen[0] == ZOO_K3_FAULT_CALL:
+            if seen[0] == at:
                 residual = None
         return real(*args, residual=residual, **kwargs)
     return call
 
 
-def _k4_dropped_head(real):
-    """K4 with the first head of its first window attention dropped: the
-    output projection's columns of that head zeroed."""
+def _dropped_head(real):
+    """K4 or K6 with the first head of its first window attention dropped:
+    the output projection's columns of that head zeroed."""
     def call(x, mask, agent_mask, bias, packed, head, window, heads,
              **kwargs):
         first = dict(packed.layers[0][0])
@@ -4203,20 +4246,28 @@ def _k4_dropped_head(real):
     return call
 
 
-# faults planted in one forward to show what the zoo gate catches: (the
-# module whose name the model calls, the wrapper, the faulted wrapper)
+# faults planted in one forward to show what the zoo gates (phases 18 and
+# 19) catch: (the module whose name the model calls, the wrapper, the
+# faulted wrapper).  Layer 2's second residual call is the one a map of
+# layer 2 (ResNetEncoderSingle at id_pick 1) depends on.
 ZOO_FAULTS = {
     "k3_skipped_residual": ("cobevt_tpu_torch.nn.layers", "fused_conv3x3",
                             _k3_skipped_residual),
+    "k3_skipped_residual_layer2": (
+        "cobevt_tpu_torch.nn.layers", "fused_conv3x3",
+        lambda real: _k3_skipped_residual(real, 2)),
     "k4_dropped_head": ("cobevt_tpu_torch.models.fusion.swap_fusion",
-                        "fused_swap_fusion", _k4_dropped_head),
+                        "fused_swap_fusion", _dropped_head),
+    "k6_dropped_head": ("cobevt_tpu_torch.models.fusion.swap_fusion",
+                        "fused_swap_fusion_streaming", _dropped_head),
 }
 
 
 def zoo_faults(cfg):
-    """The faults of ZOO_FAULTS that a graph of ``cfg`` runs into."""
-    return [f for f in ZOO_FAULTS
-            if f != "k4_dropped_head" or cfg.fusion == "swap"]
+    """The faults of ZOO_FAULTS that a camera zoo graph of ``cfg`` runs
+    into."""
+    return ["k3_skipped_residual"] + (
+        ["k4_dropped_head"] if cfg.fusion == "swap" else [])
 
 
 @contextlib.contextmanager
@@ -4235,16 +4286,11 @@ def planted_zoo_fault(name):
 def zoo_gate(got, ref, plain):
     """The zoo gate of a bf16 logit map with the kernels against its f32
     plain reference, beside the bf16 plain forward's map."""
-    import numpy as np
-
-    def rel(x):
-        return float(np.abs(x - ref).max() / (np.abs(ref).max() + 1e-12))
-    drift, witness = rel(got), rel(plain)
-    return {"max_rel_logit_err": drift,
-            "bf16_plain_max_rel_logit_err": witness,
+    gate = drift_gate(got, ref, plain, ZOO_BUDGET, ZOO_WITNESS_RATIO)
+    return {"max_rel_logit_err": gate["drift"],
+            "bf16_plain_max_rel_logit_err": gate["bf16_plain_drift"],
             "centered_iou": centered_margin_iou(got, ref),
-            "passes": drift <= ZOO_BUDGET
-            and drift <= ZOO_WITNESS_RATIO * witness}
+            "passes": gate["passes"]}
 
 
 def zoo_gate_failures(what, sound, faulted):
@@ -4270,11 +4316,9 @@ def zoo_graph(name, seed):
     from cobevt_tpu_torch import ops
     from cobevt_tpu_torch.configs.hypes import build_from_hypes
     from cobevt_tpu_torch.tools.export_config import export_preset
-    from cobevt_tpu_torch.tools.timing import device_profile
     from cobevt_tpu_torch.train.state import compute_twin
     from cobevt_tpu_torch.utils.serving import to_device
     from cobevt_tpu_torch.utils.weights import seeded_init_
-    from torch.profiler import ProfilerActivity, profile
 
     cfg, master = build_from_hypes(export_preset(name))
     seeded_init_(master, seed)
@@ -4306,12 +4350,7 @@ def zoo_graph(name, seed):
             host_ms.append((time.perf_counter() - t0) * 1e3)
         counts = ops.launch_counts()
         row["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            model(batch)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        _, profiled = traced_frame(lambda: model(batch))
         faulted = {}
         for fault in zoo_faults(cfg):
             with planted_zoo_fault(fault):
@@ -4327,7 +4366,6 @@ def zoo_graph(name, seed):
             not np.isfinite(out).all():
         raise AssertionError(f"{name}: dynamic_seg {out.shape}, finite "
                              f"{bool(np.isfinite(out).all())}")
-    profiled = device_profile(prof, 1, wall_ms)
     row.update(
         counts=counts, host_ms=host_ms,
         device_ms=profiled["device_ms_per_step"],
@@ -4634,6 +4672,644 @@ def phase_zoo(seed=0):
     return out
 
 
+def traced_frame(fn):
+    """fn() alone under torch.profiler, the device synchronized before and
+    after: its result and its device profile (tools/timing.py)."""
+    import torch
+    from cobevt_tpu_torch.tools.timing import device_profile
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return result, device_profile(prof, 1, wall_ms)
+
+
+def rel_drift(got, ref):
+    """Largest |got - ref| over the largest |ref| (numpy arrays or
+    tensors, or dicts of them: the largest over every output)."""
+    if isinstance(ref, dict):
+        return max(rel_drift(got[k], ref[k]) for k in ref)
+    return float(abs(got - ref).max() / (abs(ref).max() + 1e-12))
+
+
+def drift_gate(got, ref, plain, budget, ratio):
+    """A bf16 output with its kernels against its f32 plain reference:
+    its largest deviation within ``budget`` of the reference's largest
+    value and within ``ratio`` times the bf16 plain forward's deviation
+    (the witness), and finite (numpy arrays or tensors)."""
+    import math
+    drift, witness = rel_drift(got, ref), rel_drift(plain, ref)
+    return {"drift": drift, "bf16_plain_drift": witness,
+            "passes": math.isfinite(drift) and drift <= budget
+            and drift <= ratio * witness}
+
+
+def second_hypes(tmp, max_voxels):
+    """A SECOND hypes file (JSON text, valid YAML) at the JAX SecondConfig's
+    geometry with swap fusion, written into ``tmp``; its path."""
+    lidar_range = [-70.4, -40.0, -3.0, 70.4, 40.0, 1.0]
+    hypes = {
+        "name": "second_swap_fusion",
+        "yaml_parser": "load_second_params",
+        "train_params": {"batch_size": 1, "epoches": 1,
+                         "max_cav": SECOND_CAVS},
+        "preprocess": {
+            "core_method": "SpVoxelPreprocessor",
+            "args": {"voxel_size": [0.1, 0.1, 0.1],
+                     "max_points_per_voxel": SECOND_POINTS_PER_VOXEL,
+                     "max_voxel_train": max_voxels,
+                     "max_voxel_test": max_voxels},
+            "cav_lidar_range": lidar_range},
+        "postprocess": {
+            "core_method": "VoxelPostprocessor",
+            "anchor_args": {"cav_lidar_range": lidar_range, "l": 3.9,
+                            "w": 1.6, "h": 1.56, "r": [0, 90],
+                            "feature_stride": 8, "num": 2},
+            "order": "hwl"},
+        "model": {"core_method": "second", "args": {
+            "mean_vfe": {"num_point_features": 4},
+            "base_bev_backbone": {
+                "layer_nums": [5, 5], "layer_strides": [1, 2],
+                "num_filters": [128, 256], "upsample_strides": [1, 2],
+                "num_upsample_filter": [256, 256]},
+            "fusion": {"core_method": "swap", "window_size": 4,
+                       "dim_head": 32, "mlp_dim": 256, "depth": 1,
+                       "drop_out": 0.0}}},
+    }
+    path = os.path.join(tmp, "second_swap.yaml")
+    with open(path, "w") as f:
+        json.dump(hypes, f, indent=1)
+    return path
+
+
+def second_from_clouds(tmp, seed):
+    """Phase 19's SECOND: the scenario, the voxel count, the hypes through
+    load_hypes, the model at full width, its bf16 eval frames at 5 and 3
+    live agents with their gate and planted K6 fault, 2 bf16 train steps
+    on f32 masters and the LiDAR gradient gate."""
+    import math
+
+    import numpy as np
+    import torch
+    from cobevt_tpu_torch import ops
+    from cobevt_tpu_torch.configs.hypes import load_hypes
+    from cobevt_tpu_torch.data.lidar_preprocess import (
+        load_pcd,
+        mask_ego_points,
+        mask_points_by_range,
+    )
+    from cobevt_tpu_torch.data.loader import DataLoader
+    from cobevt_tpu_torch.data.opv2v import OPV2VScenarioDatabase
+    from cobevt_tpu_torch.data.opv2v_lidar import OPV2VLidarDataset
+    from cobevt_tpu_torch.data.voxelize import occupied_voxels, voxelize_points
+    from cobevt_tpu_torch.losses.detection_loss import PointPillarLoss
+    from cobevt_tpu_torch.models.lidar.second_models import (
+        SecondDetector,
+        second_config_from_hypes,
+    )
+    from cobevt_tpu_torch.ops.dispatch import env_switches
+    from cobevt_tpu_torch.postprocess.voxel_postprocessor import (
+        AnchorArgs,
+        VoxelPostprocessor,
+    )
+    from cobevt_tpu_torch.tools import benchmark, validate_kernels
+    from cobevt_tpu_torch.tools.lidar_fixture import write_lidar_scenario
+    from cobevt_tpu_torch.train import (
+        create_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+    from cobevt_tpu_torch.train.loop import batch_to_device
+    from cobevt_tpu_torch.utils.weights import seeded_init_
+
+    card = card_line()
+    device = torch.device("cuda", torch.cuda.current_device())
+    out, failures = {}, []
+    t0 = time.perf_counter()
+    paths = write_lidar_scenario(tmp, SECOND_CAVS, SECOND_STAMPS,
+                                 LIDAR_DATA_VEHICLES, LIDAR_DATA_POINTS,
+                                 seed=seed)
+    out["fixture_s"] = time.perf_counter() - t0
+
+    # every occupied voxel of every cloud is kept: max_voxels covers them
+    voxel = (0.1, 0.1, 0.1)
+    lidar_range = (-70.4, -40.0, -3.0, 70.4, 40.0, 1.0)
+    occupied, vox_ms = [], []
+    for path in paths:
+        pts = mask_ego_points(mask_points_by_range(load_pcd(path),
+                                                   lidar_range))
+        occupied.append(occupied_voxels(pts, voxel, lidar_range))
+        t0 = time.perf_counter()
+        voxelize_points(pts, voxel, lidar_range, occupied[-1],
+                        SECOND_POINTS_PER_VOXEL)
+        vox_ms.append((time.perf_counter() - t0) * 1e3)
+    max_voxels = max(occupied)
+    out.update(occupied_voxels=occupied, max_voxels=max_voxels,
+               voxelize_ms=float(np.mean(vox_ms)))
+    log(f"SECOND fixture: {len(paths)} clouds in {out['fixture_s']:.1f} s; "
+        f"occupied 0.1 m voxels a cloud {min(occupied)}-{max_voxels} (all "
+        f"kept: max_voxels {max_voxels}, {SECOND_POINTS_PER_VOXEL} points "
+        f"a voxel); voxelize_points {out['voxelize_ms']:.1f} ms a cloud; "
+        f"{card}")
+
+    hypes = load_hypes(second_hypes(tmp, max_voxels))
+    cfg = second_config_from_hypes(hypes)
+    aa = hypes["postprocess"]["anchor_args"]
+    out["config"] = {"grid_size": list(cfg.grid_size),
+                     "anchor_args": {k: aa[k] for k in
+                                     ("W", "H", "D", "vw", "vh", "vd",
+                                      "feature_stride")},
+                     "fusion": cfg.fusion, "max_cav": cfg.max_cav}
+    log(f"SECOND hypes through load_hypes (load_second_params): "
+        f"{json.dumps(out['config'])}")
+    if tuple(cfg.grid_size) != (1408, 800, 40) or cfg.fusion != "swap":
+        raise AssertionError(f"SECOND config {cfg}")
+    post = VoxelPostprocessor(AnchorArgs(
+        cav_lidar_range=tuple(aa["cav_lidar_range"]), vw=aa["vw"],
+        vh=aa["vh"], W=aa["W"], H=aa["H"],
+        feature_stride=aa["feature_stride"]))
+    kw = dict(voxel_size=voxel, lidar_range=lidar_range,
+              max_voxels=max_voxels,
+              max_points_per_voxel=SECOND_POINTS_PER_VOXEL, max_objects=100)
+    eval_ds = OPV2VLidarDataset(
+        OPV2VScenarioDatabase(tmp, max_cav=SECOND_CAVS), post, train=False,
+        **kw)
+    train_ds = OPV2VLidarDataset(
+        OPV2VScenarioDatabase(tmp, max_cav=SECOND_CAVS), post, train=True,
+        seed=seed, **kw)
+
+    master = SecondDetector(cfg)
+    seeded_init_(master, seed)
+    master = master.to(device).eval()
+    model = copy.deepcopy(master).to(torch.bfloat16).eval()
+    H, W = cfg.grid_size[1] // 8, cfg.grid_size[0] // 8
+    fmap = (1, cfg.max_cav, H, W, cfg.bev_channels)
+    out["fused_kernel"] = model.fusion_net.fused_kernel(fmap)
+    log(f"SECOND: fused map {fmap}, the dispatch takes "
+        f"{out['fused_kernel']} (fused_kernel)")
+    if out["fused_kernel"] != "K6":
+        raise AssertionError(f"SECOND's map dispatches to "
+                             f"{out['fused_kernel']}, not K6")
+
+    # (a) bf16 eval frames, each at 5 and at 3 live agents
+    frames, counts_total = [], {}
+    loader = DataLoader(eval_ds, batch_size=1, shuffle=False,
+                        drop_last=False, num_workers=2, device=device)
+    it = iter(loader)
+    with switches(None), torch.no_grad():
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                break
+            wait_ms = (time.perf_counter() - t0) * 1e3
+            b = batch_to_device(batch, device)
+            for n in SECOND_LIVE:
+                req = dict(b, agent_mask=b["agent_mask"].clone())
+                req["agent_mask"][:, n:] = 0.0
+                model(req)                      # warm
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                ops.reset_launch_counts()
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                start.record()
+                got = model(req)
+                stop.record()
+                torch.cuda.synchronize()
+                host_ms = (time.perf_counter() - t0) * 1e3
+                counts = ops.launch_counts()
+                peak = torch.cuda.max_memory_allocated() / 1e9
+                for fn, c in counts.items():
+                    if c != SECOND_PER_FRAME.get(fn, 0):
+                        raise AssertionError(f"SECOND frame: {fn} ran {c} "
+                                             f"launches")
+                    counts_total[fn] = counts_total.get(fn, 0) + c
+                for key, shape in (("cls_preds", (1, H, W, 2)),
+                                   ("reg_preds", (1, H, W, 14))):
+                    if tuple(got[key].shape) != shape:
+                        raise AssertionError(f"SECOND {key} "
+                                             f"{tuple(got[key].shape)}")
+                _, prof = traced_frame(lambda: model(req))
+                with ops.forced_impl("torch"):
+                    plain = model(req)
+                    torch.cuda.empty_cache()
+                    ref = master(req)
+                with planted_zoo_fault("k6_dropped_head"):
+                    faulted = model(req)
+                gate = validate_kernels.compare_outputs(
+                    f"second_bf16_kernels_vs_f32_plain_{n}_live", got, ref,
+                    validate_kernels.BUDGET_FORWARD)
+                witness = validate_kernels.compare_outputs(
+                    f"second_bf16_plain_vs_f32_plain_{n}_live", plain, ref,
+                    validate_kernels.BUDGET_FORWARD)
+                fault = validate_kernels.compare_outputs(
+                    f"second_k6_dropped_head_vs_f32_plain_{n}_live", faulted,
+                    ref, validate_kernels.BUDGET_FORWARD)
+                vs_plain = rel_drift(got, plain)
+                row = {"sample": len(frames) // len(SECOND_LIVE),
+                       "live": n, "loader_wait_ms": wait_ms,
+                       "events_ms": start.elapsed_time(stop),
+                       "host_ms": host_ms, "peak_gb": peak,
+                       "device_ms": prof["device_ms_per_step"],
+                       "device_idle_share": prof["device_idle_share"],
+                       "top_device_ops": prof["top_device_ops"][:8],
+                       "counts": counts, "gate": gate,
+                       "bf16_plain_witness": witness,
+                       "kernels_vs_bf16_plain": vs_plain,
+                       "k6_dropped_head": fault}
+                frames.append(row)
+                if not gate["ok"]:
+                    failures.append(f"SECOND frame ({n} live): {gate}")
+                if fault["ok"]:
+                    failures.append(f"SECOND ({n} live): the gate passed the "
+                                    f"planted K6 fault: {fault}")
+                log(f"SECOND eval frame, sample {row['sample']}, {n} of "
+                    f"{SECOND_CAVS} agents live: device "
+                    f"{row['device_ms']:.2f} ms (traced alone, idle "
+                    f"{row['device_idle_share']:.3f}), CUDA events "
+                    f"{row['events_ms']:.2f} ms, host {host_ms:.1f} ms, "
+                    f"loader wait {wait_ms:.1f} ms, peak {peak:.2f} GB, "
+                    f"launches K6 {counts['fused_swap_fusion_streaming']} "
+                    f"K1 {counts['fused_window_attention_packed']}; gate "
+                    f"(bf16 kernels vs f32 plain, budget "
+                    f"{validate_kernels.BUDGET_FORWARD}) "
+                    f"{json.dumps(gate['outputs'])}; bf16 plain witness "
+                    f"{json.dumps(witness['outputs'])}; kernels vs bf16 "
+                    f"plain {vs_plain:.4g}; K6 head dropped "
+                    f"{json.dumps(fault['outputs'])}; {card}")
+                log("SECOND top device ops: "
+                    + json.dumps(row["top_device_ops"]))
+                del got, plain, ref, faulted
+                torch.cuda.empty_cache()
+    loader.close()
+    out["eval_frames"] = frames
+    if len(frames) != SECOND_STAMPS * len(SECOND_LIVE):
+        raise AssertionError(f"SECOND: {len(frames)} eval frames")
+    del model
+
+    # (b) bf16 train steps on f32 masters with the detection loss
+    master.train()
+    schedule, wd, eps, clip = benchmark.train_recipe("pointpillar")
+    state = create_train_state(
+        master, make_optimizer(master.parameters(), schedule,
+                               weight_decay=wd, eps=eps),
+        schedule, compute_dtype=torch.bfloat16, grad_clip=clip)
+    loss_fn = PointPillarLoss()
+
+    def criterion(o, b):
+        return loss_fn(o, b)
+    step = make_train_step(master, criterion)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    torch.manual_seed(seed)
+    loader = DataLoader(train_ds, batch_size=1, shuffle=False,
+                        num_workers=2, device=device)
+    steps, last = [], None
+    with switches(None):
+        for batch in loader:
+            b = batch_to_device(batch, device)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            logs = step(state, b, gen)
+            stop.record()
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            counts = ops.launch_counts()
+            for fn, c in counts.items():
+                if c != SECOND_TRAIN_PER_STEP.get(fn, 0):
+                    raise AssertionError(f"SECOND train step: {fn} ran {c} "
+                                         f"launches")
+                counts_total[fn] = counts_total.get(fn, 0) + c
+            loss = float(logs["loss"])
+            gnorm = float(logs["grad_norm"])
+            if not (math.isfinite(loss) and math.isfinite(gnorm)):
+                raise AssertionError(f"SECOND train step: loss {loss}, "
+                                     f"gradient norm {gnorm}")
+            row = {"events_ms": start.elapsed_time(stop), "host_ms": host_ms,
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "loss": loss, "grad_norm": gnorm,
+                   "positives": float(batch["pos_equal_one"].sum()),
+                   "counts": counts}
+            steps.append(row)
+            last = b
+            log(f"SECOND train step {len(steps)} (bf16 on f32 masters, "
+                f"{SECOND_CAVS} agents): CUDA events {row['events_ms']:.1f} "
+                f"ms, host {host_ms:.1f} ms, peak {row['peak_gb']:.2f} GB, "
+                f"loss {loss:.4f}, gradient norm {gnorm:.4f}, "
+                f"{row['positives']:.0f} positive anchors, launches K1 "
+                f"{counts['fused_window_attention_packed']} K5 "
+                f"{counts['fused_window_attention_packed_bwd']}; {card}")
+            if len(steps) == SECOND_TRAIN_STEPS:
+                break
+    loader.close()
+    out["train_steps"] = steps
+    if len(steps) != SECOND_TRAIN_STEPS:
+        raise AssertionError(f"SECOND: {len(steps)} train steps")
+
+    # (c) the LiDAR gradient gate: K1 + K5 against COBEVT_FLASH_BWD=0
+    compute = state.compute_model
+    with env_switches(COBEVT_FLASH_BWD=None, COBEVT_FLASH_BWD_F32=None):
+        flash = validate_kernels.step_gradients(compute, criterion, last,
+                                                seed)
+    with env_switches(COBEVT_FLASH_BWD="0", COBEVT_FLASH_BWD_F32=None):
+        stock = validate_kernels.step_gradients(compute, criterion, last,
+                                                seed)
+    gate = validate_kernels.compare_step(
+        flash, stock, *validate_kernels.TRAIN_BUDGETS["pointpillar"],
+        metric="norm")
+    out["gradient_gate"] = gate
+    log(f"SECOND gradient gate (K1 + K5 vs COBEVT_FLASH_BWD=0, bf16, "
+        f"TRAIN_BUDGETS['pointpillar']): ok {gate['ok']}, scalars "
+        f"{json.dumps(gate['scalars'])}, worst "
+        f"{json.dumps(gate['worst_material_params'])}")
+    if not gate["ok"]:
+        failures.append(f"SECOND gradient gate: {json.dumps(gate)}")
+    del state, step, master, compute, flash, stock, last
+    torch.cuda.empty_cache()
+    out["counts"] = counts_total
+    out["failures"] = failures
+    return out
+
+
+def att_bev_frames(tmp, seed):
+    """AttBEVBackbone at PointPillarConfig's backbone widths on the pillar
+    BEV of phase 19's scenario (5 agents, 3 live), compression 0 and 1:
+    bf16 against its f32 plain forward, device ms, peak memory, and a
+    padded agent's features changed without changing the output."""
+    import torch
+    from cobevt_tpu_torch.data.opv2v import OPV2VScenarioDatabase
+    from cobevt_tpu_torch.data.opv2v_lidar import OPV2VLidarDataset
+    from cobevt_tpu_torch.models.lidar.bev_backbone import AttBEVBackbone
+    from cobevt_tpu_torch.models.lidar.pillar_encoder import (
+        PillarVFE,
+        pillar_scatter,
+    )
+    from cobevt_tpu_torch.models.lidar.point_pillar_models import (
+        PointPillarConfig,
+    )
+    from cobevt_tpu_torch.postprocess.voxel_postprocessor import (
+        AnchorArgs,
+        VoxelPostprocessor,
+    )
+    from cobevt_tpu_torch.tools import benchmark, validate_kernels
+    from cobevt_tpu_torch.utils.weights import seeded_init_
+
+    card = card_line()
+    device = torch.device("cuda", torch.cuda.current_device())
+    cfg = PointPillarConfig(max_cav=SECOND_CAVS,
+                            point_cloud_range=benchmark.POINTPILLAR_RANGE)
+    post = VoxelPostprocessor(AnchorArgs(
+        cav_lidar_range=cfg.point_cloud_range, W=352, H=192,
+        feature_stride=2))
+    ds = OPV2VLidarDataset(
+        OPV2VScenarioDatabase(tmp, max_cav=SECOND_CAVS), post, train=False,
+        voxel_size=cfg.voxel_size, lidar_range=cfg.point_cloud_range,
+        max_voxels=cfg.max_voxels,
+        max_points_per_voxel=cfg.max_points_per_voxel)
+    sample = {k: torch.as_tensor(v)[None].to(device)
+              for k, v in ds[0].items() if k.startswith("voxel_")}
+    vfe = PillarVFE(cfg.pillar_filters, True, False, True, cfg.voxel_size,
+                    cfg.point_cloud_range)
+    seeded_init_(vfe, seed)
+    vfe = vfe.to(device).eval()
+    B, L, N, P, _ = sample["voxel_features"].shape
+    with torch.no_grad():
+        coords = sample["voxel_coords"].reshape(B * L * N, 4)
+        pillars = vfe(sample["voxel_features"].reshape(B * L * N, P, 4),
+                      sample["voxel_num_points"].reshape(B * L * N), coords)
+        agent = torch.arange(B * L, device=device).repeat_interleave(N)
+        coords = torch.cat([agent[:, None].to(coords.dtype), coords[:, 1:]],
+                           dim=1)
+        canvas = pillar_scatter(pillars, coords, B * L, cfg.grid_size,
+                                sample["voxel_mask"].reshape(-1) > 0)
+    canvas = canvas.reshape(B, L, *canvas.shape[1:])
+    agent_mask = torch.zeros(B, L, device=device)
+    agent_mask[:, :ATT_BEV_LIVE] = 1.0
+    padded = canvas.clone()
+    padded[:, L - 1] = 123.0
+    rows, failures = {}, []
+    for compression in (0, 1):
+        master = AttBEVBackbone(
+            cfg.pillar_filters[-1], cfg.layer_nums, cfg.layer_strides,
+            cfg.num_filters, cfg.upsample_strides, cfg.num_upsample_filter,
+            compression=compression)
+        seeded_init_(master, seed)
+        master = master.to(device).eval()
+        model = copy.deepcopy(master).to(torch.bfloat16)
+        x16, pad16 = canvas.to(torch.bfloat16), padded.to(torch.bfloat16)
+        with torch.no_grad():
+            ref = master(canvas, agent_mask)
+            model(x16, agent_mask)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            got, prof = traced_frame(lambda: model(x16, agent_mask))
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            again = model(pad16, agent_mask)
+        gate = validate_kernels.compare_outputs(
+            f"att_bev_compression{compression}_bf16_vs_f32", {"bev": got},
+            {"bev": ref}, validate_kernels.BUDGET_FORWARD)
+        padded_diff = float((again.float() - got.float()).abs().max())
+        row = {"shape": list(got.shape), "device_ms":
+               prof["device_ms_per_step"],
+               "device_idle_share": prof["device_idle_share"],
+               "peak_gb": peak, "gate": gate,
+               "padded_agent_max_abs_change": padded_diff}
+        rows[f"compression_{compression}"] = row
+        if not gate["ok"]:
+            failures.append(f"AttBEVBackbone: {gate}")
+        if padded_diff != 0.0:
+            failures.append(f"AttBEVBackbone: a padded agent moved the "
+                            f"output by {padded_diff}")
+        log(f"AttBEVBackbone (compression {compression}, {L} agents, "
+            f"{ATT_BEV_LIVE} live, pillar BEV {tuple(canvas.shape[2:])}): "
+            f"out {tuple(got.shape)}, device {row['device_ms']:.3f} ms "
+            f"(traced alone, idle {row['device_idle_share']:.3f}), peak "
+            f"{peak:.2f} GB; bf16 vs f32 plain {json.dumps(gate['outputs'])};"
+            f" a padded agent set to 123 changes the output by "
+            f"{padded_diff}; {card}")
+        del master, model, ref, got, again
+        torch.cuda.empty_cache()
+    return {"rows": rows, "failures": failures}
+
+
+def resnet_variant_frames(seed):
+    """ResNetEncoderConcat (FPN off and on) and ResNetEncoderSingle at
+    corpbevt.yaml width, ResNet-34, on the bf16 compute twin with K3 x 20 a
+    frame, each against its f32 plain forward with the zoo gate, and with
+    a planted K3 fault that the gate must fail."""
+    import torch
+    from cobevt_tpu_torch import ops
+    from cobevt_tpu_torch.nn.layers import images_from_uint8
+    from cobevt_tpu_torch.nn.resnet_variants import (
+        ResNetEncoderConcat,
+        ResNetEncoderSingle,
+    )
+    from cobevt_tpu_torch.train.state import compute_twin
+    from cobevt_tpu_torch.utils.weights import seeded_init_
+
+    card = card_line()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    images = images_from_uint8(torch.randint(
+        0, 256, (1, 5, 4, 512, 512, 3), generator=gen, device="cuda",
+        dtype=torch.uint8))
+    variants = (
+        ("concat", lambda: ResNetEncoderConcat(34, 0, 128),
+         "k3_skipped_residual"),
+        ("concat_fpn256", lambda: ResNetEncoderConcat(34, 256, 128),
+         "k3_skipped_residual"),
+        ("single_id_pick1", lambda: ResNetEncoderSingle(34, 1),
+         "k3_skipped_residual_layer2"))
+    rows, counts_total, failures = {}, {}, []
+    for name, build, fault in variants:
+        master = build()
+        seeded_init_(master, seed)
+        model = compute_twin(master.to("cuda").eval(), torch.bfloat16).eval()
+        x16 = images.to(torch.bfloat16)
+        with switches(None), torch.no_grad():
+            with ops.forced_impl("torch"):
+                ref = master(images)
+                plain = model(x16)
+            model(x16)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            got = model(x16)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            _, prof = traced_frame(lambda: model(x16))
+            with planted_zoo_fault(fault):
+                faulted = model(x16)
+        for fn, c in counts.items():
+            if c != RESNET_ZOO_PER_FRAME.get(fn, 0):
+                raise AssertionError(f"ResNet {name}: {fn} ran {c} launches")
+            counts_total[fn] = counts_total.get(fn, 0) + c
+        gate = drift_gate(got, ref, plain, ZOO_BUDGET, ZOO_WITNESS_RATIO)
+        faulted_gate = drift_gate(faulted, ref, plain, ZOO_BUDGET,
+                                  ZOO_WITNESS_RATIO)
+        row = {"shape": list(got.shape), "counts": counts,
+               "device_ms": prof["device_ms_per_step"],
+               "device_idle_share": prof["device_idle_share"],
+               "peak_gb": peak, "gate": gate, fault: faulted_gate}
+        rows[name] = row
+        if not gate["passes"]:
+            failures.append(f"ResNet {name}: {gate}")
+        if faulted_gate["passes"]:
+            failures.append(f"ResNet {name}: the gate passed the planted "
+                            f"fault {fault}: {faulted_gate}")
+        log(f"ResNet-34 {name} (5 agents x 4 cameras x 512^2): out "
+            f"{tuple(got.shape)}, launches K3 {counts['fused_conv3x3']}, "
+            f"device {row['device_ms']:.3f} ms (traced alone, idle "
+            f"{row['device_idle_share']:.3f}), peak {peak:.2f} GB; gate "
+            f"(budget {ZOO_BUDGET}, {ZOO_WITNESS_RATIO}x bf16 plain) "
+            f"{json.dumps(gate)}; {fault} {json.dumps(faulted_gate)}; "
+            f"{card}")
+        del master, model, ref, plain, got, faulted
+        torch.cuda.empty_cache()
+    return {"rows": rows, "counts": counts_total, "failures": failures}
+
+
+def hgt_frames(seed):
+    """HGTCavAttention at V2X-ViT's widths on the LiDAR fusion map, 3 live
+    agents of mixed types: bf16 against its f32 plain forward, device ms
+    and peak memory.  It runs no kernel of this repo."""
+    import torch
+    from cobevt_tpu_torch import ops
+    from cobevt_tpu_torch.models.fusion.hetero import HGTCavAttention
+    from cobevt_tpu_torch.tools import validate_kernels
+    from cobevt_tpu_torch.utils.weights import seeded_init_
+
+    card = card_line()
+    B, L, H, W, C = HGT_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(HGT_SHAPE, generator=gen, device="cuda")
+    mask = torch.zeros(B, H, W, L, 1, device="cuda")
+    mask[..., :HGT_LIVE, :] = 1.0
+    prior = torch.zeros(B, L, H, W, 3, device="cuda")
+    prior[..., 2] = torch.tensor(HGT_TYPES, device="cuda",
+                                 dtype=torch.float32)[None, :, None, None]
+    master = HGTCavAttention(C, HGT_HEADS, num_types=2, num_relations=4,
+                             dim_head=C // HGT_HEADS, dropout=0.1)
+    seeded_init_(master, seed)
+    # seeded_init_ draws raw tensors N(0, 1), 18x the relation matrices'
+    # xavier bound, which leaves every softmax near one-hot (bf16 drift
+    # 0.037 of the largest output on an NVIDIA H100 80GB HBM3, 700 W);
+    # redraw them at their init scale
+    master.reset_relations(torch.Generator().manual_seed(seed))
+    master = master.to("cuda").eval()
+    model = copy.deepcopy(master).to(torch.bfloat16)
+    x16, prior16 = x.to(torch.bfloat16), prior.to(torch.bfloat16)
+    with torch.no_grad():
+        ref = master(x, mask, prior)
+        model(x16, mask, prior16)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        got, prof = traced_frame(lambda: model(x16, mask, prior16))
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    gate = validate_kernels.compare_outputs(
+        "hgt_bf16_vs_f32", {"x": got}, {"x": ref},
+        validate_kernels.BUDGET_FORWARD)
+    row = {"shape": list(got.shape), "device_ms": prof["device_ms_per_step"],
+           "device_idle_share": prof["device_idle_share"],
+           "top_device_ops": prof["top_device_ops"][:6],
+           "peak_gb": peak, "gate": gate, "launches": sum(counts.values())}
+    log(f"HGTCavAttention (dim {C}, {HGT_HEADS} heads of {C // HGT_HEADS}, "
+        f"types {HGT_TYPES}, {HGT_LIVE} of {L} live, map {HGT_SHAPE}): "
+        f"device {row['device_ms']:.3f} ms (traced alone, idle "
+        f"{row['device_idle_share']:.3f}), peak {peak:.2f} GB, kernel "
+        f"launches {row['launches']} (none is this repo's); bf16 vs f32 "
+        f"plain {json.dumps(gate['outputs'])}; {card}")
+    failures = [] if gate["ok"] and not row["launches"] else [
+        f"HGTCavAttention: {gate}, launches {counts}"]
+    return {"row": row, "failures": failures}
+
+
+def phase_lidar_zoo(seed=0):
+    """Phase 19: the LiDAR half of the baseline zoo (see the module
+    docstring).  Gate failures raise once the phase has printed every
+    reading."""
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    log("== phase 19: the LiDAR zoo: SECOND + swap fusion from point clouds "
+        "(grid 1408 x 800 x 40, map 100 x 176 x 512), AttBEVBackbone, the "
+        "ResNet encoder variants, HGTCavAttention")
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="cobevt_lidar_zoo_") as tmp:
+        out["second"] = second_from_clouds(tmp, seed)
+        out["second_s"] = time.perf_counter() - t_phase
+        out["att_bev"] = att_bev_frames(tmp, seed)
+    out["resnet_variants"] = resnet_variant_frames(seed)
+    out["hgt"] = hgt_frames(seed)
+    out["counts"] = dict(out["second"]["counts"])
+    for fn, n in out["resnet_variants"]["counts"].items():
+        out["counts"][fn] = out["counts"].get(fn, 0) + n
+    out["peak_reserved_gb"] = torch.cuda.max_memory_reserved() / 1e9
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 19: {out['seconds']:.1f} s (SECOND "
+        f"{out['second_s']:.1f} s)")
+    failures = [f for part in ("second", "att_bev", "resnet_variants", "hgt")
+                for f in out[part]["failures"]]
+    if failures:
+        raise AssertionError("phase 19: " + "; ".join(failures))
+    return out
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default=None,
@@ -4668,6 +5344,11 @@ def main(argv=None):
                         "stop without the final line")
     p.add_argument("--zoo_seed", type=int, default=0,
                    help="seed of phase 18's weights, frames and fixtures")
+    p.add_argument("--lidar_zoo", action="store_true",
+                   help="run phase 19 (the LiDAR zoo: SECOND from point "
+                        "clouds, AttBEVBackbone, the ResNet variants, HGT) "
+                        "after the build, and after the phases above if "
+                        "given, then stop without the final line")
     opt = p.parse_args(argv)
 
     import torch
@@ -4679,7 +5360,8 @@ def main(argv=None):
     phase_environment()
     phase_build()
     if (opt.kernels or opt.sinbevt or opt.sinbevt_train or opt.train_camera
-            or opt.train_nuscenes or opt.lidar_data or opt.zoo):
+            or opt.train_nuscenes or opt.lidar_data or opt.zoo
+            or opt.lidar_zoo):
         details = (phase_kernels(set(opt.kernels.split(",")))
                    if opt.kernels else [])
         sinbevt = phase_sinbevt() if opt.sinbevt else None
@@ -4690,6 +5372,7 @@ def main(argv=None):
             if opt.train_nuscenes else None)
         lidar_data = phase_lidar_data() if opt.lidar_data else None
         zoo = phase_zoo(opt.zoo_seed) if opt.zoo else None
+        lidar_zoo = phase_lidar_zoo() if opt.lidar_zoo else None
         if opt.out:
             os.makedirs(os.path.dirname(os.path.abspath(opt.out)),
                         exist_ok=True)
@@ -4699,6 +5382,7 @@ def main(argv=None):
                            "train_camera": train_camera,
                            "train_nuscenes": train_nuscenes,
                            "lidar_data": lidar_data, "zoo": zoo,
+                           "lidar_zoo": lidar_zoo,
                            "card": card_line()}, f, indent=1)
         log(f"total {time.perf_counter() - t0:.1f} s")
         return 0
@@ -4718,6 +5402,7 @@ def main(argv=None):
         corpbevt_device_rate=camera_device_rate(train_camera))
     lidar_data = phase_lidar_data()
     zoo = phase_zoo(opt.zoo_seed)
+    lidar_zoo = phase_lidar_zoo()
 
     # (wrapper, source, the TPU function it replaces)
     sources = {
@@ -4815,6 +5500,10 @@ def main(argv=None):
                    "fused_window_attention_packed",
                    "fused_window_attention_packed_bwd"):
             launches[fn] += counts18[fn]
+    # K6 in SECOND's eval frames, K1 and K5 in its train steps, K3 in the
+    # ResNet variants' frames (19)
+    for fn, n in lidar_zoo["counts"].items():
+        launches[fn] += n
     kernels = []
     for key, (fn, src, replaces) in sources.items():
         rows = [r for r in details if r["kernel"] == key]
@@ -4864,7 +5553,7 @@ def main(argv=None):
                        "train_camera": train_camera,
                        "train_nuscenes": train_nuscenes,
                        "lidar_data": lidar_data, "zoo": zoo,
-                       "kernels": kernels,
+                       "lidar_zoo": lidar_zoo, "kernels": kernels,
                        "card": card_line(),
                        "torch": torch.__version__,
                        "cuda": torch.version.cuda,

@@ -7,9 +7,13 @@ Counterpart of ``cobevt_tpu/configs/hypes.py`` for the OPV2V camera track:
     ``yaml_utils.py:29-38``);
   * derived-geometry post hooks as a registry, not ``eval``;
   * the checkpoint dir's ``config.yaml`` taking priority on resume;
-  * ``load_bev_params``, and hypes -> the port's typed model configs for
-    all eight camera graphs: ``corpbevt``, ``fax`` (SinBEVT-OPV2V) and the
-    six of the CVT zoo.
+  * ``load_bev_params`` and the LiDAR parsers ``load_voxel_params``,
+    ``load_second_params`` and ``load_point_pillar_params`` (the last with
+    the JAX package's fix of the reference's undefined ``vw/vh/vd``);
+  * hypes -> the port's typed model configs for all eight camera graphs:
+    ``corpbevt``, ``fax`` (SinBEVT-OPV2V) and the six of the CVT zoo
+    (SECOND's is ``models/lidar/second_models.py:
+    second_config_from_hypes``).
 
 PyYAML is optional.  JSON is YAML, so where ``yaml`` cannot be imported a
 hypes file or a per-timestamp file is read as JSON, and
@@ -22,9 +26,12 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import re
 from typing import Callable, Dict, Optional
+
+import numpy as np
 
 from cobevt_tpu_torch.models.camera_bev_models import (
     ZOO_FUSIONS,
@@ -142,6 +149,64 @@ def load_bev_params(param: dict) -> dict:
     if "postprocess" in param:
         param["postprocess"]["geometry_param"] = \
             param["preprocess"]["geometry_param"]
+    return param
+
+
+@register_parser("load_voxel_params")
+def load_voxel_params(param: dict) -> dict:
+    """Anchor grid ``W/H/D`` (truncated) from the anchor range and the
+    voxel size, copied into the model args."""
+    anchor_args = param["postprocess"]["anchor_args"]
+    lr = anchor_args["cav_lidar_range"]
+    vw, vh, vd = param["preprocess"]["args"]["voxel_size"]
+    anchor_args.update({"vw": vw, "vh": vh, "vd": vd,
+                        "W": int((lr[3] - lr[0]) / vw),
+                        "H": int((lr[4] - lr[1]) / vh),
+                        "D": int((lr[5] - lr[2]) / vd)})
+    if "model" in param:
+        for k in ("W", "H", "D"):
+            param["model"]["args"][k] = anchor_args[k]
+    return param
+
+
+def _grid_size(param: dict):
+    """(W, H, D) voxels of the lidar range, rounded to nearest."""
+    lr = param["preprocess"]["cav_lidar_range"]
+    voxel_size = param["preprocess"]["args"]["voxel_size"]
+    return np.round((np.array(lr[3:6]) - np.array(lr[0:3])) /
+                    np.array(voxel_size)).astype(np.int64).tolist()
+
+
+def _anchor_grid(param: dict) -> None:
+    """Anchor grid ``W/H/D`` of the lidar range, rounded up (the reference
+    rounds the voxel grid and the anchor grid differently)."""
+    lr = param["preprocess"]["cav_lidar_range"]
+    vw, vh, vd = param["preprocess"]["args"]["voxel_size"]
+    param["postprocess"]["anchor_args"].update({
+        "vw": vw, "vh": vh, "vd": vd,
+        "W": math.ceil((lr[3] - lr[0]) / vw),
+        "H": math.ceil((lr[4] - lr[1]) / vh),
+        "D": math.ceil((lr[5] - lr[2]) / vd)})
+
+
+@register_parser("load_second_params")
+def load_second_params(param: dict) -> dict:
+    """SECOND geometry: the voxel grid into ``model.args.grid_size``, the
+    anchor grid into the postprocess args."""
+    param["model"]["args"]["grid_size"] = _grid_size(param)
+    _anchor_grid(param)
+    return param
+
+
+@register_parser("load_point_pillar_params")
+def load_point_pillar_params(param: dict) -> dict:
+    """PointPillar geometry: the pillar grid into
+    ``model.args.point_pillar_scatter.grid_size``, the anchor grid into the
+    postprocess args."""
+    param["model"]["args"].setdefault("point_pillar_scatter", {})
+    param["model"]["args"]["point_pillar_scatter"]["grid_size"] = \
+        _grid_size(param)
+    _anchor_grid(param)
     return param
 
 

@@ -1,4 +1,6 @@
 from cobevt_tpu_torch.models.lidar.bev_backbone import (  # noqa: F401
+    AttBEVBackbone,
+    AutoEncoder,
     BaseBEVBackbone,
     DownsampleConv,
 )
@@ -14,4 +16,13 @@ from cobevt_tpu_torch.models.lidar.pillar_encoder import (  # noqa: F401
 from cobevt_tpu_torch.models.lidar.point_pillar_models import (  # noqa: F401
     PointPillarConfig,
     PointPillarFuseBEVT,
+)
+from cobevt_tpu_torch.models.lidar.second_models import (  # noqa: F401
+    SecondConfig,
+    SecondDetector,
+    second_config_from_hypes,
+)
+from cobevt_tpu_torch.models.lidar.voxel_backbone import (  # noqa: F401
+    DenseVoxelBackbone8x,
+    scatter_voxels_dense,
 )

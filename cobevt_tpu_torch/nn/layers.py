@@ -129,6 +129,12 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y
 
 
+class BatchNorm3d(nn.BatchNorm3d):
+    """:class:`BatchNorm2d`'s flax statistics update over (N, C, D, H, W)."""
+
+    forward = BatchNorm2d.forward
+
+
 def batch_norm(features: int, eps: float = 1e-5,
                momentum: float = 0.1) -> BatchNorm2d:
     return BatchNorm2d(features, eps=eps, momentum=momentum)

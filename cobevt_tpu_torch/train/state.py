@@ -48,7 +48,7 @@ class TrainState:
 
 def _share_norm_statistics(master: nn.Module, twin: nn.Module) -> None:
     for m, t in zip(master.modules(), twin.modules()):
-        if isinstance(m, nn.BatchNorm2d):
+        if isinstance(m, (nn.BatchNorm2d, nn.BatchNorm3d)):
             t.running_mean = m.running_mean
             t.running_var = m.running_var
             t.num_batches_tracked = m.num_batches_tracked

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-_NORMS = (nn.BatchNorm2d, nn.LayerNorm)
+_NORMS = (nn.BatchNorm2d, nn.BatchNorm3d, nn.LayerNorm)
 
 
 def _default_rename(path):
@@ -71,6 +71,9 @@ def _flax_leaf(module: nn.Module, leaf: str):
             return "params", "kernel", lambda a: (
                 a.reshape(1, 1, *a.shape) if a.ndim == 2 else a
             ).transpose(3, 2, 0, 1)
+        if isinstance(module, nn.Conv3d):
+            # DHWIO -> OIDHW
+            return "params", "kernel", lambda a: a.transpose(4, 3, 0, 1, 2)
         if isinstance(module, nn.Linear):
             return "params", "kernel", lambda a: a.reshape(
                 -1, a.shape[-1]).T
@@ -147,7 +150,8 @@ def seeded_init_(module: nn.Module, seed: int) -> None:
         params = dict(m.named_parameters(recurse=False))
         buffers = dict(m.named_buffers(recurse=False))
         new = {}
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+        if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d,
+                          nn.Linear)):
             w = params["weight"]
             # a transposed conv whose stride equals its kernel (the only
             # kind here) sums one tap of each input channel per output
@@ -162,7 +166,7 @@ def seeded_init_(module: nn.Module, seed: int) -> None:
             shape = params["weight"].shape
             new["weight"] = 1.0 + 0.1 * draw(shape, "normal")
             new["bias"] = 0.1 * draw(shape, "normal")
-            if isinstance(m, nn.BatchNorm2d):
+            if isinstance(m, (nn.BatchNorm2d, nn.BatchNorm3d)):
                 new["running_mean"] = 0.1 * draw(shape, "normal")
                 new["running_var"] = 0.5 + draw(shape, "uniform")
         else:
