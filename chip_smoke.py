@@ -269,6 +269,34 @@ non-zero without printing the final line:
      stops without the final line.  A failing gate raises once the phase
      has printed every reading.  Phase 3's K6 rows hold SECOND's map
      (1, 5, 100, 176, 512) too (bf16 takes K6's row kernels at D 512).
+ 20. serving export and data parallelism: (a) full-width CorpBEVT (bf16,
+     the serving default), the same model under COBEVT_INT8=1, and the
+     nuScenes flagship (cvt_pyramid_axial_nuscenes_vehicle, 6 x 224 x 480)
+     each exported through tools/export_serving.py (torch.export, every
+     eval kernel a cobevt:: custom op), saved to a .pt2, loaded and run on
+     the card by tools/validate_kernels.py:validate_export: the outputs
+     within 0.01 of the live frame's largest (the int8 frame bit for bit),
+     the program's launch counts equal to the live frame's, one cobevt::
+     node per op call of the live frame, a batch of other shapes refused,
+     the export seconds, the .pt2 bytes and both frames' ms (CUDA events);
+     the dispatcher's host cost on a served frame, each op call through
+     its cobevt:: op or straight to its CUDA implementation, in turns:
+     each call's CPU time under torch.profiler on both sides, and the
+     frame's host ms; torch.library.opcheck of every op on the card; (b)
+     two ranks of this script on the one card in a gloo group (NCCL takes
+     one rank a device), each one train step of full-width CorpBEVT with
+     every dropout off (K1 x 13 + K5 x 13) on its sample of a global batch
+     of 2, in bf16 and on an f32 compute twin of the f32 masters (TF32
+     off; the twin's branch of the step, as bf16 takes it), against one
+     process's step on the global batch: the loss within 1e-3 relative,
+     both ranks' parameters and BatchNorm statistics bit-equal, the f32
+     twin's gradients within the camera gradient gate's budgets; the bf16
+     gradients' drift is reported beside that of one process's step on the
+     batch in the other sample order, not gated; beside them an NCCL
+     group of one rank (torchrun's variables) through
+     maybe_initialize_distributed, its steps and one all-reduce.
+     ``--export_dist`` runs this phase alone after the build and stops
+     without the final line.
 
 K2's phase-3 rows (CorpBEVT, SinBEVT-OPV2V, SinBEVT-nuScenes) draw 20
 inputs a bf16 row (the first from the shared generator, the rest from K2's
@@ -682,6 +710,32 @@ ATT_BEV_LIVE = 3
 RESNET_ZOO_PER_FRAME = {"fused_conv3x3": 20}
 HGT_SHAPE, HGT_HEADS, HGT_TYPES = (1, 5, 96, 176, 256), 8, (0, 1, 0, 1, 0)
 HGT_LIVE = 3
+# phase 20: the exported frames (the serving default, COBEVT_INT8=1, and
+# SinBEVT-nuScenes) and their gate (validate_kernels.BUDGET_EXPORT, the int8
+# frame bit for bit); the served frames a side of the dispatcher A/B (the
+# staged runner, 5 live agents, every kernel through its cobevt:: op or
+# its CUDA implementation called directly), in turns, untraced and traced;
+# the data-parallel step: 2 ranks on the card
+# in one gloo group, one sample each of a global batch of 2 at max_cav
+# DP_AGENTS, held to one process's step on the global batch (the loss within
+# DP_LOSS_TOL relative, the gradients at the camera gradient gate's budgets,
+# validate_kernels.TRAIN_BUDGETS["corpbevt"]); a step K1 x 13 + K5 x 13:
+# every dropout of this model is off in this phase (each rank draws its
+# sample's masks from one generator state, so the ranks and the one process
+# would draw different masks), so the self-attention, which carries no
+# dropout weight then, takes K5 too
+EXPORT_TIMED_FRAMES = 10
+DISPATCH_FRAMES, DISPATCH_TRACED = 10, 10
+DP_WORLD, DP_AGENTS = 2, 5
+DP_LOSS_TOL = 1e-3
+# the ranks' step in each precision: bf16, and f32 on an f32 compute twin
+# with TF32 off (both take the twin's branch of the step); the f32 twin's
+# gradients are held to the camera gate's budgets, the bf16 gradients'
+# drift at random weights is reported beside one process's own spread
+# (the same step on the batch in the other sample order)
+DP_PRECISIONS = ("bf16", "f32")
+DP_PER_STEP = {"fused_window_attention_packed": 13,
+               "fused_window_attention_packed_bwd": 13}
 KERNELS = ("window_attention", "fused_cross_attention", "conv3x3",
            "fused_swap_fusion", "window_attention_bwd",
            "fused_swap_fusion_streaming", "conv3x3_int8", "ffd_fused",
@@ -5310,6 +5364,505 @@ def phase_lidar_zoo(seed=0):
     return out
 
 
+def op_calls(fn):
+    """(fn(), {op name: calls}) of the cobevt:: ops one call of ``fn``
+    makes: one per wrapper call that takes its op."""
+    from cobevt_tpu_torch.ops import dispatch
+    calls = {}
+    real = dispatch.KernelOp.__call__
+
+    def counted(self, *args):
+        calls[self.name] = calls.get(self.name, 0) + 1
+        return real(self, *args)
+
+    dispatch.KernelOp.__call__ = counted
+    try:
+        return fn(), calls
+    finally:
+        dispatch.KernelOp.__call__ = real
+
+
+def export_frame(name, model, batch, wrong_batch, exact=False):
+    """Phase 20(a) on one model: validate_kernels.validate_export (export,
+    save, load, run on the card, the 0.01 gate, both launch counts, both
+    frames' ms), then one cobevt:: node per op call of the live frame and a
+    batch of other shapes refused.  ``exact``: the frames must be equal."""
+    import torch
+    from cobevt_tpu_torch.tools import export_serving, validate_kernels
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    with torch.no_grad():
+        _, calls = op_calls(lambda: model(batch))
+    report, loaded = validate_kernels.validate_export(
+        device, model=model, batch=batch, return_program=True)
+    report["live_op_calls"] = calls
+    log(f"export {name}: " + json.dumps(
+        {k: v for k, v in report.items() if k != "outputs"}))
+    failures = []
+    if not report["ok"]:
+        failures.append(f"{name}: the gate failed (max rel "
+                        f"{report['max_rel']:.3e}, launches exported "
+                        f"{report['launches']['exported']}, live "
+                        f"{report['launches']['live']})")
+    if exact and not report["bit_equal"]:
+        failures.append(f"{name}: the exported frame differs from the live "
+                        f"one (max abs {report['max_abs_err']:.3e})")
+    if report["nodes"] != calls:
+        failures.append(f"{name}: graph nodes {report['nodes']} against the "
+                        f"live frame's op calls {calls}")
+    try:
+        export_serving.run_exported(loaded, wrong_batch)
+        failures.append(f"{name}: a batch of other shapes was not refused")
+    except Exception as e:
+        report["refused"] = f"{type(e).__name__}: {str(e)[:120]}"
+    report["failures"] = failures
+    del loaded
+    torch.cuda.empty_cache()
+    return report
+
+
+def dispatcher_cost(model, cfg, seed):
+    """The cobevt:: dispatcher's host cost on a served frame (the staged
+    runner at 5 live agents, bf16, the serving default, waited for).  Each
+    op call goes through its op ("ops") or straight to its CUDA
+    implementation, ``KernelOp.launch`` ("direct": the same launches and
+    counts, no dispatcher), the sides in turns.  Traced: DISPATCH_TRACED
+    frames a side under torch.profiler (CPU), each op call inside a
+    ``call::<op>`` record on either side, so the dispatcher's cost per call
+    is the difference of the records' median CPU time, and a frame's is
+    the sum over the ops of that times the op's calls a frame.  Untraced:
+    the frame's host ms, median of DISPATCH_FRAMES a side."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from cobevt_tpu_torch.ops import dispatch
+    from cobevt_tpu_torch.tools import serve_camera
+    from cobevt_tpu_torch.utils.serving import StagedBucketedRunner
+
+    runner = StagedBucketedRunner(model, cfg.max_cav)
+    frame = serve_camera.synthetic_frame(np.random.RandomState(seed), cfg,
+                                         cfg.max_cav)
+    real = dispatch.KernelOp.__call__
+    sides = {"ops": real, "direct": lambda self, *args: self.launch(*args)}
+
+    def recorded(call):
+        def wrapped(self, *args):
+            with record_function(f"call::{self.name}"):
+                return call(self, *args)
+        return wrapped
+
+    def served(call):
+        dispatch.KernelOp.__call__ = call
+        try:
+            t0 = time.perf_counter()
+            out = runner(frame)
+            torch.cuda.synchronize()
+            del out
+            return (time.perf_counter() - t0) * 1e3
+        finally:
+            dispatch.KernelOp.__call__ = real
+
+    for _ in range(2):
+        for call in sides.values():
+            served(call)
+    times = {side: [] for side in sides}
+    for _ in range(DISPATCH_FRAMES):
+        for side, call in sides.items():
+            times[side].append(served(call))
+    out = {f"{k}_host_ms": float(np.median(v)) for k, v in times.items()}
+    out.update({f"{k}_host_ms_all": v for k, v in times.items()})
+    out["untraced_diff_ms"] = out["ops_host_ms"] - out["direct_host_ms"]
+
+    calls = {side: {} for side in sides}         # op -> [cpu us a call]
+    for _ in range(DISPATCH_TRACED):
+        for side, call in sides.items():
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                served(recorded(call))
+            for e in prof.events():
+                if e.name.startswith("call::"):
+                    calls[side].setdefault(e.name[6:], []).append(
+                        e.cpu_time_total)
+    per_op = {}
+    for op, us in sorted(calls["ops"].items()):
+        d_us = calls["direct"][op]
+        ops_us, direct_us = float(np.median(us)), float(np.median(d_us))
+        per_op[op] = {"calls_per_frame": len(us) / DISPATCH_TRACED,
+                      "ops_us": ops_us, "direct_us": direct_us,
+                      "ops_us_quartiles": np.percentile(us, [25, 75]).tolist(),
+                      "direct_us_quartiles": np.percentile(
+                          d_us, [25, 75]).tolist(),
+                      "dispatcher_us": ops_us - direct_us}
+    out["traced"] = per_op
+    out["dispatcher_ms"] = sum(r["calls_per_frame"] * r["dispatcher_us"]
+                               for r in per_op.values()) / 1e3
+    log(f"dispatcher A/B (served frame; untraced host ms, median of "
+        f"{DISPATCH_FRAMES}; traced per-call us, medians over "
+        f"{DISPATCH_TRACED} frames): "
+        + json.dumps({k: v for k, v in out.items()
+                      if not k.endswith("_all")}))
+    return out
+
+
+def dp_config():
+    """The full-width CorpBEVT of phase 20(b): every dropout at 0."""
+    import dataclasses
+    from cobevt_tpu_torch.configs.presets import corpbevt_default
+
+    cfg = corpbevt_default(max_cav=DP_AGENTS)
+    return dataclasses.replace(
+        cfg, fusion_dropout=0.0,
+        fax=dataclasses.replace(cfg.fax, self_attn_dropout=0.0))
+
+
+def dp_model(device, seed=0):
+    """(model with seeded weights, the benchmark's one-sample batch) at
+    dp_config."""
+    from cobevt_tpu_torch.tools import benchmark
+
+    model, batch, _ = benchmark.build_corpbevt(DP_AGENTS, seed, device,
+                                               dp_config())
+    return model, batch
+
+
+def dp_state(model, criterion, precision):
+    """(state, step, grads): the benchmark's camera recipe computing on a
+    twin of the f32 masters in ``precision`` ("bf16", or "f32": a copy in
+    f32, so the step takes the twin's branch, its gradients copied into the
+    masters' before the reduction, as in bf16), and the f32 gradients its
+    first update reads, filled by an optimizer hook (after the reduction
+    over the ranks)."""
+    import copy
+
+    import torch
+    from cobevt_tpu_torch.tools import benchmark
+    from cobevt_tpu_torch.train import (
+        create_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+    from cobevt_tpu_torch.train import state as train_state
+
+    schedule, weight_decay, eps, clip = benchmark.train_recipe("corpbevt")
+    optimizer = make_optimizer(model.parameters(), schedule,
+                               weight_decay=weight_decay, eps=eps)
+    names = {id(p): n for n, p in model.named_parameters()}
+    grads = {}
+    optimizer.register_step_pre_hook(lambda opt, args, kwargs: grads.update(
+        {names[id(p)]: p.grad.detach().float().cpu()
+         for group in opt.param_groups for p in group["params"]}))
+    state = create_train_state(
+        model, optimizer, schedule, compute_dtype=torch.bfloat16
+        if precision == "bf16" else None, grad_clip=clip)
+    if precision == "f32":
+        state.compute_model = copy.deepcopy(model)
+        train_state._share_norm_statistics(model, state.compute_model)
+    if state.compute_model is model:
+        raise AssertionError("phase 20: no compute twin")
+    return state, make_train_step(model, criterion), grads
+
+
+@contextlib.contextmanager
+def tf32_off():
+    """f32 products without TF32 inside the block (cuDNN and cuBLAS)."""
+    import torch
+    old = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = old
+
+
+def dp_step(batch, precision, generator_seed=0):
+    """One counted, timed step of a fresh phase-20 model (seed 0) on
+    ``batch`` in ``precision`` (dp_state's twin in "bf16", or in "f32" with
+    TF32 off): a dict of the loss, its parts, the f32 gradients the update read
+    (CPU), the state after it (CPU), the launch counts, the step's seconds
+    and the peak memory."""
+    import torch
+    from cobevt_tpu_torch import ops
+    from cobevt_tpu_torch.tools import benchmark
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    model, _ = dp_model(device)
+    criterion, _ = benchmark.make_criterion("corpbevt", model, {
+        k: v for k, v in batch.items() if not k.startswith("gt_")})
+    state, step, grads = dp_state(model, criterion, precision)
+    gen = torch.Generator(device="cuda").manual_seed(generator_seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with (tf32_off() if precision == "f32" else contextlib.nullcontext()):
+        logs = step(state, batch, gen)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    return {"loss": float(logs["loss"]),
+            "parts": {k: float(v) for k, v in logs.items()
+                      if k not in ("loss", "grad_norm")},
+            "grads": grads,
+            "state": {k: v.detach().cpu().clone()
+                      for k, v in state.model.state_dict().items()},
+            "counts": counts, "step_s": seconds,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def dp_grads(run):
+    """(loss, parts, gradients in f64) of a dp_step, as compare_step reads
+    them."""
+    return run["loss"], run["parts"], {k: g.double()
+                                       for k, g in run["grads"].items()}
+
+
+def dp_rank_main(opt):
+    """A rank of phase 20(b), started by phase_export_dist: join the group,
+    take one step on its sample of the global batch, save the result."""
+    import torch
+    from cobevt_tpu_torch.parallel import (
+        barrier,
+        maybe_initialize_distributed,
+        rank,
+        world_size,
+    )
+
+    env = json.loads(opt.dp_env)
+    if not maybe_initialize_distributed(env=env, backend=opt.dp_backend):
+        raise AssertionError("no process group")
+    device = torch.device("cuda", torch.cuda.current_device())
+    data = torch.load(opt.dp_data, map_location=device, weights_only=True)
+    r, world = rank(), world_size()
+    per = data["inputs"].shape[0] // world
+    local = {k: v[r * per:(r + 1) * per] for k, v in data.items()}
+    out = {precision: dp_step(local, precision)
+           for precision in DP_PRECISIONS}
+    if opt.dp_backend == "nccl":
+        # one collective on the NCCL group beside the steps
+        t = torch.tensor([out["bf16"]["loss"]], device=device)
+        torch.distributed.all_reduce(t)
+        out["nccl_all_reduce"] = float(t)
+    barrier()
+    out.update(rank=r, world=world,
+               backend=torch.distributed.get_backend())
+    torch.save(out, opt.dp_rank)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_ranks(tmp, data_path, ranks):
+    """Start one process of this script for each (env, backend) of
+    ``ranks``, all together (phase 20(b)), wait for all, raise on a
+    failure; returns their saved results in order."""
+    import torch
+    procs = []
+    for i, (env, backend) in enumerate(ranks):
+        out = os.path.join(tmp, f"{backend}_rank{i}.pt")
+        cmd = [sys.executable, os.path.abspath(__file__), "--dp_rank", out,
+               "--dp_data", data_path, "--dp_env", json.dumps(env),
+               "--dp_backend", backend]
+        procs.append((out, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], False
+    for i, (_, p) in enumerate(procs):
+        try:
+            stdout, _ = p.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            for _, q in procs:
+                q.kill()
+            raise
+        failed = failed or p.returncode != 0
+        logs.append(f"--- process {i}, {ranks[i][1]} (rc {p.returncode}) "
+                    f"---\n" + stdout[-3000:])
+    if failed:
+        raise AssertionError("phase 20: a rank failed\n" + "\n".join(logs))
+    return [torch.load(out, weights_only=False) for out, _ in procs]
+
+
+def phase_export_dist(seed=0):
+    """Phase 20: the serving export and the data-parallel step (see the
+    module docstring)."""
+    import math
+    import tempfile
+    import types
+
+    import torch
+    from torch.library import opcheck
+    from cobevt_tpu_torch import ops
+    from cobevt_tpu_torch.configs.presets import corpbevt_default
+    from cobevt_tpu_torch.ops.dispatch import env_switches
+    from cobevt_tpu_torch.ops.op_samples import sample_args
+    from cobevt_tpu_torch.tools import benchmark, validate_kernels
+
+    t_phase = time.perf_counter()
+    log("== phase 20: serving export (CorpBEVT bf16, COBEVT_INT8=1, "
+        "SinBEVT-nuScenes) and the data-parallel step (2 ranks, gloo)")
+    device = torch.device("cuda", torch.cuda.current_device())
+    out, failures, counts = {}, [], {}
+
+    def add(c):
+        for fn, n in c.items():
+            counts[fn] = counts.get(fn, 0) + n
+
+    # (a) the exported frames
+    model, batch, _ = benchmark.build_corpbevt(5, seed, device)
+    model = model.to(torch.bfloat16).eval()
+    fewer = {k: v[:, :4] for k, v in batch.items()}
+    with switches(None):
+        out["corpbevt"] = export_frame("corpbevt bf16", model, batch, fewer)
+        with env_switches(COBEVT_INT8="1"):
+            out["corpbevt_int8"] = export_frame(
+                "corpbevt bf16 COBEVT_INT8=1", model, batch, fewer,
+                exact=True)
+        out["dispatcher"] = dispatcher_cost(model, corpbevt_default(), seed)
+    del model, batch, fewer
+    torch.cuda.empty_cache()
+    model, batch, _ = benchmark.build_sinbevt(device=device)
+    model = model.to(torch.bfloat16).eval()
+    batch = {k: batch[k] for k in ("image", "intrinsics", "extrinsics")}
+    with switches(None):
+        out["sinbevt"] = export_frame(
+            "sinbevt_nuscenes bf16", model, batch,
+            {k: v[:, :5] for k, v in batch.items()})
+    del model, batch
+    torch.cuda.empty_cache()
+    for key in ("corpbevt", "corpbevt_int8", "sinbevt"):
+        failures += out[key]["failures"]
+        add(out[key]["launches"]["exported"])
+
+    # opcheck of every op on the card
+    out["opcheck"] = {}
+    for name, args in sample_args(device).items():
+        t0 = time.perf_counter()
+        opcheck(ops.KERNEL_OPS[name].custom_op, args)
+        out["opcheck"][name] = time.perf_counter() - t0
+    log("opcheck on the card, s: " + json.dumps(out["opcheck"]))
+    out["export_s"] = time.perf_counter() - t_phase
+
+    # (b) the data-parallel step
+    t_dp = time.perf_counter()
+    one = benchmark.camera_batch(dp_config(), DP_AGENTS, device)
+    two = {k: torch.cat([v, v]) for k, v in one.items()}
+    two["inputs"][1:] = torch.rand(
+        one["inputs"].shape, generator=torch.Generator(device="cuda")
+        .manual_seed(seed + 1), device="cuda")
+    # the labels: the benchmark's draw for a batch of 2
+    _, train_batch = benchmark.make_criterion(
+        "corpbevt", types.SimpleNamespace(config=dp_config()), two)
+    del one, two
+    # one process on the global batch, in each precision, and in bf16 once
+    # more on the batch's samples in the other order: the same function,
+    # summed in another order (the rounding's own spread)
+    refs = {precision: dp_step(train_batch, precision)
+            for precision in DP_PRECISIONS}
+    reordered = dp_step({k: v.flip(0) for k, v in train_batch.items()},
+                        "bf16")
+    torch.cuda.empty_cache()
+    for precision, ref in refs.items():
+        log(f"data parallel: one process on the global batch of 2, "
+            f"{precision}: loss {ref['loss']:.6f}, step "
+            f"{ref['step_s']:.2f} s, peak {ref['peak_gb']:.1f} GB, launches "
+            f"{ {k: n for k, n in ref['counts'].items() if n} }")
+    with tempfile.TemporaryDirectory(prefix="cobevt_dp_") as tmp:
+        data_path = os.path.join(tmp, "global_batch.pt")
+        torch.save({k: v.cpu() for k, v in train_batch.items()}, data_path)
+        del train_batch
+        # the gloo ranks and the NCCL world of one, all at once
+        port = _free_port()
+        t0 = time.perf_counter()
+        *ranks, nccl = run_ranks(tmp, data_path, [
+            ({"COBEVT_COORDINATOR": f"127.0.0.1:{port}",
+              "JAX_NUM_PROCESSES": str(DP_WORLD),
+              "JAX_PROCESS_ID": str(r)}, "gloo")
+            for r in range(DP_WORLD)] + [
+            ({"COBEVT_MULTIHOST": "1", "MASTER_ADDR": "127.0.0.1",
+              "MASTER_PORT": str(_free_port()), "WORLD_SIZE": "1",
+              "RANK": "0"}, "nccl")])
+        wall_s = time.perf_counter() - t0
+    budgets = validate_kernels.TRAIN_BUDGETS["corpbevt"]
+    out["dp"] = {"world": DP_WORLD, "backend": ranks[0]["backend"],
+                 "agents": DP_AGENTS, "ranks_wall_s": wall_s,
+                 "budgets": budgets}
+    for precision in DP_PRECISIONS:
+        got, ref = ranks[0][precision], refs[precision]
+        gate = validate_kernels.compare_step(
+            dp_grads(got), dp_grads(ref), *budgets, metric="l2")
+        loss_rel = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+        equal = {key: all(
+            torch.equal(got["state"][k], r[precision]["state"][k])
+            for r in ranks[1:] for k in got["state"]
+            if ("running" in k) == (key == "bn_statistics"))
+            for key in ("bn_statistics", "parameters")}
+        row = {"loss": got["loss"], "ref_loss": ref["loss"],
+               "loss_rel": loss_rel,
+               "gate": {k: v for k, v in gate.items() if k != "scalars"},
+               "ranks_equal": equal,
+               "rank_step_s": [r[precision]["step_s"] for r in ranks],
+               "rank_peak_gb": [r[precision]["peak_gb"] for r in ranks],
+               "ref_step_s": ref["step_s"], "ref_peak_gb": ref["peak_gb"],
+               "rank_counts": [r[precision]["counts"] for r in ranks]}
+        if precision == "bf16":
+            noise = validate_kernels.compare_step(
+                dp_grads(reordered), dp_grads(ref), *budgets, metric="l2")
+            row["reordered_batch"] = {
+                k: v for k, v in noise.items() if k != "scalars"}
+        out["dp"][precision] = row
+        log(f"data parallel, {precision}: " + json.dumps(row))
+        for r in ranks:
+            add(r[precision]["counts"])
+            for fn, n in DP_PER_STEP.items():
+                if r[precision]["counts"][fn] != n:
+                    failures.append(
+                        f"dp {precision} rank {r['rank']}: {fn} ran "
+                        f"{r[precision]['counts'][fn]} launches, expected "
+                        f"{n}")
+        if not loss_rel <= DP_LOSS_TOL:
+            failures.append(f"dp {precision}: loss {got['loss']} against "
+                            f"one process's {ref['loss']} ({loss_rel:.3e} "
+                            f"relative)")
+        if not all(equal.values()):
+            failures.append(f"dp {precision}: the ranks differ after the "
+                            f"step: {equal}")
+    f32_gate = out["dp"]["f32"]["gate"]
+    if not f32_gate["ok"]:
+        failures.append(
+            "dp f32: gradients outside the camera gate's budgets: "
+            + json.dumps(f32_gate["param_failures"]
+                         + f32_gate["noise_tier_failures"])
+            + f" max scalar {f32_gate['max_scalar']:.3e}")
+    nccl_counts = {}
+    for precision in DP_PRECISIONS:
+        for fn, n in nccl[precision]["counts"].items():
+            nccl_counts[fn] = nccl_counts.get(fn, 0) + n
+    add(nccl_counts)
+    out["dp"]["nccl_world1"] = {
+        "backend": nccl["backend"], "loss": nccl["bf16"]["loss"],
+        "all_reduce": nccl["nccl_all_reduce"], "counts": nccl_counts}
+    log("data parallel, NCCL world of one: "
+        + json.dumps(out["dp"]["nccl_world1"]))
+    if nccl["backend"] != "nccl" or not math.isfinite(nccl["bf16"]["loss"]):
+        failures.append(f"dp: the NCCL world of one: {nccl['backend']}, "
+                        f"loss {nccl['bf16']['loss']}")
+    out["dp_s"] = time.perf_counter() - t_dp
+    out["counts"] = counts
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 20: {out['seconds']:.1f} s (export {out['export_s']:.1f} s, "
+        f"data parallel {out['dp_s']:.1f} s)")
+    if failures:
+        raise AssertionError("phase 20: " + "; ".join(failures))
+    return out
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default=None,
@@ -5349,6 +5902,14 @@ def main(argv=None):
                         "clouds, AttBEVBackbone, the ResNet variants, HGT) "
                         "after the build, and after the phases above if "
                         "given, then stop without the final line")
+    p.add_argument("--export_dist", action="store_true",
+                   help="run phase 20 (the serving export and the "
+                        "data-parallel step) after the build, and after the "
+                        "phases above if given, then stop without the final "
+                        "line")
+    # a rank of phase 20(b), started by the phase itself
+    for flag in ("--dp_rank", "--dp_data", "--dp_env", "--dp_backend"):
+        p.add_argument(flag, default=None, help=argparse.SUPPRESS)
     opt = p.parse_args(argv)
 
     import torch
@@ -5356,12 +5917,14 @@ def main(argv=None):
         print("chip_smoke: no CUDA device; this run needs one GPU",
               file=sys.stderr)
         return 1
+    if opt.dp_rank:
+        return dp_rank_main(opt)
     t0 = time.perf_counter()
     phase_environment()
     phase_build()
     if (opt.kernels or opt.sinbevt or opt.sinbevt_train or opt.train_camera
             or opt.train_nuscenes or opt.lidar_data or opt.zoo
-            or opt.lidar_zoo):
+            or opt.lidar_zoo or opt.export_dist):
         details = (phase_kernels(set(opt.kernels.split(",")))
                    if opt.kernels else [])
         sinbevt = phase_sinbevt() if opt.sinbevt else None
@@ -5373,6 +5936,7 @@ def main(argv=None):
         lidar_data = phase_lidar_data() if opt.lidar_data else None
         zoo = phase_zoo(opt.zoo_seed) if opt.zoo else None
         lidar_zoo = phase_lidar_zoo() if opt.lidar_zoo else None
+        export_dist = phase_export_dist() if opt.export_dist else None
         if opt.out:
             os.makedirs(os.path.dirname(os.path.abspath(opt.out)),
                         exist_ok=True)
@@ -5383,6 +5947,7 @@ def main(argv=None):
                            "train_nuscenes": train_nuscenes,
                            "lidar_data": lidar_data, "zoo": zoo,
                            "lidar_zoo": lidar_zoo,
+                           "export_dist": export_dist,
                            "card": card_line()}, f, indent=1)
         log(f"total {time.perf_counter() - t0:.1f} s")
         return 0
@@ -5403,6 +5968,7 @@ def main(argv=None):
     lidar_data = phase_lidar_data()
     zoo = phase_zoo(opt.zoo_seed)
     lidar_zoo = phase_lidar_zoo()
+    export_dist = phase_export_dist()
 
     # (wrapper, source, the TPU function it replaces)
     sources = {
@@ -5504,6 +6070,10 @@ def main(argv=None):
     # ResNet variants' frames (19)
     for fn, n in lidar_zoo["counts"].items():
         launches[fn] += n
+    # every op in the exported CorpBEVT, int8 and SinBEVT frames, K1 and K5
+    # in the ranks' data-parallel steps and the NCCL world's step (20)
+    for fn, n in export_dist["counts"].items():
+        launches[fn] += n
     kernels = []
     for key, (fn, src, replaces) in sources.items():
         rows = [r for r in details if r["kernel"] == key]
@@ -5553,7 +6123,8 @@ def main(argv=None):
                        "train_camera": train_camera,
                        "train_nuscenes": train_nuscenes,
                        "lidar_data": lidar_data, "zoo": zoo,
-                       "lidar_zoo": lidar_zoo, "kernels": kernels,
+                       "lidar_zoo": lidar_zoo,
+                       "export_dist": export_dist, "kernels": kernels,
                        "card": card_line(),
                        "torch": torch.__version__,
                        "cuda": torch.version.cuda,

@@ -25,12 +25,16 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from cobevt_tpu_torch.parallel.distributed import rank_mean_denominator
+
 
 def weighted_cross_entropy(logits, labels, class_weights, valid_mask=None):
     """torch ``CrossEntropyLoss(weight=w)`` semantics, in f32.
 
     logits: (..., C) raw scores; labels: (...) int; class_weights: (C,).
-    Returns sum(w[y]*ce) / max(sum(w[y]), 1e-12) over valid entries.
+    Returns sum(w[y]*ce) / max(sum(w[y]), 1e-12) over valid entries (the
+    sum of weights over every rank's batch in a data-parallel step:
+    ``parallel/distributed.py:rank_mean_denominator``).
     """
     logp = torch.log_softmax(logits.float(), dim=-1)
     labels = labels.long()
@@ -39,7 +43,8 @@ def weighted_cross_entropy(logits, labels, class_weights, valid_mask=None):
                         device=logits.device)[labels]
     if valid_mask is not None:
         w = w * valid_mask
-    return -(w * picked).sum() / w.sum().clamp(min=1e-12)
+    return -(w * picked).sum() / rank_mean_denominator(w.sum()).clamp(
+        min=1e-12)
 
 
 def sigmoid_bce(logits, labels):
@@ -96,11 +101,13 @@ class VanillaSegLoss:
 def _masked_mean(loss, mask):
     """Mean of ``loss`` over the entries where ``mask`` holds (all of them
     without a mask); the denominator is clamped at 1e-12, so a batch with
-    no kept pixel gives 0, not NaN."""
+    no kept pixel gives 0, not NaN, and taken over every rank's batch in a
+    data-parallel step (``parallel/distributed.py:rank_mean_denominator``)."""
     if mask is None:
         return loss.mean()
     mask = mask.to(loss.dtype)
-    return (loss * mask).sum() / mask.sum().clamp(min=1e-12)
+    return (loss * mask).sum() / rank_mean_denominator(mask.sum()).clamp(
+        min=1e-12)
 
 
 def _visibility_mask(batch, min_visibility, shape):

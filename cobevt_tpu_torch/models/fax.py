@@ -34,7 +34,7 @@ from cobevt_tpu_torch.nn.layers import (
     pixel_unshuffle,
     torch_conv,
 )
-from cobevt_tpu_torch.ops.dispatch import PackCache
+from cobevt_tpu_torch.ops.dispatch import PackCache, tracing
 from cobevt_tpu_torch.ops.fused_cross_attention import (
     fused_cross_view_attention,
     kernel_accepts,
@@ -73,16 +73,26 @@ def image_plane_grid(feat_height: int, feat_width: int, image_height: int,
     return np.ascontiguousarray(plane.transpose(1, 2, 0).astype(np.float32))
 
 
-@functools.lru_cache(maxsize=None)
 def on_device(grid_fn, args: tuple, device: torch.device) -> torch.Tensor:
     """``grid_fn(*args)``, a static numpy grid, as a tensor on ``device``,
     copied there once per (grid, device): a copy from pageable host memory
     at every forward would make the host wait for the stream, so it could
     not queue the next launches while the card works.  Read-only.  Made
     outside inference mode, so that a grid a runner cached first may be
-    saved for a training step's backward."""
+    saved for a training step's backward.  Under tracing the grid is made
+    and not kept: a traced tensor must not stand in for data later."""
+    if tracing():
+        return torch.from_numpy(grid_fn(*args)).to(device)
+    return _on_device(grid_fn, args, device)
+
+
+@functools.lru_cache(maxsize=None)
+def _on_device(grid_fn, args: tuple, device: torch.device) -> torch.Tensor:
     with torch.inference_mode(False):
         return torch.from_numpy(grid_fn(*args)).to(device)
+
+
+on_device.cache_clear = _on_device.cache_clear
 
 
 @functools.lru_cache(maxsize=None)

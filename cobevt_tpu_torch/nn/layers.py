@@ -106,7 +106,12 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     The running statistics may be kept in f32 under bf16 parameters (the
     train state does); scale and shift are then cast to f32 at use, the
-    mixed-precision form PyTorch's kernels take."""
+    mixed-precision form PyTorch's kernels take.
+
+    In train mode with a process group of more than one rank
+    (``parallel/distributed.py``) the statistics are those of the global
+    batch, as under the JAX package's sharded step (sync-BN,
+    ``cobevt_tpu/parallel/mesh.py:17-20``): :meth:`_global_forward`."""
 
     def forward(self, x):
         w, b = self.weight, self.bias
@@ -115,6 +120,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, w, b,
                                 False, 0.0, self.eps)
+        if _process_group_size() > 1:
+            return self._global_forward(x, w, b)
         # momentum 1 into zeroed buffers: the batch mean and the unbiased
         # batch variance, with no second pass over x
         mean = torch.zeros_like(self.running_mean)
@@ -129,10 +136,48 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y
 
 
+    def _global_forward(self, x, w, b):
+        """Train-mode BatchNorm over every rank's batch: the per-channel
+        count and sum are summed over the group, then the sum of squared
+        deviations from the global mean (two passes, as precise as one
+        process's), both through a differentiable ``all_reduce``, so the
+        backward sums the statistics' gradients over the ranks too.  f32
+        arithmetic (f64 for f64 inputs); the running statistics move toward
+        the global batch's mean and biased variance (flax's update)."""
+        from cobevt_tpu_torch.parallel.distributed import all_reduce_sum
+
+        dims = [0] + list(range(2, x.dim()))
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        n = x.numel() // x.shape[1]
+        local = torch.cat([xf.sum(dims), xf.new_full((1,), float(n))])
+        total = all_reduce_sum(local)
+        count = total[-1]
+        mean = total[:-1] / count
+        centered = xf - mean.reshape(shape)
+        var = all_reduce_sum((centered * centered).sum(dims)) / count
+        y = centered * torch.rsqrt(var + self.eps).reshape(shape)
+        y = y * w.to(xf.dtype).reshape(shape) + b.to(xf.dtype).reshape(shape)
+        if not getattr(_bn_state, "frozen", False):
+            with torch.no_grad():
+                self.running_mean.lerp_(mean.to(self.running_mean.dtype),
+                                        self.momentum)
+                self.running_var.lerp_(var.to(self.running_var.dtype),
+                                       self.momentum)
+                self.num_batches_tracked += 1
+        return y.to(x.dtype)
+
+
+def _process_group_size() -> int:
+    from cobevt_tpu_torch.parallel.distributed import world_size
+    return world_size()
+
+
 class BatchNorm3d(nn.BatchNorm3d):
     """:class:`BatchNorm2d`'s flax statistics update over (N, C, D, H, W)."""
 
     forward = BatchNorm2d.forward
+    _global_forward = BatchNorm2d._global_forward
 
 
 def batch_norm(features: int, eps: float = 1e-5,

@@ -33,9 +33,11 @@ import torch.nn.functional as F
 
 from cobevt_tpu_torch.ops import _build
 from cobevt_tpu_torch.ops.dispatch import (
+    KernelOp,
     check_aligned,
     check_operand,
-    resolve_impl,
+    needs_grad,
+    route,
 )
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -166,6 +168,23 @@ def _launch_kernel(x, packed: Conv3x3Weight, residual, relu):
     return out
 
 
+def _nhwo(x, O):
+    """A fake output: x's batch and map with O channels."""
+    return x.new_empty((*x.shape[:3], O))
+
+
+# K3 as the custom op cobevt::conv3x3 (``wt``: None in f32)
+_K3 = KernelOp(
+    "conv3x3",
+    "(Tensor x, Tensor w, Tensor? wt, Tensor shift, Tensor? residual, "
+    "bool relu) -> Tensor",
+    lambda x, w, wt, shift, residual, relu: conv3x3_reference(
+        x, w, shift, residual, relu),
+    lambda x, w, wt, shift, residual, relu: _launch_kernel(
+        x, Conv3x3Weight(w, wt, shift), residual, relu),
+    lambda x, w, wt, shift, residual, relu: _nhwo(x, w.shape[-1]))
+
+
 def fused_conv3x3(x, w, shift, residual=None, relu: bool = True, impl=None,
                   packed: Conv3x3Weight = None):
     """Stride-1 SAME 3x3 conv + shift (+ residual) (+ ReLU), fused.
@@ -185,15 +204,18 @@ def fused_conv3x3(x, w, shift, residual=None, relu: bool = True, impl=None,
     an x, residual or packed weight that does not start on a 16-byte
     boundary (TMA's rule) rather than copy it.
 
-    Inference only: the kernel has no backward, its result carries no
-    ``grad_fn``, and an eval forward under autograd gives no gradient
-    through it.  Training runs the unfused block (``self.training``
-    gates the dispatch)."""
+    The call is the op ``cobevt::conv3x3`` on either device, unless
+    "torch" is asked for by name or a CPU operand needs a gradient (the
+    plain version then runs inline).  Inference only: the op has no
+    backward, so an eval forward under autograd on the card raises if a
+    gradient is asked through it.  Training runs the unfused block
+    (``self.training`` gates the dispatch)."""
     if packed is None:
         packed = pack_conv3x3_weight(w, shift, x.dtype)
-    if resolve_impl(impl, x) == "torch":
+    if route(impl, x, needs_grad(x, packed.w, packed.shift,
+                                 residual)) == "plain":
         return conv3x3_reference(x, packed.w, packed.shift, residual, relu)
-    return _launch_kernel(x, packed, residual, relu)
+    return _K3(x, packed.w, packed.wt, packed.shift, residual, relu)
 
 
 # kernel launches since the last reset (plain-version calls do not count)
@@ -411,9 +433,16 @@ def int8_absmax(x, slot, impl=None):
     """Fold max |x| into ``slot`` (see :func:`fold_amax_`): the input scale
     of a K7 whose producer is not a K7.  One kernel launch on CUDA tensors
     (``csrc/conv3x3_int8.cu``: absmax_kernel), the plain version on CPU
-    tensors.  The slot must hold 0 or a smaller maximum."""
-    if resolve_impl(impl, x) == "torch":
+    tensors, both through the op ``cobevt::int8_absmax`` (the slot written
+    in place) unless "torch" is asked for by name.  The slot must hold 0 or
+    a smaller maximum.  Returns ``slot``."""
+    if route(impl, x) == "plain":
         return fold_amax_(slot, x)
+    _A7(x, slot)
+    return slot
+
+
+def _launch_absmax(x, slot):
     if x.dtype not in _KERNEL_DTYPES or x.numel() % 8:
         raise ValueError(f"int8_absmax takes {_KERNEL_DTYPES} with a "
                          f"multiple of 8 values; got {x.dtype}, "
@@ -429,8 +458,16 @@ def int8_absmax(x, slot, impl=None):
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "int8_absmax")
     int8_absmax.launches += 1
-    return slot
 
+
+def _absmax_plain(x, slot):
+    fold_amax_(slot, x)
+
+
+# the absmax as the custom op cobevt::int8_absmax (slot written)
+_A7 = KernelOp(
+    "int8_absmax", "(Tensor x, Tensor(a!) slot) -> ()", _absmax_plain,
+    _launch_absmax, lambda x, slot: None, mutates_args=("slot",))
 
 int8_absmax.launches = 0
 
@@ -472,6 +509,29 @@ def _launch_int8(x, packed: Int8Weight, amax, residual, relu, out_amax=None):
     return out
 
 
+def _k7_plain(x, wt, s_w, shift, amax, residual, relu, out_amax):
+    C, O = x.shape[-1], wt.shape[0]
+    w_q = wt.t().reshape(3, 3, C, O)
+    out = conv3x3_int8_reference(x, w_q, s_w, scale_from_amax(amax), shift,
+                                 residual, relu)
+    if out_amax is not None:
+        fold_amax_(out_amax, out)
+    return out
+
+
+# K7 as the custom op cobevt::conv3x3_int8 (``out_amax`` written)
+_K7 = KernelOp(
+    "conv3x3_int8",
+    "(Tensor x, Tensor wt, Tensor s_w, Tensor shift, Tensor amax, "
+    "Tensor? residual, bool relu, Tensor(a!)? out_amax) -> Tensor",
+    _k7_plain,
+    lambda x, wt, s_w, shift, amax, residual, relu, out_amax: _launch_int8(
+        x, Int8Weight(None, s_w, wt, shift), amax, residual, relu, out_amax),
+    lambda x, wt, s_w, shift, amax, residual, relu, out_amax: _nhwo(
+        x, wt.shape[0]),
+    mutates_args=("out_amax",))
+
+
 def fused_conv3x3_int8(x, w, shift, residual=None, relu: bool = True,
                        impl=None, packed: Int8Weight = None, amax=None,
                        out_amax=None):
@@ -486,10 +546,12 @@ def fused_conv3x3_int8(x, w, shift, residual=None, relu: bool = True,
     output's |max| for the next K7 (the kernel's epilogue folds it in).  The
     scale is :func:`act_scale`'s, bit for bit, either way.  ``impl``: None
     (kernel for CUDA tensors, plain version for CPU tensors), "kernel" or
-    "torch".  Inference only, as K3."""
+    "torch".  The call is the op ``cobevt::conv3x3_int8`` (``out_amax``
+    written in place) as K3's is.  Inference only, as K3."""
     if packed is None:
         packed = pack_int8_weight(w, shift)
-    if resolve_impl(impl, x) == "torch":
+    if route(impl, x, needs_grad(x, packed.s_w, packed.shift,
+                                 residual)) == "plain":
         s_a = act_scale(x) if amax is None else scale_from_amax(amax)
         out = conv3x3_int8_reference(x, packed.w_q, packed.s_w, s_a,
                                      packed.shift, residual, relu)
@@ -497,8 +559,9 @@ def fused_conv3x3_int8(x, w, shift, residual=None, relu: bool = True,
             fold_amax_(out_amax, out)
         return out
     if amax is None:
-        amax = int8_absmax(x, new_amax_slots(1, x.device))
-    return _launch_int8(x, packed, amax, residual, relu, out_amax)
+        amax = int8_absmax(x, new_amax_slots(1, x.device), impl)
+    return _K7(x, packed.wt, packed.s_w, packed.shift, amax, residual, relu,
+               out_amax)
 
 
 fused_conv3x3_int8.launches = 0

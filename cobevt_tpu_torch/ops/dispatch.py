@@ -5,6 +5,16 @@ kernel and its plain PyTorch version.  A wrapper called with ``impl=None``
 takes the plain version for a CPU tensor and the kernel for a CUDA tensor;
 ``impl="kernel"`` on a CPU tensor raises.  Nothing falls back silently.
 
+The eval kernels are ``torch.library`` custom ops in the ``cobevt``
+namespace (:class:`KernelOp`): the op's CUDA implementation is the hand
+kernel, which counts its launches when it runs, its CPU implementation is
+the plain version, and its fake implementation gives the output's shape,
+dtype and device and launches nothing, so ``torch.export`` traces a model
+through them (``tools/export_serving.py``).  A wrapper calls the op
+wherever no gradient is needed, on either device (:func:`route`); the plain
+version asked for by name (``impl="torch"``, :func:`forced_impl`) runs
+inline.
+
 :func:`forced_impl` sets the choice for every wrapper reached inside a
 ``with`` block, so a whole model forward can run on the plain versions on
 the card (the reference run of ``chip_smoke.py``).  :func:`env_switches`
@@ -71,6 +81,62 @@ def resolve_impl(impl, tensor) -> str:
     return impl
 
 
+def _named_impl(impl):
+    return impl if impl is not None else getattr(_state, "impl", None)
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd would record a call on these tensors (None
+    skipped)."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def route(impl, tensor, grad: bool = False) -> str:
+    """"plain": run the plain version inline (asked for by name, or a CPU
+    tensor whose call needs a gradient, ``grad``: the op has no backward);
+    "op": call the kernel's custom op, which dispatches on the tensor's
+    device.  Raises as :func:`resolve_impl` does."""
+    if resolve_impl(impl, tensor) == "torch" and (
+            _named_impl(impl) is not None or grad):
+        return "plain"
+    return "op"
+
+
+class KernelOp:
+    """A kernel registered as the custom op ``cobevt::<name>``: ``plain``
+    (the plain version) for CPU tensors, ``launch`` (the hand kernel; it
+    raises on a build or launch failure and counts its launches) for CUDA
+    tensors, ``fake`` for tracing.  ``schema`` is the op's schema without
+    its name; every operand is a tensor, a list of tensors or a scalar.
+    Arguments written in place are named in ``mutates_args`` and marked
+    ``(a!)`` in the schema.  Calling the object calls the op."""
+
+    def __init__(self, name, schema, plain, launch, fake,
+                 mutates_args=()):
+        self.name = name
+        self.launch = launch
+        op = torch.library.custom_op(
+            f"cobevt::{name}", plain, mutates_args=mutates_args,
+            device_types="cpu", schema=schema)
+        op.register_kernel("cuda", launch)
+        op.register_fake(fake)
+        self.custom_op = op
+        self.overload = getattr(torch.ops.cobevt, name).default
+
+    def __call__(self, *args):
+        return self.overload(*args)
+
+
+def tracing(tensors=()) -> bool:
+    """Whether the code runs under a trace (the fake tensors of
+    ``torch.export`` or of the compiler) rather than on data: ``tensors``
+    are fake, or a fake mode is active."""
+    from torch._guards import detect_fake_mode
+    return (detect_fake_mode(list(tensors)) is not None
+            or torch.compiler.is_compiling())
+
+
 def check_operand(name, t, shape, dtype, device) -> None:
     """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
     ``device``: a kernel reads raw pointers and takes nothing else."""
@@ -95,12 +161,18 @@ class PackCache:
     the key holds each tensor's storage, version counter, dtype and device,
     so an in-place update (``load_state_dict``), a ``.to()`` or a new
     compute dtype rebuilds the entry.  Entries are built without autograd:
-    the fused kernels are inference-only."""
+    the fused kernels are inference-only.  Under tracing the entry is built
+    and returned without being kept: fake tensors have no storage to key
+    on, and a traced program then packs inside its graph at every call, as
+    the JAX package's exported program refolds inside its forward."""
 
     def __init__(self):
         self._entries = {}
 
     def get(self, name, tensors, build, *extra):
+        if tracing(tensors):
+            with torch.no_grad():
+                return build()
         key = (extra, tuple((t.data_ptr(), t._version, t.dtype, t.device)
                             for t in tensors))
         hit = self._entries.get(name)

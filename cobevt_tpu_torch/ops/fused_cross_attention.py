@@ -29,9 +29,12 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from cobevt_tpu_torch.ops import _build
 from cobevt_tpu_torch.ops.dispatch import (
+    KernelOp,
     check_aligned,
     check_operand,
+    needs_grad,
     resolve_impl,
+    route,
 )
 from cobevt_tpu_torch.ops.window_attention import (
     _packed_from_4d,
@@ -372,8 +375,57 @@ def _launch_kernel(x, w_embed, c_embed, key, val, p, q_win, k_win, n_heads,
     return out
 
 
+# the op's flat parameter list: these keys in this order, then the MLP's
+# and the post-LN's where the branch has them (11, 12, 16 or 17 tensors)
+PARAM_KEYS = ("ln_q", "ln_k", "ln_v", "wq_t", "wk_t", "wv_t", "wo_t", "bq",
+              "bk", "bv", "bo")
+MLP_KEYS = ("ln_m", "w1_t", "b1", "w2_t", "b2")
+
+
+def flat_params(p: PackedParams) -> list:
+    """Packed params as the op's ``Tensor[]``."""
+    keys = PARAM_KEYS + (MLP_KEYS if "w1_t" in p else ()) + (
+        ("ln_p",) if "ln_p" in p else ())
+    if len(keys) != len(p):
+        raise ValueError(f"unexpected K2 params {sorted(p)}")
+    return [p[k] for k in keys]
+
+
+def unflat_params(ts) -> PackedParams:
+    """The inverse of :func:`flat_params`."""
+    n = len(ts)
+    if n not in (11, 12, 16, 17):
+        raise ValueError(f"K2 takes 11, 12, 16 or 17 parameter tensors, "
+                         f"got {n}")
+    keys = PARAM_KEYS + (MLP_KEYS if n >= 16 else ()) + (
+        ("ln_p",) if n in (12, 17) else ())
+    return PackedParams(zip(keys, ts))
+
+
+def _op_args(f):
+    """An implementation of K2's op from one over the dict of params."""
+    def impl(x, w_embed, c_embed, key, val, params, q_win, k_win, n_heads,
+             scale, add_skip, grid_keys):
+        return f(x, w_embed, c_embed, key, val, unflat_params(params),
+                 tuple(q_win), tuple(k_win), n_heads, scale, add_skip,
+                 grid_keys)
+    return impl
+
+
+# K2 as the custom op cobevt::cross_view_attention: the plain version on CPU
+# tensors, the four launches on CUDA tensors (their scratch made inside)
+_K2 = KernelOp(
+    "cross_view_attention",
+    "(Tensor x, Tensor? w_embed, Tensor? c_embed, Tensor key, Tensor val, "
+    "Tensor[] params, int[] q_win, int[] k_win, int n_heads, float scale, "
+    "bool add_skip, bool grid_keys) -> Tensor",
+    _op_args(_reference), _op_args(_launch_kernel),
+    lambda x, *args: torch.empty_like(x))
+
+
 def _forward(x, w_embed, c_embed, key, val, p, q_win, k_win, n_heads, scale,
              add_skip, grid_keys, impl):
+    """``impl`` "torch": the plain version inline; else K2's op."""
     if impl == "torch":
         return _reference(x, w_embed, c_embed, key, val, p, q_win, k_win,
                           n_heads, scale, add_skip, grid_keys)
@@ -382,9 +434,9 @@ def _forward(x, w_embed, c_embed, key, val, p, q_win, k_win, n_heads, scale,
     def cast(t):
         return None if t is None else t.to(dt).contiguous()
 
-    return _launch_kernel(x.contiguous(), cast(w_embed), cast(c_embed),
-                          cast(key), cast(val), p, q_win, k_win, n_heads,
-                          scale, add_skip, grid_keys)
+    return _K2(x.contiguous(), cast(w_embed), cast(c_embed), cast(key),
+               cast(val), flat_params(p), list(q_win), list(k_win), n_heads,
+               float(scale), add_skip, grid_keys)
 
 
 class _FusedCrossView(torch.autograd.Function):
@@ -448,14 +500,19 @@ def fused_cross_view_attention(x, w_embed, c_embed, key, val, params,
     when ``params`` (with ``mlp``, ``post_ln``) are the raw dicts and
     autograd is on: the backward recomputes the plain composite, its
     attention through K1 and K5 (``impl`` picks their implementation too).
-    Packed params are built without autograd: a call with them carries no
-    ``grad_fn`` (the eval path)."""
+    Packed params are built without autograd: a call with them is the
+    eval path, the op ``cobevt::cross_view_attention`` on either device
+    (the plain version inline where "torch" is asked for by name, or where
+    a CPU operand needs a gradient)."""
     q_win, k_win = tuple(q_win), tuple(k_win)
-    impl = resolve_impl(impl, x)
     if isinstance(params, PackedParams) or not torch.is_grad_enabled():
+        plain = route(impl, x, needs_grad(x, w_embed, c_embed, key,
+                                          val)) == "plain"
         return _forward(x, w_embed, c_embed, key, val,
                         _packed(params, mlp, post_ln, x.dtype), q_win, k_win,
-                        n_heads, scale, add_skip, grid_keys, impl)
+                        n_heads, scale, add_skip, grid_keys,
+                        "torch" if plain else "kernel")
+    impl = resolve_impl(impl, x)
     leaves, spec = tree_flatten((params, mlp, post_ln))
     statics = (q_win, k_win, n_heads, scale, add_skip, grid_keys, impl)
     return _FusedCrossView.apply(statics, spec, x, w_embed, c_embed, key, val,

@@ -40,9 +40,11 @@ import torch.nn.functional as F
 
 from cobevt_tpu_torch.ops import _build
 from cobevt_tpu_torch.ops.dispatch import (
+    KernelOp,
     check_aligned,
     check_operand,
-    resolve_impl,
+    needs_grad,
+    route,
 )
 from cobevt_tpu_torch.ops.fused_cross_attention import (
     KERNEL_DTYPES,
@@ -350,6 +352,14 @@ def _reference(x, mask, agent_mask, bias, layers, head, window, heads,
     """``mask_f32``: the additive mask stays f32 (K6) instead of being
     rounded to the compute dtype (K4); the bias is used in the dtype it was
     packed in."""
+    state = _layers_reference(x, mask, bias, layers, window, heads,
+                              mask_f32)
+    return _head_reference(state, agent_mask, head, mean_over_valid)
+
+
+def _layers_reference(x, mask, bias, layers, window, heads, mask_f32):
+    """The sublayers of :func:`_reference`: the final (B, L, H, W, D)
+    state before the agent pooling and the head."""
     dt = x.dtype
     B, L, H, W, D = x.shape
     w = window
@@ -391,7 +401,7 @@ def _reference(x, mask, agent_mask, bias, layers, head, window, heads,
             f = c(F.gelu(proj(f, p["w1_t"], p["b1"])))
             f = proj(f, p["w2_t"], p["b2"])
             state = from_windows((x1 + f).to(dt), L, H, W, w, grid)
-    return _head_reference(state, agent_mask, head, mean_over_valid)
+    return state
 
 
 def swap_fusion_reference(x, mask, agent_mask, bias_stack, layers, head,
@@ -568,6 +578,45 @@ def _launch_wgmma(x, mask, bias, layers, window, scale, att, bufs, dims,
     return state
 
 
+# the ops' flat operands: each sublayer's dict in this key order, window
+# half before grid half, block after block; the head's
+LAYER_KEYS = ("ln_a", "wqkv_t", "wout_t", "ln_f", "w1_t", "b1", "w2_t", "b2")
+HEAD_KEYS = ("ln", "w_t", "b")
+
+
+def flat_layers(layers) -> list:
+    """Packed layers as the ops' ``Tensor[]``."""
+    return [p[k] for pair in layers for p in pair for k in LAYER_KEYS]
+
+
+def unflat_layers(ts) -> list:
+    """The inverse of :func:`flat_layers`."""
+    n = len(LAYER_KEYS)
+    if not ts or len(ts) % (2 * n):
+        raise ValueError(f"expected a multiple of {2 * n} layer tensors, got "
+                         f"{len(ts)}")
+    subs = [dict(zip(LAYER_KEYS, ts[i:i + n])) for i in range(0, len(ts), n)]
+    return [(subs[i], subs[i + 1]) for i in range(0, len(subs), 2)]
+
+
+def _k4_op_args(f):
+    def impl(x, mask, agent_mask, bias, layers, head, window, heads,
+             mean_over_valid):
+        return f(x, mask, agent_mask, bias, unflat_layers(layers),
+                 dict(zip(HEAD_KEYS, head)), window, heads, mean_over_valid)
+    return impl
+
+
+# K4 as the custom op cobevt::swap_fusion: (B, L, H, W, D) -> (B, H, W, D)
+_K4 = KernelOp(
+    "swap_fusion",
+    "(Tensor x, Tensor? mask, Tensor? agent_mask, Tensor bias, "
+    "Tensor[] layers, Tensor[] head, int window, int heads, "
+    "bool mean_over_valid) -> Tensor",
+    _k4_op_args(_reference), _k4_op_args(_launch_kernel),
+    lambda x, *args: x.new_empty((x.shape[0], *x.shape[2:])))
+
+
 def fused_swap_fusion(x, mask, agent_mask, bias_stack, layers, head,
                       window: int, heads: int, mean_over_valid: bool = False,
                       impl=None):
@@ -588,19 +637,21 @@ def fused_swap_fusion(x, mask, agent_mask, bias_stack, layers, head,
     tensors), "kernel" or "torch".  The kernel raises on a shape it does
     not take.
 
-    Inference only: the kernel has no backward, its result carries no
-    ``grad_fn``, and an eval forward under autograd gives no gradient
-    through it.  Training runs the stock modules (``self.training``
-    gates the dispatch)."""
+    The call is the op ``cobevt::swap_fusion`` on either device, unless
+    "torch" is asked for by name or a CPU operand needs a gradient (the
+    plain version then runs inline).  Inference only: the op has no
+    backward (a gradient asked through it on the card raises).  Training
+    runs the stock modules (``self.training`` gates the dispatch)."""
     p = _packed(layers, bias_stack, head, x.dtype, x.dtype)
     use_valid = mean_over_valid and agent_mask is not None
-    if resolve_impl(impl, x) == "torch":
+    if route(impl, x, needs_grad(x, p.bias, *p.head.values())) == "plain":
         return _reference(x, mask, agent_mask, p.bias, p.layers, p.head,
                           window, heads, use_valid)
-    return _launch_kernel(
+    return _K4(
         x.contiguous(), None if mask is None else mask.float().contiguous(),
         agent_mask.float().contiguous() if use_valid else None, p.bias,
-        p.layers, p.head, window, heads, use_valid)
+        flat_layers(p.layers), [p.head[k] for k in HEAD_KEYS], window, heads,
+        use_valid)
 
 
 # kernel launches since the last reset (plain-version calls do not count);
@@ -701,6 +752,19 @@ def _launch_streaming(x, mask, bias, layers, window, heads):
     return state
 
 
+# K6's sublayers as the custom op cobevt::swap_fusion_streaming: the final
+# (B, L, H, W, D) state, before the pooling and the head
+_K6 = KernelOp(
+    "swap_fusion_streaming",
+    "(Tensor x, Tensor? mask, Tensor bias, Tensor[] layers, int window, "
+    "int heads) -> Tensor",
+    lambda x, mask, bias, layers, window, heads: _layers_reference(
+        x, mask, bias, unflat_layers(layers), window, heads, True),
+    lambda x, mask, bias, layers, window, heads: _launch_streaming(
+        x, mask, bias, unflat_layers(layers), window, heads),
+    lambda x, *args: torch.empty_like(x))
+
+
 def fused_swap_fusion_streaming(x, mask, agent_mask, bias_stack, layers, head,
                                 window: int, heads: int,
                                 mean_over_valid: bool = False, impl=None):
@@ -713,16 +777,18 @@ def fused_swap_fusion_streaming(x, mask, agent_mask, bias_stack, layers, head,
 
     ``impl``: None (kernel for CUDA tensors, plain version for CPU
     tensors), "kernel" or "torch".  The kernel raises on a shape it does
-    not take (:func:`stream_accepts`).  The agent pooling and the head are
-    plain PyTorch on either path.  Inference only, like K4."""
+    not take (:func:`stream_accepts`).  The sublayers are the op
+    ``cobevt::swap_fusion_streaming`` as K4's call is ``cobevt::
+    swap_fusion``; the agent pooling and the head are plain PyTorch on
+    either path.  Inference only, like K4."""
     p = _packed(layers, bias_stack, head, x.dtype, torch.float32)
     use_valid = mean_over_valid and agent_mask is not None
-    if resolve_impl(impl, x) == "torch":
+    if route(impl, x, needs_grad(x, p.bias, *p.head.values())) == "plain":
         return _reference(x, mask, agent_mask, p.bias, p.layers, p.head,
                           window, heads, use_valid, mask_f32=True)
-    state = _launch_streaming(
+    state = _K6(
         x.contiguous(), None if mask is None else mask.float().contiguous(),
-        p.bias, p.layers, window, heads)
+        p.bias, flat_layers(p.layers), window, heads)
     return _head_reference(state, agent_mask, p.head, use_valid)
 
 

@@ -47,7 +47,7 @@ from cobevt_tpu_torch.ops.conv2d import (
     conv3x3_s32,
     int8_kernel_accepts,
 )
-from cobevt_tpu_torch.ops.dispatch import check_operand, resolve_impl
+from cobevt_tpu_torch.ops.dispatch import KernelOp, check_operand, route
 
 INTERMEDIATE_HEADROOM = 2.0
 BLOCK_GROWTH = 1.5
@@ -213,6 +213,54 @@ def _launch(xq, sx, sw, t, wt, relu, out_scale, residual_q, residual_scale,
     return out, clipped[0].float() / out.numel()
 
 
+def _with_sat(out, device):
+    """An implementation's result as the op's (out, clipped share)."""
+    if isinstance(out, tuple):
+        return out
+    return out, torch.zeros((), dtype=torch.float32, device=device)
+
+
+def _s8_plain(xq, sx, wt, sw, t, relu, out_scale, residual_q,
+              residual_scale, out_dtype, with_sat):
+    C, O = xq.shape[-1], wt.shape[0]
+    return _with_sat(conv3x3_s8_reference(
+        xq, sx, wt.t().reshape(3, 3, C, O), sw, t, relu=relu,
+        out_scale=out_scale, residual_q=residual_q,
+        residual_scale=residual_scale, out_dtype=out_dtype,
+        with_sat=with_sat), xq.device)
+
+
+def _s8_launch(xq, sx, wt, sw, t, relu, out_scale, residual_q,
+               residual_scale, out_dtype, with_sat):
+    return _with_sat(_launch(xq, sx, sw, t, wt, relu, out_scale, residual_q,
+                             residual_scale, out_dtype, with_sat), xq.device)
+
+
+def _s8_fake(xq, sx, wt, sw, t, relu, out_scale, residual_q, residual_scale,
+             out_dtype, with_sat):
+    dtype = torch.int8 if out_scale is not None else out_dtype
+    return (xq.new_empty((*xq.shape[:3], wt.shape[0]), dtype=dtype),
+            xq.new_empty((), dtype=torch.float32))
+
+
+# the chain's conv as the custom op cobevt::conv3x3_s8: (out, the clipped
+# share, 0 unless with_sat); scales are 0-d tensors
+_S8 = KernelOp(
+    "conv3x3_s8",
+    "(Tensor xq, Tensor sx, Tensor wt, Tensor sw, Tensor t, bool relu, "
+    "Tensor? out_scale, Tensor? residual_q, Tensor? residual_scale, "
+    "ScalarType out_dtype, bool with_sat) -> (Tensor, Tensor)",
+    _s8_plain, _s8_launch, _s8_fake)
+
+
+def _scale_tensor(value, device):
+    """A scale as the op takes it: a tensor as it is, a number as a 0-d f32
+    tensor (the same f32 value the plain version's arithmetic uses)."""
+    if value is None or torch.is_tensor(value):
+        return value
+    return torch.tensor(float(value), dtype=torch.float32, device=device)
+
+
 def conv3x3_s8(xq, sx, wq, sw, t, *, relu: bool = True, out_scale=None,
                residual_q=None, residual_scale=None,
                out_dtype=torch.bfloat16, with_sat: bool = False, impl=None,
@@ -228,9 +276,10 @@ def conv3x3_s8(xq, sx, wq, sw, t, *, relu: bool = True, out_scale=None,
     numbers or 0-d tensors; nothing syncs with the host.
 
     ``impl``: None (kernel for CUDA tensors, plain version for CPU tensors),
-    "kernel" or "torch".  ``wt``: the kernel's weight operand from
+    "kernel" or "torch"; the call is the op ``cobevt::conv3x3_s8`` unless
+    "torch" is asked for by name.  ``wt``: the kernel's weight operand from
     :func:`pack_s8_weight`, built from ``wq`` when None."""
-    if resolve_impl(impl, xq) == "torch":
+    if route(impl, xq) == "plain":
         return conv3x3_s8_reference(
             xq, sx, wq, sw, t, relu=relu, out_scale=out_scale,
             residual_q=residual_q, residual_scale=residual_scale,
@@ -238,8 +287,11 @@ def conv3x3_s8(xq, sx, wq, sw, t, *, relu: bool = True, out_scale=None,
     if wt is None:
         C, O = wq.shape[2:]
         wt = wq.reshape(9 * C, O).t().contiguous()
-    return _launch(xq, sx, sw, t, wt, relu, out_scale, residual_q,
-                   residual_scale, out_dtype, with_sat)
+    dev = xq.device
+    out, sat = _S8(xq, _scale_tensor(sx, dev), wt, sw, t, relu,
+                   _scale_tensor(out_scale, dev), residual_q,
+                   _scale_tensor(residual_scale, dev), out_dtype, with_sat)
+    return (out, sat) if with_sat else out
 
 
 # kernel launches since the last reset (plain-version calls do not count)

@@ -40,9 +40,12 @@ import torch
 
 from cobevt_tpu_torch.ops import _build
 from cobevt_tpu_torch.ops.dispatch import (
+    KernelOp,
     check_aligned,
     check_operand,
+    needs_grad,
     resolve_impl,
+    route,
 )
 
 NEG_INF = -1e9
@@ -401,6 +404,25 @@ def _launch_kernel(q, k, v, n_heads, bias_flat, mask, weight, stats=None):
     return out
 
 
+def _k1_plain(q, k, v, n_heads, bias_flat, mask, weight, stats):
+    if stats is not None:
+        raise ValueError("the row-statistics scratch is filled by the CUDA "
+                         "kernel only")
+    return packed_attention_reference(q, k, v, n_heads, bias_flat, mask,
+                                      weight)
+
+
+# K1 as the custom op cobevt::window_attention_packed: the plain version on
+# CPU tensors, the kernel on CUDA tensors (``stats``, K5's scratch, written)
+_K1 = KernelOp(
+    "window_attention_packed",
+    "(Tensor q, Tensor k, Tensor v, int n_heads, Tensor? bias_flat, "
+    "Tensor? mask, Tensor? weight, Tensor(a!)? stats) -> Tensor",
+    _k1_plain, _launch_kernel,
+    lambda q, k, v, n_heads, bias_flat, mask, weight, stats:
+    torch.empty_like(q), mutates_args=("stats",))
+
+
 def _launch_bwd_kernel(q, k, v, g, out, n_heads, bias_flat, mask,
                        stats=None):
     """K5; ``stats``: None (the kernel takes its own row statistics), or the
@@ -485,13 +507,9 @@ def _packed_bwd(q, k, v, g, out, n_heads, bias_flat, mask, impl,
                               bias_flat, mask, stats)
 
 
-def _needs_grad(*tensors) -> bool:
-    return torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in tensors)
-
-
 def _packed_forward(q, k, v, n_heads, bias_flat, mask, weight, impl,
                     stats=None):
+    """``impl`` "torch": the plain version inline; else K1's op."""
     if impl == "torch":
         return packed_attention_reference(q, k, v, n_heads, bias_flat, mask,
                                           weight)
@@ -501,7 +519,7 @@ def _packed_forward(q, k, v, n_heads, bias_flat, mask, weight, impl,
         mask = mask.float().contiguous()
     if weight is not None:
         weight = weight.to(q.dtype).contiguous()
-    return _launch_kernel(q, k, v, n_heads, bias_flat, mask, weight, stats)
+    return _K1(q, k, v, n_heads, bias_flat, mask, weight, stats)
 
 
 class _FusedPacked(torch.autograd.Function):
@@ -557,18 +575,23 @@ def fused_window_attention_packed(q, k, v, n_heads: int, bias_flat=None,
     ``impl``: None (kernel for CUDA tensors, plain version for CPU
     tensors), "kernel" or "torch"; it also picks K5's implementation in
     the backward.  The kernel path takes contiguous tensors, casts bias and
-    mask to f32 and weight to q's dtype."""
+    mask to f32 and weight to q's dtype.  Where no gradient can flow the
+    call is the op ``cobevt::window_attention_packed`` on either device
+    (unless "torch" is asked for by name); under autograd the plain
+    composite runs inline on CPU tensors and the autograd Function calls
+    the op on CUDA tensors."""
     if weight is not None and mask is not None:
         raise ValueError("weight+mask combination not implemented")
     if not flash_bwd_enabled():
         return packed_attention_reference(q, k, v, n_heads, bias_flat, mask,
                                           weight)
-    impl = resolve_impl(impl, q)
-    if not _needs_grad(q, k, v, bias_flat, weight):
+    if not needs_grad(q, k, v, bias_flat, weight):
         # no gradient can flow: the forward alone, without the autograd
         # Function's bookkeeping on the host
         return _packed_forward(q, k, v, n_heads, bias_flat, mask, weight,
-                               impl)
+                               "torch" if route(impl, q) == "plain"
+                               else "kernel")
+    impl = resolve_impl(impl, q)
     return _FusedPacked.apply(q, k, v, bias_flat, mask, weight, n_heads,
                               impl, bwd_f32_enabled())
 
@@ -638,10 +661,19 @@ def _launch_hm_kernel(q, k, v, bias, mask):
     return out
 
 
+# K8 as the custom op cobevt::window_attention
+_K8 = KernelOp(
+    "window_attention",
+    "(Tensor q, Tensor k, Tensor v, Tensor? bias, Tensor? mask) -> Tensor",
+    window_attention_reference, _launch_hm_kernel,
+    lambda q, k, v, bias, mask: torch.empty_like(q))
+
+
 def _hm_forward(q, k, v, bias, mask, impl):
+    """``impl`` "torch": the plain version inline; else K8's op."""
     if impl == "torch":
         return window_attention_reference(q, k, v, bias, mask)
-    return _launch_hm_kernel(
+    return _K8(
         q.contiguous(), k.contiguous(), v.contiguous(),
         None if bias is None else bias.float().contiguous(),
         None if mask is None else mask.float().contiguous())
@@ -670,13 +702,16 @@ def fused_window_attention(q, k, v, bias=None, mask=None, impl=None):
     (G, H, Tk, D), bias (H, Tq, Tk) or None, mask (G, Tk) or None.
     Returns (G, H, Tq, D) in q's dtype.  Differentiable: the backward
     recomputes the attention in plain PyTorch, as the JAX package's does
-    in XLA.  ``impl`` and the two ``COBEVT_FLASH_BWD*`` switches as in
+    in XLA.  ``impl``, the op (``cobevt::window_attention``) and the two
+    ``COBEVT_FLASH_BWD*`` switches as in
     :func:`fused_window_attention_packed`."""
     if not flash_bwd_enabled():
         return window_attention_reference(q, k, v, bias, mask)
+    if not needs_grad(q, k, v, bias):
+        return _hm_forward(q, k, v, bias, mask,
+                           "torch" if route(impl, q) == "plain"
+                           else "kernel")
     impl = resolve_impl(impl, q)
-    if not _needs_grad(q, k, v, bias):
-        return _hm_forward(q, k, v, bias, mask, impl)
     return _Fused.apply(q, k, v, bias, mask, impl, bwd_f32_enabled())
 
 

@@ -13,9 +13,17 @@ checkpoints (``train/checkpoint.py``) next to ``config.yaml`` every
 ``save_freq`` epochs and logs to JSONL (and tensorboard where installed).
 ``--half`` computes in bf16 on a twin of the f32 master weights
 (``train/state.py``).  ``--model_dir`` resumes from the latest checkpoint
-there, its ``config.yaml`` taking priority over ``--hypes_yaml``.  One
-process on one device; the weights and the dropout generator start from
-seed 0.
+there, its ``config.yaml`` taking priority over ``--hypes_yaml``.  The
+weights and the dropout generator start from seed 0.
+
+Multi-GPU: the first thing ``main`` does is
+``parallel/distributed.py:maybe_initialize_distributed`` (torchrun with
+``COBEVT_MULTIHOST=1``, SLURM, or ``COBEVT_COORDINATOR`` with
+``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID``), one process a GPU.  Each rank
+then loads its shard of the train and validation sets, the train step
+averages the gradients over the ranks, and only rank 0 writes the config,
+the checkpoints and the logs.  ``hypes["train_params"]["batch_size"]`` is
+a rank's batch, as in the JAX CLI.
 
 Runs on the CUDA card unless ``--device cpu`` is given.  ``main(argv)``
 can be called in-process and returns the ``Trainer``.
@@ -95,6 +103,15 @@ def image_hw(hypes: dict):
 
 def main(argv=None):
     opt = parse_args(argv)
+    from cobevt_tpu_torch.parallel.distributed import (
+        barrier,
+        is_main_process,
+        maybe_initialize_distributed,
+        rank,
+        world_size,
+    )
+
+    maybe_initialize_distributed()
     device = require_device(opt.device)
 
     from cobevt_tpu_torch.configs.hypes import (
@@ -138,7 +155,9 @@ def main(argv=None):
         val_ds = CachedDataset(val_ds,
                                os.path.join(opt.input_cache, "val"))
 
-    loader_kw = dict(num_workers=opt.num_workers, device=device)
+    # each rank's shard (the JAX CLI's per-host sharding)
+    loader_kw = dict(num_workers=opt.num_workers, device=device,
+                     num_shards=world_size(), shard_index=rank())
     train_loader = DataLoader(train_ds, tp["batch_size"], shuffle=True,
                               **loader_kw)
     val_loader = DataLoader(val_ds, 1, shuffle=False, drop_last=False,
@@ -161,7 +180,9 @@ def main(argv=None):
         compute_dtype=torch.bfloat16 if opt.half else None)
 
     save_dir = opt.model_dir or opt.save_dir
-    save_config_snapshot(hypes, save_dir)
+    if is_main_process():
+        save_config_snapshot(hypes, save_dir)
+    barrier()
     trainer = Trainer(model, criterion, state, TrainerConfig(
         epochs=tp["epoches"], eval_freq=tp.get("eval_freq", 5),
         save_freq=tp.get("save_freq", 5), log_every=opt.log_every,

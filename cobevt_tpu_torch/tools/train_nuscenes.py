@@ -26,9 +26,15 @@ again at epoch 0 and the dropout generator again from the experiment's
 seed, so a resumed run does not replay the batches and draws an unbroken
 run would have seen.
 
-One process on one device: the JAX CLI's multi-host rendezvous has no
-counterpart here yet.  Runs on the CUDA card; ``main(argv, device="cpu")``
-runs on the CPU.  ``main`` returns a :class:`NuScenesRun`.
+Multi-GPU: ``main`` first calls ``parallel/distributed.py:
+maybe_initialize_distributed`` (torchrun with ``COBEVT_MULTIHOST=1``,
+SLURM, or ``COBEVT_COORDINATOR``), one process a GPU.  Each rank loads its
+shard of every epoch (``--batch`` is a rank's batch) and the train step
+averages the gradients over the ranks; only rank 0 writes checkpoints and
+logs and runs the closing IoU pass, the others wait for it.  (The JAX CLI
+loads the whole set on every host.)  Runs on the CUDA card;
+``main(argv, device="cpu")`` runs on the CPU.  ``main`` returns a
+:class:`NuScenesRun` (IoUs None on ranks other than 0).
 """
 
 from __future__ import annotations
@@ -155,7 +161,16 @@ def main(argv=None, device: str = "cuda", num_workers: int = 2):
     ``device``: where the run goes (a CUDA device needs a card);
     ``num_workers``: loader worker processes (0 decodes in this one)."""
     opt = parse_args(argv)
+    from cobevt_tpu_torch.parallel.distributed import (
+        barrier,
+        is_main_process,
+        maybe_initialize_distributed,
+        rank,
+        world_size,
+    )
     from cobevt_tpu_torch.tools.train_camera import require_device
+
+    maybe_initialize_distributed()
     device = require_device(device)
 
     from cobevt_tpu_torch.configs.nuscenes_experiments import (
@@ -182,7 +197,8 @@ def main(argv=None, device: str = "cuda", num_workers: int = 2):
         scenes, opt.dataset_dir, opt.labels_dir,
         ImageConfig(h=exp.encoder.image_height, w=exp.encoder.image_width))
     loader = DataLoader(dataset, exp.batch_size, shuffle=True,
-                        num_workers=num_workers, device=device)
+                        num_workers=num_workers, device=device,
+                        num_shards=world_size(), shard_index=rank())
     if len(loader) == 0:
         raise ValueError(f"{len(dataset)} samples make no batch of "
                          f"{exp.batch_size}")
@@ -202,7 +218,15 @@ def main(argv=None, device: str = "cuda", num_workers: int = 2):
     state, resumed = restore_step_checkpoint(ckpt_dir, state)
 
     train_step = make_train_step(model, criterion)
-    logger = MetricLogger(os.path.join(opt.save_dir, "logs"))
+    main_rank = is_main_process()
+    logger = MetricLogger(os.path.join(opt.save_dir, "logs")
+                          if main_rank else None)
+
+    def save(step):
+        if main_rank:
+            save_step_checkpoint(ckpt_dir, state, step)
+        barrier()
+
     generator = torch.Generator(device=device).manual_seed(exp.seed)
 
     records = []
@@ -223,7 +247,7 @@ def main(argv=None, device: str = "cuda", num_workers: int = 2):
                 print(f"step {step} loss {scalars['loss']:.4f}")
             saved = time.perf_counter()
             if step % exp.checkpoint_interval == 0:
-                save_step_checkpoint(ckpt_dir, state, step)
+                save(step)
             records.append({"step": step, "loader_s": began - waited,
                             "step_s": stepped - began,
                             "save_s": time.perf_counter() - saved})
@@ -232,13 +256,16 @@ def main(argv=None, device: str = "cuda", num_workers: int = 2):
             waited = time.perf_counter()
         epoch += 1
     loader.close()
-    save_step_checkpoint(ckpt_dir, state, step)
+    save(step)
     logger.close()
 
-    visible, every = iou_pass(state, dataset, exp.label_indices, device,
-                              num_workers)
-    print("IoU (vis>=2):", visible)
-    print("IoU (with occlusions):", every)
+    visible = every = None
+    if main_rank:
+        visible, every = iou_pass(state, dataset, exp.label_indices, device,
+                                  num_workers)
+        print("IoU (vis>=2):", visible)
+        print("IoU (with occlusions):", every)
+    barrier()
     return NuScenesRun(state, records, resumed, visible, every, ckpt_dir)
 
 

@@ -91,6 +91,18 @@ head dropped in stage 2's local branch, which it must fail at every seed
 
   python -m cobevt_tpu_torch.tools.validate_kernels --train --model sinbevt
 
+**Export gate** (``--model export``; ``validate_export`` of the JAX tool):
+the full-width CorpBEVT eval forward (5 agents x 4 cameras x 512^2, BEV
+256^2, bf16, the serving default) exported through
+``tools/export_serving.py`` (``torch.export``, the kernels as ``cobevt::``
+ops), saved, loaded and run, against the live forward on the same weights
+and batch: every output's largest deviation over the live output's largest
+value within :data:`BUDGET_EXPORT` (the JAX gate's 0.01), with the max abs
+error, whether the two are bit-equal, and the launch counts of both runs,
+which must agree; then both frames timed with CUDA events after warmup.
+
+  python -m cobevt_tpu_torch.tools.validate_kernels --model export
+
 Needs a CUDA card unless ``--device cpu`` is given.
 """
 
@@ -318,6 +330,79 @@ def validate_forward(device, bf16: bool = True, seed: int = 0,
     report["seed"] = seed
     report["launches"] = {path: counts for path, (_, counts) in runs.items()}
     return report
+
+
+# Budget of the export gate: max |exported - live| over max |live|, per
+# output, the JAX tool's (the same kernels run in both, so the two agree far
+# inside it or bit for bit).
+BUDGET_EXPORT = 0.01
+
+
+def frame_ms(fn, iters: int = 10, warmup: int = 3) -> float:
+    """ms of one call of ``fn`` between CUDA events, after ``warmup``
+    calls (host-paced where the host is the slower side)."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def validate_export(device, bf16: bool = True, seed: int = 0, config=None,
+                    max_cav: int = 5, model=None, batch=None,
+                    timed: bool = True, return_program: bool = False):
+    """Export the CorpBEVT eval forward (``model`` and ``batch``, or the
+    benchmark's at ``max_cav`` from ``seed``), save it, load it, run it and
+    return the gate's report against the live forward, with both runs'
+    launch counts, the export seconds, the ``.pt2`` bytes and, with
+    ``timed`` on a card, both frames' ms; with ``return_program`` also the
+    loaded program.  The environment switches are the caller's (the
+    serving default unless set)."""
+    import os
+    import tempfile
+    import time
+
+    from cobevt_tpu_torch.tools import export_serving
+
+    if model is None:
+        model, batch, _ = build_corpbevt(max_cav, seed, device, config)
+        if bf16:
+            model = model.to(torch.bfloat16)
+    model = model.eval()
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        live = model(batch)
+        live_counts = ops.launch_counts()
+    t0 = time.perf_counter()
+    program = export_serving.export_model(model, batch)
+    export_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="cobevt_export_") as tmp:
+        path = os.path.join(tmp, "serving.pt2")
+        size = export_serving.save_exported(program, path)
+        loaded = export_serving.load_exported(path)
+    ops.reset_launch_counts()
+    got = export_serving.run_exported(loaded, batch)
+    counts = ops.launch_counts()
+    report = compare_outputs("corpbevt_export", got, live, BUDGET_EXPORT)
+    report.update(
+        bit_equal=all(torch.equal(got[k], live[k]) for k in live),
+        max_abs_err=max(o["abs"] for o in report["outputs"].values()),
+        launches={"exported": counts, "live": live_counts},
+        nodes=export_serving.cobevt_nodes(program),
+        export_s=export_s, pt2_bytes=size,
+        precision=str(next(model.parameters()).dtype).split(".")[-1])
+    report["ok"] = report["ok"] and counts == live_counts
+    if timed and device.type == "cuda":
+        module = loaded.module()
+        with torch.no_grad():
+            report["exported_ms"] = frame_ms(lambda: module(batch))
+            report["live_ms"] = frame_ms(lambda: model(batch))
+    return (report, loaded) if return_program else report
 
 
 def sign_logits(out: dict) -> dict:
@@ -969,9 +1054,11 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--train", action="store_true")
     p.add_argument("--model", default="corpbevt",
-                   choices=["corpbevt", "pointpillar", "sinbevt"],
+                   choices=["corpbevt", "pointpillar", "sinbevt",
+                            "export"],
                    help="corpbevt: the int8 gate; pointpillar and sinbevt: "
                         "the model's forward gate (sinbevt at seeds 0-4); "
+                        "export: the serving export of CorpBEVT; "
                         "with --train the model's gradient gate (sinbevt "
                         "at seeds 0-4, and its planted K5 faults)")
     p.add_argument("--dtype", default="bf16", choices=["bf16", "f32"])
@@ -995,6 +1082,8 @@ def main(argv=None):
         report["ok"] = (report["ok"] and report["planted"]["ok"]
                         and xattn["ok"] and not any(
                             r["ok"] for r in xattn["planted"]["per_seed"]))
+    elif opt.model == "export":
+        report = validate_export(device, bf16, opt.seed)
     elif opt.model == "sinbevt":
         report = validate_sinbevt(device)
         report["planted"] = validate_sinbevt_faults(device)

@@ -6,7 +6,12 @@ validation with per-class IoU, periodic checkpoints, the LR schedule per
 global step, the dataset's CAV reshuffle between epochs and scalar logs to
 JSONL and, where installed, tensorboard.
 
-The step runs eagerly on one device (``train/step.py``).  Its logs are 0-d
+The step runs eagerly on one device a process (``train/step.py``); under
+a process group of several ranks (``parallel/distributed.py``) each rank
+trains on its shard of the batches (every rank as many steps an epoch as
+the shortest shard gives: the loader gives the last shard the remainder),
+only rank 0 writes the logs and the checkpoints (the others wait for it),
+and a validation pass sums every rank's confusion counts.  Its logs are 0-d
 device tensors; they are read to floats only on ``log_every`` steps, since a
 read is a wait for the device.  The dropout masks of every step come from one
 ``torch.Generator`` on the model's device, saved with each checkpoint.  The
@@ -27,6 +32,12 @@ import numpy as np
 import torch
 
 from cobevt_tpu_torch.metrics.iou import confusion_counts, per_class_iou
+from cobevt_tpu_torch.parallel.distributed import (
+    barrier,
+    is_main_process,
+    min_over_ranks,
+    world_size,
+)
 from cobevt_tpu_torch.train.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
@@ -129,7 +140,8 @@ class Trainer:
             torch.Generator(device=self.device).manual_seed(0)
         self.train_step = make_train_step(model, criterion)
         self.eval_step = make_eval_step(model, criterion)
-        self.logger = MetricLogger(config.log_dir)
+        self.logger = MetricLogger(config.log_dir if is_main_process()
+                                   else None)
         self.global_step = int(self.state.step)
         self.start_epoch = 0
         # one record per train step: host seconds spent waiting on the
@@ -154,14 +166,15 @@ class Trainer:
         for epoch in range(self.start_epoch, self.cfg.epochs):
             train_loader.set_epoch(epoch)
             t_epoch = time.perf_counter()
+            # every rank takes as many steps as the shortest shard gives,
+            # so each step's collectives pair with the same step's
+            steps = min_over_ranks(len(train_loader))
             batches = iter(train_loader)
-            while True:
+            for _ in range(steps):
                 self._profile_boundary()
                 t0 = time.perf_counter()
-                batch = next(batches, None)
+                batch = next(batches)
                 waited = time.perf_counter() - t0
-                if batch is None:
-                    break
                 logs = self.train_step(
                     self.state, batch_to_device(batch, self.device),
                     self.generator)
@@ -176,6 +189,9 @@ class Trainer:
                           f"loss {scalars['loss']:.4f}")
                 record["step_s"] = time.perf_counter() - t0
                 self.records.append(record)
+            # a longer shard's last batches are read, not trained on
+            for _ in batches:
+                pass
 
             self._profile_boundary(last=True)
             print(f"epoch {epoch} done in "
@@ -189,8 +205,10 @@ class Trainer:
                 print(f"[epoch {epoch}] val IoU: {ious}")
 
             if self.cfg.ckpt_dir and (epoch + 1) % self.cfg.save_freq == 0:
-                save_checkpoint(self.cfg.ckpt_dir, self.state, epoch + 1,
-                                self.generator)
+                if is_main_process():
+                    save_checkpoint(self.cfg.ckpt_dir, self.state, epoch + 1,
+                                    self.generator)
+                barrier()
 
             self.start_epoch = epoch + 1
             if on_epoch_end is not None:
@@ -265,6 +283,10 @@ class Trainer:
                 conf_static += confusion_counts(
                     pred.reshape(-1), batch["gt_static"].reshape(-1),
                     3).double()
+        if world_size() > 1:
+            import torch.distributed as dist
+            dist.all_reduce(conf_dyn)
+            dist.all_reduce(conf_static)
         ious = {}
         dyn = per_class_iou(conf_dyn.float()).cpu()
         ious["iou_dynamic"] = float(dyn[1])

@@ -3,8 +3,16 @@
 Counterpart of ``cobevt_tpu/train/step.py``: forward, loss, backward and
 the optimizer update of one batch.  The JAX step is one jitted program over
 a device mesh, with sharded inputs and a donated state; here the step runs
-eagerly on one card and updates the state in place, so mesh, sharding and
-donation have no counterpart.
+eagerly and updates the state in place.  Data parallelism is one process
+a GPU (``parallel/distributed.py``), each on its shard of the global
+batch: where the process group has more than one rank the step broadcasts
+rank 0's weights and BatchNorm statistics before its first update, takes
+the batch statistics over every rank (``nn/layers.py:BatchNorm2d``) and
+the loss's normalisers too (its criterion runs inside
+``parallel/distributed.py:rank_mean_scope``), averages the f32 gradients
+over the ranks before the global-norm clip, and logs the mean of the
+ranks' losses: the step of one process on the global batch, as the JAX
+sharded step is.
 """
 
 from __future__ import annotations
@@ -13,6 +21,12 @@ from typing import Callable, Optional
 
 import torch
 
+from cobevt_tpu_torch.parallel.distributed import (
+    all_reduce_mean_,
+    broadcast_module_,
+    rank_mean_scope,
+    world_size,
+)
 from cobevt_tpu_torch.train.state import TrainState
 
 
@@ -35,16 +49,25 @@ def make_train_step(model, criterion: Callable, log_grad_norm: bool = True):
     update ``state.step`` and applies AdamW to the f32 master parameters.
     A parameter the loss does not reach has a zero gradient and still
     decays, as in optax.  ``logs`` holds ``loss``, the loss parts and, with
-    ``log_grad_norm``, ``grad_norm`` (before clipping), as 0-d tensors."""
+    ``log_grad_norm``, ``grad_norm`` (before clipping), as 0-d tensors.
+    Under a process group of several ranks the gradients, the logged loss
+    and its parts are the means over the ranks (module docstring)."""
+    synced = []
 
     def step(state: TrainState, batch,
              generator: Optional[torch.Generator] = None):
         if state.model is not model:
             raise ValueError("this step was made for another model")
+        world = world_size()
+        if world > 1 and not synced:
+            broadcast_module_(state.model)
+            state.refresh_compute_model()
+            synced.append(True)
         compute = state.compute_model
         compute.train()
         out = compute(batch, generator=generator)
-        loss, parts = criterion(out, batch)
+        with rank_mean_scope():
+            loss, parts = criterion(out, batch)
         loss.backward()
 
         masters = state.params
@@ -58,6 +81,9 @@ def make_train_step(model, criterion: Callable, log_grad_norm: bool = True):
                 grads = [torch.empty_like(p) for p in masters]
                 torch._foreach_copy_(grads, twin_grads)
                 compute.zero_grad(set_to_none=True)
+            # the global batch's gradient: the mean of the ranks' f32
+            # gradients, before the clip reads its norm
+            all_reduce_mean_(grads)
             for p, g in zip(masters, grads):
                 p.grad = g
             norm = None
@@ -77,6 +103,11 @@ def make_train_step(model, criterion: Callable, log_grad_norm: bool = True):
             state.step += 1
         logs = {k: v.detach() for k, v in parts.items()}
         logs["loss"] = loss.detach()
+        if world > 1:
+            keys = list(logs)
+            means = all_reduce_mean_([torch.stack(
+                [logs[k].float().reshape(()) for k in keys])])[0]
+            logs = dict(zip(keys, means.unbind()))
         if log_grad_norm:
             logs["grad_norm"] = norm
         return logs
