@@ -188,7 +188,7 @@ non-zero without printing the final line:
      restored into a fresh state bit for bit (save and restore times); the
      same command to 6 steps, which resumes from step 4 at the one-cycle
      schedule's lr; finite IoUs; tools/view_data.py panels the codec
-     decodes; tools/bench_input.py on both fixtures (8 OPV2V and 32
+     decodes; tools/bench_input.py on both fixtures (4 OPV2V and 16
      nuScenes samples, 2 workers) against the device busy rates of this
      phase and of phase 15.  ``--train_nuscenes`` runs this
      phase alone after the build and stops without the final line.
@@ -296,7 +296,27 @@ non-zero without printing the final line:
      group of one rank (torchrun's variables) through
      maybe_initialize_distributed, its steps and one all-reduce.
      ``--export_dist`` runs this phase alone after the build and stops
-     without the final line.
+     without the final line;
+ 21. the ("data", "model") mesh of parallel/mesh.py: two ranks of this
+     script on the one card in a gloo group, each case against one process
+     on the same global batch from the same dropout generator seed, with
+     every dropout on (the preset's 0.1), full-width CorpBEVT: (a) mesh
+     2 x 1, data parallel, 5 agents, a sample a rank; (b) mesh 1 x 2,
+     tensor parallel (train/step.py:place_state), 5 agents, one sample;
+     (c) mesh 1 x 2, the agent axis (cooperative_batch_sharding, two of 4
+     agents a rank, tensor-parallel weights); each in f32 on an f32 twin
+     (TF32 off; gated: the loss within 1e-3 relative, the gradients at the
+     camera gate's budgets, every parameter and BatchNorm statistic within
+     its per-tensor budget, the ranks bit-equal, each rank's launches equal
+     to one process's) and in bf16 (reported); each step's collectives by
+     mesh axis with their bytes, its ms and peak memory, and its mask
+     draws' ms against the same shapes drawn locally; (d)
+     StagedBucketedRunner over mesh 2 x 1, 2 frames, one a rank, against
+     the padded single-process forward: in f32 (TF32 off) within 0.01 of
+     the largest logit, in bf16 reported beside one process's spread
+     between a frame served alone and in the batch of 2.
+     ``--mesh`` runs this phase alone after the build and stops without
+     the final line.
 
 K2's phase-3 rows (CorpBEVT, SinBEVT-OPV2V, SinBEVT-nuScenes) draw 20
 inputs a bf16 row (the first from the shared generator, the rest from K2's
@@ -572,12 +592,13 @@ TRAIN_CAM_PROFILED = 2
 # the first run and of the resumed one, the checkpoint interval, the train
 # step of the first run that torch.profiler traces (its third: the workers
 # are up and the device is idle while the loader catches up), and the
-# bench_input fixtures (8 OPV2V samples at batch 1 and 32 nuScenes samples,
-# 4 batches of 8, each pass through the training loader's 2 workers)
+# bench_input fixtures (4 OPV2V samples at batch 1 and 16 nuScenes samples,
+# 2 batches of 8, each pass through the training loader's 2 workers; 8 and
+# 32 before the script took phase 21, whose time this depth gives back)
 NUSC_CLI_SCENES, NUSC_CLI_SAMPLES, NUSC_CLI_POOL = 2, 9, 12
 NUSC_CLI_STEPS, NUSC_CLI_RESUMED_STEPS, NUSC_CLI_CKPT_EVERY = 4, 6, 2
 NUSC_CLI_TRACED = 2
-BENCH_INPUT_ARGS = ["--opv2v_frames", "8", "--nusc_frames", "32",
+BENCH_INPUT_ARGS = ["--opv2v_frames", "4", "--nusc_frames", "16",
                     "--num_workers", "2"]
 SERVE_AGENTS = [5, 3, 1, 4, 2, 5, 3, 5, 2, 4]
 INT8_AGENTS = [5, 3, 1, 4, 2]
@@ -720,12 +741,11 @@ HGT_LIVE = 3
 # DP_AGENTS, held to one process's step on the global batch (the loss within
 # DP_LOSS_TOL relative, the gradients at the camera gradient gate's budgets,
 # validate_kernels.TRAIN_BUDGETS["corpbevt"]); a step K1 x 13 + K5 x 13:
-# every dropout of this model is off in this phase (each rank draws its
-# sample's masks from one generator state, so the ranks and the one process
-# would draw different masks), so the self-attention, which carries no
+# every dropout of this model is off in this phase (phase 21 holds the
+# same step with every dropout on), so the self-attention, which carries no
 # dropout weight then, takes K5 too
 EXPORT_TIMED_FRAMES = 10
-DISPATCH_FRAMES, DISPATCH_TRACED = 10, 10
+DISPATCH_FRAMES, DISPATCH_TRACED = 5, 5
 DP_WORLD, DP_AGENTS = 2, 5
 DP_LOSS_TOL = 1e-3
 # the ranks' step in each precision: bf16, and f32 on an f32 compute twin
@@ -736,6 +756,33 @@ DP_LOSS_TOL = 1e-3
 DP_PRECISIONS = ("bf16", "f32")
 DP_PER_STEP = {"fused_window_attention_packed": 13,
                "fused_window_attention_packed_bwd": 13}
+# phase 21: the ("data", "model") mesh of parallel/mesh.py, 2 ranks of this
+# script on the one card in one gloo group, every case against one process
+# on the same global batch from the same dropout generator seed, every
+# dropout on (the preset's 0.1), full-width CorpBEVT; a case's (n_data,
+# n_model, max_cav, global batch, batch placement): (a) data parallel, (b)
+# tensor parallel, (c) the agent axis (two agents a rank, tensor-parallel
+# weights; at 5 agents the JAX rule replicates, and (b) covers that)
+MESH_CASES = {"dp": (2, 1, 5, 2, "data"), "tp": (1, 2, 5, 1, "data"),
+              "agent": (1, 2, 4, 1, "agents")}
+# (d): StagedBucketedRunner over a 2 x 1 mesh, a batch of 2 frames at 5 live
+# agents, against the padded single-process forward: in f32 (TF32 off)
+# within MESH_SERVE_TOL of the largest logit (phase 20's export budget); in
+# bf16 reported beside one process's own spread between the frame served
+# alone and in the batch of 2 (cuDNN and cuBLAS pick their algorithms by
+# the batch, and bf16 keeps their roundings)
+MESH_SERVE_FRAMES, MESH_SERVE_TOL = 2, 0.01
+# f32 on an f32 compute twin (TF32 off) is gated: the loss within
+# MESH_LOSS_TOL relative, the gradients at the camera gate's budgets and
+# every parameter and BatchNorm statistic within its per-tensor budget
+# (relative L2), the ranks bit-equal; bf16 is reported beside it
+MESH_PRECISIONS = ("f32", "bf16")
+MESH_LOSS_TOL = 1e-3
+MESH_DROPOUT_SEED = 0
+MESH_KERNELS = ("fused_window_attention_packed",
+                "fused_window_attention_packed_bwd",
+                "fused_cross_view_attention", "fused_conv3x3",
+                "fused_swap_fusion")
 KERNELS = ("window_attention", "fused_cross_attention", "conv3x3",
            "fused_swap_fusion", "window_attention_bwd",
            "fused_swap_fusion_streaming", "conv3x3_int8", "ffd_fused",
@@ -5659,15 +5706,16 @@ def _free_port():
         return sock.getsockname()[1]
 
 
-def run_ranks(tmp, data_path, ranks):
+def run_ranks(tmp, data_path, ranks, flag="--dp_rank"):
     """Start one process of this script for each (env, backend) of
-    ``ranks``, all together (phase 20(b)), wait for all, raise on a
-    failure; returns their saved results in order."""
+    ``ranks``, all together (phase 20(b), or with ``flag`` "--mesh_rank"
+    phase 21), wait for all, raise on a failure; returns their saved
+    results in order."""
     import torch
     procs = []
     for i, (env, backend) in enumerate(ranks):
         out = os.path.join(tmp, f"{backend}_rank{i}.pt")
-        cmd = [sys.executable, os.path.abspath(__file__), "--dp_rank", out,
+        cmd = [sys.executable, os.path.abspath(__file__), flag, out,
                "--dp_data", data_path, "--dp_env", json.dumps(env),
                "--dp_backend", backend]
         procs.append((out, subprocess.Popen(
@@ -5685,7 +5733,7 @@ def run_ranks(tmp, data_path, ranks):
         logs.append(f"--- process {i}, {ranks[i][1]} (rc {p.returncode}) "
                     f"---\n" + stdout[-3000:])
     if failed:
-        raise AssertionError("phase 20: a rank failed\n" + "\n".join(logs))
+        raise AssertionError(f"{flag}: a rank failed\n" + "\n".join(logs))
     return [torch.load(out, weights_only=False) for out, _ in procs]
 
 
@@ -5863,6 +5911,417 @@ def phase_export_dist(seed=0):
     return out
 
 
+def mesh_batch(max_cav, B, device, seed=0):
+    """The benchmark's camera batch at ``max_cav`` agents, B samples (those
+    after the first with other images, drawn on the card from ``seed`` + i)
+    and the benchmark's labels."""
+    import types
+
+    import torch
+    from cobevt_tpu_torch.configs.presets import corpbevt_default
+    from cobevt_tpu_torch.tools import benchmark
+
+    cfg = corpbevt_default(max_cav)
+    one = benchmark.camera_batch(cfg, max_cav, device)
+    batch = {k: torch.cat([v] * B) for k, v in one.items()}
+    for i in range(1, B):
+        batch["inputs"][i:i + 1] = torch.rand(
+            one["inputs"].shape, device=device,
+            generator=torch.Generator(device="cuda").manual_seed(seed + i))
+    return benchmark.make_criterion(
+        "corpbevt", types.SimpleNamespace(config=cfg), batch)[1]
+
+
+def mesh_models(device):
+    """{max_cav: full-width CorpBEVT (the preset, every dropout at 0.1),
+    seeded weights (seed 0)} for every max_cav of phase 21, built once a
+    process; each use takes a copy."""
+    from cobevt_tpu_torch.tools import benchmark
+    return {max_cav: benchmark.build_corpbevt(max_cav, 0, device)[0]
+            for max_cav in sorted({c[2] for c in MESH_CASES.values()})}
+
+
+def grads_hook(optimizer, model):
+    """The f32 gradients the next update of ``optimizer`` reads, by
+    ``model``'s parameter names (an optimizer hook), on the card."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    grads = {}
+    optimizer.register_step_pre_hook(lambda opt, args, kwargs: grads.update(
+        {names[id(p)]: p.grad.detach().float().clone()
+         for group in opt.param_groups for p in group["params"]}))
+    return grads
+
+
+@contextlib.contextmanager
+def counted_collectives(mesh, record):
+    """Every ``all_reduce`` inside the block appended to ``record`` as
+    (axis, bytes): "data" or "model" for a mesh axis's group, "world" for
+    the default group (data x model)."""
+    import torch.distributed as dist
+    real = dist.all_reduce
+    axes = {} if mesh is None else {
+        id(mesh.get_group(a)): a for a in ("data", "model")}
+
+    def counted(tensor, *args, **kwargs):
+        group = kwargs.get("group", args[1] if len(args) > 1 else None)
+        record.append((axes.get(id(group), "world") if group is not None
+                       else "world", tensor.numel() * tensor.element_size()))
+        return real(tensor, *args, **kwargs)
+
+    dist.all_reduce = counted
+    try:
+        yield
+    finally:
+        dist.all_reduce = real
+
+
+@contextlib.contextmanager
+def recorded_draws(record):
+    """Every ``nn/layers.py:rank_uniform`` call inside the block appended to
+    ``record`` as (shape, device, part, the draw layout in force)."""
+    from cobevt_tpu_torch.nn import layers
+    from cobevt_tpu_torch.parallel.distributed import current_draw_layout
+    real = layers.rank_uniform
+
+    def recorded(shape, device, generator=None, **part):
+        record.append((tuple(shape), device, part, current_draw_layout()))
+        return real(shape, device, generator, **part)
+
+    layers.rank_uniform = recorded
+    try:
+        yield
+    finally:
+        layers.rank_uniform = real
+
+
+def draws_ms(draws, reps=5):
+    """(ms of a step's draws as they ran, ms of the same shapes drawn
+    locally): CUDA events around ``reps`` replays after one untimed, on the
+    card."""
+    import torch
+    from cobevt_tpu_torch.nn import layers
+    from cobevt_tpu_torch.parallel.distributed import draw_layout
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = []
+    for keep_layout in (True, False):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        for rep in range(reps + 1):
+            if rep == 1:
+                start.record()
+            for shape, device, part, layout in draws:
+                with draw_layout(layout if keep_layout else None):
+                    layers.rank_uniform(shape, device, gen, **part)
+        stop.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(stop) / reps)
+    return out
+
+
+def mesh_step(case, batch, precision, models, mesh=None):
+    """One counted, timed step of a fresh full-width CorpBEVT (seed 0, every
+    dropout on) of phase-21 ``case`` in ``precision`` (dp_state's twin in
+    "bf16", or in "f32" with TF32 off), unplaced (``mesh`` None: the one
+    process, ``batch`` the global batch) or placed on ``mesh`` (``batch``
+    cut to this rank's part): the loss, its parts, the whole f32 gradients
+    the update read and the whole state after it (CPU), the launch counts,
+    the collectives by axis, the step's seconds, the peak memory and the
+    mask draws' ms (as drawn, and drawn locally).  ``models``:
+    mesh_models'."""
+    import torch
+    from cobevt_tpu_torch import ops
+    from cobevt_tpu_torch.parallel import mesh as tp
+    from cobevt_tpu_torch.tools import benchmark
+    from cobevt_tpu_torch.train import (
+        full_state_dict,
+        make_train_step,
+        place_state,
+    )
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    max_cav, placement = MESH_CASES[case][2], MESH_CASES[case][4]
+    model = copy.deepcopy(models[max_cav])
+    criterion, _ = benchmark.make_criterion("corpbevt", model, {
+        k: v for k, v in batch.items() if not k.startswith("gt_")})
+    state, step, grads = dp_state(model, criterion, precision)
+    if mesh is not None:
+        state = place_state(state, mesh)
+        grads = grads_hook(state.optimizer, state.model)
+        step = make_train_step(state.model, criterion, mesh)
+        place = (tp.cooperative_batch_sharding if placement == "agents"
+                 else tp.shard_batch)
+        batch = place(mesh, batch)
+    gen = torch.Generator(device="cuda").manual_seed(MESH_DROPOUT_SEED)
+    collectives, draws = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with (tf32_off() if precision == "f32" else contextlib.nullcontext()), \
+            counted_collectives(mesh, collectives), recorded_draws(draws):
+        logs = step(state, batch, gen)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    whole = dict(grads)
+    if mesh is not None:
+        owners = dict(state.model.named_modules())
+        for name, g in grads.items():
+            owner = owners[name.rpartition(".")[0]]
+            if isinstance(owner, tp.ShardedLinear) and \
+                    name.endswith(".weight"):
+                whole[name] = tp.gather_plain(g, owner.dim, owner.axis)
+    by_axis = {}
+    for axis, nbytes_ in collectives:
+        n, b = by_axis.get(axis, (0, 0))
+        by_axis[axis] = (n + 1, b + nbytes_)
+    return {"loss": float(logs["loss"]),
+            "parts": {k: float(v) for k, v in logs.items()
+                      if k not in ("loss", "grad_norm")},
+            "grads": {k: g.cpu() for k, g in whole.items()},
+            "state": {k: v.detach().cpu().clone()
+                      for k, v in full_state_dict(state).items()},
+            "counts": {k: counts[k] for k in MESH_KERNELS},
+            "collectives": {a: {"calls": n, "bytes": b}
+                            for a, (n, b) in by_axis.items()},
+            "step_s": seconds, "peak_gb": peak,
+            "draws": len(draws), "draws_ms": draws_ms(draws)}
+
+
+def mesh_serve(frames, precision, models, mesh=None):
+    """Phase 21(d): ``frames`` (a host batch) through StagedBucketedRunner
+    over ``mesh`` (each rank serves its "data" rows, every rank returns the
+    whole batch), or, without one, the padded forward (FullRunner) of one
+    process; full-width CorpBEVT in ``precision`` ("bf16", or "f32" with
+    TF32 off) on the serving default.  (dynamic_seg on the CPU in f32,
+    launch counts of the timed call, its ms)."""
+    import torch
+    from cobevt_tpu_torch import ops
+    from cobevt_tpu_torch.utils.serving import (
+        FullRunner,
+        StagedBucketedRunner,
+    )
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    model = copy.deepcopy(models[5])
+    if precision == "bf16":
+        model = model.to(torch.bfloat16)
+    model.eval()
+    runner = (FullRunner(model) if mesh is None
+              else StagedBucketedRunner(model, 5, mesh))
+    with switches(None), (tf32_off() if precision == "f32"
+                          else contextlib.nullcontext()):
+        runner(frames)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = runner(frames)["dynamic_seg"]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    counts = ops.launch_counts()
+    return {"seg": out.float().cpu(), "ms": ms,
+            "counts": {k: counts[k] for k in MESH_KERNELS}}
+
+
+def mesh_rank_main(opt):
+    """A rank of phase 21, started by phase_mesh: join the group, run every
+    case on its mesh (the data's global batches cut to this rank's part),
+    then the served frames, and save the results."""
+    import torch
+    from cobevt_tpu_torch.parallel import (
+        barrier,
+        maybe_initialize_distributed,
+        rank,
+        world_size,
+    )
+    from cobevt_tpu_torch.parallel.mesh import make_mesh
+
+    if not maybe_initialize_distributed(env=json.loads(opt.dp_env),
+                                        backend=opt.dp_backend):
+        raise AssertionError("no process group")
+    device = torch.device("cuda", torch.cuda.current_device())
+    data = torch.load(opt.dp_data, map_location=device, weights_only=True)
+    models = mesh_models(device)
+    out = {"rank": rank(), "world": world_size(),
+           "backend": torch.distributed.get_backend()}
+    for case, (n_data, n_model, *_) in MESH_CASES.items():
+        mesh = make_mesh(n_data, n_model)
+        out["mesh_" + case] = list(mesh.mesh.shape)
+        for precision in MESH_PRECISIONS:
+            out[f"{case}/{precision}"] = mesh_step(case, data[case],
+                                                   precision, models, mesh)
+            if rank() > 0:
+                # only rank 0's gradients are held to the one process
+                del out[f"{case}/{precision}"]["grads"]
+            torch.cuda.empty_cache()
+    mesh = make_mesh(2, 1)
+    frames = {k: v.cpu().numpy() for k, v in data["serve"].items()}
+    out["serve"] = {precision: mesh_serve(frames, precision, models, mesh)
+                    for precision in MESH_PRECISIONS}
+    barrier()
+    torch.save(out, opt.mesh_rank)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def rel_l2(a, b):
+    import torch
+    return float(torch.linalg.vector_norm((a - b).double())
+                 / (torch.linalg.vector_norm(b.double()) + 1e-30))
+
+
+def phase_mesh(seed=0):
+    """Phase 21: the ("data", "model") mesh (see MESH_CASES): every case
+    on two gloo ranks against one process, then the served frames."""
+    import tempfile
+
+    import torch
+    from cobevt_tpu_torch.tools import validate_kernels
+
+    t_phase = time.perf_counter()
+    log("== phase 21: the (data, model) mesh: data parallel 2 x 1, tensor "
+        "parallel 1 x 2, the agent axis 1 x 2, served frames 2 x 1 (2 "
+        "ranks, gloo, every dropout on)")
+    device = torch.device("cuda", torch.cuda.current_device())
+    models = mesh_models(device)
+    data = {case: mesh_batch(max_cav, B, device, seed)
+            for case, (_, _, max_cav, B, _) in MESH_CASES.items()}
+    data["serve"] = {k: v for k, v in mesh_batch(
+        5, MESH_SERVE_FRAMES, device, seed).items()
+        if not k.startswith("gt_")}
+    # one process on each global batch, in each precision
+    refs = {}
+    for case in MESH_CASES:
+        for precision in MESH_PRECISIONS:
+            refs[f"{case}/{precision}"] = mesh_step(case, data[case],
+                                                    precision, models)
+            torch.cuda.empty_cache()
+    frames = {k: v.cpu().numpy() for k, v in data["serve"].items()}
+    serve_ref = {precision: mesh_serve(frames, precision, models)
+                 for precision in MESH_PRECISIONS}
+    # one process's own spread: the first frame served alone
+    alone = mesh_serve({k: v[:1] for k, v in frames.items()}, "bf16",
+                       models)
+    del models
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="cobevt_mesh_") as tmp:
+        data_path = os.path.join(tmp, "global_batches.pt")
+        torch.save({c: {k: v.cpu() for k, v in b.items()}
+                    for c, b in data.items()}, data_path)
+        del data
+        port = _free_port()
+        t0 = time.perf_counter()
+        ranks = run_ranks(tmp, data_path, [
+            ({"COBEVT_COORDINATOR": f"127.0.0.1:{port}",
+              "JAX_NUM_PROCESSES": str(DP_WORLD),
+              "JAX_PROCESS_ID": str(r)}, "gloo")
+            for r in range(DP_WORLD)], flag="--mesh_rank")
+        wall_s = time.perf_counter() - t0
+    budgets = validate_kernels.TRAIN_BUDGETS["corpbevt"]
+    out = {"world": DP_WORLD, "backend": ranks[0]["backend"],
+           "ranks_wall_s": wall_s, "budgets": budgets, "counts": {}}
+    failures = []
+
+    def add(c):
+        for fn, n in c.items():
+            out["counts"][fn] = out["counts"].get(fn, 0) + n
+
+    for case in MESH_CASES:
+        for precision in MESH_PRECISIONS:
+            key = f"{case}/{precision}"
+            got, ref = ranks[0][key], refs[key]
+            gate = validate_kernels.compare_step(
+                dp_grads(got), dp_grads(ref), *budgets, metric="l2")
+            loss_rel = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+            tensors = {k: rel_l2(got["state"][k].float(),
+                                 ref["state"][k].float())
+                       for k in ref["state"]
+                       if ref["state"][k].is_floating_point()}
+            worst = sorted(tensors, key=tensors.get, reverse=True)[:3]
+            equal = all(torch.equal(got["state"][k], r[key]["state"][k])
+                        for r in ranks[1:] for k in got["state"])
+            row = {"mesh": ranks[0]["mesh_" + case], "loss": got["loss"],
+                   "ref_loss": ref["loss"], "loss_rel": loss_rel,
+                   "gate": {k: v for k, v in gate.items() if k != "scalars"},
+                   "state_worst_rel_l2": {k: tensors[k] for k in worst},
+                   "ranks_equal": equal,
+                   "rank_step_s": [r[key]["step_s"] for r in ranks],
+                   "rank_peak_gb": [r[key]["peak_gb"] for r in ranks],
+                   "ref_step_s": ref["step_s"], "ref_peak_gb": ref["peak_gb"],
+                   "rank_counts": [r[key]["counts"] for r in ranks],
+                   "ref_counts": ref["counts"],
+                   "collectives": [r[key]["collectives"] for r in ranks],
+                   "draws": got["draws"],
+                   "draws_ms_global_local": [r[key]["draws_ms"]
+                                             for r in ranks]}
+            out[key] = row
+            log(f"mesh {key}: " + json.dumps(row))
+            for r in ranks:
+                add(r[key]["counts"])
+                if r[key]["counts"] != ref["counts"] or not all(
+                        r[key]["counts"][fn] > 0 for fn in MESH_KERNELS[:2]):
+                    failures.append(f"{key} rank {r['rank']}: launches "
+                                    f"{r[key]['counts']}, one process "
+                                    f"{ref['counts']}")
+            if not equal:
+                failures.append(f"{key}: the ranks differ after the step")
+            if precision != "f32":
+                continue
+            if not loss_rel <= MESH_LOSS_TOL:
+                failures.append(f"{key}: loss {got['loss']} against one "
+                                f"process's {ref['loss']} ({loss_rel:.3e})")
+            if not gate["ok"]:
+                failures.append(
+                    f"{key}: gradients outside the camera gate's budgets: "
+                    + json.dumps(gate["param_failures"]
+                                 + gate["noise_tier_failures"])
+                    + f" max scalar {gate['max_scalar']:.3e}")
+            over = [k for k in worst if tensors[k] > budgets[1]]
+            if over:
+                failures.append(f"{key}: parameters or statistics past "
+                                f"{budgets[1]}: {over}")
+    # (d) the served frames
+    for precision in MESH_PRECISIONS:
+        seg = [r["serve"][precision]["seg"] for r in ranks]
+        ref = serve_ref[precision]["seg"]
+        err = float((seg[0] - ref).abs().max())
+        row = {"frames": MESH_SERVE_FRAMES, "max_abs_err": err,
+               "max_logit": float(ref.abs().max()),
+               "ranks_equal": all(torch.equal(seg[0], x) for x in seg[1:]),
+               "rank_ms": [r["serve"][precision]["ms"] for r in ranks],
+               "ref_ms": serve_ref[precision]["ms"],
+               "rank_counts": [r["serve"][precision]["counts"]
+                               for r in ranks],
+               "ref_counts": serve_ref[precision]["counts"]}
+        if precision == "bf16":
+            row["alone_vs_batch_max_abs_err"] = float(
+                (alone["seg"] - ref[:1]).abs().max())
+        out["serve/" + precision] = row
+        log(f"mesh serve/{precision}: " + json.dumps(row))
+        for r in ranks:
+            add(r["serve"][precision]["counts"])
+            if r["serve"][precision]["counts"] != row["ref_counts"]:
+                failures.append(f"serve/{precision} rank {r['rank']}: "
+                                f"launches {r['serve'][precision]['counts']}"
+                                f", one process {row['ref_counts']}")
+        if not row["ranks_equal"] or tuple(seg[0].shape) != tuple(ref.shape):
+            failures.append(f"serve/{precision}: {tuple(seg[0].shape)} "
+                            f"against {tuple(ref.shape)}, ranks equal "
+                            f"{row['ranks_equal']}")
+        if precision == "f32" and not err <= MESH_SERVE_TOL * row[
+                "max_logit"]:
+            failures.append(f"serve/f32: max error {err:.4g} of the largest "
+                            f"logit {row['max_logit']:.4g}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 21: {out['seconds']:.1f} s (ranks {wall_s:.1f} s)")
+    if failures:
+        raise AssertionError("phase 21: " + "; ".join(failures))
+    return out
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default=None,
@@ -5907,8 +6366,13 @@ def main(argv=None):
                         "data-parallel step) after the build, and after the "
                         "phases above if given, then stop without the final "
                         "line")
-    # a rank of phase 20(b), started by the phase itself
-    for flag in ("--dp_rank", "--dp_data", "--dp_env", "--dp_backend"):
+    p.add_argument("--mesh", action="store_true",
+                   help="run phase 21 (the data x model mesh) after the "
+                        "build, and after the phases above if given, then "
+                        "stop without the final line")
+    # a rank of phase 20(b) or 21, started by the phase itself
+    for flag in ("--dp_rank", "--mesh_rank", "--dp_data", "--dp_env",
+                 "--dp_backend"):
         p.add_argument(flag, default=None, help=argparse.SUPPRESS)
     opt = p.parse_args(argv)
 
@@ -5919,12 +6383,14 @@ def main(argv=None):
         return 1
     if opt.dp_rank:
         return dp_rank_main(opt)
+    if opt.mesh_rank:
+        return mesh_rank_main(opt)
     t0 = time.perf_counter()
     phase_environment()
     phase_build()
     if (opt.kernels or opt.sinbevt or opt.sinbevt_train or opt.train_camera
             or opt.train_nuscenes or opt.lidar_data or opt.zoo
-            or opt.lidar_zoo or opt.export_dist):
+            or opt.lidar_zoo or opt.export_dist or opt.mesh):
         details = (phase_kernels(set(opt.kernels.split(",")))
                    if opt.kernels else [])
         sinbevt = phase_sinbevt() if opt.sinbevt else None
@@ -5937,6 +6403,7 @@ def main(argv=None):
         zoo = phase_zoo(opt.zoo_seed) if opt.zoo else None
         lidar_zoo = phase_lidar_zoo() if opt.lidar_zoo else None
         export_dist = phase_export_dist() if opt.export_dist else None
+        mesh = phase_mesh() if opt.mesh else None
         if opt.out:
             os.makedirs(os.path.dirname(os.path.abspath(opt.out)),
                         exist_ok=True)
@@ -5947,7 +6414,7 @@ def main(argv=None):
                            "train_nuscenes": train_nuscenes,
                            "lidar_data": lidar_data, "zoo": zoo,
                            "lidar_zoo": lidar_zoo,
-                           "export_dist": export_dist,
+                           "export_dist": export_dist, "mesh": mesh,
                            "card": card_line()}, f, indent=1)
         log(f"total {time.perf_counter() - t0:.1f} s")
         return 0
@@ -5969,6 +6436,7 @@ def main(argv=None):
     zoo = phase_zoo(opt.zoo_seed)
     lidar_zoo = phase_lidar_zoo()
     export_dist = phase_export_dist()
+    mesh = phase_mesh()
 
     # (wrapper, source, the TPU function it replaces)
     sources = {
@@ -6074,6 +6542,9 @@ def main(argv=None):
     # in the ranks' data-parallel steps and the NCCL world's step (20)
     for fn, n in export_dist["counts"].items():
         launches[fn] += n
+    # K1 and K5 in the mesh's rank steps, K1-K4 in its served frames (21)
+    for fn, n in mesh["counts"].items():
+        launches[fn] += n
     kernels = []
     for key, (fn, src, replaces) in sources.items():
         rows = [r for r in details if r["kernel"] == key]
@@ -6124,7 +6595,8 @@ def main(argv=None):
                        "train_nuscenes": train_nuscenes,
                        "lidar_data": lidar_data, "zoo": zoo,
                        "lidar_zoo": lidar_zoo,
-                       "export_dist": export_dist, "kernels": kernels,
+                       "export_dist": export_dist, "mesh": mesh,
+                       "kernels": kernels,
                        "card": card_line(),
                        "torch": torch.__version__,
                        "cuda": torch.version.cuda,

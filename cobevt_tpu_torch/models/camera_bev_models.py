@@ -187,7 +187,8 @@ class CameraBEVModel(nn.Module):
                     x, com_mask.permute(0, 2, 3, 1)[..., None, :],
                     generator)
             elif cfg.fusion == "swap":
-                fused = self.fusion_net(x, com_mask, agent_mask=agent_mask)
+                fused = self.fusion_net(x, com_mask, agent_mask=agent_mask,
+                                        generator=generator)
             else:
                 # the reference's F-Cooper maxes the zero-padded stack
                 fused = max_fusion(x)

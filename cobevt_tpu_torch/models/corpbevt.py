@@ -122,9 +122,10 @@ class CorpBEVT(nn.Module):
                       ``transformation_matrix`` and ``agent_mask`` are
                       read from ``batch``).
 
-        ``generator`` draws the attention-dropout mask of a training
-        forward (the JAX package's ``rngs={"dropout": key}``); None takes
-        the device's global generator.
+        ``generator`` draws every dropout mask of a training forward, the
+        FAX self-attention's and FuseBEVT's (the JAX package's
+        ``rngs={"dropout": key}``), through ``nn/layers.py:rank_uniform``;
+        None takes the device's global generator.
         """
         cfg = self.config
         dtype = self.encoder.encoder.conv1.weight.dtype
@@ -160,7 +161,8 @@ class CorpBEVT(nn.Module):
         else:
             com_mask = agent_mask[:, :, None, None].float().expand(
                 B, L, H, W)
-        fused = self.fusion_net(x, com_mask, agent_mask=agent_mask)
+        fused = self.fusion_net(x, com_mask, agent_mask=agent_mask,
+                                generator=generator)
         return self.seg_head(self.decoder(fused[:, None]))
 
 

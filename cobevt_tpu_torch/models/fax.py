@@ -29,6 +29,8 @@ from cobevt_tpu_torch.nn.layers import (
     batch_norm,
     bn_nhwc,
     conv_nhwc,
+    dropout,
+    keep_mask,
     layer_norm,
     mlp_seq,
     pixel_unshuffle,
@@ -41,6 +43,7 @@ from cobevt_tpu_torch.ops.fused_cross_attention import (
     pack_params,
 )
 from cobevt_tpu_torch.ops.window_attention import fused_window_attention_packed
+from cobevt_tpu_torch.parallel.mesh import full_weight
 
 
 # ---------------------------------------------------------------------------
@@ -189,8 +192,11 @@ class SelfAttention(nn.Module):
             torch.from_numpy(rel_pos_indices_2d(window_size)),
             persistent=False)
 
-    def forward(self, x, generator=None):
-        """``generator`` draws the dropout keep-mask in training."""
+    def forward(self, x, generator=None, agents=None):
+        """``generator`` draws the dropout keep-mask in training; ``agents``:
+        the agents of each sample in the leading axis of ``x`` (b x agents),
+        which a draw under a mesh's agent axis reads
+        (``nn/layers.py:rank_uniform``)."""
         B, H, W, d = x.shape
         heads = self.heads
         T = H * W
@@ -203,18 +209,25 @@ class SelfAttention(nn.Module):
         bias_flat = bias.permute(0, 2, 1).reshape(T, heads * T)
         drop_w = None
         if self.training and self.dropout > 0:
-            keep = torch.rand((B, T, heads * T), device=x.device,
-                              generator=generator) >= self.dropout
+            keep = keep_mask((B, T, heads * T), self.dropout, x.device,
+                             generator, agents=agents)
             drop_w = keep.to(q.dtype) / (1.0 - self.dropout)
         out = fused_window_attention_packed(
             q.contiguous(), k.contiguous(), v.contiguous(), n_heads=heads,
             bias_flat=bias_flat, weight=drop_w)
-        return self.to_out(out.reshape(B, H, W, heads * self.dim_head))
+        out = self.to_out[0](out.reshape(B, H, W, heads * self.dim_head))
+        return dropout(out, self.dropout, self.training, generator,
+                       agents=agents)
 
 
 class CrossWinAttention(nn.Module):
     """Windowed cross-attention: each BEV query window attends to the
     matching (local or grid) window of every camera's features."""
+
+    # column-parallel layers whose output a rank may keep to its own
+    # columns, in whole heads (``parallel/mesh.py``)
+    tp_local_columns = {"to_q.1": "dim_head", "to_k.1": "dim_head",
+                        "to_v.1": "dim_head"}
 
     def __init__(self, dim: int, heads: int, dim_head: int, qkv_bias: bool):
         super().__init__()
@@ -231,7 +244,9 @@ class CrossWinAttention(nn.Module):
 
     def forward(self, q, k, v, skip=None):
         """q: (b, nq, X, Y, W1, W2, d); k, v: (b, n, X, Y, w1, w2, d).
-        Returns (b, X, Y, W1, W2, d)."""
+        Returns (b, X, Y, W1, W2, d).  The heads are those of the
+        projections' output: a tensor-parallel rank's own
+        (``parallel/mesh.py``) or all."""
         b, nq, X, Y, W1, W2, _ = q.shape
         q = rearrange(q, "b n x y w1 w2 d -> b (x y) (n w1 w2) d")
         k = rearrange(k, "b n x y w1 w2 d -> b (x y) (n w1 w2) d")
@@ -245,7 +260,8 @@ class CrossWinAttention(nn.Module):
         out = fused_window_attention_packed(
             q.reshape(bq * nwin, Tq, C).contiguous(),
             k.reshape(bq * nwin, Tk, C).contiguous(),
-            v.reshape(bq * nwin, Tk, C).contiguous(), n_heads=self.heads)
+            v.reshape(bq * nwin, Tk, C).contiguous(),
+            n_heads=C // self.dim_head)
         out = self.proj(out.reshape(bq, nwin, Tq, C))
         out = rearrange(out, "b (x y) (n w1 w2) d -> b n x y w1 w2 d",
                         x=X, y=Y, w1=W1, w2=W2)
@@ -292,25 +308,31 @@ def _cross_params(attend: "CrossWinAttention") -> dict:
     (the JAX package's ``CrossWinAttentionParams``)."""
     def lin(seq):
         ln, dense = seq
+        weight = full_weight(dense)
         bias = dense.bias if dense.bias is not None else \
-            dense.weight.new_zeros(dense.weight.shape[0])
-        return _ln_pair(ln), dense.weight.t(), bias
+            weight.new_zeros(weight.shape[0])
+        return _ln_pair(ln), weight.t(), bias
 
     (ln_q, wq, bq), (ln_k, wk, bk), (ln_v, wv, bv) = (
         lin(attend.to_q), lin(attend.to_k), lin(attend.to_v))
     return {"ln_q": ln_q, "ln_k": ln_k, "ln_v": ln_v, "wq": wq, "bq": bq,
             "wk": wk, "bk": bk, "wv": wv, "bv": bv,
-            "wo": attend.proj.weight.t(), "bo": attend.proj.bias}
+            "wo": full_weight(attend.proj).t(), "bo": attend.proj.bias}
 
 
 def _mlp_params(prenorm: nn.LayerNorm, seq: nn.Sequential) -> dict:
-    return {"ln": _ln_pair(prenorm), "w1": seq[0].weight.t(),
-            "b1": seq[0].bias, "w2": seq[2].weight.t(), "b2": seq[2].bias}
+    return {"ln": _ln_pair(prenorm), "w1": full_weight(seq[0]).t(),
+            "b1": seq[0].bias, "w2": full_weight(seq[2]).t(),
+            "b2": seq[2].bias}
 
 
 class CrossViewSwapAttention(nn.Module):
     """One FAX pyramid stage: camera-geometry embeds + local-window
     cross-attention + grid cross-attention, each followed by an MLP."""
+
+    # the MLPs' first layers may keep a rank's own hidden columns
+    # (``parallel/mesh.py``)
+    tp_local_columns = {"mlp_1.0": None, "mlp_2.0": None}
 
     def __init__(self, feat_height: int, feat_width: int, feat_dim: int,
                  dim: int, image_height: int, image_width: int,
@@ -593,6 +615,6 @@ class FAXModule(FAXStages):
              zip(features, cfg.backbone_output_shape)],
             I_inv, E_inv, features[0].dtype)
         if cfg.use_self_attn:
-            x = self.self_attn(x, generator=generator)
+            x = self.self_attn(x, generator=generator, agents=l)
         H, W = x.shape[1:3]
         return x.reshape(b, l, H, W, -1)

@@ -20,7 +20,7 @@ import torch
 import torch.nn as nn
 from einops import rearrange
 
-from cobevt_tpu_torch.nn.layers import layer_norm
+from cobevt_tpu_torch.nn.layers import dropout, layer_norm
 from cobevt_tpu_torch.ops.dispatch import PackCache
 from cobevt_tpu_torch.ops.fused_swap_fusion import (
     fits_resident,
@@ -81,9 +81,10 @@ class FusionAttention(nn.Module):
         self.to_out = nn.Sequential(nn.Linear(dim, dim, bias=False),
                                     nn.Dropout(dropout))
 
-    def forward(self, x, mask=None):
-        """x: (b, l, X, Y, w1, w2, d); mask: (b, X, Y, w1, w2, l) or None.
-        Returns the same shape as x."""
+    def forward(self, x, mask=None, generator=None):
+        """x: (b, l, X, Y, w1, w2, d); mask: (b, X, Y, w1, w2, l) or None;
+        ``generator`` draws the output dropout in training.  Returns the
+        same shape as x."""
         b, l, X, Y, w1, w2, d = x.shape
         C = self.heads * self.dim_head
         T = l * w1 * w2
@@ -102,14 +103,21 @@ class FusionAttention(nn.Module):
             q.reshape(G, T, C).contiguous(), k.reshape(G, T, C).contiguous(),
             v.reshape(G, T, C).contiguous(), n_heads=self.heads,
             bias_flat=bias_flat, mask=key_mask)
-        out = self.to_out(out.reshape(b, X * Y, T, C))
+        out = dropout(self.to_out[0](out.reshape(b, X * Y, T, C)),
+                      self.to_out[1].p, self.training, generator)
         return rearrange(out, "b (x y) (l w1 w2) d -> b l x y w1 w2 d",
                          x=X, y=Y, l=l, w1=w1, w2=w2)
 
 
 class FeedForward(nn.Module):
     """Linear -> GELU -> Dropout -> Linear -> Dropout (torch names net.0 /
-    net.3)."""
+    net.3).  Under a mesh ``net.0`` may give a rank its own hidden columns
+    (``parallel/mesh.py``), and the first mask is then that rank's columns
+    of the whole width's."""
+
+    # column-parallel layers whose output a rank may keep to its own
+    # columns (the unit of the split: any column)
+    tp_local_columns = {"net.0": None}
 
     def __init__(self, dim: int, hidden_dim: int, dropout: float = 0.0):
         super().__init__()
@@ -117,8 +125,12 @@ class FeedForward(nn.Module):
             nn.Linear(dim, hidden_dim), nn.GELU(), nn.Dropout(dropout),
             nn.Linear(hidden_dim, dim), nn.Dropout(dropout))
 
-    def forward(self, x):
-        return self.net(x)
+    def forward(self, x, generator=None):
+        """``generator`` draws both dropout masks in training."""
+        p, train = self.net[2].p, self.training
+        x = dropout(self.net[1](self.net[0](x)), p, train, generator,
+                    width=self.net[0].out_features)
+        return dropout(self.net[3](x), p, train, generator)
 
 
 class _PreNormAttn(nn.Module):
@@ -130,8 +142,8 @@ class _PreNormAttn(nn.Module):
         self.fn = FusionAttention(dim, dim_head, dropout, agent_size,
                                   window_size)
 
-    def forward(self, x, mask=None):
-        return self.fn(self.norm(x), mask) + x
+    def forward(self, x, mask=None, generator=None):
+        return self.fn(self.norm(x), mask, generator) + x
 
 
 class _PreNormFFD(nn.Module):
@@ -142,8 +154,8 @@ class _PreNormFFD(nn.Module):
         self.norm = layer_norm(dim)
         self.fn = FeedForward(dim, mlp_dim, dropout)
 
-    def forward(self, x):
-        return self.fn(self.norm(x)) + x
+    def forward(self, x, generator=None):
+        return self.fn(self.norm(x), generator) + x
 
 
 class SwapFusionBlock(nn.Module):
@@ -178,22 +190,23 @@ class SwapFusionBlock(nn.Module):
                     self.grid_attention, self.grid_ffd)
         return tuple(self.block[i] for i in (1, 2, 5, 6))
 
-    def forward(self, x, mask=None):
-        """x: (B, L, H, W, d); mask: (B, L, H, W) or None."""
+    def forward(self, x, mask=None, generator=None):
+        """x: (B, L, H, W, d); mask: (B, L, H, W) or None; ``generator``
+        draws the dropout masks in training."""
         w = self.window_size
         win_attn, win_ffd, grid_attn, grid_ffd = self._sublayers()
         xw = rearrange(x, "b l (x w1) (y w2) d -> b l x y w1 w2 d",
                        w1=w, w2=w)
         mw = None if mask is None else rearrange(
             mask, "b l (x w1) (y w2) -> b x y w1 w2 l", w1=w, w2=w)
-        xw = win_ffd(win_attn(xw, mw))
+        xw = win_ffd(win_attn(xw, mw, generator), generator)
         x = rearrange(xw, "b l x y w1 w2 d -> b l (x w1) (y w2) d")
 
         xg = rearrange(x, "b l (w1 x) (w2 y) d -> b l x y w1 w2 d",
                        w1=w, w2=w)
         mg = None if mask is None else rearrange(
             mask, "b l (w1 x) (w2 y) -> b x y w1 w2 l", w1=w, w2=w)
-        xg = grid_ffd(grid_attn(xg, mg))
+        xg = grid_ffd(grid_attn(xg, mg, generator), generator)
         return rearrange(xg, "b l x y w1 w2 d -> b l (w1 x) (w2 y) d")
 
 
@@ -292,9 +305,11 @@ class SwapFusionEncoder(nn.Module):
             return "K6", resident
         return None, False
 
-    def forward(self, x, mask=None, agent_mask=None):
+    def forward(self, x, mask=None, agent_mask=None, generator=None):
         """x: (B, L, H, W, d); mask: (B, L, H, W); agent_mask: (B, L)
-        (read only with ``mean_over_valid``).  Returns (B, H, W, d)."""
+        (read only with ``mean_over_valid``); ``generator`` draws the
+        dropout masks of a training forward (None: the device's global
+        generator).  Returns (B, H, W, d)."""
         if not self.mask:
             mask = None
         kernel, in_k4s_place = self._dispatch(x.shape)
@@ -303,7 +318,7 @@ class SwapFusionEncoder(nn.Module):
                                     streaming=kernel == "K6",
                                     round_bias=in_k4s_place)
         for layer in self.layers:
-            x = layer(x, mask)
+            x = layer(x, mask, generator)
         if self.mean_over_valid and agent_mask is not None:
             w = agent_mask[:, :, None, None, None].to(x.dtype)
             x = (x * w).sum(dim=1) / w.sum(dim=1).clamp(min=1.0)

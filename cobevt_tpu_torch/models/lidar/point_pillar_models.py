@@ -133,7 +133,7 @@ class PointPillarFuseBEVT(nn.Module):
                                       cfg.voxel_size[0],
                                       cfg.sttf_downsample_rate)
         if cfg.fusion == "swap":
-            fused = self.fusion_net(x, com_mask)
+            fused = self.fusion_net(x, com_mask, generator=generator)
         else:
             fused = max_fusion(x)
         return {"cls_preds": conv_nhwc(self.cls_head, fused),

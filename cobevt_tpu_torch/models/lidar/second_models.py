@@ -136,7 +136,7 @@ class SecondDetector(nn.Module):
             com_mask = roi_and_agent_mask((B, L, h, w), agent_mask, tmat,
                                           res, rate)
             if cfg.fusion == "swap":
-                fused = self.fusion_net(x, com_mask)
+                fused = self.fusion_net(x, com_mask, generator=generator)
             else:
                 fused = max_fusion(x)
         else:

@@ -43,6 +43,7 @@ from cobevt_tpu_torch.nn.layers import (
     bn_nhwc,
     conv_nhwc,
     frozen_bn_statistics,
+    rank_uniform,
     torch_conv,
 )
 
@@ -172,8 +173,7 @@ class MBConvBlock(nn.Module):
                 and s.in_ch == s.out_ch):
             return None
         keep = 1.0 - s.drop_rate
-        draw = torch.rand((x.shape[0], 1, 1, 1), device=x.device,
-                          generator=generator)
+        draw = rank_uniform((x.shape[0], 1, 1, 1), x.device, generator)
         return (draw < keep).to(x.dtype) / keep
 
     def forward(self, x, gate=None):

@@ -393,13 +393,58 @@ def pixel_unshuffle(x, factor: int = 2):
     return x.reshape(B, H // r, W // r, C * r * r)
 
 
-def dropout(x, p: float, training: bool, generator=None):
+def rank_uniform(shape, device, generator=None, agents=None, width=None):
+    """U[0, 1) numbers of ``shape`` from ``generator`` (None: the device's
+    global generator): every random draw of a training forward (dropout,
+    drop-connect) is made here.
+
+    Outside a multi-rank train step it is ``torch.rand(shape)``.  Inside one
+    (``parallel/distributed.py:draw_layout``) ``shape`` is this rank's part
+    of a global tensor: dim 0 holds its rows of the global batch, or with
+    ``agents`` its rows of (batch x agents) flattened, ``agents`` per sample
+    here (split over "model" on the agent axis of a mesh), and with
+    ``width`` the last dim holds its columns of ``width`` (a column-parallel
+    layer's output, ``parallel/mesh.py``).  The global tensor is drawn and
+    this rank's part returned, so each rank reads the numbers one process
+    draws on the global batch and every rank's generator moves alike.  The
+    ranks' parts are equal in size, as the blocks of a sharded JAX batch
+    are."""
+    from cobevt_tpu_torch.parallel.distributed import current_draw_layout
+
+    lay = current_draw_layout()
+    if lay is None:
+        return torch.rand(shape, device=device, generator=generator)
+    shape = list(shape)
+    rows, tail = shape[0], shape[1:]
+    lead = [rows // agents, agents] if agents else [rows]
+    full = [lead[0] * lay.n_data] + lead[1:]
+    if agents and lay.agents_split:
+        full[1] *= lay.n_model
+    cols = tail[-1] if tail else None
+    if width is not None and cols != width:
+        tail = tail[:-1] + [width]
+    u = torch.rand(full + tail, device=device, generator=generator)
+    u = u.narrow(0, lay.data_index * lead[0], lead[0])
+    if agents and lay.agents_split:
+        u = u.narrow(1, lay.model_index * agents, agents)
+    if width is not None and cols != width:
+        u = u.narrow(-1, lay.model_index * cols, cols)
+    return u.reshape(shape)
+
+
+def keep_mask(shape, p: float, device, generator=None, **part):
+    """The keep-mask of a dropout at rate ``p``: :func:`rank_uniform` >= p
+    (``part``: its ``agents`` / ``width``)."""
+    return rank_uniform(shape, device, generator, **part) >= p
+
+
+def dropout(x, p: float, training: bool, generator=None, **part):
     """Inverted dropout whose keep-mask is drawn from ``generator`` (None:
-    the device's global generator); the identity outside training or at
-    ``p`` 0."""
+    the device's global generator) by :func:`keep_mask`; the identity
+    outside training or at ``p`` 0."""
     if not training or p == 0.0:
         return x
-    keep = torch.rand(x.shape, device=x.device, generator=generator) >= p
+    keep = keep_mask(x.shape, p, x.device, generator, **part)
     return x * keep.to(x.dtype) / (1.0 - p)
 
 

@@ -199,14 +199,18 @@ def min_over_ranks(n: int) -> int:
 BUCKET_ELEMENTS = 25 * 2 ** 20
 
 
-def all_reduce_mean_(tensors, bucket_elements: int = BUCKET_ELEMENTS):
+def all_reduce_mean_(tensors, bucket_elements: int = BUCKET_ELEMENTS,
+                     group=None, divisor: Optional[int] = None):
     """Average ``tensors`` (one dtype) over the default group in place: the
     tensors are packed into buckets of at most ``bucket_elements``, each
     bucket summed by one ``all_reduce`` and divided by the world size.  A
-    no-op for one process."""
+    no-op for one process.  ``group`` sums over a sub-group instead and
+    ``divisor`` divides by another count (a mesh step sums a sharded
+    gradient over "data" and divides it by the world)."""
     world = world_size()
     if world == 1 or not tensors:
         return tensors
+    divisor = world if divisor is None else divisor
     buckets, current, size = [], [], 0
     for t in tensors:
         if current and size + t.numel() > bucket_elements:
@@ -217,8 +221,8 @@ def all_reduce_mean_(tensors, bucket_elements: int = BUCKET_ELEMENTS):
     buckets.append(current)
     for bucket in buckets:
         flat = torch.cat([t.reshape(-1) for t in bucket])
-        dist.all_reduce(flat)
-        flat.div_(world)
+        dist.all_reduce(flat, group=group)
+        flat.div_(divisor)
         torch._foreach_copy_(
             bucket, [v.view_as(t) for v, t in zip(
                 flat.split([t.numel() for t in bucket]), bucket)])
@@ -258,25 +262,67 @@ def rank_mean_denominator(den):
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """Sum over the default group; its backward sums the gradients over the
-    group too (every rank's loss depends on every rank's input)."""
+    """Sum over a group (None: the default one); its backward sums the
+    gradients over the group too (every rank's loss depends on every rank's
+    input)."""
 
     @staticmethod
-    def forward(ctx, t):
+    def forward(ctx, t, group):
+        ctx.group = group
         t = t.clone()
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=group)
         return t
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone()
-        dist.all_reduce(g)
-        return g
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
 
 
-def all_reduce_sum(t):
-    """Differentiable sum of ``t`` over the default group (a new tensor)."""
-    return _AllReduceSum.apply(t)
+def all_reduce_sum(t, group=None):
+    """Differentiable sum of ``t`` over ``group`` (None: the default group),
+    a new tensor."""
+    return _AllReduceSum.apply(t, group)
+
+
+@dataclasses.dataclass(frozen=True)
+class DrawLayout:
+    """Where a rank's tensors lie in the global batch of a multi-rank train
+    step: its block ``data_index`` of ``n_data`` along the batch, and its
+    block ``model_index`` of ``n_model`` along the agents (``agents_split``,
+    the agent axis of a mesh) and along a column-parallel layer's output
+    features (``parallel/mesh.py``)."""
+
+    n_data: int
+    data_index: int
+    n_model: int = 1
+    model_index: int = 0
+    agents_split: bool = False
+
+
+_layout_scope = threading.local()
+
+
+@contextlib.contextmanager
+def draw_layout(layout: Optional[DrawLayout]):
+    """The random draws of a training forward inside the block read
+    ``layout`` (``nn/layers.py:rank_uniform``): each rank draws the global
+    batch's numbers from its generator, whose state every rank keeps alike,
+    and takes its own part, so the ranks draw what one process draws on the
+    global batch.  The train step opens it under a group of several ranks;
+    None (and outside any block) draws the local shape."""
+    prev = getattr(_layout_scope, "layout", None)
+    _layout_scope.layout = layout
+    try:
+        yield
+    finally:
+        _layout_scope.layout = prev
+
+
+def current_draw_layout() -> Optional[DrawLayout]:
+    """The layout of the innermost :func:`draw_layout` block, or None."""
+    return getattr(_layout_scope, "layout", None)
 
 
 def broadcast_module_(module: torch.nn.Module, src: int = 0) -> None:

@@ -9,12 +9,14 @@ from cobevt_tpu_torch.train.state import (
     create_train_state,
 )
 from cobevt_tpu_torch.train.step import (
+    full_state_dict,
     global_norm,
     make_eval_step,
     make_train_step,
+    place_state,
 )
 
 __all__ = ["TrainState", "compute_twin", "cosine_warmup_schedule",
-           "create_train_state",
+           "create_train_state", "full_state_dict",
            "global_norm", "make_eval_step", "make_optimizer",
-           "make_train_step", "onecycle_schedule"]
+           "make_train_step", "onecycle_schedule", "place_state"]

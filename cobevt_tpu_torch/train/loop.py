@@ -14,7 +14,9 @@ only rank 0 writes the logs and the checkpoints (the others wait for it),
 and a validation pass sums every rank's confusion counts.  Its logs are 0-d
 device tensors; they are read to floats only on ``log_every`` steps, since a
 read is a wait for the device.  The dropout masks of every step come from one
-``torch.Generator`` on the model's device, saved with each checkpoint.  The
+``torch.Generator`` on the model's device, saved with each checkpoint: every
+rank keeps the same generator state, draws the global batch's masks and takes
+its own rows (``nn/layers.py:rank_uniform``).  The
 confusion counts of a validation pass add up on the device and are read
 once at its end.
 """

@@ -30,6 +30,7 @@ class TrainState:
     compute_model: nn.Module              # runs forward and backward
     step: int = 0
     grad_clip: Optional[float] = None     # global-norm clip, or None
+    mesh: Optional[object] = None         # the DeviceMesh of place_state
 
     @property
     def params(self) -> List[nn.Parameter]:

@@ -18,6 +18,12 @@ bucket needs a compile of its own.
   -> fusion -> decoder -> head) at full width with the padded transforms
   and mask: the fusion input is that of a full padded forward, so the
   output is exact for any fusion-mean semantics.
+
+Given a ("data", "model") ``mesh`` (``parallel/mesh.py``; the JAX runners'
+``data_sharding``), every rank is handed the whole batch, serves its rows
+over "data" on its whole model, and the outputs are gathered over "data":
+each rank returns the whole batch's, as the JAX runner returns one global
+array.
 """
 
 from __future__ import annotations
@@ -27,6 +33,13 @@ import os
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from cobevt_tpu_torch.parallel.mesh import (
+    batch_sharding,
+    gather_plain,
+    local_part,
+    mesh_axis,
+)
 
 # agent axis of every per-agent entry of a batch; ``pairwise_t_matrix``
 # (B, L, L, 4, 4) is sliced on the next axis too
@@ -79,38 +92,58 @@ class BucketedRunner:
     """Runs a frame on its live agents alone: every per-agent entry sliced
     to the fullest sample's live count, then the whole graph.  Takes host
     (numpy) batches, returns the model's output dict on the model's device
-    without waiting for it."""
+    without waiting for it (with a ``mesh``: after the gather)."""
 
-    def __init__(self, model: torch.nn.Module):
+    def __init__(self, model: torch.nn.Module, mesh=None):
         self.model = model.eval()
         self.device = model_device(model)
+        self.mesh = mesh
+
+    def _rows(self, batch: dict) -> dict:
+        """This rank's rows over "data" of a host batch (all without a
+        mesh)."""
+        if self.mesh is None:
+            return batch
+        return {k: local_part(v, self.mesh, batch_sharding(self.mesh))
+                for k, v in batch.items()}
+
+    def _whole(self, out: dict) -> dict:
+        """The outputs of every "data" rank, in batch order."""
+        if self.mesh is None:
+            return out
+        axis = mesh_axis(self.mesh, "data")
+        return {k: gather_plain(v.contiguous(), 0, axis)
+                for k, v in out.items()}
 
     @torch.inference_mode()
     def __call__(self, batch: dict) -> dict:
-        return self.model(to_device(slice_agents(batch, live_agents(batch)),
-                                    self.device))
+        batch = slice_agents(batch, live_agents(batch))
+        return self._whole(self.model(to_device(self._rows(batch),
+                                                self.device)))
 
 
 class StagedBucketedRunner(BucketedRunner):
     """Runs a CorpBEVT frame as encode on the live agents, zero-pad to
     ``max_cav``, fuse."""
 
-    def __init__(self, model: torch.nn.Module, max_cav: int):
-        super().__init__(model)
+    def __init__(self, model: torch.nn.Module, max_cav: int, mesh=None):
+        super().__init__(model, mesh)
         self.max_cav = max_cav
 
     @torch.inference_mode()
     def __call__(self, batch: dict) -> dict:
         n = live_agents(batch)
+        rows = self._rows(batch)
         agent_bev = self.model(
-            to_device(slice_agents(batch, n), self.device), stage="encode")
+            to_device(slice_agents(rows, n), self.device), stage="encode")
         pad = self.max_cav - n
         if pad:
             agent_bev = F.pad(agent_bev, (0, 0, 0, 0, 0, 0, 0, pad))
         fuse_batch = to_device(
-            {k: batch[k] for k in ("transformation_matrix", "agent_mask")},
+            {k: rows[k] for k in ("transformation_matrix", "agent_mask")},
             self.device)
-        return self.model(fuse_batch, stage="fuse", agent_bev=agent_bev)
+        return self._whole(self.model(fuse_batch, stage="fuse",
+                                      agent_bev=agent_bev))
 
 
 class FullRunner:

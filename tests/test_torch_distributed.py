@@ -10,9 +10,10 @@ asked for by name.  Then one executed two-process gloo run on the CPU
 each rank loads its shard of a 4-sample set through the port's
 ``DataLoader`` and takes one data-parallel step of the tiny CorpBEVT, which
 must equal one process's step on the global batch of 4 within 1e-5
-relative in the loss, every parameter and every BatchNorm statistic.
-Dropout is off in that model: each rank draws its batch's masks from one
-generator state, so the two runs would draw different masks.  A second
+relative in the loss, every parameter and every BatchNorm statistic, once
+with every dropout off and once with the self-attention and fusion dropouts
+at 0.1: each rank draws the global batch's masks from one generator state
+and keeps its rows (``nn/layers.py:rank_uniform``).  A second
 two-process run takes one epoch of ``Trainer.fit`` over shards of unequal
 length (5 samples at batch 1), which must end with as many steps on each
 rank, the same losses as one process on the paired batches, and one
@@ -196,22 +197,33 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_ranks(tmp_path, mode, *args):
-    """Start two workers in ``mode`` with the explicit-env rendezvous, wait
-    for both (a hung pair fails at the time limit) and return their
-    ``.npz`` results in rank order."""
+def start_ranks(tmp_path, mode, *args, world=2, worker=WORKER):
+    """Start ``world`` workers in ``mode`` with the explicit-env
+    rendezvous; returns (processes, result paths) for :func:`wait_ranks`."""
     port = _free_port()
     procs, outs = [], []
-    for pid in range(2):
+    for pid in range(world):
         env = os.environ.copy()
         env.update(COBEVT_COORDINATOR=f"127.0.0.1:{port}",
-                   JAX_NUM_PROCESSES="2", JAX_PROCESS_ID=str(pid),
+                   JAX_NUM_PROCESSES=str(world), JAX_PROCESS_ID=str(pid),
                    OMP_NUM_THREADS="1")
         outs.append(tmp_path / f"{mode}_rank{pid}.npz")
         procs.append(subprocess.Popen(
-            [sys.executable, WORKER, mode, str(outs[-1]), *args], env=env,
+            [sys.executable, worker, mode, str(outs[-1]), *args], env=env,
             cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
+    return procs, outs
+
+
+def run_ranks(tmp_path, mode, *args):
+    """Start two workers in ``mode``, wait for both (a hung pair fails at
+    the time limit) and return their ``.npz`` results in rank order."""
+    return wait_ranks(*start_ranks(tmp_path, mode, *args))
+
+
+def wait_ranks(procs, outs):
+    """Wait for the workers of :func:`start_ranks` and return their results
+    in rank order."""
     logs = []
     for pid, p in enumerate(procs):
         try:
@@ -229,6 +241,30 @@ def _worker():
     sys.path.insert(0, os.path.dirname(WORKER))
     import torch_dp_worker
     return torch_dp_worker
+
+
+def assert_step_equal(got, want, lr):
+    """The comparison of a step against one process's step on the global
+    batch (see the test below): 1e-5 relative in the loss, every gradient
+    the update read, every BatchNorm statistic and every updated parameter
+    element whose gradient is clear of the noise floor."""
+    floor = 1e-6 * max(np.abs(v).max() for k, v in want.items()
+                       if k.startswith("grad/"))
+    assert abs(got["loss"] - want["loss"]) <= 1e-5 * abs(want["loss"])
+    checked = 0
+    for key, w in want.items():
+        d = np.abs(got[key] - w)
+        if key.startswith("grad/"):
+            assert d.max() <= 1e-5 * max(np.abs(w).max(), floor), key
+        elif "running" in key:
+            assert d.max() <= 1e-5 * np.abs(w).max(), key
+        elif f"grad/{key}" in want:
+            clear = np.abs(want[f"grad/{key}"]) > floor
+            assert (d[clear] <= 1e-5 * np.abs(w).max()).all(), key
+            assert d.max() <= 2 * lr, key
+            checked += int(clear.sum())
+    assert checked > 0.95 * sum(w.size for k, w in want.items()
+                                if k.startswith("grad/"))
 
 
 def test_two_process_step_equals_one_process_on_the_global_batch(tmp_path):
@@ -257,24 +293,28 @@ def test_two_process_step_equals_one_process_on_the_global_batch(tmp_path):
     for key in want:
         np.testing.assert_array_equal(ranks[0][key], ranks[1][key],
                                       err_msg=key)
-    got = ranks[0]
-    floor = 1e-6 * max(np.abs(v).max() for k, v in want.items()
-                       if k.startswith("grad/"))
-    assert abs(got["loss"] - want["loss"]) <= 1e-5 * abs(want["loss"])
-    checked = 0
-    for key, w in want.items():
-        d = np.abs(got[key] - w)
-        if key.startswith("grad/"):
-            assert d.max() <= 1e-5 * max(np.abs(w).max(), floor), key
-        elif "running" in key:
-            assert d.max() <= 1e-5 * np.abs(w).max(), key
-        elif f"grad/{key}" in want:
-            clear = np.abs(want[f"grad/{key}"]) > floor
-            assert (d[clear] <= 1e-5 * np.abs(w).max()).all(), key
-            assert d.max() <= 2 * lr, key
-            checked += int(clear.sum())
-    assert checked > 0.95 * sum(w.size for k, w in want.items()
-                                if k.startswith("grad/"))
+    assert_step_equal(ranks[0], want, lr)
+
+
+def test_two_process_step_with_dropout_equals_one_process(tmp_path):
+    """The step above with the self-attention and fusion dropouts at 0.1,
+    the masks drawn from a generator seeded alike on both ranks and in the
+    one process: each rank draws the global batch's masks and takes its
+    rows, so the two ranks' step is one process's step on the global batch,
+    to the same 1e-5 relative, with bit-equal ranks."""
+    worker = _worker()
+    ranks = run_ranks(tmp_path, "step_dropout")
+
+    _, state, step = worker.train_state(seed=0, dropout=worker.DROPOUT)
+    gen = torch.Generator().manual_seed(worker.DROPOUT_SEED)
+    want = worker.results(state, step(state, worker.to_tensors(
+        worker.global_batch()), gen))
+
+    assert set(ranks[0]) - {"rank"} == set(want)
+    for key in want:
+        np.testing.assert_array_equal(ranks[0][key], ranks[1][key],
+                                      err_msg=key)
+    assert_step_equal(ranks[0], want, state.schedule(0))
 
 
 def test_two_process_fit_takes_as_many_steps_on_unequal_shards(tmp_path):

@@ -7,13 +7,18 @@ batches.  A rank joins the gloo group through
 ``cobevt_tpu_torch.parallel.maybe_initialize_distributed`` and trains the
 tiny CorpBEVT in f64 through an f64 compute twin, so the step takes the
 twin's branch (its gradients copied into the masters' before the
-reduction), as a bf16 run does; dropout is 0, and rank 1 starts from other
-weights, which the step's broadcast replaces by rank 0's.
+reduction), as a bf16 run does; dropout is 0 (but in ``step_dropout``), and
+rank 1 starts from other weights, which the step's broadcast replaces by
+rank 0's.
 
   python tests/torch_dp_worker.py step <out.npz>
       loads its shard of a 4-sample set through the port's ``DataLoader``
       (batch 2), takes one train step and writes its loss, its parameters,
       its BatchNorm statistics and the gradients the update read.
+  python tests/torch_dp_worker.py step_dropout <out.npz>
+      the same with the self-attention and fusion dropouts at
+      ``DROPOUT`` and the masks drawn from a generator seeded
+      ``DROPOUT_SEED`` on every rank.
   python tests/torch_dp_worker.py fit <out.npz> <ckpt_dir>
       runs one epoch of ``Trainer.fit`` over its shard of a 5-sample set at
       batch 1 (shards of 2 and 3 samples) with a checkpoint at its end, and
@@ -29,13 +34,15 @@ import numpy as np
 B, L, M, IMG, BEV = 4, 2, 1, 64, 32
 # the fit mode's set: shards of 2 and 3 samples on two ranks
 FIT_SAMPLES = 5
+# the dropout rates of step_dropout (CorpBEVT's default) and the seed of
+# the generator that draws the masks
+DROPOUT, DROPOUT_SEED = 0.1, 7
 
 
-def tiny_config():
+def tiny_config(dropout: float = 0.0, max_cav: int = L):
     """The train-step test's config (``tests/test_torch_train_step.py``:
-    ResNet-18, 64^2 images, 2 agents x 1 camera, BEV 32^2) with every
-    dropout rate at 0: the two runs would draw different masks, since each
-    rank draws its own batch's from one generator state."""
+    ResNet-18, 64^2 images, 2 agents x 1 camera, BEV 32^2) with the
+    self-attention and fusion dropout rates at ``dropout``."""
     from cobevt_tpu_torch.models.corpbevt import CorpBEVTConfig
     from cobevt_tpu_torch.models.fax import FAXConfig
 
@@ -46,13 +53,13 @@ def tiny_config():
         feat_win_size=((2, 2), (2, 2), (2, 2)),
         bev_embedding_flag=(True, False, False), bev_height=BEV,
         bev_width=BEV, upsample_scales=(2, 4, 8), self_attn_dim_head=16,
-        self_attn_dropout=0.0, self_attn_window=4)
+        self_attn_dropout=dropout, self_attn_window=4)
     return CorpBEVTConfig(
-        max_cav=L, target="dynamic", encoder_num_layers=18,
+        max_cav=max_cav, target="dynamic", encoder_num_layers=18,
         encoder_id_pick=(1, 2, 3), image_height=IMG, image_width=IMG,
         fax=fax, sttf_resolution=0.8, sttf_downsample_rate=4,
         use_roi_mask=True, fusion_mlp_dim=32, fusion_window_size=2,
-        fusion_dim_head=8, fusion_dropout=0.0, fusion_depth=1,
+        fusion_dim_head=8, fusion_dropout=dropout, fusion_depth=1,
         fusion_mask=True, decoder_num_layer=3, decoder_num_ch=(16, 24, 32),
         seg_head_dim=16, output_class=2)
 
@@ -111,25 +118,35 @@ def criterion(out, b):
                      "gt_static": b["gt_dynamic"]})
 
 
-def train_state(seed: int = 0):
+def train_state(seed: int = 0, dropout: float = 0.0):
     """(model, state, step) of the tiny CorpBEVT, weights from ``seed``, on
     the train-step test's schedule, AdamW and class-weighted loss, computing
     on an f64 twin of the f64 masters."""
     import torch
 
     from cobevt_tpu_torch.models.corpbevt import CorpBEVT
+    from cobevt_tpu_torch.train import make_train_step
+    from cobevt_tpu_torch.utils.weights import seeded_init_
+
+    torch.manual_seed(seed)
+    model = CorpBEVT(tiny_config(dropout))
+    seeded_init_(model, seed)
+    model = model.double()
+    state = state_of(model)
+    return model, state, make_train_step(model, criterion)
+
+
+def state_of(model):
+    """The train state of the f64 ``model`` on the train-step test's
+    schedule and AdamW, computing on an f64 twin, with ``grads``: the
+    gradients its updates read, by parameter name (an optimizer hook)."""
+    import torch
+
     from cobevt_tpu_torch.train import (
         cosine_warmup_schedule,
         create_train_state,
         make_optimizer,
-        make_train_step,
     )
-    from cobevt_tpu_torch.utils.weights import seeded_init_
-
-    torch.manual_seed(seed)
-    model = CorpBEVT(tiny_config())
-    seeded_init_(model, seed)
-    model = model.double()
 
     schedule = cosine_warmup_schedule(2e-4, 2e-5, 10, 100)
     optimizer = make_optimizer(model.parameters(), schedule)
@@ -143,7 +160,7 @@ def train_state(seed: int = 0):
                                compute_dtype=torch.float64)
     assert state.compute_model is not model
     state.grads = grads
-    return model, state, make_train_step(model, criterion)
+    return state
 
 
 def results(state, logs) -> dict:
@@ -158,7 +175,7 @@ def results(state, logs) -> dict:
     return out
 
 
-def step_main(out_path):
+def step_main(out_path, dropout=0.0):
     import torch
 
     from cobevt_tpu_torch.data.loader import DataLoader
@@ -175,8 +192,10 @@ def step_main(out_path):
 
     # rank 1 draws other weights: the step's start-of-run broadcast must
     # give it rank 0's
-    model, state, step = train_state(seed=rank())
-    logs = step(state, to_tensors(local))
+    model, state, step = train_state(seed=rank(), dropout=dropout)
+    generator = torch.Generator().manual_seed(DROPOUT_SEED) \
+        if dropout else None
+    logs = step(state, to_tensors(local), generator)
     np.savez(out_path, rank=rank(), **results(state, logs))
 
 
@@ -223,6 +242,8 @@ def main():
     assert world_size() == 2
     if mode == "step":
         step_main(out_path)
+    elif mode == "step_dropout":
+        step_main(out_path, DROPOUT)
     else:
         fit_main(out_path, sys.argv[3])
     torch.distributed.destroy_process_group()
