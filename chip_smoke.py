@@ -268,7 +268,8 @@ non-zero without printing the final line:
      memory.  ``--lidar_zoo`` runs this phase alone after the build and
      stops without the final line.  A failing gate raises once the phase
      has printed every reading.  Phase 3's K6 rows hold SECOND's map
-     (1, 5, 100, 176, 512) too (bf16 takes K6's row kernels at D 512).
+     (1, 5, 100, 176, 512) too (bf16 takes K6's D 512 wgmma route,
+     ops/fused_swap_fusion.py:wide_plan).
  20. serving export and data parallelism: (a) full-width CorpBEVT (bf16,
      the serving default), the same model under COBEVT_INT8=1, and the
      nuScenes flagship (cvt_pyramid_axial_nuscenes_vehicle, 6 x 224 x 480)
@@ -464,9 +465,10 @@ K2_SINBEVT_B = 1
 # K2 at the six branches of a SinBEVT-nuScenes frame (B 1, 6 cameras, keys
 # padded to window multiples; head dim 32, MLP hidden 2 D): (name, BEV H=W,
 # keys (h, w), q_win, k_win, D = C, heads, embed, post_ln, grid keys).  Stage
-# 0's local branch carries 6 query segments; stages 0 and 1 take the mma.sync
-# route (D 32 / 64), stage 2 (D 128, one window of 625 queries over 2,520
-# keys) the wgmma route (ops/fused_cross_attention.py:kernel_path).
+# 0's local branch carries 6 query segments; every stage takes the wgmma
+# route in bf16 (ops/fused_cross_attention.py:kernel_path): stages 0 and 1
+# at D 32 / 64, stage 2 at D 128 (one window of 625 queries over 2,520
+# keys).
 K2_NUSC_CASES = [
     ("nusc_stage0_local", 100, (60, 120), (10, 10), (6, 12), 32, 1, True,
      False, False),
@@ -505,8 +507,8 @@ K4_CASES = [
 K6_LIDAR = (1, 5, 96, 176, 256, 8, 8, 2, 512)
 # SECOND + swap fusion (phase 19): the (1, 5, 100, 176, 512) map of its BEV
 # backbone, window 4, 16 heads of 32, mlp 256, depth 1 (2 K6 calls a frame,
-# SECOND_PER_FRAME); bf16 at D 512 takes K6's row kernels
-# (ops/fused_swap_fusion.py:stream_kernel_path)
+# SECOND_PER_FRAME); bf16 at D 512 takes K6's D 512 wgmma route
+# (ops/fused_swap_fusion.py:stream_kernel_path, wide_plan)
 K6_SECOND = (1, 5, 100, 176, 512, 4, 16, 1, 256)
 K6_CASES = [
     ("lidar_masked", K6_LIDAR, "random", False, 1),
@@ -1350,6 +1352,7 @@ def phase_kernels(only=None):
         fused_swap_fusion,
         fused_swap_fusion_streaming,
         pack,
+        stream_kernel_path,
     )
     from cobevt_tpu_torch.ops.window_attention import (
         _launch_bwd_kernel,
@@ -1901,6 +1904,8 @@ def phase_kernels(only=None):
             big = case[1] in (K6_LIDAR, K6_SECOND)
             row = {"kernel": "K6", "case": case[0], "dtype": dname,
                    "per_frame": case[4], "sublayers": sublayers,
+                   "route": stream_kernel_path(case[1][4], heads,
+                                               case[1][8], dtype),
                    "max_abs_err": abs_err, "max_rel_err": rel_err, "ok": ok}
             del want
             row["ms"] = time_ms(lambda: stream("kernel"), 3 if big else 10)
@@ -1919,11 +1924,14 @@ def phase_kernels(only=None):
                 row["launch_device_ms"] = kernel_device_ms(
                     lambda: _launch_streaming(x, mask, packed.bias,
                                               packed.layers, w, heads), 2)
+                # a second call gives the same bits
+                row["repeats_bit_equal"] = torch.equal(stream("kernel"), got)
+                row["ok"] = ok and row["repeats_bit_equal"]
             row["plain_ms"] = time_ms(lambda: stream("torch"),
                                       2 if big else 10, warmup=1)
             row.update(bound(*k6_work(case[1], x.element_size()), dname))
             details.append(row)
-            if not ok:
+            if not row["ok"]:
                 failures.append(row)
             del x, mask, am, bias, layers, head, packed, got
             torch.cuda.empty_cache()
@@ -2263,7 +2271,8 @@ def phase_kernels(only=None):
             if "sublayers_device_ms" in r:
                 log(f"   on the card alone: the {n} sublayers "
                     f"{r['sublayers_device_ms']:.3f} ms (by launch above, "
-                    f"summed over them)")
+                    f"summed over them); a second call bit for bit: "
+                    f"{r['repeats_bit_equal']}")
     k7 = [r for r in details if r["kernel"] == "K7"
           and r["dtype"] == "bfloat16" and r["per_frame"]]
     if k7:

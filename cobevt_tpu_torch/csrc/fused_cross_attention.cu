@@ -35,21 +35,27 @@
 // (32 KB), so what sets the pace is latency: the gathers by index math, the
 // LayerNorms (reductions across a row), the exp of the attention.
 //
-// bf16 at CorpBEVT's widths (ops/fused_cross_attention.py:kernel_path:
-// D = C = 128, hidden 0/128/256, head dim 16/32, 1 or 4 query segments) runs
-// the wgmma kernels of namespace wg, every product a wgmma with operands in
-// shared memory in the 128B-swizzled K-major layout that TMA writes:
+// bf16 at the widths of every model of the repo (ops/fused_cross_attention.
+// py:kernel_path: D = C = 32, 64 or 128 with MLP hidden 0 or 2 D (and 256
+// at 128), head dim 16/32, 1, 4 or 6 query segments: CorpBEVT, SinBEVT-
+// OPV2V and all three SinBEVT-nuScenes stages) runs the wgmma kernels of
+// namespace wg, templated on the width W, every product a wgmma with
+// operands in shared memory in the K-major swizzled layout that TMA writes
+// (64-column atoms with the 128B swizzle; at W 32 a row is 64 bytes, one
+// 32-column atom with the 64B swizzle):
 //   * projections (launches 1, 2, 4): persistent blocks of one warpgroup
 //     (two in launch 4, on alternate tiles) walk 64-row tiles.  A block
-//     TMA-loads its weights once (Wq or Wk/Wv, 32 KB; Wo, w1 and w2, 160 KB
-//     in launch 4).  The gather and LayerNorm run in the prologue, eight
-//     lanes a row (four rows a warp at a time, all loads issued first), and
-//     write the bf16 A tile in the swizzled layout; products are m64n128k16
-//     with f32 accumulators in registers; bias, scale, skip, GELU and the
-//     casts run on the accumulators at the TPU body's rounding points; the
-//     token MLP's LayerNorm reduces across the four threads that hold a
-//     row, its hidden activations go back to shared memory 128 columns at a
-//     time and are summed into the second product at once.
+//     TMA-loads its weights once (Wq or Wk/Wv, W x W; Wo, w1 and w2, 160 KB
+//     at W 128, 18 KB at W 32, in launch 4).  The gather and LayerNorm run
+//     in the prologue, W / 16 lanes a row (16 values a lane, 512 / W rows a
+//     warp at a time, all loads issued first), and write the bf16 A tile in
+//     the swizzled layout; products are m64nWk16 (N 32, 64 or 128) with f32
+//     accumulators in registers, W / 16 k16 steps deep; bias, scale, skip,
+//     GELU and the casts run on the accumulators at the TPU body's rounding
+//     points; the token MLP's LayerNorm reduces across the four threads
+//     that hold a row, its hidden activations go back to shared memory a
+//     chunk (min(2 W, 128) columns) at a time and are summed into the second
+//     product at once.
 //   * attention (launch 3): K1's window_attention_wgmma_kernel with the
 //     cameras as segments: a block owns 64 query rows of one (window, head)
 //     in every segment (TMA, once), streams the window's shared keys once
@@ -58,10 +64,17 @@
 //     m64n{32,16}k16 for P v), and stores the camera mean rounded once.  The
 //     probabilities are rounded to bf16 before both the numerator and the
 //     sum, as flash.cuh's contract and the TPU body do.
+// At SinBEVT-nuScenes' stages 0-1 (B 1: 100 and 25 windows of 100 queries
+// over 432 keys) a branch's bound is 0.001-0.004 ms (chip_smoke.py phase
+// 3); what the card pays is latency: the launches, the gathers and the
+// chain of each tile, so the route keeps a branch's work in few persistent
+// blocks with every weight resident, as at CorpBEVT's widths.
 // f32, and bf16 at the other shapes, run the first kernels: token-row
 // kernels (rowops.cuh: f32 tiles in shared memory, LayerNorms one warp a
 // row, bf16 products on mma.sync with weights read from L2, f32 products as
 // scalar FMAs) and flash.cuh's attention.
+#include <type_traits>
+
 #include "flash.cuh"
 #include "hopper.cuh"
 #include "rowops.cuh"
@@ -464,8 +477,9 @@ Dims make_dims(const int* dims) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on wgmma + TMA: D = C = 128, MLP hidden 0, 128 or 256, head dim 16
-// or 32, 1 or 4 query segments (ops/fused_cross_attention.py:kernel_path)
+// bf16 on wgmma + TMA: D = C = 32, 64 or 128 (template W), MLP hidden 0 or
+// 2W (and 256 at W 128), head dim 16 or 32, 1, 4 or 6 query segments
+// (ops/fused_cross_attention.py:kernel_path)
 // ---------------------------------------------------------------------------
 
 namespace wg {
@@ -474,21 +488,27 @@ using namespace hopper;
 typedef __nv_bfloat16 bf16;
 
 constexpr int kTile = 64;            // token rows a tile, one warpgroup
-constexpr int kWidth = 128;          // D = C
-constexpr int kAtomRow = 128;        // bytes of a swizzled row: 64 values
-constexpr int kStageLd = kWidth + 8;  // staged output row (halves): 272 B,
-                                      // so the accumulator-layout writes
-                                      // of 8 rows x 4 threads hit 32 banks
 constexpr float kLog2e = 1.4426950408889634f;
 
-__host__ __device__ constexpr int round1024(int b) { return (b + 1023) & ~1023; }
+__host__ __device__ constexpr int round1024(int b) {
+  return (b + 1023) & ~1023;
+}
 
-// Byte offset of element (r, c) in a K-major 128B-swizzled tile of `rows`
-// rows: 64-column atoms of rows x 128 bytes, as TMA writes a (64, rows) box
-// and wgmma reads it (SBO 1024).
-__device__ __forceinline__ uint32_t sw128(int rows, int r, int c) {
-  return (c >> 6) * rows * kAtomRow + r * kAtomRow +
-         ((((c & 63) >> 3) ^ (r & 7)) << 4) + ((c & 7) << 1);
+// A K-major operand of width K is stored in swizzle atoms of atom_cols(K)
+// columns: 64 (128-byte rows, 128B swizzle) from K 64 on, 32 (64-byte rows,
+// 64B swizzle) at K 32, the width of one TMA box and of one wgmma read.
+__host__ __device__ constexpr int atom_cols(int K) { return K >= 64 ? 64 : 32; }
+
+// Byte offset of element (r, c) in a K-major tile of `rows` rows swizzled
+// in atoms of AC columns, as TMA writes (AC, rows) boxes and wgmma reads
+// them: the 16-byte chunk XORed with r % 8 (128B swizzle, AC 64) or with
+// (r / 2) % 4 (64B swizzle, AC 32).
+template <int AC>
+__device__ __forceinline__ uint32_t swz(int rows, int r, int c) {
+  constexpr int kRow = AC * 2;
+  const int x = AC == 64 ? (r & 7) : ((r >> 1) & 3);
+  return (c / AC) * rows * kRow + r * kRow + ((((c % AC) >> 3) ^ x) << 4) +
+         ((c & 7) << 1);
 }
 
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
@@ -504,51 +524,55 @@ __device__ __forceinline__ float rnd(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// acc (64 x 128, f32) {+}= A (64 x K) W[n0 .. n0 + 127, k0 .. k0 + K)^T:
-// A a 64-row tile and W an (N x *) weight, both K-major 128B-swizzled in
-// shared memory (k0 a multiple of 64).  The caller fences A's writes
-// (fence_async_shared + barrier) first.
-__device__ __forceinline__ void gemm_n128(float (&acc)[64], const uint8_t* a_s,
-                                          const uint8_t* w_s, int N, int n0,
-                                          int K, int k0 = 0,
-                                          bool accumulate = false) {
+// acc (64 x N, f32) {+}= A (64 x K) W[n0 .. n0 + N - 1, k0 .. k0 + K - 1]^T:
+// A a 64-row tile and W an (NW x *) weight, both K-major in atoms of AC
+// columns in shared memory (k0 a multiple of AC).  The caller fences A's
+// writes (fence_async_shared + barrier) first.
+template <int N, int K, int AC>
+__device__ __forceinline__ void gemm(float (&acc)[N / 2], const uint8_t* a_s,
+                                     const uint8_t* w_s, int NW, int n0,
+                                     int k0 = 0, bool accumulate = false) {
+  constexpr int kRow = AC * 2;
+  constexpr int KS = AC / 16;   // k16 steps an atom
+  constexpr Swizzle kSw = AC == 64 ? kSwizzle128 : kSwizzle64;
   if (!accumulate) {
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
   }
   wgmma_fence();
-#pragma unroll 4
+#pragma unroll
   for (int k = 0; k < K / 16; ++k) {
     const uint64_t da = make_desc(
-        a_s + (k >> 2) * kTile * kAtomRow + (k & 3) * 32, 1024, kSwizzle128);
+        a_s + (k / KS) * kTile * kRow + (k % KS) * 32, 8 * kRow, kSw);
     const uint64_t db = make_desc(
-        w_s + ((k0 >> 6) + (k >> 2)) * N * kAtomRow + n0 * kAtomRow +
-            (k & 3) * 32,
-        1024, kSwizzle128);
-    wgmma_m64n128k16_ss(acc, da, db, 1);
+        w_s + (k0 / AC + k / KS) * NW * kRow + n0 * kRow + (k % KS) * 32,
+        8 * kRow, kSw);
+    wgmma_ss<N>(acc, da, db, 1);
   }
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(acc);
 }
 
-// TMA of an (N x K) bf16 weight into its swizzled place: K / 64 boxes of
-// 64 columns x N rows, completing on `bar`
+// TMA of an (N x K) bf16 weight into its swizzled place: K / AC boxes of AC
+// columns x N rows, completing on `bar`
+template <int K>
 __device__ __forceinline__ void load_weight(uint8_t* w_s,
                                             const CUtensorMap* map,
-                                            uint64_t* bar, int N, int K) {
-  for (int a = 0; a < K / 64; ++a)
-    tma_load_2d(w_s + a * N * kAtomRow, map, bar, a * 64, 0);
+                                            uint64_t* bar, int N) {
+  constexpr int AC = atom_cols(K);
+  for (int a = 0; a < K / AC; ++a)
+    tma_load_2d(w_s + a * N * AC * 2, map, bar, a * AC, 0);
 }
 
-// A warp gathers and LayerNorms its 16 rows of a tile four at a time: lane
-// 8 rs + cl holds columns 16 cl .. 16 cl + 15 of row 4 i + rs (two 16-byte
-// loads), so one load instruction moves four 256-byte rows and a row's sums
-// take three shuffles among its eight lanes.
-__device__ __forceinline__ float group8_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  v += __shfl_xor_sync(0xffffffffu, v, 2);
-  v += __shfl_xor_sync(0xffffffffu, v, 4);
+// A warp gathers and LayerNorms its 16 rows of a tile RPS = 32 / LPR at a
+// time: lane LPR rs + cl holds columns 16 cl .. 16 cl + 15 of a row (two
+// 16-byte loads), LPR = W / 16 lanes a row, so a row's sums take log2(LPR)
+// shuffles among its lanes.
+template <int LPR>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = 1; o < LPR; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
@@ -568,40 +592,47 @@ __device__ __forceinline__ void unpack16(const uint4 (&raw)[2],
   }
 }
 
-// gamma and beta of a (2, 128) LayerNorm pair as f32 in shared memory, value
-// i of lane cl's columns at [i * 8 + cl], so the eight lanes of a row read
-// eight banks.  All 128 threads; the caller syncs before use.
+// gamma and beta of a (2, W) LayerNorm pair as f32 in shared memory, value
+// i of lane cl's columns at [i * LPR + cl], so the LPR lanes of a row read
+// LPR banks.  All 128 threads; the caller syncs before use.
+template <int W>
 __device__ __forceinline__ void ln_params(const bf16* ln, float* gb, int tid) {
-  const int cl = tid >> 4, i = tid & 15;
-  gb[i * 8 + cl] = __bfloat162float(ln[tid]);
-  gb[128 + i * 8 + cl] = __bfloat162float(ln[kWidth + tid]);
+  constexpr int LPR = W / 16;
+  for (int c = tid; c < W; c += 128) {
+    const int cl = c >> 4, i = c & 15;
+    gb[i * LPR + cl] = __bfloat162float(ln[c]);
+    gb[W + i * LPR + cl] = __bfloat162float(ln[W + c]);
+  }
 }
 
 // LayerNorm (eps 1e-5, f32) of the row whose 16 values x this lane holds
 // (columns 16 cl ..), rounded to bf16 into row r of the A tile:
 // (x - mu) * rsqrt(var + eps) * gamma + beta, as rowops::layer_norm_rows.
+template <int W>
 __device__ __forceinline__ void ln16_to_a(uint8_t* a_s, int r, int cl,
                                           const float (&x)[16],
                                           const float* gb) {
+  constexpr int LPR = W / 16;
   float sum = 0.f;
 #pragma unroll
   for (int e = 0; e < 16; ++e) sum += x[e];
-  const float mu = group8_sum(sum) / kWidth;
+  const float mu = group_sum<LPR>(sum) / W;
   float sq = 0.f;
 #pragma unroll
   for (int e = 0; e < 16; ++e) sq += (x[e] - mu) * (x[e] - mu);
-  const float inv = rsqrtf(group8_sum(sq) / kWidth + 1e-5f);
+  const float inv = rsqrtf(group_sum<LPR>(sq) / W + 1e-5f);
   uint32_t w[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int e = 2 * i;
-    w[i] = pack2((x[e] - mu) * inv * gb[e * 8 + cl] + gb[128 + e * 8 + cl],
-                 (x[e + 1] - mu) * inv * gb[(e + 1) * 8 + cl] +
-                     gb[128 + (e + 1) * 8 + cl]);
+    w[i] = pack2((x[e] - mu) * inv * gb[e * LPR + cl] + gb[W + e * LPR + cl],
+                 (x[e + 1] - mu) * inv * gb[(e + 1) * LPR + cl] +
+                     gb[W + (e + 1) * LPR + cl]);
   }
-  *reinterpret_cast<uint4*>(a_s + sw128(kTile, r, 16 * cl)) =
+  constexpr int AC = atom_cols(W);
+  *reinterpret_cast<uint4*>(a_s + swz<AC>(kTile, r, 16 * cl)) =
       make_uint4(w[0], w[1], w[2], w[3]);
-  *reinterpret_cast<uint4*>(a_s + sw128(kTile, r, 16 * cl + 8)) =
+  *reinterpret_cast<uint4*>(a_s + swz<AC>(kTile, r, 16 * cl + 8)) =
       make_uint4(w[4], w[5], w[6], w[7]);
 }
 
@@ -616,21 +647,28 @@ __device__ __forceinline__ void window_of32(const Dims& d, int gw, int* b,
   *wy = wi - *wx * Y;
 }
 
+// staged output row (halves): W + 8, so the accumulator-layout writes of 8
+// rows x 4 threads spread over the banks
+template <int W>
+__host__ __device__ constexpr int stage_ld() { return W + 8; }
+
 // The accumulator tile (+ bias, * scale) rounded to bf16 into the staging
-// tile (row stride kStageLd halves).  Accumulator layout (hopper.cuh):
-// acc[4j + e] is row 16 w + g + 8 (e / 2), column 8 j + 2 t + e % 2.
-__device__ __forceinline__ void stage_acc(bf16* stage, const float (&acc)[64],
+// tile.  Accumulator layout (hopper.cuh): acc[4j + e] is row 16 w + g + 8
+// (e / 2), column 8 j + 2 t + e % 2.
+template <int W>
+__device__ __forceinline__ void stage_acc(bf16* stage,
+                                          const float (&acc)[W / 2],
                                           const bf16* bias, float scale,
                                           int warp, int g, int t) {
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < W / 8; ++j) {
     const int c = 8 * j + 2 * t;
     const float2 bb = __bfloat1622float2(
         *reinterpret_cast<const __nv_bfloat162*>(bias + c));
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       const int r = warp * 16 + g + 8 * hr;
-      *reinterpret_cast<uint32_t*>(stage + r * kStageLd + c) =
+      *reinterpret_cast<uint32_t*>(stage + r * stage_ld<W>() + c) =
           pack2((acc[4 * j + 2 * hr] + bb.x) * scale,
                 (acc[4 * j + 2 * hr + 1] + bb.y) * scale);
     }
@@ -639,33 +677,41 @@ __device__ __forceinline__ void stage_acc(bf16* stage, const float (&acc)[64],
 
 // Rows of the staging tile to device memory, 16 bytes a thread: row r goes
 // to dst_of(r) (null: not stored)
-template <typename F>
+template <int W, typename F>
 __device__ __forceinline__ void store_stage(const bf16* stage, F dst_of,
                                             int tid) {
 #pragma unroll 4
-  for (int i = tid; i < kTile * kWidth / 8; i += 128) {
-    const int r = i / (kWidth / 8), c = (i % (kWidth / 8)) * 8;
+  for (int i = tid; i < kTile * W / 8; i += 128) {
+    const int r = i / (W / 8), c = (i % (W / 8)) * 8;
     bf16* dst = dst_of(r);
     if (dst != nullptr)
       *reinterpret_cast<uint4*>(dst + c) =
-          *reinterpret_cast<const uint4*>(stage + r * kStageLd + c);
+          *reinterpret_cast<const uint4*>(stage + r * stage_ld<W>() + c);
   }
 }
 
-// Shared memory of the K/V and Q launches: the weight (32 KB), the A tile
-// (16 KB), the staged output (17 KB), the LayerNorm pair (1 KB), the
-// barrier.
-constexpr int kWeightBytes = kWidth * kWidth * 2;
-constexpr int kABytes = kTile * kWidth * 2;
-constexpr int kStageBytes = round1024(kTile * kStageLd * 2);
-constexpr int kProjSmem =
-    1024 + kWeightBytes + kABytes + kStageBytes + 1024 + 16;
-constexpr int kProjBlocksPerSm = 3;
+// Shared memory of the K/V and Q launches: the weight (W x W), the A tile
+// (64 x W), the staged output, the LayerNorm pair (2 W floats, at most 1
+// KB), the barrier.
+template <int W>
+constexpr int proj_smem() {
+  return 1024 + W * W * 2 + kTile * W * 2 +
+         round1024(kTile * stage_ld<W>() * 2) + 1024 + 16;
+}
+
+// persistent blocks an SM of the K/V and Q launches (their
+// __launch_bounds__ repeat it): at W 32 and 64 a tile's chain is short and
+// its registers few, so more blocks hide the gathers' latency
+template <int W>
+__host__ __device__ constexpr int proj_blocks_per_sm() {
+  return W == 32 ? 8 : (W == 64 ? 6 : 3);
+}
 
 // 1. K and V, wgmma.  grid: (persistent blocks, 2); blockIdx.y picks key (0)
 // or value (1).  A block loads its weight once and walks 64-row tiles of the
 // (G*Tk) window-major key rows: gather (index math), LN, product, + bias.
-__global__ void __launch_bounds__(128, kProjBlocksPerSm)
+template <int W>
+__global__ void __launch_bounds__(128, W == 32 ? 8 : (W == 64 ? 6 : 3))
     xattn_kv_wgmma(const __grid_constant__ CUtensorMap wkmap,
                    const __grid_constant__ CUtensorMap wvmap,
                    const bf16* __restrict__ key, const bf16* __restrict__ val,
@@ -674,6 +720,9 @@ __global__ void __launch_bounds__(128, kProjBlocksPerSm)
                    const bf16* __restrict__ bk, const bf16* __restrict__ bv,
                    bf16* __restrict__ k_out, bf16* __restrict__ v_out,
                    Dims d) {
+  constexpr int LPR = W / 16, RPS = 32 / LPR, STEPS = 16 / RPS;
+  constexpr int kWeightBytes = W * W * 2, kABytes = kTile * W * 2;
+  constexpr int kStageBytes = round1024(kTile * stage_ld<W>() * 2);
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* w_s = smem;
@@ -692,26 +741,25 @@ __global__ void __launch_bounds__(128, kProjBlocksPerSm)
     mbar_init(bar, 1);
     fence_barrier_init();
     mbar_arrive_expect_tx(bar, kWeightBytes);
-    load_weight(w_s, is_v ? &wvmap : &wkmap, bar, kWidth, kWidth);
+    load_weight<W>(w_s, is_v ? &wvmap : &wkmap, bar, W);
   }
-  ln_params(is_v ? ln_v : ln_k, gb, tid);
+  ln_params<W>(is_v ? ln_v : ln_k, gb, tid);
   __syncthreads();
-  const int rs = lane >> 3, cl = lane & 7;
+  const int rs = lane / LPR, cl = lane % LPR;
 
   const int X = d.H / d.wh, Y = d.W / d.ww;
   const int cam_tok = d.kh * d.kw;
   const int Tk = d.n * cam_tok;
   const int rows = d.B * X * Y * Tk;
   const int tiles = (rows + kTile - 1) / kTile;
-  mbar_wait(bar, 0);
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int row0 = tile * kTile;
-    // warp w gathers rows 16 w .. 16 w + 15, four at a time, all loads
+    // warp w gathers rows 16 w .. 16 w + 15, RPS at a time, all loads
     // first (a row past the end reads the last row, and is not stored)
-    uint4 raw[4][2];
+    uint4 raw[STEPS][2];
 #pragma unroll
-    for (int it = 0; it < 4; ++it) {
-      const int rr = min(row0 + warp * 16 + 4 * it + rs, rows - 1);
+    for (int it = 0; it < STEPS; ++it) {
+      const int rr = min(row0 + warp * 16 + RPS * it + rs, rows - 1);
       const int gw = rr / Tk;
       const int j = rr - gw * Tk;
       int b, wx, wy;
@@ -721,25 +769,25 @@ __global__ void __launch_bounds__(128, kProjBlocksPerSm)
       const int s = j - cam * cam_tok - p * d.kw;
       const int y = d.grid_keys ? p * X + wx : wx * d.kh + p;
       const int xx = d.grid_keys ? s * Y + wy : wy * d.kw + s;
-      load16(src + (((long long)(b * d.n + cam) * d.h + y) * d.w + xx) *
-                       kWidth + 16 * cl,
+      load16(src + (((long long)(b * d.n + cam) * d.h + y) * d.w + xx) * W +
+                 16 * cl,
              raw[it]);
     }
 #pragma unroll
-    for (int it = 0; it < 4; ++it) {
+    for (int it = 0; it < STEPS; ++it) {
       float xv[16];
       unpack16(raw[it], xv);
-      ln16_to_a(a_s, warp * 16 + 4 * it + rs, cl, xv, gb);
+      ln16_to_a<W>(a_s, warp * 16 + RPS * it + rs, cl, xv, gb);
     }
     fence_async_shared();
     __syncthreads();
-    float acc[64];
-    gemm_n128(acc, a_s, w_s, kWidth, 0, kWidth);
-    stage_acc(stage, acc, bias, 1.f, warp, g, t);
+    float acc[W / 2];
+    mbar_wait(bar, 0);   // the weight: the first tile's gather overlaps it
+    gemm<W, W, atom_cols(W)>(acc, a_s, w_s, W, 0);
+    stage_acc<W>(stage, acc, bias, 1.f, warp, g, t);
     __syncthreads();
-    store_stage(stage, [&](int r) -> bf16* {
-      return row0 + r < rows ? dst + (long long)(row0 + r) * kWidth
-                             : nullptr;
+    store_stage<W>(stage, [&](int r) -> bf16* {
+      return row0 + r < rows ? dst + (long long)(row0 + r) * W : nullptr;
     }, tid);
     __syncthreads();
   }
@@ -747,12 +795,16 @@ __global__ void __launch_bounds__(128, kProjBlocksPerSm)
 
 // 2. Q, wgmma: query build (embedding difference, its norm, the casts), LN_q,
 // product, + bias, * scale, into (G*Tq, C), camera-major in a window.
-__global__ void __launch_bounds__(128, kProjBlocksPerSm)
+template <int W>
+__global__ void __launch_bounds__(128, W == 32 ? 8 : (W == 64 ? 6 : 3))
     xattn_q_wgmma(const __grid_constant__ CUtensorMap wqmap,
                   const bf16* __restrict__ x, const bf16* __restrict__ w_embed,
                   const bf16* __restrict__ c_embed,
                   const bf16* __restrict__ ln_q, const bf16* __restrict__ bq,
                   float scale, bf16* __restrict__ q_out, Dims d) {
+  constexpr int LPR = W / 16, RPS = 32 / LPR, STEPS = 16 / RPS;
+  constexpr int kWeightBytes = W * W * 2, kABytes = kTile * W * 2;
+  constexpr int kStageBytes = round1024(kTile * stage_ld<W>() * 2);
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* w_s = smem;
@@ -767,11 +819,11 @@ __global__ void __launch_bounds__(128, kProjBlocksPerSm)
     mbar_init(bar, 1);
     fence_barrier_init();
     mbar_arrive_expect_tx(bar, kWeightBytes);
-    load_weight(w_s, &wqmap, bar, kWidth, kWidth);
+    load_weight<W>(w_s, &wqmap, bar, W);
   }
-  ln_params(ln_q, gb, tid);
+  ln_params<W>(ln_q, gb, tid);
   __syncthreads();
-  const int rs = lane >> 3, cl = lane & 7;
+  const int rs = lane / LPR, cl = lane % LPR;
   const bool embed = w_embed != nullptr;
 
   const int X = d.H / d.wh, Y = d.W / d.ww;
@@ -779,15 +831,14 @@ __global__ void __launch_bounds__(128, kProjBlocksPerSm)
   const int Tq = d.nq * Twin;
   const int rows = d.B * X * Y * Tq;
   const int tiles = (rows + kTile - 1) / kTile;
-  mbar_wait(bar, 0);
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int row0 = tile * kTile;
-    // warp w gathers rows 16 w .. 16 w + 15, four at a time, all loads
+    // warp w gathers rows 16 w .. 16 w + 15, RPS at a time, all loads
     // first (a row past the end reads the last row, and is not stored)
-    uint4 rx[4][2], rw[4][2], rc[4][2];
+    uint4 rx[STEPS][2], rw[STEPS][2], rc[STEPS][2];
 #pragma unroll
-    for (int it = 0; it < 4; ++it) {
-      const int rr = min(row0 + warp * 16 + 4 * it + rs, rows - 1);
+    for (int it = 0; it < STEPS; ++it) {
+      const int rr = min(row0 + warp * 16 + RPS * it + rs, rows - 1);
       const int gw = rr / Tq;
       const int j = rr - gw * Tq;
       int b, wx, wy;
@@ -796,16 +847,14 @@ __global__ void __launch_bounds__(128, kProjBlocksPerSm)
       const int tk = j - cam * Twin;
       const int ty = tk / d.ww;
       const int pos = (wx * d.wh + ty) * d.W + wy * d.ww + (tk - ty * d.ww);
-      load16(x + ((long long)b * d.H * d.W + pos) * kWidth + 16 * cl,
-             rx[it]);
+      load16(x + ((long long)b * d.H * d.W + pos) * W + 16 * cl, rx[it]);
       if (embed) {
-        load16(w_embed + (long long)pos * kWidth + 16 * cl, rw[it]);
-        load16(c_embed + (long long)(b * d.n + cam) * kWidth + 16 * cl,
-               rc[it]);
+        load16(w_embed + (long long)pos * W + 16 * cl, rw[it]);
+        load16(c_embed + (long long)(b * d.n + cam) * W + 16 * cl, rc[it]);
       }
     }
 #pragma unroll
-    for (int it = 0; it < 4; ++it) {
+    for (int it = 0; it < STEPS; ++it) {
       float xv[16];
       unpack16(rx[it], xv);
       if (embed) {
@@ -819,50 +868,60 @@ __global__ void __launch_bounds__(128, kProjBlocksPerSm)
           we[e] -= ce[e];
           sq += we[e] * we[e];
         }
-        const float nrm = sqrtf(group8_sum(sq)) + 1e-7f;
+        const float nrm = sqrtf(group_sum<LPR>(sq)) + 1e-7f;
 #pragma unroll
         for (int e = 0; e < 16; ++e) xv[e] = rnd(rnd(we[e] / nrm) + xv[e]);
       }
-      ln16_to_a(a_s, warp * 16 + 4 * it + rs, cl, xv, gb);
+      ln16_to_a<W>(a_s, warp * 16 + RPS * it + rs, cl, xv, gb);
     }
     fence_async_shared();
     __syncthreads();
-    float acc[64];
-    gemm_n128(acc, a_s, w_s, kWidth, 0, kWidth);
-    stage_acc(stage, acc, bq, scale, warp, g, t);
+    float acc[W / 2];
+    mbar_wait(bar, 0);   // the weight: the first tile's gather overlaps it
+    gemm<W, W, atom_cols(W)>(acc, a_s, w_s, W, 0);
+    stage_acc<W>(stage, acc, bq, scale, warp, g, t);
     __syncthreads();
-    store_stage(stage, [&](int r) -> bf16* {
-      return row0 + r < rows ? q_out + (long long)(row0 + r) * kWidth
-                             : nullptr;
+    store_stage<W>(stage, [&](int r) -> bf16* {
+      return row0 + r < rows ? q_out + (long long)(row0 + r) * W : nullptr;
     }, tid);
     __syncthreads();
   }
 }
 
-// Shared memory of the output launch: Wo, w1, w2 (hidden x 128 each way),
-// then for each of the two warpgroups its A tile and its tile of 128 hidden
-// columns.
+// The output launch's MLP runs its hidden units in chunks of this many
+// columns (one product's N): 128 from W 64 on, 64 at W 32 (hidden 2 W)
+template <int W>
+__host__ __device__ constexpr int hidden_chunk() {
+  return W >= 64 ? 128 : 64;
+}
+
+// Shared memory of the output launch: Wo (W x W), w1 (hidden x W), w2 (W x
+// hidden), then for each of the two warpgroups its A tile (64 x W) and its
+// tile of a hidden chunk.
 constexpr int kOutGroups = 2;
+template <int W>
 __host__ __device__ inline int out_smem(int hidden) {
-  return 1024 + kWeightBytes + 2 * hidden * kWidth * 2 +
-         kOutGroups * 2 * kABytes + 16;
+  return 1024 + W * W * 2 + 2 * hidden * W * 2 +
+         kOutGroups * (kTile * W * 2 + kTile * hidden_chunk<W>() * 2) + 16;
 }
 
 // this thread's two rows of the accumulator tile: LayerNorm in f32 (eps
-// 1e-5) over the 128 columns held by the four threads of a group
-__device__ __forceinline__ void ln_acc(float (&y)[64], const bf16* ln, int t,
-                                       bool round_out) {
+// 1e-5) over the W columns held by the four threads of a group
+template <int W>
+__device__ __forceinline__ void ln_acc(float (&y)[W / 2], const bf16* ln,
+                                       int t, bool round_out) {
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     float s = 0.f;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) s += y[4 * j + 2 * hr] + y[4 * j + 2 * hr + 1];
+    for (int j = 0; j < W / 8; ++j)
+      s += y[4 * j + 2 * hr] + y[4 * j + 2 * hr + 1];
     s += __shfl_xor_sync(0xffffffffu, s, 1);
     s += __shfl_xor_sync(0xffffffffu, s, 2);
-    const float mu = s / kWidth;
+    const float mu = s / W;
     float sq = 0.f;
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < W / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const float dv = y[4 * j + 2 * hr + e] - mu;
@@ -870,14 +929,14 @@ __device__ __forceinline__ void ln_acc(float (&y)[64], const bf16* ln, int t,
       }
     sq += __shfl_xor_sync(0xffffffffu, sq, 1);
     sq += __shfl_xor_sync(0xffffffffu, sq, 2);
-    const float inv = rsqrtf(sq / kWidth + 1e-5f);
+    const float inv = rsqrtf(sq / W + 1e-5f);
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < W / 8; ++j) {
       const int c = 8 * j + 2 * t;
       const float2 gg = __bfloat1622float2(
           *reinterpret_cast<const __nv_bfloat162*>(ln + c));
       const float2 bb = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(ln + kWidth + c));
+          *reinterpret_cast<const __nv_bfloat162*>(ln + W + c));
       float& y0 = y[4 * j + 2 * hr];
       float& y1 = y[4 * j + 2 * hr + 1];
       y0 = (y0 - mu) * inv * gg.x + bb.x;
@@ -895,8 +954,9 @@ __device__ __forceinline__ void ln_acc(float (&y)[64], const bf16* ln, int t,
 // block loads Wo, w1, w2 once (TMA) and its two warpgroups walk 64-row tiles
 // of the (G*Tw) camera-mean rows independently (named barriers); y stays in
 // registers between the products, LN_m(y) goes back to shared memory as the
-// A tile, and the hidden activations 128 columns at a time, each half
-// summed into the second product at once.
+// A tile, and the hidden activations a chunk at a time, each chunk summed
+// into the second product at once.
+template <int W>
 __global__ void __launch_bounds__(128 * kOutGroups, 1)
     xattn_out_wgmma(const __grid_constant__ CUtensorMap womap,
                     const __grid_constant__ CUtensorMap w1map,
@@ -906,16 +966,20 @@ __global__ void __launch_bounds__(128 * kOutGroups, 1)
                     const bf16* __restrict__ b1, const bf16* __restrict__ b2,
                     const bf16* __restrict__ ln_p, bf16* __restrict__ out,
                     Dims d, int hidden, int add_skip) {
+  constexpr int HC = hidden_chunk<W>();
+  constexpr int AW = atom_cols(W);
+  constexpr int kWeightBytes = W * W * 2, kABytes = kTile * W * 2;
+  constexpr int kHBytes = kTile * HC * 2;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* wo_s = smem;
   uint8_t* w1_s = wo_s + kWeightBytes;
-  uint8_t* w2_s = w1_s + hidden * kWidth * 2;
+  uint8_t* w2_s = w1_s + hidden * W * 2;
   const int grp = threadIdx.x >> 7;
-  uint8_t* a_s = w2_s + hidden * kWidth * 2 + grp * 2 * kABytes;
+  uint8_t* a_s = w2_s + hidden * W * 2 + grp * (kABytes + kHBytes);
   uint8_t* h_s = a_s + kABytes;
   uint64_t* bar = reinterpret_cast<uint64_t*>(
-      w2_s + hidden * kWidth * 2 + kOutGroups * 2 * kABytes);
+      w2_s + hidden * W * 2 + kOutGroups * (kABytes + kHBytes));
   const bool mlp = hidden > 0;
   const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -924,11 +988,13 @@ __global__ void __launch_bounds__(128 * kOutGroups, 1)
   if (threadIdx.x == 0) {
     mbar_init(bar, 1);
     fence_barrier_init();
-    mbar_arrive_expect_tx(bar, kWeightBytes + 2 * hidden * kWidth * 2);
-    load_weight(wo_s, &womap, bar, kWidth, kWidth);
+    mbar_arrive_expect_tx(bar, kWeightBytes + 2 * hidden * W * 2);
+    load_weight<W>(wo_s, &womap, bar, W);
     if (mlp) {
-      load_weight(w1_s, &w1map, bar, hidden, kWidth);
-      load_weight(w2_s, &w2map, bar, kWidth, hidden);
+      load_weight<W>(w1_s, &w1map, bar, hidden);
+      // w2 (W x hidden): hidden / 64 boxes of 64 columns
+      for (int a = 0; a < hidden / 64; ++a)
+        tma_load_2d(w2_s + a * W * 128, &w2map, bar, a * 64, 0);
     }
   }
   __syncthreads();
@@ -948,23 +1014,23 @@ __global__ void __launch_bounds__(128 * kOutGroups, 1)
     return ((long long)(b * d.H + wx * d.wh + ty) * d.W + wy * d.ww +
             (tk - ty * d.ww));
   };
-  mbar_wait(bar, 0);
   for (long long tile = (long long)blockIdx.x * kOutGroups + grp;
        tile < tiles; tile += (long long)gridDim.x * kOutGroups) {
     const long long row0 = tile * kTile;
     // the camera-mean rows as the A tile, 16 bytes a thread
 #pragma unroll 4
-    for (int i = tid; i < kTile * kWidth / 8; i += 128) {
-      const int r = i / (kWidth / 8), c = (i % (kWidth / 8)) * 8;
+    for (int i = tid; i < kTile * W / 8; i += 128) {
+      const int r = i / (W / 8), c = (i % (W / 8)) * 8;
       uint4 v = make_uint4(0, 0, 0, 0);
       if (row0 + r < rows)
-        v = *reinterpret_cast<const uint4*>(attn + (row0 + r) * kWidth + c);
-      *reinterpret_cast<uint4*>(a_s + sw128(kTile, r, c)) = v;
+        v = *reinterpret_cast<const uint4*>(attn + (row0 + r) * W + c);
+      *reinterpret_cast<uint4*>(a_s + swz<AW>(kTile, r, c)) = v;
     }
     fence_async_shared();
     group_sync();
-    float y[64];
-    gemm_n128(y, a_s, wo_s, kWidth, 0, kWidth);
+    float y[W / 2];
+    mbar_wait(bar, 0);   // the weights: the first A tile's load overlaps
+    gemm<W, W, AW>(y, a_s, wo_s, W, 0);
     long long pos[2];
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr)
@@ -972,7 +1038,7 @@ __global__ void __launch_bounds__(128 * kOutGroups, 1)
     // y = attn Wo + bo + skip; the MLP residual and the post-LN start from
     // y cast
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < W / 8; ++j) {
       const int c = 8 * j + 2 * t;
       const float2 bb = __bfloat1622float2(
           *reinterpret_cast<const __nv_bfloat162*>(bo + c));
@@ -981,7 +1047,7 @@ __global__ void __launch_bounds__(128 * kOutGroups, 1)
         float2 xv = make_float2(0.f, 0.f);
         if (add_skip && pos[hr] >= 0)
           xv = unpack2(*reinterpret_cast<const uint32_t*>(
-              x + pos[hr] * kWidth + c));
+              x + pos[hr] * W + c));
         float& y0 = y[4 * j + 2 * hr];
         float& y1 = y[4 * j + 2 * hr + 1];
         y0 = y0 + bb.x + xv.x;
@@ -994,44 +1060,44 @@ __global__ void __launch_bounds__(128 * kOutGroups, 1)
     }
     if (mlp) {
       // LN_m(y) rounded, as the A tile of the first MLP product
-      float m2[64];
+      float m2[W / 2];
 #pragma unroll
-      for (int i = 0; i < 64; ++i) m2[i] = y[i];
-      ln_acc(m2, ln_m, t, true);
+      for (int i = 0; i < W / 2; ++i) m2[i] = y[i];
+      ln_acc<W>(m2, ln_m, t, true);
       group_sync();   // every warp is past the Wo product's A tile
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
+      for (int j = 0; j < W / 8; ++j)
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr)
           *reinterpret_cast<uint32_t*>(
-              a_s + sw128(kTile, warp * 16 + g + 8 * hr, 8 * j + 2 * t)) =
+              a_s + swz<AW>(kTile, warp * 16 + g + 8 * hr, 8 * j + 2 * t)) =
               pack2(m2[4 * j + 2 * hr], m2[4 * j + 2 * hr + 1]);
       fence_async_shared();
       group_sync();
-      // m2 = gelu(LN_m(y) w1 + b1) w2, 128 hidden columns at a time: each
-      // half rounded into the hidden tile and summed into m2 at once
-      for (int n0 = 0; n0 < hidden; n0 += kWidth) {
-        float hcc[64];
-        gemm_n128(hcc, a_s, w1_s, hidden, n0, kWidth);
-        if (n0 > 0) group_sync();   // the last half's product is done
+      // m2 = gelu(LN_m(y) w1 + b1) w2, HC hidden columns at a time: each
+      // chunk rounded into the hidden tile and summed into m2 at once
+      for (int n0 = 0; n0 < hidden; n0 += HC) {
+        float hcc[HC / 2];
+        gemm<HC, W, AW>(hcc, a_s, w1_s, hidden, n0);
+        if (n0 > 0) group_sync();   // the last chunk's product is done
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
+        for (int j = 0; j < HC / 8; ++j) {
           const int c = 8 * j + 2 * t;
           const float2 bb = __bfloat1622float2(
               *reinterpret_cast<const __nv_bfloat162*>(b1 + n0 + c));
 #pragma unroll
           for (int hr = 0; hr < 2; ++hr)
             *reinterpret_cast<uint32_t*>(
-                h_s + sw128(kTile, warp * 16 + g + 8 * hr, c)) =
+                h_s + swz<64>(kTile, warp * 16 + g + 8 * hr, c)) =
                 pack2(rowops::gelu_erf(hcc[4 * j + 2 * hr] + bb.x),
                       rowops::gelu_erf(hcc[4 * j + 2 * hr + 1] + bb.y));
         }
         fence_async_shared();
         group_sync();
-        gemm_n128(m2, h_s, w2_s, kWidth, 0, kWidth, n0, n0 > 0);
+        gemm<W, HC, 64>(m2, h_s, w2_s, W, 0, n0, n0 > 0);
       }
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < W / 8; ++j) {
         const int c = 8 * j + 2 * t;
         const float2 bb = __bfloat1622float2(
             *reinterpret_cast<const __nv_bfloat162*>(b2 + c));
@@ -1048,15 +1114,15 @@ __global__ void __launch_bounds__(128 * kOutGroups, 1)
         }
       }
     }
-    if (ln_p != nullptr) ln_acc(y, ln_p, t, false);
-    // each row is one 256-byte run of the output: 16 bytes a group of four
+    if (ln_p != nullptr) ln_acc<W>(y, ln_p, t, false);
+    // each row is one 2W-byte run of the output: 16 bytes a group of four
     // threads a store
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       if (pos[hr] < 0) continue;
-      bf16* op = out + pos[hr] * kWidth;
+      bf16* op = out + pos[hr] * W;
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
+      for (int j = 0; j < W / 8; ++j)
         *reinterpret_cast<uint32_t*>(op + 8 * j + 2 * t) =
             pack2(y[4 * j + 2 * hr], y[4 * j + 2 * hr + 1]);
     }
@@ -1065,22 +1131,38 @@ __global__ void __launch_bounds__(128 * kOutGroups, 1)
 }
 
 // 3. Attention, wgmma: K1's window_attention_wgmma_kernel with the cameras
-// as NSEG query segments.  grid: G * heads * ceil(Tw / 64) blocks of one
-// warpgroup (query tiles fastest); a block holds the 64 query rows of its
-// tile in every segment (TMA, once), streams the window's shared keys once
-// through a ring of 64-key stages, keeps an online softmax and an f32
-// accumulator per segment, and stores the mean over the segments of the
-// normalised outputs, rounded once.  The probabilities are rounded to bf16
-// before both the numerator and the sum (flash.cuh's contract).  Maps: q as
-// 4D (D, heads, NSEG*Tw, G), k/v as (D, heads, Tk, G), boxes of 64 rows x D.
-constexpr int kAttnStages = 4;
+// as NSEG query segments.  grid: G * heads * ceil(Tw / 64) blocks (query
+// tiles fastest) of NSEG / SPW warpgroups; a block holds the 64 query rows
+// of its tile in every segment (TMA, once), streams the window's shared keys
+// once through a ring of 64-key stages that all its warpgroups read, and
+// warpgroup w keeps an online softmax and an f32 accumulator for each of
+// its SPW segments w SPW .. w SPW + SPW - 1; the normalised outputs are
+// summed over the segments in order (each warpgroup's through shared
+// memory into the first), and the mean is stored rounded once.  The
+// probabilities are rounded to bf16 before both the numerator and the sum
+// (flash.cuh's contract).  Maps: q as 4D (D, heads, NSEG*Tw, G), k/v as
+// (D, heads, Tk, G), boxes of 64 rows x D.
+//
+// One warpgroup walks every segment for CorpBEVT's 4 cameras (SPW = NSEG).
+// SinBEVT-nuScenes' stage 0 has 6 cameras over 7 key tiles: walked by one
+// warpgroup, that is a chain of 42 dependent (product, softmax, product)
+// steps a block with two blocks an SM (6 accumulators a thread); a
+// warpgroup a camera (SPW 1) cuts the chain to 7 steps and keeps six
+// warpgroups on an SM, and a ring of 8 stages takes the 7 key tiles at
+// once (no refill, no block-wide barrier between the steps).
+template <int NSEG>
+__host__ __device__ constexpr int attn_stages() { return NSEG == 6 ? 8 : 4; }
 
-template <int D, int NSEG>
-__global__ void __launch_bounds__(128, NSEG == 1 ? 6 : 3)
+template <int D, int NSEG, int SPW>
+__global__ void __launch_bounds__(128 * (NSEG / SPW),
+                                  NSEG == SPW ? (NSEG == 1 ? 6 : 3) : 1)
     xattn_attention_wgmma(const __grid_constant__ CUtensorMap qmap,
                           const __grid_constant__ CUtensorMap kmap,
                           const __grid_constant__ CUtensorMap vmap,
                           bf16* __restrict__ out, int Tw, int Tk, int heads) {
+  static_assert(NSEG % SPW == 0, "whole segments a warpgroup");
+  constexpr int NWG = NSEG / SPW;
+  constexpr int kAttnStages = attn_stages<NSEG>();
   constexpr Swizzle kSw = D == 32 ? kSwizzle64 : kSwizzle32;
   constexpr uint32_t kRowBytes = D * 2;
   constexpr int kTileBytes = kTile * D * 2;   // 4 or 2 KB: 1024-aligned
@@ -1100,8 +1182,10 @@ __global__ void __launch_bounds__(128, NSEG == 1 ? 6 : 3)
   const int win = b / heads;
   const int q0 = qt * kTile;
   const int KT = (Tk + kTile - 1) / kTile;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  if (tid == 0) {
+  const int grp = threadIdx.x >> 7;
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int sg0 = grp * SPW;   // this warpgroup's first segment
+  if (threadIdx.x == 0) {
     mbar_init(qbar, 1);
     for (int s = 0; s < kAttnStages; ++s) mbar_init(&full[s], 1);
     fence_barrier_init();
@@ -1114,7 +1198,7 @@ __global__ void __launch_bounds__(128, NSEG == 1 ? 6 : 3)
     tma_load_4d(st, &kmap, &full[s], 0, h, kt * kTile, win);
     tma_load_4d(st + kTileBytes, &vmap, &full[s], 0, h, kt * kTile, win);
   };
-  if (tid == 0) {
+  if (threadIdx.x == 0) {
     mbar_arrive_expect_tx(qbar, NSEG * kTileBytes);
     for (int sg = 0; sg < NSEG; ++sg)
       tma_load_4d(q_s + sg * kTileBytes, &qmap, qbar, 0, h, sg * Tw + q0,
@@ -1125,10 +1209,10 @@ __global__ void __launch_bounds__(128, NSEG == 1 ? 6 : 3)
   const int rl[2] = {warp * 16 + gq, warp * 16 + gq + 8};
   mbar_wait(qbar, 0);
 
-  float o[NSEG][D / 2];
-  float ml[NSEG][2], l[NSEG][2];
+  float o[SPW][D / 2];
+  float ml[SPW][2], l[SPW][2];
 #pragma unroll
-  for (int sg = 0; sg < NSEG; ++sg) {
+  for (int sg = 0; sg < SPW; ++sg) {
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[sg][i] = 0.f;
     ml[sg][0] = ml[sg][1] = -INFINITY;
@@ -1142,11 +1226,12 @@ __global__ void __launch_bounds__(128, NSEG == 1 ? 6 : 3)
     const uint64_t dv = make_desc(st + kTileBytes, 8 * kRowBytes, kSw);
     const int k0 = kt * kTile;
 #pragma unroll
-    for (int sg = 0; sg < NSEG; ++sg) {
+    for (int sg = 0; sg < SPW; ++sg) {
       float sc[32];
 #pragma unroll
       for (int i = 0; i < 32; ++i) sc[i] = 0.f;
-      const uint64_t dq = make_desc(q_s + sg * kTileBytes, 8 * kRowBytes, kSw);
+      const uint64_t dq =
+          make_desc(q_s + (sg0 + sg) * kTileBytes, 8 * kRowBytes, kSw);
       wgmma_fence();
 #pragma unroll
       for (int kd = 0; kd < D / 16; ++kd)
@@ -1209,14 +1294,14 @@ __global__ void __launch_bounds__(128, NSEG == 1 ? 6 : 3)
     }
     if (kt + kAttnStages < KT) {
       __syncthreads();
-      if (tid == 0) load_tile(kt + kAttnStages);
+      if (threadIdx.x == 0) load_tile(kt + kAttnStages);
     }
   }
   float mean[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) mean[i] = 0.f;
 #pragma unroll
-  for (int sg = 0; sg < NSEG; ++sg) {
+  for (int sg = 0; sg < SPW; ++sg) {
     float inv[2];
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
@@ -1226,6 +1311,25 @@ __global__ void __launch_bounds__(128, NSEG == 1 ? 6 : 3)
     }
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) mean[i] += o[sg][i] * inv[(i >> 1) & 1];
+  }
+  if constexpr (NWG > 1) {
+    // the other warpgroups' sums, through the q tiles and the ring (free
+    // once every warpgroup is past the last key tile): value i of thread
+    // tid of warpgroup w at [((w - 1) D / 2 + i) 128 + tid]
+    float* red = reinterpret_cast<float*>(q_s);
+    __syncthreads();
+    if (grp > 0) {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i)
+        red[((grp - 1) * (D / 2) + i) * 128 + tid] = mean[i];
+    }
+    __syncthreads();
+    if (grp > 0) return;
+#pragma unroll
+    for (int w = 1; w < NWG; ++w)
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i)
+        mean[i] += red[((w - 1) * (D / 2) + i) * 128 + tid];
   }
   const float inv_seg = 1.f / NSEG;
   const int C = heads * D;
@@ -1242,10 +1346,18 @@ __global__ void __launch_bounds__(128, NSEG == 1 ? 6 : 3)
   }
 }
 
+// segments a warpgroup of the attention launch: all of them with 1 or 4,
+// one with 6
+template <int NSEG>
+constexpr int attn_spw() { return NSEG == 6 ? 1 : NSEG; }
+
 template <int D, int NSEG>
 constexpr int attention_smem() {
-  return 1024 + (NSEG + 2 * kAttnStages) * kTile * D * 2 +
-         (1 + kAttnStages) * 8;
+  constexpr int stages = attn_stages<NSEG>();
+  static_assert((NSEG / attn_spw<NSEG>() - 1) * 128 * (D / 2) * 4 <=
+                    (NSEG + 2 * stages) * kTile * D * 2,
+                "the warpgroups' sums fit the q tiles and the ring");
+  return 1024 + (NSEG + 2 * stages) * kTile * D * 2 + (1 + stages) * 8;
 }
 
 // The SM count, once per device, for the persistent grids
@@ -1268,14 +1380,15 @@ inline int persistent_blocks(long long rows, int per_sm, int device) {
   return (int)(tiles < cap ? tiles : cap);
 }
 
-// 2D map of an (N, K) bf16 weight, boxes of 64 columns x N rows, 128B
-// swizzle
+// 2D map of an (N, K) bf16 weight, boxes of atom_cols(K) columns x N rows,
+// swizzled as wgmma reads them
 inline cudaError_t weight_map(CUtensorMap* map, const void* w, int N, int K) {
   const uint64_t dims[2] = {(uint64_t)K, (uint64_t)N};
   const uint64_t strides[1] = {(uint64_t)K * 2};
-  const uint32_t box[2] = {64, (uint32_t)N};
-  return hopper_host::make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w,
-                               dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+  const uint32_t box[2] = {(uint32_t)atom_cols(K), (uint32_t)N};
+  return hopper_host::make_map(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w, dims, strides, box,
+      K >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
 // 4D map (D, heads, T, G) of a (G, T, heads*D) bf16 tensor, boxes of 64 rows
@@ -1297,104 +1410,134 @@ inline cudaError_t allow(K kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-// the shapes this route takes (ops/fused_cross_attention.py:kernel_path)
-inline bool takes(const Dims& d) { return d.D == kWidth && d.C == kWidth; }
+// the widths this route takes (ops/fused_cross_attention.py:kernel_path)
+inline bool takes(const Dims& d) {
+  return d.D == d.C && (d.D == 32 || d.D == 64 || d.D == 128);
+}
+
+// runs f<W>() at the route's width d.D
+template <typename F>
+inline int at_width(const Dims& d, F f) {
+  if (!takes(d)) return (int)cudaErrorInvalidValue;
+  if (d.D == 32) return f(std::integral_constant<int, 32>());
+  if (d.D == 64) return f(std::integral_constant<int, 64>());
+  return f(std::integral_constant<int, 128>());
+}
 
 int kv(const void* key, const void* val, const void* ln_k, const void* ln_v,
        const void* wk_t, const void* wv_t, const void* bk, const void* bv,
        void* k_out, void* v_out, const Dims& d, int device, cudaStream_t s) {
-  if (!takes(d)) return (int)cudaErrorInvalidValue;
-  CUtensorMap wk, wv;
-  cudaError_t err = weight_map(&wk, wk_t, kWidth, kWidth);
-  if (err == cudaSuccess) err = weight_map(&wv, wv_t, kWidth, kWidth);
-  if (err == cudaSuccess) err = allow(xattn_kv_wgmma, kProjSmem);
-  if (err != cudaSuccess) return (int)err;
-  const long long rows = (long long)d.B * (d.H / d.wh) * (d.W / d.ww) *
-                         d.n * d.kh * d.kw;
-  if (rows >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-  xattn_kv_wgmma<<<dim3(persistent_blocks(rows, kProjBlocksPerSm, device), 2),
-                   128, kProjSmem, s>>>(
-      wk, wv, (const bf16*)key, (const bf16*)val, (const bf16*)ln_k,
-      (const bf16*)ln_v, (const bf16*)bk, (const bf16*)bv, (bf16*)k_out,
-      (bf16*)v_out, d);
-  return (int)cudaGetLastError();
+  return at_width(d, [&](auto width) -> int {
+    constexpr int W = decltype(width)::value;
+    constexpr int smem = proj_smem<W>();
+    CUtensorMap wk, wv;
+    cudaError_t err = weight_map(&wk, wk_t, W, W);
+    if (err == cudaSuccess) err = weight_map(&wv, wv_t, W, W);
+    if (err == cudaSuccess) err = allow(xattn_kv_wgmma<W>, smem);
+    if (err != cudaSuccess) return (int)err;
+    const long long rows = (long long)d.B * (d.H / d.wh) * (d.W / d.ww) *
+                           d.n * d.kh * d.kw;
+    if (rows >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+    xattn_kv_wgmma<W><<<dim3(persistent_blocks(
+                                 rows, proj_blocks_per_sm<W>(), device), 2),
+                        128, smem, s>>>(
+        wk, wv, (const bf16*)key, (const bf16*)val, (const bf16*)ln_k,
+        (const bf16*)ln_v, (const bf16*)bk, (const bf16*)bv, (bf16*)k_out,
+        (bf16*)v_out, d);
+    return (int)cudaGetLastError();
+  });
 }
 
 int q(const void* x, const void* w_embed, const void* c_embed,
       const void* ln_q, const void* wq_t, const void* bq, float scale,
       void* q_out, const Dims& d, int device, cudaStream_t s) {
-  if (!takes(d)) return (int)cudaErrorInvalidValue;
-  CUtensorMap wq;
-  cudaError_t err = weight_map(&wq, wq_t, kWidth, kWidth);
-  if (err == cudaSuccess) err = allow(xattn_q_wgmma, kProjSmem);
-  if (err != cudaSuccess) return (int)err;
-  const long long rows = (long long)d.B * (d.H / d.wh) * (d.W / d.ww) *
-                         d.nq * d.wh * d.ww;
-  if (rows >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-  xattn_q_wgmma<<<persistent_blocks(rows, kProjBlocksPerSm, device), 128,
-                  kProjSmem, s>>>(wq, (const bf16*)x, (const bf16*)w_embed,
-                                  (const bf16*)c_embed, (const bf16*)ln_q,
-                                  (const bf16*)bq, scale, (bf16*)q_out, d);
-  return (int)cudaGetLastError();
+  return at_width(d, [&](auto width) -> int {
+    constexpr int W = decltype(width)::value;
+    constexpr int smem = proj_smem<W>();
+    CUtensorMap wq;
+    cudaError_t err = weight_map(&wq, wq_t, W, W);
+    if (err == cudaSuccess) err = allow(xattn_q_wgmma<W>, smem);
+    if (err != cudaSuccess) return (int)err;
+    const long long rows = (long long)d.B * (d.H / d.wh) * (d.W / d.ww) *
+                           d.nq * d.wh * d.ww;
+    if (rows >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+    xattn_q_wgmma<W><<<persistent_blocks(rows, proj_blocks_per_sm<W>(),
+                                         device),
+                       128, smem, s>>>(
+        wq, (const bf16*)x, (const bf16*)w_embed, (const bf16*)c_embed,
+        (const bf16*)ln_q, (const bf16*)bq, scale, (bf16*)q_out, d);
+    return (int)cudaGetLastError();
+  });
 }
 
 int out(const void* attn, const void* x, const void* wo_t, const void* bo,
         const void* ln_m, const void* w1_t, const void* b1, const void* w2_t,
         const void* b2, const void* ln_p, void* o, const Dims& d, int hidden,
         int add_skip, int device, cudaStream_t s) {
-  if (!takes(d) || (hidden != 0 && hidden != 128 && hidden != 256) ||
-      (hidden > 0) != (w1_t != nullptr))
-    return (int)cudaErrorInvalidValue;
-  CUtensorMap wo, w1, w2;
-  cudaError_t err = weight_map(&wo, wo_t, kWidth, kWidth);
-  w1 = w2 = wo;
-  if (err == cudaSuccess && hidden > 0) {
-    err = weight_map(&w1, w1_t, hidden, kWidth);
-    if (err == cudaSuccess) err = weight_map(&w2, w2_t, kWidth, hidden);
-  }
-  const int smem = out_smem(hidden);
-  if (err == cudaSuccess) err = allow(xattn_out_wgmma, smem);
-  if (err != cudaSuccess) return (int)err;
-  // one block an SM, its warpgroups on alternate tiles
-  const long long pairs = ((long long)d.B * d.H * d.W + 2 * kTile - 1) /
-                          (2 * kTile);
-  const int blocks = (int)(pairs < sm_count(device) ? pairs : sm_count(device));
-  xattn_out_wgmma<<<blocks, 128 * kOutGroups, smem, s>>>(
-      wo, w1, w2, (const bf16*)attn, (const bf16*)x, (const bf16*)bo,
-      (const bf16*)ln_m, (const bf16*)b1, (const bf16*)b2,
-      (const bf16*)ln_p, (bf16*)o, d, hidden, add_skip);
-  return (int)cudaGetLastError();
+  return at_width(d, [&](auto width) -> int {
+    constexpr int W = decltype(width)::value;
+    const int smem = out_smem<W>(hidden);
+    if (hidden < 0 || hidden % hidden_chunk<W>() || hidden > 256 ||
+        (hidden > 0) != (w1_t != nullptr) || smem > 232448)
+      return (int)cudaErrorInvalidValue;
+    CUtensorMap wo, w1, w2;
+    cudaError_t err = weight_map(&wo, wo_t, W, W);
+    w1 = w2 = wo;
+    if (err == cudaSuccess && hidden > 0) {
+      err = weight_map(&w1, w1_t, hidden, W);
+      if (err == cudaSuccess) err = weight_map(&w2, w2_t, W, hidden);
+    }
+    if (err == cudaSuccess) err = allow(xattn_out_wgmma<W>, smem);
+    if (err != cudaSuccess) return (int)err;
+    // one block an SM, its warpgroups on alternate tiles
+    const long long pairs = ((long long)d.B * d.H * d.W + 2 * kTile - 1) /
+                            (2 * kTile);
+    const int blocks =
+        (int)(pairs < sm_count(device) ? pairs : sm_count(device));
+    xattn_out_wgmma<W><<<blocks, 128 * kOutGroups, smem, s>>>(
+        wo, w1, w2, (const bf16*)attn, (const bf16*)x, (const bf16*)bo,
+        (const bf16*)ln_m, (const bf16*)b1, (const bf16*)b2,
+        (const bf16*)ln_p, (bf16*)o, d, hidden, add_skip);
+    return (int)cudaGetLastError();
+  });
 }
 
 template <int D, int NSEG>
 cudaError_t attention_launch(const CUtensorMap* maps, void* out, int G,
                              int Tw, int Tk, int heads, cudaStream_t s) {
+  constexpr int SPW = attn_spw<NSEG>();
   constexpr int smem = attention_smem<D, NSEG>();
-  cudaError_t err = allow(xattn_attention_wgmma<D, NSEG>, smem);
+  cudaError_t err = allow(xattn_attention_wgmma<D, NSEG, SPW>, smem);
   if (err != cudaSuccess) return err;
   const long long blocks = (long long)G * heads * ((Tw + kTile - 1) / kTile);
-  xattn_attention_wgmma<D, NSEG><<<(unsigned)blocks, 128, smem, s>>>(
-      maps[0], maps[1], maps[2], (bf16*)out, Tw, Tk, heads);
+  xattn_attention_wgmma<D, NSEG, SPW>
+      <<<(unsigned)blocks, 128 * (NSEG / SPW), smem, s>>>(
+          maps[0], maps[1], maps[2], (bf16*)out, Tw, Tk, heads);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t attention_segments(const CUtensorMap* maps, void* out, int G,
+                               int Tw, int nq, int Tk, int heads,
+                               cudaStream_t s) {
+  if (nq == 6) return attention_launch<D, 6>(maps, out, G, Tw, Tk, heads, s);
+  if (nq == 4) return attention_launch<D, 4>(maps, out, G, Tw, Tk, heads, s);
+  return attention_launch<D, 1>(maps, out, G, Tw, Tk, heads, s);
 }
 
 int attention(const void* q, const void* k, const void* v, void* out, int G,
               int Tw, int nq, int Tk, int heads, int C, cudaStream_t s) {
   const int D = C / heads;
-  if ((D != 16 && D != 32) || (nq != 1 && nq != 4) || Tk % 8 || G <= 0 ||
-      Tw <= 0)
+  if ((D != 16 && D != 32) || (nq != 1 && nq != 4 && nq != 6) || Tk % 8 ||
+      G <= 0 || Tw <= 0)
     return (int)cudaErrorInvalidValue;
   CUtensorMap maps[3];
   cudaError_t err = rows_map(&maps[0], q, G, nq * Tw, heads, D);
   if (err == cudaSuccess) err = rows_map(&maps[1], k, G, Tk, heads, D);
   if (err == cudaSuccess) err = rows_map(&maps[2], v, G, Tk, heads, D);
   if (err != cudaSuccess) return (int)err;
-  if (D == 32)
-    err = nq == 4 ? attention_launch<32, 4>(maps, out, G, Tw, Tk, heads, s)
-                  : attention_launch<32, 1>(maps, out, G, Tw, Tk, heads, s);
-  else
-    err = nq == 4 ? attention_launch<16, 4>(maps, out, G, Tw, Tk, heads, s)
-                  : attention_launch<16, 1>(maps, out, G, Tw, Tk, heads, s);
+  err = D == 32 ? attention_segments<32>(maps, out, G, Tw, nq, Tk, heads, s)
+                : attention_segments<16>(maps, out, G, Tw, nq, Tk, heads, s);
   return (int)err;
 }
 

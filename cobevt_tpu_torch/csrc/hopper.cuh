@@ -359,6 +359,36 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// D (64 x 32, f32) {+}= A (64 x 16) B (16 x 32), both bf16 from shared
+// memory through descriptors, B K-major (trans-b 0).
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t desc_a,
+                                                  uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D (64 x N, f32) {+}= A (64 x 16) B (16 x N) for N 32, 64 or 128, both
+// K-major from shared memory: the product of that width above
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
+                                         uint64_t desc_b, int accumulate) {
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma_ss: N 32, 64, 128");
+  if constexpr (N == 128)
+    wgmma_m64n128k16_ss(d, desc_a, desc_b, accumulate);
+  else if constexpr (N == 64)
+    wgmma_m64n64k16_ss(d, desc_a, desc_b, accumulate);
+  else
+    wgmma_m64n32k16_ss(d, desc_a, desc_b, accumulate);
+}
+
 // D (64 x 128, f32) {+}= A (64 x 16) B (16 x 128), both bf16 from shared
 // memory and both MN-major (trans-a 1, trans-b 1): A stored as K x M (M
 // contiguous, one 128-byte span of 64 values), B as K x N (N contiguous, two

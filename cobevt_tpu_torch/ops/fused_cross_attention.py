@@ -63,27 +63,29 @@ def ln_f32(t, gamma, beta, eps: float = 1e-5):
     return (t - mu) * torch.rsqrt(var + eps) * gamma.float() + beta.float()
 
 
-# the shapes of the wgmma kernels: CorpBEVT's FAX width, the token MLP's
-# hidden widths, the head dims of one wgmma product, the query segments
-WGMMA_WIDTH = 128
-WGMMA_HIDDEN = (0, 128, 256)
+# the shapes of the wgmma kernels: the FAX widths D = C (SinBEVT-nuScenes'
+# stages 0-1 at 32 and 64, CorpBEVT's and stage 2's 128), the token MLP's
+# hidden widths at each, the head dims of one wgmma product, the query
+# segments (the cameras of a local branch: 4 on OPV2V, 6 on nuScenes)
+WGMMA_HIDDEN = {32: (0, 64), 64: (0, 128), 128: (0, 128, 256)}
 WGMMA_HEAD_DIMS = (16, 32)
-WGMMA_SEGMENTS = (1, 4)
+WGMMA_SEGMENTS = (1, 4, 6)
 _PATH_FLAGS = {"scalar": 0, "mma": 1, "wgmma": 2}
 
 
 def kernel_path(dtype, D: int, C: int, n_heads: int, hidden: int,
                 nq: int) -> str:
     """Which kernels a branch's four launches take on the card: "wgmma"
-    (bf16 at D = C = 128, MLP hidden 0/128/256, head dim 16 or 32, 1 or 4
-    query segments: every CorpBEVT branch) -- persistent wgmma GEMMs with
-    the weights in shared memory and K1's wgmma attention with the cameras
-    as segments; "mma" (the other bf16 shapes): the row kernels of
-    ``rowops.cuh`` and ``flash.cuh``'s attention on ``mma.sync``; "scalar"
-    (f32).  Device-independent."""
+    (bf16 at D = C = 32, 64 or 128 with the MLP hidden of
+    :data:`WGMMA_HIDDEN`, head dim 16 or 32, 1, 4 or 6 query segments: every
+    CorpBEVT, SinBEVT-OPV2V and SinBEVT-nuScenes branch) -- persistent
+    wgmma GEMMs with the weights in shared memory and K1's wgmma attention
+    with the cameras as segments; "mma" (the other bf16 shapes): the row
+    kernels of ``rowops.cuh`` and ``flash.cuh``'s attention on
+    ``mma.sync``; "scalar" (f32).  Device-independent."""
     if dtype != torch.bfloat16:
         return "scalar"
-    if (D == C == WGMMA_WIDTH and hidden in WGMMA_HIDDEN
+    if (D == C and hidden in WGMMA_HIDDEN.get(D, ())
             and n_heads > 0 and C % n_heads == 0
             and C // n_heads in WGMMA_HEAD_DIMS and nq in WGMMA_SEGMENTS):
         return "wgmma"

@@ -158,12 +158,14 @@ K4_MAX_STAGES = 8
 
 
 def stream_kernel_path(D: int, heads: int, mlp: int, dtype) -> str:
-    """Which K6 kernels a shape runs: "wgmma" (bf16, D 128 or 256, head dim
-    16 or 32, mlp a multiple of 128: every FuseBEVT of the repo) or "rows"
-    (f32, and bf16 at the other widths: the row kernels and flash.cuh).  A
-    choice by shape; both compute the same function and roundings."""
-    if dtype == torch.bfloat16 and D in (128, 256) and heads > 0 and \
-            D % heads == 0 and D // heads in (16, 32) and mlp % 128 == 0:
+    """Which K6 kernels a shape runs: "wgmma" (bf16, D 128, 256 or 512, head
+    dim 16 or 32, mlp a multiple of 128: every FuseBEVT of the repo, SECOND's
+    D 512 included; :func:`stream_plan` plans D 128 / 256, :func:`wide_plan`
+    D 512) or "rows" (f32, and bf16 at the other widths: the row kernels and
+    flash.cuh).  A choice by shape; both compute the same function and
+    roundings."""
+    if dtype == torch.bfloat16 and D in (128, 256, WIDE_D) and heads > 0 \
+            and D % heads == 0 and D // heads in (16, 32) and mlp % 128 == 0:
         return "wgmma"
     return "rows"
 
@@ -200,6 +202,63 @@ def stream_plan(rows: int, D: int, mlp: int, sms: int) -> StreamPlan:
                          f"in {SMEM_BYTES} bytes")
     return StreamPlan(tiles, max(1, min(sms // 3, pairs)), min(sms, pairs),
                       stages, stage, qkv_smem, fixed + stages * stage)
+
+
+# K6's wgmma route at D 512 (csrc/fused_swap_fusion_streaming.cu, namespace
+# wide): the QKV launch's two warpgroups (a 64-row tile each) share one ring
+# of boxes of 128 Wqkv rows x 64 columns; the output launch's four
+# warpgroups share a tile, each owning 128 output columns and hidden chunks
+# of 64, and streaming boxes of 64 weight rows x 64 columns through a ring of
+# its own
+WIDE_D = 512
+WIDE_QKV_GROUPS, WIDE_QKV_COLS, WIDE_QKV_MAX_STAGES = 2, 128, 6
+WIDE_OUT_GROUPS, WIDE_OUT_HIDDEN, WIDE_OUT_MAX_STAGES = 4, 64, 4
+
+
+class WidePlan(NamedTuple):
+    """The launch plan of K6's wgmma route at D 512 for ``rows`` token
+    rows."""
+
+    tiles: int         # 64-row tiles
+    qkv_blocks: int    # the QKV launch's persistent blocks (pairs of tiles)
+    out_blocks: int    # the output launch's persistent blocks (a tile each)
+    qkv_stages: int    # boxes in the QKV launch's ring
+    out_stages: int    # boxes in each output warpgroup's ring
+    qkv_box: int       # bytes of a ring box: 128 Wqkv rows x 64 columns
+    out_box: int       # 64 weight rows x 64 columns
+    qkv_smem: int      # shared memory a block of each launch takes
+    out_smem: int
+
+
+def wide_plan(rows: int, D: int, mlp: int, sms: int) -> WidePlan:
+    """Grids and shared memory of K6's wgmma route at D 512, the same
+    numbers as the kernels' ``wide::qkv_smem`` / ``wide::out_smem``: one
+    block an SM in each launch, and each ring as deep as fits (the QKV
+    launch's beside its two 64 x D A tiles; the output launch's four beside
+    the A tile and the 64 x mlp hidden tile).  Raises when a ring of two
+    boxes does not fit, or on another D."""
+    tile = STREAM_TILE
+    tiles = -(-rows // tile)
+    pairs = -(-tiles // WIDE_QKV_GROUPS)
+    a_tile = tile * D * 2
+    qkv_box = WIDE_QKV_COLS * 128
+    out_box = 64 * 128
+    qkv_fixed = 1024 + WIDE_QKV_GROUPS * a_tile + 2 * D * 4 + \
+        2 * WIDE_QKV_MAX_STAGES * 8
+    out_fixed = 1024 + a_tile + tile * mlp * 2 + tile * 4 + \
+        2 * WIDE_OUT_GROUPS * tile * 4 + \
+        (2 * WIDE_OUT_GROUPS * WIDE_OUT_MAX_STAGES + 1) * 8
+    qkv_stages = min(WIDE_QKV_MAX_STAGES,
+                     (SMEM_BYTES - qkv_fixed) // qkv_box)
+    out_stages = min(WIDE_OUT_MAX_STAGES, (SMEM_BYTES - out_fixed)
+                     // (WIDE_OUT_GROUPS * out_box))
+    if D != WIDE_D or mlp % 128 or qkv_stages < 2 or out_stages < 2:
+        raise ValueError(f"K6's D 512 wgmma route does not fit D={D}, "
+                         f"mlp={mlp} in {SMEM_BYTES} bytes")
+    return WidePlan(tiles, min(sms, pairs), min(sms, tiles), qkv_stages,
+                    out_stages, qkv_box, out_box,
+                    qkv_fixed + qkv_stages * qkv_box,
+                    out_fixed + out_stages * WIDE_OUT_GROUPS * out_box)
 
 
 class K4Plan(NamedTuple):
@@ -717,10 +776,15 @@ def _launch_streaming(x, mask, bias, layers, window, heads):
     plan, masks = None, (mask, mask)
     if stream_kernel_path(D, heads, mlp, dt) == "wgmma":
         flag = 2
-        sp = stream_plan(
-            rows, D, mlp, torch.cuda.get_device_properties(dev)
-            .multi_processor_count)
-        plan = (ctypes.c_int * 3)(sp.qkv_blocks, sp.out_blocks, sp.stages)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        if D == WIDE_D:
+            wp = wide_plan(rows, D, mlp, sms)
+            plan = (ctypes.c_int * 4)(wp.qkv_blocks, wp.out_blocks,
+                                      wp.out_stages, wp.qkv_stages)
+        else:
+            sp = stream_plan(rows, D, mlp, sms)
+            plan = (ctypes.c_int * 4)(sp.qkv_blocks, sp.out_blocks,
+                                      sp.stages, 0)
         for name, t in [("x", x), ("bias_stack", bias)] + [
                 (name, t) for pair in layers for p in pair
                 for name, t in p.items()]:

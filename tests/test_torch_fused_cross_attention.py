@@ -2,7 +2,8 @@
 
 The port's plain version (what CPU tensors run) against the JAX function
 with its Pallas body in interpret mode and against its XLA composite, at
-the sizes of tests/test_fused_cross_attention.py; then the FAX stage
+the sizes of tests/test_fused_cross_attention.py and at SinBEVT-nuScenes'
+stage 0 widths (D 32, 6 cameras as query segments); then the FAX stage
 module with the fused dispatch against the JAX module with default
 switches, and both at COBEVT_FUSED_XATTN=0.  Same numpy inputs and
 weights on both sides, f32 on the CPU.  Tolerance 1e-4 abs / 1e-4 rel:
@@ -92,6 +93,27 @@ def test_plain_matches_pallas_body_and_composite(embed, add_skip, tail):
     assert got.shape == (2, 32, 32, 128) and got.dtype == torch.float32
     assert_close(got, body, **TOL)
     assert_close(got, composite, **TOL)
+
+
+@pytest.mark.parametrize("tail", [False, True])
+def test_plain_matches_pallas_body_at_a_nuscenes_stage0_branch(tail):
+    """SinBEVT-nuScenes' stage 0 widths (D = C = 32, one head of 32, MLP
+    hidden 64, 10 x 10 query windows over 6 cameras' 6 x 12 key windows,
+    six query segments from the camera embeddings) at a 2 x 2 window map."""
+    q_win, k_win, heads = (10, 10), (6, 12), 1
+    data, params, mlp, post_ln = _inputs(B=1, n=6, H=20, W=20, D=32, C=32,
+                                         h=12, w=24, seed=3)
+    j_mlp, j_post = _jax_tail(mlp, post_ln, tail)
+    jargs = _args(data, params, True, True)
+    body = jk.fused_cross_view_attention(
+        *jargs, q_win, k_win, heads, SCALE, True, mlp=j_mlp, post_ln=j_post,
+        interpret=True)
+    got = pk.cross_view_attention_reference(
+        *_args(data, params, True, False), q_win, k_win, heads, SCALE, True,
+        mlp=torch_tree(mlp) if tail else None,
+        post_ln=torch_tree(post_ln) if tail else None)
+    assert got.shape == (1, 20, 20, 32)
+    assert_close(got, body, **TOL)
 
 
 def test_grid_keys_match_the_factor_swapped_layout():

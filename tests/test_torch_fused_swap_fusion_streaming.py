@@ -4,7 +4,8 @@ The port's SwapFusionEncoder on the K6 branch (its plain version on the
 CPU) against the JAX encoder at COBEVT_FUSED_FUSION=force-stream, whose
 Pallas body runs in interpret mode on the CPU, at the sizes of
 tests/test_fused_swap_fusion.py: L 3, 16 x 16, window 8, D 128 (one head
-group) and D 256 (two), masked and not, both pooling semantics, B 1 and 2.
+group) and D 256 (two), masked and not, both pooling semantics, B 1 and 2;
+and SECOND's D 512 (mlp 256) at L 2, 8 x 16.
 Same numpy weights and inputs.  f32: 3e-4 abs / 3e-4 rel, the tolerance the
 JAX package holds its kernel to against its stock path.  bf16: 6e-2 abs /
 2e-2 rel: the port takes the row maximum per head where the TPU body takes
@@ -37,9 +38,10 @@ BF16_TOL = dict(atol=6e-2, rtol=2e-2)
 
 
 def _setup(masked, mean_over_valid=False, B=1, L=3, H=16, W=16, D=128,
-           depth=2, window=8, seed=1):
+           depth=2, window=8, seed=1, mlp=None):
     rng = np.random.RandomState(seed)
-    kw = dict(input_dim=D, mlp_dim=2 * D, agent_size=L, window_size=window,
+    kw = dict(input_dim=D, mlp_dim=mlp or 2 * D, agent_size=L,
+              window_size=window,
               dim_head=32, dropout=0.0, depth=depth, mask=masked,
               mean_over_valid=mean_over_valid)
     x = rng.randn(B, L, H, W, D).astype(np.float32)
@@ -93,6 +95,25 @@ def test_encoder_matches_jax_streaming(monkeypatch, masked, dim):
     with torch.no_grad():
         got = port(torch.from_numpy(x), torch.from_numpy(mask))
     assert got.shape == (1, 16, 16, dim)
+    assert calls == ["fused_swap_fusion_streaming"]
+    assert_close(got, want, **TOL)
+
+
+def test_encoder_matches_jax_streaming_at_d512(monkeypatch):
+    """SECOND's widths (D 512, 16 heads of 32, mlp 256, depth 1) at a small
+    map: 2 agents, 8 x 16, two windows of 8 (the JAX gate ``streams``
+    takes SECOND's window of 4 only where it spans the whole map)."""
+    kw, x, mask, _ = _setup(True, L=2, H=8, W=16, D=512, depth=1, seed=4,
+                            mlp=256)
+    jm = js.SwapFusionEncoder(**kw)
+    jargs = (jnp.asarray(x), jnp.asarray(mask), False)
+    v = jax_variables(jm, *jargs)
+    want = _jax_streaming(monkeypatch, jm, v, *jargs)
+    calls = _spies(monkeypatch)
+    port = port_from(ps.SwapFusionEncoder(**kw), v)
+    with torch.no_grad():
+        got = port(torch.from_numpy(x), torch.from_numpy(mask))
+    assert got.shape == (1, 8, 16, 512)
     assert calls == ["fused_swap_fusion_streaming"]
     assert_close(got, want, **TOL)
 

@@ -116,8 +116,10 @@ def test_bwd_tile_plan_covers_every_row_once(G, H, Tq, Tk):
 
 
 # K2's branches: (B, n, H, W, h, w, q_win, k_win, nq, grid keys): the six
-# of a 5-agent CorpBEVT frame (chip_smoke.py:K2_CASES) and ragged ones: 40
-# query rows and 24 keys a window, windows that are not square
+# of a 5-agent CorpBEVT frame (chip_smoke.py:K2_CASES), SinBEVT-nuScenes'
+# stages 0 and 1 at B 1 and B 8 (chip_smoke.py:K2_NUSC_CASES: 6 cameras,
+# stage 0's local branch with 6 query segments), and ragged ones: 40 query
+# rows and 24 keys a window, windows that are not square
 K2_SHAPES = [
     (5, 4, 128, 128, 64, 64, (16, 16), (8, 8), 4, False),
     (5, 4, 128, 128, 64, 64, (16, 16), (8, 8), 1, True),
@@ -125,9 +127,21 @@ K2_SHAPES = [
     (5, 4, 64, 64, 32, 32, (16, 16), (8, 8), 1, True),
     (5, 4, 32, 32, 16, 16, (32, 32), (16, 16), 1, False),
     (5, 4, 32, 32, 16, 16, (32, 32), (16, 16), 1, True),
+    (1, 6, 100, 100, 60, 120, (10, 10), (6, 12), 6, False),
+    (1, 6, 100, 100, 60, 120, (10, 10), (6, 12), 1, True),
+    (1, 6, 50, 50, 30, 60, (10, 10), (6, 12), 1, False),
+    (1, 6, 50, 50, 30, 60, (10, 10), (6, 12), 1, True),
+    (8, 6, 100, 100, 60, 120, (10, 10), (6, 12), 6, False),
     (1, 3, 20, 16, 8, 8, (10, 4), (4, 2), 3, True),
     (2, 4, 24, 16, 12, 8, (8, 8), (4, 4), 4, False),
 ]
+
+
+def xattn_attention_segments(nq):
+    """Query segments a warpgroup of K2's attention launch walks
+    (``attn_spw`` of csrc/fused_cross_attention.cu): all of them, except
+    with 6, one a warpgroup."""
+    return 1 if nq == 6 else nq
 
 
 @pytest.mark.parametrize("shape", K2_SHAPES)
@@ -157,16 +171,20 @@ def test_xattn_row_maps_cover_every_token_once(shape):
 @pytest.mark.parametrize("shape", K2_SHAPES)
 def test_xattn_attention_blocks_cover_every_query_once(shape):
     """K2's attention grid (64 query rows of one (window, head) a block,
-    every camera segment in it) decomposes blockIdx.x as K5's dq grid; each
-    (window, head, row of a segment) is computed once."""
+    every camera segment in it, split over its warpgroups) decomposes
+    blockIdx.x as K5's dq grid; each (window, head, segment, row of a
+    segment) is computed once, by one warpgroup."""
     B, n, H, W, h, w, q_win, k_win, nq, grid = shape
     heads, Tw = 4, q_win[0] * q_win[1]
     G = B * (H // q_win[0]) * (W // q_win[1])
     blocks = G * heads * -(-Tw // 64)
-    seen = np.zeros((G, heads, Tw), np.int64)
+    spw = xattn_attention_segments(nq)
+    assert nq % spw == 0
+    seen = np.zeros((G, heads, nq, Tw), np.int64)
     for blk in range(blocks):
         win, hd, r0 = bwd_block_coords(blk, heads, Tw)
-        seen[win, hd, r0:r0 + 64] += 1
+        for grp in range(nq // spw):
+            seen[win, hd, grp * spw:(grp + 1) * spw, r0:r0 + 64] += 1
     assert (seen == 1).all()
 
 
@@ -178,6 +196,17 @@ def test_xattn_attention_blocks_cover_every_query_once(shape):
     (torch.bfloat16, 128, 4, 512, 1, "mma"),
     (torch.bfloat16, 128, 4, 256, 3, "mma"),
     (torch.bfloat16, 64, 8, 0, 3, "mma"),
+    # SinBEVT-nuScenes' stages 0 and 1: head dim 32, MLP hidden 2 D, the
+    # local branch of stage 0 with its 6 camera segments
+    (torch.bfloat16, 32, 1, 64, 6, "wgmma"),
+    (torch.bfloat16, 32, 1, 64, 1, "wgmma"),
+    (torch.bfloat16, 64, 2, 128, 6, "wgmma"),
+    (torch.bfloat16, 64, 2, 128, 1, "wgmma"),
+    (torch.bfloat16, 32, 1, 0, 1, "wgmma"),
+    (torch.bfloat16, 32, 1, 128, 1, "mma"),      # hidden not 2 D at D 32
+    (torch.bfloat16, 64, 2, 256, 6, "mma"),      # nor at D 64
+    (torch.bfloat16, 32, 1, 64, 5, "mma"),       # 5 segments
+    (torch.float32, 32, 1, 64, 6, "scalar"),
     (torch.float32, 128, 4, 256, 4, "scalar"),
 ])
 def test_xattn_kernel_path(dtype, D, heads, hidden, nq, path):

@@ -889,13 +889,13 @@ def test_k1_kernel_matches_plain_at_the_sinbevt_shapes(gen, dtype, G, Tq,
 # q_win, k_win, D = C, heads, embed, post_ln, grid keys, route in bf16)
 K2_NUSC_CASES = [
     ("stage0_local", 100, (60, 120), (10, 10), (6, 12), 32, 1, True, False,
-     False, "mma"),
+     False, "wgmma"),
     ("stage0_grid", 100, (60, 120), (10, 10), (6, 12), 32, 1, False, True,
-     True, "mma"),
+     True, "wgmma"),
     ("stage1_local", 50, (30, 60), (10, 10), (6, 12), 64, 2, False, False,
-     False, "mma"),
+     False, "wgmma"),
     ("stage1_grid", 50, (30, 60), (10, 10), (6, 12), 64, 2, False, True,
-     True, "mma"),
+     True, "wgmma"),
     ("stage2_local", 25, (14, 30), (25, 25), (14, 30), 128, 4, False, False,
      False, "wgmma"),
     ("stage2_grid", 25, (14, 30), (25, 25), (14, 30), 128, 4, False, True,
@@ -1013,6 +1013,9 @@ def test_k4_kernel_matches_plain(gen, dtype, case):
     (2, 4, 16, 8, 64, 4, 8, 1, 64, None, True),            # head dim 8
     (1, 2, 8, 24, 64, 4, 4, 2, 192, "random", False),      # head dim 16
     (1, 5, 24, 40, 256, 8, 8, 1, 512, "fully_masked", False),
+    # SECOND's widths: D 512, 16 heads, mlp 256, window 4 (bf16: the D 512
+    # route of ops/fused_swap_fusion.py:wide_plan)
+    (1, 3, 16, 20, 512, 4, 16, 1, 256, "random", False),
 ])
 def test_k6_kernel_matches_plain(gen, dtype, case):
     B, L, H, W, D, w, heads, depth, mlp, mask_kind, valid = case

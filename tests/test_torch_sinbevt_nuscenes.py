@@ -275,8 +275,9 @@ def test_full_width_stages_take_k2(stage, switches):
     """On the serving default the port's gate sends both branches of every
     full-width stage to K2 (the JAX gate's VMEM budget sends stage 2 to the
     stock modules on a TPU; the port's ``kernel_accepts`` has no such
-    term), and ``kernel_path`` routes stages 0 and 1 to the mma.sync
-    kernels and stage 2 to wgmma; COBEVT_FUSED_XATTN=0 sends none."""
+    term), and ``kernel_path`` routes every stage's bf16 branches to the
+    wgmma kernels (stages 0 and 1 at D 32 / 64 since their redesign; the
+    mma.sync kernels before); COBEVT_FUSED_XATTN=0 sends none."""
     H, qw, (h, w), kw, dim, heads, nq = STAGES[stage]
     cfg = psn.PyramidAxialConfig()
     fh, fw, _ = cfg.feature_shapes()[stage]
@@ -288,7 +289,7 @@ def test_full_width_stages_take_k2(stage, switches):
                                    32, 6, 2 * dim) == (switches == "fused")
     routes = {k2.kernel_path(torch.bfloat16, dim, heads * 32, heads,
                              2 * dim, q) for q in {nq, 1}}
-    assert routes == ({"mma"} if stage < 2 else {"wgmma"})
+    assert routes == {"wgmma"}
     assert k2.kernel_path(torch.float32, dim, heads * 32, heads, 2 * dim,
                           1) == "scalar"
 

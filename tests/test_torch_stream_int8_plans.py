@@ -10,7 +10,12 @@ element once a pass and each box fits its ring stage, the whole ring within
 one block's 227 KB at D 256 / mlp 512 and D 128 / mlp 256; the
 (B, L, H, W) -> (G, T) key-mask gather K1's kernel reads equals the JAX
 package's window rearrange of the mask for both halves; the route
-(``stream_kernel_path``).
+(``stream_kernel_path``).  At D 512 (SECOND's (1, 5, 100, 176, 512) map,
+window 4) the same for ``wide_plan``: the QKV launch's pairs of tiles and
+the output launch's tile a block cover every token once in both halves,
+the QKV ring (``qkv_wide``'s item order) and each of the four output
+warpgroups' rings (``itemw_of``) together stream every weight element once
+a pass, and both launches fit one block's shared memory.
 
 K7 (``ops/conv2d.py``): the folded scale (a producer's |max| slot, then the
 consumer's prologue arithmetic, as plain PyTorch) gives s_a, 1 / s_a and
@@ -48,10 +53,15 @@ from cobevt_tpu_torch.ops.fused_cross_attention import SMEM_BYTES
 from cobevt_tpu_torch.ops.fused_swap_fusion import (
     STREAM_GROUPS,
     STREAM_TILE,
+    WIDE_OUT_GROUPS,
+    WIDE_OUT_HIDDEN,
+    WIDE_QKV_COLS,
+    WIDE_QKV_GROUPS,
     gather_key_mask,
     stream_kernel_path,
     stream_plan,
     to_windows,
+    wide_plan,
 )
 
 # (B, L, H, W, window): the cooperative-LiDAR map and a small non-square one
@@ -134,6 +144,115 @@ def test_k6_weight_ring_streams_every_weight_once_and_fits(D, mlp):
     assert len(items) == D // 64 + mlp // 128 * (D // 64 + 2)
 
 
+# SECOND + swap fusion: (B, L, H, W, window) of its D 512 map, and a small
+# non-square one
+WIDE_SHAPES = [(1, 5, 100, 176, 4), (2, 3, 8, 12, 4)]
+
+
+def wide_tiles(plan, launch):
+    """{(block, warpgroup): [tiles]} as the D 512 kernels' loops walk them:
+    ``qkv_wide`` pair p = block, stepping blocks, tile = 2 p + warpgroup (a
+    tile past the end reads the last row, not stored); ``out_wide`` tile =
+    block, stepping blocks, every warpgroup on the block's tile."""
+    walk = {}
+    if launch == "qkv":
+        g = WIDE_QKV_GROUPS
+        pairs = -(-plan.tiles // g)
+        for b in range(plan.qkv_blocks):
+            for grp in range(g):
+                walk[b, grp] = [p * g + grp for p in
+                                range(b, pairs, plan.qkv_blocks)]
+    else:
+        for b in range(plan.out_blocks):
+            for grp in range(WIDE_OUT_GROUPS):
+                walk[b, grp] = list(range(b, plan.tiles, plan.out_blocks))
+    return walk
+
+
+def wide_qkv_items(D):
+    """``qkv_wide``'s ring boxes of a pass: item i is chunk i // 8 of 128
+    Wqkv rows, k-atom i % 8: (first row, first column, rows)."""
+    ka = D // 64
+    return [((i // ka) * WIDE_QKV_COLS, (i % ka) * 64, WIDE_QKV_COLS)
+            for i in range(3 * D // WIDE_QKV_COLS * ka)]
+
+
+def wide_out_items(D, mlp, w):
+    """``itemw_of``: output warpgroup w's ring boxes of a tile, (weight,
+    first row, first column), every box 64 rows x 64 columns: Wout rows
+    128 w + 64 n by k-atom a (item 2 a + n), w1 rows 64 c of its hidden
+    chunks c = w, w + 4, ... by k-atom, w2 rows 128 w + 64 n by hidden
+    k-atom (item 2 ka + n)."""
+    cols, ka, chunks = D // WIDE_OUT_GROUPS, D // 64, mlp // WIDE_OUT_HIDDEN
+    items = [(0, cols * w + (i & 1) * 64, (i >> 1) * 64)
+             for i in range(2 * ka)]
+    for c in range(w, chunks, WIDE_OUT_GROUPS):
+        items += [(1, WIDE_OUT_HIDDEN * c, a * 64) for a in range(ka)]
+    items += [(2, cols * w + (i & 1) * 64, (i >> 1) * 64)
+              for i in range(2 * chunks)]
+    return items
+
+
+@pytest.mark.parametrize("shape", WIDE_SHAPES)
+@pytest.mark.parametrize("grid", [False, True])
+@pytest.mark.parametrize("launch", ["qkv", "out"])
+def test_k6_wide_tile_walk_covers_every_token_once(shape, grid, launch):
+    B, L, H, W, w = shape
+    rows = B * L * H * W
+    idx = to_windows(torch.arange(rows).reshape(B, L, H, W), w,
+                     grid).reshape(-1)
+    plan = wide_plan(rows, 512, 256, 132)
+    # the QKV launch's warpgroups take tiles of their own; the output
+    # launch's share a tile, each owning columns: every token once per
+    # output warpgroup
+    shared = launch == "out"
+    seen = np.zeros((WIDE_OUT_GROUPS if shared else 1, rows), np.int64)
+    for (b, grp), tiles in wide_tiles(plan, launch).items():
+        for tile in tiles:
+            r0 = tile * STREAM_TILE
+            seen[grp if shared else 0,
+                 idx[r0:min(r0 + STREAM_TILE, rows)].numpy()] += 1
+    assert (seen == 1).all()
+
+
+def test_k6_wide_plan_at_second():
+    plan = wide_plan(88000, 512, 256, 132)
+    assert plan.tiles == 1375
+    assert (plan.qkv_blocks, plan.out_blocks) == (132, 132)
+    assert (plan.qkv_stages, plan.out_stages) == (5, 3)
+    assert plan.qkv_smem <= SMEM_BYTES and plan.out_smem <= SMEM_BYTES
+    # two rings of two boxes must fit, or the plan raises
+    with pytest.raises(ValueError, match="does not fit"):
+        wide_plan(88000, 512, 1024, 132)
+    with pytest.raises(ValueError, match="does not fit"):
+        wide_plan(88000, 256, 512, 132)
+
+
+@pytest.mark.parametrize("mlp", [256, 128, 512])
+def test_k6_wide_rings_stream_every_weight_once_and_fit(mlp):
+    D = 512
+    plan = wide_plan(88000, D, mlp, 132)
+    assert 2 <= plan.qkv_stages and 2 <= plan.out_stages
+    assert plan.qkv_smem <= SMEM_BYTES and plan.out_smem <= SMEM_BYTES
+    cover = np.zeros((3 * D, D), np.int64)
+    for row, col, nrows in wide_qkv_items(D):
+        assert nrows * 64 * 2 == plan.qkv_box
+        cover[row:row + nrows, col:col + 64] += 1
+    assert (cover == 1).all()
+    cover = {0: np.zeros((D, D), np.int64), 1: np.zeros((mlp, D), np.int64),
+             2: np.zeros((D, mlp), np.int64)}
+    for w in range(WIDE_OUT_GROUPS):
+        items = wide_out_items(D, mlp, w)
+        chunks_w = len(range(w, mlp // WIDE_OUT_HIDDEN, WIDE_OUT_GROUPS))
+        assert len(items) == 2 * (D // 64) + chunks_w * (D // 64) + \
+            2 * (mlp // 64)
+        for which, row, col in items:
+            assert 64 * 64 * 2 == plan.out_box
+            cover[which][row:row + 64, col:col + 64] += 1
+    for m in cover.values():
+        assert (m == 1).all()
+
+
 @pytest.mark.parametrize("shape", STREAM_SHAPES)
 def test_k6_key_mask_gather_equals_the_jax_rearrange(shape):
     B, L, H, W, w = shape
@@ -151,6 +270,9 @@ def test_k6_key_mask_gather_equals_the_jax_rearrange(shape):
 @pytest.mark.parametrize("D,heads,mlp,dtype,path", [
     (256, 8, 512, torch.bfloat16, "wgmma"),     # cooperative LiDAR
     (128, 4, 256, torch.bfloat16, "wgmma"),     # CorpBEVT's FuseBEVT
+    (512, 16, 256, torch.bfloat16, "wgmma"),    # SECOND + swap fusion
+    (512, 64, 256, torch.bfloat16, "rows"),     # D 512 at head dim 8
+    (512, 16, 256, torch.float32, "rows"),
     (256, 8, 512, torch.float32, "rows"),
     (128, 16, 256, torch.bfloat16, "rows"),     # head dim 8
     (192, 6, 384, torch.bfloat16, "rows"),      # D not 128 or 256
