@@ -176,7 +176,7 @@ non-zero without printing the final line:
      build and stops without the final line.
  16. nuScenes entry points: PIL's and cv2's presence on the host; a
      synthetic scene set written by data/nuscenes_labelgen.py through
-     tools/bench_input.py's fixture writer (2 scenes x 9 samples, 6 camera
+     tools/bench_input.py's fixture writer (2 scenes x 8 samples, 6 camera
      PNGs at 1600 x 900 from 12 files, 200^2 bit-packed labels, visibility
      and aux); decode + resize ms of one camera PNG with filter 0, the
      adaptive filters and Paeth on every row; tools/train_nuscenes.main at
@@ -186,10 +186,11 @@ non-zero without printing the final line:
      frame 24 K2, with host, loader-wait and CUDA-event times, and the
      device busy time of step 3 traced alone; the step-4 checkpoint
      restored into a fresh state bit for bit (save and restore times); the
-     same command to 6 steps, which resumes from step 4 at the one-cycle
+     same command to 5 steps, which resumes from step 4 at the one-cycle
      schedule's lr; finite IoUs; tools/view_data.py panels the codec
-     decodes; tools/bench_input.py on both fixtures (4 OPV2V and 16
-     nuScenes samples, 2 workers) against the device busy rates of this
+     decodes; tools/bench_input.py on both tracks with the adaptive PNG
+     filters (2 OPV2V and 8 nuScenes samples, 2 workers; the f32, u8 and
+     u8+cache pipelines of each) against the device busy rates of this
      phase and of phase 15.  ``--train_nuscenes`` runs this
      phase alone after the build and stops without the final line.
  17. LiDAR data to AP: a synthetic OPV2V LiDAR scenario written by
@@ -234,8 +235,8 @@ non-zero without printing the final line:
      frames held by the same gate, and the same faults, to that runner
      over the served weights in f32 on the plain versions (beside it the
      unrounded master's run); tools/train_nuscenes.main
-     --experiment cvt_nuscenes_vehicle (2 bf16 steps at B 8 on 2 scenes x 8
-     samples, finite losses and IoUs, the step-2 checkpoint restored bit
+     --experiment cvt_nuscenes_vehicle (1 bf16 step at B 8 on 2 scenes x 4
+     samples, finite losses and IoUs, the step-1 checkpoint restored bit
      for bit).  ``--zoo`` runs this phase alone after the build and stops
      without the final line; ``--zoo_seed`` draws its weights, frames and
      fixtures from another seed.  A failing gate raises once the phase has
@@ -317,7 +318,27 @@ non-zero without printing the final line:
      the largest logit, in bf16 reported beside one process's spread
      between a frame served alone and in the batch of 2.
      ``--mesh`` runs this phase alone after the build and stops without
-     the final line.
+     the final line;
+ 22. measurement: five paths at full width through tools/benchmark.py
+     (the 5-agent CorpBEVT eval frame and train step, its COBEVT_INT8=1
+     frame, the SinBEVT-nuScenes frame, the PointPillar frame; bf16, the
+     serving default), each a row whose last warmup call is counted at the
+     dispatcher (utils/flops.py:costs: FLOPs, int8 products, logical bytes,
+     the work of each cobevt:: op) with mfu, hbm_util and GB/s beside the
+     card's name and power limit, and whose 2 traced calls are written by
+     --profile_dir; the same call counted on the plain versions
+     (forced_impl("torch")) must count the same FLOPs, every kernel
+     launched in the counted call must add work, mfu must be set and at
+     most MEASURE_MFU_MAX, and tools/parse_trace.py on the trace must give
+     a kernel table with a row of every op that ran and a device total
+     within MEASURE_TRACE_TOL of timing.device_profile's, and module keys
+     that are attribute paths (hbm_util above 1 is reported with its
+     flag).  ``--measure`` runs this phase alone after the build and stops
+     without the final line.
+
+Every bound of phase 3 comes from the work formulas of
+cobevt_tpu_torch/utils/flops.py, the same ones each cobevt:: op registers
+for the counts of phase 22.
 
 K2's phase-3 rows (CorpBEVT, SinBEVT-OPV2V, SinBEVT-nuScenes) draw 20
 inputs a bf16 row (the first from the shared generator, the rest from K2's
@@ -567,10 +588,8 @@ K4_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (5e-2, 2e-2)}
 # heads as the TPU body does, so the exp rounds to bf16 elsewhere: one bf16
 # ulp on a weight, summed with random signs).
 K5_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
-# the card's published peaks (NVIDIA H100 SXM data sheet) and its L2
-PEAK_BYTES_PER_S = 3.35e12
+# the card's L2 (the bounds' peaks: utils/flops.py)
 L2_BYTES = 50 * 2 ** 20
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 TRAIN_STEPS = 3
 TRAIN_PER_STEP = {"fused_window_attention_packed": 13,
                   "fused_window_attention_packed_bwd": 12,
@@ -589,19 +608,23 @@ LIDAR_TRAIN_PER_STEP = {"fused_window_attention_packed": 4,
 TRAIN_CAM_CAVS, TRAIN_CAM_STAMPS = 5, 4
 VAL_CAM_CAVS, VAL_CAM_STAMPS = 3, 2
 TRAIN_CAM_PROFILED = 2
-# phase 16: the synthetic nuScenes scene set (2 scenes x 9 samples, 6 camera
+# phase 16: the synthetic nuScenes scene set (2 scenes x 8 samples, 6 camera
 # PNGs at 1600 x 900 from a pool of 12 files, 200^2 labels), the steps of
 # the first run and of the resumed one, the checkpoint interval, the train
 # step of the first run that torch.profiler traces (its third: the workers
 # are up and the device is idle while the loader catches up), and the
-# bench_input fixtures (4 OPV2V samples at batch 1 and 16 nuScenes samples,
-# 2 batches of 8, each pass through the training loader's 2 workers; 8 and
-# 32 before the script took phase 21, whose time this depth gives back)
-NUSC_CLI_SCENES, NUSC_CLI_SAMPLES, NUSC_CLI_POOL = 2, 9, 12
-NUSC_CLI_STEPS, NUSC_CLI_RESUMED_STEPS, NUSC_CLI_CKPT_EVERY = 4, 6, 2
+# bench_input fixtures (the adaptive PNG filters only: 2 OPV2V samples at
+# batch 1 and 8 nuScenes samples, one batch, each pass through the
+# training loader's 2 workers).  At 9 samples, 6 resumed steps and 4 OPV2V
+# + 16 nuScenes samples over 3 fixtures (filter 0 and the adaptive ones)
+# the script took 1196.6 s on one H100 host, over its 1200 s with the
+# machine's start (this phase 359.4 s, ~205 s of it bench_input's nine
+# passes, each spawning its 2 workers for 15-30 s)
+NUSC_CLI_SCENES, NUSC_CLI_SAMPLES, NUSC_CLI_POOL = 2, 8, 12
+NUSC_CLI_STEPS, NUSC_CLI_RESUMED_STEPS, NUSC_CLI_CKPT_EVERY = 4, 5, 2
 NUSC_CLI_TRACED = 2
-BENCH_INPUT_ARGS = ["--opv2v_frames", "4", "--nusc_frames", "16",
-                    "--num_workers", "2"]
+BENCH_INPUT_ARGS = ["--opv2v_frames", "2", "--nusc_frames", "8",
+                    "--num_workers", "2", "--filters", "adaptive"]
 SERVE_AGENTS = [5, 3, 1, 4, 2, 5, 3, 5, 2, 4]
 INT8_AGENTS = [5, 3, 1, 4, 2]
 STOCK_AGENTS = [5, 2, 4]
@@ -677,8 +700,8 @@ LIDAR_AP_IOUS = (0.5, 0.7)
 # x 1 to validate), the synthetic requests each serve_camera run answers,
 # and cvt_swap_fuse's train step (3 FuseBEVT blocks = 6 window attentions,
 # K1 forward and K5 backward, no weight on any); the nuScenes fixture (2
-# scenes x 8 samples: 2 steps at B 8, no wrapper launched: the dense CVT
-# and EfficientNet have no kernel)
+# scenes x 4 samples: 1 step at B 8, no wrapper launched: the dense CVT
+# and EfficientNet have no kernel; 2 x 8 and 2 steps before phase 22)
 ZOO_GRAPHS = ("cvt", "cvt_att_fuse", "cvt_swap_fuse", "cvt_fcooper",
               "cvt_v2vnet", "cvt_disconet")
 ZOO_LIVE, ZOO_FRAMES = 3, 3
@@ -711,7 +734,7 @@ ZOO_VAL_CAVS, ZOO_VAL_STAMPS = 3, 1
 ZOO_SERVE_FRAMES = 4
 ZOO_TRAIN_PER_STEP = {"fused_window_attention_packed": 6,
                       "fused_window_attention_packed_bwd": 6}
-ZOO_NUSC_SCENES, ZOO_NUSC_SAMPLES, ZOO_NUSC_STEPS = 2, 8, 2
+ZOO_NUSC_SCENES, ZOO_NUSC_SAMPLES, ZOO_NUSC_STEPS = 2, 4, 1
 # phase 19: the LiDAR zoo.  SECOND (+ swap fusion) from the phase-17
 # scenario writer at the JAX SecondConfig's geometry (+-70.4 x +-40 x
 # [-3, 1] m at 0.1 m: grid 1408 x 800 x 40, map 100 x 176 after the 8x
@@ -785,6 +808,32 @@ MESH_KERNELS = ("fused_window_attention_packed",
                 "fused_window_attention_packed_bwd",
                 "fused_cross_view_attention", "fused_conv3x3",
                 "fused_swap_fusion")
+# phase 22: the measurement layer (utils/flops.py, tools/benchmark.py's
+# counts and shares, tools/parse_trace.py) on five paths at full width, each
+# a benchmark row (2 warmup calls, the last one counted, 3 timed, 2 traced
+# into a --profile_dir) and the same call on the plain versions (1 + 1):
+# (path, --model, further flags)
+MEASURE_PATHS = (
+    ("corpbevt_frame", "corpbevt", []),
+    ("corpbevt_step", "corpbevt", ["--train"]),
+    ("corpbevt_int8_frame", "corpbevt", ["--int8"]),
+    ("sinbevt_frame", "sinbevt", []),
+    ("pointpillar_frame", "pointpillar", []),
+)
+# an mfu above this is physically impossible: a count at fault; the trace
+# table's device total may differ from timing.device_profile's by this share
+MEASURE_MFU_MAX = 1.05
+MEASURE_TRACE_TOL = 0.01
+# the cobevt:: op through which each counted wrapper launches its kernel
+WRAPPER_OPS = {"fused_window_attention_packed": "window_attention_packed",
+               "fused_window_attention_packed_bwd":
+               "window_attention_packed_bwd",
+               "fused_window_attention": "window_attention",
+               "fused_cross_view_attention": "cross_view_attention",
+               "fused_conv3x3": "conv3x3", "fused_swap_fusion": "swap_fusion",
+               "fused_swap_fusion_streaming": "swap_fusion_streaming",
+               "fused_conv3x3_int8": "conv3x3_int8",
+               "conv3x3_s8": "conv3x3_s8", "int8_absmax": "int8_absmax"}
 KERNELS = ("window_attention", "fused_cross_attention", "conv3x3",
            "fused_swap_fusion", "window_attention_bwd",
            "fused_swap_fusion_streaming", "conv3x3_int8", "ffd_fused",
@@ -955,21 +1004,6 @@ def k2_drop_head(out, heads):
     out = out.clone()
     out[..., :out.shape[-1] // heads] = 0
     return out
-
-
-def nbytes(*tensors):
-    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
-
-
-def bound(flops, bytes_, dtype_name):
-    """The least time (ms) the card could take: the larger of the bytes
-    (each input read once, each output written once) over the memory rate
-    and the operations over the peak rate of their type."""
-    t_bytes = bytes_ / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
-    return {"bound_ms": max(t_bytes, t_ops), "bytes_ms": t_bytes,
-            "ops_ms": t_ops,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def argmax_iou(a, b):
@@ -1172,21 +1206,6 @@ def k6_inputs(case, dtype, gen):
             head, w, heads)
 
 
-def k6_work(shape, dtype_size):
-    """(operations, bytes) of one K6 call: depth x 2 sublayers and the
-    head.  Bytes: the state in, the result out, the weights, the f32 bias of
-    every sublayer and the f32 mask, each once."""
-    B, L, H, W, D, w, _, depth, mlp = shape
-    rows, T, G = B * L * H * W, L * w * w, B * (H // w) * (W // w)
-    heads = shape[6]
-    sub = 2.0 * rows * D * (3 * D + D + 2 * mlp) + 4.0 * G * T * T * D
-    flops = 2 * depth * sub + 2.0 * B * H * W * D * D
-    weights = 2 * depth * (4 * D * D + 2 * D * mlp) + D * D
-    elems = rows * D + B * H * W * D + weights
-    return flops, (elems * dtype_size + 2 * depth * T * heads * T * 4
-                   + B * L * H * W * 4)
-
-
 def sdpa_mask(bias_flat, mask, dtype, heads=K1_HEADS):
     """Packed bias (Tq, H*Tk) and key mask (G, Tk) as the additive
     ``attn_mask`` of ``scaled_dot_product_attention``, or None."""
@@ -1204,12 +1223,6 @@ def sdpa_mask(bias_flat, mask, dtype, heads=K1_HEADS):
     return add
 
 
-def attention_work(G, Tq, Tk, products, heads=K1_HEADS):
-    """Operations of ``products`` (Tq x Tk x D) products per (window, head):
-    2 for a forward, 5 for the backward."""
-    return 2.0 * products * G * heads * Tq * Tk * K1_HEAD_DIM
-
-
 def k3_l2_bytes(N, H, W, C, O, residual):
     """Bytes the wgmma tiles of one K3 call move between L2 and the SMs:
     every K step of every tile fetches a 128 x 64 box of x (once per tap)
@@ -1221,44 +1234,6 @@ def k3_l2_bytes(N, H, W, C, O, residual):
     steps = 9 * -(-C // 64)
     return tiles * (steps * 2 * 128 * 64 * 2 + (2 if residual else 1) *
                     128 * 128 * 2)
-
-
-def k2_work(case, dtype_size, B=K2_B):
-    """(operations, bytes) of one FAX cross-view branch over B maps."""
-    _, H, h, q_win, k_win, embed, _, _ = case
-    return k2_branch_work(B, K2_CAMS, H, H, h, h, (q_win, q_win),
-                          (k_win, k_win), K2_DIM, K2_DIM, 2 * K2_DIM, embed,
-                          dtype_size)
-
-
-def k2_branch_work(B, n, H, W, h, w, q_win, k_win, D, C, hidden, embed,
-                   dtype_size):
-    """(operations, bytes) of one branch: the K/V, Q, output and MLP
-    products, the two attention products of every (window, query segment)
-    over the window's n * kh * kw keys; bytes of x, key, val, the output,
-    the weights and the embeddings, each once."""
-    nq = n if embed else 1
-    rows_k, rows_q, rows_o = B * n * h * w, B * nq * H * W, B * H * W
-    windows = B * (H // q_win[0]) * (W // q_win[1])
-    flops = 2.0 * D * C * (2 * rows_k + rows_q + rows_o)
-    flops += 4.0 * rows_o * D * hidden
-    flops += 4.0 * windows * nq * q_win[0] * q_win[1] * n * k_win[0] * \
-        k_win[1] * C
-    elems = 2 * rows_k * D + 2 * rows_o * D + 4 * D * C + 2 * D * hidden
-    if embed:
-        elems += H * W * D + B * n * D
-    return flops, elems * dtype_size
-
-
-def k4_work(dtype_size):
-    """(operations, bytes) of the FuseBEVT encoder at CorpBEVT."""
-    B, L, H, D, w, depth, mlp = 1, 5, 32, 128, 8, 3, 256
-    rows, T, G = B * L * H * H, L * w * w, B * (H // w) ** 2
-    sub = 2.0 * rows * D * (3 * D + D + 2 * mlp) + 4.0 * G * T * T * D
-    flops = 2 * depth * sub + 2.0 * B * H * H * D * D
-    weights = 2 * depth * (4 * D * D + 2 * D * mlp) + D * D
-    elems = rows * D + B * H * H * D + weights + 2 * depth * T * 4 * T
-    return flops, elems * dtype_size + B * L * H * H * 4
 
 
 def s8_plan_fields(shape):
@@ -1310,6 +1285,7 @@ def phase_kernels(only=None):
     import torch
     import torch.nn.functional as F
     from cobevt_tpu_torch.ops.bn_stats import bn_stats_bwd, bn_stats_fwd
+    from cobevt_tpu_torch.utils import flops
     from cobevt_tpu_torch.ops.conv2d import (
         _kernel_path,
         _launch_int8,
@@ -1438,8 +1414,8 @@ def phase_kernels(only=None):
                    "max_rel_err": rel_err, "ok": ok,
                    "ms": time_ms(lambda: attn("kernel"), iters),
                    "plain_ms": time_ms(lambda: attn("torch"), iters)}
-            row.update(bound(attention_work(*case[1:4], 2, heads),
-                             nbytes(q, k, v, got, bias, mask, weight), dname))
+            row.update(flops.bound(*flops.k1_work(q, k, v, heads, bias, mask,
+                                                  weight), dname))
             if weight is None:
                 # one library call expresses bias and mask as an additive
                 # mask; the dropout weight it cannot take
@@ -1510,8 +1486,8 @@ def phase_kernels(only=None):
                     torch.equal(conv("kernel"), got)
                     for _ in range(K3_REPEATS))
                 row["ok"] = ok = ok and row["repeats_bit_equal"]
-            row.update(bound(2.0 * N * H * W * 9 * C * C,
-                             nbytes(x, packed.w, shift, res, got), dname))
+            row.update(flops.bound(*flops.k3_work(x, packed.w, shift, res),
+                                   dname))
             details.append(row)
             if not ok:
                 failures.append(row)
@@ -1566,10 +1542,8 @@ def phase_kernels(only=None):
                 lambda: _launch_int8(x, packed, slot, res, True), 10)
             row["library_device_ms"] = device_ms(
                 lambda: F.conv2d(x_cl, w_oihw, padding=1), 10)
-            _, N, H, W, C = case[:5]
-            row.update(bound(2.0 * N * H * W * 9 * C * C,
-                             nbytes(x, packed.wt, packed.s_w, packed.shift,
-                                    res, got), "int8"))
+            row.update(flops.bound(*flops.k7_work(
+                x, packed.wt, packed.s_w, packed.shift, res), "int8"))
             details.append(row)
             if not row["ok"]:
                 failures.append(row)
@@ -1597,7 +1571,7 @@ def phase_kernels(only=None):
                    "library_device_ms": device_ms(
                        lambda: torch.linalg.vector_norm(x, float("inf")),
                        10)}
-            row.update(bound(x.numel(), nbytes(x, got), "float32"))
+            row.update(flops.bound(*flops.a7_work(x, got), "float32"))
             details.append(row)
             if not row["ok"]:
                 failures.append(row)
@@ -1649,9 +1623,9 @@ def phase_kernels(only=None):
                    "library_device_ms": device_ms(
                        lambda: F.conv2d(x_cl, w_oihw, padding=1), 10)}
             row.update(s8_plan_fields(shape))
-            row.update(bound(2.0 * N * H * W * 9 * C * C,
-                             nbytes(xq, p8.wt, p8.s_w, p8.shift, got,
-                                    rq if residual else None), "int8"))
+            row.update(flops.bound(*flops.s8_work(
+                xq, p8.wt, p8.s_w, p8.shift, rq if residual else None,
+                got.element_size()), "int8"))
             details.append(row)
             if not row["ok"]:
                 failures.append(row)
@@ -1717,9 +1691,8 @@ def phase_kernels(only=None):
                     row["library_flushed_device_ms"] = timing.device_ms(
                         library_fn, 10, flush_bytes=2 * L2_BYTES)
                 # max, cast, add and multiply-add per element, f32 units
-                row.update(bound(4.0 * R * C * reads,
-                                 reads * R * C * x.element_size() + 8 * C,
-                                 "float32"))
+                row.update(flops.bound(*flops.bn_stats_work(
+                    R, C, reads, x.element_size()), "float32"))
                 row["gb_per_s"] = reads * R * C * x.element_size() / row[
                     "device_ms"] / 1e6
                 details.append(row)
@@ -1808,8 +1781,11 @@ def phase_kernels(only=None):
                            per_sinbevt_opv2v_frame=1,
                            repeats_bit_equal=repeats,
                            ok=row["ok"] and repeats)
-            row.update(bound(*k2_work(case, args[0].element_size(), B),
-                             dname))
+            H, h = case[1:3]
+            row.update(flops.bound(*flops.k2_work(
+                B, K2_CAMS, H, H, h, h, (q_win, q_win), (k_win, k_win),
+                K2_DIM, K2_DIM, 2 * K2_DIM, embed, args[0].element_size()),
+                dname))
             k2_log(row)
             details.append(row)
             if not row["ok"]:
@@ -1844,7 +1820,7 @@ def phase_kernels(only=None):
                    "launch_device_ms": kernel_device_ms(
                        lambda: xattn("kernel"), 5)}
             row["ok"] = row["ok"] and repeats
-            row.update(bound(*k2_branch_work(
+            row.update(flops.bound(*flops.k2_work(
                 B, n, H, H, h, w, q_win, k_win, D, D, 2 * D, embed,
                 args[0].element_size()), dname))
             k2_log(row)
@@ -1882,7 +1858,10 @@ def phase_kernels(only=None):
                 row["launch_device_ms"] = kernel_device_ms(
                     lambda: fusion("kernel"), 5)
             row.update(k4_plan_fields(x, heads, packed.layers))
-            row.update(bound(*k4_work(x.element_size()), dname))
+            row.update(flops.bound(*flops.fusion_work(
+                *x.shape, w, heads, len(layers), layers[0][0]["w1"].shape[1],
+                x.element_size(), x.element_size(), mask is not None),
+                dname))
             details.append(row)
             if not ok:
                 failures.append(row)
@@ -1929,7 +1908,8 @@ def phase_kernels(only=None):
                 row["ok"] = ok and row["repeats_bit_equal"]
             row["plain_ms"] = time_ms(lambda: stream("torch"),
                                       2 if big else 10, warmup=1)
-            row.update(bound(*k6_work(case[1], x.element_size()), dname))
+            row.update(flops.bound(*flops.fusion_work(
+                *case[1], x.element_size(), 4), dname))
             details.append(row)
             if not row["ok"]:
                 failures.append(row)
@@ -2040,9 +2020,8 @@ def phase_kernels(only=None):
                                        stats), iters)
             del want
             row["plain_ms"] = time_ms(lambda: bwd("torch"), 2, warmup=1)
-            row.update(bound(
-                attention_work(G, Tq, Tk, 5, heads),
-                nbytes(q, k, v, g, out, bias, mask, *got), dname))
+            row.update(flops.bound(*flops.k5_work(q, k, v, g, out, heads,
+                                                  bias, mask), dname))
             # library yardstick: forward + backward of one
             # scaled_dot_product_attention call, less its forward
             leaves = [_packed_to_4d(t, heads).contiguous().requires_grad_()
@@ -2115,7 +2094,7 @@ def phase_kernels(only=None):
                    # calls (layer_norm, two products, gelu, add)
                    "library_ms": lib_fwd,
                    "library_device_ms": lib_fwd_device}
-            row.update(bound(4.0 * N * D * M, nbytes(*operands, got), dname))
+            row.update(flops.bound(*flops.k11_work(*operands), dname))
             details.append(row)
             if not ok:
                 failures.append(row)
@@ -2142,9 +2121,8 @@ def phase_kernels(only=None):
             del want, again
             row["plain_ms"] = time_ms(lambda: ffd_bwd("torch"), 2, warmup=1)
             # five products of 2 N D M: h, da, dt, dW1, dW2
-            row.update(bound(10.0 * N * D * M,
-                             nbytes(x, dy, gamma, beta, w1, b1, w2, *got),
-                             dname))
+            row.update(flops.bound(*flops.k12_work(x, dy, gamma, beta, w1, b1,
+                                                   w2), dname))
             # library yardstick: autograd over the chain of library calls,
             # forward + backward less its forward
             leaves = [t.clone().requires_grad_() for t in operands]
@@ -2196,8 +2174,8 @@ def phase_kernels(only=None):
                    "plain_ms": time_ms(lambda: hm("torch"), iters),
                    "library_ms": time_ms(sdpa_hm, iters),
                    "library_device_ms": device_ms(sdpa_hm, iters)}
-            row.update(bound(attention_work(G, Tq, Tk, 2),
-                             nbytes(q, k, v, got, bias, mask), dname))
+            row.update(flops.bound(*flops.k8_work(q, k, v, bias, mask),
+                                   dname))
             details.append(row)
             if not ok:
                 failures.append(row)
@@ -3632,7 +3610,7 @@ def phase_train_nuscenes(seed=0, corpbevt_device_rate=None):
     synthetic scene set written by data/nuscenes_labelgen.py, then
     tools/train_nuscenes.main at the default experiment with --half (4 steps,
     a checkpoint every 2, the IoU pass), a bit-for-bit restore of step 4,
-    the same command to 6 steps (a resume from step 4), tools/view_data.py
+    the same command to 5 steps (a resume from step 4), tools/view_data.py
     and tools/bench_input.py."""
     import tempfile
 
@@ -4683,8 +4661,9 @@ def zoo_train_camera(tmp, seed):
 
 def zoo_train_nuscenes(tmp, seed):
     """tools/train_nuscenes.py --experiment cvt_nuscenes_vehicle on a
-    synthetic scene set (2 bf16 steps at B 8, a checkpoint at step 2, the
-    IoU pass), then a bit-for-bit restore of the step-2 checkpoint."""
+    synthetic scene set (ZOO_NUSC_STEPS bf16 steps at B 8, a checkpoint at
+    the last, the IoU pass), then a bit-for-bit restore of that
+    checkpoint."""
     import math
 
     import numpy as np
@@ -6331,6 +6310,148 @@ def phase_mesh(seed=0):
     return out
 
 
+def trace_table(trace_dir, *flags):
+    """tools/parse_trace.py's JSON table of ``trace_dir`` (exit code 0
+    required)."""
+    import io
+    from cobevt_tpu_torch.tools import parse_trace
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = parse_trace.main([trace_dir, "--json", "--top", "100000",
+                               *flags])
+    if rc != 0:
+        raise AssertionError(f"parse_trace {' '.join(flags)} on {trace_dir} "
+                             f"exited {rc}")
+    return json.loads(buf.getvalue())
+
+
+def measure_path(name, model_name, flags, trace_dir, card, seed=0):
+    """One path of phase 22: its benchmark row with counts, shares and a
+    written trace, the same call's counts on the plain versions, and the
+    trace's tables.  Returns (record, failures)."""
+    import torch
+    from cobevt_tpu_torch import ops
+    from cobevt_tpu_torch.ops.dispatch import env_switches
+    from cobevt_tpu_torch.tools import benchmark, timing
+
+    t0 = time.perf_counter()
+    device = torch.device("cuda", torch.cuda.current_device())
+    common = ["--model", model_name, "--seed", str(seed), *flags]
+    opt = benchmark.parse_args(common + ["--iters", "3", "--warmup", "2",
+                                         "--profile_dir", trace_dir])
+    plain_opt = benchmark.parse_args(common + ["--iters", "1", "--warmup",
+                                               "1"])
+    model, batch, _ = benchmark.BUILD_MODEL[model_name](
+        opt.max_cav, opt.seed, device)
+    measure = benchmark.measure_train if opt.train else benchmark.measure_eval
+    unit = "step" if opt.train else "frame"
+    with switches(None), env_switches(
+            COBEVT_INT8="1" if opt.int8 else None):
+        row = measure(model, model_name, batch, opt, device)
+        with ops.forced_impl("torch"):
+            plain = measure(model, model_name, batch, plain_opt, device)
+    rec = {"flops": row[f"flops_per_{unit}"],
+           "plain_flops": plain[f"flops_per_{unit}"],
+           "bytes": row[f"bytes_per_{unit}"],
+           "plain_bytes": plain[f"bytes_per_{unit}"],
+           "int8_ops": row.get(f"int8_ops_per_{unit}"),
+           "ms": row[f"ms_per_{unit}"], "mfu": row["mfu"],
+           "hbm_util": row["hbm_util"], "hbm_gbs": row["hbm_gbs"],
+           "hbm_flag": row.get("hbm_flag"), "card": card,
+           "kernel_work": row["kernel_work"],
+           "counted_launches": row["counted_launches"],
+           "profile": row["profile"]}
+    failures = []
+    if rec["flops"] != rec["plain_flops"]:
+        failures.append(f"{name}: the kernel path counts {rec['flops']!r} "
+                        f"FLOPs, the plain path {rec['plain_flops']!r}")
+    for fn, n in rec["counted_launches"].items():
+        work = rec["kernel_work"].get(WRAPPER_OPS.get(fn))
+        if n and (work is None or work["ops"] + work["bytes"] <= 0):
+            failures.append(f"{name}: {fn} launched {n} times in the counted "
+                            f"call and added no work")
+    if rec["mfu"] is None or rec["mfu"] > MEASURE_MFU_MAX:
+        failures.append(f"{name}: mfu {rec['mfu']}")
+    # the trace of the profiled calls: every op whose kernels ran has a row
+    # of the kernel table, and its device total is device_profile's
+    launched = {f"cobevt::{WRAPPER_OPS[fn]}"
+                for fn, n in row[f"launches_per_{unit}"].items() if n}
+    by_op = trace_table(trace_dir, "--by", "op")
+    seen = {op for r in by_op["rows"] for op in r["ops"]}
+    if launched - seen:
+        failures.append(f"{name}: the trace's kernel table has no row of "
+                        f"{sorted(launched - seen)}")
+    n = rec["profile"]["profiled_steps"]
+    rec["trace_device_ms"] = by_op["device_total_ms"] / n
+    rel = abs(rec["trace_device_ms"] / rec["profile"]["device_ms_per_step"]
+              - 1)
+    if rel > MEASURE_TRACE_TOL:
+        failures.append(f"{name}: the trace table's device total "
+                        f"{rec['trace_device_ms']:.4f} ms a {unit} is "
+                        f"{rel:.2%} from device_profile's "
+                        f"{rec['profile']['device_ms_per_step']:.4f}")
+    modules = trace_table(trace_dir, "--depth", "2")
+    scopes = {"/".join(timing.scope_name(p).split("/")[:2])
+              for p, _ in model.named_modules() if p}
+    rec["modules"] = modules["rows"][:8]
+    strangers = {r["key"] for r in modules["rows"]} - scopes - {"<unscoped>"}
+    if strangers or not any(r["key"] in scopes for r in modules["rows"]):
+        failures.append(f"{name}: module keys that are no attribute path: "
+                        f"{sorted(strangers)}")
+    bandwidth = trace_table(trace_dir, "--bandwidth")
+    rec["trace_bandwidth"] = {k: bandwidth[k] for k in (
+        "leaf_device_ms", "counted_ms", "bytes_gb", "achieved_gbs",
+        "unknown_ops")}
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"{name}: {rec['flops']:.6g} FLOPs (plain path {rec['plain_flops']:.6g}"
+        f"), {rec['bytes']:.6g} bytes (plain {rec['plain_bytes']:.6g})"
+        + (f", int8 {rec['int8_ops']:.6g}" if rec["int8_ops"] else "")
+        + f"; {rec['ms']:.3f} ms, mfu {rec['mfu']}, hbm_util "
+        f"{rec['hbm_util']}, {rec['hbm_gbs']} GB/s"
+        + (f" ({rec['hbm_flag']})" if rec["hbm_flag"] else "")
+        + f"; {card}")
+    log(f"{name}: trace device {rec['trace_device_ms']:.4f} ms a {unit} "
+        f"(device_profile {rec['profile']['device_ms_per_step']:.4f}), "
+        f"modules {json.dumps(rec['modules'][:4])}, bandwidth "
+        f"{json.dumps(rec['trace_bandwidth'])}; work by op "
+        f"{json.dumps(rec['kernel_work'])}; {rec['seconds']:.1f} s")
+    del model, batch
+    torch.cuda.empty_cache()
+    return rec, failures
+
+
+def phase_measure(seed=0):
+    """Phase 22: the measurement layer on the card, five paths at full
+    width (MEASURE_PATHS): each path's counts equal on the kernel and plain
+    paths, every launched kernel counted with work, mfu set and possible,
+    the trace's kernel table holding every op that ran and its device total
+    within MEASURE_TRACE_TOL of timing.device_profile's, its module keys
+    attribute paths.  hbm_util above 1 is reported with its flag."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    log("== phase 22: measurement (utils/flops.py counts, mfu and HBM share; "
+        "benchmark --profile_dir; tools/parse_trace.py) on the 5-agent "
+        "CorpBEVT frame and train step, its int8 frame, the SinBEVT-nuScenes "
+        "frame and the PointPillar frame")
+    card = card_line()
+    out, failures = {}, []
+    tmp = tempfile.mkdtemp(prefix="cobevt_measure_")
+    try:
+        for name, model_name, flags in MEASURE_PATHS:
+            out[name], bad = measure_path(name, model_name, flags,
+                                          os.path.join(tmp, name), card, seed)
+            failures += bad
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 22: {out['seconds']:.1f} s")
+    if failures:
+        raise AssertionError("phase 22: " + "; ".join(failures))
+    return out
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default=None,
@@ -6379,6 +6500,10 @@ def main(argv=None):
                    help="run phase 21 (the data x model mesh) after the "
                         "build, and after the phases above if given, then "
                         "stop without the final line")
+    p.add_argument("--measure", action="store_true",
+                   help="run phase 22 (the measurement layer) after the "
+                        "build, and after the phases above if given, then "
+                        "stop without the final line")
     # a rank of phase 20(b) or 21, started by the phase itself
     for flag in ("--dp_rank", "--mesh_rank", "--dp_data", "--dp_env",
                  "--dp_backend"):
@@ -6399,7 +6524,7 @@ def main(argv=None):
     phase_build()
     if (opt.kernels or opt.sinbevt or opt.sinbevt_train or opt.train_camera
             or opt.train_nuscenes or opt.lidar_data or opt.zoo
-            or opt.lidar_zoo or opt.export_dist or opt.mesh):
+            or opt.lidar_zoo or opt.export_dist or opt.mesh or opt.measure):
         details = (phase_kernels(set(opt.kernels.split(",")))
                    if opt.kernels else [])
         sinbevt = phase_sinbevt() if opt.sinbevt else None
@@ -6413,6 +6538,7 @@ def main(argv=None):
         lidar_zoo = phase_lidar_zoo() if opt.lidar_zoo else None
         export_dist = phase_export_dist() if opt.export_dist else None
         mesh = phase_mesh() if opt.mesh else None
+        measure = phase_measure() if opt.measure else None
         if opt.out:
             os.makedirs(os.path.dirname(os.path.abspath(opt.out)),
                         exist_ok=True)
@@ -6424,28 +6550,42 @@ def main(argv=None):
                            "lidar_data": lidar_data, "zoo": zoo,
                            "lidar_zoo": lidar_zoo,
                            "export_dist": export_dist, "mesh": mesh,
-                           "card": card_line()}, f, indent=1)
+                           "measure": measure, "card": card_line()}, f,
+                          indent=1)
         log(f"total {time.perf_counter() - t0:.1f} s")
         return 0
-    details = phase_kernels()
-    counts, summary, plain, ref_check = phase_slice()
-    train_counts, train_row, gate = phase_train()
-    k8_launches = phase_k8()
-    lidar_counts, lidar = phase_lidar()
-    int8_counts, int8 = phase_int8()
-    bn_counts = phase_micro_bn_stats()
-    lidar_train_counts, lidar_train_row, lidar_gate = phase_lidar_train()
-    ffd_counts = phase_micro_ffd_fused()
-    sinbevt = phase_sinbevt()
-    sinbevt_train = phase_sinbevt_train()
-    train_camera = phase_train_camera()
-    train_nuscenes = phase_train_nuscenes(
-        corpbevt_device_rate=camera_device_rate(train_camera))
-    lidar_data = phase_lidar_data()
-    zoo = phase_zoo(opt.zoo_seed)
-    lidar_zoo = phase_lidar_zoo()
-    export_dist = phase_export_dist()
-    mesh = phase_mesh()
+    # seconds of each phase, printed before the kernels line
+    seconds = {"1-2": time.perf_counter() - t0}
+
+    def timed(phase, fn, *args, **kwargs):
+        start = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            seconds[phase] = time.perf_counter() - start
+
+    details = timed("3", phase_kernels)
+    counts, summary, plain, ref_check = timed("4-5", phase_slice)
+    train_counts, train_row, gate = timed("6", phase_train)
+    k8_launches = timed("7", phase_k8)
+    lidar_counts, lidar = timed("8", phase_lidar)
+    int8_counts, int8 = timed("9", phase_int8)
+    bn_counts = timed("10", phase_micro_bn_stats)
+    lidar_train_counts, lidar_train_row, lidar_gate = timed(
+        "11", phase_lidar_train)
+    ffd_counts = timed("12", phase_micro_ffd_fused)
+    sinbevt = timed("13", phase_sinbevt)
+    sinbevt_train = timed("14", phase_sinbevt_train)
+    train_camera = timed("15", phase_train_camera)
+    train_nuscenes = timed("16", phase_train_nuscenes,
+                           corpbevt_device_rate=camera_device_rate(
+                               train_camera))
+    lidar_data = timed("17", phase_lidar_data)
+    zoo = timed("18", phase_zoo, opt.zoo_seed)
+    lidar_zoo = timed("19", phase_lidar_zoo)
+    export_dist = timed("20", phase_export_dist)
+    mesh = timed("21", phase_mesh)
+    measure = timed("22", phase_measure)
 
     # (wrapper, source, the TPU function it replaces)
     sources = {
@@ -6605,11 +6745,14 @@ def main(argv=None):
                        "lidar_data": lidar_data, "zoo": zoo,
                        "lidar_zoo": lidar_zoo,
                        "export_dist": export_dist, "mesh": mesh,
+                       "measure": measure, "phase_seconds": seconds,
                        "kernels": kernels,
                        "card": card_line(),
                        "torch": torch.__version__,
                        "cuda": torch.version.cuda,
                        "seconds": time.perf_counter() - t0}, f, indent=1)
+    log("phase seconds: " + json.dumps({k: round(v, 1)
+                                        for k, v in seconds.items()}))
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

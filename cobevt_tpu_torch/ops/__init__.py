@@ -1,7 +1,9 @@
 """Kernels of the port: each wrapper launches a hand-written kernel (CUDA
 C++, or Triton for K9 and K10) on CUDA tensors and runs its plain PyTorch
-version on CPU tensors.  The eval kernels are ``cobevt::`` custom ops
-(:data:`KERNEL_OPS`); K5 and K9-K12 are called through ``ctypes`` only."""
+version on CPU tensors.  The model paths' kernels are ``cobevt::`` custom
+ops (:data:`KERNEL_OPS`: the eval kernels and K5, the attention backward),
+each with its work formula (``utils/flops.py``); K9-K12, which no model
+path runs, are called through ``ctypes`` only."""
 
 from cobevt_tpu_torch.ops import (
     conv2d,
@@ -43,7 +45,8 @@ KERNEL_WRAPPERS = (fused_window_attention_packed, fused_cross_view_attention,
 
 # the custom ops, by their name in the cobevt namespace
 KERNEL_OPS = {op.name: op for op in (
-    window_attention._K1, window_attention._K8, fused_cross_attention._K2,
+    window_attention._K1, window_attention._K5, window_attention._K8,
+    fused_cross_attention._K2,
     conv2d._K3, _swap._K4, _swap._K6, conv2d._K7, conv2d._A7,
     int8_chain._S8)}
 

@@ -39,6 +39,7 @@ from cobevt_tpu_torch.ops.dispatch import (
     needs_grad,
     route,
 )
+from cobevt_tpu_torch.utils import flops
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -182,7 +183,9 @@ _K3 = KernelOp(
         x, w, shift, residual, relu),
     lambda x, w, wt, shift, residual, relu: _launch_kernel(
         x, Conv3x3Weight(w, wt, shift), residual, relu),
-    lambda x, w, wt, shift, residual, relu: _nhwo(x, w.shape[-1]))
+    lambda x, w, wt, shift, residual, relu: _nhwo(x, w.shape[-1]),
+    lambda x, w, wt, shift, residual, relu: flops.k3_work(x, w, shift,
+                                                          residual))
 
 
 def fused_conv3x3(x, w, shift, residual=None, relu: bool = True, impl=None,
@@ -467,7 +470,8 @@ def _absmax_plain(x, slot):
 # the absmax as the custom op cobevt::int8_absmax (slot written)
 _A7 = KernelOp(
     "int8_absmax", "(Tensor x, Tensor(a!) slot) -> ()", _absmax_plain,
-    _launch_absmax, lambda x, slot: None, mutates_args=("slot",))
+    _launch_absmax, lambda x, slot: None, flops.a7_work, products=None,
+    mutates_args=("slot",))
 
 int8_absmax.launches = 0
 
@@ -529,7 +533,9 @@ _K7 = KernelOp(
         x, Int8Weight(None, s_w, wt, shift), amax, residual, relu, out_amax),
     lambda x, wt, s_w, shift, amax, residual, relu, out_amax: _nhwo(
         x, wt.shape[0]),
-    mutates_args=("out_amax",))
+    lambda x, wt, s_w, shift, amax, residual, relu, out_amax: flops.k7_work(
+        x, wt, s_w, shift, residual),
+    products="int8", mutates_args=("out_amax",))
 
 
 def fused_conv3x3_int8(x, w, shift, residual=None, relu: bool = True,

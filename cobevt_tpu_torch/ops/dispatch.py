@@ -110,19 +110,34 @@ class KernelOp:
     tensors, ``fake`` for tracing.  ``schema`` is the op's schema without
     its name; every operand is a tensor, a list of tensors or a scalar.
     Arguments written in place are named in ``mutates_args`` and marked
-    ``(a!)`` in the schema.  Calling the object calls the op."""
+    ``(a!)`` in the schema.  Calling the object calls the op.
 
-    def __init__(self, name, schema, plain, launch, fake,
-                 mutates_args=()):
+    ``work(*args)`` gives (operations, bytes) of a call from its operands'
+    shapes (``utils/flops.py``); ``products`` says what its operations are:
+    "float" or "int8" products, which the flop formula registered on the op
+    (``register_flop_formula``) counts for ``FlopCounterMode``, or None (no
+    products: the formula counts 0)."""
+
+    def __init__(self, name, schema, plain, launch, fake, work,
+                 products="float", mutates_args=()):
+        from torch.utils.flop_counter import register_flop_formula
         self.name = name
         self.launch = launch
+        self.work = work
+        self.products = products
         op = torch.library.custom_op(
             f"cobevt::{name}", plain, mutates_args=mutates_args,
             device_types="cpu", schema=schema)
         op.register_kernel("cuda", launch)
         op.register_fake(fake)
         self.custom_op = op
-        self.overload = getattr(torch.ops.cobevt, name).default
+        packet = getattr(torch.ops.cobevt, name)
+        self.overload = packet.default
+
+        def formula(*args, out_val=None, **kwargs):
+            return work(*args, **kwargs)[0] if products else 0
+
+        register_flop_formula(packet, get_raw=True)(formula)
 
     def __call__(self, *args):
         return self.overload(*args)

@@ -41,6 +41,7 @@ from cobevt_tpu_torch.ops.window_attention import (
     _packed_to_4d,
     fused_window_attention_packed,
 )
+from cobevt_tpu_torch.utils import flops
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 KERNEL_HEAD_DIMS = (8, 16, 32)
@@ -414,6 +415,17 @@ def _op_args(f):
     return impl
 
 
+def _work(x, w_embed, c_embed, key, val, params, q_win, k_win, *rest):
+    """(operations, bytes) of one call of K2's op (``utils/flops.py``)."""
+    B, H, W, D = x.shape
+    _, n, h, w, _ = key.shape
+    p = unflat_params(params)
+    hidden = p["w1_t"].shape[0] if "w1_t" in p else 0
+    return flops.k2_work(B, n, H, W, h, w, q_win, k_win, D,
+                         p["wq_t"].shape[0], hidden, w_embed is not None,
+                         x.dtype.itemsize)
+
+
 # K2 as the custom op cobevt::cross_view_attention: the plain version on CPU
 # tensors, the four launches on CUDA tensors (their scratch made inside)
 _K2 = KernelOp(
@@ -422,7 +434,7 @@ _K2 = KernelOp(
     "Tensor[] params, int[] q_win, int[] k_win, int n_heads, float scale, "
     "bool add_skip, bool grid_keys) -> Tensor",
     _op_args(_reference), _op_args(_launch_kernel),
-    lambda x, *args: torch.empty_like(x))
+    lambda x, *args: torch.empty_like(x), _work)
 
 
 def _forward(x, w_embed, c_embed, key, val, p, q_win, k_win, n_heads, scale,

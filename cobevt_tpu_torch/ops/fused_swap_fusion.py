@@ -54,6 +54,7 @@ from cobevt_tpu_torch.ops.fused_cross_attention import (
     ln_f32,
     row_smem_bytes,
 )
+from cobevt_tpu_torch.utils import flops
 
 NEG_INF = -1e9
 
@@ -658,6 +659,16 @@ def unflat_layers(ts) -> list:
     return [(subs[i], subs[i + 1]) for i in range(0, len(subs), 2)]
 
 
+def _work(x, mask, bias, layers, window, heads, head):
+    """(operations, bytes) of one call of K4's op (``head``: the whole
+    encoder) or K6's (the sublayers), ``utils/flops.py:fusion_work``."""
+    B, L, H, W, D = x.shape
+    subs = unflat_layers(layers)
+    return flops.fusion_work(B, L, H, W, D, window, heads, len(subs),
+                             subs[0][0]["w1_t"].shape[0], x.dtype.itemsize,
+                             bias.dtype.itemsize, mask is not None, head)
+
+
 def _k4_op_args(f):
     def impl(x, mask, agent_mask, bias, layers, head, window, heads,
              mean_over_valid):
@@ -673,7 +684,9 @@ _K4 = KernelOp(
     "Tensor[] layers, Tensor[] head, int window, int heads, "
     "bool mean_over_valid) -> Tensor",
     _k4_op_args(_reference), _k4_op_args(_launch_kernel),
-    lambda x, *args: x.new_empty((x.shape[0], *x.shape[2:])))
+    lambda x, *args: x.new_empty((x.shape[0], *x.shape[2:])),
+    lambda x, mask, agent_mask, bias, layers, head, window, heads,
+    mean_over_valid: _work(x, mask, bias, layers, window, heads, True))
 
 
 def fused_swap_fusion(x, mask, agent_mask, bias_stack, layers, head,
@@ -826,7 +839,9 @@ _K6 = KernelOp(
         x, mask, bias, unflat_layers(layers), window, heads, True),
     lambda x, mask, bias, layers, window, heads: _launch_streaming(
         x, mask, bias, unflat_layers(layers), window, heads),
-    lambda x, *args: torch.empty_like(x))
+    lambda x, *args: torch.empty_like(x),
+    lambda x, mask, bias, layers, window, heads: _work(
+        x, mask, bias, layers, window, heads, False))
 
 
 def fused_swap_fusion_streaming(x, mask, agent_mask, bias_stack, layers, head,

@@ -48,6 +48,7 @@ from cobevt_tpu_torch.ops.conv2d import (
     int8_kernel_accepts,
 )
 from cobevt_tpu_torch.ops.dispatch import KernelOp, check_operand, route
+from cobevt_tpu_torch.utils import flops
 
 INTERMEDIATE_HEADROOM = 2.0
 BLOCK_GROWTH = 1.5
@@ -243,6 +244,12 @@ def _s8_fake(xq, sx, wt, sw, t, relu, out_scale, residual_q, residual_scale,
             xq.new_empty((), dtype=torch.float32))
 
 
+def _s8_work(xq, sx, wt, sw, t, relu, out_scale, residual_q,
+             residual_scale, out_dtype, with_sat):
+    out_itemsize = 1 if out_scale is not None else out_dtype.itemsize
+    return flops.s8_work(xq, wt, sw, t, residual_q, out_itemsize)
+
+
 # the chain's conv as the custom op cobevt::conv3x3_s8: (out, the clipped
 # share, 0 unless with_sat); scales are 0-d tensors
 _S8 = KernelOp(
@@ -250,7 +257,7 @@ _S8 = KernelOp(
     "(Tensor xq, Tensor sx, Tensor wt, Tensor sw, Tensor t, bool relu, "
     "Tensor? out_scale, Tensor? residual_q, Tensor? residual_scale, "
     "ScalarType out_dtype, bool with_sat) -> (Tensor, Tensor)",
-    _s8_plain, _s8_launch, _s8_fake)
+    _s8_plain, _s8_launch, _s8_fake, _s8_work, products="int8")
 
 
 def _scale_tensor(value, device):

@@ -42,6 +42,12 @@ def sample_args(device, seed: int = 0) -> dict:
     out["window_attention_packed"] = (
         randn(G, T, H * D, scale=0.25), randn(G, T, H * D),
         randn(G, T, H * D), H, randn(T, H * T), mask, None, None)
+    # K5: its backward at the same shapes (the output's gradient g and the
+    # output drawn; the kernel takes its own row statistics)
+    out["window_attention_packed_bwd"] = (
+        randn(G, T, H * D, scale=0.25), randn(G, T, H * D),
+        randn(G, T, H * D), randn(G, T, H * D), randn(G, T, H * D), H,
+        randn(T, H * T), mask, None)
     # K8: the same shapes head-major
     out["window_attention"] = (
         randn(G, H, T, D, scale=0.25), randn(G, H, T, D), randn(G, H, T, D),

@@ -15,8 +15,9 @@ nothing of size Tq x Tk, and its backward recomputes the attention; where
 the backward will be the bf16 K5, K1 also writes the row statistics K5
 would otherwise take in a sweep of its own (3 G H Tq floats, each row padded
 to 16 bytes: :func:`stats_pitch`; saved too).  The
-backward takes K5 (``csrc/window_attention_bwd.cu`` on CUDA tensors,
-:func:`packed_backward_reference` on CPU tensors) where
+backward takes K5 (the op ``cobevt::window_attention_packed_bwd``:
+``csrc/window_attention_bwd.cu`` on CUDA tensors; on CPU tensors
+:func:`packed_backward_reference`, inline) where
 :func:`packed_bwd_kernel_ok` holds and ``COBEVT_FLASH_BWD_F32`` is not "1";
 otherwise :func:`packed_backward_composite`, the plain PyTorch form of the
 JAX package's XLA branch, which is no kernel there and none here.  The gate
@@ -47,6 +48,7 @@ from cobevt_tpu_torch.ops.dispatch import (
     resolve_impl,
     route,
 )
+from cobevt_tpu_torch.utils import flops
 
 NEG_INF = -1e9
 
@@ -420,7 +422,7 @@ _K1 = KernelOp(
     "Tensor? mask, Tensor? weight, Tensor(a!)? stats) -> Tensor",
     _k1_plain, _launch_kernel,
     lambda q, k, v, n_heads, bias_flat, mask, weight, stats:
-    torch.empty_like(q), mutates_args=("stats",))
+    torch.empty_like(q), flops.k1_work, mutates_args=("stats",))
 
 
 def _launch_bwd_kernel(q, k, v, g, out, n_heads, bias_flat, mask,
@@ -471,6 +473,43 @@ def _launch_bwd_kernel(q, k, v, g, out, n_heads, bias_flat, mask,
     return dq, dk, dv, dbias
 
 
+def _no_dbias(q):
+    """The op's dbias where there is no bias: an empty f32 tensor (an op
+    returns a tensor in every output)."""
+    return q.new_empty((0,), dtype=torch.float32)
+
+
+def _k5_plain(q, k, v, g, out, n_heads, bias_flat, mask, stats):
+    if stats is not None:
+        raise ValueError("the row-statistics scratch is filled by the CUDA "
+                         "kernel only")
+    dq, dk, dv, dbias = packed_backward_reference(q, k, v, g, out, n_heads,
+                                                  bias_flat, mask)
+    return dq, dk, dv, _no_dbias(q) if dbias is None else dbias
+
+
+def _k5_launch(q, k, v, g, out, n_heads, bias_flat, mask, stats):
+    dq, dk, dv, dbias = _launch_bwd_kernel(q, k, v, g, out, n_heads,
+                                           bias_flat, mask, stats)
+    return dq, dk, dv, _no_dbias(q) if dbias is None else dbias
+
+
+# K5 as the custom op cobevt::window_attention_packed_bwd: the plain version
+# on CPU tensors, the kernel on CUDA tensors (``stats``, the scratch K1
+# filled: read, and its third plane, the flash rowsum, written); dbias an
+# empty f32 tensor where there is no bias
+_K5 = KernelOp(
+    "window_attention_packed_bwd",
+    "(Tensor q, Tensor k, Tensor v, Tensor g, Tensor out, int n_heads, "
+    "Tensor? bias_flat, Tensor? mask, Tensor(a!)? stats) -> "
+    "(Tensor, Tensor, Tensor, Tensor)",
+    _k5_plain, _k5_launch,
+    lambda q, k, v, g, out, n_heads, bias_flat, mask, stats: (
+        torch.empty_like(q), torch.empty_like(k), torch.empty_like(v),
+        _no_dbias(q) if bias_flat is None else torch.empty_like(bias_flat)),
+    flops.k5_work, mutates_args=("stats",))
+
+
 def fused_window_attention_packed_bwd(q, k, v, g, out, n_heads: int,
                                       bias_flat=None, mask=None, impl=None):
     """K5: the flash backward of :func:`fused_window_attention_packed`
@@ -502,9 +541,10 @@ def _packed_bwd(q, k, v, g, out, n_heads, bias_flat, mask, impl,
         bias_flat = bias_flat.float().contiguous()
     if mask is not None:
         mask = mask.float().contiguous()
-    return _launch_bwd_kernel(q.contiguous(), k.contiguous(), v.contiguous(),
-                              g.contiguous(), out.contiguous(), n_heads,
-                              bias_flat, mask, stats)
+    dq, dk, dv, dbias = _K5(q.contiguous(), k.contiguous(), v.contiguous(),
+                            g.contiguous(), out.contiguous(), n_heads,
+                            bias_flat, mask, stats)
+    return dq, dk, dv, None if bias_flat is None else dbias
 
 
 def _packed_forward(q, k, v, n_heads, bias_flat, mask, weight, impl,
@@ -666,7 +706,7 @@ _K8 = KernelOp(
     "window_attention",
     "(Tensor q, Tensor k, Tensor v, Tensor? bias, Tensor? mask) -> Tensor",
     window_attention_reference, _launch_hm_kernel,
-    lambda q, k, v, bias, mask: torch.empty_like(q))
+    lambda q, k, v, bias, mask: torch.empty_like(q), flops.k8_work)
 
 
 def _hm_forward(q, k, v, bias, mask, impl):

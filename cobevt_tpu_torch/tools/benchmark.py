@@ -13,10 +13,26 @@ fusion, one vehicle's 4 cameras x 512^2) and one JSON line with
 memory (``--profile_steps N`` adds device ms, device operations and the
 idle share).
 
+Every row also carries the work of a frame or step, counted at the
+dispatcher in the last warmup call (``utils/flops.py:costs``: FLOPs from
+the aten ops' formulas and each ``cobevt::`` kernel op's, logical bytes;
+``flops_per_frame``, ``bytes_per_frame``, ``int8_ops_per_frame`` under
+``--int8``, or ``flops_per_step`` and ``bytes_per_step``), the work by
+kernel op (``kernel_work``), and the JAX tool's shares of the card's peaks
+(``mfu`` against the bf16 peak, ``hbm_util``, ``hbm_gbs``, and ``hbm_flag``
+where the logical bytes exceed the bus).  A ``--device cpu`` row has the
+counts and null shares: a CPU run gives no device rate.  ``--profile_dir
+DIR`` writes the ``torch.profiler`` Chrome trace of the profiled frames or
+steps (2 unless ``--profile_steps`` says) into DIR, with the inputs' shapes
+and a scope for each module named by its flax path (``encoder/layers_0/
+conv1``), and beside it the counted call's work by kernel op:
+``tools/parse_trace.py DIR`` makes its tables.
+
   python -m cobevt_tpu_torch.tools.benchmark --model pointpillar --iters 20
   python -m cobevt_tpu_torch.tools.benchmark --model corpbevt --profile_steps 2
   python -m cobevt_tpu_torch.tools.benchmark --model sinbevt --profile_steps 2
   python -m cobevt_tpu_torch.tools.benchmark --model corpbevt --int8
+  python -m cobevt_tpu_torch.tools.benchmark --profile_dir /tmp/trace
 
 ``--int8`` is the serving A/B of the lossy ``COBEVT_INT8=1`` mode (K7 for the
 trunk blocks of 256 and 512 channels, layer1 int8-resident): the variable is
@@ -53,6 +69,7 @@ CPU run reports host milliseconds, never a device time.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -88,7 +105,8 @@ from cobevt_tpu_torch.train.optim import (
     constant_schedule,
     onecycle_schedule,
 )
-from cobevt_tpu_torch.tools import timing
+from cobevt_tpu_torch.tools import parse_trace, timing
+from cobevt_tpu_torch.utils import flops
 from cobevt_tpu_torch.utils.weights import seeded_init_
 
 
@@ -124,12 +142,19 @@ def parse_args(argv=None):
                    help="also trace this many steps (or frames) with "
                         "torch.profiler and print device time, kernel count "
                         "and idle share")
+    p.add_argument("--profile_dir", default=None,
+                   help="write the torch.profiler trace of the profiled "
+                        "steps (or frames; 2 unless --profile_steps says) "
+                        "here, with shapes and module scopes, for "
+                        "tools/parse_trace.py")
     p.add_argument("--device", default=None,
                    help="cuda (default; required unless this says cpu)")
     opt = p.parse_args(argv)
     if opt.batch is None:
         opt.batch = (nuscenes_experiment(NUSCENES_FLAGSHIP).batch_size
                      if opt.train and opt.model == "sinbevt" else 1)
+    if opt.profile_dir and not opt.profile_steps:
+        opt.profile_steps = 2
     return opt
 
 
@@ -377,18 +402,77 @@ def pointpillar_output_shapes(cfg, B: int):
     return (B, h, w, cfg.anchor_num), (B, h, w, 7 * cfg.anchor_num)
 
 
-def profile_steps(run_step, n: int, ms_per_step: float) -> dict:
+def profile_steps(run_step, n: int, ms_per_step: float, profile_dir=None,
+                  model=None, name="benchmark", work=None) -> dict:
     """Trace ``n`` steps (or frames) with ``torch.profiler`` and sum the
     kernels and copies that ran on the device (``timing.device_profile``)
-    against an untraced step of ``ms_per_step``, from the timed loop."""
+    against an untraced step of ``ms_per_step``, from the timed loop.  With
+    ``profile_dir``, the trace also records the inputs' shapes and a scope
+    for each submodule of ``model`` (``timing.module_scopes``), and is
+    written there as ``<name>.pt.trace.json``; ``work``, the counted call's
+    work by kernel op, is written beside it (``parse_trace.work_path``),
+    where ``tools/parse_trace.py --bandwidth`` takes each op call's
+    bytes."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    scopes = (timing.module_scopes(model) if profile_dir and model is not None
+              else contextlib.nullcontext())
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=bool(profile_dir)) as prof, scopes:
         for _ in range(n):
             run_step()
         torch.cuda.synchronize()
-    return timing.device_profile(prof, n, ms_per_step)
+    out = timing.device_profile(prof, n, ms_per_step)
+    if profile_dir:
+        os.makedirs(profile_dir, exist_ok=True)
+        out["trace"] = os.path.join(profile_dir, f"{name}.pt.trace.json")
+        prof.export_chrome_trace(out["trace"])
+        if work is not None:
+            with open(parse_trace.work_path(out["trace"]), "w") as f:
+                json.dump({"kernels": work}, f)
+    return out
+
+
+def warmup_counted(run, warmup: int):
+    """``warmup`` untimed calls of ``run``, the last one counted at the
+    dispatcher (``utils/flops.py:costs``; it launches what it would).
+    Returns (the first result, the last, the counts or None when ``warmup``
+    is 0).  The counted call is one the warmup makes anyway, so a run's
+    calls and launches stay what they were."""
+    first = last = counted = None
+    for i in range(warmup):
+        if i == warmup - 1:
+            before, out = ops.launch_counts(), []
+            counted = flops.costs(lambda: out.append(run()))
+            last = out[0]
+            counted["launches"] = {k: n - before[k] for k, n in
+                                   ops.launch_counts().items()
+                                   if n - before[k]}
+        else:
+            last = run()
+        first = first if first is not None else last
+    return first, last, counted
+
+
+def work_fields(counted, per: int, unit: str, seconds, int8=False,
+                device=None) -> dict:
+    """A row's work fields from ``counted`` (one call of ``per`` frames,
+    or one step; ``kernel_work`` by op and the launches the call made) and
+    the shares of the card's peaks over ``seconds`` a call (None off the
+    card: null shares)."""
+    if counted is None:
+        return {}
+    row = {f"flops_per_{unit}": counted["flops"] / per,
+           f"bytes_per_{unit}": counted["bytes"] / per,
+           "kernel_work": counted["kernels"],
+           "counted_launches": counted["launches"]}
+    if int8:
+        row[f"int8_ops_per_{unit}"] = counted["int8_ops"] / per
+    if seconds is None:
+        row.update(mfu=None, hbm_util=None, hbm_gbs=None)
+    else:
+        row.update(flops.utilization(counted, seconds, device))
+    return row
 
 
 def train_recipe(model_name: str, config=None):
@@ -429,10 +513,7 @@ def measure_train(model, model_name, batch, opt, device, config=None):
 
     if on_card:
         torch.cuda.reset_peak_memory_stats(device)
-    logs = first = None
-    for _ in range(opt.warmup):
-        logs = run_step()
-        first = first if first is not None else logs
+    first, logs, counted = warmup_counted(run_step, opt.warmup)
     ops.reset_launch_counts()
     if on_card:
         torch.cuda.synchronize(device)
@@ -479,14 +560,20 @@ def measure_train(model, model_name, batch, opt, device, config=None):
     if logs and "grad_norm" in logs:
         row["grad_norm_first"] = float(first["grad_norm"])
         row["grad_norm"] = float(logs["grad_norm"])
+    ms = start.elapsed_time(stop) / iters if on_card else None
+    row.update(work_fields(counted, 1, "step",
+                           ms / 1e3 if on_card else None, device=device))
     if on_card:
-        ms = start.elapsed_time(stop) / iters
         row["ms_per_step"] = ms
         row["steps_per_sec"] = 1e3 / ms
         row["samples_per_sec"] = opt.batch * 1e3 / ms
         row["peak_memory_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
         if opt.profile_steps:
-            row["profile"] = profile_steps(run_step, opt.profile_steps, ms)
+            # the step runs the compute twin: its modules carry the scopes
+            row["profile"] = profile_steps(
+                run_step, opt.profile_steps, ms, opt.profile_dir,
+                state.compute_model, f"{model_name}_train",
+                counted and counted["kernels"])
     return row
 
 
@@ -507,9 +594,7 @@ def measure_eval(model, model_name, batch, opt, device):
 
     if on_card:
         torch.cuda.reset_peak_memory_stats(device)
-    out = None
-    for _ in range(opt.warmup):
-        out = run_frame()
+    _, out, counted = warmup_counted(run_frame, opt.warmup)
     ops.reset_launch_counts()
     if on_card:
         torch.cuda.synchronize(device)
@@ -544,13 +629,18 @@ def measure_eval(model, model_name, batch, opt, device):
         "finite": all(bool(torch.isfinite(v).all())
                       for v in (out or {}).values() if torch.is_tensor(v)),
     }
+    ms = start.elapsed_time(stop) / iters if on_card else None
+    row.update(work_fields(counted, opt.batch, "frame",
+                           ms / 1e3 if on_card else None,
+                           int8=int8_enabled(), device=device))
     if on_card:
-        ms = start.elapsed_time(stop) / iters
         row["ms_per_frame"] = ms
         row["frames_per_sec"] = opt.batch * 1e3 / ms
         row["peak_memory_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
         if opt.profile_steps:
-            row["profile"] = profile_steps(run_frame, opt.profile_steps, ms)
+            row["profile"] = profile_steps(
+                run_frame, opt.profile_steps, ms, opt.profile_dir, model,
+                f"{model_name}_eval", counted and counted["kernels"])
     return row
 
 

@@ -37,6 +37,7 @@ import torch
 from cobevt_tpu_torch.ops import bn_stats
 from cobevt_tpu_torch.ops.bn_stats import bn_stats_bwd, bn_stats_fwd
 from cobevt_tpu_torch.tools.timing import device_ms
+from cobevt_tpu_torch.utils.flops import PEAK_BYTES_PER_S
 
 # (rows, channels) of the JAX tool: the single-vehicle model's three stages
 # at batch 48 and the cooperative model's layer2
@@ -45,7 +46,6 @@ SHAPES = [((48 * 112 * 240, 144), "sin_stage1"),
           ((48 * 28 * 60, 336), "sin_stage3"),
           ((5 * 128 * 128, 128), "corp_layer2")]
 TOLERANCE = 1e-4
-PEAK_BYTES_PER_S = 3.35e12      # NVIDIA H100 SXM data sheet
 
 
 def rel_error(got, want) -> float:

@@ -1,6 +1,6 @@
 """The card-alone timer that the micro tools and ``chip_smoke.py`` share,
-and the summary of a ``torch.profiler`` trace that the benchmark and the
-trainer share.
+the summary of a ``torch.profiler`` trace that the benchmark and the
+trainer share, and the module scopes a written trace carries.
 
 ``device_ms(fn, iters)`` is the ms of one call of ``fn`` on the card alone:
 the calls are queued behind a sleep kernel, so the host's enqueue time does
@@ -11,6 +11,8 @@ call is timed over, so a call whose inputs fit L2 reads device memory.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -68,3 +70,46 @@ def device_profile(prof, n: int, ms_per_step: float) -> dict:
                             "count_per_step": c / n}
                            for k, ms, c in rows[:16]],
     }
+
+
+def scope_name(path: str) -> str:
+    """The flax scope name of a module's attribute path, as the weight
+    bridge maps it (``utils/weights.py``): ``encoder.layers.0.conv1`` ->
+    ``encoder/layers_0/conv1``."""
+    from cobevt_tpu_torch.utils.weights import _default_rename
+    return "/".join(_default_rename(path.split(".")))
+
+
+@contextlib.contextmanager
+def module_scopes(model):
+    """A ``record_function`` scope around every submodule's forward,
+    named by :func:`scope_name` of its attribute path, inside the block:
+    ``tools/parse_trace.py`` attributes each device event to the innermost
+    scope open at its launch, so the module keys of its table are the JAX
+    package's scope names."""
+    from torch.autograd.profiler import record_function
+    open_scopes = []
+
+    def enter(name):
+        def hook(module, args):
+            scope = record_function(name)
+            scope.__enter__()
+            open_scopes.append(scope)
+        return hook
+
+    def leave(module, args, out):
+        open_scopes.pop().__exit__(None, None, None)
+
+    handles = []
+    for path, module in model.named_modules():
+        if path:
+            handles.append(module.register_forward_pre_hook(
+                enter(scope_name(path))))
+            handles.append(module.register_forward_hook(leave))
+    try:
+        yield
+    finally:
+        for h in handles:
+            h.remove()
+        while open_scopes:
+            open_scopes.pop().__exit__(None, None, None)
