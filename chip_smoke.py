@@ -335,6 +335,23 @@ non-zero without printing the final line:
      that are attribute paths (hbm_util above 1 is reported with its
      flag).  ``--measure`` runs this phase alone after the build and stops
      without the final line.
+ 23. the two micro tools at the JAX tools' full shapes:
+     tools/quant_microbench.py (bf16 torch.matmul against torch._int_mm with
+     a dynamic and a static activation scale at four FAX dense shapes;
+     cuDNN, K3 and A7 + K7 at ResNet-34 layer2-4's stride-1 convs at N 20,
+     and cuDNN, K3 and S8 at layer1's) and tools/micro_maxpool_bwd.py (the
+     stem pool's ATen backward against argmax routing at 20 x 256 x 256 x
+     64 bf16): every kernel row first held to its plain version with phase
+     3's tolerance (the int32 products of torch._int_mm bit for bit too),
+     then the timed run with the launch counts zeroed, whose K3, A7, K7 and
+     S8 launches the kernels line adds; the two maxpool gradients must be
+     equal.  ``--micro`` runs this phase alone after the build and stops
+     without the final line.
+
+Each phase's seconds are printed as the phase ends, with the seconds from
+each loader's first ``next()`` to its first batch (data/loader.py's
+FIRST_BATCHES: its dataset, its workers and whether that iteration started
+them), and again together before the kernels line.
 
 Every bound of phase 3 comes from the work formulas of
 cobevt_tpu_torch/utils/flops.py, the same ones each cobevt:: op registers
@@ -6452,6 +6469,60 @@ def phase_measure(seed=0):
     return out
 
 
+# phase 23: the timed calls a function of each tool (tools/timing.py)
+MICRO_ITERS = 10
+# the kernels phase 23 must launch, by wrapper
+MICRO_KERNELS = ("fused_conv3x3", "fused_conv3x3_int8", "int8_absmax",
+                 "conv3x3_s8")
+
+
+def phase_micro():
+    """Phase 23: tools/quant_microbench.py and tools/micro_maxpool_bwd.py at
+    the JAX tools' full shapes.  First every kernel row held to its plain
+    version with phase 3's tolerance (K3 within TOL, K7, A7 and S8 bit for
+    bit, the library's int32 products bit for bit), then, with the launch
+    counts zeroed, the tools' timed run and the maxpool gradients, which
+    must be equal.  Returns the counts of that run and every reading; a
+    failing check raises once the phase has printed every reading."""
+    import torch
+    from cobevt_tpu_torch import ops
+    from cobevt_tpu_torch.tools import micro_maxpool_bwd
+    from cobevt_tpu_torch.tools import quant_microbench as qm
+
+    log("== phase 23: int8 against bf16 (tools/quant_microbench.py: cuBLAS, "
+        "torch._int_mm, cuDNN, K3, A7 + K7, S8) and the stem maxpool "
+        "backward (tools/micro_maxpool_bwd.py) at the JAX tools' shapes")
+    card = card_line()
+    dev = torch.device("cuda")
+    checked = qm.run(dev, iters=0, k3_tol=TOL["bfloat16"])
+    for r in checked:
+        log(f"{r['shape']}: " + ", ".join(
+            f"{k} max |got - plain| {err:.4g} {'ok' if ok else 'FAILED'}"
+            for k, (err, ok) in r["checks"].items()))
+    ops.reset_launch_counts()
+    rows = qm.run(dev, iters=MICRO_ITERS, check=False,
+                  emit=lambda r: log(json.dumps(r) + f"; {card}"))
+    pool = micro_maxpool_bwd.run(dev, iters=MICRO_ITERS)
+    counts = ops.launch_counts()
+    log(f"stem maxpool {tuple(pool['shape'])} bf16: gradients max |plain - "
+        f"routed| {pool['grad_max_abs']} ({pool['grad_values_differing']} "
+        f"values differ), forward equal {pool['forward_equal']}; fwd+bwd "
+        f"{pool['plain_ms']:.3f} ms ATen, {pool['routed_ms']:.3f} ms "
+        f"argmax-routed (card alone); {card}")
+    failures = [f"{shape}: {name}" for shape, name in qm.failed_checks(
+        checked)]
+    if not (pool["grad_equal"] and pool["forward_equal"]):
+        failures.append("the maxpool gradients or outputs differ")
+    failures += [f"{fn} was launched no time" for fn in MICRO_KERNELS
+                 if counts[fn] <= 0]
+    log("phase 23 launches: " + json.dumps(
+        {fn: counts[fn] for fn in MICRO_KERNELS}))
+    if failures:
+        raise AssertionError("phase 23: " + "; ".join(failures))
+    return {"counts": counts, "checks": checked, "rows": rows,
+            "maxpool": pool, "card": card}
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default=None,
@@ -6504,6 +6575,11 @@ def main(argv=None):
                    help="run phase 22 (the measurement layer) after the "
                         "build, and after the phases above if given, then "
                         "stop without the final line")
+    p.add_argument("--micro", action="store_true",
+                   help="run phase 23 (tools/quant_microbench.py and "
+                        "tools/micro_maxpool_bwd.py at full shape) after the "
+                        "build, and after the phases above if given, then "
+                        "stop without the final line")
     # a rank of phase 20(b) or 21, started by the phase itself
     for flag in ("--dp_rank", "--mesh_rank", "--dp_data", "--dp_env",
                  "--dp_backend"):
@@ -6520,25 +6596,55 @@ def main(argv=None):
     if opt.mesh_rank:
         return mesh_rank_main(opt)
     t0 = time.perf_counter()
-    phase_environment()
-    phase_build()
+    from cobevt_tpu_torch.data.loader import FIRST_BATCHES
+    # seconds of each phase, printed as each phase ends and again before
+    # the kernels line, with each loader's seconds to its first batch
+    seconds = {}
+
+    def timed(phase, fn, *args, **kwargs):
+        start = time.perf_counter()
+        FIRST_BATCHES.clear()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            seconds[phase] = time.perf_counter() - start
+            for r in FIRST_BATCHES:
+                log(f"phase {phase}: {r['dataset']} loader, "
+                    f"{r['workers']} workers"
+                    f"{' started' if r['started'] else ' kept'}: "
+                    f"{r['seconds']:.2f} s to its first batch")
+            log(f"phase {phase}: {seconds[phase]:.1f} s (run "
+                f"{time.perf_counter() - t0:.1f} s)")
+
+    def build():
+        phase_environment()
+        phase_build()
+
+    timed("1-2", build)
     if (opt.kernels or opt.sinbevt or opt.sinbevt_train or opt.train_camera
             or opt.train_nuscenes or opt.lidar_data or opt.zoo
-            or opt.lidar_zoo or opt.export_dist or opt.mesh or opt.measure):
-        details = (phase_kernels(set(opt.kernels.split(",")))
+            or opt.lidar_zoo or opt.export_dist or opt.mesh or opt.measure
+            or opt.micro):
+        details = (timed("3", phase_kernels, set(opt.kernels.split(",")))
                    if opt.kernels else [])
-        sinbevt = phase_sinbevt() if opt.sinbevt else None
-        sinbevt_train = phase_sinbevt_train() if opt.sinbevt_train else None
-        train_camera = phase_train_camera() if opt.train_camera else None
-        train_nuscenes = (phase_train_nuscenes(
-            corpbevt_device_rate=camera_device_rate(train_camera))
-            if opt.train_nuscenes else None)
-        lidar_data = phase_lidar_data() if opt.lidar_data else None
-        zoo = phase_zoo(opt.zoo_seed) if opt.zoo else None
-        lidar_zoo = phase_lidar_zoo() if opt.lidar_zoo else None
-        export_dist = phase_export_dist() if opt.export_dist else None
-        mesh = phase_mesh() if opt.mesh else None
-        measure = phase_measure() if opt.measure else None
+        sinbevt = timed("13", phase_sinbevt) if opt.sinbevt else None
+        sinbevt_train = (timed("14", phase_sinbevt_train)
+                         if opt.sinbevt_train else None)
+        train_camera = (timed("15", phase_train_camera)
+                        if opt.train_camera else None)
+        train_nuscenes = (timed("16", phase_train_nuscenes,
+                                corpbevt_device_rate=camera_device_rate(
+                                    train_camera))
+                          if opt.train_nuscenes else None)
+        lidar_data = (timed("17", phase_lidar_data) if opt.lidar_data
+                      else None)
+        zoo = timed("18", phase_zoo, opt.zoo_seed) if opt.zoo else None
+        lidar_zoo = timed("19", phase_lidar_zoo) if opt.lidar_zoo else None
+        export_dist = (timed("20", phase_export_dist) if opt.export_dist
+                       else None)
+        mesh = timed("21", phase_mesh) if opt.mesh else None
+        measure = timed("22", phase_measure) if opt.measure else None
+        micro = timed("23", phase_micro) if opt.micro else None
         if opt.out:
             os.makedirs(os.path.dirname(os.path.abspath(opt.out)),
                         exist_ok=True)
@@ -6550,19 +6656,11 @@ def main(argv=None):
                            "lidar_data": lidar_data, "zoo": zoo,
                            "lidar_zoo": lidar_zoo,
                            "export_dist": export_dist, "mesh": mesh,
-                           "measure": measure, "card": card_line()}, f,
-                          indent=1)
+                           "measure": measure, "micro": micro,
+                           "phase_seconds": seconds,
+                           "card": card_line()}, f, indent=1)
         log(f"total {time.perf_counter() - t0:.1f} s")
         return 0
-    # seconds of each phase, printed before the kernels line
-    seconds = {"1-2": time.perf_counter() - t0}
-
-    def timed(phase, fn, *args, **kwargs):
-        start = time.perf_counter()
-        try:
-            return fn(*args, **kwargs)
-        finally:
-            seconds[phase] = time.perf_counter() - start
 
     details = timed("3", phase_kernels)
     counts, summary, plain, ref_check = timed("4-5", phase_slice)
@@ -6586,6 +6684,7 @@ def main(argv=None):
     export_dist = timed("20", phase_export_dist)
     mesh = timed("21", phase_mesh)
     measure = timed("22", phase_measure)
+    micro = timed("23", phase_micro)
 
     # (wrapper, source, the TPU function it replaces)
     sources = {
@@ -6694,6 +6793,9 @@ def main(argv=None):
     # K1 and K5 in the mesh's rank steps, K1-K4 in its served frames (21)
     for fn, n in mesh["counts"].items():
         launches[fn] += n
+    # K3, A7, K7 and S8 in the timed runs of the two micro tools (23)
+    for fn, n in micro["counts"].items():
+        launches[fn] += n
     kernels = []
     for key, (fn, src, replaces) in sources.items():
         rows = [r for r in details if r["kernel"] == key]
@@ -6745,7 +6847,8 @@ def main(argv=None):
                        "lidar_data": lidar_data, "zoo": zoo,
                        "lidar_zoo": lidar_zoo,
                        "export_dist": export_dist, "mesh": mesh,
-                       "measure": measure, "phase_seconds": seconds,
+                       "measure": measure, "micro": micro,
+                       "phase_seconds": seconds,
                        "kernels": kernels,
                        "card": card_line(),
                        "torch": torch.__version__,

@@ -20,6 +20,10 @@ hypes file or a per-timestamp file is read as JSON, and
 :func:`save_config_snapshot` writes JSON text into ``config.yaml`` (still a
 valid YAML file for the JAX package and the reference).  A file that is not
 JSON, read where ``yaml`` is missing, raises an error naming PyYAML.
+
+The model modules are imported inside the functions that build configs, so
+a dataset that reads its YAML through this module, unpickled in a loader's
+worker, loads none of the model zoo.
 """
 
 from __future__ import annotations
@@ -32,16 +36,6 @@ import re
 from typing import Callable, Dict, Optional
 
 import numpy as np
-
-from cobevt_tpu_torch.models.camera_bev_models import (
-    ZOO_FUSIONS,
-    CameraBEVConfig,
-    create_model,
-    zoo_core_method,
-)
-from cobevt_tpu_torch.models.corpbevt import CorpBEVTConfig
-from cobevt_tpu_torch.models.cvt_dense import CVTModuleConfig
-from cobevt_tpu_torch.models.fax import FAXConfig
 
 try:
     import yaml
@@ -218,6 +212,9 @@ def corpbevt_config_from_hypes(hypes: dict) -> CorpBEVTConfig:
     """Map a corpbevt-style hypes dict (reference
     opv2v/opencood/hypes_yaml/opcamera/corpbevt.yaml) onto
     CorpBEVTConfig."""
+    from cobevt_tpu_torch.models.corpbevt import CorpBEVTConfig
+    from cobevt_tpu_torch.models.fax import FAXConfig
+
     args = hypes["model"]["args"]
     fax_a = args["fax"]
     bev = fax_a["bev_embedding"]
@@ -271,15 +268,27 @@ def corpbevt_config_from_hypes(hypes: dict) -> CorpBEVTConfig:
         output_class=args["output_class"])
 
 
-# every zoo core_method, short and long, -> its registry key
-_ZOO_CORE_METHODS = {name: key for key in ZOO_FUSIONS
-                     for name in (key, zoo_core_method(key))}
+def _zoo_core_methods() -> Dict[str, str]:
+    """Every zoo core_method, short and long, -> its registry key."""
+    from cobevt_tpu_torch.models.camera_bev_models import (
+        ZOO_FUSIONS,
+        zoo_core_method,
+    )
+
+    return {name: key for key in ZOO_FUSIONS
+            for name in (key, zoo_core_method(key))}
 
 
 def camera_bev_config_from_hypes(hypes: dict) -> CameraBEVConfig:
     """Map a cvt-variant hypes dict (reference
     opv2v/opencood/hypes_yaml/opcamera/cvt*.yaml) onto CameraBEVConfig."""
-    fusion = ZOO_FUSIONS[_ZOO_CORE_METHODS[hypes["model"]["core_method"]]]
+    from cobevt_tpu_torch.models.camera_bev_models import (
+        ZOO_FUSIONS,
+        CameraBEVConfig,
+    )
+    from cobevt_tpu_torch.models.cvt_dense import CVTModuleConfig
+
+    fusion = ZOO_FUSIONS[_zoo_core_methods()[hypes["model"]["core_method"]]]
     args = hypes["model"]["args"]
     enc = args["encoder"]
     dec = args["decoder"]
@@ -342,8 +351,9 @@ def model_config_from_hypes(hypes: dict):
         return "corpbevt", corpbevt_config_from_hypes(hypes)
     if core in ("fax_fused_transformer", "fax"):
         return "fax", corpbevt_config_from_hypes(hypes)
-    if core in _ZOO_CORE_METHODS:
-        return _ZOO_CORE_METHODS[core], camera_bev_config_from_hypes(hypes)
+    zoo = _zoo_core_methods()
+    if core in zoo:
+        return zoo[core], camera_bev_config_from_hypes(hypes)
     raise KeyError(f"unknown model core_method {core!r}")
 
 
@@ -351,6 +361,11 @@ def build_from_hypes(hypes: dict):
     """Hypes dict -> (config, the f32 module on the CPU), built through
     ``create_model``: CorpBEVT for ``corpbevt``, SinBEVT for ``fax``, a
     ``CameraBEVModel`` for the zoo."""
+    from cobevt_tpu_torch.models.camera_bev_models import (
+        ZOO_FUSIONS,
+        create_model,
+    )
+
     key, cfg = model_config_from_hypes(hypes)
     # the registry's builder sets a zoo graph's fusion from its key
     kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)

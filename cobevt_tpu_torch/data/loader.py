@@ -9,13 +9,23 @@ samples in parallel, and the batches come out as CPU tensors, pinned when
 the loader feeds a CUDA device, so the copy to the card can run
 asynchronously.
 
-Workers are spawned, not forked (the training process has CUDA's and the
-profiler's threads): each starts from a fresh import, receives the dataset
-pickled, runs its numpy code only and never touches CUDA.  A start costs an
-interpreter and its imports, so the workers are kept across epochs: the
-``torch.utils.data.DataLoader`` is built once and its workers persist.  A
-dataset whose content its caller changes between epochs (an OPV2V CAV
-order reshuffled at the end of an epoch) says so through ``epoch_state()``;
+Workers are not forked from the loading process (it has CUDA's and the
+profiler's threads).  They are forked from a forkserver: one server process
+per loading process, started at the first loader's first iteration, imports
+torch and the data modules (``WORKER_PRELOAD``) once, and every later worker
+of every loader is a fork of it.  A worker receives the dataset pickled,
+runs its numpy code only and never touches CUDA.  Each worker takes the
+loading process's ``sys.path``, working directory and ``__main__`` module
+(multiprocessing's preparation data, as a spawned one does), but the
+environment variables the server had when it started: no data module reads
+``os.environ``, so a variable set later changes no sample.
+``FIRST_BATCHES`` keeps, for each iteration, the seconds from its first
+``next()`` to its first batch.
+
+The workers are kept across epochs: the ``torch.utils.data.DataLoader`` is
+built once and its workers persist.  A dataset whose content its caller
+changes between epochs (an OPV2V CAV order reshuffled at the end of an
+epoch) says so through ``epoch_state()``;
 when that differs from the state the workers were given, they are stopped
 and new ones receive the dataset as it stands.  An iteration abandoned
 before its end (an early ``break``) stops the workers too, once the batches
@@ -31,11 +41,34 @@ loader's one producer thread, whatever ``num_workers`` is.
 
 from __future__ import annotations
 
+import collections
+import multiprocessing
+import time
 from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
 import torch.utils.data
+
+
+# what the forkserver imports before its first fork: the modules whose
+# datasets a worker unpickles (none imports a model)
+WORKER_PRELOAD = ("cobevt_tpu_torch.data", "cobevt_tpu_torch.data.opv2v_lidar",
+                  "cobevt_tpu_torch.data.nuscenes_gen")
+
+
+# one record an iteration: the dataset's class, the workers, whether this
+# iteration started them, and the seconds from its first next() to its
+# first batch
+FIRST_BATCHES = collections.deque(maxlen=1024)
+
+
+def worker_context():
+    """The forkserver context workers start in.  Its preload takes effect
+    when the server starts, at the first worker of the process."""
+    ctx = multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload(list(WORKER_PRELOAD))
+    return ctx
 
 
 class ShardedBatchSampler(torch.utils.data.Sampler):
@@ -98,7 +131,7 @@ class PlannedBatchSampler:
 
 class TensorCollate:
     """The dataset's numpy ``collate``, its arrays as CPU tensors (a
-    module-level class, so spawned workers can unpickle it)."""
+    module-level class, so workers can unpickle it)."""
 
     def __init__(self, collate: Callable):
         self.collate = collate
@@ -156,7 +189,7 @@ class DataLoader:
             pin_memory=self.pin_memory,
             prefetch_factor=self.prefetch if workers else None,
             persistent_workers=workers > 0,
-            multiprocessing_context="spawn" if workers else None)
+            multiprocessing_context=worker_context() if workers else None)
 
     def close(self):
         """Stop the workers, if any are running.  The batches they are still
@@ -178,14 +211,23 @@ class DataLoader:
             it._shutdown_workers()
 
     def __iter__(self) -> Iterator:
+        start = time.perf_counter()
         epoch_state = getattr(self.dataset, "epoch_state", None)
         state = epoch_state() if epoch_state is not None else None
-        if self._torch_loader is None or state != self._state:
+        started = self._torch_loader is None or state != self._state
+        if started:
             self.close()
             self._torch_loader, self._state = self._build(), state
         finished = False
         try:
-            yield from self._torch_loader
+            for i, batch in enumerate(self._torch_loader):
+                if i == 0:
+                    FIRST_BATCHES.append({
+                        "dataset": type(self.dataset).__name__,
+                        "workers": self.num_workers,
+                        "started": started and self.num_workers > 0,
+                        "seconds": time.perf_counter() - start})
+                yield batch
             finished = True
         finally:
             if not finished:
